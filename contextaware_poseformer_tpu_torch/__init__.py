@@ -1,0 +1,13 @@
+"""Context-Aware PoseFormer in PyTorch for NVIDIA Hopper (H100).
+
+The port of ``contextaware_poseformer_tpu`` (JAX/Pallas on TPU), which stays
+beside it as the reference. Module paths and class names mirror the JAX
+package. The package imports ``torch`` and never ``jax`` or ``flax``; it
+reuses the JAX package's ``config`` module, which is plain dataclasses.
+
+Plain tensor code is PyTorch; each Pallas kernel of the serving path is a
+hand-written CUDA kernel for ``sm_90a`` under ``ops/csrc``, built at first
+use (``ops/_build.py``). Entry point: ``serve.py``.
+"""
+
+__version__ = "0.1.0"

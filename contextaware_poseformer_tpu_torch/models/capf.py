@@ -1,0 +1,53 @@
+"""ContextAwarePoseFormer: the composite single-frame 3D pose model.
+
+Port of ``contextaware_poseformer_tpu/models/capf.py:31-39, 102-153``:
+frozen 2D backbone -> multi-scale NHWC features -> context-aware lifter ->
+root-relative 3D joints (b, joints, 3). Only the CPN backbone is ported;
+HRNet is refused. The port is inference-only, so the JAX package's
+stop-gradient on the frozen backbone's maps has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from contextaware_poseformer_tpu.config import ModelConfig
+from contextaware_poseformer_tpu_torch.models.cpn import CPN
+from contextaware_poseformer_tpu_torch.models.lifter import PoseLifter
+
+
+def crop_coords_to_grid(kpts_crop: torch.Tensor,
+                        image_shape: tuple[int, int]) -> torch.Tensor:
+    """Crop-pixel keypoints -> [-1, 1] grid coords (conpose.py:34-35):
+    divide by the integer halves (W//2, H//2), then subtract 1."""
+    h, w = image_shape
+    half = torch.tensor([w // 2, h // 2], dtype=kpts_crop.dtype,
+                        device=kpts_crop.device)
+    return kpts_crop / half - 1.0
+
+
+class ContextAwarePoseFormer(nn.Module):
+    """``dtype`` is the backbone compute dtype (bf16 for serving)."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        if cfg.backbone.kind != "cpn":
+            raise NotImplementedError(
+                f"the {cfg.backbone.kind!r} backbone is not ported; only CPN")
+        self.cfg = cfg
+        self.backbone = CPN(cfg.backbone, dtype=dtype, device=device)
+        self.lifter = PoseLifter(cfg.lifter, cfg.backbone.feature_dims,
+                                 device=device)
+
+    def forward(self, images: torch.Tensor, keypoints_2d: torch.Tensor,
+                keypoints_2d_crop: torch.Tensor) -> torch.Tensor:
+        """images (b, H, W, 3) normalized; keypoints_2d (b, J, 2) full-frame
+        normalized; keypoints_2d_crop (b, J, 2) crop pixels."""
+        ref = crop_coords_to_grid(keypoints_2d_crop, self.cfg.image_shape)
+        features = self.backbone(images)
+        # maps feed the lifter in its compute dtype (a no-op when the bf16
+        # backbone meets a bf16 lifter)
+        feat_dtype = getattr(torch, self.cfg.lifter.compute_dtype)
+        features = [f.to(feat_dtype) for f in features]
+        return self.lifter(keypoints_2d, ref, features)

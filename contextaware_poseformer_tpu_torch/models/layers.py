@@ -1,0 +1,198 @@
+"""Transformer layers of the lifter.
+
+Port of ``contextaware_poseformer_tpu/models/layers.py:60-315``: ``Linear``,
+``LayerNorm``, ``Mlp``, ``Attention`` (einsum / fused / grouped), ``Block``
+and ``apply_ln_mlp_residual``. Dropout and DropPath are the identity at
+inference and the port is inference-only, so they have no module here.
+
+Numeric contracts carried over:
+- ``Linear`` keeps the flax (in, out) kernel. ``dtype`` is the compute dtype
+  (parameters stay fp32); ``None`` promotes input and parameter dtypes as
+  flax does, so a bf16 input meets an fp32 kernel in fp32.
+- ``LayerNorm`` computes in fp32 and outputs ``dtype`` (fp32 on every path
+  of the lifter).
+- GELU is the exact erf form; the attention scale is head_dim ** -0.5;
+  scores and softmax run in fp32.
+- ``Block`` uses LayerNorm eps 1e-6.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from contextaware_poseformer_tpu_torch.models import init
+from contextaware_poseformer_tpu_torch.ops.fused_mlp import ln_mlp_residual
+from contextaware_poseformer_tpu_torch.ops.joint_attention import (
+    attention_middle,
+)
+from contextaware_poseformer_tpu_torch.ops.small_attention import (
+    _heads_split,
+    small_attention,
+    softmax_middle,
+)
+
+
+def _dtype(name: str | None):
+    """Config dtype name -> torch dtype; "float32"/None -> None (promote)."""
+    if name in (None, "float32"):
+        return None
+    return getattr(torch, name)
+
+
+class Linear(nn.Module):
+    """Dense layer, flax layout: ``kernel`` (in, out), ``bias`` (out,).
+
+    Initialisation: U(+-1/sqrt(fan_in)) for kernel and bias (torch's
+    default), or with ``zero_init`` a zero kernel and a bias of
+    ``bias_values`` (zeros when None).
+    """
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype | None = None, zero_init: bool = False,
+                 bias_values=None, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.zero_init = zero_init
+        self.bias_values = bias_values
+        self.kernel = nn.Parameter(
+            torch.empty(in_features, out_features, device=device))
+        self.bias = (nn.Parameter(torch.empty(out_features, device=device))
+                     if bias else None)
+
+    def reset_parameters(self, generator) -> None:
+        if not self.zero_init:
+            bound = 1.0 / math.sqrt(self.kernel.shape[0])
+            init.uniform_(self.kernel, bound, generator)
+            if self.bias is not None:
+                init.uniform_(self.bias, bound, generator)
+            return
+        init.zeros_(self.kernel)
+        if self.bias is None:
+            return
+        if self.bias_values is None:
+            init.zeros_(self.bias)
+        else:
+            init.fill_(self.bias, torch.as_tensor(self.bias_values))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.kernel.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.kernel.to(dt).t(), bias)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis with flax's param names (``scale``,
+    ``bias``); statistics in fp32, output in ``dtype``."""
+
+    def __init__(self, dim: int, eps: float, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.empty(dim, device=device))
+        self.bias = nn.Parameter(torch.empty(dim, device=device))
+
+    def reset_parameters(self, generator) -> None:
+        del generator
+        init.ones_(self.scale)
+        init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.scale.shape, self.scale.float(),
+                         self.bias.float(), self.eps)
+        return y.to(self.dtype)
+
+
+class Mlp(nn.Module):
+    """fc1 -> GELU -> fc2 (the reference's dropouts are inactive)."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 out_features: int, dtype=None, device=None):
+        super().__init__()
+        self.fc1 = Linear(in_features, hidden_features, dtype=dtype,
+                          device=device)
+        self.fc2 = Linear(hidden_features, out_features, dtype=dtype,
+                          device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))  # exact erf form
+
+
+def apply_ln_mlp_residual(x, norm: LayerNorm, mlp: Mlp) -> torch.Tensor:
+    """x + fc2(gelu(fc1(LN(x)))) through the fused K2 dispatcher
+    (``ops/fused_mlp.py``): the matmul operands are in ``x.dtype``, which
+    on every lifter path equals the blocks' compute dtype."""
+    return ln_mlp_residual(
+        x, norm.scale, norm.bias, mlp.fc1.kernel, mlp.fc1.bias,
+        mlp.fc2.kernel, mlp.fc2.bias, norm.eps,
+    )
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention over a short token axis.
+
+    ``impl``: "einsum" (plain torch), "fused" (K3: the whole attention with
+    qkv and proj in one kernel, for the 5-token res blocks) or "grouped"
+    (K4: the softmax middle as a kernel, qkv and proj as plain matmuls, for
+    the 17-token joint blocks)."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 dtype=None, impl: str = "einsum", device=None):
+        super().__init__()
+        if impl not in ("einsum", "fused", "grouped"):
+            raise ValueError(f"unknown attention impl {impl!r}")
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.impl = impl
+        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
+                          device=device)
+        self.proj = Linear(dim, dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, c = x.shape
+        if self.impl == "grouped":
+            out = attention_middle(self.qkv(x), self.num_heads)
+            return self.proj(out)
+        if self.impl == "fused":
+            dt = self.dtype or x.dtype
+            bq = self.qkv.bias
+            if bq is None:
+                bq = torch.zeros(3 * c, device=x.device)
+            return small_attention(
+                x.to(dt), self.qkv.kernel.to(dt), bq.to(dt),
+                self.proj.kernel.to(dt), self.proj.bias.to(dt),
+                self.num_heads,
+            )
+        q, k, v = _heads_split(self.qkv(x), c, self.num_heads)
+        return self.proj(softmax_middle(q, k, v).reshape(b, n, c))
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block, LayerNorm eps 1e-6.
+
+    ``mlp_impl``: "einsum" (LayerNorm + Mlp, plain torch) or "fused" (the
+    K2 dispatcher; same parameters)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 2.0,
+                 qkv_bias: bool = True, ln_eps: float = 1e-6, dtype=None,
+                 ln_dtype=torch.float32, attn_impl: str = "einsum",
+                 mlp_impl: str = "einsum", device=None):
+        super().__init__()
+        if mlp_impl not in ("einsum", "fused"):
+            raise ValueError(f"unknown mlp impl {mlp_impl!r}")
+        self.mlp_impl = mlp_impl
+        self.norm1 = LayerNorm(dim, ln_eps, ln_dtype, device=device)
+        self.attn = Attention(dim, num_heads, qkv_bias, dtype, attn_impl,
+                              device=device)
+        self.norm2 = LayerNorm(dim, ln_eps, ln_dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x))
+        if self.mlp_impl == "fused":
+            return apply_ln_mlp_residual(x, self.norm2, self.mlp)
+        return x + self.mlp(self.norm2(x))

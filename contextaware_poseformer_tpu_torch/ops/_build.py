@@ -1,0 +1,180 @@
+"""Build and bind the hand-written Hopper kernels under ``ops/csrc``.
+
+All ``csrc/*.cu`` files compile with ``nvcc`` into ONE shared library with a
+plain C interface, loaded through ``ctypes`` (no PyTorch headers, so a build
+takes seconds rather than minutes). The library lands in ``build/kernels/``
+at the repository root, named by a hash of the sources and the compiler
+flags, so an edited source rebuilds and an unchanged one is reused. The build
+runs at first use: importing this module compiles nothing, which keeps every
+``ops`` module importable on a machine without ``nvcc`` or a GPU.
+
+Each kernel entry point takes raw device pointers (``tensor.data_ptr()``) and
+the caller's CUDA stream, launches on that stream without synchronising, and
+returns ``cudaGetLastError()`` after the launch; ``check`` turns a non-zero
+code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# ctypes signature of every exported function: (restype, argtypes)
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+SIGNATURES = {
+    "capf_error_string": (ctypes.c_char_p, [_I]),
+    # (args struct*, device, stream)
+    "capf_sample_levels": (_I, [_P, _I, _P]),
+    # (dtype, x, ln_scale, ln_bias, w1, b1, w2, b2, out, rows, d, h, eps,
+    #  device, stream)
+    "capf_ln_mlp_residual": (
+        _I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
+    # (dtype, x, wqkv, bqkv, wproj, bproj, out, rows, tokens, d, heads,
+    #  device, stream)
+    "capf_small_attention": (
+        _I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # (dtype, qkv, out, batch, tokens, d, heads, device, stream)
+    "capf_attention_middle": (_I, [_I, _P, _P, _I, _I, _I, _I, _I, _P]),
+}
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory one H100 block may use
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels can only be built on a machine with the CUDA toolkit"
+    )
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libcapf_kernels_{source_hash()}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the kernels if the hashed library is missing.
+
+    Returns (library path, build seconds; 0.0 when it already existed). The
+    compiler's output (``-Xptxas -v``: registers, shared memory and spills
+    per kernel) is kept beside the library as ``<name>.log``.
+    """
+    out = library_path()
+    if out.exists():
+        return out, 0.0
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
+            capture_output=True, text=True, check=False,
+        )
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}"
+            )
+        os.replace(tmp, out)  # atomic: a reader never sees half a library
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out, time.perf_counter() - t0
+
+
+def bind(path: str | os.PathLike) -> ctypes.CDLL:
+    """Load a kernel library and declare every entry point's signature."""
+    lib = ctypes.CDLL(str(path))
+    for name, (restype, argtypes) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The bound kernel library, built on first use."""
+    path, _ = build()
+    return bind(path)
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.capf_error_string(err).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def launch_target(t: torch.Tensor) -> tuple[int, int]:
+    """(device index, handle of that device's current stream) for a launch
+    on the tensor's device."""
+    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """The checks every kernel wrapper makes before it launches: the tensors
+    lie on ONE CUDA device, are contiguous, and no autograd graph would be
+    recorded through them (the kernels are forward-only)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(
+                f"{name}: the CUDA kernel needs every tensor on one CUDA "
+                f"device, got {t.device} beside {dev}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} "
+                             "is not contiguous")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is inference-only and has no backward; "
+            "call it under torch.no_grad()/inference_mode() or with tensors "
+            "that do not require grad"
+        )
+
+
+def dtype_code(name: str, dtype: torch.dtype) -> int:
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or bfloat16, "
+                        f"got {dtype}")
+    return DTYPE_CODES[dtype]
