@@ -5,9 +5,10 @@ beside it as the reference. Module paths and class names mirror the JAX
 package. The package imports ``torch`` and never ``jax`` or ``flax``; it
 reuses the JAX package's ``config`` module, which is plain dataclasses.
 
-Plain tensor code is PyTorch; each Pallas kernel of the serving path is a
+Plain tensor code is PyTorch; each Pallas kernel of the ported paths is a
 hand-written CUDA kernel for ``sm_90a`` under ``ops/csrc``, built at first
-use (``ops/_build.py``). Entry point: ``serve.py``.
+use (``ops/_build.py``). Entry points: ``serve.py`` (serving) and
+``train/train_h36m.py`` (training).
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,113 @@
+"""Host-side batch pipeline: threaded image loading into fixed-shape numpy
+batches, then a copy to the device.
+
+Port of ``contextaware_poseformer_tpu/data/pipeline.py:28-95`` without its
+JAX import: ``RawBatch`` (numpy leaves here), ``_assemble`` and
+``batch_iterator``. Datasets are the JAX package's own, which import no JAX
+(``data/synthetic.py``, ``data/h36m.py``).
+
+Fixed shapes always: train drops the remainder (shuffled anyway); eval pads
+the final batch and reports ``valid``, which the evaluator trims.
+``to_device`` stages a batch through pinned host memory with a
+``non_blocking`` copy; a prefetcher on a side stream is not ported yet.
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, NamedTuple, Protocol
+
+import numpy as np
+import torch
+
+
+class RawBatch(NamedTuple):
+    """Raw images + labels with fixed shapes (numpy on the host, tensors
+    after ``to_device``)."""
+
+    images_u8: np.ndarray  # (b, H, W, 3) uint8 BGR, pre-cropped
+    keypoints_3d: np.ndarray  # (b, J, 3) camera-space, not root-centered
+    keypoints_2d: np.ndarray  # (b, J, 2) full-frame normalized
+    keypoints_2d_crop: np.ndarray  # (b, J, 2) crop pixels
+
+
+class ItemDataset(Protocol):
+    def __len__(self) -> int: ...
+    def load_image(self, idx: int) -> np.ndarray: ...
+
+    joints_3d: np.ndarray
+    joints_2d: np.ndarray
+    joints_2d_crop: np.ndarray
+    image_shape: tuple[int, int]
+
+
+def _assemble(ds: ItemDataset, idxs: np.ndarray, pool: ThreadPoolExecutor,
+              pad_to: int | None = None) -> tuple[RawBatch, int]:
+    h, w = ds.image_shape
+    n = len(idxs)
+    total = pad_to or n
+    batch_imgs = getattr(ds, "load_batch", lambda _i: None)(idxs)
+    if batch_imgs is not None:  # native C++ loader: one GIL-free call
+        if total == n:
+            images = batch_imgs
+        else:
+            images = np.zeros((total, h, w, 3), np.uint8)
+            images[:n] = batch_imgs
+    else:
+        images = np.zeros((total, h, w, 3), np.uint8)
+        for i, img in zip(range(n), pool.map(ds.load_image, idxs)):
+            images[i] = img
+
+    def pad(a):
+        if total == n:
+            return a
+        out = np.zeros((total, *a.shape[1:]), a.dtype)
+        out[:n] = a
+        return out
+
+    batch = RawBatch(
+        images_u8=images,
+        keypoints_3d=pad(ds.joints_3d[idxs].astype(np.float32)),
+        keypoints_2d=pad(ds.joints_2d[idxs].astype(np.float32)),
+        keypoints_2d_crop=pad(ds.joints_2d_crop[idxs].astype(np.float32)),
+    )
+    return batch, n
+
+
+def batch_iterator(
+    ds: ItemDataset,
+    batch_size: int,
+    *,
+    shuffle: bool,
+    seed: int = 0,
+    epoch: int = 0,
+    drop_remainder: bool = True,
+    num_workers: int = 8,
+) -> Iterator[tuple[RawBatch, int]]:
+    """Yields (host RawBatch, valid_count); the order of an epoch is a
+    function of ``seed + epoch``."""
+    n = len(ds)
+    order = np.arange(n)
+    if shuffle:
+        order = np.random.RandomState(seed + epoch).permutation(n)
+    with ThreadPoolExecutor(max_workers=num_workers) as pool:
+        for start in range(0, n, batch_size):
+            idxs = order[start:start + batch_size]
+            if len(idxs) < batch_size:
+                if drop_remainder:
+                    return
+                yield _assemble(ds, idxs, pool, pad_to=batch_size)
+                return
+            yield _assemble(ds, idxs, pool)
+
+
+def to_device(batch: RawBatch, device) -> RawBatch:
+    """Copy a host batch to ``device``: through pinned memory and a
+    ``non_blocking`` copy for a CUDA device (the copy overlaps work already
+    queued on the stream)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return RawBatch(*(torch.from_numpy(np.ascontiguousarray(a))
+                          .to(device) for a in batch))
+    return RawBatch(*(torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                      .to(device, non_blocking=True) for a in batch))

@@ -3,8 +3,10 @@
 Port of ``contextaware_poseformer_tpu/models/capf.py:31-39, 102-153``:
 frozen 2D backbone -> multi-scale NHWC features -> context-aware lifter ->
 root-relative 3D joints (b, joints, 3). Only the CPN backbone is ported;
-HRNet is refused. The port is inference-only, so the JAX package's
-stop-gradient on the frozen backbone's maps has no counterpart here.
+HRNet is refused. With ``cfg.backbone.frozen`` (every preset) the backbone
+runs under ``torch.no_grad()`` and its maps are detached, the counterpart of
+the JAX package's stop-gradient (``capf.py:136-139``): no gradient reaches
+the conv stack and none of its activations are kept for a backward.
 """
 
 from __future__ import annotations
@@ -41,13 +43,21 @@ class ContextAwarePoseFormer(nn.Module):
                                  device=device)
 
     def forward(self, images: torch.Tensor, keypoints_2d: torch.Tensor,
-                keypoints_2d_crop: torch.Tensor) -> torch.Tensor:
+                keypoints_2d_crop: torch.Tensor, deterministic: bool = True,
+                generator=None) -> torch.Tensor:
         """images (b, H, W, 3) normalized; keypoints_2d (b, J, 2) full-frame
-        normalized; keypoints_2d_crop (b, J, 2) crop pixels."""
+        normalized; keypoints_2d_crop (b, J, 2) crop pixels.
+        ``deterministic=False`` (training) draws the lifter's dropout and
+        drop-path masks from ``generator``."""
         ref = crop_coords_to_grid(keypoints_2d_crop, self.cfg.image_shape)
-        features = self.backbone(images)
+        if self.cfg.backbone.frozen:
+            with torch.no_grad():
+                features = [f.detach() for f in self.backbone(images)]
+        else:
+            features = self.backbone(images)
         # maps feed the lifter in its compute dtype (a no-op when the bf16
         # backbone meets a bf16 lifter)
         feat_dtype = getattr(torch, self.cfg.lifter.compute_dtype)
         features = [f.to(feat_dtype) for f in features]
-        return self.lifter(keypoints_2d, ref, features)
+        return self.lifter(keypoints_2d, ref, features, deterministic,
+                           generator)

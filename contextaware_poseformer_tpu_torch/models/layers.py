@@ -1,9 +1,14 @@
 """Transformer layers of the lifter.
 
 Port of ``contextaware_poseformer_tpu/models/layers.py:60-315``: ``Linear``,
-``LayerNorm``, ``Mlp``, ``Attention`` (einsum / fused / grouped), ``Block``
-and ``apply_ln_mlp_residual``. Dropout and DropPath are the identity at
-inference and the port is inference-only, so they have no module here.
+``LayerNorm``, ``Dropout``, ``DropPath``, ``Mlp``, ``Attention`` (einsum /
+fused / grouped), ``Block`` and ``apply_ln_mlp_residual``.
+
+Randomness: every ``forward`` takes ``deterministic`` (True: dropout and
+drop-path are the identity, as at inference) and ``generator``, an explicit
+``torch.Generator`` on the tensors' device that a random draw needs. As in
+the JAX package, the fused kernels (K2, K3, K4) are taken only where
+dropout and drop-path are inactive: they have no random numbers inside.
 
 Numeric contracts carried over:
 - ``Linear`` keeps the flax (in, out) kernel. ``dtype`` is the compute dtype
@@ -107,19 +112,62 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate). The identity when ``deterministic`` or the
+    rate is 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def active(self, deterministic: bool) -> bool:
+        return not deterministic and self.rate > 0.0
+
+    def mask_shape(self, x: torch.Tensor) -> tuple:
+        return tuple(x.shape)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.active(deterministic):
+            return x
+        if generator is None:
+            raise ValueError("dropout with deterministic=False needs an "
+                             "explicit torch.Generator")
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        mask = torch.rand(self.mask_shape(x), generator=generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class DropPath(Dropout):
+    """Stochastic depth: drop a whole residual branch per sample (dropout
+    with one draw per sample, ``layers.py:243-256``)."""
+
+    def mask_shape(self, x: torch.Tensor) -> tuple:
+        return (x.shape[0],) + (1,) * (x.dim() - 1)
+
+
 class Mlp(nn.Module):
-    """fc1 -> GELU -> fc2 (the reference's dropouts are inactive)."""
+    """fc1 -> GELU -> dropout -> fc2 -> dropout."""
 
     def __init__(self, in_features: int, hidden_features: int,
-                 out_features: int, dtype=None, device=None):
+                 out_features: int, dtype=None, drop: float = 0.0,
+                 device=None):
         super().__init__()
         self.fc1 = Linear(in_features, hidden_features, dtype=dtype,
                           device=device)
         self.fc2 = Linear(hidden_features, out_features, dtype=dtype,
                           device=device)
+        self.drop = Dropout(drop)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))  # exact erf form
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator=None) -> torch.Tensor:
+        x = self.drop(F.gelu(self.fc1(x)), deterministic, generator)  # erf
+        return self.drop(self.fc2(x), deterministic, generator)
 
 
 def apply_ln_mlp_residual(x, norm: LayerNorm, mlp: Mlp) -> torch.Tensor:
@@ -141,7 +189,8 @@ class Attention(nn.Module):
     the 17-token joint blocks)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 dtype=None, impl: str = "einsum", device=None):
+                 dtype=None, impl: str = "einsum", attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, device=None):
         super().__init__()
         if impl not in ("einsum", "fused", "grouped"):
             raise ValueError(f"unknown attention impl {impl!r}")
@@ -151,13 +200,18 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
                           device=device)
         self.proj = Linear(dim, dim, dtype=dtype, device=device)
+        self.attn_drop = Dropout(attn_drop)
+        self.proj_drop = Dropout(proj_drop)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator=None) -> torch.Tensor:
         b, n, c = x.shape
-        if self.impl == "grouped":
+        droppable = not (self.attn_drop.active(deterministic)
+                         or self.proj_drop.active(deterministic))
+        if self.impl == "grouped" and droppable:
             out = attention_middle(self.qkv(x), self.num_heads)
             return self.proj(out)
-        if self.impl == "fused":
+        if self.impl == "fused" and droppable:
             dt = self.dtype or x.dtype
             bq = self.qkv.bias
             if bq is None:
@@ -168,31 +222,50 @@ class Attention(nn.Module):
                 self.num_heads,
             )
         q, k, v = _heads_split(self.qkv(x), c, self.num_heads)
-        return self.proj(softmax_middle(q, k, v).reshape(b, n, c))
+        if self.attn_drop.active(deterministic):
+            a = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
+            a = torch.softmax(a * q.shape[-1] ** -0.5, dim=-1)
+            a = self.attn_drop(a, deterministic, generator).to(v.dtype)
+            o = torch.einsum("bhnm,bmhd->bnhd", a, v)
+        else:
+            o = softmax_middle(q, k, v)
+        out = self.proj(o.reshape(b, n, c))
+        return self.proj_drop(out, deterministic, generator)
 
 
 class Block(nn.Module):
     """Pre-norm transformer block, LayerNorm eps 1e-6.
 
     ``mlp_impl``: "einsum" (LayerNorm + Mlp, plain torch) or "fused" (the
-    K2 dispatcher; same parameters)."""
+    K2 dispatcher; same parameters), the latter only while dropout and
+    drop-path are inactive (``layers.py:295-297``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 2.0,
                  qkv_bias: bool = True, ln_eps: float = 1e-6, dtype=None,
                  ln_dtype=torch.float32, attn_impl: str = "einsum",
-                 mlp_impl: str = "einsum", device=None):
+                 mlp_impl: str = "einsum", drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0, drop_path: float = 0.0,
+                 device=None):
         super().__init__()
         if mlp_impl not in ("einsum", "fused"):
             raise ValueError(f"unknown mlp impl {mlp_impl!r}")
         self.mlp_impl = mlp_impl
         self.norm1 = LayerNorm(dim, ln_eps, ln_dtype, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias, dtype, attn_impl,
-                              device=device)
+                              attn_drop_rate, drop_rate, device=device)
+        self.drop_path1 = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, ln_eps, ln_dtype, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype, drop_rate,
+                       device=device)
+        self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        if self.mlp_impl == "fused":
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator=None) -> torch.Tensor:
+        h = self.attn(self.norm1(x), deterministic, generator)
+        x = x + self.drop_path1(h, deterministic, generator)
+        if self.mlp_impl == "fused" and not (
+                self.mlp.drop.active(deterministic)
+                or self.drop_path2.active(deterministic)):
             return apply_ln_mlp_residual(x, self.norm2, self.mlp)
-        return x + self.mlp(self.norm2(x))
+        h = self.mlp(self.norm2(x), deterministic, generator)
+        return x + self.drop_path2(h, deterministic, generator)

@@ -10,6 +10,11 @@ per joint: 1 coordinate token + one token per feature level, each of width
   -> joint blocks over the joint axis (17 tokens, width 5 * ratio)
   -> LayerNorm (fp32, eps 1e-5) + Linear head -> (b, joints, 3)
 
+Training: ``forward(..., deterministic=False, generator=g)`` turns on the
+token dropout after the position embedding and the stochastic depth of every
+block, ``linspace(0, drop_path_rate, depth)`` per block kind
+(``lifter.py:244-326``); ``g`` is a ``torch.Generator`` on the maps' device.
+
 Feature maps are NHWC. Under a bf16 ``compute_dtype`` the residual stream,
 ``coord_embed``, ``feat_embed_*``, ``embed_proj_*``, qkv/proj and fc1/fc2
 compute in bf16; ``attention_weights``, ``sampling_offsets`` and ``head``
@@ -31,6 +36,8 @@ from contextaware_poseformer_tpu.config import LifterConfig
 from contextaware_poseformer_tpu_torch.models import init
 from contextaware_poseformer_tpu_torch.models.layers import (
     Block,
+    Dropout,
+    DropPath,
     LayerNorm,
     Linear,
     Mlp,
@@ -67,14 +74,15 @@ class DeformableBlock(nn.Module):
     reference builds this block without the 1e-6 partial).
 
     ``pre_project``: run ``embed_proj`` inside the sampler for the levels
-    where ``kernel_can_preproject`` holds (exact in border mode)."""
+    where ``kernel_can_preproject`` holds (exact in border mode). The fused
+    MLP (K2) is taken only while drop-path is inactive."""
 
     def __init__(self, dim: int, feature_dims: Sequence[int],
                  num_heads: int = 4, num_samples: int = 4,
                  mlp_ratio: float = 2.0, sampler_impl: str = "auto",
                  dtype=None, ln_dtype=torch.float32,
                  mlp_impl: str = "einsum", pre_project: bool = False,
-                 device=None):
+                 drop_path: float = 0.0, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.num_samples = num_samples
@@ -93,14 +101,17 @@ class DeformableBlock(nn.Module):
         for l, c in enumerate(feature_dims):
             self.add_module(f"embed_proj_{l}",
                             Linear(c, head_dim, dtype=dtype, device=device))
+        self.drop_path1 = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, 1e-5, ln_dtype, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype, device=device)
+        self.drop_path2 = DropPath(drop_path)
 
     def embed_proj(self, l: int) -> Linear:
         return getattr(self, f"embed_proj_{l}")
 
     def forward(self, tokens: torch.Tensor, ref: torch.Tensor,
-                features: Sequence[torch.Tensor]) -> torch.Tensor:
+                features: Sequence[torch.Tensor], deterministic: bool = True,
+                generator=None) -> torch.Tensor:
         b, lp1, p, dim = tokens.shape
         levels = lp1 - 1
         nh, ns = self.num_heads, self.num_samples
@@ -135,11 +146,14 @@ class DeformableBlock(nn.Module):
         ).reshape(b, levels, p, nh, ns, head_dim)
         pooled = torch.einsum("blphs,blphsd->blphd",
                               weights.to(sampled.dtype), sampled)
-        x = residual + pooled.reshape(b, levels, p, dim).to(residual.dtype)
-        if self.mlp_impl == "fused":
+        pooled = pooled.reshape(b, levels, p, dim).to(residual.dtype)
+        x = residual + self.drop_path1(pooled, deterministic, generator)
+        if self.mlp_impl == "fused" and not self.drop_path2.active(
+                deterministic):
             x = apply_ln_mlp_residual(x, self.norm2, self.mlp)
         else:
-            x = x + self.mlp(self.norm2(x))
+            h = self.mlp(self.norm2(x), deterministic, generator)
+            x = x + self.drop_path2(h, deterministic, generator)
         return torch.cat([x0, x], dim=1)
 
 
@@ -165,13 +179,18 @@ class PoseLifter(nn.Module):
                             Linear(c, d, dtype=dtype, device=device))
         self.pos_embed = nn.Parameter(
             torch.empty(1, levels + 1, cfg.num_joints, d, device=device))
+        self.pos_drop = Dropout(cfg.drop_rate)
+        # stochastic depth 0 -> drop_path_rate over each kind's blocks
+        # (pose_dformer.py:187)
+        dpr = [float(r) for r in
+               np.linspace(0.0, cfg.drop_path_rate, cfg.depth)]
         for i in range(cfg.depth if cfg.use_deformable else 0):
             self.add_module(f"context_block_{i}", DeformableBlock(
                 d, feature_dims, num_heads=cfg.deform_heads,
                 num_samples=cfg.deform_samples, mlp_ratio=cfg.mlp_ratio,
                 sampler_impl=cfg.sampler, dtype=dtype, ln_dtype=ln_dtype,
                 mlp_impl=cfg.mlp, pre_project=cfg.sampler_pre_project,
-                device=device,
+                drop_path=dpr[i], device=device,
             ))
         for kind, dim, impl in (
             ("res", d, cfg.attention),
@@ -181,7 +200,9 @@ class PoseLifter(nn.Module):
                 self.add_module(f"{kind}_block_{i}", Block(
                     dim, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
                     dtype=dtype, ln_dtype=ln_dtype, attn_impl=impl,
-                    mlp_impl=cfg.mlp, device=device,
+                    mlp_impl=cfg.mlp, drop_rate=cfg.drop_rate,
+                    attn_drop_rate=cfg.attn_drop_rate, drop_path=dpr[i],
+                    device=device,
                 ))
         self.head_norm = LayerNorm(d * (levels + 1), 1e-5, torch.float32,
                                    device=device)
@@ -198,9 +219,12 @@ class PoseLifter(nn.Module):
         return [getattr(self, f"{kind}_block_{i}") for i in range(n)]
 
     def forward(self, keypoints_2d: torch.Tensor, ref: torch.Tensor,
-                features: Sequence[torch.Tensor]) -> torch.Tensor:
+                features: Sequence[torch.Tensor], deterministic: bool = True,
+                generator=None) -> torch.Tensor:
         """keypoints_2d (b, J, 2) full-frame normalized coords; ref (b, J, 2)
-        crop coords in [-1, 1]; features: NHWC maps, deepest first."""
+        crop coords in [-1, 1]; features: NHWC maps, deepest first.
+        ``deterministic=False`` draws dropout and drop-path masks from
+        ``generator``."""
         cfg = self.cfg
         b, p, _ = keypoints_2d.shape
         d = cfg.embed_dim_ratio
@@ -220,14 +244,15 @@ class PoseLifter(nn.Module):
             dim=1,
         )  # (b, levels+1, p, d)
         tokens = tokens + self.pos_embed.to(tokens.dtype)
+        tokens = self.pos_drop(tokens, deterministic, generator)
         for blk in self._blocks("context"):
-            tokens = blk(tokens, ref, features)
+            tokens = blk(tokens, ref, features, deterministic, generator)
         # per-joint attention over the level axis
         t = tokens.transpose(1, 2).reshape(b * p, levels + 1, d)
         for blk in self._blocks("res"):
-            t = blk(t)
+            t = blk(t, deterministic, generator)
         # cross-joint attention on the concatenated level tokens
         t = t.reshape(b, p, (levels + 1) * d)
         for blk in self._blocks("joint"):
-            t = blk(t)
+            t = blk(t, deterministic, generator)
         return self.head(self.head_norm(t))

@@ -1,8 +1,9 @@
 """Build and bind the hand-written Hopper kernels under ``ops/csrc``.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into ONE shared library with a
-plain C interface, loaded through ``ctypes`` (no PyTorch headers, so a build
-takes seconds rather than minutes). The library lands in ``build/kernels/``
+Each ``csrc/*.cu`` file compiles with its own ``nvcc``, all started
+together, and the objects link into ONE shared library with a plain C
+interface, loaded through ``ctypes`` (no PyTorch headers, so a build takes
+seconds rather than minutes). The library lands in ``build/kernels/``
 at the repository root, named by a hash of the sources and the compiler
 flags, so an edited source rebuilds and an unchanged one is reused. The build
 runs at first use: importing this module compiles nothing, which keeps every
@@ -32,7 +33,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # ctypes signature of every exported function: (restype, argtypes)
@@ -43,6 +44,8 @@ SIGNATURES = {
     "capf_error_string": (ctypes.c_char_p, [_I]),
     # (args struct*, device, stream)
     "capf_sample_levels": (_I, [_P, _I, _P]),
+    # (args struct*, device, stream)
+    "capf_sample_levels_bwd": (_I, [_P, _I, _P]),
     # (dtype, x, ln_scale, ln_bias, w1, b1, w2, b2, out, rows, d, h, eps,
     #  device, stream)
     "capf_ln_mlp_residual": (
@@ -101,24 +104,35 @@ def build() -> tuple[Path, float]:
         return out, 0.0
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
-            capture_output=True, text=True, check=False,
-        )
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}"
-            )
-        os.replace(tmp, out)  # atomic: a reader never sees half a library
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        try:
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = os.path.join(tmp, src.stem + ".o")
+                objs.append(obj)
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj,
+                     str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True,
+                ))
+            logs = [(p, p.communicate()[0]) for p in procs]
+        finally:
+            for p in procs:  # a failed start leaves no compiler running
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        so = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", so, *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ) if all(p.returncode == 0 for p, _ in logs) else None
+        text = "".join(log for _, log in logs) + (link.stdout if link else "")
+        out.with_suffix(".log").write_text(text)
+        if link is None or link.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{text[-8000:]}")
+        os.replace(so, out)  # atomic: a reader never sees half a library
     return out, time.perf_counter() - t0
 
 
@@ -153,8 +167,8 @@ def launch_target(t: torch.Tensor) -> tuple[int, int]:
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """The checks every kernel wrapper makes before it launches: the tensors
-    lie on ONE CUDA device, are contiguous, and no autograd graph would be
-    recorded through them (the kernels are forward-only)."""
+    lie on ONE CUDA device and are contiguous. (Gradients reach a kernel
+    only through its wrapper's ``torch.autograd.Function``.)"""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
@@ -165,12 +179,47 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensor of shape {tuple(t.shape)} "
                              "is not contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name}: the CUDA kernel is inference-only and has no backward; "
-            "call it under torch.no_grad()/inference_mode() or with tensors "
-            "that do not require grad"
-        )
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd would record a graph through any of the tensors
+    (``None`` entries are skipped)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+class PlainVjp(torch.autograd.Function):
+    """A kernel call whose backward is its plain version's VJP: the forward
+    runs ``kernel(*args)``; the backward recomputes ``plain(*args)`` under
+    autograd and differentiates it, as the JAX package's ``custom_vjp``s of
+    K2-K4 run their jnp reference in the backward. Non-tensor arguments
+    (eps, head counts) pass through as they are."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *args):
+        ctx.plain = plain
+        ctx.args = [None if isinstance(a, torch.Tensor) else a for a in args]
+        ctx.slots = [i for i, a in enumerate(args)
+                     if isinstance(a, torch.Tensor)]
+        ctx.save_for_backward(*(args[i] for i in ctx.slots))
+        return kernel(*args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        args = list(ctx.args)
+        wrt = []
+        for i, t in zip(ctx.slots, ctx.saved_tensors):
+            args[i] = t.detach().requires_grad_(ctx.needs_input_grad[2 + i])
+            if args[i].requires_grad:
+                wrt.append(i)
+        grads = [None] * len(args)
+        with torch.enable_grad():
+            out = ctx.plain(*args)
+            found = torch.autograd.grad(out, [args[i] for i in wrt], grad,
+                                        allow_unused=True)
+        for i, g in zip(wrt, found):
+            grads[i] = g
+        return (None, None, *grads)
 
 
 def dtype_code(name: str, dtype: torch.dtype) -> int:

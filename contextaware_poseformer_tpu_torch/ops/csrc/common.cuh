@@ -34,6 +34,13 @@ __device__ __forceinline__ float round_to(float v) {
   return to_float(from_float<T>(v));
 }
 
+// grid_sample's [-1, 1] -> pixel mapping (ops/grid_sample.py), shared by
+// the sampler's forward (K1) and backward (K6)
+__device__ __forceinline__ float unnormalize(float v, int size, bool align) {
+  return align ? (v + 1.f) * 0.5f * static_cast<float>(size - 1)
+               : ((v + 1.f) * static_cast<float>(size) - 1.f) * 0.5f;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

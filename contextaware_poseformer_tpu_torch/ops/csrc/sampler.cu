@@ -34,6 +34,7 @@
 
 using capf::from_float;
 using capf::to_float;
+using capf::unnormalize;
 
 namespace {
 
@@ -62,11 +63,6 @@ struct CapfSampleArgs {
 }  // extern "C"
 
 namespace {
-
-__device__ __forceinline__ float unnormalize(float v, int size, bool align) {
-  return align ? (v + 1.f) * 0.5f * static_cast<float>(size - 1)
-               : ((v + 1.f) * static_cast<float>(size) - 1.f) * 0.5f;
-}
 
 // Tap rows and bilinear weights of one point; an out-of-bounds tap gets
 // weight 0 and row 0 (zeros padding), and border mode never has one.

@@ -1,10 +1,12 @@
-"""Multi-level bilinear point sampling (K1): CUDA kernel wrapper, plain
-version and dispatcher.
+"""Multi-level bilinear point sampling (K1) and its backward (K6): CUDA
+kernel wrappers, plain versions, the autograd Function and the dispatcher.
 
 Port of ``contextaware_poseformer_tpu/ops/deformable.py``:
 ``kernel_can_preproject`` (396-406), ``sample_points_multi`` /
 ``sample_project_points_multi`` and their ``_multi_fwd_impl`` (475-605,
-874-894), and the ``sample_points_levels`` dispatcher (1210-1270).
+874-894), the custom VJPs ``_multi_bwd`` / ``_multi_proj_bwd`` with the
+Pallas backward ``_multi_bwd_pallas`` (617-645, 679-870, 907-925), and the
+``sample_points_levels`` dispatcher (1210-1270).
 
 The TPU kernel's one-hot/triangle matmul formulation, its batch chunking and
 its VMEM level grouping are TPU workarounds and are not carried over: the
@@ -13,6 +15,13 @@ covers every level of a call in one launch. An optional per-level projection
 ``W (C, hd)``, ``b (hd,)`` is fused as sample-then-project, which equals the
 JAX package's sample(F @ W + b) only in border mode, where the bilinear
 weights sum to one; both versions here refuse a projection in zeros mode.
+
+Gradients: every call where an input requires grad goes through
+``_SampleLevels``, whose forward is K1 (the plain forward for CPU tensors)
+and whose backward is K6 (``csrc/sampler_bwd.cu``; the plain backward for
+CPU tensors), or, with fused projections, the plain version's VJP as the
+JAX ``_multi_proj_bwd`` takes. The map gradient dF is computed only when a
+map requires grad; with the frozen backbone it never does.
 """
 
 from __future__ import annotations
@@ -24,10 +33,12 @@ import torch
 
 from contextaware_poseformer_tpu_torch.ops import _build
 from contextaware_poseformer_tpu_torch.ops.grid_sample import (
+    _unnormalize,
     sample_points_fp32,
 )
 
-launches = 0  # kernel launches made by sample_points_multi
+launches = 0  # K1 launches (sample_points_multi)
+launches_bwd = 0  # K6 launches (sample_points_multi_backward)
 
 MAX_LEVELS = 8
 _TILE = 32  # points per block in csrc/sampler.cu
@@ -112,27 +123,31 @@ class _Args(ctypes.Structure):
     ]
 
 
-def _prepare(features, points, padding_mode, align_corners, projs, biases):
-    """Validate a kernel call and lay out its arguments: returns (ctypes
-    args, outputs, tensors the launch reads, output shapes)."""
-    name = "sample_points_multi"
+def _check_levels(name, features, points, padding_mode):
     levels = len(features)
     if not 1 <= levels <= MAX_LEVELS:
         raise ValueError(f"{name}: 1..{MAX_LEVELS} levels, got {levels}")
     if padding_mode not in ("zeros", "border"):
         raise ValueError(f"unsupported padding_mode: {padding_mode!r}")
+    b = features[0].shape[0]
+    if points.shape[:2] != (b, levels) or points.shape[-1] != 2:
+        raise ValueError(f"{name}: points {tuple(points.shape)} are not "
+                         f"(batch={b}, levels={levels}, ..., 2)")
+    return points.reshape(b, levels, -1, 2).float().contiguous()
+
+
+def _prepare(features, points, padding_mode, align_corners, projs, biases):
+    """Validate a kernel call and lay out its arguments: returns (ctypes
+    args, outputs, tensors the launch reads, output shapes)."""
+    name = "sample_points_multi"
+    pts = _check_levels(name, features, points, padding_mode)
+    b, levels, p, _ = pts.shape
     projs = _per_level(projs, levels)
     biases = _per_level(biases, levels)
     _check_projection(padding_mode, projs, features)
     dtype = features[0].dtype
     code = _build.dtype_code(name, dtype)
-    b = features[0].shape[0]
-    if points.shape[:2] != (b, levels) or points.shape[-1] != 2:
-        raise ValueError(f"{name}: points {tuple(points.shape)} are not "
-                         f"(batch={b}, levels={levels}, ..., 2)")
     batch_shape = points.shape[2:-1]
-    pts = points.reshape(b, levels, -1, 2).float().contiguous()
-    p = pts.shape[2]
     args = _Args(points=pts.data_ptr(), num_levels=levels, batch=b,
                  num_points=p, border=int(padding_mode == "border"),
                  align_corners=int(align_corners), dtype=code)
@@ -175,22 +190,9 @@ def _prepare(features, points, padding_mode, align_corners, projs, biases):
     return args, outs, keep, shapes
 
 
-def sample_points_multi(
-    features: Sequence[torch.Tensor],
-    points: torch.Tensor,
-    padding_mode: str = "zeros",
-    align_corners: bool = True,
-    projs=None,
-    biases=None,
-) -> tuple:
-    """Sample L NHWC maps at per-level points in ONE CUDA kernel launch.
-
-    features: L maps (b, H_l, W_l, C_l), all float32 or all bfloat16;
-    points: (b, L, ..., 2) xy in [-1, 1]. Levels with ``projs[l]`` set
-    return ``sample @ W + b`` (border mode only). Returns a tuple of
-    (b, ..., C_l or hd) in the maps' dtype. Covers the JAX package's
-    ``sample_points_multi`` and ``sample_project_points_multi``.
-    """
+def _launch_forward(features, points, padding_mode, align_corners, projs,
+                    biases) -> tuple:
+    """One K1 launch (no autograd)."""
     global launches
     args, outs, keep, shapes = _prepare(
         features, points, padding_mode, align_corners, projs, biases)
@@ -207,6 +209,266 @@ def sample_points_multi(
     return tuple(o.reshape(s) for o, s in zip(outs, shapes))
 
 
+class _BwdLevel(ctypes.Structure):
+    _fields_ = [
+        ("feat", ctypes.c_void_p),
+        ("grad", ctypes.c_void_p),
+        ("dfeat", ctypes.c_void_p),
+        ("h", ctypes.c_int),
+        ("w", ctypes.c_int),
+        ("c", ctypes.c_int),
+    ]
+
+
+class _BwdArgs(ctypes.Structure):
+    _fields_ = [
+        ("points", ctypes.c_void_p),
+        ("dpoints", ctypes.c_void_p),
+        ("levels", _BwdLevel * MAX_LEVELS),
+        ("num_levels", ctypes.c_int),
+        ("batch", ctypes.c_int),
+        ("num_points", ctypes.c_int),
+        ("border", ctypes.c_int),
+        ("align_corners", ctypes.c_int),
+        ("dtype", ctypes.c_int),
+    ]
+
+
+def _clip_grad(v: torch.Tensor, top: float) -> torch.Tensor:
+    """Gradient of ``jnp.clip(v, 0, top)``: 1 inside, 0 outside, 0.5 at an
+    exact edge (``deformable.py:697-703``)."""
+    up = 0.5 * ((v < top).float() + (v <= top).float())
+    lo = 0.5 * ((v > 0).float() + (v >= 0).float())
+    return up * lo
+
+
+def _level_backward(f, pts, g, padding_mode, align_corners, need_dfeatures):
+    """One level of the plain backward: f (b, H, W, C), pts (b, P, 2) fp32,
+    g (b, P, C) -> (dF fp32 or None, d(points) (b, P, 2) fp32)."""
+    n, h, w, c = f.shape
+    flat = f.reshape(n, h * w, c).float()
+    g = g.reshape(n, -1, c).float()
+    x = _unnormalize(pts[..., 0], w, align_corners)
+    y = _unnormalize(pts[..., 1], h, align_corners)
+    sx = 0.5 * (w - 1) if align_corners else 0.5 * w
+    sy = 0.5 * (h - 1) if align_corners else 0.5 * h
+    if padding_mode == "border":
+        mx, my = _clip_grad(x, w - 1), _clip_grad(y, h - 1)
+        x, y = x.clamp(0.0, w - 1), y.clamp(0.0, h - 1)
+    else:
+        mx = my = 1.0
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = x - x0, y - y0
+    x0i, y0i = x0.long(), y0.long()
+    # taps 00, 01, 10, 11; a tap outside the map reads zeros
+    taps = ((y0i, x0i), (y0i, x0i + 1), (y0i + 1, x0i), (y0i + 1, x0i + 1))
+    weights = ((1 - wy) * (1 - wx), (1 - wy) * wx, wy * (1 - wx), wy * wx)
+    vals, index, inside = [], [], []
+    for yi, xi in taps:
+        ins = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1))[..., None]
+        idx = idx.expand(-1, -1, c)
+        vals.append(torch.gather(flat, 1, idx) * ins[..., None])
+        index.append(idx)
+        inside.append(ins)
+    f00, f01, f10, f11 = vals
+    gx = (1 - wy)[..., None] * (f01 - f00) + wy[..., None] * (f11 - f10)
+    gy = (1 - wx)[..., None] * (f10 - f00) + wx[..., None] * (f11 - f01)
+    dpts = torch.stack([(g * gx).sum(-1) * (sx * mx),
+                        (g * gy).sum(-1) * (sy * my)], dim=-1)
+    if not need_dfeatures:
+        return None, dpts
+    dflat = torch.zeros_like(flat)
+    for idx, wk, ins in zip(index, weights, inside):
+        dflat.scatter_add_(1, idx, g * torch.where(ins, wk, 0.0)[..., None])
+    return dflat.reshape(n, h, w, c), dpts
+
+
+def sample_points_multi_backward_reference(
+    features: Sequence[torch.Tensor],
+    points: torch.Tensor,
+    grads: Sequence[torch.Tensor],
+    padding_mode: str = "zeros",
+    align_corners: bool = True,
+    need_dfeatures: bool = True,
+) -> tuple:
+    """Plain version of the sampler backward (the contract of the JAX
+    ``_sample_bwd_body``, ``deformable.py:679-751``), without projections.
+
+    grads: per level the upstream gradient (b, ..., C_l) of the samples.
+    Returns (dF, d(points)): dF is a tuple of (b, H_l, W_l, C_l) in the
+    maps' dtype, g scattered onto the four taps with the bilinear weights
+    (None unless ``need_dfeatures``); d(points) is (b, L, ..., 2) in the
+    points' dtype: per point the sum over C of g times the tap differences,
+    times ``0.5 * (size - 1)`` (align_corners) or ``0.5 * size``, times the
+    0.5 tie mask of the border clamp. Out-of-map taps contribute zero.
+    Computed in fp32, rounded once at the end."""
+    pts = _check_levels("sample_points_multi_backward", features, points,
+                        padding_mode)
+    dfs, dpts = [], []
+    for l, (f, g) in enumerate(zip(features, grads)):
+        df, dp = _level_backward(f, pts[:, l], g, padding_mode,
+                                 align_corners, need_dfeatures)
+        dfs.append(None if df is None else df.to(f.dtype))
+        dpts.append(dp)
+    dpoints = torch.stack(dpts, dim=1).reshape(points.shape).to(points.dtype)
+    return (tuple(dfs) if need_dfeatures else None), dpoints
+
+
+def sample_points_multi_backward(
+    features: Sequence[torch.Tensor],
+    points: torch.Tensor,
+    grads: Sequence[torch.Tensor],
+    padding_mode: str = "zeros",
+    align_corners: bool = True,
+    need_dfeatures: bool = True,
+) -> tuple:
+    """K6: the sampler backward in ONE CUDA kernel launch for every level.
+    Same contract as ``sample_points_multi_backward_reference``; dF is
+    accumulated in fp32 with atomics and cast to the maps' dtype."""
+    global launches_bwd
+    name = "sample_points_multi_backward"
+    pts = _check_levels(name, features, points, padding_mode)
+    dtype = features[0].dtype
+    code = _build.dtype_code(name, dtype)
+    b, levels, p, _ = pts.shape
+    dpts = torch.empty_like(pts)
+    args = _BwdArgs(points=pts.data_ptr(), dpoints=dpts.data_ptr(),
+                    num_levels=levels, batch=b, num_points=p,
+                    border=int(padding_mode == "border"),
+                    align_corners=int(align_corners), dtype=code)
+    keep, dfs = [pts, dpts], []
+    for l, (f, g) in enumerate(zip(features, grads)):
+        if f.dim() != 4 or f.shape[0] != b or f.dtype != dtype:
+            raise ValueError(f"{name}: level {l} is {tuple(f.shape)} "
+                             f"{f.dtype}, expected (b={b}, H, W, C) {dtype}")
+        _, h, w, c = f.shape
+        if c % (16 // f.element_size()):
+            raise ValueError(f"{name}: level {l} has {c} channels; the "
+                             f"kernel needs a multiple of "
+                             f"{16 // f.element_size()}")
+        if g.numel() != b * p * c:
+            raise ValueError(f"{name}: level {l} gradient of shape "
+                             f"{tuple(g.shape)} for {b}x{p} points of {c}")
+        gl = g.reshape(b, p, c).to(dtype).contiguous()
+        lv = args.levels[l]
+        lv.feat, lv.grad, lv.h, lv.w, lv.c = (f.data_ptr(), gl.data_ptr(),
+                                              h, w, c)
+        keep += [f, gl]
+        if need_dfeatures:
+            df = torch.zeros(f.shape, dtype=torch.float32, device=f.device)
+            lv.dfeat = df.data_ptr()
+            keep.append(df)
+            dfs.append(df)
+    _build.require_cuda(name, *keep)
+    if any(ptr % 16 for lv in args.levels[:levels]
+           for ptr in (lv.feat, lv.grad)):
+        raise ValueError(f"{name}: maps and gradients must start on a "
+                         "16-byte boundary (16-byte loads)")
+    lib = _build.library()
+    err = lib.capf_sample_levels_bwd(ctypes.addressof(args),
+                                     *_build.launch_target(features[0]))
+    _build.check(lib, err, name)
+    launches_bwd += 1
+    dpoints = dpts.reshape(points.shape).to(points.dtype)
+    if not need_dfeatures:
+        return None, dpoints
+    return tuple(d.to(f.dtype) for d, f in zip(dfs, features)), dpoints
+
+
+class _SampleLevels(torch.autograd.Function):
+    """The sampler under autograd. ``spec`` = (padding_mode, align_corners,
+    kernel): ``kernel`` selects K1/K6 (CUDA tensors) or the plain forward
+    and backward (CPU tensors). ``tensors`` = maps, projections, biases
+    (L each; projections and biases may be None)."""
+
+    @staticmethod
+    def forward(ctx, spec, points, *tensors):
+        padding_mode, align_corners, kernel = spec
+        n = len(tensors) // 3
+        run = _launch_forward if kernel else sample_points_multi_reference
+        outs = run(tensors[:n], points, padding_mode, align_corners,
+                   tensors[n:2 * n], tensors[2 * n:])
+        ctx.spec = spec
+        ctx.save_for_backward(points, *tensors)
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        padding_mode, align_corners, kernel = ctx.spec
+        points, *tensors = ctx.saved_tensors
+        n = len(tensors) // 3
+        features, projs, biases = (tensors[:n], tensors[n:2 * n],
+                                   tensors[2 * n:])
+        needs = ctx.needs_input_grad[1:]  # points, then tensors
+        if any(p is not None for p in projs):
+            return (None, *_projected_vjp(
+                points, tensors, grads, needs, padding_mode, align_corners))
+        batch_shape = points.shape[2:-1]
+        grads = [torch.zeros((points.shape[0], *batch_shape, f.shape[-1]),
+                             dtype=f.dtype, device=f.device)
+                 if g is None else g for g, f in zip(grads, features)]
+        need_df = any(needs[1:1 + n])
+        run = (sample_points_multi_backward if kernel
+               else sample_points_multi_backward_reference)
+        dfs, dpoints = run(features, points, grads, padding_mode,
+                           align_corners, need_df)
+        dfs = [None] * n if dfs is None else list(dfs)
+        return (None, dpoints if needs[0] else None,
+                *(d if need else None for d, need in zip(dfs, needs[1:])),
+                *(None,) * (2 * n))
+
+
+def _projected_vjp(points, tensors, grads, needs, padding_mode,
+                   align_corners):
+    """The plain version's VJP with fused projections (JAX
+    ``_multi_proj_bwd``): recompute ``sample_points_multi_reference`` under
+    autograd and differentiate it."""
+    n = len(tensors) // 3
+    ins = [t if t is None else t.detach().requires_grad_(need)
+           for t, need in zip((points, *tensors), needs)]
+    wrt = [i for i, t in enumerate(ins) if t is not None and t.requires_grad]
+    with torch.enable_grad():
+        outs = sample_points_multi_reference(
+            ins[1:1 + n], ins[0], padding_mode, align_corners,
+            ins[1 + n:1 + 2 * n], ins[1 + 2 * n:])
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        found = torch.autograd.grad(
+            [o for o, _ in pairs], [ins[i] for i in wrt],
+            [g for _, g in pairs], allow_unused=True)
+    result = [None] * len(ins)
+    for i, g in zip(wrt, found):
+        result[i] = g
+    return result
+
+
+def sample_points_multi(
+    features: Sequence[torch.Tensor],
+    points: torch.Tensor,
+    padding_mode: str = "zeros",
+    align_corners: bool = True,
+    projs=None,
+    biases=None,
+) -> tuple:
+    """Sample L NHWC maps at per-level points in ONE CUDA kernel launch (K1).
+
+    features: L maps (b, H_l, W_l, C_l), all float32 or all bfloat16;
+    points: (b, L, ..., 2) xy in [-1, 1]. Levels with ``projs[l]`` set
+    return ``sample @ W + b`` (border mode only). Returns a tuple of
+    (b, ..., C_l or hd) in the maps' dtype. Covers the JAX package's
+    ``sample_points_multi`` and ``sample_project_points_multi``. Under
+    autograd the backward is K6 (or the plain VJP with projections).
+    """
+    levels = len(features)
+    projs = _per_level(projs, levels)
+    biases = _per_level(biases, levels)
+    if _build.needs_grad(points, *features, *projs, *biases):
+        return _SampleLevels.apply((padding_mode, align_corners, True),
+                                   points, *features, *projs, *biases)
+    return _launch_forward(features, points, padding_mode, align_corners,
+                           projs, biases)
+
+
 def sample_points_levels(
     features: Sequence[torch.Tensor],
     points: torch.Tensor,  # (b, L, ..., 2)
@@ -216,15 +478,23 @@ def sample_points_levels(
     projs=None,
     biases=None,
 ) -> tuple:
-    """Level-set dispatcher. ``impl``: "auto" (the kernel for CUDA tensors,
-    the plain version for CPU tensors), "fused" (the kernel) or "gather"
-    (the plain version)."""
-    if impl == "auto":
-        impl = "gather" if features[0].device.type == "cpu" else "fused"
-    if impl == "gather":
-        return sample_points_multi_reference(
-            features, points, padding_mode, align_corners, projs, biases)
+    """Level-set dispatcher. ``impl``: "auto" (K1/K6 for CUDA tensors, the
+    plain forward and backward behind the same autograd Function for CPU
+    tensors), "fused" (K1/K6) or "gather" (the plain version, differentiated
+    by autograd through its own ops)."""
+    if impl == "auto" and features[0].device.type != "cpu":
+        impl = "fused"
     if impl == "fused":
         return sample_points_multi(
             features, points, padding_mode, align_corners, projs, biases)
-    raise ValueError(f"unknown sampler impl: {impl!r}")
+    if impl not in ("auto", "gather"):
+        raise ValueError(f"unknown sampler impl: {impl!r}")
+    levels = len(features)
+    projs = _per_level(projs, levels)
+    biases = _per_level(biases, levels)
+    if impl == "auto" and _build.needs_grad(points, *features, *projs,
+                                            *biases):
+        return _SampleLevels.apply((padding_mode, align_corners, False),
+                                   points, *features, *projs, *biases)
+    return sample_points_multi_reference(
+        features, points, padding_mode, align_corners, projs, biases)

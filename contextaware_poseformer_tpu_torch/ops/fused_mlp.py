@@ -60,7 +60,15 @@ def ln_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps):
 
 def ln_mlp_residual_kernel(x, ln_scale, ln_bias, w1, b1, w2, b2, eps):
     """The CUDA kernel: same contract as ``ln_mlp_reference``; the weights
-    are cast to ``x.dtype`` and the LN parameters and biases to fp32."""
+    are cast to ``x.dtype`` and the LN parameters and biases to fp32. Under
+    autograd the backward is the plain version's VJP."""
+    args = (x, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+    if _build.needs_grad(*args[:-1]):
+        return _build.PlainVjp.apply(_launch, ln_mlp_reference, *args)
+    return _launch(*args)
+
+
+def _launch(x, ln_scale, ln_bias, w1, b1, w2, b2, eps):
     global launches
     name = "ln_mlp_residual"
     code = _build.dtype_code(name, x.dtype)

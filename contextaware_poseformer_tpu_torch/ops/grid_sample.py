@@ -10,6 +10,10 @@ Port of ``contextaware_poseformer_tpu/ops/grid_sample.py:37-102``. Torch's
   blend that is partly outside shrinks toward zero).
 
 The blend runs in fp32 and rounds once to the map's dtype.
+
+Gradients follow ``jax.grad`` of the JAX version: the border clamp is a
+min of a max, whose gradient at an exact edge is the 0.5 tie of
+``jnp.clip`` (``Tensor.clamp`` would give 1 there).
 """
 
 from __future__ import annotations
@@ -21,6 +25,12 @@ def _unnormalize(coord: torch.Tensor, size: int, align_corners: bool):
     if align_corners:
         return (coord + 1.0) * 0.5 * (size - 1)
     return ((coord + 1.0) * size - 1.0) * 0.5
+
+
+def _clip(v: torch.Tensor, top: float) -> torch.Tensor:
+    """``jnp.clip(v, 0, top)`` with its gradient: 0.5 at an exact edge."""
+    return torch.minimum(torch.maximum(v, v.new_tensor(0.0)),
+                         v.new_tensor(float(top)))
 
 
 def grid_sample_points(
@@ -55,8 +65,8 @@ def sample_points_fp32(
     x = _unnormalize(pts[..., 0], w, align_corners)
     y = _unnormalize(pts[..., 1], h, align_corners)
     if padding_mode == "border":
-        x = x.clamp(0.0, w - 1)
-        y = y.clamp(0.0, h - 1)
+        x = _clip(x, w - 1)
+        y = _clip(y, h - 1)
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     wx = x - x0

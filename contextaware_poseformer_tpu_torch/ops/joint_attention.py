@@ -30,7 +30,15 @@ def attention_middle_reference(qkv, num_heads):
 
 
 def attention_middle_kernel(qkv, num_heads):
-    """The CUDA kernel: qkv (B, N, 3D) float32 or bfloat16."""
+    """The CUDA kernel: qkv (B, N, 3D) float32 or bfloat16. Under autograd
+    the backward is the plain version's VJP."""
+    if _build.needs_grad(qkv):
+        return _build.PlainVjp.apply(
+            _launch, attention_middle_reference, qkv, num_heads)
+    return _launch(qkv, num_heads)
+
+
+def _launch(qkv, num_heads):
     global launches
     name = "attention_middle"
     code = _build.dtype_code(name, qkv.dtype)

@@ -42,7 +42,15 @@ def attention_reference(x, wqkv, bqkv, wproj, bproj, num_heads):
 
 
 def small_attention_kernel(x, wqkv, bqkv, wproj, bproj, num_heads):
-    """The CUDA kernel: x (R, N, D); every operand in ``x.dtype``."""
+    """The CUDA kernel: x (R, N, D); every operand in ``x.dtype``. Under
+    autograd the backward is the plain version's VJP."""
+    args = (x, wqkv, bqkv, wproj, bproj, num_heads)
+    if _build.needs_grad(*args[:-1]):
+        return _build.PlainVjp.apply(_launch, attention_reference, *args)
+    return _launch(*args)
+
+
+def _launch(x, wqkv, bqkv, wproj, bproj, num_heads):
     global launches
     name = "small_attention"
     code = _build.dtype_code(name, x.dtype)

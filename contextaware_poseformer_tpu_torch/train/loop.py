@@ -1,0 +1,151 @@
+"""Epoch-level training and evaluation on one device.
+
+Port of ``contextaware_poseformer_tpu/train/loop.py:39-294`` without the
+mesh and the multi-host parts (reference: ContextPose/train.py:140-213,
+369-412): the loop owns data iteration, device staging, metric aggregation,
+the per-epoch log line and the best-P1 checkpoint policy; the device work is
+``train/steps.py``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from contextaware_poseformer_tpu.config import Config
+from contextaware_poseformer_tpu_torch.data import pipeline
+from contextaware_poseformer_tpu_torch.models.capf import (
+    ContextAwarePoseFormer,
+)
+from contextaware_poseformer_tpu_torch.models.init import init_parameters
+from contextaware_poseformer_tpu_torch.serve import configure_numerics
+from contextaware_poseformer_tpu_torch.train import metrics as metrics_lib
+from contextaware_poseformer_tpu_torch.train import steps
+from contextaware_poseformer_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+)
+
+
+class MetricWriter:
+    """stdout + jsonl metric sink (the reference's tqdm prints and
+    tensorboardX writer, train.py:135-136,391-395)."""
+
+    def __init__(self, logdir: str | None):
+        self.path = None
+        if logdir:
+            os.makedirs(logdir, exist_ok=True)
+            self.path = os.path.join(logdir, "metrics.jsonl")
+
+    def write(self, record: dict[str, Any]) -> None:
+        msg = " | ".join(
+            f"{k}: {v:.4f}" if isinstance(v, float) else f"{k}: {v}"
+            for k, v in record.items()
+        )
+        print(msg, flush=True)
+        if self.path:
+            with open(self.path, "a") as f:
+                f.write(json.dumps(record) + "\n")
+
+
+class Trainer:
+    """Trains ``cfg`` on ``device`` (a CUDA device, or the CPU for tests).
+    The backbone is frozen and stored in channels-last layout; fp32 runs
+    at full precision (TF32 off) as the JAX reference does."""
+
+    def __init__(self, cfg: Config, train_ds, val_ds, device,
+                 logdir: str | None = None):
+        self.cfg = cfg
+        self.train_ds = train_ds
+        self.val_ds = val_ds
+        self.device = torch.device(device)
+        self.task = steps.Task.for_config(cfg)
+        self.steps_per_epoch = max(len(train_ds) // cfg.train.batch_size, 1)
+        self.writer = MetricWriter(logdir)
+        self.ckpt = (CheckpointManager(os.path.join(logdir, "checkpoints"))
+                     if logdir else None)
+        if self.device.type == "cuda":
+            configure_numerics()
+
+    def init_state(self, seed: int) -> steps.TrainState:
+        """A fresh model from ``seed`` (flax initializers, CPU generator)
+        and its optimizer."""
+        dtype = getattr(torch, self.cfg.model.compute_dtype)
+        model = ContextAwarePoseFormer(self.cfg.model, dtype=dtype,
+                                       device=self.device)
+        init_parameters(model, torch.Generator().manual_seed(seed))
+        model.backbone.to(dtype=dtype, memory_format=torch.channels_last)
+        if self.cfg.model.backbone.frozen:
+            model.backbone.requires_grad_(False)
+        optimizer = steps.make_optimizer(self.cfg, self.steps_per_epoch,
+                                         model)
+        return steps.TrainState(model, optimizer, 0)
+
+    def train_epoch(self, state: steps.TrainState, epoch: int,
+                    max_steps: int | None = None) -> dict[str, Any]:
+        host_iter = pipeline.batch_iterator(
+            self.train_ds, self.cfg.train.batch_size, shuffle=True,
+            seed=self.cfg.train.seed, epoch=epoch,
+            num_workers=self.cfg.data.num_workers,
+        )
+        losses, n = [], 0
+        t0 = time.time()
+        for raw, _valid in host_iter:
+            batch = pipeline.to_device(raw, self.device)
+            m = steps.train_step(state, batch, self.cfg, self.task,
+                                 self.cfg.train.seed + 1)
+            losses.append(m["loss"])
+            n += 1
+            if max_steps and n >= max_steps:
+                break
+        step_losses = [float(v) for v in losses]
+        return {"train_loss": (float(np.mean(step_losses)) if step_losses
+                               else float("nan")),
+                "epoch_time_s": time.time() - t0, "steps": n,
+                "step_losses": step_losses}
+
+    def evaluate(self, state: steps.TrainState,
+                 max_batches: int | None = None):
+        """(summary in mm, per-action scores) over the validation set; the
+        padded last batch is trimmed to its valid rows."""
+        host_iter = pipeline.batch_iterator(
+            self.val_ds, self.cfg.train.batch_size, shuffle=False,
+            drop_remainder=False, num_workers=self.cfg.data.num_workers,
+        )
+        preds, gts, total = [], [], 0
+        for i, (raw, valid) in enumerate(host_iter):
+            batch = pipeline.to_device(raw, self.device)
+            pred, gt = steps.eval_step(state.model, batch, self.cfg,
+                                       self.task)
+            preds.append(pred[:valid].float().cpu().numpy())
+            gts.append(gt[:valid].float().cpu().numpy())
+            total += valid
+            if max_batches and i + 1 >= max_batches:
+                break
+        scores = metrics_lib.h36m_evaluate(
+            np.concatenate(gts), np.concatenate(preds),
+            np.asarray(self.val_ds.action_idx[:total]))
+        return metrics_lib.h36m_summary(scores), scores
+
+    def fit(self, state: steps.TrainState, n_epochs: int,
+            max_steps_per_epoch: int | None = None,
+            eval_batches: int | None = None, start_epoch: int = 0):
+        """Train and evaluate every epoch, save a checkpoint after each;
+        returns (state, best P1 in mm over the epochs run)."""
+        best_p1 = float("inf")
+        for epoch in range(start_epoch, n_epochs):
+            train_m = self.train_epoch(state, epoch,
+                                       max_steps=max_steps_per_epoch)
+            summary, _ = self.evaluate(state, max_batches=eval_batches)
+            lr = steps.lr_schedule(self.cfg, self.steps_per_epoch)(state.step)
+            train_m.pop("step_losses")
+            self.writer.write({"epoch": epoch, "lr": lr, **train_m,
+                               **summary})
+            if self.ckpt:
+                self.ckpt.save(epoch, state, {"p1_mm": summary["p1_mm"]})
+            best_p1 = min(best_p1, summary["p1_mm"])
+        return state, best_p1

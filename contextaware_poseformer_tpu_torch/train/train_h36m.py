@@ -1,0 +1,181 @@
+"""Human3.6M training / evaluation driver of the port.
+
+The CLI of ``contextaware_poseformer_tpu/train/train_h36m.py:28-250``
+(reference recipe: AdamW wd 0.1 over the lifter, per-epoch decay, flip
+augmentation, flip-test evaluation, best-P1 checkpoints with true resume),
+on one device given by ``--device``, which is required and never falls back
+to another::
+
+  python -m contextaware_poseformer_tpu_torch.train.train_h36m \\
+      --preset h36m_cpn --synthetic --device cuda --epochs 1 \\
+      --steps-per-epoch 4 --eval-batches 1
+
+What is not ported yet is refused with the slice it waits for: the HRNet
+presets and ``--tiny`` (a tiny HRNet in the JAX driver), ``--backbone-ckpt``
+and ``--model-ckpt``, and ``--distributed`` / ``--model-parallel > 1``. A
+small CPN comes from a YAML overlay (``--config``), for instance::
+
+  model: {image_shape: [64, 64], backbone: {cpn_layers: [1, 1, 1, 1]},
+          lifter: {embed_dim_ratio: 32, depth: 1}}
+  train: {batch_size: 2}
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import torch
+
+from contextaware_poseformer_tpu import config as cfglib
+
+NOT_PORTED = {
+    "hrnet": "the HRNet backbone is not ported yet (ROADMAP queue 1, item "
+             "7); use --preset h36m_cpn",
+    "tiny": "--tiny selects a tiny HRNet, which is not ported yet (ROADMAP "
+            "queue 1, item 7); cut the CPN with a --config overlay instead",
+    "ckpt": "loading backbone and model checkpoints is not ported yet "
+            "(ROADMAP queue 1, item 8)",
+    "multi": "multi-device training is not ported yet (ROADMAP queue 1, "
+             "item 11)",
+}
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Context-Aware PoseFormer (PyTorch) - H36M")
+    p.add_argument(
+        "--preset", default="h36m_cpn",
+        choices=[n + s for n in ("h36m_hrnet_32", "h36m_hrnet_48", "h36m_cpn")
+                 for s in ("", "_deploy")],
+    )
+    p.add_argument("--device", required=True,
+                   help="torch device to run on, e.g. cuda or cpu")
+    p.add_argument("--config", default=None, help="YAML overlay path")
+    p.add_argument("--eval", action="store_true", help="evaluate only")
+    p.add_argument("--data-root", default=None)
+    p.add_argument("--train-labels", default=None)
+    p.add_argument("--val-labels", default=None)
+    p.add_argument("--backbone-ckpt", default=None)
+    p.add_argument("--model-ckpt", default=None)
+    p.add_argument("--logdir", default="logs/h36m")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--model-parallel", type=int, default=1)
+    p.add_argument("--synthetic", action="store_true",
+                   help="synthetic data smoke mode (no H36M needed)")
+    p.add_argument("--tiny", action="store_true")
+    p.add_argument("--steps-per-epoch", type=int, default=None)
+    p.add_argument("--eval-batches", type=int, default=None)
+    p.add_argument("--distributed", action="store_true")
+    return p
+
+
+def check_ported(args) -> None:
+    if "hrnet" in args.preset:
+        raise SystemExit(NOT_PORTED["hrnet"])
+    if args.tiny:
+        raise SystemExit(NOT_PORTED["tiny"])
+    if args.backbone_ckpt or args.model_ckpt:
+        raise SystemExit(NOT_PORTED["ckpt"])
+    if args.distributed or args.model_parallel > 1:
+        raise SystemExit(NOT_PORTED["multi"])
+
+
+def make_config(args) -> cfglib.Config:
+    cfg = cfglib.preset_or_deploy(args.preset)
+    if args.config:
+        cfg = cfglib.load_config(args.config, base=cfg)
+    train = {}
+    if args.epochs is not None:
+        train["n_epochs"] = args.epochs
+    if args.batch_size is not None:
+        train["batch_size"] = args.batch_size
+    if args.seed:
+        train["seed"] = args.seed
+    data = {k: v for k, v in (("root", args.data_root),
+                              ("train_labels_path", args.train_labels),
+                              ("val_labels_path", args.val_labels)) if v}
+    return dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, **train),
+        data=dataclasses.replace(cfg.data, **data))
+
+
+def make_datasets(cfg, args):
+    if args.synthetic:
+        from contextaware_poseformer_tpu.data.synthetic import (
+            SyntheticPoseDataset,
+        )
+
+        train_ds = SyntheticPoseDataset(
+            size=max(cfg.train.batch_size * 4, 64),
+            image_shape=cfg.model.image_shape, seed=cfg.train.seed,
+        )
+        val_ds = SyntheticPoseDataset(
+            size=max(cfg.train.batch_size * 2, 32),
+            image_shape=cfg.model.image_shape, seed=cfg.train.seed + 99,
+        )
+        return train_ds, val_ds
+    from contextaware_poseformer_tpu.data.h36m import H36MDataset
+
+    train_ds = H36MDataset.from_pickle(
+        cfg.data.train_labels_path, cfg.data.root, cfg.model.image_shape,
+        frame_store=cfg.data.train_frame_store or None,
+    )
+    val_ds = H36MDataset.from_pickle(
+        cfg.data.val_labels_path, cfg.data.root, cfg.model.image_shape,
+        frame_store=cfg.data.val_frame_store or None,
+    )
+    return train_ds, val_ds
+
+
+def main(argv=None):
+    """Returns (trainer, final state, best P1 in mm or the eval summary)."""
+    args = build_argparser().parse_args(argv)
+    check_ported(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device here")
+    cfg = make_config(args)
+    train_ds, val_ds = make_datasets(cfg, args)
+
+    from contextaware_poseformer_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(cfg, train_ds, val_ds, device, logdir=args.logdir)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"device: {device} ({name})")
+    state = trainer.init_state(cfg.train.seed)
+    print("Trainable parameter count:",  # train.py:358-359
+          sum(p.numel() for p in state.model.lifter.parameters()))
+
+    start_epoch = 0
+    if args.resume and trainer.ckpt:
+        state, start_epoch = trainer.ckpt.restore(state)
+        print(f"Resumed from epoch {start_epoch - 1}")
+
+    if args.eval:
+        summary, scores = trainer.evaluate(state,
+                                           max_batches=args.eval_batches)
+        for action, s in scores.items():
+            print(f"{action}: p1={s['MPJPE'] * 1000:.2f}, "
+                  f"p2={s['P_MPJPE'] * 1000:.2f}, "
+                  f"e_vel={s['MPJVE'] * 1000:.2f}")
+        print("avg p1:", round(summary["p1_mm"], 1),
+              "p2:", round(summary["p2_mm"], 1),
+              "MPJVE:", round(summary["mpjve_mm"], 2))
+        return trainer, state, summary
+
+    state, best_p1 = trainer.fit(
+        state, cfg.train.n_epochs,
+        max_steps_per_epoch=args.steps_per_epoch,
+        eval_batches=args.eval_batches, start_epoch=start_epoch,
+    )
+    print(f"best p1: {best_p1:.2f} mm")
+    return trainer, state, best_p1
+
+
+if __name__ == "__main__":
+    main()

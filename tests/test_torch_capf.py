@@ -267,6 +267,33 @@ model = serve.build_serving_model(cfg, "cpu",
 out = serve.lift(model, torch.zeros(2, 64, 64, 3, dtype=torch.uint8),
                  torch.zeros(2, 17, 2), torch.full((2, 17, 2), 32.0))
 assert out.shape == (2, 17, 3) and bool(torch.isfinite(out).all())
+# the training path: every module, one step and one flip-test batch
+train_modules = [
+    "contextaware_poseformer_tpu_torch.data.pipeline",
+    "contextaware_poseformer_tpu_torch.train.losses",
+    "contextaware_poseformer_tpu_torch.train.metrics",
+    "contextaware_poseformer_tpu_torch.train.steps",
+    "contextaware_poseformer_tpu_torch.train.checkpoint",
+    "contextaware_poseformer_tpu_torch.train.loop",
+    "contextaware_poseformer_tpu_torch.train.train_h36m",
+]
+assert all(m in sys.modules for m in train_modules), train_modules
+from contextaware_poseformer_tpu.config import preset
+from contextaware_poseformer_tpu.data.synthetic import SyntheticPoseDataset
+from contextaware_poseformer_tpu_torch.train.loop import Trainer
+tcfg = preset("h36m_cpn")
+tcfg = replace(tcfg, model=replace(
+    tcfg.model, image_shape=(64, 64),
+    backbone=replace(tcfg.model.backbone, cpn_layers=(1, 1, 1, 1)),
+    lifter=replace(tcfg.model.lifter, embed_dim_ratio=32, depth=1)),
+    train=replace(tcfg.train, batch_size=2),
+    data=replace(tcfg.data, num_workers=1))
+ds = SyntheticPoseDataset(size=4, image_shape=(64, 64))
+trainer = Trainer(tcfg, ds, ds, "cpu")
+state = trainer.init_state(0)
+m = trainer.train_epoch(state, 0, max_steps=1)
+summary, _ = trainer.evaluate(state, max_batches=1)
+assert state.step == 1 and m["steps"] == 1, m
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax"))
 assert not bad, bad

@@ -95,17 +95,81 @@ def test_kernel_matches_plain_version(cuda_device, case, dtype):
 
 @pytest.mark.cuda
 def test_kernels_refuse_inputs_that_require_grad(cuda_device):
-    x = torch.randn(4, 16, device=cuda_device, requires_grad=True)
-    p = [torch.ones(16, device=cuda_device),
-         torch.zeros(16, device=cuda_device),
-         torch.randn(16, 32, device=cuda_device),
-         torch.zeros(32, device=cuda_device),
-         torch.randn(32, 16, device=cuda_device),
-         torch.zeros(16, device=cuda_device)]
-    with pytest.raises(RuntimeError, match="inference-only"):
-        fused_mlp.ln_mlp_residual(x, *p, 1e-6)
-    with torch.no_grad():
-        assert fused_mlp.ln_mlp_residual(x, *p, 1e-6).shape == (4, 16)
+    """The kernels no longer refuse inputs that require grad: K1-K4 run
+    under autograd (K1's backward is K6, K2-K4's the plain versions' VJP)
+    and their gradients match autograd through the plain versions (fp32,
+    1e-4 of max|plain grad|)."""
+    torch.manual_seed(0)
+    cases = _cases(cuda_device, torch.float32)
+    counts = [m.launches for m in KERNEL_MODULES] + [deformable.launches_bwd]
+    for name in ("K1-zeros", "K1-border-proj", "K2-128", "K3", "K4"):
+        kernel, plain = cases[name]
+        grads = []
+        for fn in (kernel, plain):
+            leaves = _grad_leaves(fn)
+            outs = fn()
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            w = [torch.randn_like(o) for o in outs] if not grads else w
+            torch.autograd.backward(outs, w)
+            grads.append([t.grad.clone() for t in leaves])
+            for t in leaves:
+                t.grad = None
+        for a, b in zip(*grads):
+            err = (a - b).abs().max().item()
+            assert err <= 1e-4 * b.abs().max().item(), (name, err)
+    after = [m.launches for m in KERNEL_MODULES] + [deformable.launches_bwd]
+    # K1 twice (zeros, border+proj), K2-K4 once each; K6 for zeros only
+    assert [a - b for a, b in zip(after, counts)] == [2, 1, 1, 1, 1]
+
+
+def _grad_leaves(fn):
+    """The float tensors a case closes over (or binds as defaults), set to
+    require grad."""
+    leaves = []
+    bound = [c.cell_contents for c in fn.__closure__ or ()]
+    for vals in bound + list(fn.__defaults__ or ()):
+        for v in vals if isinstance(vals, (list, tuple)) else (vals,):
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                leaves.append(v.requires_grad_(True))
+    return leaves
+
+
+def _bwd_case(dev, dtype):
+    g = torch.Generator().manual_seed(1)
+    feats = [(torch.randn(3, h, w, 64, generator=g)).to(dev, dtype)
+             for h, w in LEVELS]
+    pts = torch.rand(3, 4, 17, 4, 2, generator=g) * 2.6 - 1.3
+    flat = pts.view(-1, 2)
+    flat[:6] = torch.tensor([[1, 1], [-1, -1], [1, -1], [-1, 1],
+                             [1.25, 0.3], [-0.2, -1.2]])
+    grads = [torch.randn(3, 17, 4, 64, generator=g).to(dev, dtype)
+             for _ in LEVELS]
+    return feats, pts.to(dev), grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("need_df", [True, False])
+@pytest.mark.parametrize("padding", ["border", "zeros"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sampler_backward_matches_plain_version(cuda_device, dtype, padding,
+                                                need_df, align):
+    """K6 against the plain backward, points exactly on and past the
+    edges; tolerance as above (of max|plain|, per output)."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    feats, pts, grads = _bwd_case(cuda_device, dtype)
+    before = deformable.launches_bwd
+    ours = deformable.sample_points_multi_backward(
+        feats, pts, grads, padding, align, need_df)
+    theirs = deformable.sample_points_multi_backward_reference(
+        feats, pts, grads, padding, align, need_df)
+    assert deformable.launches_bwd == before + 1
+    assert (ours[0] is None) == (theirs[0] is None) == (not need_df)
+    pairs = [(ours[1], theirs[1])] + list(zip(ours[0] or (), theirs[0] or ()))
+    for o, p in pairs:
+        assert o.shape == p.shape and o.dtype == p.dtype
+        err = (o.float() - p.float()).abs().max().item()
+        assert err <= tol * p.float().abs().max().item(), err
 
 
 @pytest.mark.cuda
