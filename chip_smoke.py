@@ -10,21 +10,33 @@ Phases, one line of output each (failures raise and exit non-zero):
 2. build: compiles the hand-written kernels (ops/csrc/*.cu) from the
    checkout into build/kernels/ and prints the build seconds;
 3. kernels: each of K1-K4 against its plain PyTorch version on the card, at
-   the serving path's shapes with batch 64, in bf16 and fp32 (TF32 off):
-   max abs error, error relative to max|plain|, median kernel and plain
-   device times over 20 CUDA-event-timed runs;
+   the H36M serving path's shapes with batch 64 (K2-K4 also at the 3DHP
+   lifters' widths: K2 at D=64/96/320/480, K3 at 64/96, K4 at head dims
+   40/60), and K5 (the sampler at the HRNet-W32 and W48 pyramids: the
+   zeros 17-point call and the border 272-point call with the lifter's
+   mixed in-kernel projection), in bf16 and fp32 (TF32 off): max abs
+   error, error relative to max|plain|, median kernel and plain device
+   times over 20 CUDA-event-timed runs, and the time of the PyTorch call
+   that computes the same function where there is one (information only;
+   the port never calls it);
 4. slice: the full-width h36m_cpn serving slice (bf16 CPN ResNet-50 with the
    native pyramid, lifter embed 128 depth 4, random weights from seed 0)
    serves 3 requests of 64 uint8 frames through ``serve.lift``; the output
    must be finite (64, 17, 3), every kernel's launch count must grow by its
    per-request count, and the same request through the plain versions must
-   agree to a relative RMS of 2e-2;
-5. backward: K6 against the plain backward at the training shapes (four
+   agree to a relative RMS of 2e-2. Information only: host ms a request and
+   frames/s over 20 requests, stage times by CUDA events, and under
+   torch.profiler the device busy ms a request, its idle share of the
+   unprofiled host time and the top kernels;
+5. hrnet: the same for the full-width h36m_hrnet_32 slice (bf16 HRNet-W32,
+   3 requests), then one request each of h36m_hrnet_48, mpi_3dhp_hrnet_32
+   and mpi_3dhp_hrnet_48;
+6. backward: K6 against the plain backward at the training shapes (four
    64x48x256 maps, batch 64, 4x272 border points and 4x17 zeros points),
    fp32 and bf16, with and without dF: max abs error and error / max|plain|
    of d(points) and dF, median kernel and plain device times; then the
    training step's own call (fp32, border, no dF) at batch 256;
-6. train: the h36m_cpn training preset at full width (fp32 CPN ResNet-50
+7. train: the h36m_cpn training preset at full width (fp32 CPN ResNet-50
    with the /4 graph, lifter embed 128 depth 4 with deformable blocks,
    AdamW, batch 256, flip augmentation, drop-path 0.2; TF32 off; synthetic
    data and weights from seed 0), set up by the training CLI's own
@@ -34,14 +46,17 @@ Phases, one line of output each (failures raise and exit non-zero):
    K6 4 times a step, and one deterministic step through the kernels must
    agree with one through the plain sampler (``sampler="gather"``) from the
    same weights on the same batch: loss to 1e-5 relative, lifter gradients
-   to a global relative L2 of 1e-4. Steps/s (information only): a warm
-   epoch of 4 steps through the ``Trainer`` (host batch assembly and copy
-   included), and ``train_step`` on a device-resident batch with the
-   kernels and with the plain sampler;
-7. a JSON line of per-kernel results (``launches`` summed over the serving
-   and training runs, each counted from 0; K1-K4 errors and times in bf16 at
-   the serving shapes, K6's those of the training step's call at batch 256
-   times its 4 calls a step), then the final JSON status line.
+   to a global relative L2 of 1e-4. Steps/s (information only);
+8. a JSON line of per-kernel results, then the final JSON status line.
+   ``launches`` are summed over the serving and training runs, each counted
+   from 0. Errors are the largest over the bf16 cases. Times are bf16 at
+   the CPN serving shapes for K1-K4 and at HRNet-W32's for K5, both per
+   request (the sum over a request's calls), K6's
+   those of the training step's call at batch 256 times its 4 calls a step.
+   ``bound_ms`` is the larger of the bytes the calls must move over
+   3.35 TB/s and their operations over 989 TFLOP/s (bf16) or 67 TFLOP/s
+   (fp32), the H100 SXM peaks; a sampler must read only the distinct map
+   rows its points' taps touch, counted from this run's points.
 """
 
 from __future__ import annotations
@@ -54,12 +69,25 @@ import time
 from dataclasses import replace
 
 import torch
+import torch.nn.functional as F
 
 BATCH = 64
 REQUESTS = 3
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # error / max|plain|
 SLICE_REL_RMS = 2e-2
-PER_REQUEST = {"K1": 5, "K2": 12, "K3": 4, "K4": 4}
+_H36M = {"K1": 5, "K2": 12, "K3": 4, "K4": 4}
+_H36M_HRNET = {**_H36M, "K5": 5}
+_MPI_HRNET = {"K1": 1, "K2": 8, "K3": 4, "K4": 4, "K5": 1}
+PER_REQUEST = {  # launches per request: depth 4, deformable blocks on H36M
+    "h36m_cpn": _H36M,
+    "h36m_hrnet_32": _H36M_HRNET, "h36m_hrnet_48": _H36M_HRNET,
+    "mpi_3dhp_hrnet_32": _MPI_HRNET, "mpi_3dhp_hrnet_48": _MPI_HRNET,
+}
+HRNET_REQUESTS = {"h36m_hrnet_32": REQUESTS, "h36m_hrnet_48": 1,
+                  "mpi_3dhp_hrnet_32": 1, "mpi_3dhp_hrnet_48": 1}
+TIMED_REQUESTS = 20  # host-clock frames/s, after the checked requests
+PROFILED = 5  # requests under torch.profiler
+TOP_KERNELS = 8
 TRAIN_STEPS = 4
 TRAIN_BATCH = 256  # the h36m_cpn preset's batch
 PER_TRAIN_STEP = {"K1": 5, "K6": 4}  # the 17 reference points need no K6
@@ -71,13 +99,21 @@ REPLACES = {
     "K2": "contextaware_poseformer_tpu/ops/fused_mlp.py:75",
     "K3": "contextaware_poseformer_tpu/ops/small_attention.py:58",
     "K4": "contextaware_poseformer_tpu/ops/joint_attention.py:50",
+    "K5": "contextaware_poseformer_tpu/ops/deformable.py:148",
     "K6": "contextaware_poseformer_tpu/ops/deformable.py:783",
 }
 SOURCES = {"K1": "sampler.cu", "K2": "fused_mlp.cu",
            "K3": "small_attention.cu", "K4": "joint_attention.cu",
-           "K6": "sampler_bwd.cu"}
-LEVELS = ((8, 6), (16, 12), (32, 24), (64, 48))  # native pyramid, 256x192
+           "K5": "sampler.cu", "K6": "sampler_bwd.cu"}
+LEVELS = ((8, 6), (16, 12), (32, 24), (64, 48))  # CPN native pyramid
+HRNET_PYRAMIDS = {  # 256x192 frames, finest first
+    "W32": ((64, 48, 32), (32, 24, 64), (16, 12, 128), (8, 6, 256)),
+    "W48": ((64, 48, 48), (32, 24, 96), (16, 12, 192), (8, 6, 384)),
+}
+HEAD_DIM = 32  # deformable head dim: embed 128 over 4 heads
 SLEEP_CYCLES = 4_000_000  # ~2 ms of device clock ahead of a timed window
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s
 
 
 def _median_ms(fn, runs=20, warmup=3):
@@ -107,9 +143,110 @@ def _err(out, ref):
     return err, err / scale
 
 
+def _bound(nbytes, ops, dtype):
+    """(bound ms, what bounds it) for work of ``nbytes`` and ``ops``."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _distinct_taps(f, pts, border):
+    """Distinct (batch item, map row) pairs the bilinear taps of ``pts``
+    (b, P, 2) touch in the NHWC map ``f``, taps outside the map excluded."""
+    b, h, w, _ = f.shape
+    x = (pts[..., 0].float() + 1) * 0.5 * (w - 1)
+    y = (pts[..., 1].float() + 1) * 0.5 * (h - 1)
+    if border:
+        x, y = x.clamp(0, w - 1), y.clamp(0, h - 1)
+    x0, y0 = x.floor().long(), y.floor().long()
+    item = torch.arange(b, device=f.device)[:, None]
+    rows = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            yi, xi = y0 + dy, x0 + dx
+            ok = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+            rows.append(((item * h + yi) * w + xi)[ok])
+    return torch.unique(torch.cat(rows)).numel()
+
+
+def _sampler_work(maps, pts, projs, border):
+    """(bytes, operations) of one sampler call: the distinct tap rows, the
+    points, the outputs and the projection weights; 8 operations a sampled
+    channel (4 taps, multiply and add) plus the projection's 2*C*Cout a
+    point."""
+    b, levels = pts.shape[:2]
+    p = pts[0, 0].numel() // 2
+    pts = pts.reshape(b, levels, p, 2)
+    nbytes, ops = pts.numel() * 4, 0
+    for l, f in enumerate(maps):
+        c, elem = f.shape[-1], f.element_size()
+        nbytes += _distinct_taps(f, pts[:, l], border) * c * elem
+        cout = c
+        if projs is not None and projs[l] is not None:
+            cout = projs[l].shape[1]
+            nbytes += (c + 1) * cout * 4
+            ops += 2 * b * p * c * cout
+        nbytes += b * p * cout * elem
+        ops += 8 * b * p * c
+    return nbytes, ops
+
+
+def _grid_sample_fn(maps, pts, mode, projs=None, biases=None):
+    """The library call for a sampler call: ``F.grid_sample`` per level on
+    the NCHW view of each NHWC map, plus ``F.linear`` for a projected
+    level."""
+    b, levels = pts.shape[:2]
+    grid = pts.reshape(b, levels, 1, -1, 2).to(maps[0].dtype)
+
+    def run():
+        outs = []
+        for l, f in enumerate(maps):
+            s = F.grid_sample(f.permute(0, 3, 1, 2), grid[:, l],
+                              mode="bilinear", padding_mode=mode,
+                              align_corners=True)
+            if projs is not None and projs[l] is not None:
+                s = F.linear(s.squeeze(2).transpose(1, 2),
+                             projs[l].t().to(f.dtype),
+                             biases[l].to(f.dtype))
+            outs.append(s)
+        return outs
+
+    return run
+
+
+def _sampler_cases(gen, dtype, b, dims, mixed_proj):
+    """(case name, calls per request, maps, points, mode, projs, biases) of
+    a serving pyramid: the zeros 17-point call and the border 272-point
+    call. ``mixed_proj``: project where the lifter does
+    (``kernel_can_preproject``), else every level to HEAD_DIM."""
+    from contextaware_poseformer_tpu_torch.ops import deformable
+
+    def uniform(lo, hi, *shape):
+        return (torch.rand(*shape, generator=gen) * (hi - lo) + lo).cuda()
+
+    maps = [torch.randn(b, h, w, c, generator=gen).to("cuda", dtype)
+            for h, w, c in dims]
+    projs, biases = [], []
+    for h, w, c in dims:
+        on = not mixed_proj or deformable.kernel_can_preproject(
+            h, w, c, HEAD_DIM)
+        projs.append(uniform(-1, 1, c, HEAD_DIM) / c ** 0.5 if on else None)
+        biases.append(uniform(-0.1, 0.1, HEAD_DIM) if on else None)
+    levels = len(dims)
+    return [
+        ("zeros P=17", 1, maps, uniform(-1.1, 1.1, b, levels, 17, 2),
+         "zeros", None, None),
+        ("border+proj P=272", 4, maps,
+         uniform(-1.5, 1.5, b, levels, 17, 16, 2), "border", projs, biases),
+    ]
+
+
 def _kernel_cases(dtype, gen):
-    """(kernel, case name, calls per forward, kernel fn, plain fn) at the
-    serving shapes with batch BATCH."""
+    """(kernel, case name, calls, kernel fn, plain fn, work, library fn or
+    None) at the serving shapes with batch BATCH. ``calls``: the case's
+    calls in the request whose times the JSON line reports (CPN's for
+    K1-K4, HRNet-W32's for K5), 0 at another preset's shapes; ``work`` is
+    (bytes, operations) of one call."""
     from contextaware_poseformer_tpu_torch.ops import (
         deformable, fused_mlp, joint_attention, small_attention,
     )
@@ -121,26 +258,36 @@ def _kernel_cases(dtype, gen):
         return (torch.rand(*shape, generator=gen) * (hi - lo) + lo).cuda()
 
     b = BATCH
-    maps = [randn(b, h, w, 256) for h, w in LEVELS]
-    ref_pts = uniform(-1.1, 1.1, b, 4, 17, 2)
-    def_pts = uniform(-1.5, 1.5, b, 4, 17, 16, 2)
-    projs = [uniform(-1, 1, 256, 32) / 16 for _ in LEVELS]
-    biases = [uniform(-0.1, 0.1, 32) for _ in LEVELS]
-    cases = [
-        ("K1", "zeros P=17", 1,
-         lambda: deformable.sample_points_multi(maps, ref_pts, "zeros"),
-         lambda: deformable.sample_points_multi_reference(
-             maps, ref_pts, "zeros")),
-        ("K1", "border+proj P=272", 4,
-         lambda: deformable.sample_points_multi(
-             maps, def_pts, "border", True, projs, biases),
-         lambda: deformable.sample_points_multi_reference(
-             maps, def_pts, "border", True, projs, biases)),
-    ]
-    for label, shape, eps in (
-        ("context", (b, 4, 17, 128), 1e-5),
-        ("res", (b * 17, 5, 128), 1e-6),
-        ("joint", (b, 17, 640), 1e-6),
+    cases = []
+    samplers = [("K1", "CPN", tuple((h, w, 256) for h, w in LEVELS), False)]
+    samplers += [("K5", name, dims, True)
+                 for name, dims in sorted(HRNET_PYRAMIDS.items())]
+    for kern, pyramid, dims, mixed in samplers:
+        timed = pyramid != "W48"  # K5's times: the W32 request
+        for case, calls, maps, pts, mode, projs, biases in _sampler_cases(
+                gen, dtype, b, dims, mixed):
+            cases.append((
+                kern, f"{pyramid} {case}", calls if timed else 0,
+                lambda maps=maps, pts=pts, mode=mode, projs=projs,
+                biases=biases: deformable.sample_points_multi(
+                    maps, pts, mode, True, projs, biases),
+                lambda maps=maps, pts=pts, mode=mode, projs=projs,
+                biases=biases: deformable.sample_points_multi_reference(
+                    maps, pts, mode, True, projs, biases),
+                _sampler_work(maps, pts, projs, mode == "border"),
+                _grid_sample_fn(maps, pts, mode, projs, biases),
+            ))
+    # the H36M lifter's widths (embed 128, joint 5 x 128), then the 3DHP
+    # lifters' (embed 64/96, joint 320/480), which no request timed here
+    # runs (weight 0)
+    for label, shape, eps, calls in (
+        ("context", (b, 4, 17, 128), 1e-5, 4),
+        ("res", (b * 17, 5, 128), 1e-6, 4),
+        ("joint", (b, 17, 640), 1e-6, 4),
+        ("3DHP res", (b * 17, 5, 64), 1e-6, 0),
+        ("3DHP res", (b * 17, 5, 96), 1e-6, 0),
+        ("3DHP joint", (b, 17, 320), 1e-6, 0),
+        ("3DHP joint", (b, 17, 480), 1e-6, 0),
     ):
         d = shape[-1]
         x = randn(*shape)
@@ -149,56 +296,99 @@ def _kernel_cases(dtype, gen):
              uniform(-0.1, 0.1, 2 * d),
              uniform(-1, 1, 2 * d, d) / (2 * d) ** 0.5,
              uniform(-0.1, 0.1, d))
+        rows = x.numel() // d
         cases.append((
-            "K2", f"{label} D={d}", 4,
+            "K2", f"{label} D={d}", calls,
             lambda x=x, p=p, eps=eps: fused_mlp.ln_mlp_residual_kernel(
                 x, *p, eps),
             lambda x=x, p=p, eps=eps: fused_mlp.ln_mlp_reference(
                 x, *p, eps),
+            (2 * x.numel() * x.element_size()
+             + sum(t.numel() * 4 for t in p), 8 * rows * d * d),
+            None,
         ))
-    xa = randn(b * 17, 5, 128)
-    wa = (randn(128, 384, scale=128 ** -0.5), randn(384, scale=0.1),
-          randn(128, 128, scale=128 ** -0.5), randn(128, scale=0.1))
-    cases.append((
-        "K3", "R=b*17 N=5 D=128", 4,
-        lambda: small_attention.small_attention_kernel(xa, *wa, 8),
-        lambda: small_attention.attention_reference(xa, *wa, 8),
-    ))
-    qkv = randn(b, 17, 1920)
-    cases.append((
-        "K4", "N=17 D=640", 4,
-        lambda: joint_attention.attention_middle_kernel(qkv, 8),
-        lambda: joint_attention.attention_middle_reference(qkv, 8),
-    ))
+    r, n = b * 17, 5
+    for d, calls in ((128, 4), (64, 0), (96, 0)):
+        xa = randn(r, n, d)
+        wa = (randn(d, 3 * d, scale=d ** -0.5), randn(3 * d, scale=0.1),
+              randn(d, d, scale=d ** -0.5), randn(d, scale=0.1))
+        # the library's layout: (out, in) weights, (N, R, D) tokens
+        w_in, w_out = wa[0].t().contiguous(), wa[2].t().contiguous()
+        xt = xa.transpose(0, 1)
+        cases.append((
+            "K3", f"{'' if calls else '3DHP '}R=b*17 N={n} D={d}", calls,
+            lambda xa=xa, wa=wa: small_attention.small_attention_kernel(
+                xa, *wa, 8),
+            lambda xa=xa, wa=wa: small_attention.attention_reference(
+                xa, *wa, 8),
+            (2 * xa.numel() * xa.element_size()
+             + sum(t.numel() * t.element_size() for t in wa),
+             2 * r * n * d * 4 * d + 4 * r * n * n * d),
+            lambda xt=xt, d=d, wa=wa, w_in=w_in, w_out=w_out:
+                F.multi_head_attention_forward(
+                    xt, xt, xt, d, 8, w_in, wa[1], None, None, False, 0.0,
+                    w_out, wa[3], training=False, need_weights=False),
+        ))
+    for d, calls in ((640, 4), (320, 0), (480, 0)):
+        qkv = randn(b, 17, 3 * d)
+        q, k, v = qkv.view(b, 17, 3, 8, d // 8).permute(2, 0, 3, 1, 4)
+        cases.append((
+            "K4", f"{'' if calls else '3DHP '}N=17 D={d} hd={d // 8}", calls,
+            lambda qkv=qkv: joint_attention.attention_middle_kernel(qkv, 8),
+            lambda qkv=qkv: joint_attention.attention_middle_reference(
+                qkv, 8),
+            (qkv.numel() * qkv.element_size() * 4 // 3,
+             4 * b * 17 * 17 * d),
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
+        ))
     return cases
 
 
 def check_kernels():
-    """Phase 3: returns {kernel: {"max_abs_err", "ms", "plain_ms"}} with
-    bf16 errors and per-forward bf16 times (sum over the forward's calls)."""
-    results = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-               for k in PER_REQUEST}
+    """Phase 3: returns {kernel: JSON numbers} with bf16 errors and
+    per-request bf16 times (K5 at the W32 pyramid)."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")
+    results = {k: dict.fromkeys(keys, 0.0) for k in ("K1", "K2", "K3",
+                                                     "K4", "K5")}
+    bound_by = {}
     for dtype in (torch.bfloat16, torch.float32):
         gen = torch.Generator().manual_seed(1234)
+        name = str(dtype).removeprefix("torch.")
         with torch.inference_mode():
-            for kern, case, calls, fn, plain in _kernel_cases(dtype, gen):
+            for kern, case, calls, fn, plain, work, library in _kernel_cases(
+                    dtype, gen):
                 out, ref = fn(), plain()
                 torch.cuda.synchronize()
                 err, rel = _err(out, ref)
                 ms, plain_ms = _median_ms(fn), _median_ms(plain)
-                name = str(dtype).removeprefix("torch.")
+                lib_ms = None if library is None else _median_ms(library)
+                bound_ms, by = _bound(*work, dtype)
+                lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
                 print(f"kernels: {kern} {case} {name}: max_abs_err {err:.3e} "
                       f"rel {rel:.3e} (tol {TOL[dtype]:.0e}); kernel "
-                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib},"
+                      f" bound {bound_ms:.4f} ms ({by}: {work[0]} B, "
+                      f"{work[1]} ops)", flush=True)
                 if not rel <= TOL[dtype]:
                     raise AssertionError(
                         f"{kern} {case} {name}: rel error {rel:.3e} > "
                         f"{TOL[dtype]:.0e}")
-                if dtype == torch.bfloat16:
-                    r = results[kern]
-                    r["max_abs_err"] = max(r["max_abs_err"], err)
-                    r["ms"] += calls * ms
-                    r["plain_ms"] += calls * plain_ms
+                if dtype != torch.bfloat16:
+                    continue
+                res = results[kern]
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                if not calls:
+                    continue
+                res["ms"] += calls * ms
+                res["plain_ms"] += calls * plain_ms
+                res["bound_ms"] += calls * bound_ms
+                res["library_ms"] = (None if None in (lib_ms, res["library_ms"])
+                                     else res["library_ms"] + calls * lib_ms)
+                # the request's bound is named after its largest call's
+                if calls * bound_ms > bound_by.get(kern, (0.0, ""))[0]:
+                    bound_by[kern] = (calls * bound_ms, by)
+    for kern, res in results.items():
+        res["bound_by"] = bound_by[kern][1]
     return results
 
 
@@ -211,6 +401,7 @@ def _counters():
     return {"K1": (deformable, "launches"), "K2": (fused_mlp, "launches"),
             "K3": (small_attention, "launches"),
             "K4": (joint_attention, "launches"),
+            "K5": (deformable, "launches_k5"),
             "K6": (deformable, "launches_bwd")}
 
 
@@ -227,11 +418,16 @@ def _expected(per_call, calls=1):
     return {k: calls * per_call.get(k, 0) for k in _counters()}
 
 
-def check_slice(card):
-    """Phase 4: returns the main path's launch counts."""
+def check_serving(name, requests_n, card):
+    """Phases 4 and 5: serve ``requests_n`` requests of the full-width
+    ``slice_config(name)`` through ``serve.lift``, checking each request's
+    launches and the output, and one request against the plain knobs.
+    Returns the launch counts of the requests."""
     from contextaware_poseformer_tpu_torch import serve
 
-    cfg = serve.slice_config()
+    phase = "slice" if name == "h36m_cpn" else "hrnet"
+    per_request = PER_REQUEST[name]
+    cfg = serve.slice_config(name)
     t0 = time.perf_counter()
     model = serve.build_serving_model(
         cfg, "cuda", generator=torch.Generator().manual_seed(0))
@@ -243,11 +439,13 @@ def check_slice(card):
                        generator=gen).cuda(),
          (torch.rand(BATCH, 17, 2, generator=gen) * 2 - 1).cuda(),
          (torch.rand(BATCH, 17, 2, generator=gen) * w).cuda())
-        for _ in range(REQUESTS)
+        for _ in range(requests_n)
     ]
-    print(f"slice: model built in {time.perf_counter() - t0:.1f} s "
-          f"(image {h}x{w}, lifter embed {cfg.model.lifter.embed_dim_ratio} "
-          f"depth {cfg.model.lifter.depth}, backbone "
+    lc, bc = cfg.model.lifter, cfg.model.backbone
+    print(f"{phase}: {name} built in {time.perf_counter() - t0:.1f} s "
+          f"(image {h}x{w}, {bc.kind} width {bc.width}, maps "
+          f"{bc.feature_dims}, lifter embed {lc.embed_dim_ratio} depth "
+          f"{lc.depth} deformable {lc.use_deformable}, "
           f"{cfg.model.compute_dtype})", flush=True)
 
     _reset_counts()
@@ -257,18 +455,18 @@ def check_slice(card):
         outs.append(serve.lift(model, *req))
         torch.cuda.synchronize()
         grew = {k: v - before[k] for k, v in _counts().items()}
-        if grew != _expected(PER_REQUEST):
-            raise AssertionError(f"request {i}: kernel launches {grew}, "
-                                 f"expected {PER_REQUEST}")
+        if grew != _expected(per_request):
+            raise AssertionError(f"{name} request {i}: kernel launches "
+                                 f"{grew}, expected {per_request}")
     launches = _counts()
     for out in outs:
         if out.shape != (BATCH, 17, 3) or not torch.isfinite(out).all():
-            raise AssertionError(f"bad output {tuple(out.shape)}, finite="
-                                 f"{bool(torch.isfinite(out).all())}")
+            raise AssertionError(f"{name}: bad output {tuple(out.shape)}, "
+                                 f"finite={bool(torch.isfinite(out).all())}")
 
     plain_cfg = replace(cfg, model=replace(cfg.model, lifter=replace(
-        cfg.model.lifter, sampler="gather", attention="einsum",
-        attention_joint="einsum", mlp="einsum")))
+        lc, sampler="gather", attention="einsum", attention_joint="einsum",
+        mlp="einsum")))
     plain = serve.build_serving_model(
         plain_cfg, "cuda", generator=torch.Generator().manual_seed(1))
     plain.load_state_dict(model.state_dict())
@@ -276,29 +474,89 @@ def check_slice(card):
     ref = serve.lift(plain, *requests[0])
     torch.cuda.synchronize()
     if _counts() != before:
-        raise AssertionError("the plain path launched a kernel")
+        raise AssertionError(f"{name}: the plain path launched a kernel")
     rel = ((outs[0] - ref).pow(2).mean().sqrt()
            / ref.pow(2).mean().sqrt()).item()
-    print(f"slice: {REQUESTS} requests of {BATCH} frames -> "
+    print(f"{phase}: {name}: {requests_n} request(s) of {BATCH} frames -> "
           f"{tuple(outs[0].shape)} finite; launches per request "
-          f"{PER_REQUEST}; kernel vs plain "
-          f"rel RMS {rel:.3e} (tol {SLICE_REL_RMS:.0e})", flush=True)
+          f"{per_request}; kernel vs plain rel RMS {rel:.3e} (tol "
+          f"{SLICE_REL_RMS:.0e})", flush=True)
     if not rel <= SLICE_REL_RMS:
-        raise AssertionError(f"slice rel RMS {rel:.3e} > {SLICE_REL_RMS}")
+        raise AssertionError(f"{name} rel RMS {rel:.3e} > {SLICE_REL_RMS}")
 
-    rates = []
+    host_ms = []
     for m in (model, plain):
         serve.lift(m, *requests[0])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for req in requests * 3:
-            serve.lift(m, *req)
+        for i in range(TIMED_REQUESTS):
+            serve.lift(m, *requests[i % requests_n])
         torch.cuda.synchronize()
-        rates.append(BATCH * 3 * REQUESTS / (time.perf_counter() - t0))
-    print(f"slice: {rates[0]:.1f} frames/s with the kernels, {rates[1]:.1f} "
-          f"frames/s plain (information only; batch {BATCH}, {card})",
-          flush=True)
+        host_ms.append((time.perf_counter() - t0) * 1e3 / TIMED_REQUESTS)
+    print(f"{phase}: {name}: {host_ms[0]:.3f} ms a request, "
+          f"{BATCH * 1e3 / host_ms[0]:.1f} frames/s with the kernels; "
+          f"{host_ms[1]:.3f} ms, {BATCH * 1e3 / host_ms[1]:.1f} frames/s "
+          f"plain (information only; host clock over {TIMED_REQUESTS} "
+          f"requests, batch {BATCH}, {card})", flush=True)
+    _where_time_goes(phase, name, cfg, model, requests[0], host_ms[0],
+                     f"batch {BATCH}, {card}")
+    del model, plain
+    torch.cuda.empty_cache()
     return launches
+
+
+def _where_time_goes(phase, name, cfg, model, req, host_ms, tag):
+    """Information only: device ms of one request's stages by CUDA events
+    (normalize, backbone, lifter, each including the host's dispatch gaps),
+    then over PROFILED requests under torch.profiler the device busy ms a
+    request, the idle share of the unprofiled host time a request
+    ``host_ms``, and the TOP_KERNELS kernels by device time."""
+    from contextaware_poseformer_tpu_torch import serve
+    from contextaware_poseformer_tpu_torch.data import augment
+    from contextaware_poseformer_tpu_torch.models.capf import (
+        crop_coords_to_grid,
+    )
+
+    frames, kp, kpc = req
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    feat_dtype = getattr(torch, cfg.model.lifter.compute_dtype)
+    with torch.inference_mode():
+        events[0].record()
+        images = augment.serving_images(frames, cfg.model.backbone,
+                                        dtype=model.backbone.dtype)
+        events[1].record()
+        feats = model.backbone(images)
+        events[2].record()
+        model.lifter(kp, crop_coords_to_grid(kpc, cfg.model.image_shape),
+                     [f.to(feat_dtype) for f in feats])
+        events[3].record()
+    torch.cuda.synchronize()
+    stages = [events[i].elapsed_time(events[i + 1]) for i in range(3)]
+    print(f"{phase}: {name}: stages " + ", ".join(
+        f"{stage} {ms:.3f} ms" for stage, ms in zip(
+            ("normalize", "backbone", "lifter"), stages))
+        + f" (CUDA events, one request; {tag})", flush=True)
+
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED):
+            serve.lift(model, *req)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / PROFILED
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / PROFILED
+    print(f"{phase}: {name}: device busy {busy_ms:.3f} ms a request, idle "
+          f"{1 - busy_ms / host_ms:.1%} of the unprofiled {host_ms:.3f} ms "
+          f"(torch.profiler over {PROFILED} requests, which took "
+          f"{profiled_ms:.3f} ms each; {tag})", flush=True)
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    for e in kernels[:TOP_KERNELS]:
+        print(f"{phase}: {name}: kernel "
+              f"{e.self_device_time_total / 1e3 / PROFILED:.3f} ms "
+              f"{e.count / PROFILED:.1f}x {e.key[:90]}", flush=True)
 
 
 def _edge_points(gen, *shape, lo=-1.5, hi=1.5):
@@ -340,8 +598,25 @@ def _backward_case(label, dtype, maps, pts, grads, mode, need_df):
     return errs["d(points)"][0], ms, plain_ms
 
 
+def _grid_sample_backward_fn(maps, pts, grads, mode, need_df):
+    """The library call for a K6 call: autograd's ``grid_sampler_2d_backward``
+    per level. It takes the border clamp's gradient as 1 at an exact edge
+    where K6 (the JAX package's ``jnp.clip``) takes 0.5."""
+    b, levels = pts.shape[:2]
+    grid = pts.reshape(b, levels, 1, -1, 2)
+    pad = {"zeros": 0, "border": 1}[mode]
+
+    def run():
+        return [torch.ops.aten.grid_sampler_2d_backward(
+            g.reshape(b, 1, -1, f.shape[-1]).permute(0, 3, 1, 2),
+            f.permute(0, 3, 1, 2), grid[:, l], 0, pad, True,
+            [need_df, True]) for l, (f, g) in enumerate(zip(maps, grads))]
+
+    return run
+
+
 def check_backward():
-    """Phase 5: K6 against the plain backward. Returns K6's JSON numbers:
+    """Phase 6: K6 against the plain backward. Returns K6's JSON numbers:
     fp32 d(points) error and per-step times of the training step's call
     (border, no dF, batch TRAIN_BATCH; 4 calls a step)."""
     for dtype in (torch.float32, torch.bfloat16):
@@ -373,12 +648,28 @@ def check_backward():
         f"K6 border P=272 float32 without dF, batch {TRAIN_BATCH} (the "
         "training step's call)", torch.float32, maps, pts, grads, "border",
         False)
+    lib_ms = _median_ms(_grid_sample_backward_fn(maps, pts, grads, "border",
+                                                 False))
+    # bytes: the distinct tap rows, the upstream gradients, the points in
+    # and their gradients out; 16 operations a sampled channel
+    nbytes, ops = 2 * pts.numel() * 4, 0
+    for l, (f, g) in enumerate(zip(maps, grads)):
+        nbytes += (_distinct_taps(f, pts.reshape(TRAIN_BATCH, 4, -1, 2)[:, l],
+                                  True) * f.shape[-1] * 4
+                   + g.numel() * 4)
+        ops += 16 * g.numel()
+    bound_ms, by = _bound(nbytes, ops, torch.float32)
     calls = PER_TRAIN_STEP["K6"]
-    return {"max_abs_err": err, "ms": calls * ms, "plain_ms": calls * plain_ms}
+    print(f"backward: K6 the training step's call: library {lib_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({by}: {nbytes} B, {ops} ops)",
+          flush=True)
+    return {"max_abs_err": err, "ms": calls * ms, "plain_ms": calls * plain_ms,
+            "bound_ms": calls * bound_ms, "bound_by": by,
+            "library_ms": calls * lib_ms}
 
 
 def check_train(card):
-    """Phase 6: returns the training run's launch counts."""
+    """Phase 7: returns the training run's launch counts."""
     from contextaware_poseformer_tpu_torch.data import pipeline
     from contextaware_poseformer_tpu_torch.models.capf import (
         ContextAwarePoseFormer,
@@ -535,13 +826,15 @@ def main() -> None:
         print(f"build: {ln}", flush=True)
 
     results = check_kernels()
-    served = check_slice(card)
+    served = [check_serving("h36m_cpn", REQUESTS, card)]
+    served += [check_serving(name, n, card)
+               for name, n in HRNET_REQUESTS.items()]
     results["K6"] = check_backward()
     trained = check_train(card)
     kernels = [
         {"name": k, "route": "cuda", "source": CSRC + SOURCES[k],
-         "replaces": REPLACES[k], "launches": served[k] + trained[k],
-         **results[k]}
+         "replaces": REPLACES[k],
+         "launches": sum(s[k] for s in served) + trained[k], **results[k]}
         for k in SOURCES
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

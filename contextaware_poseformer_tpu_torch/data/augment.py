@@ -1,11 +1,11 @@
 """Device-side batch preparation: normalization, root-centering, flip
 augmentation, test-time flip and occlusion.
 
-Port of the CPN branches of ``contextaware_poseformer_tpu/data/augment.py``
-(37-203): ``Batch``, ``normalize_images`` and ``serving_images``,
-``root_center``, ``flip_batch``, ``train_augment``, ``flip_test_inputs``,
-``flip_test_merge``, ``erase_regions`` and ``gamma_correct``. The HRNet
-normalization comes with the HRNet slice.
+Port of ``contextaware_poseformer_tpu/data/augment.py`` (37-203): ``Batch``,
+``normalize_images`` (HRNet: ImageNet mean/std; CPN: pixel mean) and
+``serving_images``, ``root_center``, ``flip_batch``, ``train_augment``,
+``flip_test_inputs``, ``flip_test_merge``, ``erase_regions`` and
+``gamma_correct``.
 
 Every function is shape-preserving and runs on the tensors' device. The
 train-time flip is one coin per BATCH, as in the reference, drawn from an
@@ -20,6 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 CPN_PIXEL_MEAN = (122.7717, 115.9465, 102.9801)  # RGB, /255 at use
 
 
@@ -36,12 +38,15 @@ def normalize_images(images_u8_bgr: torch.Tensor, backbone_kind: str,
                      dtype=torch.float32) -> torch.Tensor:
     """(b, H, W, 3) uint8 BGR -> normalized float RGB in ``dtype``; the
     normalization math runs in fp32."""
-    if backbone_kind != "cpn":
-        raise NotImplementedError(
-            f"{backbone_kind!r} normalization is not ported; only CPN")
     x = images_u8_bgr.flip(-1).float()  # BGR -> RGB
-    mean = torch.tensor(CPN_PIXEL_MEAN, device=x.device) / 255.0
-    return (x / 255.0 - mean).to(dtype)
+    if backbone_kind == "hrnet":
+        mean = torch.tensor(IMAGENET_MEAN, device=x.device)
+        std = torch.tensor(IMAGENET_STD, device=x.device)
+        return ((x / 255.0 - mean) / std).to(dtype)
+    if backbone_kind == "cpn":
+        mean = torch.tensor(CPN_PIXEL_MEAN, device=x.device) / 255.0
+        return (x / 255.0 - mean).to(dtype)
+    raise ValueError(backbone_kind)
 
 
 def serving_images(images_u8_bgr: torch.Tensor, backbone_cfg,

@@ -3,8 +3,8 @@ batches, then a copy to the device.
 
 Port of ``contextaware_poseformer_tpu/data/pipeline.py:28-95`` without its
 JAX import: ``RawBatch`` (numpy leaves here), ``_assemble`` and
-``batch_iterator``. Datasets are the JAX package's own, which import no JAX
-(``data/synthetic.py``, ``data/h36m.py``).
+``batch_iterator``. Datasets are the port's copies (``data/synthetic.py``,
+``data/h36m.py``).
 
 Fixed shapes always: train drops the remainder (shuffled anyway); eval pads
 the final batch and reports ``valid``, which the evaluator trims.

@@ -2,8 +2,9 @@
 
 Port of ``contextaware_poseformer_tpu/models/backbone_common.py``: the float
 branch of ``ConvBN`` (54-227, float path 214-227),
-``resize_bilinear_align_corners`` (249-280) and ``max_pool_3x3_s2``
-(389-412). The int8 modes (``quantize`` other than "none") are not ported.
+``add_upsampled_nearest`` (235-246), ``resize_bilinear_align_corners``
+(249-280) and ``max_pool_3x3_s2`` (389-412). The int8 modes (``quantize``
+other than "none") are not ported.
 
 Tensors are NHWC at every function here. Each op runs on the NCHW-shaped
 ``permute`` view of its input, which for an NHWC-contiguous tensor is
@@ -19,6 +20,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from contextaware_poseformer_tpu_torch.models import init
+
+
+def module_name(torch_prefix: str) -> str:
+    """Torch parameter prefix (the flax module name, such as
+    ``resnet.layer1.0.conv1``) -> the backbone's module name
+    (``resnet_layer1_0_conv1``); ``models/bridge.py`` maps flax names by
+    the same rule."""
+    return torch_prefix.replace(".", "_")
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -60,6 +69,19 @@ class ConvBN(nn.Module):
                            stride=self.stride, padding=self.padding))
         y = torch.addcmul(self.bias.to(dt), y, self.scale.to(dt))
         return torch.relu(y) if self.relu else y
+
+
+def add_upsampled_nearest(acc: torch.Tensor, y: torch.Tensor,
+                          factor: int) -> torch.Tensor:
+    """acc + nearest-upsample(y, factor) on NHWC (torch nn.Upsample(
+    scale_factor=factor, mode='nearest')), without materialising the
+    upsampled tensor: ``y`` is broadcast over the (factor, factor) blocks of
+    a blocked view of ``acc``. Each output element is one addition, so the
+    result equals the add of the repeated tensor bit for bit."""
+    b, hh, ww, c = acc.shape
+    f = factor
+    blocked = acc.reshape(b, hh // f, f, ww // f, f, c)
+    return (blocked + y[:, :, None, :, None, :]).reshape(b, hh, ww, c)
 
 
 def resize_bilinear_align_corners(x: torch.Tensor,

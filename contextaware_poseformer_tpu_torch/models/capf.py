@@ -1,9 +1,9 @@
 """ContextAwarePoseFormer: the composite single-frame 3D pose model.
 
 Port of ``contextaware_poseformer_tpu/models/capf.py:31-39, 102-153``:
-frozen 2D backbone -> multi-scale NHWC features -> context-aware lifter ->
-root-relative 3D joints (b, joints, 3). Only the CPN backbone is ported;
-HRNet is refused. With ``cfg.backbone.frozen`` (every preset) the backbone
+frozen 2D backbone (HRNet or CPN, by ``cfg.backbone.kind``) -> four NHWC
+feature maps -> context-aware lifter -> root-relative 3D joints
+(b, joints, 3). With ``cfg.backbone.frozen`` (every preset) the backbone
 runs under ``torch.no_grad()`` and its maps are detached, the counterpart of
 the JAX package's stop-gradient (``capf.py:136-139``): no gradient reaches
 the conv stack and none of its activations are kept for a backward.
@@ -14,8 +14,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from contextaware_poseformer_tpu.config import ModelConfig
+from contextaware_poseformer_tpu_torch.config import ModelConfig
 from contextaware_poseformer_tpu_torch.models.cpn import CPN
+from contextaware_poseformer_tpu_torch.models.hrnet import HRNet
 from contextaware_poseformer_tpu_torch.models.lifter import PoseLifter
 
 
@@ -34,11 +35,12 @@ class ContextAwarePoseFormer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None):
         super().__init__()
-        if cfg.backbone.kind != "cpn":
-            raise NotImplementedError(
-                f"the {cfg.backbone.kind!r} backbone is not ported; only CPN")
+        backbones = {"hrnet": HRNet, "cpn": CPN}
+        if cfg.backbone.kind not in backbones:
+            raise ValueError(f"unknown backbone kind: {cfg.backbone.kind}")
         self.cfg = cfg
-        self.backbone = CPN(cfg.backbone, dtype=dtype, device=device)
+        self.backbone = backbones[cfg.backbone.kind](
+            cfg.backbone, dtype=dtype, device=device)
         self.lifter = PoseLifter(cfg.lifter, cfg.backbone.feature_dims,
                                  device=device)
 

@@ -25,10 +25,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from contextaware_poseformer_tpu.config import BackboneConfig
+from contextaware_poseformer_tpu_torch.config import BackboneConfig
 from contextaware_poseformer_tpu_torch.models.backbone_common import (
     ConvBN,
     max_pool_3x3_s2,
+    module_name,
     resize_bilinear_align_corners,
 )
 
@@ -36,11 +37,6 @@ RESNET50_LAYERS = (3, 4, 6, 3)
 LATERAL_CH = 256
 REFINE_PLANES = 128  # refineNet Bottleneck expansion = 2
 _PLANES = (64, 128, 256, 512)
-
-
-def module_name(torch_prefix: str) -> str:
-    """Torch parameter prefix (the flax module name) -> module name here."""
-    return torch_prefix.replace(".", "_")
 
 
 class CPN(nn.Module):

@@ -1,0 +1,188 @@
+"""HRNet-W32/W48 backbone, NHWC, frozen BN, four multi-scale maps.
+
+Port of the float graph of ``contextaware_poseformer_tpu/models/hrnet.py``
+(40-384; reference PoseHighResolutionNet, pose_hrnet.py:312-501):
+
+  stem (2x stride-2 3x3 conv) -> layer1 (4x Bottleneck-64, the first with a
+  1x1 downsample to 256) -> transition1 -> stage2 (1 module, 2 branches)
+  -> transition2 -> stage3 (4 modules, 3 branches)
+  -> transition3 -> stage4 (3 modules, 4 branches, last module single-output)
+
+Returns four NHWC maps, finest first: the fused level-0 output of the LAST
+stage-4 module and, as levels 1-3, the FIRST stage-4 module's pre-fuse
+branch outputs: the reference's HRModule.forward mutates its input list in
+place (pose_hrnet.py:289-290), so its ``x_list`` at pose_hrnet.py:501
+aliases them. Shapes for 256x192 input: (64,48,C), (32,24,2C), (16,12,4C),
+(8,6,8C). ``hrnet_stage4_truncate`` runs only stage-4 module 0 (levels 1-3
+unchanged, level 0 that module's fused output) and builds only its
+parameters.
+
+The int8 serving stack (``quantize`` other than "none": the int8 layer1 and
+its fused TPU kernel) is not ported; the constructor refuses it. Conv
+modules are named after the flax names with dots turned into underscores
+(``stage2.0.branches.0.0.conv1`` -> ``stage2_0_branches_0_0_conv1``), as in
+``models/cpn.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from contextaware_poseformer_tpu_torch.config import (
+    BackboneConfig,
+    HRNetStageConfig,
+)
+from contextaware_poseformer_tpu_torch.models.backbone_common import (
+    ConvBN,
+    add_upsampled_nearest,
+    module_name,
+)
+
+STEM_CH = 64
+LAYER1_PLANES = 64  # Bottleneck expansion 4 -> 256
+
+
+def _build_stage(conv, name: str, stage: HRNetStageConfig, num_modules: int,
+                 multi_scale_output: bool) -> None:
+    """Declare one stage's convs through ``conv(name, cin, cout, ks, stride,
+    relu)``: each module's branch BasicBlocks and fuse layers (the last
+    module of a single-output stage fuses level 0 only)."""
+    chans = list(stage.num_channels)
+    nb = stage.num_branches
+    for m in range(num_modules):
+        prefix = f"{name}.{m}"
+        last = m == num_modules - 1
+        for i in range(nb):
+            for b in range(stage.num_blocks[i]):
+                pre = f"{prefix}.branches.{i}.{b}"
+                conv(f"{pre}.conv1", chans[i], chans[i], 3, 1, True)
+                conv(f"{pre}.conv2", chans[i], chans[i], 3, 1, False)
+        num_out = nb if (multi_scale_output or not last) else 1
+        for i in range(num_out):
+            for j in range(nb):
+                if j > i:
+                    conv(f"{prefix}.fuse_layers.{i}.{j}.0", chans[j],
+                         chans[i], 1, 1, False)
+                for k in range(i - j):  # j < i: a stride-2 chain
+                    tail = k == i - j - 1
+                    conv(f"{prefix}.fuse_layers.{i}.{j}.{k}.0", chans[j],
+                         chans[i] if tail else chans[j], 3, 2, not tail)
+
+
+class HRNet(nn.Module):
+    def __init__(self, cfg: BackboneConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        if cfg.kind != "hrnet":
+            raise ValueError(f"HRNet with a {cfg.kind!r} backbone config")
+        if cfg.quantize != "none":
+            raise NotImplementedError(
+                "the HRNet int8 serving stack (quantize="
+                f"{cfg.quantize!r}) is not ported; use quantize='none'")
+        for stage in (cfg.stage2, cfg.stage3, cfg.stage4):
+            if stage.block != "BASIC":
+                raise ValueError(f"HRNet stage block {stage.block!r}: only "
+                                 "BASIC branches exist in the reference")
+        self.cfg = cfg
+        self.dtype = dtype
+        self.stage4_modules = (1 if cfg.hrnet_stage4_truncate
+                               else cfg.stage4.num_modules)
+
+        def conv(name, cin, cout, ks, stride, relu):
+            self.add_module(module_name(name), ConvBN(
+                cin, cout, ks, stride, relu, dtype, device=device))
+
+        conv("conv1", 3, STEM_CH, 3, 2, True)
+        conv("conv2", STEM_CH, STEM_CH, 3, 2, True)
+        p = LAYER1_PLANES
+        for b in range(4):
+            cin = STEM_CH if b == 0 else 4 * p
+            conv(f"layer1.{b}.conv1", cin, p, 1, 1, True)
+            conv(f"layer1.{b}.conv2", p, p, 3, 1, True)
+            conv(f"layer1.{b}.conv3", p, 4 * p, 1, 1, False)
+            if b == 0:
+                conv("layer1.0.downsample.0", cin, 4 * p, 1, 1, False)
+        c2, c3, c4 = (list(s.num_channels)
+                      for s in (cfg.stage2, cfg.stage3, cfg.stage4))
+        conv("transition1.0.0", 4 * p, c2[0], 3, 1, True)
+        conv("transition1.1.0.0", 4 * p, c2[1], 3, 2, True)
+        _build_stage(conv, "stage2", cfg.stage2, cfg.stage2.num_modules, True)
+        conv("transition2.2.0.0", c2[-1], c3[2], 3, 2, True)
+        _build_stage(conv, "stage3", cfg.stage3, cfg.stage3.num_modules, True)
+        conv("transition3.3.0.0", c3[-1], c4[3], 3, 2, True)
+        _build_stage(conv, "stage4", cfg.stage4, self.stage4_modules, False)
+
+    def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        return getattr(self, module_name(name))(x)
+
+    def _basic_block(self, x, prefix):
+        # BasicBlock (pose_hrnet.py:66-95); stage branches never downsample
+        y = self._conv(f"{prefix}.conv1", x)
+        y = self._conv(f"{prefix}.conv2", y)
+        return torch.relu(y + x)
+
+    def _bottleneck(self, x, prefix, downsample):
+        # Bottleneck, expansion 4 (pose_hrnet.py:98-136)
+        y = self._conv(f"{prefix}.conv1", x)
+        y = self._conv(f"{prefix}.conv2", y)
+        y = self._conv(f"{prefix}.conv3", y)
+        residual = self._conv(f"{prefix}.downsample.0", x) if downsample else x
+        return torch.relu(y + residual)
+
+    def _fuse(self, outs, prefix, num_out):
+        """out_i = relu(sum_j path_ij(x_j)) (pose_hrnet.py:225-303), summed in
+        the JAX package's order: j ascending, so j < i chains first, then the
+        identity term, then the upsampled j > i terms."""
+        fused = []
+        for i in range(num_out):
+            acc = None
+            for j in range(len(outs)):
+                if j > i:
+                    y = self._conv(f"{prefix}.fuse_layers.{i}.{j}.0", outs[j])
+                    acc = add_upsampled_nearest(acc, y, 2 ** (j - i))
+                    continue
+                y = outs[j]
+                for k in range(i - j):
+                    y = self._conv(f"{prefix}.fuse_layers.{i}.{j}.{k}.0", y)
+                acc = y if acc is None else acc + y
+            fused.append(torch.relu(acc))
+        return fused
+
+    def _stage(self, xs, name, stage, num_modules, multi_scale_output):
+        """Returns (final outputs, FIRST module's pre-fuse branch outputs)."""
+        first = None
+        for m in range(num_modules):
+            prefix = f"{name}.{m}"
+            outs = []
+            for i, y in enumerate(xs):
+                for b in range(stage.num_blocks[i]):
+                    y = self._basic_block(y, f"{prefix}.branches.{i}.{b}")
+                outs.append(y)
+            if first is None:
+                first = outs
+            last = m == num_modules - 1
+            num_out = len(outs) if (multi_scale_output or not last) else 1
+            xs = self._fuse(outs, prefix, num_out)
+        return xs, first
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """x: (N, H, W, 3) normalized -> 4 NHWC maps, finest first."""
+        cfg = self.cfg
+        x = self._conv("conv1", x)
+        x = self._conv("conv2", x)
+        x = self._bottleneck(x, "layer1.0", downsample=True)
+        for b in range(1, 4):
+            x = self._bottleneck(x, f"layer1.{b}", downsample=False)
+        xs = [self._conv("transition1.0.0", x),
+              self._conv("transition1.1.0.0", x)]
+        ys, _ = self._stage(xs, "stage2", cfg.stage2,
+                            cfg.stage2.num_modules, True)
+        # transition2/3: existing branches pass through; one new stride-2
+        # branch from the last one (pose_hrnet.py:484)
+        xs = [*ys, self._conv("transition2.2.0.0", ys[-1])]
+        ys, _ = self._stage(xs, "stage3", cfg.stage3,
+                            cfg.stage3.num_modules, True)
+        xs = [*ys, self._conv("transition3.3.0.0", ys[-1])]
+        ys, first = self._stage(xs, "stage4", cfg.stage4,
+                                self.stage4_modules, False)
+        return [ys[0], first[1], first[2], first[3]]

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from contextaware_poseformer_tpu.config import LifterConfig
+from contextaware_poseformer_tpu_torch.config import LifterConfig
 from contextaware_poseformer_tpu_torch.models import init
 from contextaware_poseformer_tpu_torch.models.layers import (
     Block,
@@ -222,7 +222,9 @@ class PoseLifter(nn.Module):
                 features: Sequence[torch.Tensor], deterministic: bool = True,
                 generator=None) -> torch.Tensor:
         """keypoints_2d (b, J, 2) full-frame normalized coords; ref (b, J, 2)
-        crop coords in [-1, 1]; features: NHWC maps, deepest first.
+        crop coords in [-1, 1]; features: the backbone's NHWC maps in its
+        order, one per ``feature_dims`` entry (HRNet finest first, CPN's
+        native pyramid deepest first).
         ``deterministic=False`` draws dropout and drop-path masks from
         ``generator``."""
         cfg = self.cfg

@@ -28,6 +28,16 @@
 // sample load and 4 weight loads feed 16 FMAs. Needs C and Cout divisible
 // by 4.
 //
+// K5: the same kernel also replaces the separable two-stage branch of
+// _sample_body_xy (deformable.py:148-197), which the TPU takes on large
+// maps with few channels (H*W >= 1024, C < 64: HRNet's 64x48 level 0 with
+// C = 32 or 48) only to fill its 128 output lanes. A gather has no lanes to
+// fill: each point still reads its four taps, so K5's port is this body at
+// those shapes. At C = 32 in bf16 a point is 4 sixteen-byte groups, so a
+// tile keeps 128 of the 256 threads busy in the blend (192 at C = 48), and
+// the dynamic shared memory is the largest projected level's (96 KB for
+// W48's 384-channel level), reserved by every block of the launch.
+//
 // Grid: (point tiles, levels, batch); block: kThreads threads.
 
 #include "common.cuh"

@@ -1,4 +1,4 @@
-"""Multi-level bilinear point sampling (K1) and its backward (K6): CUDA
+"""Multi-level bilinear point sampling (K1, K5) and its backward (K6): CUDA
 kernel wrappers, plain versions, the autograd Function and the dispatcher.
 
 Port of ``contextaware_poseformer_tpu/ops/deformable.py``:
@@ -11,10 +11,15 @@ Pallas backward ``_multi_bwd_pallas`` (617-645, 679-870, 907-925), and the
 The TPU kernel's one-hot/triangle matmul formulation, its batch chunking and
 its VMEM level grouping are TPU workarounds and are not carried over: the
 CUDA kernel (``csrc/sampler.cu``) gathers the four taps of each point and
-covers every level of a call in one launch. An optional per-level projection
-``W (C, hd)``, ``b (hd,)`` is fused as sample-then-project, which equals the
-JAX package's sample(F @ W + b) only in border mode, where the bilinear
-weights sum to one; both versions here refuse a projection in zeros mode.
+covers every level of a call in one launch. K5, the TPU kernel's separable
+two-stage body for large maps with few channels (``is_k5_level``: HRNet's
+64x48 level 0 with C = 32 or 48), exists only to fill the TPU's 128 output
+lanes; the gather reads each point's four taps whatever C is, so K5's port
+is the same CUDA kernel at those shapes, counted apart in ``launches_k5``.
+An optional per-level projection ``W (C, hd)``, ``b (hd,)`` is fused as
+sample-then-project, which equals the JAX package's sample(F @ W + b) only
+in border mode, where the bilinear weights sum to one; both versions here
+refuse a projection in zeros mode.
 
 Gradients: every call where an input requires grad goes through
 ``_SampleLevels``, whose forward is K1 (the plain forward for CPU tensors)
@@ -38,6 +43,7 @@ from contextaware_poseformer_tpu_torch.ops.grid_sample import (
 )
 
 launches = 0  # K1 launches (sample_points_multi)
+launches_k5 = 0  # K1 launches that sample a K5 level (is_k5_level)
 launches_bwd = 0  # K6 launches (sample_points_multi_backward)
 
 MAX_LEVELS = 8
@@ -52,6 +58,12 @@ def kernel_can_preproject(h: int, w: int, c: int, hd: int) -> bool:
     width condition is left: projecting pays when it narrows the samples."""
     del h, w
     return c > hd
+
+
+def is_k5_level(h: int, w: int, c: int) -> bool:
+    """True for a level the TPU sampler takes through its two-stage body
+    (K5; JAX ``_use_two_stage``): H*W >= 1024 and C < 64."""
+    return h * w >= 1024 and c < 64
 
 
 def _per_level(values, levels):
@@ -192,8 +204,9 @@ def _prepare(features, points, padding_mode, align_corners, projs, biases):
 
 def _launch_forward(features, points, padding_mode, align_corners, projs,
                     biases) -> tuple:
-    """One K1 launch (no autograd)."""
-    global launches
+    """One K1 launch (no autograd); a launch with a K5 level counts for K5
+    as well."""
+    global launches, launches_k5
     args, outs, keep, shapes = _prepare(
         features, points, padding_mode, align_corners, projs, biases)
     _build.require_cuda("sample_points_multi", *keep)
@@ -206,6 +219,7 @@ def _launch_forward(features, points, padding_mode, align_corners, projs,
                                  *_build.launch_target(features[0]))
     _build.check(lib, err, "sample_points_multi")
     launches += 1
+    launches_k5 += any(is_k5_level(*f.shape[1:]) for f in features)
     return tuple(o.reshape(s) for o, s in zip(outs, shapes))
 
 

@@ -1,17 +1,19 @@
 """Serving entry point of the port: uint8 frames -> (b, 17, 3) 3D joints.
 
 Port of the ``lift`` closure of ``bench.py:197-300`` (the JAX package's
-serving graph): in-graph normalization of raw BGR frames, the CPN backbone,
-then the PoseLifter.
+serving graph): in-graph normalization of raw BGR frames, the backbone
+(HRNet or CPN), then the PoseLifter.
 
-``slice_config()`` is ``deploy(preset("h36m_cpn"))`` with the backbone's
-int8 stack switched off (``quantize="none"``, no static amax, no int8
-stream or maps): the bf16 CPN with the native-resolution pyramid and the
-bf16 lifter with the fused sampler, attention and MLP kernels.
+``slice_config(name)`` is ``deploy(preset(name))`` with the backbone's int8
+stack switched off (``quantize="none"``, no static amax, no int8 stream or
+maps): the bf16 backbone (for CPN with the native-resolution pyramid) and
+the bf16 lifter with the fused sampler, attention and MLP kernels. Every
+preset serves: ``h36m_hrnet_32`` (the default model), ``h36m_hrnet_48``,
+``h36m_cpn``, ``mpi_3dhp_hrnet_32`` and ``mpi_3dhp_hrnet_48``.
 
 Usage::
 
-    cfg = slice_config()
+    cfg = slice_config("h36m_hrnet_32")
     model = build_serving_model(cfg, "cuda",
                                 generator=torch.Generator().manual_seed(0))
     joints = lift(model, frames_u8, kp2d, kp2d_crop)   # (b, 17, 3) fp32
@@ -23,7 +25,7 @@ from dataclasses import replace
 
 import torch
 
-from contextaware_poseformer_tpu.config import Config, deploy, preset
+from contextaware_poseformer_tpu_torch.config import Config, deploy, preset
 from contextaware_poseformer_tpu_torch.data import augment
 from contextaware_poseformer_tpu_torch.models.bridge import load_jax_variables
 from contextaware_poseformer_tpu_torch.models.capf import (
@@ -32,9 +34,10 @@ from contextaware_poseformer_tpu_torch.models.capf import (
 from contextaware_poseformer_tpu_torch.models.init import init_parameters
 
 
-def slice_config() -> Config:
-    """The ported serving configuration (see the module docstring)."""
-    cfg = deploy(preset("h36m_cpn"))
+def slice_config(name: str = "h36m_cpn") -> Config:
+    """The ported serving configuration of preset ``name`` (see the module
+    docstring)."""
+    cfg = deploy(preset(name))
     backbone = replace(
         cfg.model.backbone, quantize="none", serve_static_amax=False,
         cpn_int8_stream=False, cpn_int8_maps=False,

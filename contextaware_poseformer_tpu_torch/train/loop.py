@@ -17,7 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from contextaware_poseformer_tpu.config import Config
+from contextaware_poseformer_tpu_torch.config import Config
 from contextaware_poseformer_tpu_torch.data import pipeline
 from contextaware_poseformer_tpu_torch.models.capf import (
     ContextAwarePoseFormer,

@@ -3,9 +3,8 @@
 Port of ``contextaware_poseformer_tpu/train/metrics.py:30-98``
 (``h36m_evaluate``, ``h36m_summary``) over the port's losses: per-action P1
 (MPJPE), P2 (Procrustes) and MPJVE with the -1/-2 trial merging of
-Human36MMultiViewDataset.evaluate_using_pred (human36m.py:358-422). That
-module imports JAX through its losses, so it is not reused. The MPI-INF-3DHP
-PCK/AUC tables come with the 3DHP slice.
+Human36MMultiViewDataset.evaluate_using_pred (human36m.py:358-422). The
+MPI-INF-3DHP PCK/AUC tables come with the 3DHP slice.
 """
 
 from __future__ import annotations
@@ -14,8 +13,8 @@ from typing import Mapping
 
 import numpy as np
 
-from contextaware_poseformer_tpu.utils import skeleton
 from contextaware_poseformer_tpu_torch.train import losses
+from contextaware_poseformer_tpu_torch.utils import skeleton
 
 
 def h36m_evaluate(

@@ -25,11 +25,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from contextaware_poseformer_tpu.config import Config
-from contextaware_poseformer_tpu.utils import skeleton
+from contextaware_poseformer_tpu_torch.config import Config
 from contextaware_poseformer_tpu_torch.data import augment
 from contextaware_poseformer_tpu_torch.data.pipeline import RawBatch
 from contextaware_poseformer_tpu_torch.train import losses
+from contextaware_poseformer_tpu_torch.utils import skeleton
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,7 +27,7 @@ import dataclasses
 
 import torch
 
-from contextaware_poseformer_tpu import config as cfglib
+from contextaware_poseformer_tpu_torch import config as cfglib
 
 NOT_PORTED = {
     "hrnet": "the HRNet backbone is not ported yet (ROADMAP queue 1, item "
@@ -105,7 +105,7 @@ def make_config(args) -> cfglib.Config:
 
 def make_datasets(cfg, args):
     if args.synthetic:
-        from contextaware_poseformer_tpu.data.synthetic import (
+        from contextaware_poseformer_tpu_torch.data.synthetic import (
             SyntheticPoseDataset,
         )
 
@@ -118,7 +118,7 @@ def make_datasets(cfg, args):
             image_shape=cfg.model.image_shape, seed=cfg.train.seed + 99,
         )
         return train_ds, val_ds
-    from contextaware_poseformer_tpu.data.h36m import H36MDataset
+    from contextaware_poseformer_tpu_torch.data.h36m import H36MDataset
 
     train_ds = H36MDataset.from_pickle(
         cfg.data.train_labels_path, cfg.data.root, cfg.model.image_shape,

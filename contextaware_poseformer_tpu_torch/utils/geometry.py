@@ -1,0 +1,109 @@
+"""Affine crop transforms: the port's copy of ``get_affine_transform`` and
+``warp_affine_bilinear`` from ``contextaware_poseformer_tpu/utils/geometry.py``.
+
+- ``get_affine_transform``: center/scale*200 with `(w-1)*0.5` centering
+  (ContextPose/mvn/utils/img.py:16-48); the cv2.getAffineTransform call is
+  an exact 3-point linear solve.
+- ``warp_affine_bilinear``: cv2.warpAffine(INTER_LINEAR, zero border) in
+  numpy, for hosts without cv2.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _third_point(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    # Completes an orthogonal triangle: rotate (a-b) by 90deg around b.
+    direct = a - b
+    return b + np.array([-direct[1], direct[0]], dtype=np.float32)
+
+
+def get_affine_transform(
+    center,
+    scale,
+    output_size,
+    shift=(0.0, 0.0),
+    inv: bool = False,
+) -> np.ndarray:
+    """2x3 affine mapping the scale*200 box around `center` onto `output_size`.
+
+    `output_size` is (width, height). Matches mvn/utils/img.py:16-48 (rot=0
+    path) including the (w-1)*0.5 center convention.
+    """
+    center = np.asarray(center, dtype=np.float32)
+    scale = np.asarray(scale, dtype=np.float32)
+    shift = np.asarray(shift, dtype=np.float32)
+
+    scale_tmp = scale * 200.0
+    src_w = scale_tmp[0]
+    dst_w, dst_h = float(output_size[0]), float(output_size[1])
+
+    src_dir = np.array([0.0, (src_w - 1) * -0.5], dtype=np.float32)
+    dst_dir = np.array([0.0, (dst_w - 1) * -0.5], dtype=np.float32)
+
+    src = np.zeros((3, 2), dtype=np.float32)
+    dst = np.zeros((3, 2), dtype=np.float32)
+    src[0] = center + scale_tmp * shift
+    src[1] = center + src_dir + scale_tmp * shift
+    dst[0] = [(dst_w - 1) * 0.5, (dst_h - 1) * 0.5]
+    dst[1] = dst[0] + dst_dir
+    src[2] = _third_point(src[0], src[1])
+    dst[2] = _third_point(dst[0], dst[1])
+
+    if inv:
+        src, dst = dst, src
+
+    # Solve for A (2x3) with A @ [x, y, 1]^T = dst over the 3 point pairs
+    ones = np.ones((3, 1), dtype=np.float64)
+    lhs = np.concatenate([src.astype(np.float64), ones], axis=1)  # (3,3)
+    trans = np.linalg.solve(lhs, dst.astype(np.float64)).T  # (2,3)
+    return trans.astype(np.float64)
+
+
+def warp_affine_bilinear(image: np.ndarray, trans: np.ndarray,
+                         output_size) -> np.ndarray:
+    """cv2.warpAffine(INTER_LINEAR, zero border) replacement in numpy.
+
+    `trans` maps source -> destination (as produced by get_affine_transform);
+    it is inverted and the source sampled bilinearly. Matches crop_image
+    (mvn/utils/img.py:51-69) for the no-rotation transforms used here.
+    """
+    out_w, out_h = int(output_size[0]), int(output_size[1])
+    full = np.eye(3, dtype=np.float64)
+    full[:2] = trans
+    inv = np.linalg.inv(full)
+
+    ys, xs = np.mgrid[0:out_h, 0:out_w].astype(np.float64)
+    src_x = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
+    src_y = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
+
+    h, w = image.shape[:2]
+    x0 = np.floor(src_x).astype(np.int64)
+    y0 = np.floor(src_y).astype(np.int64)
+    wx = src_x - x0
+    wy = src_y - y0
+
+    img = image.astype(np.float64)
+    if img.ndim == 2:
+        img = img[..., None]
+
+    def fetch(yi, xi):
+        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        yc = np.clip(yi, 0, h - 1)
+        xc = np.clip(xi, 0, w - 1)
+        vals = img[yc, xc]
+        vals[~valid] = 0.0
+        return vals
+
+    out = (
+        fetch(y0, x0) * ((1 - wy) * (1 - wx))[..., None]
+        + fetch(y0, x0 + 1) * ((1 - wy) * wx)[..., None]
+        + fetch(y0 + 1, x0) * (wy * (1 - wx))[..., None]
+        + fetch(y0 + 1, x0 + 1) * (wy * wx)[..., None]
+    )
+    if image.ndim == 2:
+        out = out[..., 0]
+    if np.issubdtype(image.dtype, np.integer):
+        out = np.clip(np.round(out), 0, 255)
+    return out.astype(image.dtype)

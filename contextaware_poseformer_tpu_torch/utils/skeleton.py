@@ -1,0 +1,48 @@
+"""Skeleton roots, flip permutations and action names: the port's copy of
+what it uses from ``contextaware_poseformer_tpu/utils/skeleton.py``.
+
+Index tables match the reference exactly:
+- H36M left/right joints: ContextPose/mvn/datasets/utils.py:11-12, train.py:26-27
+- 3DHP left/right joints: ContextPose_mpi/run_3dhp.py:45-46
+- action names: ContextPose/mvn/datasets/human36m.py:18-33
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+NUM_JOINTS = 17
+
+# Human3.6M (root = pelvis, index 0)
+H36M_ROOT = 0
+H36M_JOINTS_LEFT = (4, 5, 6, 11, 12, 13)
+H36M_JOINTS_RIGHT = (1, 2, 3, 14, 15, 16)
+
+# MPI-INF-3DHP (root = joint 14; ContextPose_mpi/run_3dhp.py:66)
+MPI3DHP_ROOT = 14
+MPI3DHP_JOINTS_LEFT = (5, 6, 7, 11, 12, 13)
+MPI3DHP_JOINTS_RIGHT = (2, 3, 4, 8, 9, 10)
+
+H36M_ACTION_NAMES = tuple(
+    f"{name}-{trial}"
+    for name in (
+        "Directions", "Discussion", "Eating", "Greeting", "Phoning",
+        "Posing", "Purchases", "Sitting", "SittingDown", "Smoking",
+        "TakingPhoto", "Waiting", "Walking", "WalkingDog", "WalkingTogether",
+    )
+    for trial in (1, 2)
+)
+
+
+def flip_permutation(joints_left, joints_right, num_joints: int = NUM_JOINTS):
+    """Joint permutation for horizontal flip: swap left<->right, rest fixed
+    (the reference's ``x[..., left+right, :] = x[..., right+left, :]``,
+    ContextPose/mvn/datasets/utils.py:58)."""
+    perm = np.arange(num_joints)
+    perm[list(joints_left)] = list(joints_right)
+    perm[list(joints_right)] = list(joints_left)
+    return perm
+
+
+H36M_FLIP_PERM = flip_permutation(H36M_JOINTS_LEFT, H36M_JOINTS_RIGHT)
+MPI3DHP_FLIP_PERM = flip_permutation(MPI3DHP_JOINTS_LEFT, MPI3DHP_JOINTS_RIGHT)

@@ -1,5 +1,6 @@
-"""The port's serving slice end to end, its weight bridge, its jax-free
-import and its smoke script's behaviour without a GPU.
+"""The port's serving slice end to end, its weight bridge, its import free
+of JAX and of the JAX package, and its smoke script's behaviour without a
+GPU.
 
 The slice is ``serve.slice_config()`` cut to test size (64x64 frames, CPN
 stages (1,1,1,1), lifter embed 32, depth 1) and run from uint8 frames to
@@ -228,8 +229,11 @@ def test_slice_config_and_int8_refusal():
     assert lif.sampler_pre_project and lif.sampler == "auto"
     with pytest.raises(NotImplementedError, match="int8"):
         ContextAwarePoseFormer(deploy(preset("h36m_cpn")).model)
-    with pytest.raises(NotImplementedError, match="hrnet"):
-        ContextAwarePoseFormer(preset("h36m_hrnet_32").model)
+    with pytest.raises(NotImplementedError, match="int8"):
+        ContextAwarePoseFormer(deploy(preset("h36m_hrnet_32")).model)
+    hrnet = serve.slice_config("h36m_hrnet_32").model
+    assert (hrnet.backbone.kind, hrnet.backbone.quantize) == ("hrnet", "none")
+    ContextAwarePoseFormer(hrnet, device="meta")
 
 
 def test_serving_inputs_match_jax():
@@ -278,8 +282,10 @@ train_modules = [
     "contextaware_poseformer_tpu_torch.train.train_h36m",
 ]
 assert all(m in sys.modules for m in train_modules), train_modules
-from contextaware_poseformer_tpu.config import preset
-from contextaware_poseformer_tpu.data.synthetic import SyntheticPoseDataset
+from contextaware_poseformer_tpu_torch.config import preset
+from contextaware_poseformer_tpu_torch.data.synthetic import (
+    SyntheticPoseDataset,
+)
 from contextaware_poseformer_tpu_torch.train.loop import Trainer
 tcfg = preset("h36m_cpn")
 tcfg = replace(tcfg, model=replace(
@@ -294,8 +300,25 @@ state = trainer.init_state(0)
 m = trainer.train_epoch(state, 0, max_steps=1)
 summary, _ = trainer.evaluate(state, max_batches=1)
 assert state.step == 1 and m["steps"] == 1, m
+# one small HRNet request (stage 4 of two modules, one block a branch)
+from contextaware_poseformer_tpu_torch.config import HRNetStageConfig as S
+hcfg = serve.slice_config("h36m_hrnet_32")
+hcfg = replace(hcfg, model=replace(
+    hcfg.model, image_shape=(64, 64),
+    backbone=replace(hcfg.model.backbone, width=8,
+                     stage2=S(1, 2, (1, 1), (8, 16)),
+                     stage3=S(1, 3, (1, 1, 1), (8, 16, 32)),
+                     stage4=S(2, 4, (1, 1, 1, 1), (8, 16, 32, 64))),
+    lifter=replace(hcfg.model.lifter, embed_dim_ratio=32, depth=1)))
+hmodel = serve.build_serving_model(hcfg, "cpu",
+                                   generator=torch.Generator().manual_seed(0))
+out = serve.lift(hmodel, torch.zeros(2, 64, 64, 3, dtype=torch.uint8),
+                 torch.zeros(2, 17, 2), torch.full((2, 17, 2), 32.0))
+assert out.shape == (2, 17, 3) and bool(torch.isfinite(out).all())
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax")
+             or m == "contextaware_poseformer_tpu"
+             or m.startswith("contextaware_poseformer_tpu."))
 assert not bad, bad
 print("port ok")
 """

@@ -25,6 +25,11 @@ from contextaware_poseformer_tpu_torch.ops import (
 
 LEVELS = ((8, 6), (16, 12), (32, 24), (64, 48))
 KERNEL_MODULES = (deformable, fused_mlp, small_attention, joint_attention)
+# the HRNet-W32 / W48 pyramids of a 256x192 frame (level 0: K5's shapes)
+HRNET_PYRAMIDS = {
+    "W32": ((64, 48, 32), (32, 24, 64), (16, 12, 128), (8, 6, 256)),
+    "W48": ((64, 48, 48), (32, 24, 96), (16, 12, 192), (8, 6, 384)),
+}
 
 
 @pytest.fixture
@@ -45,16 +50,20 @@ def _cases(dev, dtype):
     pts = (torch.rand(3, 4, 17, 4, 2, generator=g) * 3 - 1.5).to(dev)
     projs = [r(64, 16, scale=0.1).float() for _ in feats]
     biases = [r(16).float() for _ in feats]
-    # K2 at both lifter widths; row counts leave a partial row tile
+    # K2 at the H36M lifter's widths (embed 128, joint 640) and the 3DHP
+    # lifters' (64/96, 320/480); row counts leave a partial row tile
     mlp = {}
-    for d in (640, 128):
+    for d in (640, 128, 64, 96, 320, 480):
         p = [t.float() for t in (r(d), r(d), r(d, 2 * d, scale=d ** -0.5),
                                  r(2 * d), r(2 * d, d, scale=(2 * d) ** -0.5),
                                  r(d))]
         mlp[d] = (r(5, 17, d), p)
-    xa = r(7, 5, 128)
-    w = (r(128, 384, scale=0.09), r(384), r(128, 128, scale=0.09), r(128))
-    qkv = r(3, 17, 1920)
+    # K3 at embed 128 (64/96 for 3DHP), K4 at joint width 640 (320/480)
+    attn = {}
+    for d in (128, 64, 96):
+        attn[d] = (r(7, 5, d), (r(d, 3 * d, scale=d ** -0.5), r(3 * d),
+                                r(d, d, scale=d ** -0.5), r(d)))
+    qkvs = {d: r(3, 17, 3 * d) for d in (640, 320, 480)}
     return {
         "K1-zeros": (
             lambda: deformable.sample_points_multi(feats, pts, "zeros"),
@@ -69,17 +78,24 @@ def _cases(dev, dtype):
             lambda x=x, p=p: fused_mlp.ln_mlp_residual_kernel(x, *p, 1e-6),
             lambda x=x, p=p: fused_mlp.ln_mlp_reference(x, *p, 1e-6))
            for d, (x, p) in mlp.items()},
-        "K3": (lambda: small_attention.small_attention_kernel(xa, *w, 8),
-               lambda: small_attention.attention_reference(xa, *w, 8)),
-        "K4": (lambda: joint_attention.attention_middle_kernel(qkv, 8),
-               lambda: joint_attention.attention_middle_reference(qkv, 8)),
+        **{"K3" if d == 128 else f"K3-{d}": (
+            lambda x=x, w=w: small_attention.small_attention_kernel(
+                x, *w, 8),
+            lambda x=x, w=w: small_attention.attention_reference(x, *w, 8))
+           for d, (x, w) in attn.items()},
+        **{"K4" if d == 640 else f"K4-{d}": (
+            lambda q=q: joint_attention.attention_middle_kernel(q, 8),
+            lambda q=q: joint_attention.attention_middle_reference(q, 8))
+           for d, q in qkvs.items()},
     }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ["K1-zeros", "K1-border-proj", "K2-640",
-                                  "K2-128", "K3", "K4"])
+@pytest.mark.parametrize("case", [
+    "K1-zeros", "K1-border-proj", "K2-640", "K2-128", "K3", "K4",
+    "K2-64", "K2-96", "K2-320", "K2-480", "K3-64", "K3-96", "K4-320",
+    "K4-480"])
 def test_kernel_matches_plain_version(cuda_device, case, dtype):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     kernel, plain = _cases(cuda_device, dtype)[case]
@@ -94,11 +110,50 @@ def test_kernel_matches_plain_version(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
-def test_kernels_refuse_inputs_that_require_grad(cuda_device):
-    """The kernels no longer refuse inputs that require grad: K1-K4 run
-    under autograd (K1's backward is K6, K2-K4's the plain versions' VJP)
-    and their gradients match autograd through the plain versions (fp32,
-    1e-4 of max|plain grad|)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+@pytest.mark.parametrize("pyramid", sorted(HRNET_PYRAMIDS))
+def test_k5_sampler_matches_plain_version(cuda_device, pyramid, mode, dtype):
+    """K5: the sampler at an HRNet pyramid, the zeros call with the 17
+    reference points and the border call with 272 deformable points and the
+    lifter's in-kernel projections to 32 channels (W32's level 0, whose
+    C = 32 is the head dim, stays raw). Counts one K1 and one K5 launch;
+    tolerance as above."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(2)
+    dims = HRNET_PYRAMIDS[pyramid]
+    feats = [torch.randn(3, h, w, c, generator=g).to(cuda_device, dtype)
+             for h, w, c in dims]
+    p = (17,) if mode == "zeros" else (17, 16)
+    pts = (torch.rand(3, 4, *p, 2, generator=g) * 3 - 1.5).to(cuda_device)
+    projs = biases = None
+    if mode == "border":
+        on = [deformable.kernel_can_preproject(h, w, c, 32)
+              for h, w, c in dims]
+        assert on == [pyramid == "W48", True, True, True]
+        projs = [(torch.randn(c, 32, generator=g) * c ** -0.5).to(cuda_device)
+                 if o else None for (_, _, c), o in zip(dims, on)]
+        biases = [torch.randn(32, generator=g).to(cuda_device) * 0.1
+                  if o else None for o in on]
+    before = (deformable.launches, deformable.launches_k5)
+    with torch.inference_mode():
+        outs = deformable.sample_points_multi(feats, pts, mode, True, projs,
+                                              biases)
+        refs = deformable.sample_points_multi_reference(feats, pts, mode,
+                                                        True, projs, biases)
+    assert (deformable.launches, deformable.launches_k5) == (
+        before[0] + 1, before[1] + 1)
+    for o, r in zip(outs, refs):
+        assert o.shape == r.shape and o.dtype == r.dtype
+        err = (o.float() - r.float()).abs().max().item()
+        assert err <= tol * r.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_kernels_run_under_autograd(cuda_device):
+    """K1-K4 run under autograd (K1's backward is K6, K2-K4's the plain
+    versions' VJP) and their gradients match autograd through the plain
+    versions (fp32, 1e-4 of max|plain grad|)."""
     torch.manual_seed(0)
     cases = _cases(cuda_device, torch.float32)
     counts = [m.launches for m in KERNEL_MODULES] + [deformable.launches_bwd]
@@ -202,6 +257,52 @@ def test_serving_slice_runs_through_every_kernel(cuda_device, monkeypatch):
     ref = serve.lift(plain, frames, kp, kpc)
     assert [m.launches for m in KERNEL_MODULES] == [
         1 + depth, 3 * depth, depth, depth]
+    assert out.shape == (4, 17, 3) and bool(torch.isfinite(out).all())
+    rel = ((out - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
+    assert rel.item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_hrnet_slice_runs_through_every_kernel(cuda_device, monkeypatch):
+    """A cut h36m_hrnet_32 slice (256x192 frames, so level 0 is 64x48 and
+    takes K5; width 8 with one block a branch; lifter embed 32, depth 2)
+    launches K1 = K5 = 1 + depth, K2 = 3 * depth, K3 = K4 = depth times per
+    request and agrees with the plain knobs on the same weights."""
+    from contextaware_poseformer_tpu_torch.config import HRNetStageConfig
+
+    for mod in KERNEL_MODULES:
+        monkeypatch.setattr(mod, "launches", 0)
+    monkeypatch.setattr(deformable, "launches_k5", 0)
+    depth, width = 2, 8
+    c = (width, 2 * width, 4 * width, 8 * width)
+    cfg = serve.slice_config("h36m_hrnet_32")
+    cfg = replace(cfg, model=replace(
+        cfg.model,
+        backbone=replace(
+            cfg.model.backbone, width=width,
+            stage2=HRNetStageConfig(1, 2, (1, 1), c[:2]),
+            stage3=HRNetStageConfig(1, 3, (1, 1, 1), c[:3]),
+            stage4=HRNetStageConfig(2, 4, (1, 1, 1, 1), c)),
+        lifter=replace(cfg.model.lifter, embed_dim_ratio=32, depth=depth)))
+    plain_cfg = replace(cfg, model=replace(cfg.model, lifter=replace(
+        cfg.model.lifter, sampler="gather", attention="einsum",
+        attention_joint="einsum", mlp="einsum")))
+    gen = torch.Generator().manual_seed(0)
+    model = serve.build_serving_model(cfg, cuda_device, generator=gen)
+    plain = serve.build_serving_model(plain_cfg, cuda_device, generator=gen)
+    plain.load_state_dict(model.state_dict())
+    h, w = cfg.model.image_shape
+    frames = torch.randint(0, 256, (4, h, w, 3), dtype=torch.uint8,
+                           generator=gen)
+    kp = torch.rand(4, 17, 2, generator=gen) * 2 - 1
+    kpc = torch.rand(4, 17, 2, generator=gen) * w
+    expected = [1 + depth, 3 * depth, depth, depth, 1 + depth]
+    out = serve.lift(model, frames, kp, kpc)
+    counts = [m.launches for m in KERNEL_MODULES] + [deformable.launches_k5]
+    assert counts == expected
+    ref = serve.lift(plain, frames, kp, kpc)
+    counts = [m.launches for m in KERNEL_MODULES] + [deformable.launches_k5]
+    assert counts == expected
     assert out.shape == (4, 17, 3) and bool(torch.isfinite(out).all())
     rel = ((out - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
     assert rel.item() <= 2e-2
