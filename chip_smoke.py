@@ -31,12 +31,25 @@ Phases, one line of output each (failures raise and exit non-zero):
 5. hrnet: the same for the full-width h36m_hrnet_32 slice (bf16 HRNet-W32,
    3 requests), then one request each of h36m_hrnet_48, mpi_3dhp_hrnet_32
    and mpi_3dhp_hrnet_48;
-6. backward: K6 against the plain backward at the training shapes (four
+6. int8: K10 (the int8 convolution) at every shape of the HRNet deploy
+   graph and K9 (the fused int8 layer1) on the 64x48 stem output, batch 64,
+   W32 and W48, against their plain versions (bit for bit; K9 also against
+   K10's per-conv chain on the card), with median kernel and plain device
+   times, the bound and, for K10's 1x1 shape, ``torch._int_mm`` (information
+   only); then the full-width ``serve.deploy_config("h36m_hrnet_32")`` (the
+   bf16 HRNet with the int8 layer1 and int8 wide convs) calibrated by
+   ``serve.prepare`` on one seeded batch of 64 frames serves 3 requests with
+   K1-K5, K9 and K10 at their per-request counts, agrees with the plain
+   versions of every kernel to a relative RMS of 2e-2 and prints its
+   relative RMS against the float slice of the same weights (information),
+   then where its time goes as in the slice phase; then one request each of
+   the other three HRNet deploy configurations;
+7. backward: K6 against the plain backward at the training shapes (four
    64x48x256 maps, batch 64, 4x272 border points and 4x17 zeros points),
    fp32 and bf16, with and without dF: max abs error and error / max|plain|
    of d(points) and dF, median kernel and plain device times; then the
    training step's own call (fp32, border, no dF) at batch 256;
-7. train: the h36m_cpn training preset at full width (fp32 CPN ResNet-50
+8. train: the h36m_cpn training preset at full width (fp32 CPN ResNet-50
    with the /4 graph, lifter embed 128 depth 4 with deformable blocks,
    AdamW, batch 256, flip augmentation, drop-path 0.2; TF32 off; synthetic
    data and weights from seed 0), set up by the training CLI's own
@@ -47,16 +60,17 @@ Phases, one line of output each (failures raise and exit non-zero):
    agree with one through the plain sampler (``sampler="gather"``) from the
    same weights on the same batch: loss to 1e-5 relative, lifter gradients
    to a global relative L2 of 1e-4. Steps/s (information only);
-8. a JSON line of per-kernel results, then the final JSON status line.
+9. a JSON line of per-kernel results, then the final JSON status line.
    ``launches`` are summed over the serving and training runs, each counted
    from 0. Errors are the largest over the bf16 cases. Times are bf16 at
-   the CPN serving shapes for K1-K4 and at HRNet-W32's for K5, both per
-   request (the sum over a request's calls), K6's
+   the CPN serving shapes for K1-K4 and at HRNet-W32's for K5, K9 and K10,
+   all per request (the sum over a request's calls), K6's
    those of the training step's call at batch 256 times its 4 calls a step.
    ``bound_ms`` is the larger of the bytes the calls must move over
-   3.35 TB/s and their operations over 989 TFLOP/s (bf16) or 67 TFLOP/s
-   (fp32), the H100 SXM peaks; a sampler must read only the distinct map
-   rows its points' taps touch, counted from this run's points.
+   3.35 TB/s and their operations over 989 TFLOP/s (bf16), 67 TFLOP/s
+   (fp32) or 1979 TOP/s (int8), the H100 SXM peaks; a sampler must read
+   only the distinct map rows its points' taps touch, counted from this
+   run's points.
 """
 
 from __future__ import annotations
@@ -85,6 +99,9 @@ PER_REQUEST = {  # launches per request: depth 4, deformable blocks on H36M
 }
 HRNET_REQUESTS = {"h36m_hrnet_32": REQUESTS, "h36m_hrnet_48": 1,
                   "mpi_3dhp_hrnet_32": 1, "mpi_3dhp_hrnet_48": 1}
+# the int8 deploy graph adds K9 (one launch a layer1 block) and K10 (85
+# convs with both channel counts >= 128, and transition1's two)
+INT8_PER_REQUEST = {"K9": 4, "K10": 87}
 TIMED_REQUESTS = 20  # host-clock frames/s, after the checked requests
 PROFILED = 5  # requests under torch.profiler
 TOP_KERNELS = 8
@@ -101,10 +118,13 @@ REPLACES = {
     "K4": "contextaware_poseformer_tpu/ops/joint_attention.py:50",
     "K5": "contextaware_poseformer_tpu/ops/deformable.py:148",
     "K6": "contextaware_poseformer_tpu/ops/deformable.py:783",
+    "K9": "contextaware_poseformer_tpu/ops/layer1_chain.py:51",
+    "K10": "contextaware_poseformer_tpu/models/backbone_common.py:204",
 }
 SOURCES = {"K1": "sampler.cu", "K2": "fused_mlp.cu",
            "K3": "small_attention.cu", "K4": "joint_attention.cu",
-           "K5": "sampler.cu", "K6": "sampler_bwd.cu"}
+           "K5": "sampler.cu", "K6": "sampler_bwd.cu",
+           "K9": "layer1_chain.cu", "K10": "int8_conv.cu"}
 LEVELS = ((8, 6), (16, 12), (32, 24), (64, 48))  # CPN native pyramid
 HRNET_PYRAMIDS = {  # 256x192 frames, finest first
     "W32": ((64, 48, 32), (32, 24, 64), (16, 12, 128), (8, 6, 256)),
@@ -113,7 +133,19 @@ HRNET_PYRAMIDS = {  # 256x192 frames, finest first
 HEAD_DIM = 32  # deformable head dim: embed 128 over 4 heads
 SLEEP_CYCLES = 4_000_000  # ~2 ms of device clock ahead of a timed window
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense FLOP/s
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,  # dense FLOP/s
+            torch.int8: 1979e12}  # dense int8 TOP/s
+# K10 at the deploy graph's shapes: (name, H, W, Cin, Cout, k, stride, int8
+# input, calls a request); channel counts are multiples of the branch width
+# C (32 or 48) except transition1's input, layer1's 256
+K10_SHAPES = (
+    ("transition1.0", 64, 48, 256, 1, 3, 1, True, 1),
+    ("transition1.1", 64, 48, 256, 2, 3, 2, True, 1),
+    ("branch 16x12", 16, 12, 4, 4, 3, 1, False, 56),
+    ("branch 8x6", 8, 6, 8, 8, 3, 1, False, 24),
+    ("fuse 1x1", 8, 6, 8, 4, 1, 1, False, 2),
+    ("fuse / transition3 s2", 16, 12, 4, 8, 3, 2, False, 3),
+)
 
 
 def _median_ms(fn, runs=20, warmup=3):
@@ -392,17 +424,175 @@ def check_kernels():
     return results
 
 
+def _int8_conv_case(gen, b, h, w, cin, cout, k, int8_in):
+    """Random K10 operands: x (int8 with its amax, or bf16), kernel_q and
+    the fp32 wscale/scale/bias."""
+    if int8_in:
+        x = torch.randint(-127, 128, (b, h, w, cin), generator=gen,
+                          dtype=torch.int8).cuda()
+        amax = torch.tensor(9.5, device="cuda")
+    else:  # post-ReLU, as the wide convs see their inputs (half zeros)
+        x = torch.relu(torch.randn(b, h, w, cin, generator=gen) * 2).to(
+            "cuda", torch.bfloat16)
+        amax = None
+    kq = torch.randint(-127, 128, (cout, k * k * cin), generator=gen,
+                       dtype=torch.int8).cuda()
+    vecs = [(torch.rand(cout, generator=gen) * 0.01 + 1e-3).cuda(),
+            (torch.rand(cout, generator=gen) + 0.5).cuda(),
+            (torch.randn(cout, generator=gen) * 0.1).cuda()]
+    return x, kq, vecs, amax
+
+
+def _layer1_blocks(gen):
+    """Random pieces and calibrated scales of the four layer1 blocks."""
+    def pieces(o, k):
+        return (torch.randint(-127, 128, (o, k), generator=gen,
+                              dtype=torch.int8).cuda(),
+                (torch.rand(o, generator=gen) * 0.02 + 1e-3).cuda(),
+                (torch.rand(o, generator=gen) + 0.5).cuda(),
+                (torch.randn(o, generator=gen) * 0.1).cuda())
+
+    return [{"conv1": pieces(64, 64 if b == 0 else 256),
+             "conv2": pieces(64, 576), "conv3": pieces(256, 64),
+             "downsample": pieces(256, 64) if b == 0 else None,
+             "t1": torch.tensor(60.0 + b, device="cuda"),
+             "t2": torch.tensor(80.0 + b, device="cuda"),
+             "out": torch.tensor(45.0 + b, device="cuda")} for b in range(4)]
+
+
+def _exact(out, ref):
+    """(share of equal elements, max abs error)."""
+    eq = (out == ref).float().mean().item()
+    return eq, (out.float() - ref.float()).abs().max().item()
+
+
+def check_int8_kernels(card):
+    """Phase 6a: K10 at the deploy graph's shapes and K9 on the stem
+    output, batch BATCH, W32 and W48, against their plain versions (equal
+    bit for bit). Returns {kernel: JSON numbers}, times per W32 request."""
+    from contextaware_poseformer_tpu_torch.ops import int8_conv, layer1_chain
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms")
+    results = {k: {**dict.fromkeys(keys, 0.0), "library_ms": None}
+               for k in ("K9", "K10")}
+    b = BATCH
+    largest = 0.0
+    for width in (32, 48):
+        gen = torch.Generator().manual_seed(width)
+        for name, h, w, cin, cout, k, stride, int8_in, calls in K10_SHAPES:
+            # channel counts: transition1 reads layer1's 256; the rest are
+            # multiples of the branch width C
+            cin = cin if name.startswith("transition1") else cin * width
+            cout = cout * width
+            x, kq, vecs, amax = _int8_conv_case(gen, b, h, w, cin, cout, k,
+                                                int8_in)
+            with torch.inference_mode():
+                def fn():
+                    return int8_conv.int8_conv(x, kq, *vecs, amax, stride,
+                                               True)
+
+                def plain():
+                    return int8_conv.int8_conv_reference(x, kq, *vecs, amax,
+                                                         stride, True)
+
+                out, ref = fn(), plain()
+                torch.cuda.synchronize()
+                eq, err = _exact(out, ref)
+                ms, plain_ms = _median_ms(fn), _median_ms(plain)
+            ho, wo = out.shape[1:3]
+            m = b * ho * wo
+            work = (x.numel() * x.element_size() + kq.numel()
+                    + 3 * 4 * cout + out.numel() * 2,
+                    2 * m * cout * kq.shape[1])
+            bound_ms, by = _bound(*work, torch.int8)
+            lib = "no single call"
+            if k == 1:  # the int32 product alone (information only)
+                a2 = torch.randint(-127, 128, (m, cin), generator=gen,
+                                   dtype=torch.int8).cuda()
+                bt = kq.t()
+                lib = (f"torch._int_mm {_median_ms(lambda: torch._int_mm(a2, bt)):.4f}"
+                       " ms (int32 product only)")
+            print(f"int8: K10 W{width} {name} {h}x{w} {cin}->{cout} k{k} "
+                  f"s{stride} ({'int8' if int8_in else 'bf16'} in): equal "
+                  f"{eq:.6f}, max_abs_err {err:.3e}; kernel {ms:.4f} ms, plain"
+                  f" {plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} "
+                  f"ms ({by}: {work[0]} B, {work[1]} ops), {calls} a "
+                  f"request ({card})", flush=True)
+            if eq != 1.0:
+                raise AssertionError(f"K10 W{width} {name}: equal share "
+                                     f"{eq}, max abs error {err}")
+            del x, kq, vecs, out, ref
+            if width == 32:  # the request whose times the JSON line holds
+                res = results["K10"]
+                res["ms"] += calls * ms
+                res["plain_ms"] += calls * plain_ms
+                res["bound_ms"] += calls * bound_ms
+                if calls * bound_ms > largest:  # named after its largest
+                    largest, res["bound_by"] = calls * bound_ms, by
+        x = (torch.randn(b, 64, 48, 64, generator=gen) * 2).to(
+            "cuda", torch.bfloat16)
+        blocks = _layer1_blocks(gen)
+        amax = torch.tensor(6.0, device="cuda")
+        with torch.inference_mode():
+            def fn():
+                return layer1_chain.layer1_chain_kernel(x, amax, blocks)
+
+            def plain():
+                return layer1_chain.layer1_chain_reference(x, amax, blocks)
+
+            def chain():
+                return layer1_chain.layer1_int8_chain(x, amax, blocks)
+
+            out, ref, via = fn(), plain(), chain()
+            torch.cuda.synchronize()
+            eq, err = _exact(out, ref)
+            eq_chain, _ = _exact(out, via)
+            ms, plain_ms, chain_ms = (_median_ms(fn), _median_ms(plain),
+                                      _median_ms(chain))
+        weights = 0
+        for blk in blocks:
+            for conv in ("conv1", "conv2", "conv3", "downsample"):
+                if blk[conv] is not None:
+                    kq = blk[conv][0]
+                    weights += kq.numel() + 3 * 4 * kq.shape[0]
+        pixels = b * 64 * 48
+        work = (x.numel() * 2 + weights + out.numel(),
+                2 * pixels * (64 * 64 + 3 * 256 * 64 + 4 * 576 * 64
+                              + 4 * 64 * 256 + 256 * 64))
+        bound_ms, by = _bound(*work, torch.int8)
+        print(f"int8: K9 (W{width} run) {b}x64x48x64 bf16 -> int8 x256: "
+              f"equal {eq:.6f} (plain), {eq_chain:.6f} (K10 chain on the "
+              f"card), max_abs_err {err:.0f}, saturated "
+              f"{(ref.abs() == 127).float().mean().item():.3f}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, K10 chain "
+              f"{chain_ms:.4f} ms, library no single call, bound "
+              f"{bound_ms:.4f} ms ({by}: {work[0]} B, {work[1]} ops; {card})",
+              flush=True)
+        if eq != 1.0 or eq_chain != 1.0:
+            raise AssertionError(f"K9: equal share {eq} (plain), {eq_chain} "
+                                 "(K10 chain)")
+        if width == 32:
+            results["K9"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=by)
+        del x, blocks, out, ref, via
+    torch.cuda.empty_cache()
+    return results
+
+
 def _counters():
     """{kernel: (module, name of its launch counter)}"""
     from contextaware_poseformer_tpu_torch.ops import (
-        deformable, fused_mlp, joint_attention, small_attention,
+        deformable, fused_mlp, int8_conv, joint_attention, layer1_chain,
+        small_attention,
     )
 
     return {"K1": (deformable, "launches"), "K2": (fused_mlp, "launches"),
             "K3": (small_attention, "launches"),
             "K4": (joint_attention, "launches"),
             "K5": (deformable, "launches_k5"),
-            "K6": (deformable, "launches_bwd")}
+            "K6": (deformable, "launches_bwd"),
+            "K9": (layer1_chain, "launches"),
+            "K10": (int8_conv, "launches")}
 
 
 def _counts():
@@ -418,21 +608,38 @@ def _expected(per_call, calls=1):
     return {k: calls * per_call.get(k, 0) for k in _counters()}
 
 
-def check_serving(name, requests_n, card):
-    """Phases 4 and 5: serve ``requests_n`` requests of the full-width
-    ``slice_config(name)`` through ``serve.lift``, checking each request's
-    launches and the output, and one request against the plain knobs.
+def check_serving(name, requests_n, card, int8=False):
+    """Phases 4, 5 and 6b: serve ``requests_n`` requests of the full-width
+    ``slice_config(name)`` (``deploy_config(name)`` with ``int8``, after
+    ``serve.prepare`` on one seeded batch) through ``serve.lift``, checking
+    each request's launches and the output, and one request against the
+    plain knobs (and, with ``int8``, K9's and K10's plain versions).
     Returns the launch counts of the requests."""
     from contextaware_poseformer_tpu_torch import serve
 
-    phase = "slice" if name == "h36m_cpn" else "hrnet"
+    phase = "int8" if int8 else "slice" if name == "h36m_cpn" else "hrnet"
     per_request = PER_REQUEST[name]
-    cfg = serve.slice_config(name)
+    if int8:
+        per_request = {**per_request, **INT8_PER_REQUEST}
+    cfg = serve.deploy_config(name) if int8 else serve.slice_config(name)
     t0 = time.perf_counter()
     model = serve.build_serving_model(
         cfg, "cuda", generator=torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
     h, w = cfg.model.image_shape
+    if int8:
+        calib = torch.randint(0, 256, (BATCH, h, w, 3), dtype=torch.uint8,
+                              generator=torch.Generator().manual_seed(1))
+        t1 = time.perf_counter()
+        serve.prepare(model, [calib.cuda()])
+        torch.cuda.synchronize()
+        from contextaware_poseformer_tpu_torch.models import backbone_common
+        scales = backbone_common.calibration_buffers(model.backbone)
+        print(f"{phase}: {name} prepared in {time.perf_counter() - t1:.1f} "
+              f"s (calibration on {BATCH} seeded frames, quantile "
+              f"{cfg.model.backbone.calib_quantile}; layer1 scales "
+              f"{min(v.item() for v in scales.values()):.4g}.."
+              f"{max(v.item() for v in scales.values()):.4g})", flush=True)
     gen = torch.Generator().manual_seed(0)
     requests = [
         (torch.randint(0, 256, (BATCH, h, w, 3), dtype=torch.uint8,
@@ -470,6 +677,8 @@ def check_serving(name, requests_n, card):
     plain = serve.build_serving_model(
         plain_cfg, "cuda", generator=torch.Generator().manual_seed(1))
     plain.load_state_dict(model.state_dict())
+    if int8:
+        plain.backbone.int8_impl = "plain"
     before = _counts()
     ref = serve.lift(plain, *requests[0])
     torch.cuda.synchronize()
@@ -483,6 +692,17 @@ def check_serving(name, requests_n, card):
           f"{SLICE_REL_RMS:.0e})", flush=True)
     if not rel <= SLICE_REL_RMS:
         raise AssertionError(f"{name} rel RMS {rel:.3e} > {SLICE_REL_RMS}")
+    if int8:  # the float slice drawn from the same seed: the same weights
+        floating = serve.build_serving_model(
+            serve.slice_config(name), "cuda",
+            generator=torch.Generator().manual_seed(0))
+        flt = serve.lift(floating, *requests[0])
+        rel_float = ((outs[0] - flt).pow(2).mean().sqrt()
+                     / flt.pow(2).mean().sqrt()).item()
+        print(f"{phase}: {name}: int8 deploy vs the float bf16 slice of the "
+              f"same weights: rel RMS {rel_float:.3e} (information only)",
+              flush=True)
+        del floating
 
     host_ms = []
     for m in (model, plain):
@@ -828,6 +1048,9 @@ def main() -> None:
     results = check_kernels()
     served = [check_serving("h36m_cpn", REQUESTS, card)]
     served += [check_serving(name, n, card)
+               for name, n in HRNET_REQUESTS.items()]
+    results.update(check_int8_kernels(card))
+    served += [check_serving(name, n, card, int8=True)
                for name, n in HRNET_REQUESTS.items()]
     results["K6"] = check_backward()
     trained = check_train(card)

@@ -48,13 +48,14 @@ class BackboneConfig:
     num_joints: int = 17
     frozen: bool = True  # reference: fix_weights=True (human36m.yaml:21)
     # int8 serving stack of the JAX package: "none" | "c128" | "static" |
-    # "serve" (the port runs "none" only)
+    # "serve" (the port runs "none", and "serve" for HRNet)
     quantize: str = "none"
     # activation-scale calibration statistic of the int8 stack
     calib_quantile: float = 1.0
     # quantize="serve": calibrated static amax for the wide int8 convs
     serve_static_amax: bool = False
-    # layer1 under quantize="serve": "xla" or "pallas" (a TPU kernel)
+    # layer1 under quantize="serve": "xla" (per-conv int8) or "pallas" (the
+    # fused chain, K9 in the port)
     layer1_impl: str = "xla"
     # CPN only: hand the lifter the native-resolution pyramid (/32../4)
     # instead of four /4 maps; a measured-accuracy deployment trade, not
@@ -313,8 +314,9 @@ def deploy(cfg: Config) -> Config:
     backbone and lifter stream, the fused sampler with in-kernel projection,
     fused attention and LN/MLP kernels, and the JAX package's int8 serving
     stack (``quantize="serve"`` and, for CPN, the native pyramid, static
-    amax, int8 stream and int8 maps). The port serves this with the int8
-    stack switched off (``serve.slice_config``)."""
+    amax, int8 stream and int8 maps). The port serves it for HRNet
+    (``serve.deploy_config``) and, with the int8 stack switched off, for
+    every preset (``serve.slice_config``)."""
     is_cpn = cfg.model.backbone.kind == "cpn"
     return replace(
         cfg,

@@ -32,15 +32,25 @@ _build_error: str | None = None
 
 
 def _build() -> None:
+    """Compile into a private name, then rename: a process that loads the
+    library while another builds it sees the old file or the whole new one,
+    never half of it (a half-written .so fails to load, "file too
+    short")."""
     os.makedirs(os.path.dirname(_LIB), exist_ok=True)
-    subprocess.run(
-        [
-            "g++", "-O3", "-fPIC", "-shared", "-std=c++17",
-            "-o", _LIB, _SRC, "-ljpeg", "-lpthread",
-        ],
-        check=True,
-        capture_output=True,
-    )
+    tmp = f"{_LIB}.{os.getpid()}.{threading.get_ident()}"
+    try:
+        subprocess.run(
+            [
+                "g++", "-O3", "-fPIC", "-shared", "-std=c++17",
+                "-o", tmp, _SRC, "-ljpeg", "-lpthread",
+            ],
+            check=True,
+            capture_output=True,
+        )
+        os.replace(tmp, _LIB)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def get_lib() -> ctypes.CDLL | None:

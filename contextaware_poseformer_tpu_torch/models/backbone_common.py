@@ -1,10 +1,13 @@
 """Backbone building blocks: folded-BN convolution and resize ops, NHWC.
 
-Port of ``contextaware_poseformer_tpu/models/backbone_common.py``: the float
-branch of ``ConvBN`` (54-227, float path 214-227),
+Port of ``contextaware_poseformer_tpu/models/backbone_common.py``: ``ConvBN``
+(54-227) with its float path and the int8 routes of ``quantize="serve"``
+(dynamic wide convs, ``x_quant`` and ``packed``), ``observed_amax`` (31-51),
 ``add_upsampled_nearest`` (235-246), ``resize_bilinear_align_corners``
-(249-280) and ``max_pool_3x3_s2`` (389-412). The int8 modes (``quantize``
-other than "none") are not ported.
+(249-280), ``max_pool_3x3_s2`` (389-412), and the serving-state idioms of
+283-386 (``prepare_int8_weights``, ``check_calibrated``, a parameter
+fingerprint and ``check_serving_fresh``). ``quantize="static"`` and
+``serve_static_amax`` are not ported.
 
 Tensors are NHWC at every function here. Each op runs on the NCHW-shaped
 ``permute`` view of its input, which for an NHWC-contiguous tensor is
@@ -15,11 +18,18 @@ a layout copy.
 
 from __future__ import annotations
 
+import hashlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from contextaware_poseformer_tpu_torch.models import init
+from contextaware_poseformer_tpu_torch.ops import int8_conv
+from contextaware_poseformer_tpu_torch.ops.int8_conv import f32_const
+
+WIDE = 128  # both channel counts at least this: the dynamic int8 route
+HIST_BINS = 2048  # observed_amax's histogram
 
 
 def module_name(torch_prefix: str) -> str:
@@ -38,37 +48,196 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def observed_amax(x: torch.Tensor, quantile: float = 1.0) -> torch.Tensor:
+    """Calibration statistic of an int8 activation scale (fp32, 0-dim):
+    max|x| for ``quantile >= 1``, else the upper edge of the first of 2048
+    histogram bins over [0, max|x|] whose cumulative share reaches
+    ``quantile``. Equal to the JAX package's bit for bit: the edges are
+    ``jnp.linspace``'s (``max * (i / 2048)`` in fp32, the last edge ``max``
+    itself), a value goes to the bin of the last edge <= it (``searchsorted``
+    side right, the last edge inclusive), and the counts are fp32 as
+    ``jnp.histogram`` accumulates them (a bin stops at 2**24), summed in
+    order."""
+    ax = x.float().abs().reshape(-1)
+    m = ax.max()
+    if quantile >= 1.0:
+        return m
+    step = torch.arange(HIST_BINS, dtype=torch.float32,
+                        device=ax.device) / HIST_BINS
+    edges = torch.cat([m * step, m[None]])
+    idx = torch.searchsorted(edges, ax, right=True)
+    idx = torch.where(ax == m, HIST_BINS, idx)
+    counts = torch.bincount(idx, minlength=HIST_BINS + 2)[1:HIST_BINS + 1]
+    hist = counts.clamp(max=2 ** 24).float().cpu()  # in-order cumsum
+    cum = torch.cumsum(hist, 0) / f32_const(float(ax.numel()), hist)
+    first = torch.argmax((cum >= f32_const(quantile, hist)).to(torch.uint8))
+    return ((first + 1).float() * m.cpu() / HIST_BINS).to(ax.device)
+
+
+def quantize_weight(weight: torch.Tensor) -> tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """OIHW float weight -> (kernel_q (O, kh*kw*I) int8 with K ordered
+    (kh, kw, I), wscale (O,) fp32): ``wscale = max|k| / 127`` per output
+    channel and ``kernel_q = round(k / wscale)``, in fp32, as the JAX
+    package's ConvBN computes them (``backbone_common.py:180-183``)."""
+    k32 = weight.detach().float()
+    wscale = torch.div(k32.abs().amax(dim=(1, 2, 3)), f32_const(127.0, k32))
+    kq = torch.round(k32 / wscale[:, None, None, None]).to(torch.int8)
+    return kq.permute(0, 2, 3, 1).reshape(weight.shape[0], -1).contiguous(), \
+        wscale
+
+
 class ConvBN(nn.Module):
     """Conv2d (no bias) + folded frozen BatchNorm + optional ReLU, NHWC:
     ``y = conv(x, weight) * scale + bias``, all in ``dtype``.
 
     ``weight`` is OIHW (PyTorch's layout; the flax kernel is HWIO), padding
-    (k - 1) // 2 on both sides."""
+    (k - 1) // 2 on both sides.
+
+    ``int8=True`` (the convs of ``quantize="serve"`` that the JAX package
+    runs in int8) adds the buffers ``kernel_q`` ((O, kh*kw*I) int8) and
+    ``wscale`` ((O,) fp32), filled by ``prepare_int8_weights``; such a conv
+    keeps its parameters in fp32 (``to_storage``), since its int8 state and
+    its folded dequant scale derive from them. It runs the int8 convolution
+    K10 (``ops/int8_conv.py``):
+
+    - with ``x_quant=(xq, amax)``: the caller's int8 tensor and its
+      calibrated max|value|;
+    - on a float ``x`` when both channel counts are >= 128 (``dynamic``):
+      quantized with its runtime max|x|;
+    - any other float call takes the float path (the layer1 convs while
+      calibrating).
+    """
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
                  stride: int = 1, relu: bool = False, dtype=torch.float32,
-                 device=None):
+                 device=None, int8: bool = False):
         super().__init__()
         self.stride = stride
         self.padding = (kernel_size - 1) // 2
         self.relu = relu
         self.dtype = dtype
+        self.int8 = int8
+        self.dynamic = int8 and in_ch >= WIDE and features >= WIDE
         self.weight = nn.Parameter(torch.empty(
             features, in_ch, kernel_size, kernel_size, device=device))
         self.scale = nn.Parameter(torch.empty(features, device=device))
         self.bias = nn.Parameter(torch.empty(features, device=device))
+        if int8:
+            self.register_buffer("kernel_q", torch.zeros(
+                features, kernel_size * kernel_size * in_ch,
+                dtype=torch.int8, device=device))
+            self.register_buffer("wscale", torch.zeros(
+                features, dtype=torch.float32, device=device))
 
     def reset_parameters(self, generator) -> None:
         init.he_normal_(self.weight, generator)
         init.ones_(self.scale)
         init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def to_storage(self, dtype) -> None:
+        """Store the parameters for serving: in ``dtype`` (fp32 for an int8
+        conv), the weight channels-last."""
+        dt = torch.float32 if self.int8 else dtype
+        with torch.no_grad():
+            for p in (self.weight, self.scale, self.bias):
+                fmt = (torch.channels_last if p.dim() == 4
+                       else torch.preserve_format)
+                p.data = p.data.to(dtype=dt, memory_format=fmt)
+
+    def packed(self):
+        """(kernel_q, wscale, scale, bias): the pieces an int8 chain
+        assembles itself (the JAX package's ``packed=True``)."""
+        return self.kernel_q, self.wscale, self.scale, self.bias
+
+    def forward(self, x, x_quant=None, impl: str = "auto"):
+        """``impl="plain"`` runs K10's plain version on any device (the
+        card's comparison path); "auto" takes the kernel on a CUDA tensor
+        and the plain version on a CPU one."""
+        if x_quant is not None or self.dynamic:
+            xin, amax = x_quant if x_quant is not None else (x, None)
+            return int8_conv.int8_conv(xin, *self.packed(), amax,
+                                       self.stride, self.relu, self.dtype,
+                                       impl)
         dt = self.dtype
         y = _nhwc(F.conv2d(_nchw(x.to(dt)), self.weight.to(dt),
                            stride=self.stride, padding=self.padding))
         y = torch.addcmul(self.bias.to(dt), y, self.scale.to(dt))
         return torch.relu(y) if self.relu else y
+
+
+def int8_convs(module: nn.Module):
+    """The int8 ConvBNs of ``module``, by name."""
+    return [(n, m) for n, m in module.named_modules()
+            if isinstance(m, ConvBN) and m.int8]
+
+
+def to_storage(module: nn.Module, dtype) -> None:
+    """``ConvBN.to_storage`` for every conv of a backbone."""
+    for m in module.modules():
+        if isinstance(m, ConvBN):
+            m.to_storage(dtype)
+
+
+def prepare_int8_weights(module: nn.Module) -> None:
+    """Fill ``kernel_q``/``wscale`` of every int8 conv from its weight
+    (``quantize_weight``). The JAX package does this with one forward pass
+    in the "qweights" collection; the values are the same. Re-run after any
+    change to the backbone's parameters."""
+    with torch.no_grad():
+        for _, m in int8_convs(module):
+            kq, ws = quantize_weight(m.weight)
+            m.kernel_q.copy_(kq)
+            m.wscale.copy_(ws)
+
+
+def calibration_buffers(module: nn.Module) -> dict[str, torch.Tensor]:
+    """The calibrated activation scales of a backbone (buffers named
+    ``*_amax``), by name."""
+    return {n: b for n, b in module.named_buffers() if n.endswith("_amax")}
+
+
+def check_calibrated(module: nn.Module) -> None:
+    """Raise unless every calibrated scale is finite and positive: an
+    uncalibrated (zero) scale saturates every activation to +-127 without
+    an error."""
+    bad = [n for n, b in calibration_buffers(module).items()
+           if not bool(torch.isfinite(b).all() and (b > 0).all())]
+    if bad:
+        raise ValueError("uncalibrated or degenerate activation scales "
+                         f"{bad[:5]}: run models.capf.prepare_serving first")
+
+
+def params_fingerprint(module: nn.Module) -> torch.Tensor:
+    """16-byte (uint8) sha256 of every parameter's name, shape, dtype and
+    bytes: the identity of the parameters an int8 state was prepared
+    from."""
+    h = hashlib.sha256()
+    for name, p in sorted(module.named_parameters()):
+        t = p.detach().cpu()
+        h.update(f"{name}{tuple(t.shape)}{t.dtype}".encode())
+        h.update(t.contiguous().reshape(-1).view(torch.uint8).numpy())
+    return torch.frombuffer(bytearray(h.digest()[:16]), dtype=torch.uint8)
+
+
+def stamp_fingerprint(module: nn.Module) -> None:
+    with torch.no_grad():
+        module.serving_fingerprint.copy_(params_fingerprint(module))
+
+
+def check_serving_fresh(module: nn.Module) -> None:
+    """Raise if the backbone's int8 state was prepared for other parameters
+    than it holds now (pre-quantized kernels do not follow a later change
+    of the weights). A no-op before the first ``prepare_serving``."""
+    stamp = module.serving_fingerprint.cpu()
+    if not bool(stamp.any()):
+        return
+    if not torch.equal(stamp, params_fingerprint(module)):
+        raise ValueError(
+            "stale serving state: the int8 weights and calibration were "
+            "prepared for other backbone parameters than the model holds. "
+            "Re-run models.capf.prepare_serving() after a parameter change "
+            "(on a freshly built model).")
 
 
 def add_upsampled_nearest(acc: torch.Tensor, y: torch.Tensor,

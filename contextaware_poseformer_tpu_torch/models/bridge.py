@@ -6,16 +6,24 @@ key ``<a>.<b>. ... .<leaf>`` with
 
 - the ``dense`` level of every ``Linear`` dropped (flax ``Linear`` wraps an
   ``nn.Dense`` named ``dense``; the port's ``Linear`` holds the parameters);
-- dots inside a flax module name (the CPN's torch-prefix names such as
-  ``resnet.layer1.0.conv1``) turned into underscores (``models/cpn.py``);
+- dots inside a flax module or variable name (the CPN's torch-prefix names
+  such as ``resnet.layer1.0.conv1``, HRNet's ``layer1.in_amax``) turned
+  into underscores (``models/cpn.py``, ``models/hrnet.py``);
 - a 4-D conv ``kernel`` (HWIO) renamed ``weight`` and transposed to OIHW.
 
 Dense kernels stay (in, out), LayerNorm ``scale``/``bias`` and ``pos_embed``
-map as they are. Accounting is strict, in the manner of
-``contextaware_poseformer_tpu/models/convert.py``'s ``_Consumer``: every
-flax leaf must land on a parameter of the same shape and every parameter
-must be assigned, otherwise loading raises. Collections other than
-``params`` (the int8 ``calib``/``qweights`` state) are not ported and raise.
+map as they are. The int8 serving collections of ``quantize="serve"`` land
+on the backbone's buffers by the same rule: ``calib`` (the layer1 scales)
+as they are, ``qweights`` ``kernel_q`` (HWIO int8) as the port's
+(O, kh*kw*I) layout and ``wscale`` as it is. ``qmeta`` (the JAX package's
+own fingerprint) is not copied: the loaded ``qweights`` must instead equal
+what the port's ``prepare_int8_weights`` gives from the loaded parameters,
+and the port then stamps its own fingerprint. Accounting is strict, in the
+manner of ``contextaware_poseformer_tpu/models/convert.py``'s ``_Consumer``:
+every flax leaf must land on a tensor of the same shape and every parameter
+(and, for a collection the tree carries, every buffer of it) must be
+assigned, otherwise loading raises. A collection the tree does not carry
+leaves its buffers at zero: the model then needs ``prepare_serving``.
 Reference torch checkpoints reach the port through ``convert.py`` first
 (``convert_composite`` gives the flax params tree).
 """
@@ -28,6 +36,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from contextaware_poseformer_tpu_torch.models.backbone_common import (
+    int8_convs,
+    quantize_weight,
+    stamp_fingerprint,
+)
+
+SERVING = ("calib", "qweights")  # the int8 serving collections
+IGNORED = ("qmeta",)  # the JAX package's fingerprint of its own params
+
 
 def _leaves(tree: Mapping[str, Any], prefix=()) -> Iterator[tuple]:
     for k, v in tree.items():
@@ -37,43 +54,91 @@ def _leaves(tree: Mapping[str, Any], prefix=()) -> Iterator[tuple]:
             yield prefix + (k,), v
 
 
+def _collection(key: str) -> str:
+    """The flax collection a state-dict key of the port belongs to."""
+    leaf = key.rsplit(".", 1)[-1]
+    if leaf in ("kernel_q", "wscale"):
+        return "qweights"
+    if leaf.endswith("_amax"):
+        return "calib"
+    if leaf == "serving_fingerprint":
+        return "qmeta"
+    return "params"
+
+
 def variables_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """flax variables ``{"params": ...}`` with numpy leaves -> state dict."""
-    extra = sorted(set(tree) - {"params"})
+    """flax variables (``params`` and optionally ``calib``/``qweights``,
+    numpy leaves) -> state dict."""
+    extra = sorted(set(tree) - {"params", *SERVING, *IGNORED})
     if extra or "params" not in tree:
         raise ValueError(
-            f"expected flax variables with exactly a 'params' collection; "
-            f"got {sorted(tree)} (int8 serving collections are not ported)")
+            f"expected flax variables with a 'params' collection and "
+            f"optionally {SERVING}; got {sorted(tree)}")
     sd: dict[str, torch.Tensor] = {}
-    for path, leaf in _leaves(tree["params"]):
-        arr = np.asarray(leaf)
-        if arr.dtype.name == "bfloat16":  # ml_dtypes arrays from bf16 jax
-            arr = arr.astype(np.float32)
-        parts = [p.replace(".", "_") for p in path if p != "dense"]
-        if parts[-1] == "kernel" and arr.ndim == 4:
-            parts[-1] = "weight"
-            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-        key = ".".join(parts)
-        if key in sd:
-            raise ValueError(f"two flax leaves map to {key!r}")
-        sd[key] = torch.tensor(arr)  # a copy: flax leaves may be read-only
+    for coll in ("params", *SERVING):
+        for path, leaf in _leaves(tree.get(coll, {})):
+            arr = np.asarray(leaf)
+            if arr.dtype.name == "bfloat16":  # ml_dtypes arrays, bf16 jax
+                arr = arr.astype(np.float32)
+            parts = [p.replace(".", "_") for p in path if p != "dense"]
+            if parts[-1] == "kernel" and arr.ndim == 4:
+                parts[-1] = "weight"
+                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            elif parts[-1] == "kernel_q":  # HWIO -> (O, kh*kw*I)
+                arr = arr.transpose(3, 0, 1, 2).reshape(arr.shape[3], -1)
+            key = ".".join(parts)
+            if _collection(key) != coll:
+                raise ValueError(f"flax {coll} leaf {'/'.join(path)} maps to "
+                                 f"{key!r}, which is not a {coll} tensor")
+            if key in sd:
+                raise ValueError(f"two flax leaves map to {key!r}")
+            sd[key] = torch.tensor(arr)  # a copy: flax leaves may be read-only
     return sd
 
 
 def load_jax_variables(model: nn.Module, tree: Mapping[str, Any]) -> None:
     """Load flax variables into ``model`` (a ``ContextAwarePoseFormer``,
-    ``PoseLifter`` or ``CPN``), converting to each parameter's dtype,
-    device and memory format. Raises on any leftover, missing or misshapen
-    key."""
+    ``PoseLifter``, ``CPN`` or ``HRNet``), converting to each tensor's
+    dtype, device and memory format. Raises on any leftover, missing or
+    misshapen key, and on loaded ``qweights`` that the loaded parameters do
+    not give."""
     sd = variables_from_jax(tree)
     own = model.state_dict()
-    missing = sorted(set(own) - set(sd))
+    carried = {"params", *(c for c in SERVING if c in tree)}
+    wanted = {k for k in own if _collection(k) in carried}
+    missing = sorted(wanted - set(sd))
     unused = sorted(set(sd) - set(own))
     misshapen = sorted(k for k in set(sd) & set(own)
                        if tuple(sd[k].shape) != tuple(own[k].shape))
+    empty = [c for c in SERVING if c in tree
+             and not any(_collection(k) == c for k in own)]
+    if empty:
+        raise ValueError(f"flax variables carry {empty}, but "
+                         f"{type(model).__name__} holds no int8 serving "
+                         "state (quantize='none')")
     if missing or unused or misshapen:
         raise ValueError(
             f"flax variables do not match {type(model).__name__}: "
-            f"unassigned parameters {missing[:10]}, unconsumed flax leaves "
+            f"unassigned tensors {missing[:10]}, unconsumed flax leaves "
             f"{unused[:10]}, shape mismatches {misshapen[:10]}")
-    model.load_state_dict(sd, strict=True)
+    if "qweights" in carried:
+        stale = []
+        for name, conv in int8_convs(model):
+            pre = f"{name}." if name else ""
+            kq, ws = quantize_weight(sd[pre + "weight"])
+            if not (torch.equal(kq, sd[pre + "kernel_q"])
+                    and torch.equal(ws, sd[pre + "wscale"])):
+                stale.append(name)
+        if stale:
+            raise ValueError(
+                f"stale qweights: {stale[:5]} do not equal the int8 "
+                "kernels of the loaded parameters; re-run the JAX "
+                "package's prepare_serving, or load params alone and run "
+                "models.capf.prepare_serving")
+    full = {k: (sd[k] if k in sd else torch.zeros_like(v))
+            for k, v in own.items()}
+    model.load_state_dict(full, strict=True)
+    if "qweights" in carried and "calib" in carried:
+        for m in model.modules():
+            if hasattr(m, "serving_fingerprint"):
+                stamp_fingerprint(m)

@@ -1,12 +1,13 @@
 """ContextAwarePoseFormer: the composite single-frame 3D pose model.
 
-Port of ``contextaware_poseformer_tpu/models/capf.py:31-39, 102-153``:
+Port of ``contextaware_poseformer_tpu/models/capf.py:31-153``:
 frozen 2D backbone (HRNet or CPN, by ``cfg.backbone.kind``) -> four NHWC
 feature maps -> context-aware lifter -> root-relative 3D joints
 (b, joints, 3). With ``cfg.backbone.frozen`` (every preset) the backbone
 runs under ``torch.no_grad()`` and its maps are detached, the counterpart of
 the JAX package's stop-gradient (``capf.py:136-139``): no gradient reaches
 the conv stack and none of its activations are kept for a backward.
+``prepare_serving`` makes an int8 (``quantize="serve"``) model servable.
 """
 
 from __future__ import annotations
@@ -15,6 +16,12 @@ import torch
 from torch import nn
 
 from contextaware_poseformer_tpu_torch.config import ModelConfig
+from contextaware_poseformer_tpu_torch.models.backbone_common import (
+    check_calibrated,
+    check_serving_fresh,
+    prepare_int8_weights,
+    stamp_fingerprint,
+)
 from contextaware_poseformer_tpu_torch.models.cpn import CPN
 from contextaware_poseformer_tpu_torch.models.hrnet import HRNet
 from contextaware_poseformer_tpu_torch.models.lifter import PoseLifter
@@ -28,6 +35,36 @@ def crop_coords_to_grid(kpts_crop: torch.Tensor,
     half = torch.tensor([w // 2, h // 2], dtype=kpts_crop.dtype,
                         device=kpts_crop.device)
     return kpts_crop / half - 1.0
+
+
+def prepare_serving(model: "ContextAwarePoseFormer", example_args,
+                    batches=None) -> "ContextAwarePoseFormer":
+    """Make an int8 (``quantize="serve"``) model servable, in place: fill
+    the int8 kernels from the weights (``prepare_int8_weights``), run the
+    calibration pass over ``batches`` (tuples whose first item is a batch
+    of normalized images, as ``model`` takes them; default
+    ``[example_args]``; use real frames for deployment), check every
+    calibrated scale, and stamp the fingerprint of the backbone parameters
+    they were prepared from. Raises if the model's int8 state was prepared
+    for other parameters (``check_serving_fresh``). A no-op for a float
+    model. Only the backbone holds int8 state, so only it runs.
+
+    Port of ``capf.py:42-99``. The JAX package calibrates first and then
+    stores the kernels; its calibration pass quantizes the wide convs'
+    kernels on the fly to the same values, so the order does not matter."""
+    backbone = model.backbone
+    if model.cfg.backbone.quantize == "none":
+        return model
+    check_serving_fresh(backbone)
+    batches = list(batches) if batches is not None else []
+    batches = batches or [example_args]
+    prepare_int8_weights(backbone)
+    with torch.no_grad():
+        for batch in batches:
+            backbone(batch[0], calibrate=True)
+    check_calibrated(backbone)
+    stamp_fingerprint(backbone)
+    return model
 
 
 class ContextAwarePoseFormer(nn.Module):

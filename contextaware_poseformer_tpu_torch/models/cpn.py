@@ -46,8 +46,10 @@ class CPN(nn.Module):
             raise ValueError(f"CPN with a {cfg.kind!r} backbone config")
         if cfg.quantize != "none" or cfg.cpn_fold_normalize:
             raise NotImplementedError(
-                "the CPN int8 serving stack (quantize="
-                f"{cfg.quantize!r}) is not ported; use quantize='none'")
+                f"CPN quantize={cfg.quantize!r}: the CPN int8 serving stack "
+                "(int8 wide convs, serve_static_amax, cpn_int8_stream, "
+                "cpn_int8_maps and K1's int8-map input; ROADMAP 5a) and "
+                "cpn_fold_normalize are not ported; use quantize='none'")
         self.cfg = cfg
         self.dtype = dtype
 

@@ -17,14 +17,25 @@ aliases them. Shapes for 256x192 input: (64,48,C), (32,24,2C), (16,12,4C),
 unchanged, level 0 that module's fused output) and builds only its
 parameters.
 
-The int8 serving stack (``quantize`` other than "none": the int8 layer1 and
-its fused TPU kernel) is not ported; the constructor refuses it. Conv
-modules are named after the flax names with dots turned into underscores
+``quantize="serve"`` (the deploy graph, ``hrnet.py:71-228, 324-346``) runs
+layer1 end to end in int8 with static calibrated scales (``_layer1_int8``:
+``layer1_impl="pallas"`` through the fused kernel K9, "xla" as a chain of
+per-conv int8 convolutions K10), feeds transition1 the int8 tensor
+directly, and runs every conv with both channel counts >= 128 as a dynamic
+int8 convolution (K10). ``forward(x, calibrate=True)`` is the JAX
+package's calibration pass: it records the layer1 activation scales while
+layer1 runs in float (the wide convs stay int8), so the observed scales
+describe that graph. ``quantize="static"`` and ``serve_static_amax`` are
+not ported; the constructor refuses them. Conv modules are named after the
+flax names with dots turned into underscores
 (``stage2.0.branches.0.0.conv1`` -> ``stage2_0_branches_0_0_conv1``), as in
-``models/cpn.py``.
+``models/cpn.py``; so are the calibration buffers (``layer1.in_amax`` ->
+``layer1_in_amax``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -34,13 +45,20 @@ from contextaware_poseformer_tpu_torch.config import (
     HRNetStageConfig,
 )
 from contextaware_poseformer_tpu_torch.models.backbone_common import (
+    WIDE,
     ConvBN,
     add_upsampled_nearest,
     module_name,
+    observed_amax,
 )
+from contextaware_poseformer_tpu_torch.ops import int8_conv, layer1_chain
 
 STEM_CH = 64
 LAYER1_PLANES = 64  # Bottleneck expansion 4 -> 256
+# the calibrated activation scales of the int8 layer1 (the JAX package's
+# "calib" collection under quantize="serve")
+CALIB_NAMES = ("layer1.in_amax",) + tuple(
+    f"layer1.{b}.{t}_amax" for b in range(4) for t in ("t1", "t2", "out"))
 
 
 def _build_stage(conv, name: str, stage: HRNetStageConfig, num_modules: int,
@@ -75,22 +93,35 @@ class HRNet(nn.Module):
         super().__init__()
         if cfg.kind != "hrnet":
             raise ValueError(f"HRNet with a {cfg.kind!r} backbone config")
-        if cfg.quantize != "none":
+        if cfg.quantize not in ("none", "serve") or cfg.serve_static_amax:
             raise NotImplementedError(
-                "the HRNet int8 serving stack (quantize="
-                f"{cfg.quantize!r}) is not ported; use quantize='none'")
+                f"HRNet quantize={cfg.quantize!r}, serve_static_amax="
+                f"{cfg.serve_static_amax}: the port runs 'none' and 'serve' "
+                "(dynamic wide convs, int8 layer1); 'static' (calibrated "
+                "per-conv scales on the narrow 3x3 convs) and the wide "
+                "convs' static amax are not ported")
+        if cfg.layer1_impl not in ("xla", "pallas"):
+            raise ValueError(f"layer1_impl {cfg.layer1_impl!r}")
         for stage in (cfg.stage2, cfg.stage3, cfg.stage4):
             if stage.block != "BASIC":
                 raise ValueError(f"HRNet stage block {stage.block!r}: only "
                                  "BASIC branches exist in the reference")
         self.cfg = cfg
         self.dtype = dtype
+        self.serve = cfg.quantize == "serve"
+        # "plain" runs K9's and K10's plain versions on any device (the
+        # card's comparison path, as the lifter's plain knobs)
+        self.int8_impl = "auto"
         self.stage4_modules = (1 if cfg.hrnet_stage4_truncate
                                else cfg.stage4.num_modules)
 
         def conv(name, cin, cout, ks, stride, relu):
+            int8 = self.serve and (
+                (cin >= WIDE and cout >= WIDE)
+                or name.startswith(("layer1.", "transition1.")))
             self.add_module(module_name(name), ConvBN(
-                cin, cout, ks, stride, relu, dtype, device=device))
+                cin, cout, ks, stride, relu, dtype, device=device,
+                int8=int8))
 
         conv("conv1", 3, STEM_CH, 3, 2, True)
         conv("conv2", STEM_CH, STEM_CH, 3, 2, True)
@@ -111,9 +142,65 @@ class HRNet(nn.Module):
         _build_stage(conv, "stage3", cfg.stage3, cfg.stage3.num_modules, True)
         conv("transition3.3.0.0", c3[-1], c4[3], 3, 2, True)
         _build_stage(conv, "stage4", cfg.stage4, self.stage4_modules, False)
+        if self.serve:
+            for n in CALIB_NAMES:
+                self.register_buffer(module_name(n), torch.zeros(
+                    (), dtype=torch.float32, device=device))
+            self.register_buffer("serving_fingerprint", torch.zeros(
+                16, dtype=torch.uint8, device=device))
 
-    def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        return getattr(self, module_name(name))(x)
+    def _conv(self, name: str, x, **kw) -> torch.Tensor:
+        return getattr(self, module_name(name))(x, impl=self.int8_impl,
+                                                **kw)
+
+    def _amax(self, name: str) -> torch.Tensor:
+        return getattr(self, module_name(name))
+
+    def _layer1_calibrate(self, x):
+        """The calibration pass's layer1: float bottlenecks, each calibrated
+        tensor's ``observed_amax`` folded into its buffer by max."""
+        def observe(name, t):
+            buf = self._amax(name)
+            buf.copy_(torch.maximum(
+                buf, observed_amax(t, self.cfg.calib_quantile)))
+
+        observe("layer1.in_amax", x)
+        for b in range(4):
+            y = self._conv(f"layer1.{b}.conv1", x)
+            observe(f"layer1.{b}.t1_amax", y)
+            y = self._conv(f"layer1.{b}.conv2", y)
+            observe(f"layer1.{b}.t2_amax", y)
+            y = self._conv(f"layer1.{b}.conv3", y)
+            res = self._conv("layer1.0.downsample.0", x) if b == 0 else x
+            x = torch.relu(y + res)
+            observe(f"layer1.{b}.out_amax", x)
+        return x
+
+    def _layer1_int8(self, x):
+        """layer1 at inference: (int8 (B, H, W, 256), its calibrated amax),
+        through K9 ("pallas") or the per-conv K10 chain ("xla")."""
+        blocks = []
+        for b in range(4):
+            pre = f"layer1.{b}"
+            blk = {c: getattr(self, module_name(f"{pre}.{c}")).packed()
+                   for c in ("conv1", "conv2", "conv3")}
+            blk["downsample"] = (self.layer1_0_downsample_0.packed()
+                                 if b == 0 else None)
+            for t in ("t1", "t2", "out"):
+                blk[t] = self._amax(f"{pre}.{t}_amax")
+            blocks.append(blk)
+        if self.cfg.layer1_impl == "pallas":
+            if self.dtype != torch.bfloat16:
+                raise ValueError("layer1_impl='pallas' computes the bf16 "
+                                 f"epilogues of the deploy graph; backbone "
+                                 f"dtype is {self.dtype}")
+            xq = layer1_chain.layer1_chain(x, self.layer1_in_amax, blocks,
+                                           self.int8_impl)
+        else:
+            xq = layer1_chain.layer1_int8_chain(
+                x, self.layer1_in_amax, blocks,
+                functools.partial(int8_conv.int8_conv, impl=self.int8_impl))
+        return xq, self.layer1_3_out_amax
 
     def _basic_block(self, x, prefix):
         # BasicBlock (pose_hrnet.py:66-95); stage branches never downsample
@@ -165,16 +252,28 @@ class HRNet(nn.Module):
             xs = self._fuse(outs, prefix, num_out)
         return xs, first
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        """x: (N, H, W, 3) normalized -> 4 NHWC maps, finest first."""
+    def forward(self, x: torch.Tensor,
+                calibrate: bool = False) -> list[torch.Tensor]:
+        """x: (N, H, W, 3) normalized -> 4 NHWC maps, finest first.
+        ``calibrate=True`` (``quantize="serve"``): the calibration pass,
+        which updates the layer1 scale buffers in place."""
         cfg = self.cfg
         x = self._conv("conv1", x)
         x = self._conv("conv2", x)
-        x = self._bottleneck(x, "layer1.0", downsample=True)
-        for b in range(1, 4):
-            x = self._bottleneck(x, f"layer1.{b}", downsample=False)
-        xs = [self._conv("transition1.0.0", x),
-              self._conv("transition1.1.0.0", x)]
+        if self.serve and calibrate:
+            x = self._layer1_calibrate(x)
+        elif self.serve:
+            x = self._layer1_int8(x)
+        else:
+            x = self._bottleneck(x, "layer1.0", downsample=True)
+            for b in range(1, 4):
+                x = self._bottleneck(x, f"layer1.{b}", downsample=False)
+        if isinstance(x, tuple):  # the int8 layer1 output and its amax
+            xs = [self._conv("transition1.0.0", None, x_quant=x),
+                  self._conv("transition1.1.0.0", None, x_quant=x)]
+        else:
+            xs = [self._conv("transition1.0.0", x),
+                  self._conv("transition1.1.0.0", x)]
         ys, _ = self._stage(xs, "stage2", cfg.stage2,
                             cfg.stage2.num_modules, True)
         # transition2/3: existing branches pass through; one new stride-2

@@ -56,6 +56,10 @@ SIGNATURES = {
         _I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # (dtype, qkv, out, batch, tokens, d, heads, device, stream)
     "capf_attention_middle": (_I, [_I, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # (args struct*, device, stream)
+    "capf_int8_conv": (_I, [_P, _I, _P]),
+    # (args struct*, device, stream)
+    "capf_layer1_block": (_I, [_P, _I, _P]),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -47,6 +47,51 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// ---- int8 (K9, K10) -------------------------------------------------------
+
+// fl32(1 / 127): the JAX package serves under jit, where XLA turns each
+// division of an activation scale by the constant 127 into this multiply.
+constexpr float kRecip127 = 1.0f / 127.0f;
+
+// clip(round(v), -127, 127) as int8: round half to even, as jnp.round.
+__device__ __forceinline__ int8_t to_int8_rne(float v) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(v), -127.f), 127.f));
+}
+
+// The int8 convolutions' folded affine with the JAX package's rounding
+// points: bf16(acc) (through fp32, as XLA converts), a bf16 multiply by the
+// bf16 dequant scale, a bf16 add of the bf16 bias; two roundings, no FMA.
+__device__ __forceinline__ float affine_bf16(int acc, float eff, float bias) {
+  float y = round_to<__nv_bfloat16>(__int2float_rn(acc));
+  y = round_to<__nv_bfloat16>(__fmul_rn(y, eff));
+  return round_to<__nv_bfloat16>(__fadd_rn(y, bias));
+}
+
+// bf16(scale * wscale * step): a conv's dequant scale folded into its BN
+// scale, in fp32 and in that order, then rounded to bf16.
+__device__ __forceinline__ float folded_scale(float scale, float wscale,
+                                              float step) {
+  return round_to<__nv_bfloat16>(__fmul_rn(__fmul_rn(scale, wscale), step));
+}
+
+__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// D += A B on the tensor cores: A 16x32 int8 (row-major fragment a[4]),
+// B 32x8 int8 (column-major fragment b[2]), D 16x8 int32. Lane l holds
+// rows l/4 and l/4 + 8, columns 2(l%4) and 2(l%4) + 1 of D, and the four
+// k-consecutive bytes at k = 4(l%4) (+16) of its rows of A and column of B.
+__device__ __forceinline__ void mma_s8_16x8x32(int (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory when needed.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

@@ -1,0 +1,193 @@
+"""The int8 HRNet layer1 (K9): CUDA kernel wrapper, plain version and
+dispatcher.
+
+Port of ``contextaware_poseformer_tpu/ops/layer1_chain.py`` (the Pallas
+kernel ``_kernel``, 51-113) and of the per-conv chain it replaces,
+``HRNet._layer1_int8`` (``models/hrnet.py:138-162``): four Bottleneck
+blocks (planes 64, expansion 4, block 0 with a 1x1 downsample) on int8
+tensors with static calibrated scales:
+
+    xq = quant(x, in)                              bf16 stem (B, H, W, 64)
+    per block: t1 = quant(relu(conv1(xq)), t1)     1x1 -> 64
+               t2 = quant(relu(conv2(t1)), t2)     3x3 -> 64
+               y = conv3(t2)                       1x1 -> 256
+               res = downsample(xq) (block 0) or bf16(xq) * bf16(in / 127)
+               xq = quant(relu(y + res), out)      int8 (B, H, W, 256)
+
+``quant(t, amax) = clip(round(t * (127 / amax)), -127, 127)`` multiplies
+where ConvBN's dynamic route divides, each conv is K10's contract on an
+int8 input (int32 accumulation, the bf16 affine ``bf16(scale * wscale *
+amax / 127)``), and every amax is clamped to >= 1e-12. The layer1 path
+therefore agrees with K10's per-conv chain bit for bit.
+
+The TPU kernel keeps one image's whole chain in VMEM; one image's
+256-channel int8 tensor (786 KB at 64x48) exceeds a Hopper block's 227 KB
+of shared memory, so ``csrc/layer1_chain.cu`` launches once per block: a
+CUDA block owns ``ROWS`` output rows of one image and keeps their input
+rows (plus the 3x3's halo), t1, t2 and the block's weights in shared
+memory, so only the block's input and output touch device memory.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from contextaware_poseformer_tpu_torch.ops import _build, int8_conv
+from contextaware_poseformer_tpu_torch.ops.int8_conv import f32_const
+
+launches = 0  # kernel launches made by layer1_chain_kernel (4 a chain)
+
+PLANES = 64
+EXPANSION = 256
+ROWS = 4  # output rows a block of csrc/layer1_chain.cu owns
+
+
+def quant(t: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+    """clip(round(t * (127 / max(amax, 1e-12))), -127, 127) -> int8, in
+    fp32 (``HRNet._layer1_int8.quant``)."""
+    a = torch.clamp(amax.float(), min=1e-12)
+    r = torch.div(f32_const(127.0, a), a)
+    return torch.clamp(torch.round(t.float() * r), -127, 127).to(torch.int8)
+
+
+def layer1_int8_chain(x, in_amax, blocks, conv=int8_conv.int8_conv):
+    """The per-conv chain (the JAX package's ``layer1_impl="xla"``):
+    ``x`` (B, H, W, 64) float -> int8 (B, H, W, 256), each conv through
+    ``conv`` (K10's dispatcher, or its plain version). ``blocks``: four
+    dicts with the (kernel_q, wscale, scale, bias) pieces of ``conv1``,
+    ``conv2``, ``conv3`` and ``downsample`` (block 0 only, else None) and
+    the calibrated amax scalars ``t1``, ``t2`` and ``out``."""
+    dtype = x.dtype
+    a = in_amax
+    xq = quant(x, a)
+    for blk in blocks:
+        y = conv(xq, *blk["conv1"], a, 1, True, dtype)
+        y = conv(quant(y, blk["t1"]), *blk["conv2"], blk["t1"], 1, True,
+                 dtype)
+        y = conv(quant(y, blk["t2"]), *blk["conv3"], blk["t2"], 1, False,
+                 dtype)
+        if blk["downsample"] is not None:
+            res = conv(xq, *blk["downsample"], a, 1, False, dtype)
+        else:
+            res = xq.to(dtype) * int8_conv.dequant_step(a, True).to(dtype)
+        a = blk["out"]
+        xq = quant(torch.relu(y + res), a)
+    return xq
+
+
+def layer1_chain_reference(x, in_amax, blocks):
+    """Plain version: the per-conv chain through K10's plain version."""
+    return layer1_int8_chain(x, in_amax, blocks,
+                             int8_conv.int8_conv_reference)
+
+
+class _BlockArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "x", "out", "w1", "w2", "w3", "wd",
+        "ws1", "sc1", "bi1", "ws2", "sc2", "bi2", "ws3", "sc3", "bi3",
+        "wsd", "scd", "bid", "a_in", "a_t1", "a_t2", "a_out")] + [
+        (n, ctypes.c_int) for n in ("batch", "h", "w", "cin", "rows")]
+
+
+def smem_bytes(w: int, cin: int, rows: int = ROWS) -> int:
+    """Dynamic shared memory one block of csrc/layer1_chain.cu takes
+    (mirrors ``layer1_layout`` there)."""
+    def tiles(n):  # pixel rows rounded up to whole 16-row MMA tiles
+        return -(-n // 16) * 16
+
+    m1, m2 = tiles((rows + 2) * w), tiles(rows * w)
+    pad = 16
+    total = (m1 * (cin + pad) + m1 * (PLANES + pad) + m2 * (PLANES + pad)
+             + PLANES * (cin + pad) + PLANES * (9 * PLANES + pad)
+             + EXPANSION * (PLANES + pad))
+    if cin == PLANES:  # block 0: downsample weights and its own output
+        total += EXPANSION * (PLANES + pad) + m2 * (EXPANSION + pad)
+    return total + 4 * (4 * PLANES + 4 * EXPANSION)
+
+
+def _vec(name, t, n):
+    if t.dtype != torch.float32 or t.shape != (n,):
+        raise TypeError(f"layer1_chain: {name} must be fp32 ({n},), got "
+                        f"{t.dtype} {tuple(t.shape)}")
+    return t
+
+
+def layer1_chain_kernel(x, in_amax, blocks):
+    """The CUDA kernel: one launch per block, same contract as
+    ``layer1_chain_reference`` for a bf16 ``x``."""
+    global launches
+    name = "layer1_chain"
+    if x.dtype != torch.bfloat16 or x.dim() != 4 or x.shape[-1] != PLANES:
+        raise TypeError(f"{name}: x must be bf16 (B, H, W, {PLANES}), got "
+                        f"{x.dtype} {tuple(x.shape)}")
+    if len(blocks) != 4:
+        raise ValueError(f"{name}: 4 blocks, got {len(blocks)}")
+    b, h, w, _ = x.shape
+    for cin in (PLANES, EXPANSION):
+        if smem_bytes(w, cin) > _build.SMEM_LIMIT:
+            raise ValueError(f"{name}: width {w} needs more shared memory "
+                             "than a block has")
+    lib = _build.library()
+    bufs = [torch.empty((b, h, w, EXPANSION), dtype=torch.int8,
+                        device=x.device) for _ in range(2)]
+    src, a_in = x, in_amax
+    for i, blk in enumerate(blocks):
+        cin = PLANES if i == 0 else EXPANSION
+        shapes = {"conv1": (PLANES, cin), "conv2": (PLANES, 9 * PLANES),
+                  "conv3": (EXPANSION, PLANES),
+                  "downsample": (EXPANSION, PLANES)}
+        pieces = {}
+        for conv, (o, k) in shapes.items():
+            p = blk[conv]
+            if p is None:
+                if conv == "downsample" and i == 0:
+                    raise ValueError(f"{name}: block 0 needs a downsample")
+                continue
+            if conv == "downsample" and i > 0:
+                raise ValueError(f"{name}: only block 0 has a downsample")
+            kq, ws, sc, bi = p
+            if kq.dtype != torch.int8 or kq.shape != (o, k):
+                raise TypeError(f"{name}: block {i} {conv} kernel "
+                                f"{kq.dtype} {tuple(kq.shape)}, expected "
+                                f"int8 ({o}, {k})")
+            pieces[conv] = (kq, *(_vec(f"block {i} {conv}", v, o)
+                                  for v in (ws, sc, bi)))
+        amax = [a_in.float(), blk["t1"].float(), blk["t2"].float(),
+                blk["out"].float()]
+        out = bufs[i % 2]
+        tensors = [src, out, *amax] + [t for p in pieces.values() for t in p]
+        _build.require_cuda(name, *tensors)
+        if any(t.data_ptr() % 16 for t in (src, out, *(p[0] for p in
+                                                       pieces.values()))):
+            raise ValueError(f"{name}: activations and kernels must start "
+                             "on a 16-byte boundary (16-byte loads)")
+
+        def ptrs(conv):
+            p = pieces.get(conv)
+            return [None] * 4 if p is None else [t.data_ptr() for t in p]
+
+        (w1, ws1, sc1, bi1), (w2, ws2, sc2, bi2), (w3, ws3, sc3, bi3), \
+            (wd, wsd, scd, bid) = (ptrs(c) for c in shapes)
+        args = _BlockArgs(
+            src.data_ptr(), out.data_ptr(), w1, w2, w3, wd,
+            ws1, sc1, bi1, ws2, sc2, bi2, ws3, sc3, bi3, wsd, scd, bid,
+            *(a.data_ptr() for a in amax), b, h, w, cin, ROWS)
+        err = lib.capf_layer1_block(ctypes.addressof(args),
+                                    *_build.launch_target(x))
+        _build.check(lib, err, f"{name} block {i}")
+        launches += 1
+        src, a_in = out, blk["out"]
+    return src
+
+
+def layer1_chain(x, in_amax, blocks, impl: str = "auto"):
+    """Dispatcher: the plain version for a CPU tensor or ``impl="plain"``,
+    the CUDA kernel for any other (which raises unless it is a CUDA
+    tensor)."""
+    if impl == "plain" or x.device.type == "cpu":
+        return layer1_chain_reference(x, in_amax, blocks)
+    if impl != "auto":
+        raise ValueError(f"layer1_chain: impl {impl!r} (auto or plain)")
+    return layer1_chain_kernel(x, in_amax, blocks)

@@ -4,19 +4,28 @@ Port of the ``lift`` closure of ``bench.py:197-300`` (the JAX package's
 serving graph): in-graph normalization of raw BGR frames, the backbone
 (HRNet or CPN), then the PoseLifter.
 
-``slice_config(name)`` is ``deploy(preset(name))`` with the backbone's int8
-stack switched off (``quantize="none"``, no static amax, no int8 stream or
-maps): the bf16 backbone (for CPN with the native-resolution pyramid) and
-the bf16 lifter with the fused sampler, attention and MLP kernels. Every
-preset serves: ``h36m_hrnet_32`` (the default model), ``h36m_hrnet_48``,
-``h36m_cpn``, ``mpi_3dhp_hrnet_32`` and ``mpi_3dhp_hrnet_48``.
+Two serving configurations of a preset:
+
+- ``deploy_config(name)``, the deploy graph of the four HRNet presets
+  (``h36m_hrnet_32``, the default model, ``h36m_hrnet_48``,
+  ``mpi_3dhp_hrnet_32``, ``mpi_3dhp_hrnet_48``): ``deploy(preset(name))``
+  with ``layer1_impl="pallas"``. The bf16 HRNet with the int8 layer1 (K9),
+  int8 wide convs (K10) and the bf16 lifter with the fused sampler,
+  attention and MLP kernels. It needs ``prepare``/``prepare_serving``
+  (calibration and int8 weights) before it serves. ``h36m_cpn``'s int8
+  stack is not ported (ROADMAP 5a).
+- ``slice_config(name)``, any preset: ``deploy(preset(name))`` with the
+  backbone's int8 stack switched off (``quantize="none"``, no static amax,
+  no int8 stream or maps): the bf16 backbone (for CPN with the
+  native-resolution pyramid) and the same lifter.
 
 Usage::
 
-    cfg = slice_config("h36m_hrnet_32")
+    cfg = deploy_config("h36m_hrnet_32")
     model = build_serving_model(cfg, "cuda",
                                 generator=torch.Generator().manual_seed(0))
-    joints = lift(model, frames_u8, kp2d, kp2d_crop)   # (b, 17, 3) fp32
+    prepare(model, [calibration_frames_u8])             # int8 configs only
+    joints = lift(model, frames_u8, kp2d, kp2d_crop)    # (b, 17, 3) fp32
 """
 
 from __future__ import annotations
@@ -27,9 +36,13 @@ import torch
 
 from contextaware_poseformer_tpu_torch.config import Config, deploy, preset
 from contextaware_poseformer_tpu_torch.data import augment
+from contextaware_poseformer_tpu_torch.models.backbone_common import (
+    to_storage,
+)
 from contextaware_poseformer_tpu_torch.models.bridge import load_jax_variables
 from contextaware_poseformer_tpu_torch.models.capf import (
     ContextAwarePoseFormer,
+    prepare_serving,
 )
 from contextaware_poseformer_tpu_torch.models.init import init_parameters
 
@@ -43,6 +56,21 @@ def slice_config(name: str = "h36m_cpn") -> Config:
         cpn_int8_stream=False, cpn_int8_maps=False,
     )
     return replace(cfg, model=replace(cfg.model, backbone=backbone))
+
+
+def deploy_config(name: str = "h36m_hrnet_32") -> Config:
+    """The int8 deploy graph of an HRNet preset (see the module
+    docstring)."""
+    cfg = deploy(preset(name))
+    backbone = cfg.model.backbone
+    if backbone.kind != "hrnet":
+        raise NotImplementedError(
+            f"{name}: the {backbone.kind} int8 deploy stack "
+            "(serve_static_amax, cpn_int8_stream, cpn_int8_maps and K1's "
+            "int8-map input; ROADMAP 5a) is not ported; serve "
+            f"slice_config({name!r})")
+    return replace(cfg, model=replace(cfg.model, backbone=replace(
+        backbone, layer1_impl="pallas")))
 
 
 def configure_numerics() -> None:
@@ -60,18 +88,34 @@ def build_serving_model(cfg: Config, device, generator=None,
     Weights come from ``variables`` (flax variables with numpy leaves, via
     ``models/bridge.py``) or, when there are none, from ``generator`` (a
     seeded CPU ``torch.Generator``, flax initializers). The backbone is
-    stored in its compute dtype and in channels-last layout."""
+    stored in its compute dtype and in channels-last layout (its int8
+    convs keep fp32 parameters). An int8 configuration then needs
+    ``prepare`` unless ``variables`` carry its ``calib`` and ``qweights``
+    collections."""
     if variables is None and generator is None:
         raise ValueError("build_serving_model needs variables or a generator")
     configure_numerics()
     dtype = getattr(torch, cfg.model.compute_dtype)
     model = ContextAwarePoseFormer(cfg.model, dtype=dtype, device=device)
-    model.backbone.to(dtype=dtype, memory_format=torch.channels_last)
+    to_storage(model.backbone, dtype)
     if variables is not None:
         load_jax_variables(model, variables)
     else:
         init_parameters(model, generator)
     return model.eval().requires_grad_(False)
+
+
+def prepare(model: ContextAwarePoseFormer, frames_batches) -> None:
+    """Calibrate an int8 model and quantize its weights
+    (``models.capf.prepare_serving``) on batches of uint8 BGR frames
+    (b, H, W, 3), normalized as ``lift`` normalizes them. A no-op for a
+    float model."""
+    dev = model.lifter.head.kernel.device
+    with torch.no_grad():
+        batches = [(augment.serving_images(
+            f.to(dev), model.cfg.backbone, dtype=model.backbone.dtype),)
+            for f in frames_batches]
+    prepare_serving(model, None, batches)
 
 
 def lift(model: ContextAwarePoseFormer, frames_u8: torch.Tensor,

@@ -229,8 +229,10 @@ def test_slice_config_and_int8_refusal():
     assert lif.sampler_pre_project and lif.sampler == "auto"
     with pytest.raises(NotImplementedError, match="int8"):
         ContextAwarePoseFormer(deploy(preset("h36m_cpn")).model)
-    with pytest.raises(NotImplementedError, match="int8"):
-        ContextAwarePoseFormer(deploy(preset("h36m_hrnet_32")).model)
+    # HRNet's int8 deploy graph is ported (tests/test_torch_int8.py)
+    deployed = ContextAwarePoseFormer(deploy(preset("h36m_hrnet_32")).model,
+                                      device="meta")
+    assert deployed.backbone.serve
     hrnet = serve.slice_config("h36m_hrnet_32").model
     assert (hrnet.backbone.kind, hrnet.backbone.quantize) == ("hrnet", "none")
     ContextAwarePoseFormer(hrnet, device="meta")

@@ -7,7 +7,8 @@ no JAX, so it also runs on a GPU machine that has none:
 
 Tolerance: error relative to max|plain| of 1e-4 in fp32 (TF32 off) and
 2e-2 in bf16 (the kernels keep some intermediates in fp32 where the plain
-versions round to bf16).
+versions round to bf16). The int8 kernels K9 and K10 round at the same
+points as their plain versions and must equal them.
 """
 
 from dataclasses import replace
@@ -19,7 +20,9 @@ from contextaware_poseformer_tpu_torch import serve
 from contextaware_poseformer_tpu_torch.ops import (
     deformable,
     fused_mlp,
+    int8_conv,
     joint_attention,
+    layer1_chain,
     small_attention,
 )
 
@@ -304,5 +307,136 @@ def test_hrnet_slice_runs_through_every_kernel(cuda_device, monkeypatch):
     counts = [m.launches for m in KERNEL_MODULES] + [deformable.launches_k5]
     assert counts == expected
     assert out.shape == (4, 17, 3) and bool(torch.isfinite(out).all())
+    rel = ((out - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
+    assert rel.item() <= 2e-2
+
+
+# K10 at the deploy graph's shapes (batch 64): (name, H, W, Cin, Cout, k,
+# stride, int8 input) for the W32 and W48 branch channels
+def _k10_shapes(c):
+    return [("transition1.0", 64, 48, 256, c[0], 3, 1, True),
+            ("transition1.1", 64, 48, 256, c[1], 3, 2, True),
+            ("branch 16x12", 16, 12, c[2], c[2], 3, 1, False),
+            ("branch 8x6", 8, 6, c[3], c[3], 3, 1, False),
+            ("fuse 1x1", 8, 6, c[3], c[2], 1, 1, False),
+            ("fuse / transition3 s2", 16, 12, c[2], c[3], 3, 2, False)]
+
+
+K10_SHAPES = [(f"{tag} {name}", *rest)
+              for tag, dims in sorted(HRNET_PYRAMIDS.items())
+              for name, *rest in _k10_shapes([d[2] for d in dims])]
+
+
+def _int8_conv_case(g, dev, b, h, w, cin, cout, k, int8_in):
+    if int8_in:
+        x = torch.randint(-127, 128, (b, h, w, cin), generator=g,
+                          dtype=torch.int8).to(dev)
+        amax = torch.tensor(9.5, device=dev)
+    else:  # post-ReLU, as the wide convs see their inputs (half zeros)
+        x = torch.relu(torch.randn(b, h, w, cin, generator=g) * 2).to(
+            dev, torch.bfloat16)
+        amax = None
+    kq = torch.randint(-127, 128, (cout, k * k * cin), generator=g,
+                       dtype=torch.int8).to(dev)
+    vecs = [(torch.rand(cout, generator=g) * 0.01 + 1e-3).to(dev),
+            (torch.rand(cout, generator=g) + 0.5).to(dev),
+            (torch.randn(cout, generator=g) * 0.1).to(dev)]
+    return x, kq, vecs, amax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K10_SHAPES, ids=lambda c: c[0])
+def test_k10_int8_conv_matches_plain_version(cuda_device, case):
+    """K10 at every shape of the deploy graph (batch 64), ReLU on: its
+    bf16 output equals the plain version's (float64 accumulation, the same
+    epilogue), one launch."""
+    _, h, w, cin, cout, k, stride, int8_in = case
+    g = torch.Generator().manual_seed(cin + cout + k + stride)
+    x, kq, vecs, amax = _int8_conv_case(g, cuda_device, 64, h, w, cin, cout,
+                                        k, int8_in)
+    before = int8_conv.launches
+    with torch.inference_mode():
+        out = int8_conv.int8_conv(x, kq, *vecs, amax, stride, True)
+        ref = int8_conv.int8_conv_reference(x, kq, *vecs, amax, stride, True)
+    assert int8_conv.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == ref.dtype == torch.bfloat16
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
+
+
+def _layer1_blocks(g, dev):
+    def pieces(o, k):
+        return (torch.randint(-127, 128, (o, k), generator=g,
+                              dtype=torch.int8).to(dev),
+                (torch.rand(o, generator=g) * 0.02 + 1e-3).to(dev),
+                (torch.rand(o, generator=g) + 0.5).to(dev),
+                (torch.randn(o, generator=g) * 0.1).to(dev))
+
+    return [{"conv1": pieces(64, 64 if b == 0 else 256),
+             "conv2": pieces(64, 576), "conv3": pieces(256, 64),
+             "downsample": pieces(256, 64) if b == 0 else None,
+             "t1": torch.tensor(60.0 + b, device=dev),
+             "t2": torch.tensor(80.0 + b, device=dev),
+             "out": torch.tensor(45.0 + b, device=dev)} for b in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [2, 64])
+def test_k9_layer1_chain_matches_plain_version(cuda_device, batch):
+    """K9 on a 64x48 stem output against its plain version (the per-conv
+    chain through K10's plain version): the int8 output equal, four
+    launches; and against the per-conv chain through K10 on the card."""
+    g = torch.Generator().manual_seed(batch)
+    x = (torch.randn(batch, 64, 48, 64, generator=g) * 2).to(
+        cuda_device, torch.bfloat16)
+    blocks = _layer1_blocks(g, cuda_device)
+    amax = torch.tensor(6.0, device=cuda_device)
+    before = (layer1_chain.launches, int8_conv.launches)
+    with torch.inference_mode():
+        out = layer1_chain.layer1_chain(x, amax, blocks)
+        ref = layer1_chain.layer1_chain_reference(x, amax, blocks)
+        chain = layer1_chain.layer1_int8_chain(x, amax, blocks)
+    assert (layer1_chain.launches, int8_conv.launches) == (
+        before[0] + 4, before[1] + 13)
+    assert out.shape == (batch, 64, 48, 256) and out.dtype == torch.int8
+    assert torch.equal(out, ref)
+    assert torch.equal(out, chain)
+    frac = (ref.abs() == 127).float().mean().item()
+    assert 0.0 < frac < 0.6, frac
+
+
+@pytest.mark.cuda
+def test_deploy_request_launch_counts(cuda_device, monkeypatch):
+    """One request of the full-width h36m_hrnet_32 deploy graph (batch 2,
+    after ``serve.prepare``) launches K9 4 times and K10 87 times, beside
+    K1-K5's 5/12/4/4/5, and agrees with the plain versions of every kernel
+    (relative RMS 2e-2)."""
+    counters = [(m, "launches") for m in (*KERNEL_MODULES, int8_conv,
+                                          layer1_chain)]
+    counters.append((deformable, "launches_k5"))
+    for mod, attr in counters:
+        monkeypatch.setattr(mod, attr, 0)
+    cfg = serve.deploy_config("h36m_hrnet_32")
+    plain_cfg = replace(cfg, model=replace(cfg.model, lifter=replace(
+        cfg.model.lifter, sampler="gather", attention="einsum",
+        attention_joint="einsum", mlp="einsum")))
+    gen = torch.Generator().manual_seed(0)
+    model = serve.build_serving_model(cfg, cuda_device, generator=gen)
+    h, w = cfg.model.image_shape
+    frames = torch.randint(0, 256, (2, h, w, 3), dtype=torch.uint8,
+                           generator=gen)
+    serve.prepare(model, [frames])
+    plain = serve.build_serving_model(plain_cfg, cuda_device, generator=gen)
+    plain.load_state_dict(model.state_dict())
+    plain.backbone.int8_impl = "plain"
+    kp = torch.rand(2, 17, 2, generator=gen) * 2 - 1
+    kpc = torch.rand(2, 17, 2, generator=gen) * w
+    for mod, attr in counters:
+        monkeypatch.setattr(mod, attr, 0)
+    out = serve.lift(model, frames, kp, kpc)
+    expected = [5, 12, 4, 4, 87, 4, 5]
+    assert [getattr(m, a) for m, a in counters] == expected
+    ref = serve.lift(plain, frames, kp, kpc)
+    assert [getattr(m, a) for m, a in counters] == expected
+    assert out.shape == (2, 17, 3) and bool(torch.isfinite(out).all())
     rel = ((out - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
     assert rel.item() <= 2e-2
