@@ -44,12 +44,33 @@ Phases, one line of output each (failures raise and exit non-zero):
    relative RMS against the float slice of the same weights (information),
    then where its time goes as in the slice phase; then one request each of
    the other three HRNet deploy configurations;
-7. backward: K6 against the plain backward at the training shapes (four
+7. aggregate: this phase's main path, with every launch count set to 0
+   before it and read after it: K8 through ``sample_points`` at full
+   width, batch 64 (the CPN pyramid's 64x48x256 level with 17 zeros
+   points and HRNet-W32's 64x48x32 level with 272 border points, in bf16
+   and fp32, then the 64x48x256 level as int8, sampled to bf16), one
+   launch a call; and K7 through ``deformable_aggregate`` on the first
+   DeformableBlock of one served request of ``h36m_cpn`` and of
+   ``h36m_hrnet_32`` (random weights from seed 0, batch 64; inputs
+   captured by a forward hook, the block's own attention weights, points
+   and ``embed_proj`` weights), in border mode, and at the CPN shapes in
+   zeros mode and in fp32. Each call against its plain version (error /
+   max|plain| within TOL; for K7 level by level, each level against its
+   own max|plain|), with median kernel, plain and library times
+   (``F.grid_sample``; for K7 per level ``F.grid_sample`` + ``F.linear``
+   + ``einsum``) and the bound. On each served block, the A/B of K7
+   against the block's own route (K1 with the in-kernel projection where
+   ``kernel_can_preproject`` holds, then ``embed_proj`` and the einsum),
+   both held against the plain version; the packed-points probe: the
+   packed offsets, the (b, L, p, nh*ns, 2) points and the tensor K1 is
+   handed share one storage, and K1's time on that view; then K1 on the
+   CPN pyramid as int8 maps (bf16 samples) against its plain version;
+8. backward: K6 against the plain backward at the training shapes (four
    64x48x256 maps, batch 64, 4x272 border points and 4x17 zeros points),
    fp32 and bf16, with and without dF: max abs error and error / max|plain|
    of d(points) and dF, median kernel and plain device times; then the
    training step's own call (fp32, border, no dF) at batch 256;
-8. train: the h36m_cpn training preset at full width (fp32 CPN ResNet-50
+9. train: the h36m_cpn training preset at full width (fp32 CPN ResNet-50
    with the /4 graph, lifter embed 128 depth 4 with deformable blocks,
    AdamW, batch 256, flip augmentation, drop-path 0.2; TF32 off; synthetic
    data and weights from seed 0), set up by the training CLI's own
@@ -60,17 +81,22 @@ Phases, one line of output each (failures raise and exit non-zero):
    agree with one through the plain sampler (``sampler="gather"``) from the
    same weights on the same batch: loss to 1e-5 relative, lifter gradients
    to a global relative L2 of 1e-4. Steps/s (information only);
-9. a JSON line of per-kernel results, then the final JSON status line.
-   ``launches`` are summed over the serving and training runs, each counted
-   from 0. Errors are the largest over the bf16 cases. Times are bf16 at
-   the CPN serving shapes for K1-K4 and at HRNet-W32's for K5, K9 and K10,
-   all per request (the sum over a request's calls), K6's
-   those of the training step's call at batch 256 times its 4 calls a step.
+10. a JSON line of per-kernel results (K1-K10), then the final JSON
+   status line. ``launches`` are summed over the serving, aggregate and
+   training runs, each counted from 0. Errors are the largest over the
+   bf16 cases (int8 maps, sampled to bf16, included). Times are bf16 at
+   the CPN serving shapes for K1-K4 and at HRNet-W32's for K5, K9 and
+   K10, all per request (the sum over a request's calls), K6's those of
+   the training step's call at batch 256 times its 4 calls a step, K7's
+   the sum of its two served blocks' border calls and K8's of its two
+   bf16 calls.
    ``bound_ms`` is the larger of the bytes the calls must move over
    3.35 TB/s and their operations over 989 TFLOP/s (bf16), 67 TFLOP/s
-   (fp32) or 1979 TOP/s (int8), the H100 SXM peaks; a sampler must read
-   only the distinct map rows its points' taps touch, counted from this
-   run's points.
+   (fp32) or 1979 TOP/s (int8), the H100 SXM peaks (K7's and the int8
+   samplers' arithmetic, which runs in fp32, at the fp32 rate); a sampler
+   must read only the distinct map rows its points' taps touch, counted
+   from this run's points. K7's operations are the least its function
+   needs: it may pool each head's ns samples before one projection a row.
 """
 
 from __future__ import annotations
@@ -118,12 +144,15 @@ REPLACES = {
     "K4": "contextaware_poseformer_tpu/ops/joint_attention.py:50",
     "K5": "contextaware_poseformer_tpu/ops/deformable.py:148",
     "K6": "contextaware_poseformer_tpu/ops/deformable.py:783",
+    "K7": "contextaware_poseformer_tpu/ops/deformable.py:947",
+    "K8": "contextaware_poseformer_tpu/ops/deformable.py:215",
     "K9": "contextaware_poseformer_tpu/ops/layer1_chain.py:51",
     "K10": "contextaware_poseformer_tpu/models/backbone_common.py:204",
 }
 SOURCES = {"K1": "sampler.cu", "K2": "fused_mlp.cu",
            "K3": "small_attention.cu", "K4": "joint_attention.cu",
            "K5": "sampler.cu", "K6": "sampler_bwd.cu",
+           "K7": "aggregate.cu", "K8": "sampler.cu",
            "K9": "layer1_chain.cu", "K10": "int8_conv.cu"}
 LEVELS = ((8, 6), (16, 12), (32, 24), (64, 48))  # CPN native pyramid
 HRNET_PYRAMIDS = {  # 256x192 frames, finest first
@@ -131,6 +160,14 @@ HRNET_PYRAMIDS = {  # 256x192 frames, finest first
     "W48": ((64, 48, 48), (32, 24, 96), (16, 12, 192), (8, 6, 384)),
 }
 HEAD_DIM = 32  # deformable head dim: embed 128 over 4 heads
+# K8 at full width: (case, map (H, W, C), padding, points per item); the
+# CPN serving pyramid's 64x48 level with the 17 reference points, and
+# HRNet-W32's 64x48x32 level (the TPU's two-stage body) with 17x16 points
+K8_CASES = (
+    ("CPN 64x48x256 zeros P=17", (64, 48, 256), "zeros", (17,)),
+    ("W32 64x48x32 border P=272", (64, 48, 32), "border", (17, 16)),
+)
+AGGREGATE_PRESETS = ("h36m_cpn", "h36m_hrnet_32")  # K7 on their blocks
 SLEEP_CYCLES = 4_000_000  # ~2 ms of device clock ahead of a timed window
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,  # dense FLOP/s
@@ -173,6 +210,19 @@ def _err(out, ref):
               for o, r in zip(outs, refs))
     scale = max(r.float().abs().max().item() for r in refs)
     return err, err / scale
+
+
+def _level_errs(out, ref):
+    """(max abs error, [error / max|plain| of each level]) of a
+    (b, L, ...) result: each level is held against its own scale, so a
+    level of small values is not hidden by a larger one."""
+    err = (out.float() - ref.float()).abs().max().item()
+    rels = [_err(out[:, l], ref[:, l])[1] for l in range(ref.shape[1])]
+    return err, rels
+
+
+def _fmt_rels(rels):
+    return "[" + ", ".join(f"{r:.3e}" for r in rels) + "]"
 
 
 def _bound(nbytes, ops, dtype):
@@ -218,7 +268,8 @@ def _sampler_work(maps, pts, projs, border):
             cout = projs[l].shape[1]
             nbytes += (c + 1) * cout * 4
             ops += 2 * b * p * c * cout
-        nbytes += b * p * cout * elem
+        # an int8 map's samples are written as bf16
+        nbytes += b * p * cout * (2 if f.dtype == torch.int8 else elem)
         ops += 8 * b * p * c
     return nbytes, ops
 
@@ -376,6 +427,19 @@ def _kernel_cases(dtype, gen):
     return cases
 
 
+def _accumulate(res, largest, kern, calls, ms, plain_ms, bound_ms, by,
+                lib_ms):
+    """Add ``calls`` calls' times to a kernel's JSON numbers; the bound is
+    named after the largest call's."""
+    res["ms"] += calls * ms
+    res["plain_ms"] += calls * plain_ms
+    res["bound_ms"] += calls * bound_ms
+    res["library_ms"] = (None if None in (lib_ms, res["library_ms"])
+                         else res["library_ms"] + calls * lib_ms)
+    if calls * bound_ms > largest.get(kern, (0.0, ""))[0]:
+        largest[kern] = (calls * bound_ms, by)
+
+
 def check_kernels():
     """Phase 3: returns {kernel: JSON numbers} with bf16 errors and
     per-request bf16 times (K5 at the W32 pyramid)."""
@@ -409,16 +473,9 @@ def check_kernels():
                     continue
                 res = results[kern]
                 res["max_abs_err"] = max(res["max_abs_err"], err)
-                if not calls:
-                    continue
-                res["ms"] += calls * ms
-                res["plain_ms"] += calls * plain_ms
-                res["bound_ms"] += calls * bound_ms
-                res["library_ms"] = (None if None in (lib_ms, res["library_ms"])
-                                     else res["library_ms"] + calls * lib_ms)
-                # the request's bound is named after its largest call's
-                if calls * bound_ms > bound_by.get(kern, (0.0, ""))[0]:
-                    bound_by[kern] = (calls * bound_ms, by)
+                if calls:
+                    _accumulate(res, bound_by, kern, calls, ms, plain_ms,
+                                bound_ms, by, lib_ms)
     for kern, res in results.items():
         res["bound_by"] = bound_by[kern][1]
     return results
@@ -591,6 +648,8 @@ def _counters():
             "K4": (joint_attention, "launches"),
             "K5": (deformable, "launches_k5"),
             "K6": (deformable, "launches_bwd"),
+            "K7": (deformable, "launches_k7"),
+            "K8": (deformable, "launches_k8"),
             "K9": (layer1_chain, "launches"),
             "K10": (int8_conv, "launches")}
 
@@ -779,6 +838,303 @@ def _where_time_goes(phase, name, cfg, model, req, host_ms, tag):
               f"{e.count / PROFILED:.1f}x {e.key[:90]}", flush=True)
 
 
+def _served_block(name):
+    """Serve one request of ``slice_config(name)`` (random weights from seed
+    0, batch BATCH) and return its first DeformableBlock with the inputs
+    it received (tokens, ref, features), captured by a forward hook."""
+    from contextaware_poseformer_tpu_torch import serve
+
+    cfg = serve.slice_config(name)
+    model = serve.build_serving_model(
+        cfg, "cuda", generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(0)
+    h, w = cfg.model.image_shape
+    req = (torch.randint(0, 256, (BATCH, h, w, 3), dtype=torch.uint8,
+                         generator=gen).cuda(),
+           (torch.rand(BATCH, 17, 2, generator=gen) * 2 - 1).cuda(),
+           (torch.rand(BATCH, 17, 2, generator=gen) * w).cuda())
+    block = model.lifter.context_block_0
+    seen = []
+    hook = block.register_forward_pre_hook(
+        lambda _, args: seen.append(args[:3]))
+    out = serve.lift(model, *req)
+    torch.cuda.synchronize()
+    hook.remove()
+    if out.shape != (BATCH, 17, 3) or not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: bad output {tuple(out.shape)}")
+    tokens, ref, features = seen[0]
+    return block, tokens, ref, list(features)
+
+
+def _aggregate_work(maps, pts, weights, hd, border):
+    """(bytes, fp32 operations) of one K7 call: the distinct tap rows, the
+    points, weights, projections and output; the least operations of the
+    function, which pools before it projects: sum_s w_s (x_s W + b) =
+    (sum_s w_s x_s) W + (sum_s w_s) b. So 8 a sampled channel, 2 a channel
+    for the weighted sum over ns, and for each (joint, head) row one
+    C -> hd projection (2 * C * hd), ns for the sum of its weights and
+    2 * hd for the bias times that sum and its add."""
+    b, levels = pts.shape[:2]
+    flat = pts.reshape(b, levels, -1, 2)
+    n = flat.shape[2]  # points a level and item
+    ns = weights.shape[-1]
+    rows = n // ns  # (joint, head) rows a level and item
+    elem = maps[0].element_size()
+    nbytes = flat.numel() * 4 + weights.numel() * 4
+    nbytes += b * levels * rows * hd * elem
+    ops = 0
+    for l, f in enumerate(maps):
+        c = f.shape[-1]
+        nbytes += _distinct_taps(f, flat[:, l], border) * c * elem
+        nbytes += (c + 1) * hd * 4
+        ops += b * n * (8 * c + 2 * c) + b * rows * (2 * c * hd + ns + 2 * hd)
+    return nbytes, ops
+
+
+def _aggregate_library_fn(maps, pos, weights, projs, biases, mode):
+    """The library composition of a K7 call: per level ``F.grid_sample`` on
+    the NCHW view, ``F.linear`` and the weighted ``einsum``."""
+    b, levels, p, nh, ns = weights.shape
+    grid = pos.to(maps[0].dtype)
+
+    def run():
+        outs = []
+        for l, f in enumerate(maps):
+            s = F.grid_sample(f.permute(0, 3, 1, 2), grid[:, l],
+                              mode="bilinear", padding_mode=mode,
+                              align_corners=True)  # (b, C, p, nh*ns)
+            s = F.linear(s.permute(0, 2, 3, 1), projs[l].t().to(f.dtype),
+                         biases[l].to(f.dtype))
+            outs.append(torch.einsum(
+                "bphs,bphsd->bphd", weights[:, l].to(f.dtype),
+                s.reshape(b, p, nh, ns, -1)).reshape(b, p, -1))
+        return torch.stack(outs, dim=1)
+
+    return run
+
+
+def _k8_cases(gen):
+    """(case, dtype, map, points, padding) of K8 at full width, batch
+    BATCH: the K8_CASES in bf16 and fp32, then the CPN level as int8."""
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        for case, dims, mode, per_item in K8_CASES:
+            if dtype == torch.int8 and dims[2] != 256:
+                continue
+            if dtype == torch.int8:
+                f = torch.randint(-127, 128, (BATCH, *dims), generator=gen,
+                                  dtype=torch.int8).cuda()
+            else:
+                f = torch.randn(BATCH, *dims, generator=gen).to("cuda", dtype)
+            pts = (torch.rand(BATCH, *per_item, 2, generator=gen) * 3
+                   - 1.5).cuda()
+            cases.append((case, dtype, f, pts, mode))
+    return cases
+
+
+def check_aggregate(results, card):
+    """Phase 7: K8 and K7 through their public entries at full width (this
+    phase's main path, its launches counted from 0), each against its plain
+    version, with kernel, plain, library and bound times; the A/B of K7
+    against the DeformableBlock's own route on the served h36m_cpn and
+    h36m_hrnet_32 blocks; K1 on the packed offsets without a copy; K1 on
+    int8 maps. Adds K7's and K8's JSON numbers to ``results`` (and the
+    int8 error to K1's) and returns the path's launch counts."""
+    from contextaware_poseformer_tpu_torch.ops import deformable
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")
+    results.update({k: dict.fromkeys(keys, 0.0) for k in ("K7", "K8")})
+    largest = {}
+    blocks = {name: _served_block(name) for name in AGGREGATE_PRESETS}
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        k8 = _k8_cases(torch.Generator().manual_seed(7))
+        k7 = []  # (case, calls a smoke pass in the JSON, block, args, mode)
+        for name, (block, tokens, ref, features) in blocks.items():
+            weights, packed = block.sampling(tokens, ref)
+            b, lp1, p, _ = tokens.shape
+            pos = packed.reshape(b, lp1 - 1, p, -1, 2)
+            levels = range(lp1 - 1)
+            args = (features, pos, weights,
+                    [block.embed_proj(l).kernel for l in levels],
+                    [block.embed_proj(l).bias for l in levels])
+            blocks[name] = (block, packed, args)
+            k7.append((f"{name} block border", 1, block, args, "border"))
+            if name == "h36m_cpn":
+                k7.append((f"{name} block zeros", 0, None, args, "zeros"))
+                k7.append((f"{name} block border", 0, None,
+                           ([f.float() for f in features], *args[1:]),
+                           "border"))
+
+        # the main path: every K8 and K7 call once through its entry
+        _reset_counts()
+        k8_outs = []
+        for case, dtype, f, pts, mode in k8:
+            before = deformable.launches_k8
+            k8_outs.append(deformable.sample_points(f, pts, mode))
+            if deformable.launches_k8 != before + 1:
+                raise AssertionError(f"K8 {case}: launches_k8 "
+                                     f"{deformable.launches_k8 - before}")
+        k7_outs = [deformable.deformable_aggregate(*args, mode)
+                   for _, _, _, args, mode in k7]
+        torch.cuda.synchronize()
+        launches = _counts()
+        want = {**_expected({}), "K7": len(k7), "K8": len(k8)}
+        if launches != want:
+            raise AssertionError(f"aggregate path launched {launches}, "
+                                 f"expected {want}")
+
+        for (case, dtype, f, pts, mode), out in zip(k8, k8_outs):
+            def fn(f=f, pts=pts, mode=mode):
+                return deformable.sample_points(f, pts, mode, impl="fused")
+
+            def plain(f=f, pts=pts, mode=mode):
+                return deformable.sample_points(f, pts, mode, impl="gather")
+
+            ref = plain()
+            err, rel = _err(out, ref)
+            tol = TOL[torch.float32 if dtype == torch.float32
+                      else torch.bfloat16]
+            ms, plain_ms = _median_ms(fn), _median_ms(plain)
+            lib_ms = None
+            if dtype != torch.int8:
+                lib_ms = _median_ms(_grid_sample_fn([f], pts[:, None], mode))
+            work = _sampler_work([f], pts[:, None], None, mode == "border")
+            bound_ms, by = _bound(*work, torch.float32 if dtype == torch.int8
+                                  else dtype)
+            name = str(dtype).removeprefix("torch.")
+            lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+            print(f"aggregate: K8 {case} {name}"
+                  f"{' -> bfloat16' if dtype == torch.int8 else ''}: "
+                  f"max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:.0e}); "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                  f"{lib}, bound {bound_ms:.4f} ms ({by}: {work[0]} B, "
+                  f"{work[1]} ops; {card})", flush=True)
+            if not rel <= tol:
+                raise AssertionError(f"K8 {case} {name}: rel error "
+                                     f"{rel:.3e} > {tol:.0e}")
+            res = results["K8"]
+            if dtype != torch.float32:
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+            if dtype == torch.bfloat16:
+                _accumulate(res, largest, "K8", 1, ms, plain_ms, bound_ms,
+                            by, lib_ms)
+
+        for (case, calls, block, args, mode), out in zip(k7, k7_outs):
+            dtype = args[0][0].dtype
+
+            def fn(args=args, mode=mode):
+                return deformable.deformable_aggregate(*args, mode)
+
+            def plain(args=args, mode=mode):
+                return deformable.aggregate_reference(*args, mode)
+
+            ref = plain()
+            err, rels = _level_errs(out, ref)
+            rel = max(rels)
+            ms, plain_ms = _median_ms(fn), _median_ms(plain)
+            lib_fn = _aggregate_library_fn(*args, mode)
+            lib_ms = _median_ms(lib_fn)
+            lib_rels = _level_errs(lib_fn(), ref)[1]
+            work = _aggregate_work(args[0], args[1], args[2],
+                                   args[3][0].shape[1], mode == "border")
+            bound_ms, by = _bound(*work, torch.float32)
+            route = ""
+            if block is not None:  # the block's own route: K1 + Linear + einsum
+                def route_fn(block=block, args=args):
+                    return block.pool(args[0], args[1], args[2])
+
+                route_rels = _level_errs(route_fn(), ref)[1]
+                route_err = max(route_rels)
+                route_ms = _median_ms(route_fn)
+                route = (f"; block route (K1 + embed_proj + einsum) "
+                         f"{route_ms:.4f} ms, rel by level "
+                         f"{_fmt_rels(route_rels)}")
+            name = str(dtype).removeprefix("torch.")
+            print(f"aggregate: K7 {case} {name} (b={BATCH}, "
+                  f"{tuple(args[2].shape)} weights, maps "
+                  f"{[tuple(f.shape[1:]) for f in args[0]]}): max_abs_err "
+                  f"{err:.3e}, rel by level {_fmt_rels(rels)} (tol "
+                  f"{TOL[dtype]:.0e} each); kernel {ms:.4f} ms{route}; "
+                  f"plain {plain_ms:.4f} ms; library {lib_ms:.4f} ms (rel "
+                  f"by level {_fmt_rels(lib_rels)}); bound "
+                  f"{bound_ms:.4f} ms ({by}: {work[0]} B, {work[1]} fp32 "
+                  f"ops; {card})", flush=True)
+            if not rel <= TOL[dtype] or (route and not route_err <= TOL[dtype]):
+                raise AssertionError(f"K7 {case} {name}: rel error by level "
+                                     f"{_fmt_rels(rels)}{route} > "
+                                     f"{TOL[dtype]:.0e}")
+            if dtype == torch.bfloat16:
+                res = results["K7"]
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                _accumulate(res, largest, "K7", calls, ms, plain_ms,
+                            bound_ms, by, lib_ms)
+
+        # the packed probe: the block's packed offset rows reach K1 as they
+        # are; the (b, L, p, nh*ns, 2) points are a view of them
+        for name, (block, packed, args) in blocks.items():
+            features, pos = args[0], args[1]
+            handed = deformable._check_levels("sample_points_multi",
+                                              features, pos, "border")
+            ptrs = {packed.data_ptr(), pos.data_ptr(), handed.data_ptr()}
+            if len(ptrs) != 1:
+                raise AssertionError(f"{name}: the packed offsets were "
+                                     f"copied before K1 ({ptrs})")
+            hd = args[3][0].shape[1]
+            pre = [block.pre_project and deformable.kernel_can_preproject(
+                *f.shape[1:], hd) for f in features]
+            projs = [w if on else None for w, on in zip(args[3], pre)]
+            biases = [v if on else None for v, on in zip(args[4], pre)]
+            k1_ms = _median_ms(lambda: deformable.sample_points_multi(
+                features, pos, "border", True, projs, biases))
+            print(f"aggregate: packed probe {name}: the packed offsets "
+                  f"{tuple(packed.shape)}, the points {tuple(pos.shape)} and "
+                  f"K1's input share storage at 0x{packed.data_ptr():x} (no "
+                  f"copy); K1 on the view {k1_ms:.4f} ms ({card})",
+                  flush=True)
+
+        _check_int8_k1(results, card)
+    for k in ("K7", "K8"):
+        results[k]["bound_by"] = largest[k][1]
+    del blocks, k8, k7, k8_outs, k7_outs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _check_int8_k1(results, card):
+    """K1 on the CPN serving pyramid as int8 maps (raw samples in bf16),
+    the zeros 17-point call, against the plain version (fp32 samples)."""
+    from contextaware_poseformer_tpu_torch.ops import deformable
+
+    gen = torch.Generator().manual_seed(8)
+    maps = [torch.randint(-127, 128, (BATCH, h, w, 256), generator=gen,
+                          dtype=torch.int8).cuda() for h, w in LEVELS]
+    pts = (torch.rand(BATCH, len(LEVELS), 17, 2, generator=gen) * 2.2
+           - 1.1).cuda()
+
+    def fn():
+        return deformable.sample_points_multi(maps, pts, "zeros")
+
+    def plain():
+        return deformable.sample_points_multi_reference(maps, pts, "zeros")
+
+    out, ref = fn(), plain()
+    if {o.dtype for o in out} != {torch.bfloat16}:
+        raise AssertionError(f"K1 int8: outputs {[o.dtype for o in out]}")
+    err, rel = _err(out, ref)
+    ms, plain_ms = _median_ms(fn), _median_ms(plain)
+    work = _sampler_work(maps, pts, None, False)
+    bound_ms, by = _bound(*work, torch.float32)
+    tol = TOL[torch.bfloat16]
+    print(f"aggregate: K1 int8 CPN zeros P=17 -> bfloat16: max_abs_err "
+          f"{err:.3e} rel {rel:.3e} (tol {tol:.0e}); kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: "
+          f"{work[0]} B, {work[1]} ops; {card})", flush=True)
+    if not rel <= tol:
+        raise AssertionError(f"K1 int8: rel error {rel:.3e} > {tol:.0e}")
+    results["K1"]["max_abs_err"] = max(results["K1"]["max_abs_err"], err)
+
+
 def _edge_points(gen, *shape, lo=-1.5, hi=1.5):
     """Uniform points with some exactly on the edges and some past them."""
     pts = torch.rand(*shape, generator=gen) * (hi - lo) + lo
@@ -836,7 +1192,7 @@ def _grid_sample_backward_fn(maps, pts, grads, mode, need_df):
 
 
 def check_backward():
-    """Phase 6: K6 against the plain backward. Returns K6's JSON numbers:
+    """Phase 8: K6 against the plain backward. Returns K6's JSON numbers:
     fp32 d(points) error and per-step times of the training step's call
     (border, no dF, batch TRAIN_BATCH; 4 calls a step)."""
     for dtype in (torch.float32, torch.bfloat16):
@@ -889,7 +1245,7 @@ def check_backward():
 
 
 def check_train(card):
-    """Phase 7: returns the training run's launch counts."""
+    """Phase 9: returns the training run's launch counts."""
     from contextaware_poseformer_tpu_torch.data import pipeline
     from contextaware_poseformer_tpu_torch.models.capf import (
         ContextAwarePoseFormer,
@@ -1052,6 +1408,7 @@ def main() -> None:
     results.update(check_int8_kernels(card))
     served += [check_serving(name, n, card, int8=True)
                for name, n in HRNET_REQUESTS.items()]
+    served.append(check_aggregate(results, card))
     results["K6"] = check_backward()
     trained = check_train(card)
     kernels = [

@@ -109,23 +109,31 @@ class DeformableBlock(nn.Module):
     def embed_proj(self, l: int) -> Linear:
         return getattr(self, f"embed_proj_{l}")
 
-    def forward(self, tokens: torch.Tensor, ref: torch.Tensor,
-                features: Sequence[torch.Tensor], deterministic: bool = True,
-                generator=None) -> torch.Tensor:
-        b, lp1, p, dim = tokens.shape
+    def sampling(self, tokens: torch.Tensor, ref: torch.Tensor):
+        """The attention weights (b, L, p, nh, ns), softmaxed, and the
+        sampling points in the packed layout (b, L, p, 2 * nh * ns), rows
+        (sample, xy), of ``tokens`` (b, L + 1, p, dim) around ``ref``."""
+        b, lp1, p, _ = tokens.shape
         levels = lp1 - 1
         nh, ns = self.num_heads, self.num_samples
-        head_dim = dim // nh
-        x0, x = tokens[:, :1], tokens[:, 1:]
-        residual = x
-        h = self.norm1(x + x0)
+        h = self.norm1(tokens[:, 1:] + tokens[:, :1])
         weights = torch.softmax(
             self.attention_weights(h).reshape(b, levels, p, nh, ns), dim=-1)
         offsets = self.sampling_offsets(h)  # (b, L, p, 2*nh*ns) packed
-        # tanh and the ref add in the packed layout, rows (sample, xy)
-        pos = torch.tanh(offsets) + ref[:, None].repeat(1, levels, 1, nh * ns)
-        pos = pos.reshape(b, levels, p, nh * ns, 2)
+        # tanh and the ref add in the packed layout
+        packed = torch.tanh(offsets) + ref[:, None].repeat(1, levels, 1,
+                                                           nh * ns)
+        return weights, packed
 
+    def pool(self, features: Sequence[torch.Tensor], pos: torch.Tensor,
+             weights: torch.Tensor) -> torch.Tensor:
+        """The pooled context (b, L, p, dim) of points ``pos`` (b, L, p,
+        nh * ns, 2): the sampler (with ``embed_proj`` inside it where
+        ``pre_project`` allows), ``embed_proj`` on the other levels, and
+        the weighted sum over each head's samples."""
+        b, levels, p = weights.shape[:3]
+        nh, ns = self.num_heads, self.num_samples
+        head_dim = self.embed_proj(0).kernel.shape[1]
         pre = [
             self.pre_project
             and kernel_can_preproject(*features[l].shape[1:], head_dim)
@@ -146,8 +154,17 @@ class DeformableBlock(nn.Module):
         ).reshape(b, levels, p, nh, ns, head_dim)
         pooled = torch.einsum("blphs,blphsd->blphd",
                               weights.to(sampled.dtype), sampled)
-        pooled = pooled.reshape(b, levels, p, dim).to(residual.dtype)
-        x = residual + self.drop_path1(pooled, deterministic, generator)
+        return pooled.reshape(b, levels, p, nh * head_dim)
+
+    def forward(self, tokens: torch.Tensor, ref: torch.Tensor,
+                features: Sequence[torch.Tensor], deterministic: bool = True,
+                generator=None) -> torch.Tensor:
+        b, lp1, p, _ = tokens.shape
+        x0, x = tokens[:, :1], tokens[:, 1:]
+        weights, packed = self.sampling(tokens, ref)
+        pos = packed.reshape(b, lp1 - 1, p, -1, 2)  # a view: no copy
+        pooled = self.pool(features, pos, weights).to(x.dtype)
+        x = x + self.drop_path1(pooled, deterministic, generator)
         if self.mlp_impl == "fused" and not self.drop_path2.active(
                 deterministic):
             x = apply_ln_mlp_residual(x, self.norm2, self.mlp)

@@ -46,6 +46,8 @@ SIGNATURES = {
     "capf_sample_levels": (_I, [_P, _I, _P]),
     # (args struct*, device, stream)
     "capf_sample_levels_bwd": (_I, [_P, _I, _P]),
+    # (args struct*, device, stream)
+    "capf_deformable_aggregate": (_I, [_P, _I, _P]),
     # (dtype, x, ln_scale, ln_bias, w1, b1, w2, b2, out, rows, d, h, eps,
     #  device, stream)
     "capf_ln_mlp_residual": (
@@ -62,7 +64,8 @@ SIGNATURES = {
     "capf_layer1_block": (_I, [_P, _I, _P]),
 }
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+FLOATS = (torch.float32, torch.bfloat16)  # what most kernels take
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory one H100 block may use
 
 
@@ -226,8 +229,10 @@ class PlainVjp(torch.autograd.Function):
         return (None, None, *grads)
 
 
-def dtype_code(name: str, dtype: torch.dtype) -> int:
-    if dtype not in DTYPE_CODES:
-        raise TypeError(f"{name}: the CUDA kernel takes float32 or bfloat16, "
-                        f"got {dtype}")
+def dtype_code(name: str, dtype: torch.dtype, accepted=FLOATS) -> int:
+    """The kernel's code for ``dtype`` (``common.cuh``'s ``DType``), or a
+    TypeError when the kernel does not take it."""
+    if dtype not in accepted:
+        names = ", ".join(str(d).removeprefix("torch.") for d in accepted)
+        raise TypeError(f"{name}: the CUDA kernel takes {names}, got {dtype}")
     return DTYPE_CODES[dtype]

@@ -2,7 +2,9 @@
 //
 // Every kernel stores in T (float or __nv_bfloat16) and computes in fp32.
 // round_to<T> reproduces a store-and-reload through T, at the points where
-// the JAX kernels cast an intermediate to the compute dtype.
+// the JAX kernels cast an intermediate to the compute dtype. The samplers
+// also read int8 maps (raw quantized numbers) and store those samples in
+// bf16.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -11,11 +13,14 @@
 
 namespace capf {
 
-enum DType { kFloat32 = 0, kBFloat16 = 1 };
+enum DType { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_float(int8_t v) {
+  return static_cast<float>(v);
 }
 
 template <typename T>
@@ -39,6 +44,38 @@ __device__ __forceinline__ float round_to(float v) {
 __device__ __forceinline__ float unnormalize(float v, int size, bool align) {
   return align ? (v + 1.f) * 0.5f * static_cast<float>(size - 1)
                : ((v + 1.f) * static_cast<float>(size) - 1.f) * 0.5f;
+}
+
+// Tap rows (y * W + x) and bilinear weights of one point, shared by the
+// sampler (K1) and the aggregation (K7); an out-of-bounds tap gets weight 0
+// and row 0 (zeros padding), and border mode never has one.
+__device__ __forceinline__ void point_taps(float xn, float yn, int h, int w,
+                                           bool border, bool align,
+                                           int* rows, float* weights) {
+  float x = unnormalize(xn, w, align);
+  float y = unnormalize(yn, h, align);
+  if (border) {
+    x = fminf(fmaxf(x, 0.f), static_cast<float>(w - 1));
+    y = fminf(fmaxf(y, 0.f), static_cast<float>(h - 1));
+  } else {
+    // keep the int conversion defined; beyond one step outside the map
+    // every tap is out of bounds either way
+    x = fminf(fmaxf(x, -2.f), static_cast<float>(w + 1));
+    y = fminf(fmaxf(y, -2.f), static_cast<float>(h + 1));
+  }
+  const float x0f = floorf(x), y0f = floorf(y);
+  const float wx = x - x0f, wy = y - y0f;
+  const int x0 = static_cast<int>(x0f), y0 = static_cast<int>(y0f);
+  const int ys[4] = {y0, y0, y0 + 1, y0 + 1};
+  const int xs[4] = {x0, x0 + 1, x0, x0 + 1};
+  const float ws[4] = {(1.f - wy) * (1.f - wx), (1.f - wy) * wx,
+                       wy * (1.f - wx), wy * wx};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const bool in = ys[k] >= 0 && ys[k] < h && xs[k] >= 0 && xs[k] < w;
+    rows[k] = in ? ys[k] * w + xs[k] : 0;
+    weights[k] = in ? ws[k] : 0.f;
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

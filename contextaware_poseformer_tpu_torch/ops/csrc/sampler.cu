@@ -38,13 +38,21 @@
 // the dynamic shared memory is the largest projected level's (96 KB for
 // W48's 384-channel level), reserved by every block of the launch.
 //
+// K8: the single-level sampler (_sample_kernel / _sample_kernel_2stage,
+// reached through sample_points) is this kernel launched with one level;
+// the TPU's one-stage and two-stage bodies both become this gather.
+//
+// int8 maps (the deploy graph's raw quantized samples, K1 and K8): a
+// 16-byte load carries 16 channels (C % 16 == 0), the blend stays fp32 and
+// rounds once to bf16, as the TPU kernel's bf16 output; the caller owns the
+// dequant scale, so an int8 level takes no projection.
+//
 // Grid: (point tiles, levels, batch); block: kThreads threads.
 
 #include "common.cuh"
 
 using capf::from_float;
 using capf::to_float;
-using capf::unnormalize;
 
 namespace {
 
@@ -60,7 +68,7 @@ struct CapfSampleLevel {
   const void* feat;     // (B, H, W, C) NHWC, in the call's dtype
   const float* proj_w;  // (C, Cout) fp32, or null: no projection
   const float* proj_b;  // (Cout,) fp32, or null: no bias
-  void* out;            // (B, P, Cout), in the call's dtype
+  void* out;            // (B, P, Cout), in the call's dtype (bf16: int8)
   int h, w, c, cout;
 };
 
@@ -74,37 +82,9 @@ struct CapfSampleArgs {
 
 namespace {
 
-// Tap rows and bilinear weights of one point; an out-of-bounds tap gets
-// weight 0 and row 0 (zeros padding), and border mode never has one.
-__device__ void point_taps(float xn, float yn, int h, int w, bool border,
-                           bool align, int* rows, float* weights) {
-  float x = unnormalize(xn, w, align);
-  float y = unnormalize(yn, h, align);
-  if (border) {
-    x = fminf(fmaxf(x, 0.f), static_cast<float>(w - 1));
-    y = fminf(fmaxf(y, 0.f), static_cast<float>(h - 1));
-  } else {
-    // keep the int conversion defined; beyond one step outside the map
-    // every tap is out of bounds either way
-    x = fminf(fmaxf(x, -2.f), static_cast<float>(w + 1));
-    y = fminf(fmaxf(y, -2.f), static_cast<float>(h + 1));
-  }
-  const float x0f = floorf(x), y0f = floorf(y);
-  const float wx = x - x0f, wy = y - y0f;
-  const int x0 = static_cast<int>(x0f), y0 = static_cast<int>(y0f);
-  const int ys[4] = {y0, y0, y0 + 1, y0 + 1};
-  const int xs[4] = {x0, x0 + 1, x0, x0 + 1};
-  const float ws[4] = {(1.f - wy) * (1.f - wx), (1.f - wy) * wx,
-                       wy * (1.f - wx), wy * wx};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const bool in = ys[k] >= 0 && ys[k] < h && xs[k] >= 0 && xs[k] < w;
-    rows[k] = in ? ys[k] * w + xs[k] : 0;
-    weights[k] = in ? ws[k] : 0.f;
-  }
-}
-
-template <typename T>
+// T: the maps' type (float, __nv_bfloat16 or int8_t); O: the outputs'
+// (T, or __nv_bfloat16 for int8 maps)
+template <typename T, typename O>
 __global__ void __launch_bounds__(kThreads)
     sample_levels_kernel(const CapfSampleArgs args) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -130,8 +110,8 @@ __global__ void __launch_bounds__(kThreads)
           args.points +
           ((static_cast<size_t>(b) * args.num_levels + lvl) * num_points + p) *
               2;
-      point_taps(pt[0], pt[1], lv.h, lv.w, args.border != 0,
-                 args.align_corners != 0, s_rows[tid], s_wts[tid]);
+      capf::point_taps(pt[0], pt[1], lv.h, lv.w, args.border != 0,
+                       args.align_corners != 0, s_rows[tid], s_wts[tid]);
     } else {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -149,12 +129,13 @@ __global__ void __launch_bounds__(kThreads)
 
   const T* feat = static_cast<const T*>(lv.feat) +
                   static_cast<size_t>(b) * lv.h * lv.w * c;
-  T* out = static_cast<T*>(lv.out);
+  O* out = static_cast<O*>(lv.out);
   const int n_tile = min(kTile, num_points - tile0);
 
   // blend: consecutive threads take consecutive 16-byte channel groups of
-  // one point
+  // one point (4 fp32, 8 bf16 or 16 int8 channels)
   constexpr int kVec = 16 / sizeof(T);
+  constexpr int kStores = kVec * sizeof(O) / 16;  // 16-byte output stores
   const int groups = c / kVec;
   for (int i = tid; i < n_tile * groups; i += kThreads) {
     const int pl = i / groups;
@@ -173,12 +154,15 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int v = 0; v < kVec; ++v) s_samp[pl * c + ch + v] = acc[v];
     } else {
-      alignas(16) T o[kVec];
+      alignas(16) O o[kVec];
 #pragma unroll
-      for (int v = 0; v < kVec; ++v) o[v] = from_float<T>(acc[v]);
-      *reinterpret_cast<uint4*>(
-          out + (static_cast<size_t>(b) * num_points + tile0 + pl) * c + ch) =
-          *reinterpret_cast<const uint4*>(o);
+      for (int v = 0; v < kVec; ++v) o[v] = from_float<O>(acc[v]);
+      uint4* dst = reinterpret_cast<uint4*>(
+          out + (static_cast<size_t>(b) * num_points + tile0 + pl) * c + ch);
+#pragma unroll
+      for (int s = 0; s < kStores; ++s) {
+        dst[s] = reinterpret_cast<const uint4*>(o)[s];
+      }
     }
   }
   if (!proj) return;  // uniform per block: the level decides
@@ -205,24 +189,24 @@ __global__ void __launch_bounds__(kThreads)
         acc[3] = fmaf(sk[u], wv.w, acc[3]);
       }
     }
-    T* o =
+    O* o =
         out + (static_cast<size_t>(b) * num_points + tile0 + pl) * cout + d0;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float bias = lv.proj_b != nullptr ? lv.proj_b[d0 + e] : 0.f;
-      o[e] = from_float<T>(acc[e] + bias);
+      o[e] = from_float<O>(acc[e] + bias);
     }
   }
 }
 
-template <typename T>
+template <typename T, typename O>
 cudaError_t launch(const CapfSampleArgs& args, size_t smem,
                    cudaStream_t stream) {
-  cudaError_t err = capf::allow_smem(sample_levels_kernel<T>, smem);
+  cudaError_t err = capf::allow_smem(sample_levels_kernel<T, O>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((args.num_points + kTile - 1) / kTile, args.num_levels,
                   args.batch);
-  sample_levels_kernel<T><<<grid, kThreads, smem, stream>>>(args);
+  sample_levels_kernel<T, O><<<grid, kThreads, smem, stream>>>(args);
   return cudaGetLastError();
 }
 
@@ -237,21 +221,28 @@ extern "C" int capf_sample_levels(const CapfSampleArgs* args, int device,
     return cudaErrorInvalidValue;
   }
   size_t smem = 0;
-  const int vec = args->dtype == capf::kBFloat16 ? 8 : 4;
+  const int vec = args->dtype == capf::kInt8       ? 16
+                  : args->dtype == capf::kBFloat16 ? 8
+                                                   : 4;
   for (int l = 0; l < args->num_levels; ++l) {
     const CapfSampleLevel& lv = args->levels[l];
     if (lv.c % vec != 0) return cudaErrorInvalidValue;
     if (lv.proj_w != nullptr) {
-      if (lv.cout % 4 != 0) return cudaErrorInvalidValue;  // C: above
+      // an int8 level would need its dequant scale: no projection
+      if (args->dtype == capf::kInt8 || lv.cout % 4 != 0) {
+        return cudaErrorInvalidValue;  // C: above
+      }
       const size_t need =
           static_cast<size_t>(lv.c) * (lv.cout + kTile) * sizeof(float);
       smem = need > smem ? need : smem;
     }
   }
-  if (args->dtype == capf::kBFloat16) {
-    err = launch<__nv_bfloat16>(*args, smem, stream);
+  if (args->dtype == capf::kInt8) {
+    err = launch<int8_t, __nv_bfloat16>(*args, smem, stream);
+  } else if (args->dtype == capf::kBFloat16) {
+    err = launch<__nv_bfloat16, __nv_bfloat16>(*args, smem, stream);
   } else {
-    err = launch<float>(*args, smem, stream);
+    err = launch<float, float>(*args, smem, stream);
   }
   return static_cast<int>(err);
 }

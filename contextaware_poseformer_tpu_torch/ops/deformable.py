@@ -1,12 +1,15 @@
-"""Multi-level bilinear point sampling (K1, K5) and its backward (K6): CUDA
-kernel wrappers, plain versions, the autograd Function and the dispatcher.
+"""Bilinear point sampling (K1, K5, K8), its backward (K6) and the deformable
+aggregation (K7): CUDA kernel wrappers, plain versions, the autograd
+Functions and the dispatchers.
 
-Port of ``contextaware_poseformer_tpu/ops/deformable.py``:
-``kernel_can_preproject`` (396-406), ``sample_points_multi`` /
-``sample_project_points_multi`` and their ``_multi_fwd_impl`` (475-605,
-874-894), the custom VJPs ``_multi_bwd`` / ``_multi_proj_bwd`` with the
-Pallas backward ``_multi_bwd_pallas`` (617-645, 679-870, 907-925), and the
-``sample_points_levels`` dispatcher (1210-1270).
+Port of ``contextaware_poseformer_tpu/ops/deformable.py``: the single-level
+``sample_points`` (233-362), ``kernel_can_preproject`` (396-406),
+``sample_points_multi`` / ``sample_project_points_multi`` and their
+``_multi_fwd_impl`` (475-605, 874-894), the custom VJPs ``_multi_bwd`` /
+``_multi_proj_bwd`` with the Pallas backward ``_multi_bwd_pallas``
+(617-645, 679-870, 907-925), ``deformable_aggregate`` with
+``aggregate_reference`` (947-1162), and the ``sample_points_levels``
+dispatcher (1210-1270).
 
 The TPU kernel's one-hot/triangle matmul formulation, its batch chunking and
 its VMEM level grouping are TPU workarounds and are not carried over: the
@@ -16,12 +19,27 @@ two-stage body for large maps with few channels (``is_k5_level``: HRNet's
 64x48 level 0 with C = 32 or 48), exists only to fill the TPU's 128 output
 lanes; the gather reads each point's four taps whatever C is, so K5's port
 is the same CUDA kernel at those shapes, counted apart in ``launches_k5``.
+K8, the single-level sampler behind ``sample_points`` (the TPU's one-stage
+and two-stage bodies alike), is the same kernel launched with one level,
+counted apart in ``launches_k8``.
 An optional per-level projection ``W (C, hd)``, ``b (hd,)`` is fused as
 sample-then-project, which equals the JAX package's sample(F @ W + b) only
 in border mode, where the bilinear weights sum to one; both versions here
 refuse a projection in zeros mode.
 
-Gradients: every call where an input requires grad goes through
+int8 maps hold raw quantized numbers (the caller owns the dequant scale):
+the plain versions return their samples in float32, as the JAX gather
+does, and the kernel (K1, K8) in bf16, as the TPU kernel does. An int8
+level takes no fused projection, which would need the scale.
+
+K7 (``csrc/aggregate.cu``) samples every level, projects each sample with
+the level's W (C_l, hd) plus b, weights it and sums a head's ns samples,
+in one launch. It is sample-then-project in both padding modes, and the
+bias is added to every sample before the weighting (the weights need not
+sum to one). Its backward is the plain version's VJP, as the JAX
+``_aggregate_bwd`` takes.
+
+Gradients: every sampler call where an input requires grad goes through
 ``_SampleLevels``, whose forward is K1 (the plain forward for CPU tensors)
 and whose backward is K6 (``csrc/sampler_bwd.cu``; the plain backward for
 CPU tensors), or, with fused projections, the plain version's VJP as the
@@ -39,15 +57,20 @@ import torch
 from contextaware_poseformer_tpu_torch.ops import _build
 from contextaware_poseformer_tpu_torch.ops.grid_sample import (
     _unnormalize,
+    grid_sample_points,
+    sample_dtype,
     sample_points_fp32,
 )
 
 launches = 0  # K1 launches (sample_points_multi)
 launches_k5 = 0  # K1 launches that sample a K5 level (is_k5_level)
 launches_bwd = 0  # K6 launches (sample_points_multi_backward)
+launches_k7 = 0  # K7 launches (deformable_aggregate_kernel)
+launches_k8 = 0  # K8 launches: the sampler kernel for sample_points
 
 MAX_LEVELS = 8
-_TILE = 32  # points per block in csrc/sampler.cu
+_TILE = 32  # points per block in csrc/sampler.cu and csrc/aggregate.cu
+_SAMPLER_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 
 
 def kernel_can_preproject(h: int, w: int, c: int, hd: int) -> bool:
@@ -78,6 +101,10 @@ def _check_projection(padding_mode, projs, features):
             f"{padding_mode!r}"
         )
     for f, p in zip(features, projs):
+        if p is not None and f.dtype == torch.int8:
+            raise ValueError("an int8 map takes no fused projection: its "
+                             "samples are raw quantized numbers, and the "
+                             "projection would need the dequant scale")
         if p is not None and (p.dim() != 2 or p.shape[0] != f.shape[-1]):
             raise ValueError(f"projection of shape {tuple(p.shape)} does not "
                              f"match {f.shape[-1]} channels")
@@ -92,7 +119,8 @@ def sample_points_multi_reference(
     biases=None,
 ) -> tuple:
     """Plain version of ``sample_points_multi``: per-level gathers in fp32,
-    then the optional projection in fp32, rounded once to the map dtype."""
+    then the optional projection in fp32, rounded once to the map dtype
+    (int8 maps: float32 samples)."""
     levels = len(features)
     projs = _per_level(projs, levels)
     biases = _per_level(biases, levels)
@@ -105,7 +133,7 @@ def sample_points_multi_reference(
             s = s @ projs[l].float()
             if biases[l] is not None:
                 s = s + biases[l].float()
-        outs.append(s.to(f.dtype))
+        outs.append(s.to(sample_dtype(f.dtype)))
     return tuple(outs)
 
 
@@ -158,7 +186,8 @@ def _prepare(features, points, padding_mode, align_corners, projs, biases):
     biases = _per_level(biases, levels)
     _check_projection(padding_mode, projs, features)
     dtype = features[0].dtype
-    code = _build.dtype_code(name, dtype)
+    code = _build.dtype_code(name, dtype, _SAMPLER_DTYPES)
+    out_dtype = torch.bfloat16 if dtype == torch.int8 else dtype
     batch_shape = points.shape[2:-1]
     args = _Args(points=pts.data_ptr(), num_levels=levels, batch=b,
                  num_points=p, border=int(padding_mode == "border"),
@@ -193,7 +222,7 @@ def _prepare(features, points, padding_mode, align_corners, projs, biases):
                                      f"{cout} outputs")
                 lv.proj_b = bk.data_ptr()
                 keep.append(bk)
-        out = torch.empty((b, p, cout), dtype=dtype, device=f.device)
+        out = torch.empty((b, p, cout), dtype=out_dtype, device=f.device)
         lv.feat, lv.out = f.data_ptr(), out.data_ptr()
         lv.h, lv.w, lv.c, lv.cout = h, w, c, cout
         outs.append(out)
@@ -203,10 +232,11 @@ def _prepare(features, points, padding_mode, align_corners, projs, biases):
 
 
 def _launch_forward(features, points, padding_mode, align_corners, projs,
-                    biases) -> tuple:
-    """One K1 launch (no autograd); a launch with a K5 level counts for K5
-    as well."""
-    global launches, launches_k5
+                    biases, k8=False) -> tuple:
+    """One launch of the sampler kernel (no autograd): K1, where a launch
+    with a K5 level counts for K5 as well, or, with ``k8``, K8 (one
+    level)."""
+    global launches, launches_k5, launches_k8
     args, outs, keep, shapes = _prepare(
         features, points, padding_mode, align_corners, projs, biases)
     _build.require_cuda("sample_points_multi", *keep)
@@ -218,8 +248,11 @@ def _launch_forward(features, points, padding_mode, align_corners, projs,
     err = lib.capf_sample_levels(ctypes.addressof(args),
                                  *_build.launch_target(features[0]))
     _build.check(lib, err, "sample_points_multi")
-    launches += 1
-    launches_k5 += any(is_k5_level(*f.shape[1:]) for f in features)
+    if k8:
+        launches_k8 += 1
+    else:
+        launches += 1
+        launches_k5 += any(is_k5_level(*f.shape[1:]) for f in features)
     return tuple(o.reshape(s) for o, s in zip(outs, shapes))
 
 
@@ -392,17 +425,19 @@ def sample_points_multi_backward(
 
 class _SampleLevels(torch.autograd.Function):
     """The sampler under autograd. ``spec`` = (padding_mode, align_corners,
-    kernel): ``kernel`` selects K1/K6 (CUDA tensors) or the plain forward
-    and backward (CPU tensors). ``tensors`` = maps, projections, biases
-    (L each; projections and biases may be None)."""
+    kernel): ``kernel`` "K1" or "K8" selects that kernel's forward and K6
+    (CUDA tensors), None the plain forward and backward (CPU tensors).
+    ``tensors`` = maps, projections, biases (L each; projections and
+    biases may be None)."""
 
     @staticmethod
     def forward(ctx, spec, points, *tensors):
         padding_mode, align_corners, kernel = spec
         n = len(tensors) // 3
-        run = _launch_forward if kernel else sample_points_multi_reference
-        outs = run(tensors[:n], points, padding_mode, align_corners,
-                   tensors[n:2 * n], tensors[2 * n:])
+        args = (tensors[:n], points, padding_mode, align_corners,
+                tensors[n:2 * n], tensors[2 * n:])
+        outs = (_launch_forward(*args, k8=kernel == "K8") if kernel
+                else sample_points_multi_reference(*args))
         ctx.spec = spec
         ctx.save_for_backward(points, *tensors)
         return outs
@@ -466,10 +501,11 @@ def sample_points_multi(
 ) -> tuple:
     """Sample L NHWC maps at per-level points in ONE CUDA kernel launch (K1).
 
-    features: L maps (b, H_l, W_l, C_l), all float32 or all bfloat16;
+    features: L maps (b, H_l, W_l, C_l), all float32, all bfloat16 or all
+    int8 (raw quantized numbers, C_l % 16 == 0, sampled to bfloat16);
     points: (b, L, ..., 2) xy in [-1, 1]. Levels with ``projs[l]`` set
-    return ``sample @ W + b`` (border mode only). Returns a tuple of
-    (b, ..., C_l or hd) in the maps' dtype. Covers the JAX package's
+    return ``sample @ W + b`` (border mode only, no int8). Returns a tuple
+    of (b, ..., C_l or hd) in the maps' dtype. Covers the JAX package's
     ``sample_points_multi`` and ``sample_project_points_multi``. Under
     autograd the backward is K6 (or the plain VJP with projections).
     """
@@ -477,7 +513,7 @@ def sample_points_multi(
     projs = _per_level(projs, levels)
     biases = _per_level(biases, levels)
     if _build.needs_grad(points, *features, *projs, *biases):
-        return _SampleLevels.apply((padding_mode, align_corners, True),
+        return _SampleLevels.apply((padding_mode, align_corners, "K1"),
                                    points, *features, *projs, *biases)
     return _launch_forward(features, points, padding_mode, align_corners,
                            projs, biases)
@@ -508,7 +544,224 @@ def sample_points_levels(
     biases = _per_level(biases, levels)
     if impl == "auto" and _build.needs_grad(points, *features, *projs,
                                             *biases):
-        return _SampleLevels.apply((padding_mode, align_corners, False),
+        return _SampleLevels.apply((padding_mode, align_corners, None),
                                    points, *features, *projs, *biases)
     return sample_points_multi_reference(
         features, points, padding_mode, align_corners, projs, biases)
+
+
+def sample_points(
+    features: torch.Tensor,
+    points: torch.Tensor,
+    padding_mode: str = "zeros",
+    align_corners: bool = True,
+    impl: str = "auto",
+    precision: str = "highest",
+) -> torch.Tensor:
+    """Sample one NHWC map (b, H, W, C) at points (b, ..., 2), xy in
+    [-1, 1] -> (b, ..., C). Port of the JAX package's single-level
+    ``sample_points``.
+
+    ``impl``: "auto" (K8 for CUDA tensors, the plain forward and backward
+    behind the sampler's autograd Function for CPU tensors), "fused" (K8:
+    the sampler kernel with one level, K6 as its backward) or "gather" (the
+    plain version, differentiated by autograd through its own ops). Maps in
+    float32 or bfloat16 sample to their dtype; int8 maps to float32 (the
+    plain version) or bfloat16 (K8). ``precision`` selects the TPU kernel's
+    matrix-unit passes; both versions here blend in fp32, so it has no
+    effect."""
+    del precision
+    if impl == "auto" and features.device.type != "cpu":
+        impl = "fused"
+    if impl not in ("auto", "fused", "gather"):
+        raise ValueError(f"unknown sampler impl: {impl!r}")
+    if impl == "gather":
+        return grid_sample_points(features, points, padding_mode=padding_mode,
+                                  align_corners=align_corners)
+    kernel = "K8" if impl == "fused" else None
+    pts = points[:, None]  # one level: (b, 1, ..., 2)
+    if _build.needs_grad(points, features):
+        (out,) = _SampleLevels.apply((padding_mode, align_corners, kernel),
+                                     pts, features, None, None)
+    elif kernel:
+        (out,) = _launch_forward((features,), pts, padding_mode,
+                                 align_corners, (None,), (None,), k8=True)
+    else:
+        (out,) = sample_points_multi_reference((features,), pts,
+                                               padding_mode, align_corners)
+    return out
+
+
+def _check_aggregate(name, features, points, weights, projs, biases,
+                     padding_mode):
+    """Validate a deformable aggregation; returns (b, L, p, nh, ns, hd)."""
+    levels = len(features)
+    if not 1 <= levels <= MAX_LEVELS:
+        raise ValueError(f"{name}: 1..{MAX_LEVELS} levels, got {levels}")
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(f"unsupported padding_mode: {padding_mode!r}")
+    dtype = features[0].dtype
+    if dtype == torch.int8:
+        raise TypeError(
+            f"{name}: int8 maps are refused: their samples are raw quantized "
+            "numbers whose dequant scale the projection would need, and no "
+            "caller stores the pooled context in int8")
+    if weights.dim() != 5 or len(projs) != levels or len(biases) != levels:
+        raise ValueError(f"{name}: weights {tuple(weights.shape)} are not "
+                         f"(b, L, p, nh, ns), or not {levels} projections "
+                         "and biases")
+    b, _, p, nh, ns = weights.shape
+    hd = projs[0].shape[-1]
+    if (weights.shape[1] != levels
+            or points.shape != (b, levels, p, nh * ns, 2)):
+        raise ValueError(f"{name}: points {tuple(points.shape)} and weights "
+                         f"{tuple(weights.shape)} for {levels} levels")
+    for l, (f, w, bias) in enumerate(zip(features, projs, biases)):
+        if f.dim() != 4 or f.shape[0] != b or f.dtype != dtype:
+            raise ValueError(f"{name}: level {l} is {tuple(f.shape)} "
+                             f"{f.dtype}, expected (b={b}, H, W, C) {dtype}")
+        if w.shape != (f.shape[-1], hd) or bias.shape != (hd,):
+            raise ValueError(f"{name}: level {l} projection "
+                             f"{tuple(w.shape)} and bias {tuple(bias.shape)}"
+                             f" for {f.shape[-1]} channels to {hd}")
+    return b, levels, p, nh, ns, hd
+
+
+def aggregate_reference(features, points, weights, projs, biases,
+                        padding_mode="border", align_corners=True):
+    """Plain version of ``deformable_aggregate``: per level the fp32 samples,
+    ``@ W + b``, multiplied by the weights and summed over ns, all in fp32
+    and rounded once to the maps' dtype. Returns (b, L, p, nh * hd)."""
+    b, _, p, nh, ns, hd = _check_aggregate(
+        "aggregate_reference", features, points, weights, projs, biases,
+        padding_mode)
+    outs = []
+    for l, f in enumerate(features):
+        s = sample_points_fp32(f, points[:, l], padding_mode=padding_mode,
+                               align_corners=align_corners)  # (b, p, nh*ns, C)
+        proj = (s @ projs[l].float() + biases[l].float()).reshape(
+            b, p, nh, ns, hd)
+        pooled = torch.einsum("bphs,bphsd->bphd", weights[:, l].float(), proj)
+        outs.append(pooled.reshape(b, p, nh * hd))
+    return torch.stack(outs, dim=1).to(features[0].dtype)
+
+
+class _AggregateLevel(ctypes.Structure):
+    _fields_ = [
+        ("feat", ctypes.c_void_p),
+        ("proj_w", ctypes.c_void_p),
+        ("proj_b", ctypes.c_void_p),
+        ("h", ctypes.c_int),
+        ("w", ctypes.c_int),
+        ("c", ctypes.c_int),
+    ]
+
+
+class _AggregateArgs(ctypes.Structure):
+    _fields_ = [
+        ("points", ctypes.c_void_p),
+        ("weights", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("levels", _AggregateLevel * MAX_LEVELS),
+        ("num_levels", ctypes.c_int),
+        ("batch", ctypes.c_int),
+        ("rows", ctypes.c_int),
+        ("ns", ctypes.c_int),
+        ("hd", ctypes.c_int),
+        ("rows_per_tile", ctypes.c_int),
+        ("border", ctypes.c_int),
+        ("align_corners", ctypes.c_int),
+        ("dtype", ctypes.c_int),
+    ]
+
+
+def deformable_aggregate_kernel(features, points, weights, projs, biases,
+                                padding_mode="border", align_corners=True):
+    """K7: ``aggregate_reference``'s contract in ONE CUDA kernel launch. A
+    block takes whole rows (joint, head) of one level, ``_TILE // ns`` of
+    them (at least one), so any ns and p need no padding."""
+    global launches_k7
+    name = "deformable_aggregate"
+    b, levels, p, nh, ns, hd = _check_aggregate(
+        name, features, points, weights, projs, biases, padding_mode)
+    dtype = features[0].dtype
+    code = _build.dtype_code(name, dtype)
+    if hd % 4:
+        raise ValueError(f"{name}: head dim {hd}; the kernel needs a "
+                         "multiple of 4")
+    rows, tile_rows = p * nh, max(1, _TILE // ns)
+    pts = points.reshape(b, levels, rows * ns, 2).float().contiguous()
+    wts = weights.reshape(b, levels, rows * ns).float().contiguous()
+    out = torch.empty((b, levels, p, nh * hd), dtype=dtype,
+                      device=features[0].device)
+    args = _AggregateArgs(
+        points=pts.data_ptr(), weights=wts.data_ptr(), out=out.data_ptr(),
+        num_levels=levels, batch=b, rows=rows, ns=ns, hd=hd,
+        rows_per_tile=tile_rows, border=int(padding_mode == "border"),
+        align_corners=int(align_corners), dtype=code)
+    keep = [pts, wts, out]
+    for l, f in enumerate(features):
+        _, h, w, c = f.shape
+        if c % (16 // f.element_size()):
+            raise ValueError(f"{name}: level {l} has {c} channels; the "
+                             f"kernel needs a multiple of "
+                             f"{16 // f.element_size()}")
+        wk = projs[l].float().contiguous()
+        bk = biases[l].float().contiguous()
+        lv = args.levels[l]
+        lv.feat, lv.h, lv.w, lv.c = f.data_ptr(), h, w, c
+        lv.proj_w, lv.proj_b = wk.data_ptr(), bk.data_ptr()
+        keep += [f, wk, bk]
+    c_max = max(f.shape[-1] for f in features)
+    smem = (c_max * hd + tile_rows * ns * (c_max + hd + 8)) * 4
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(f"{name}: {c_max} channels with ns={ns} and "
+                         f"hd={hd} need {smem} bytes of shared memory")
+    _build.require_cuda(name, *keep)
+    if any(ptr % 16 for lv in args.levels[:levels]
+           for ptr in (lv.feat, lv.proj_w)):
+        raise ValueError(f"{name}: maps and projection weights must start "
+                         "on a 16-byte boundary (16-byte loads)")
+    lib = _build.library()
+    err = lib.capf_deformable_aggregate(ctypes.addressof(args),
+                                        *_build.launch_target(features[0]))
+    _build.check(lib, err, name)
+    launches_k7 += 1
+    return out
+
+
+def _by_level(fn):
+    """``fn`` (an aggregation with per-level tuples) taking its tensors
+    flat, as ``_build.PlainVjp`` passes them: (padding_mode, align_corners,
+    points, weights, *maps, *projs, *biases)."""
+    def run(padding_mode, align_corners, points, weights, *tensors):
+        n = len(tensors) // 3
+        return fn(tensors[:n], points, weights, tensors[n:2 * n],
+                  tensors[2 * n:], padding_mode, align_corners)
+    return run
+
+
+def deformable_aggregate(
+    features,
+    points: torch.Tensor,   # (b, L, p, nh*ns, 2)
+    weights: torch.Tensor,  # (b, L, p, nh, ns) attention weights
+    projs,                  # L x (C_l, hd)
+    biases,                 # L x (hd,)
+    padding_mode: str = "border",
+    align_corners: bool = True,
+) -> torch.Tensor:
+    """The DeformableBlock's pooled context -> (b, L, p, nh * hd): per level
+    the maps sampled at ``points``, projected by ``projs[l]`` plus
+    ``biases[l]``, weighted and summed over the ns samples of each head.
+    Maps float32 or bfloat16 (int8 is refused); the output takes their
+    dtype. K7 for CUDA tensors, the plain version for CPU tensors; under
+    autograd the backward is the plain version's VJP."""
+    features, projs, biases = tuple(features), tuple(projs), tuple(biases)
+    run = (aggregate_reference if features[0].device.type == "cpu"
+           else deformable_aggregate_kernel)
+    if not _build.needs_grad(points, weights, *features, *projs, *biases):
+        return run(features, points, weights, projs, biases, padding_mode,
+                   align_corners)
+    return _build.PlainVjp.apply(
+        _by_level(run), _by_level(aggregate_reference), padding_mode,
+        align_corners, points, weights, *features, *projs, *biases)

@@ -9,7 +9,9 @@ Port of ``contextaware_poseformer_tpu/ops/grid_sample.py:37-102``. Torch's
 - ``zeros``: an out-of-bounds tap contributes zero (its weight is kept, so a
   blend that is partly outside shrinks toward zero).
 
-The blend runs in fp32 and rounds once to the map's dtype.
+The blend runs in fp32 and rounds once to the map's dtype. An int8 map's
+samples are raw quantized numbers and stay float32, as the JAX gather's
+(``grid_sample.py:58-63``); the caller owns the dequant scale.
 
 Gradients follow ``jax.grad`` of the JAX version: the border clamp is a
 min of a max, whose gradient at an exact edge is the 0.5 tie of
@@ -33,6 +35,12 @@ def _clip(v: torch.Tensor, top: float) -> torch.Tensor:
                          v.new_tensor(float(top)))
 
 
+def sample_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of the gather's samples of a map of ``dtype``: the map's
+    own, float32 for int8."""
+    return torch.float32 if dtype == torch.int8 else dtype
+
+
 def grid_sample_points(
     features: torch.Tensor,
     points: torch.Tensor,
@@ -42,11 +50,11 @@ def grid_sample_points(
 ) -> torch.Tensor:
     """Sample ``features`` (N, H, W, C) at ``points`` (N, ..., 2), xy in
     [-1, 1] (x indexes W, y indexes H). Returns (N, ..., C) in
-    ``features.dtype``."""
+    ``sample_dtype(features.dtype)``."""
     return sample_points_fp32(
         features, points, padding_mode=padding_mode,
         align_corners=align_corners,
-    ).to(features.dtype)
+    ).to(sample_dtype(features.dtype))
 
 
 def sample_points_fp32(

@@ -440,3 +440,122 @@ def test_deploy_request_launch_counts(cuda_device, monkeypatch):
     assert out.shape == (2, 17, 3) and bool(torch.isfinite(out).all())
     rel = ((out - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
     assert rel.item() <= 2e-2
+
+
+def _k8_case(dev, dims, mode, dtype, batch=8):
+    g = torch.Generator().manual_seed(sum(dims))
+    if dtype == torch.int8:
+        f = torch.randint(-127, 128, (batch, *dims), generator=g,
+                          dtype=torch.int8).to(dev)
+    else:
+        f = torch.randn(batch, *dims, generator=g).to(dev, dtype)
+    pts = (torch.rand(batch, 17, 16, 2, generator=g) * 3 - 1.5).to(dev)
+    return f, pts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+@pytest.mark.parametrize("dims", [(64, 48, 256), (64, 48, 32)],
+                         ids=["64x48x256", "64x48x32"])
+def test_k8_sampler_matches_plain_version(cuda_device, dims, mode, dtype):
+    """K8: ``sample_points`` through the kernel (one level) against its
+    plain version, batch 8, 17x16 points, on the CPN serving pyramid's
+    64x48x256 level and HRNet-W32's 64x48x32 one (the TPU's two-stage
+    body). int8 maps sample to bf16 (the plain version: fp32). One K8
+    launch, no K1 launch; tolerance as above (bf16 for int8)."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    f, pts = _k8_case(cuda_device, dims, mode, dtype)
+    before = (deformable.launches, deformable.launches_k8)
+    with torch.inference_mode():
+        out = deformable.sample_points(f, pts, mode)
+        ref = deformable.sample_points(f, pts, mode, impl="gather")
+    assert (deformable.launches, deformable.launches_k8) == (
+        before[0], before[1] + 1)
+    assert out.shape == ref.shape == (8, 17, 16, dims[2])
+    assert out.dtype == (torch.bfloat16 if dtype == torch.int8 else dtype)
+    assert ref.dtype == (torch.float32 if dtype == torch.int8 else dtype)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+def _k7_case(dev, dims, ns, hd, dtype, batch=4, p=17, nh=4):
+    g = torch.Generator().manual_seed(ns + hd)
+    maps = [torch.randn(batch, *d, generator=g).to(dev, dtype) for d in dims]
+    pts = (torch.rand(batch, len(dims), p, nh * ns, 2, generator=g) * 3
+           - 1.5).to(dev)
+    # weights that do not sum to one: the bias goes on every sample
+    wts = (torch.rand(batch, len(dims), p, nh, ns, generator=g) * 2
+           - 0.5).to(dev)
+    projs = [(torch.randn(d[2], hd, generator=g) * d[2] ** -0.5).to(dev)
+             for d in dims]
+    biases = [(torch.randn(hd, generator=g) * 0.1).to(dev) for _ in dims]
+    return maps, pts, wts, projs, biases
+
+
+K7_CASES = {  # pyramid, ns, hd
+    "CPN": (tuple((h, w, 256) for h, w in LEVELS), 4, 32),
+    "W48": (HRNET_PYRAMIDS["W48"], 4, 32),  # the most shared memory
+    "ns=3 hd=8": (((8, 6, 16), (4, 3, 32)), 3, 8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+@pytest.mark.parametrize("case", sorted(K7_CASES))
+def test_k7_aggregate_matches_plain_version(cuda_device, case, mode, dtype):
+    """K7 against ``aggregate_reference`` (batch 4, 17 joints, 4 heads) at
+    the CPN and HRNet-W48 pyramids and a small case with ns = 3; one
+    launch; tolerance as above, level by level."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    dims, ns, hd = K7_CASES[case]
+    args = _k7_case(cuda_device, dims, ns, hd, dtype)
+    before = deformable.launches_k7
+    with torch.inference_mode():
+        out = deformable.deformable_aggregate(*args, mode)
+        ref = deformable.aggregate_reference(*args, mode)
+    assert deformable.launches_k7 == before + 1
+    assert out.shape == ref.shape == (4, len(dims), 17, 4 * hd)
+    assert out.dtype == ref.dtype == dtype
+    for level in range(len(dims)):  # each level against its own scale
+        o, r = out[:, level].float(), ref[:, level].float()
+        err = (o - r).abs().max().item()
+        assert err <= tol * r.abs().max().item(), (level, err)
+
+
+@pytest.mark.cuda
+def test_k7_k8_run_under_autograd(cuda_device):
+    """K8 under autograd takes K6 as its backward, K7 its plain version's
+    VJP; their gradients match autograd through the plain versions (fp32,
+    1e-4 of max|plain grad|)."""
+    f, pts = _k8_case(cuda_device, (16, 12, 64), "border", torch.float32)
+    agg = _k7_case(cuda_device, K7_CASES["ns=3 hd=8"][0], 3, 8,
+                   torch.float32)
+    cases = {
+        "K8": ([f, pts], lambda kernel: deformable.sample_points(
+            f, pts, "border", impl="fused" if kernel else "gather")),
+        "K7": ([*agg[0], agg[1], agg[2], *agg[3], *agg[4]],
+               lambda kernel: (deformable.deformable_aggregate if kernel
+                               else deformable.aggregate_reference)(
+                   *agg, "border")),
+    }
+    before = (deformable.launches_k8, deformable.launches_bwd,
+              deformable.launches_k7)
+    for name, (leaves, fn) in cases.items():
+        for t in leaves:
+            t.requires_grad_(True)
+        grads = []
+        for kernel in (True, False):
+            out = fn(kernel)
+            w = torch.randn_like(out) if not grads else w
+            out.backward(w)
+            grads.append([t.grad.clone() for t in leaves])
+            for t in leaves:
+                t.grad = None
+        for a, b in zip(*grads):
+            err = (a - b).abs().max().item()
+            assert err <= 1e-4 * b.abs().max().item(), (name, err)
+    assert (deformable.launches_k8, deformable.launches_bwd,
+            deformable.launches_k7) == (before[0] + 1, before[1] + 1,
+                                        before[2] + 1)
