@@ -44,7 +44,36 @@ Phases, one line of output each (failures raise and exit non-zero):
    relative RMS against the float slice of the same weights (information),
    then where its time goes as in the slice phase; then one request each of
    the other three HRNet deploy configurations;
-7. aggregate: this phase's main path, with every launch count set to 0
+7. cpn_int8: ``serve.deploy_config("h36m_cpn")`` (bf16 CPN with the
+   calibrated int8 wide convs, the int8 residual stream and int8 pyramid
+   maps, random weights from seed 0) calibrated by ``serve.prepare`` on one
+   seeded batch of 64 frames; one request records every distinct shape and
+   variant K10 takes in the stream (1x1/3x3, stride 1/2, 8x6 to 64x48,
+   64-2048 channels; int8 or calibrated bf16 input, bf16 or int8 residual,
+   bf16 or int8 output) with its calls a request, and K10 on that
+   request's own tensors must equal its plain version bit for bit
+   (median kernel and plain ms, the bound); then 3 requests as the int8
+   phase serves them, with K1 5, K2 12, K3 4, K4 4 and K10 83 launches a
+   request (every conv but the float stem: the JAX graph's 83 int8
+   convolutions, tests/test_torch_cpn_int8.py), agreement with the plain
+   versions of every kernel to 2e-2 relative RMS and, for information, the
+   float slice's output, host ms, device busy and idle and the top
+   kernels; then K1 projecting the int8 pyramid (the lifter's border
+   call, weights carrying the dequant scale) against its plain version;
+8. probes: the TPU probes' counterparts (``probes/``, K9's one-block and
+   floor builds), their main path run once with every launch count set to
+   0 before it and read after it, then each against its plain version
+   (bit for bit; the two timing-only builds, wrong by design, run and are
+   timed) with median kernel, plain and library ms and the bound: K10's
+   requantizing 3x3 chain 1 and 8 deep at 64x48x32, batch 128 (library:
+   cuDNN's bf16 conv + affine + ReLU); K10's pieces at that shape (the
+   int32 main loop with and without border predication, the (98304, 576)
+   x (576, 128) GEMM over a pre-windowed input against ``torch._int_mm``,
+   the epilogue alone, the quantize-on-load alone, the bf16 main loop
+   against cuDNN's conv); K9 at batch 128; K9 on one block against K10's
+   chain of it; K9's floor build; the int8 window shift by an address
+   offset and by a word shift;
+9. aggregate: this phase's main path, with every launch count set to 0
    before it and read after it: K8 through ``sample_points`` at full
    width, batch 64 (the CPN pyramid's 64x48x256 level with 17 zeros
    points and HRNet-W32's 64x48x32 level with 272 border points, in bf16
@@ -65,12 +94,12 @@ Phases, one line of output each (failures raise and exit non-zero):
    packed offsets, the (b, L, p, nh*ns, 2) points and the tensor K1 is
    handed share one storage, and K1's time on that view; then K1 on the
    CPN pyramid as int8 maps (bf16 samples) against its plain version;
-8. backward: K6 against the plain backward at the training shapes (four
+10. backward: K6 against the plain backward at the training shapes (four
    64x48x256 maps, batch 64, 4x272 border points and 4x17 zeros points),
    fp32 and bf16, with and without dF: max abs error and error / max|plain|
    of d(points) and dF, median kernel and plain device times; then the
    training step's own call (fp32, border, no dF) at batch 256;
-9. train: the h36m_cpn training preset at full width (fp32 CPN ResNet-50
+11. train: the h36m_cpn training preset at full width (fp32 CPN ResNet-50
    with the /4 graph, lifter embed 128 depth 4 with deformable blocks,
    AdamW, batch 256, flip augmentation, drop-path 0.2; TF32 off; synthetic
    data and weights from seed 0), set up by the training CLI's own
@@ -81,12 +110,14 @@ Phases, one line of output each (failures raise and exit non-zero):
    agree with one through the plain sampler (``sampler="gather"``) from the
    same weights on the same batch: loss to 1e-5 relative, lifter gradients
    to a global relative L2 of 1e-4. Steps/s (information only);
-10. a JSON line of per-kernel results (K1-K10), then the final JSON
-   status line. ``launches`` are summed over the serving, aggregate and
-   training runs, each counted from 0. Errors are the largest over the
-   bf16 cases (int8 maps, sampled to bf16, included). Times are bf16 at
-   the CPN serving shapes for K1-K4 and at HRNet-W32's for K5, K9 and
-   K10, all per request (the sum over a request's calls), K6's those of
+12. a JSON line of per-kernel results (K1-K10, then the probes'
+   counterparts, named ``probe <name>``), then the final JSON status
+   line. ``launches`` are summed over the serving, aggregate and
+   training runs, each counted from 0 (the probes': their phase's main
+   run). Errors are the largest over the bf16 cases (int8 maps, sampled to
+   bf16, included). Times are bf16 at the CPN serving shapes for K1-K4,
+   at HRNet-W32's for K5 and K9, at the CPN int8 request's for K10, all
+   per request (the sum over a request's calls), K6's those of
    the training step's call at batch 256 times its 4 calls a step, K7's
    the sum of its two served blocks' border calls and K8's of its two
    bf16 calls.
@@ -125,9 +156,13 @@ PER_REQUEST = {  # launches per request: depth 4, deformable blocks on H36M
 }
 HRNET_REQUESTS = {"h36m_hrnet_32": REQUESTS, "h36m_hrnet_48": 1,
                   "mpi_3dhp_hrnet_32": 1, "mpi_3dhp_hrnet_48": 1}
-# the int8 deploy graph adds K9 (one launch a layer1 block) and K10 (85
-# convs with both channel counts >= 128, and transition1's two)
-INT8_PER_REQUEST = {"K9": 4, "K10": 87}
+# the int8 deploy graphs add, per backbone kind: HRNet K9 (one launch a
+# layer1 block) and K10 (85 convs with both channel counts >= 128, and
+# transition1's two); CPN K10 for every conv but the stem: 52 ResNet-50
+# convs (16 bottlenecks, 4 downsamples), 4 laterals, 3 up-convs and 24
+# refineNet convs (6 bottlenecks), the count of int8 convolutions in the
+# JAX package's graph (tests/test_torch_cpn_int8.py)
+INT8_PER_REQUEST = {"hrnet": {"K9": 4, "K10": 87}, "cpn": {"K10": 83}}
 TIMED_REQUESTS = 20  # host-clock frames/s, after the checked requests
 PROFILED = 5  # requests under torch.profiler
 TOP_KERNELS = 8
@@ -148,12 +183,33 @@ REPLACES = {
     "K8": "contextaware_poseformer_tpu/ops/deformable.py:215",
     "K9": "contextaware_poseformer_tpu/ops/layer1_chain.py:51",
     "K10": "contextaware_poseformer_tpu/models/backbone_common.py:204",
+    # the TPU probes' counterparts (probes phase)
+    "chain_conv": "experiments/int8_chain_conv.py:54",
+    "micro_matmul3": "experiments/int8_chain_micro.py:20",
+    "micro_matmul3_nomask": "experiments/int8_chain_micro.py:37",
+    "micro_requant": "experiments/int8_chain_micro.py:50",
+    "micro_matmul1": "experiments/int8_chain_micro.py:66",
+    "micro_bf16_matmul3": "experiments/int8_chain_micro.py:77",
+    "micro_quantize": "experiments/int8_chain_micro.py:109",
+    "layer1_v1": "experiments/layer1_chain_probe.py:32",
+    "layer1_1block": "experiments/layer1_chain_probe.py:138",
+    "layer1_floor": "experiments/layer1_chain_floor.py:22",
+    "window_bitcast": "experiments/int8_primitives.py:39",
+    "window_slice": "experiments/int8_primitives.py:47",
 }
 SOURCES = {"K1": "sampler.cu", "K2": "fused_mlp.cu",
            "K3": "small_attention.cu", "K4": "joint_attention.cu",
            "K5": "sampler.cu", "K6": "sampler_bwd.cu",
            "K7": "aggregate.cu", "K8": "sampler.cu",
-           "K9": "layer1_chain.cu", "K10": "int8_conv.cu"}
+           "K9": "layer1_chain.cu", "K10": "int8_conv.cu",
+           "chain_conv": "int8_conv.cu", "micro_matmul3": "int8_conv.cu",
+           "micro_matmul3_nomask": "int8_conv.cu",
+           "micro_requant": "int8_conv.cu", "micro_matmul1": "int8_conv.cu",
+           "micro_bf16_matmul3": "int8_conv.cu",
+           "micro_quantize": "int8_conv.cu", "layer1_v1": "layer1_chain.cu",
+           "layer1_1block": "layer1_chain.cu",
+           "layer1_floor": "layer1_chain.cu", "window_bitcast": "probes.cu",
+           "window_slice": "probes.cu"}
 LEVELS = ((8, 6), (16, 12), (32, 24), (64, 48))  # CPN native pyramid
 HRNET_PYRAMIDS = {  # 256x192 frames, finest first
     "W32": ((64, 48, 32), (32, 24, 64), (16, 12, 128), (8, 6, 256)),
@@ -636,6 +692,471 @@ def check_int8_kernels(card):
     return results
 
 
+def _k10_signature(x, kq, stride, relu, residual, out_amax, amax):
+    """A K10 call's shape and variant."""
+    if x.dtype == torch.int8:
+        route = "int8 in"
+    else:
+        route = "bf16 in, " + ("dynamic" if amax is None else "calibrated")
+    res = ("" if residual is None
+           else f", {str(residual.dtype).removeprefix('torch.')} residual")
+    out = "int8 out" if out_amax is not None else "bf16 out"
+    k = math.isqrt(kq.shape[1] // x.shape[-1])
+    return (f"{x.shape[1]}x{x.shape[2]} {x.shape[-1]}->{kq.shape[0]} k{k} "
+            f"s{stride} ({route}{res}, {'ReLU, ' if relu else ''}{out})")
+
+
+def _record_k10(model, req, seen):
+    """Serve one request with K10's wrapper recording each distinct shape
+    and variant: {signature: [calls, the first call's arguments]}."""
+    from contextaware_poseformer_tpu_torch import serve
+    from contextaware_poseformer_tpu_torch.ops import int8_conv
+
+    real = int8_conv.int8_conv_kernel
+
+    def record(x, kq, ws, sc, bi, amax, stride, relu, dtype=torch.bfloat16,
+               residual=None, res_amax=None, out_amax=None):
+        key = _k10_signature(x, kq, stride, relu, residual, out_amax, amax)
+        if key in seen:
+            seen[key][0] += 1
+        else:
+            keep = [None if t is None else t.clone()
+                    for t in (x, amax, residual, res_amax, out_amax)]
+            seen[key] = [1, (keep[0], kq, ws, sc, bi, keep[1], stride, relu,
+                             dtype, *keep[2:])]
+        return real(x, kq, ws, sc, bi, amax, stride, relu, dtype, residual,
+                    res_amax, out_amax)
+
+    int8_conv.int8_conv_kernel = record
+    try:
+        serve.lift(model, *req)
+        torch.cuda.synchronize()
+    finally:
+        int8_conv.int8_conv_kernel = real
+
+
+def _k1_int8_projection(card):
+    """K1 on the CPN deploy pyramid as int8 maps with the lifter's
+    in-kernel projection (weights carrying the dequant scale), the border
+    272-point call, against its plain version. Returns the max abs
+    error."""
+    from contextaware_poseformer_tpu_torch.ops import deformable
+
+    gen = torch.Generator().manual_seed(9)
+    maps = [torch.randint(-127, 128, (BATCH, h, w, 256), generator=gen,
+                          dtype=torch.int8).cuda() for h, w in LEVELS]
+    pts = (torch.rand(BATCH, len(LEVELS), 17, 16, 2, generator=gen) * 3
+           - 1.5).cuda()
+    scales = [0.01 + 0.01 * l for l in range(len(LEVELS))]
+    projs = [((torch.rand(256, HEAD_DIM, generator=gen) * 2 - 1) / 16
+              * s).cuda() for s in scales]
+    biases = [(torch.rand(HEAD_DIM, generator=gen) * 0.2 - 0.1).cuda()
+              for _ in LEVELS]
+
+    def fn():
+        return deformable.sample_points_multi(maps, pts, "border", True,
+                                              projs, biases)
+
+    def plain():
+        return deformable.sample_points_multi_reference(
+            maps, pts, "border", True, projs, biases)
+
+    out, ref = fn(), plain()
+    err, rel = _err(out, ref)
+    ms, plain_ms = _median_ms(fn), _median_ms(plain)
+    work = _sampler_work(maps, pts, projs, True)
+    bound_ms, by = _bound(*work, torch.float32)
+    tol = TOL[torch.bfloat16]
+    print(f"cpn_int8: K1 int8 maps border+proj P=272 -> bfloat16: "
+          f"max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:.0e}); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({by}: {work[0]} B, {work[1]} ops), 4 a request ({card})",
+          flush=True)
+    if not rel <= tol:
+        raise AssertionError(f"K1 int8 projection: rel error {rel:.3e}")
+    return err
+
+
+def check_cpn_int8(results, card):
+    """Phase 7: the CPN int8 deploy graph. K10 at every distinct shape and
+    variant of the stream (recorded from one served request at batch BATCH,
+    on that request's own tensors) against its plain version, bit for bit,
+    with median kernel and plain times and the bound; K1 projecting int8
+    maps; then ``serve.deploy_config("h36m_cpn")`` served as the HRNet
+    deploy graphs are. K10's JSON times become this request's. Returns the
+    served requests' launch counts."""
+    from contextaware_poseformer_tpu_torch.ops import int8_conv
+
+    seen = {}
+    launches = check_serving("h36m_cpn", REQUESTS, card, int8=True,
+                             inspect=lambda m, r: _record_k10(m, r, seen))
+    calls = sum(n for n, _ in seen.values())
+    if calls != INT8_PER_REQUEST["cpn"]["K10"]:
+        raise AssertionError(f"recorded {calls} K10 calls a request")
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "library_ms": None}
+    largest = 0.0
+    with torch.inference_mode():
+        for key, (n, args) in seen.items():
+            def fn(args=args):
+                return int8_conv.int8_conv_kernel(*args)
+
+            def plain(args=args):
+                return int8_conv.int8_conv_reference(*args)
+
+            out, ref = fn(), plain()
+            torch.cuda.synchronize()
+            eq, err = _exact(out, ref)
+            ms, plain_ms = _median_ms(fn), _median_ms(plain)
+            x, kq, residual = args[0], args[1], args[9]
+            m = out.shape[0] * out.shape[1] * out.shape[2]
+            nbytes = (x.numel() * x.element_size() + kq.numel()
+                      + 3 * 4 * kq.shape[0]
+                      + out.numel() * out.element_size()
+                      + (0 if residual is None
+                         else residual.numel() * residual.element_size()))
+            work = (nbytes, 2 * m * kq.shape[0] * kq.shape[1])
+            bound_ms, by = _bound(*work, torch.int8)
+            print(f"cpn_int8: K10 {key}: equal {eq:.6f}, max_abs_err "
+                  f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({by}: {work[0]} B, {work[1]} "
+                  f"ops), {n} a request ({card})", flush=True)
+            if eq != 1.0:
+                raise AssertionError(f"K10 {key}: equal share {eq}")
+            res["ms"] += n * ms
+            res["plain_ms"] += n * plain_ms
+            res["bound_ms"] += n * bound_ms
+            if n * bound_ms > largest:
+                largest, res["bound_by"] = n * bound_ms, by
+    print(f"cpn_int8: K10 over a request's {calls} calls ({len(seen)} "
+          f"shapes and variants): kernel {res['ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+          f"({card})", flush=True)
+    results["K10"] = res
+    seen.clear()
+    err = _k1_int8_projection(card)
+    results["K1"]["max_abs_err"] = max(results["K1"]["max_abs_err"], err)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _probe_result(err, ms, plain_ms, work, dtype, library_ms=None):
+    bound_ms, by = _bound(*work, dtype)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
+
+
+def _print_probe(name, what, check, r, card):
+    lib = ("none" if r["library_ms"] is None
+           else f"{r['library_ms']:.4f} ms")
+    print(f"probes: {name} ({what}): {check}; kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} "
+          f"ms ({r['bound_by']}) ({card})", flush=True)
+
+
+def check_probes(card):
+    """Phase 8: the TPU probes' counterparts. Their main path (each run
+    once, every launch count set to 0 before it and read after it), then
+    each held against its plain version (bit for bit where the function is
+    integer; the two timing-only builds, wrong by design, run and are
+    timed), with median kernel, plain and library times and the bound.
+    Returns {probe: JSON numbers with its launches}."""
+    from contextaware_poseformer_tpu_torch.ops import int8_conv, layer1_chain
+    from contextaware_poseformer_tpu_torch.probes import int8_chain, window
+
+    gen = torch.Generator().manual_seed(6)
+    b, h, w, c = int8_chain.BATCH, int8_chain.H, int8_chain.W, int8_chain.C
+    n_deep = 8
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             dtype=torch.int8).cuda()
+
+    def uniform(lo, hi, *shape):
+        return (torch.rand(*shape, generator=gen) * (hi - lo) + lo).cuda()
+
+    # the chain: post-ReLU int8 input, int8 weights as the probe draws them
+    x = ints(0, 128, b, h, w, c)
+    convs = [(ints(-8, 9, c, 9 * c), torch.full((c,), 0.02, device="cuda"),
+              uniform(0.5, 1.5, c), uniform(-0.1, 0.1, c))
+             for _ in range(n_deep)]
+    amaxes = [torch.tensor(10.0, device="cuda") for _ in range(n_deep + 1)]
+    # the pieces
+    kq = convs[0][0]
+    x1 = ints(-127, 128, b, h, w // 4, 576)  # pre-windowed (M, 576)
+    k1 = ints(-8, 9, 128, 576)
+    xb = torch.randn(b, h, w, c, generator=gen).to("cuda", torch.bfloat16)
+    wb = (torch.randn(c, 9 * c, generator=gen) / 17).to("cuda",
+                                                       torch.bfloat16)
+    acc = torch.randint(-6000, 6000, (b * h * w, c), generator=gen,
+                        dtype=torch.int32).cuda()
+    ws, sc, bi = convs[0][1:]
+    a_in, a_out = torch.tensor(10.0, device="cuda"), torch.tensor(
+        12.0, device="cuda")
+    # K9 at the layer1 probe's shape (batch 128, 64x48x64)
+    x9 = (torch.randn(b, 64, 48, 64, generator=gen) * 2).to("cuda",
+                                                            torch.bfloat16)
+    blocks = _layer1_blocks(gen)
+    a9 = torch.tensor(6.0, device="cuda")
+    # the window shift
+    xf = (torch.randn(window.M, window.LANES, generator=gen) * 2).cuda()
+    wv = ints(-20, 21, window.K, window.N)
+    a4 = torch.tensor(4.0, device="cuda")
+
+    runs = {
+        "chain_conv": lambda: int8_chain.chain(x, convs, amaxes),
+        "micro_matmul3": lambda: int8_chain.accum(x, kq),
+        "micro_matmul3_nomask": lambda: int8_chain.accum(x, kq, mask=False),
+        "micro_matmul1": lambda: int8_chain.accum(x1, k1),
+        "micro_requant": lambda: int8_chain.requant(acc, ws, sc, bi, a_in,
+                                                    a_out),
+        "micro_quantize": lambda: int8_chain.quantize(xb, a_in),
+        "micro_bf16_matmul3": lambda: int8_chain.bf16_conv(xb, wb),
+        "layer1_v1": lambda: layer1_chain.layer1_chain_kernel(x9, a9, blocks),
+        "layer1_1block": lambda: layer1_chain.layer1_block_kernel(
+            x9, a9, blocks[0]),
+        "layer1_floor": lambda: layer1_chain.layer1_chain_kernel(
+            x9, a9, blocks, floor=True),
+        "window_bitcast": lambda: window.window_matmul(xf, wv, a4, True),
+        "window_slice": lambda: window.window_matmul(xf, wv, a4, False),
+    }
+    counters = {
+        "chain_conv": (int8_conv, "launches"),
+        "layer1_v1": (layer1_chain, "launches"),
+        "layer1_1block": (layer1_chain, "launches"),
+        "layer1_floor": (layer1_chain, "launches_floor"),
+    }
+    piece = {"micro_matmul3": "accum", "micro_matmul3_nomask": "accum_nomask",
+             "micro_matmul1": "accum", "micro_requant": "requant",
+             "micro_quantize": "quantize", "micro_bf16_matmul3": "bf16_conv",
+             "window_bitcast": "words", "window_slice": "offset"}
+
+    def count(name):
+        if name in counters:
+            mod, attr = counters[name]
+            return getattr(mod, attr)
+        return (window.launches if name.startswith("window")
+                else int8_chain.launches)[piece[name]]
+
+    _reset_counts()
+    layer1_chain.launches_floor = 0
+    for d in (int8_chain.launches, window.launches):
+        for k in d:
+            d[k] = 0
+    launches, outs = {}, {}
+    with torch.inference_mode():
+        for name, run in runs.items():  # the probes' main path
+            before = count(name)
+            outs[name] = run()
+            torch.cuda.synchronize()
+            launches[name] = count(name) - before
+    expect = {"chain_conv": n_deep, "layer1_v1": 4, "layer1_1block": 1,
+              "layer1_floor": 4}
+    bad = {k: v for k, v in launches.items() if v != expect.get(k, 1)}
+    if bad:
+        raise AssertionError(f"probe launches {bad}")
+
+    results = {}
+    m = b * h * w
+    with torch.inference_mode():
+        # the chain, 1 and n_deep convs, against its plain chain and cuDNN
+        xlib = torch.relu(torch.randn(b, h, w, c, generator=gen)).to(
+            "cuda", torch.bfloat16)
+        wlib = (torch.randn(c, c, 3, 3, generator=gen) / 17).to(
+            "cuda", torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        slib = uniform(0.5, 1.5, c).to(torch.bfloat16)[:, None, None]
+        blib = uniform(-0.1, 0.1, c).to(torch.bfloat16)[:, None, None]
+        for n in (1, n_deep):
+            def fn(n=n):
+                return int8_chain.chain(x, convs[:n], amaxes[:n + 1])
+
+            def plain(n=n):
+                return int8_chain.chain(x, convs[:n], amaxes[:n + 1],
+                                        impl="plain")
+
+            out, ref = fn(), plain()
+            torch.cuda.synchronize()
+            eq, err = _exact(out, ref)
+            lib_ms = _median_ms(lambda n=n: int8_chain.library_chain(
+                xlib, wlib, slib, blib, n))
+            r = _probe_result(err, _median_ms(fn), _median_ms(plain),
+                              (2 * m * c + n * (9 * c * c + 12 * c),
+                               n * 2 * m * c * 9 * c), torch.int8, lib_ms)
+            _print_probe(f"int8_chain_conv n={n}", f"K10 with the int8-out "
+                         f"epilogue, batch {b}, {h}x{w}x{c} 3x3",
+                         f"equal {eq:.6f} (saturated "
+                         f"{(ref.abs() == 127).float().mean().item():.3f})",
+                         r, card)
+            if eq != 1.0:
+                raise AssertionError(f"chain n={n}: equal share {eq}")
+        results["chain_conv"] = r  # the n_deep chain, as the probe
+        # the pieces
+        acc3 = outs["micro_matmul3"]
+        ref3 = int8_chain.accum_reference(x, kq)
+        eq, err = _exact(acc3, ref3)
+        plain3 = _median_ms(lambda: int8_chain.accum_reference(x, kq))
+        r = _probe_result(err, _median_ms(runs["micro_matmul3"]), plain3,
+                          (m * c + kq.numel() + m * c * 4,
+                           2 * m * c * 9 * c), torch.int8)
+        _print_probe("micro matmul3", "K10's main loop, int32 out",
+                     f"equal {eq:.6f}", r, card)
+        if eq != 1.0:
+            raise AssertionError(f"matmul3: equal share {eq}")
+        results["micro_matmul3"] = r
+        nomask = outs["micro_matmul3_nomask"]
+        eq, err = _exact(nomask, ref3)
+        r = _probe_result(err, _median_ms(runs["micro_matmul3_nomask"]),
+                          plain3, (m * c + kq.numel() + m * c * 4,
+                                   2 * m * c * 9 * c), torch.int8)
+        _print_probe("micro matmul3_nomask", "the same, border predication "
+                     "compiled out: timing only", f"ran, int32 out, equal to "
+                     f"the masked result at {eq:.4f} of the outputs (the "
+                     "edges differ by design)", r, card)
+        results["micro_matmul3_nomask"] = r
+        ref1 = int8_chain.accum_reference(x1, k1)
+        eq, err = _exact(outs["micro_matmul1"], ref1)
+        a2 = x1.reshape(-1, 576)
+        bt = k1.t()
+        m1 = a2.shape[0]
+        r = _probe_result(err, _median_ms(runs["micro_matmul1"]),
+                          _median_ms(lambda: int8_chain.accum_reference(
+                              x1, k1)),
+                          (x1.numel() + k1.numel() + m1 * 128 * 4,
+                           2 * m1 * 576 * 128), torch.int8,
+                          _median_ms(lambda: torch._int_mm(a2, bt)))
+        _print_probe("micro matmul1", f"K10 1x1 over a pre-windowed ({m1}, "
+                     "576) input: one (M, 576) x (576, 128) int8 GEMM",
+                     f"equal {eq:.6f}", r, card)
+        if eq != 1.0:
+            raise AssertionError(f"matmul1: equal share {eq}")
+        results["micro_matmul1"] = r
+        refr = int8_chain.requant_reference(acc, ws, sc, bi, a_in, a_out)
+        eq, err = _exact(outs["micro_requant"], refr)
+        r = _probe_result(err, _median_ms(runs["micro_requant"]),
+                          _median_ms(lambda: int8_chain.requant_reference(
+                              acc, ws, sc, bi, a_in, a_out)),
+                          (acc.numel() * 5 + 12 * c, 6 * acc.numel()),
+                          torch.float32)
+        _print_probe("micro requant", "K10's epilogue alone, int32 -> int8",
+                     f"equal {eq:.6f}", r, card)
+        if eq != 1.0:
+            raise AssertionError(f"requant: equal share {eq}")
+        results["micro_requant"] = r
+        refq = int8_chain.quantize_reference(xb, a_in)
+        eq, err = _exact(outs["micro_quantize"], refq)
+        r = _probe_result(err, _median_ms(runs["micro_quantize"]),
+                          _median_ms(lambda: int8_chain.quantize_reference(
+                              xb, a_in)),
+                          (xb.numel() * 3, 3 * xb.numel()), torch.float32)
+        _print_probe("micro quantize", "K10's quantize-on-load alone, bf16 "
+                     "-> int8", f"equal {eq:.6f}", r, card)
+        if eq != 1.0:
+            raise AssertionError(f"quantize: equal share {eq}")
+        results["micro_quantize"] = r
+        refb = int8_chain.bf16_conv_reference(xb, wb)
+        err, rel = _err(outs["micro_bf16_matmul3"], refb)
+        xnchw = xb.permute(0, 3, 1, 2)
+        wlib3 = wb.reshape(c, 3, 3, c).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        r = _probe_result(err, _median_ms(runs["micro_bf16_matmul3"]),
+                          _median_ms(lambda: int8_chain.bf16_conv_reference(
+                              xb, wb)),
+                          (xb.numel() * 2 + wb.numel() * 2 + m * c * 4,
+                           2 * m * c * 9 * c), torch.bfloat16,
+                          _median_ms(lambda: F.conv2d(xnchw, wlib3,
+                                                      padding=1)))
+        _print_probe("micro bf16_matmul3", "K10's main loop on bf16 "
+                     "operands (mma m16n8k16), fp32 out",
+                     f"rel {rel:.3e} (tol 1e-5: fp32 sums in another order)",
+                     r, card)
+        if not rel <= 1e-5:
+            raise AssertionError(f"bf16_matmul3: rel error {rel:.3e}")
+        results["micro_bf16_matmul3"] = r
+
+        # K9 at the layer1 probe's shape, one block against K10's chain of
+        # that block, and the floor build
+        ref9 = layer1_chain.layer1_chain_reference(x9, a9, blocks)
+        eq, err = _exact(outs["layer1_v1"], ref9)
+        weights = sum(blk[cv][0].numel() + 12 * blk[cv][0].shape[0]
+                      for blk in blocks for cv in ("conv1", "conv2", "conv3",
+                                                   "downsample")
+                      if blk[cv] is not None)
+        px = b * 64 * 48
+        work9 = (x9.numel() * 2 + weights + px * 256,
+                 2 * px * (64 * 64 + 3 * 256 * 64 + 4 * 576 * 64
+                           + 4 * 64 * 256 + 256 * 64))
+        k9_ms = _median_ms(runs["layer1_v1"])
+        r = _probe_result(err, k9_ms, _median_ms(
+            lambda: layer1_chain.layer1_chain_reference(x9, a9, blocks)),
+            work9, torch.int8)
+        _print_probe("layer1_chain_probe _kernel_v1", f"K9 itself (conv2 "
+                     f"already one K=576 GEMM), batch {b}, 64x48x64",
+                     f"equal {eq:.6f}", r, card)
+        if eq != 1.0:
+            raise AssertionError(f"K9 probe shape: equal share {eq}")
+        results["layer1_v1"] = r
+        one = outs["layer1_1block"]
+        via = layer1_chain.layer1_int8_chain(x9, a9, blocks[:1])
+        ref1b = layer1_chain.layer1_chain_reference(x9, a9, blocks[:1])
+        eq_chain, _ = _exact(one, via)
+        eq, err = _exact(one, ref1b)
+        d = (one.int() - via.int()).abs()
+        r = _probe_result(err, _median_ms(runs["layer1_1block"]), _median_ms(
+            lambda: layer1_chain.layer1_chain_reference(x9, a9, blocks[:1])),
+            (x9.numel() * 2 + px * 256 + 2 * 64 * 576,
+             2 * px * (64 * 64 + 576 * 64 + 2 * 64 * 256)), torch.int8,
+            None)
+        chain_ms = _median_ms(lambda: layer1_chain.layer1_int8_chain(
+            x9, a9, blocks[:1]))
+        _print_probe("layer1_chain_probe pallas_1block", "K9 on one "
+                     "bottleneck block", f"against K10's per-conv chain of "
+                     f"the block: match={(d == 0).float().mean().item() * 100:.4f}%"
+                     f" maxdiff={d.max().item()} frac|d|>1="
+                     f"{(d > 1).float().mean().item() * 100:.4f}%; equal "
+                     f"{eq:.6f} (plain); K10 chain {chain_ms:.4f} ms", r,
+                     card)
+        if eq != 1.0 or eq_chain != 1.0:
+            raise AssertionError(f"one block: equal {eq} (plain), "
+                                 f"{eq_chain} (K10 chain)")
+        results["layer1_1block"] = r
+        floor = outs["layer1_floor"]
+        _, err = _exact(floor, ref9)
+        r = _probe_result(err, _median_ms(runs["layer1_floor"]),
+                          results["layer1_v1"]["plain_ms"], work9,
+                          torch.int8)
+        _print_probe("layer1_chain_floor", "K9's floor build: MMAs and bf16 "
+                     "epilogues, no requant or window stages; timing only",
+                     f"ran, int8 out, K9 takes {k9_ms:.4f} ms, the floor "
+                     f"{r['ms'] / k9_ms:.1%} of it", r, card)
+        results["layer1_floor"] = r
+
+        # the window shift, both ways
+        refw = window.window_matmul_reference(xf, wv, a4)
+        plainw = _median_ms(lambda: window.window_matmul_reference(xf, wv,
+                                                                   a4))
+        for name, words in (("window_bitcast", True),
+                            ("window_slice", False)):
+            eq, err = _exact(outs[name], refw)
+            r = _probe_result(err, _median_ms(runs[name]), plainw,
+                              (xf.numel() * 4 + wv.numel() + refw.numel() * 4,
+                               2 * 2 * window.M * window.K * window.N),
+                              torch.int8)
+            _print_probe(f"int8_primitives {name.split('_')[1]}",
+                         "the row-shifted int8 window by "
+                         + ("a 3-word shift, __byte_perm" if words
+                            else "an address offset"),
+                         f"equal {eq:.6f} (xwin @ w + roll(xwin, -12) @ w)",
+                         r, card)
+            if eq != 1.0:
+                raise AssertionError(f"{name}: equal share {eq}")
+            results[name] = r
+    del outs
+    torch.cuda.empty_cache()
+    for name in results:
+        results[name]["launches"] = launches[name]
+    return results
+
+
 def _counters():
     """{kernel: (module, name of its launch counter)}"""
     from contextaware_poseformer_tpu_torch.ops import (
@@ -667,20 +1188,23 @@ def _expected(per_call, calls=1):
     return {k: calls * per_call.get(k, 0) for k in _counters()}
 
 
-def check_serving(name, requests_n, card, int8=False):
-    """Phases 4, 5 and 6b: serve ``requests_n`` requests of the full-width
-    ``slice_config(name)`` (``deploy_config(name)`` with ``int8``, after
-    ``serve.prepare`` on one seeded batch) through ``serve.lift``, checking
-    each request's launches and the output, and one request against the
-    plain knobs (and, with ``int8``, K9's and K10's plain versions).
-    Returns the launch counts of the requests."""
+def check_serving(name, requests_n, card, int8=False, inspect=None):
+    """Phases 4, 5, 6b and 7b: serve ``requests_n`` requests of the
+    full-width ``slice_config(name)`` (``deploy_config(name)`` with
+    ``int8``, after ``serve.prepare`` on one seeded batch) through
+    ``serve.lift``, checking each request's launches and the output, and
+    one request against the plain knobs (and, with ``int8``, K9's and K10's
+    plain versions). ``inspect(model, request)`` runs before the counted
+    requests. Returns the launch counts of the requests."""
     from contextaware_poseformer_tpu_torch import serve
 
-    phase = "int8" if int8 else "slice" if name == "h36m_cpn" else "hrnet"
+    phase = ("slice" if name == "h36m_cpn" else "hrnet") if not int8 else (
+        "cpn_int8" if name == "h36m_cpn" else "int8")
+    cfg = serve.deploy_config(name) if int8 else serve.slice_config(name)
     per_request = PER_REQUEST[name]
     if int8:
-        per_request = {**per_request, **INT8_PER_REQUEST}
-    cfg = serve.deploy_config(name) if int8 else serve.slice_config(name)
+        per_request = {**per_request,
+                       **INT8_PER_REQUEST[cfg.model.backbone.kind]}
     t0 = time.perf_counter()
     model = serve.build_serving_model(
         cfg, "cuda", generator=torch.Generator().manual_seed(0))
@@ -696,7 +1220,7 @@ def check_serving(name, requests_n, card, int8=False):
         scales = backbone_common.calibration_buffers(model.backbone)
         print(f"{phase}: {name} prepared in {time.perf_counter() - t1:.1f} "
               f"s (calibration on {BATCH} seeded frames, quantile "
-              f"{cfg.model.backbone.calib_quantile}; layer1 scales "
+              f"{cfg.model.backbone.calib_quantile}; {len(scales)} scales "
               f"{min(v.item() for v in scales.values()):.4g}.."
               f"{max(v.item() for v in scales.values()):.4g})", flush=True)
     gen = torch.Generator().manual_seed(0)
@@ -713,6 +1237,8 @@ def check_serving(name, requests_n, card, int8=False):
           f"{bc.feature_dims}, lifter embed {lc.embed_dim_ratio} depth "
           f"{lc.depth} deformable {lc.use_deformable}, "
           f"{cfg.model.compute_dtype})", flush=True)
+    if inspect is not None:
+        inspect(model, requests[0])
 
     _reset_counts()
     outs = []
@@ -793,21 +1319,23 @@ def _where_time_goes(phase, name, cfg, model, req, host_ms, tag):
     from contextaware_poseformer_tpu_torch import serve
     from contextaware_poseformer_tpu_torch.data import augment
     from contextaware_poseformer_tpu_torch.models.capf import (
+        backbone_maps,
         crop_coords_to_grid,
+        lifter_maps,
     )
 
     frames, kp, kpc = req
     events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    feat_dtype = getattr(torch, cfg.model.lifter.compute_dtype)
     with torch.inference_mode():
         events[0].record()
         images = augment.serving_images(frames, cfg.model.backbone,
                                         dtype=model.backbone.dtype)
         events[1].record()
-        feats = model.backbone(images)
+        feats, scales = backbone_maps(model.backbone(images))
         events[2].record()
         model.lifter(kp, crop_coords_to_grid(kpc, cfg.model.image_shape),
-                     [f.to(feat_dtype) for f in feats])
+                     lifter_maps(feats, cfg.model.lifter.compute_dtype),
+                     feat_scales=scales)
         events[3].record()
     torch.cuda.synchronize()
     stages = [events[i].elapsed_time(events[i + 1]) for i in range(3)]
@@ -1408,6 +1936,8 @@ def main() -> None:
     results.update(check_int8_kernels(card))
     served += [check_serving(name, n, card, int8=True)
                for name, n in HRNET_REQUESTS.items()]
+    served.append(check_cpn_int8(results, card))
+    probes = check_probes(card)
     served.append(check_aggregate(results, card))
     results["K6"] = check_backward()
     trained = check_train(card)
@@ -1415,7 +1945,11 @@ def main() -> None:
         {"name": k, "route": "cuda", "source": CSRC + SOURCES[k],
          "replaces": REPLACES[k],
          "launches": sum(s[k] for s in served) + trained[k], **results[k]}
-        for k in SOURCES
+        for k in _counters()
+    ] + [
+        {"name": f"probe {k}", "route": "cuda", "source": CSRC + SOURCES[k],
+         "replaces": REPLACES[k], **v}
+        for k, v in probes.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,15 @@
 
 Port of ``contextaware_poseformer_tpu/models/backbone_common.py``: ``ConvBN``
 (54-227) with its float path and the int8 routes of ``quantize="serve"``
-(dynamic wide convs, ``x_quant`` and ``packed``), ``observed_amax`` (31-51),
+(dynamic wide convs, their calibrated amax under ``serve_static_amax``,
+``x_quant`` and ``packed``), ``observed_amax`` (31-51),
 ``add_upsampled_nearest`` (235-246), ``resize_bilinear_align_corners``
 (249-280), ``max_pool_3x3_s2`` (389-412), and the serving-state idioms of
 283-386 (``prepare_int8_weights``, ``check_calibrated``, a parameter
-fingerprint and ``check_serving_fresh``). ``quantize="static"`` and
-``serve_static_amax`` are not ported.
+fingerprint and ``check_serving_fresh``). ``quantize="static"`` (calibrated
+scales on the narrow 3x3 convs) and ``"c128"`` are not ported; nor is
+ConvBN's ``raw`` output, which only the refused ``cpn_fold_normalize``
+uses.
 
 Tensors are NHWC at every function here. Each op runs on the NCHW-shaped
 ``permute`` view of its input, which for an NHWC-contiguous tensor is
@@ -48,6 +51,13 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def is_calib_name(name: str) -> bool:
+    """True for a calibrated activation scale's buffer (the JAX package's
+    "calib" collection): a ConvBN's ``amax`` or a block's ``*_amax``."""
+    leaf = name.rsplit(".", 1)[-1]
+    return leaf == "amax" or leaf.endswith("_amax")
+
+
 def observed_amax(x: torch.Tensor, quantile: float = 1.0) -> torch.Tensor:
     """Calibration statistic of an int8 activation scale (fp32, 0-dim):
     max|x| for ``quantile >= 1``, else the upper edge of the first of 2048
@@ -72,6 +82,12 @@ def observed_amax(x: torch.Tensor, quantile: float = 1.0) -> torch.Tensor:
     cum = torch.cumsum(hist, 0) / f32_const(float(ax.numel()), hist)
     first = torch.argmax((cum >= f32_const(quantile, hist)).to(torch.uint8))
     return ((first + 1).float() * m.cpu() / HIST_BINS).to(ax.device)
+
+
+def observe(buf: torch.Tensor, t: torch.Tensor, quantile: float) -> None:
+    """Fold ``observed_amax(t, quantile)`` into the scale buffer ``buf`` by
+    max, in place (the JAX package's ``calib`` update)."""
+    buf.copy_(torch.maximum(buf, observed_amax(t, quantile)))
 
 
 def quantize_weight(weight: torch.Tensor) -> tuple[torch.Tensor,
@@ -104,14 +120,24 @@ class ConvBN(nn.Module):
     - with ``x_quant=(xq, amax)``: the caller's int8 tensor and its
       calibrated max|value|;
     - on a float ``x`` when both channel counts are >= 128 (``dynamic``):
-      quantized with its runtime max|x|;
-    - any other float call takes the float path (the layer1 convs while
+      quantized with its runtime max|x|, or, with ``static=True`` (the JAX
+      package's ``serve_static_amax``), with its calibrated max|x|, the
+      buffer ``amax``; the calibration pass (``calibrate=True``) folds the
+      input's ``observed_amax(x, quantile)`` into it and then runs the
+      dynamic route, as the JAX package's does;
+    - any other float call takes the float path (the narrow convs while
       calibrating).
+
+    An int8 route also takes a ``residual`` added before the ReLU (a float
+    tensor, or an int8 ``(xq, amax)`` pair dequantized in the epilogue),
+    ``relu`` overriding the conv's own, and ``out_amax``, which requantizes
+    the output to int8 (the CPN int8 stream's fused epilogues).
     """
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
                  stride: int = 1, relu: bool = False, dtype=torch.float32,
-                 device=None, int8: bool = False):
+                 device=None, int8: bool = False, static: bool = False,
+                 quantile: float = 1.0):
         super().__init__()
         self.stride = stride
         self.padding = (kernel_size - 1) // 2
@@ -119,6 +145,8 @@ class ConvBN(nn.Module):
         self.dtype = dtype
         self.int8 = int8
         self.dynamic = int8 and in_ch >= WIDE and features >= WIDE
+        self.static = self.dynamic and static
+        self.quantile = quantile
         self.weight = nn.Parameter(torch.empty(
             features, in_ch, kernel_size, kernel_size, device=device))
         self.scale = nn.Parameter(torch.empty(features, device=device))
@@ -129,6 +157,9 @@ class ConvBN(nn.Module):
                 dtype=torch.int8, device=device))
             self.register_buffer("wscale", torch.zeros(
                 features, dtype=torch.float32, device=device))
+        if self.static:
+            self.register_buffer("amax", torch.zeros(
+                (), dtype=torch.float32, device=device))
 
     def reset_parameters(self, generator) -> None:
         init.he_normal_(self.weight, generator)
@@ -150,20 +181,35 @@ class ConvBN(nn.Module):
         assembles itself (the JAX package's ``packed=True``)."""
         return self.kernel_q, self.wscale, self.scale, self.bias
 
-    def forward(self, x, x_quant=None, impl: str = "auto"):
+    def forward(self, x, x_quant=None, impl: str = "auto",
+                calibrate: bool = False, residual=None, out_amax=None,
+                relu=None):
         """``impl="plain"`` runs K10's plain version on any device (the
         card's comparison path); "auto" takes the kernel on a CUDA tensor
         and the plain version on a CPU one."""
-        if x_quant is not None or self.dynamic:
-            xin, amax = x_quant if x_quant is not None else (x, None)
-            return int8_conv.int8_conv(xin, *self.packed(), amax,
-                                       self.stride, self.relu, self.dtype,
-                                       impl)
-        dt = self.dtype
-        y = _nhwc(F.conv2d(_nchw(x.to(dt)), self.weight.to(dt),
-                           stride=self.stride, padding=self.padding))
-        y = torch.addcmul(self.bias.to(dt), y, self.scale.to(dt))
-        return torch.relu(y) if self.relu else y
+        relu = self.relu if relu is None else relu
+        if x_quant is not None:
+            xin, amax = x_quant
+        elif self.static and not calibrate:
+            xin, amax = x, self.amax
+        elif self.dynamic:
+            if self.static:
+                observe(self.amax, x, self.quantile)
+            xin, amax = x, None
+        else:
+            if residual is not None or out_amax is not None:
+                raise ValueError("ConvBN: a residual or an int8 output "
+                                 "needs an int8 route")
+            dt = self.dtype
+            y = _nhwc(F.conv2d(_nchw(x.to(dt)), self.weight.to(dt),
+                               stride=self.stride, padding=self.padding))
+            y = torch.addcmul(self.bias.to(dt), y, self.scale.to(dt))
+            return torch.relu(y) if relu else y
+        res, res_amax = (residual if isinstance(residual, tuple)
+                         else (residual, None))
+        return int8_conv.int8_conv(xin, *self.packed(), amax, self.stride,
+                                   relu, self.dtype, impl, res, res_amax,
+                                   out_amax)
 
 
 def int8_convs(module: nn.Module):
@@ -192,9 +238,9 @@ def prepare_int8_weights(module: nn.Module) -> None:
 
 
 def calibration_buffers(module: nn.Module) -> dict[str, torch.Tensor]:
-    """The calibrated activation scales of a backbone (buffers named
-    ``*_amax``), by name."""
-    return {n: b for n, b in module.named_buffers() if n.endswith("_amax")}
+    """The calibrated activation scales of a backbone (``is_calib_name``),
+    by name."""
+    return {n: b for n, b in module.named_buffers() if is_calib_name(n)}
 
 
 def check_calibrated(module: nn.Module) -> None:
@@ -264,5 +310,10 @@ def resize_bilinear_align_corners(x: torch.Tensor,
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """torch MaxPool2d(kernel=3, stride=2, padding=1) on NHWC (padding never
-    wins: every window holds at least 4 real pixels)."""
+    wins: every window holds at least 4 real pixels). An int8 tensor pools
+    through bf16, which holds every int8 value exactly, so the result is
+    the int8 pool's (PyTorch's integer max-pool overflows an index check
+    at these sizes on the CPU)."""
+    if x.dtype == torch.int8:
+        return max_pool_3x3_s2(x.to(torch.bfloat16)).to(torch.int8)
     return _nhwc(F.max_pool2d(_nchw(x), 3, 2, 1))

@@ -13,8 +13,9 @@ key ``<a>.<b>. ... .<leaf>`` with
 
 Dense kernels stay (in, out), LayerNorm ``scale``/``bias`` and ``pos_embed``
 map as they are. The int8 serving collections of ``quantize="serve"`` land
-on the backbone's buffers by the same rule: ``calib`` (the layer1 scales)
-as they are, ``qweights`` ``kernel_q`` (HWIO int8) as the port's
+on the backbone's buffers by the same rule: ``calib`` (a ConvBN's ``amax``
+and the blocks' ``*_amax`` scales, ``backbone_common.is_calib_name``) as
+they are, ``qweights`` ``kernel_q`` (HWIO int8) as the port's
 (O, kh*kw*I) layout and ``wscale`` as it is. ``qmeta`` (the JAX package's
 own fingerprint) is not copied: the loaded ``qweights`` must instead equal
 what the port's ``prepare_int8_weights`` gives from the loaded parameters,
@@ -38,6 +39,7 @@ from torch import nn
 
 from contextaware_poseformer_tpu_torch.models.backbone_common import (
     int8_convs,
+    is_calib_name,
     quantize_weight,
     stamp_fingerprint,
 )
@@ -59,7 +61,7 @@ def _collection(key: str) -> str:
     leaf = key.rsplit(".", 1)[-1]
     if leaf in ("kernel_q", "wscale"):
         return "qweights"
-    if leaf.endswith("_amax"):
+    if is_calib_name(key):
         return "calib"
     if leaf == "serving_fingerprint":
         return "qmeta"

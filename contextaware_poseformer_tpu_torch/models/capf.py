@@ -3,9 +3,10 @@
 Port of ``contextaware_poseformer_tpu/models/capf.py:31-153``:
 frozen 2D backbone (HRNet or CPN, by ``cfg.backbone.kind``) -> four NHWC
 feature maps -> context-aware lifter -> root-relative 3D joints
-(b, joints, 3). With ``cfg.backbone.frozen`` (every preset) the backbone
-runs under ``torch.no_grad()`` and its maps are detached, the counterpart of
-the JAX package's stop-gradient (``capf.py:136-139``): no gradient reaches
+(b, joints, 3); with ``cpn_int8_maps`` the maps are int8 and the lifter
+takes their dequant scales. With ``cfg.backbone.frozen`` (every preset)
+the backbone runs under ``torch.no_grad()`` and its maps are detached, the
+counterpart of the JAX package's stop-gradient (``capf.py:136-139``): no gradient reaches
 the conv stack and none of its activations are kept for a backward.
 ``prepare_serving`` makes an int8 (``quantize="serve"``) model servable.
 """
@@ -35,6 +36,21 @@ def crop_coords_to_grid(kpts_crop: torch.Tensor,
     half = torch.tensor([w // 2, h // 2], dtype=kpts_crop.dtype,
                         device=kpts_crop.device)
     return kpts_crop / half - 1.0
+
+
+def backbone_maps(out):
+    """A backbone's output -> (maps, dequant scales or None): with
+    ``cpn_int8_maps`` the CPN hands over ``(int8 maps, scales)``
+    (``capf.py:128-135``)."""
+    return out if isinstance(out, tuple) else (out, None)
+
+
+def lifter_maps(features, compute_dtype: str):
+    """The maps as the lifter takes them: in its compute dtype (a no-op
+    when the bf16 backbone meets a bf16 lifter); int8 maps stay int8, their
+    values raw quantized numbers (``capf.py:140-148``)."""
+    dtype = getattr(torch, compute_dtype)
+    return [f if f.dtype == torch.int8 else f.to(dtype) for f in features]
 
 
 def prepare_serving(model: "ContextAwarePoseFormer", example_args,
@@ -91,12 +107,10 @@ class ContextAwarePoseFormer(nn.Module):
         ref = crop_coords_to_grid(keypoints_2d_crop, self.cfg.image_shape)
         if self.cfg.backbone.frozen:
             with torch.no_grad():
-                features = [f.detach() for f in self.backbone(images)]
+                features, feat_scales = backbone_maps(self.backbone(images))
+                features = [f.detach() for f in features]
         else:
-            features = self.backbone(images)
-        # maps feed the lifter in its compute dtype (a no-op when the bf16
-        # backbone meets a bf16 lifter)
-        feat_dtype = getattr(torch, self.cfg.lifter.compute_dtype)
-        features = [f.to(feat_dtype) for f in features]
+            features, feat_scales = backbone_maps(self.backbone(images))
+        features = lifter_maps(features, self.cfg.lifter.compute_dtype)
         return self.lifter(keypoints_2d, ref, features, deterministic,
-                           generator)
+                           generator, feat_scales=feat_scales)

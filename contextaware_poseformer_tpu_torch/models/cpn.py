@@ -1,7 +1,6 @@
 """CPN backbone: ResNet-50 + globalNet (FPN) + refineNet, NHWC, frozen BN.
 
-Port of the float branches of ``contextaware_poseformer_tpu/models/cpn.py``
-(54-412):
+Port of ``contextaware_poseformer_tpu/models/cpn.py`` (43-412):
 
   ResNet-50 -> [x4 2048@/32, x3 1024@/16, x2 512@/8, x1 256@/4]
   globalNet: 1x1 lateral (256ch) per level + top-down x2 bilinear
@@ -10,14 +9,29 @@ Port of the float branches of ``contextaware_poseformer_tpu/models/cpn.py``
              bilinear resize to /4, or with ``cpn_native_pyramid`` no resize:
              maps at /32, /16, /8 and /4
 
-Returns four 256-channel NHWC maps, deepest first. The int8 serving stack
-(``quantize="serve"``, ``cpn_int8_stream``, ``cpn_int8_maps``,
-``cpn_fold_normalize``, ``cpn_int8_topdown``) is not ported; the
-constructor refuses it.
+Returns four 256-channel NHWC maps, deepest first.
+
+``quantize="serve"`` (the deploy graph, ``config.deploy``) runs every conv
+with both channel counts >= 128 in int8 (K10, ``ops/int8_conv.py``), with
+the input's calibrated amax under ``serve_static_amax``, runs globalNet's
+1x1 up-convs before their x2 upsample (they commute: ``cpn.py:297-342``),
+and with ``cpn_int8_stream`` the int8 residual stream (``cpn.py:66-181,
+227-259``): the stem output quantized before the max-pool, which then runs
+on int8; every ResNet and refineNet bottleneck on int8 tensors with static
+calibrated scales, conv1 and conv2 requantizing their outputs in K10's
+epilogue, conv3 adding the residual (the downsample conv's output, run
+first, or the int8 skip) and requantizing the block output; the laterals on
+the int8 stage outputs. With ``cpn_int8_maps`` (and the native pyramid)
+the backbone returns ``(int8 maps, dequant scales)`` (``cpn.py:347-412``).
+``forward(x, calibrate=True)`` is the JAX package's calibration pass: the
+per-conv serve graph (wide convs dynamic int8, the rest in float) observing
+every scale the stream and the static convs use. ``cpn_fold_normalize`` and
+``cpn_int8_topdown`` are refused: they are off in ``deploy`` and not ported.
 
 Conv modules are named after the torch parameter prefixes with dots turned
 into underscores (``resnet.layer1.0.conv1`` -> ``resnet_layer1_0_conv1``);
-``models/bridge.py`` maps the flax names.
+so are the calibration buffers (``resnet.layer1.0.t1_amax`` ->
+``resnet_layer1_0_t1_amax``); ``models/bridge.py`` maps the flax names.
 """
 
 from __future__ import annotations
@@ -30,7 +44,12 @@ from contextaware_poseformer_tpu_torch.models.backbone_common import (
     ConvBN,
     max_pool_3x3_s2,
     module_name,
+    observe,
     resize_bilinear_align_corners,
+)
+from contextaware_poseformer_tpu_torch.ops.int8_conv import (
+    dequant_step,
+    quant,
 )
 
 RESNET50_LAYERS = (3, 4, 6, 3)
@@ -39,23 +58,53 @@ REFINE_PLANES = 128  # refineNet Bottleneck expansion = 2
 _PLANES = (64, 128, 256, 512)
 
 
+def calib_names(cfg: BackboneConfig) -> tuple[str, ...]:
+    """The int8 stream's calibrated scales (``cpn.py:103-181, 229-233,
+    365-370``): the pre-pool stem, each block's t1/t2/out, each cascade's
+    input and, with ``cpn_int8_maps``, the cascade-free /4 level."""
+    names = ["resnet.in_amax"]
+    blocks = [f"resnet.layer{li + 1}.{b}"
+              for li, n in enumerate(cfg.cpn_layers) for b in range(n)]
+    blocks += [f"refine_net.cascade.{i}.{k}" for i in range(3)
+               for k in range(3 - i)]
+    names += [f"{p}.{t}_amax" for p in blocks for t in ("t1", "t2", "out")]
+    names += [f"refine_net.cascade.{i}.in_amax" for i in range(3)]
+    if cfg.cpn_int8_maps:
+        names.append("refine_net.feature3_amax")
+    return tuple(names)
+
+
 class CPN(nn.Module):
     def __init__(self, cfg: BackboneConfig, dtype=torch.float32, device=None):
         super().__init__()
         if cfg.kind != "cpn":
             raise ValueError(f"CPN with a {cfg.kind!r} backbone config")
-        if cfg.quantize != "none" or cfg.cpn_fold_normalize:
+        if cfg.quantize not in ("none", "serve"):
             raise NotImplementedError(
-                f"CPN quantize={cfg.quantize!r}: the CPN int8 serving stack "
-                "(int8 wide convs, serve_static_amax, cpn_int8_stream, "
-                "cpn_int8_maps and K1's int8-map input; ROADMAP 5a) and "
-                "cpn_fold_normalize are not ported; use quantize='none'")
+                f"CPN quantize={cfg.quantize!r}: the port runs 'none' and "
+                "'serve' (the deploy graph)")
+        if cfg.cpn_fold_normalize or cfg.cpn_int8_topdown:
+            raise NotImplementedError(
+                "cpn_fold_normalize and cpn_int8_topdown are not ported: "
+                "they are off in config.deploy (ROADMAP, 'Not to port')")
         self.cfg = cfg
         self.dtype = dtype
+        self.serve = cfg.quantize == "serve"
+        self.stream = self.serve and cfg.cpn_int8_stream
+        self.int8_maps = (self.stream and cfg.cpn_int8_maps
+                          and cfg.cpn_native_pyramid)
+        # "plain" runs K10's plain version on any device (the card's
+        # comparison path)
+        self.int8_impl = "auto"
 
         def conv(name, cin, cout, ks, stride, relu):
+            # with the stream every conv but the stem runs in int8; without
+            # it the wide ones
+            int8 = self.serve and name != "resnet.conv1" and (
+                self.stream or (cin >= 128 and cout >= 128))
             self.add_module(module_name(name), ConvBN(
-                cin, cout, ks, stride, relu, dtype, device=device))
+                cin, cout, ks, stride, relu, dtype, device=device, int8=int8,
+                static=cfg.serve_static_amax, quantile=cfg.calib_quantile))
 
         conv("resnet.conv1", 3, 64, 7, 2, True)
         cin = 64
@@ -83,57 +132,148 @@ class CPN(nn.Module):
                      False)
                 conv(f"{pre}.downsample.0", LATERAL_CH, 2 * REFINE_PLANES, 1,
                      1, False)
+        if self.serve:
+            for n in calib_names(cfg) if self.stream else ():
+                self.register_buffer(module_name(n), torch.zeros(
+                    (), dtype=torch.float32, device=device))
+            self.register_buffer("serving_fingerprint", torch.zeros(
+                16, dtype=torch.uint8, device=device))
 
-    def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        return getattr(self, module_name(name))(x)
+    def _conv(self, name: str, x, calibrate=False, **kw) -> torch.Tensor:
+        return getattr(self, module_name(name))(
+            x, impl=self.int8_impl, calibrate=calibrate, **kw)
 
-    def _resnet_bottleneck(self, x, prefix, downsample):
-        # torchvision-style: stride on conv2
-        y = self._conv(f"{prefix}.conv1", x)
-        y = self._conv(f"{prefix}.conv2", y)
-        y = self._conv(f"{prefix}.conv3", y)
-        residual = self._conv(f"{prefix}.downsample.0", x) if downsample else x
-        return torch.relu(y + residual)
+    def _amax(self, name: str) -> torch.Tensor:
+        """A calibrated scale, clamped to >= 1e-12 as the stream uses it."""
+        return torch.clamp(getattr(self, module_name(name)), min=1e-12)
 
-    def _refine_bottleneck(self, x, prefix):
-        # planes 128, expansion 2, downsample always present, stride 1
-        y = self._conv(f"{prefix}.conv1", x)
-        y = self._conv(f"{prefix}.conv2", y)
-        y = self._conv(f"{prefix}.conv3", y)
-        return torch.relu(y + self._conv(f"{prefix}.downsample.0", x))
+    def _observe(self, name: str, t: torch.Tensor) -> None:
+        observe(getattr(self, module_name(name)), t, self.cfg.calib_quantile)
 
-    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+    def _bottleneck(self, x, prefix, downsample, calibrate=False):
+        """A float bottleneck: ResNet's (torchvision-style, stride on
+        conv2) or refineNet's (planes 128, expansion 2, downsample always
+        present). The calibration pass observes the stream's scales (only
+        the stream registers them)."""
+        observing = calibrate and self.stream
+        y = self._conv(f"{prefix}.conv1", x, calibrate)
+        if observing:
+            self._observe(f"{prefix}.t1_amax", y)
+        y = self._conv(f"{prefix}.conv2", y, calibrate)
+        if observing:
+            self._observe(f"{prefix}.t2_amax", y)
+        y = self._conv(f"{prefix}.conv3", y, calibrate)
+        residual = (self._conv(f"{prefix}.downsample.0", x, calibrate)
+                    if downsample else x)
+        out = torch.relu(y + residual)
+        if observing:
+            self._observe(f"{prefix}.out_amax", out)
+        return out
+
+    def _bottleneck_i8(self, xq, amax, prefix, downsample, quant_out):
+        """A bottleneck on an int8 ``(xq, amax)`` pair (``cpn.py:123-181``):
+        returns the int8 output and its amax, or with ``quant_out=False``
+        (the float output, None). The downsample runs before conv3, whose
+        epilogue adds it (or the dequantized skip) before the ReLU."""
+        t1, t2 = self._amax(f"{prefix}.t1_amax"), self._amax(f"{prefix}.t2_amax")
+        y = self._conv(f"{prefix}.conv1", None, x_quant=(xq, amax),
+                       out_amax=t1)
+        y = self._conv(f"{prefix}.conv2", None, x_quant=(y, t1), out_amax=t2)
+        res = (self._conv(f"{prefix}.downsample.0", None, x_quant=(xq, amax))
+               if downsample else (xq, amax))
+        out_a = self._amax(f"{prefix}.out_amax") if quant_out else None
+        out = self._conv(f"{prefix}.conv3", None, x_quant=(y, t2),
+                         residual=res, relu=True, out_amax=out_a)
+        return out, out_a
+
+    def forward(self, x: torch.Tensor, calibrate: bool = False):
         """x: (N, H, W, 3) normalized -> 4 NHWC maps of 256 channels,
-        deepest first."""
-        x = max_pool_3x3_s2(self._conv("resnet.conv1", x))
-        feats = []  # [x1 /4, x2 /8, x3 /16, x4 /32]
-        for li, blocks in enumerate(self.cfg.cpn_layers):
-            for b in range(blocks):
-                x = self._resnet_bottleneck(
-                    x, f"resnet.layer{li + 1}.{b}", downsample=b == 0)
-            feats.append(x)
+        deepest first; with the int8 maps ``(maps, scales)``: int8 maps and
+        their fp32 dequant scales. ``calibrate=True`` (``quantize="serve"``):
+        the calibration pass, which updates the scale buffers in place."""
+        if calibrate and not self.serve:
+            raise ValueError("calibrate=True needs quantize='serve'")
+        stream = self.stream and not calibrate
+        int8_maps = self.int8_maps and stream
+        x = self._conv("resnet.conv1", x)
+        if calibrate and self.stream:
+            # the pre-pool stem: the pool commutes with the monotone
+            # quantize, so the pooled int8 tensor is quant(pool(x))
+            self._observe("resnet.in_amax", x)
+        feats = []  # [x1 /4, x2 /8, x3 /16, x4 /32]; int8 pairs (stream)
+        if stream:
+            amax = self._amax("resnet.in_amax")
+            x = max_pool_3x3_s2(quant(x, amax))
+            for li, blocks in enumerate(self.cfg.cpn_layers):
+                for b in range(blocks):
+                    x, amax = self._bottleneck_i8(
+                        x, amax, f"resnet.layer{li + 1}.{b}", b == 0, True)
+                feats.append((x, amax))
+        else:
+            x = max_pool_3x3_s2(x)
+            for li, blocks in enumerate(self.cfg.cpn_layers):
+                for b in range(blocks):
+                    x = self._bottleneck(
+                        x, f"resnet.layer{li + 1}.{b}", b == 0, calibrate)
+                feats.append(x)
         res_out = feats[::-1]
 
         global_fms = []
         up = None
         for i in range(4):
-            lat = self._conv(f"global_net.laterals.{i}.0", res_out[i])
+            lat_name = f"global_net.laterals.{i}.0"
+            lat = (self._conv(lat_name, None, x_quant=res_out[i]) if stream
+                   else self._conv(lat_name, res_out[i], calibrate))
             feature = lat if i == 0 else lat + up
             global_fms.append(feature)
             if i != 3:
                 _, h, w, _ = feature.shape
-                up = self._conv(
-                    f"global_net.upsamples.{i}.1",
-                    resize_bilinear_align_corners(feature, (2 * h, 2 * w)),
-                )
+                up_name = f"global_net.upsamples.{i}.1"
+                if self.serve:  # the 1x1 conv before the upsample
+                    up = resize_bilinear_align_corners(
+                        self._conv(up_name, feature, calibrate),
+                        (2 * h, 2 * w))
+                else:
+                    up = self._conv(up_name, resize_bilinear_align_corners(
+                        feature, (2 * h, 2 * w)))
 
         out_hw = tuple(global_fms[-1].shape[1:3])
-        refine_fms = []
+        refine_fms, scales = [], []
         for i in range(4):
             y = global_fms[i]
-            for k in range(3 - i):
-                y = self._refine_bottleneck(y, f"refine_net.cascade.{i}.{k}")
+            n_blocks = 3 - i
+            pre = f"refine_net.cascade.{i}"
+            if calibrate and self.stream and n_blocks:
+                self._observe(f"{pre}.in_amax", y)
+            if calibrate and self.stream and self.cfg.cpn_int8_maps \
+                    and not n_blocks:
+                self._observe(f"refine_net.feature{i}_amax", y)
+            yq = ya = None
+            if stream and n_blocks:
+                ya = self._amax(f"{pre}.in_amax")
+                yq = quant(y, ya)
+                for k in range(n_blocks):
+                    last = k == n_blocks - 1
+                    out, out_a = self._bottleneck_i8(
+                        yq, ya, f"{pre}.{k}", True,
+                        (not last) or int8_maps)
+                    if out_a is None:
+                        y = out
+                    else:
+                        yq, ya = out, out_a
+            else:
+                for k in range(n_blocks):
+                    y = self._bottleneck(y, f"{pre}.{k}", True, calibrate)
+            if int8_maps and not n_blocks:
+                ya = self._amax(f"refine_net.feature{i}_amax")
+                yq = quant(y, ya)
             if not self.cfg.cpn_native_pyramid:
                 y = resize_bilinear_align_corners(y, out_hw)
-            refine_fms.append(y)
+            if int8_maps:
+                refine_fms.append(yq)
+                scales.append(dequant_step(ya, clamp=False))
+            else:
+                refine_fms.append(y)
+        if int8_maps:
+            return refine_fms, scales
         return refine_fms

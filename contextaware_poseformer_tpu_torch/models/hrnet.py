@@ -22,12 +22,14 @@ layer1 end to end in int8 with static calibrated scales (``_layer1_int8``:
 ``layer1_impl="pallas"`` through the fused kernel K9, "xla" as a chain of
 per-conv int8 convolutions K10), feeds transition1 the int8 tensor
 directly, and runs every conv with both channel counts >= 128 as a dynamic
-int8 convolution (K10). ``forward(x, calibrate=True)`` is the JAX
-package's calibration pass: it records the layer1 activation scales while
-layer1 runs in float (the wide convs stay int8), so the observed scales
-describe that graph. ``quantize="static"`` and ``serve_static_amax`` are
-not ported; the constructor refuses them. Conv modules are named after the
-flax names with dots turned into underscores
+int8 convolution (K10); with ``serve_static_amax`` the wide convs quantize
+with their input's calibrated amax instead (``hrnet.py:49``, the ConvBN's
+``calib/amax``). ``forward(x, calibrate=True)`` is the JAX package's
+calibration pass: it records the layer1 activation scales while layer1 runs
+in float, and the static convs' input scales while they run dynamic (the
+wide convs stay int8), so the observed scales describe that graph.
+``quantize="static"`` is not ported; the constructor refuses it. Conv
+modules are named after the flax names with dots turned into underscores
 (``stage2.0.branches.0.0.conv1`` -> ``stage2_0_branches_0_0_conv1``), as in
 ``models/cpn.py``; so are the calibration buffers (``layer1.in_amax`` ->
 ``layer1_in_amax``).
@@ -44,12 +46,12 @@ from contextaware_poseformer_tpu_torch.config import (
     BackboneConfig,
     HRNetStageConfig,
 )
+from contextaware_poseformer_tpu_torch.models import backbone_common
 from contextaware_poseformer_tpu_torch.models.backbone_common import (
     WIDE,
     ConvBN,
     add_upsampled_nearest,
     module_name,
-    observed_amax,
 )
 from contextaware_poseformer_tpu_torch.ops import int8_conv, layer1_chain
 
@@ -93,13 +95,12 @@ class HRNet(nn.Module):
         super().__init__()
         if cfg.kind != "hrnet":
             raise ValueError(f"HRNet with a {cfg.kind!r} backbone config")
-        if cfg.quantize not in ("none", "serve") or cfg.serve_static_amax:
+        if cfg.quantize not in ("none", "serve"):
             raise NotImplementedError(
-                f"HRNet quantize={cfg.quantize!r}, serve_static_amax="
-                f"{cfg.serve_static_amax}: the port runs 'none' and 'serve' "
-                "(dynamic wide convs, int8 layer1); 'static' (calibrated "
-                "per-conv scales on the narrow 3x3 convs) and the wide "
-                "convs' static amax are not ported")
+                f"HRNet quantize={cfg.quantize!r}: the port runs 'none' and "
+                "'serve' (int8 wide convs, int8 layer1); 'static' "
+                "(calibrated per-conv scales on the narrow 3x3 convs) and "
+                "'c128' are not ported")
         if cfg.layer1_impl not in ("xla", "pallas"):
             raise ValueError(f"layer1_impl {cfg.layer1_impl!r}")
         for stage in (cfg.stage2, cfg.stage3, cfg.stage4):
@@ -112,6 +113,7 @@ class HRNet(nn.Module):
         # "plain" runs K9's and K10's plain versions on any device (the
         # card's comparison path, as the lifter's plain knobs)
         self.int8_impl = "auto"
+        self._calibrating = False  # set by forward(calibrate=True)
         self.stage4_modules = (1 if cfg.hrnet_stage4_truncate
                                else cfg.stage4.num_modules)
 
@@ -121,7 +123,8 @@ class HRNet(nn.Module):
                 or name.startswith(("layer1.", "transition1.")))
             self.add_module(module_name(name), ConvBN(
                 cin, cout, ks, stride, relu, dtype, device=device,
-                int8=int8))
+                int8=int8, static=cfg.serve_static_amax,
+                quantile=cfg.calib_quantile))
 
         conv("conv1", 3, STEM_CH, 3, 2, True)
         conv("conv2", STEM_CH, STEM_CH, 3, 2, True)
@@ -150,8 +153,8 @@ class HRNet(nn.Module):
                 16, dtype=torch.uint8, device=device))
 
     def _conv(self, name: str, x, **kw) -> torch.Tensor:
-        return getattr(self, module_name(name))(x, impl=self.int8_impl,
-                                                **kw)
+        return getattr(self, module_name(name))(
+            x, impl=self.int8_impl, calibrate=self._calibrating, **kw)
 
     def _amax(self, name: str) -> torch.Tensor:
         return getattr(self, module_name(name))
@@ -160,9 +163,8 @@ class HRNet(nn.Module):
         """The calibration pass's layer1: float bottlenecks, each calibrated
         tensor's ``observed_amax`` folded into its buffer by max."""
         def observe(name, t):
-            buf = self._amax(name)
-            buf.copy_(torch.maximum(
-                buf, observed_amax(t, self.cfg.calib_quantile)))
+            backbone_common.observe(self._amax(name), t,
+                                    self.cfg.calib_quantile)
 
         observe("layer1.in_amax", x)
         for b in range(4):
@@ -256,7 +258,14 @@ class HRNet(nn.Module):
                 calibrate: bool = False) -> list[torch.Tensor]:
         """x: (N, H, W, 3) normalized -> 4 NHWC maps, finest first.
         ``calibrate=True`` (``quantize="serve"``): the calibration pass,
-        which updates the layer1 scale buffers in place."""
+        which updates the scale buffers in place."""
+        self._calibrating = calibrate
+        try:
+            return self._forward(x, calibrate)
+        finally:
+            self._calibrating = False
+
+    def _forward(self, x, calibrate):
         cfg = self.cfg
         x = self._conv("conv1", x)
         x = self._conv("conv2", x)

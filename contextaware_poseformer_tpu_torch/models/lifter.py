@@ -15,7 +15,10 @@ token dropout after the position embedding and the stochastic depth of every
 block, ``linspace(0, drop_path_rate, depth)`` per block kind
 (``lifter.py:244-326``); ``g`` is a ``torch.Generator`` on the maps' device.
 
-Feature maps are NHWC. Under a bf16 ``compute_dtype`` the residual stream,
+Feature maps are NHWC; int8 maps (the CPN deploy graph's
+``cpn_int8_maps``) come with one dequant scale a level, which the lifter
+folds into its sampling consumers (``lifter.py:160-181, 256-262``). Under a
+bf16 ``compute_dtype`` the residual stream,
 ``coord_embed``, ``feat_embed_*``, ``embed_proj_*``, qkv/proj and fc1/fc2
 compute in bf16; ``attention_weights``, ``sampling_offsets`` and ``head``
 have no dtype and compute in fp32, as do the LayerNorm outputs and the
@@ -60,6 +63,12 @@ def _offset_bias_init(num_heads: int, num_samples: int) -> np.ndarray:
     grid = 0.01 * np.tile(grid[:, None, :], (1, num_samples, 1))
     grid = grid * (np.arange(num_samples, dtype=np.float64) + 1.0)[None, :, None]
     return grid.reshape(-1).astype(np.float32)
+
+
+def _dequant(samples: torch.Tensor, scale) -> torch.Tensor:
+    """Raw samples of an int8 map times its dequant scale, in the samples'
+    dtype (no-op without a scale)."""
+    return samples if scale is None else samples * scale.to(samples.dtype)
 
 
 class DeformableBlock(nn.Module):
@@ -126,11 +135,15 @@ class DeformableBlock(nn.Module):
         return weights, packed
 
     def pool(self, features: Sequence[torch.Tensor], pos: torch.Tensor,
-             weights: torch.Tensor) -> torch.Tensor:
+             weights: torch.Tensor, feat_scales=None) -> torch.Tensor:
         """The pooled context (b, L, p, dim) of points ``pos`` (b, L, p,
         nh * ns, 2): the sampler (with ``embed_proj`` inside it where
         ``pre_project`` allows), ``embed_proj`` on the other levels, and
-        the weighted sum over each head's samples."""
+        the weighted sum over each head's samples. ``feat_scales``: the
+        int8 maps' dequant scales, folded into the in-sampler projection's
+        kernel (sampling and projecting are linear; the bias adds after
+        the contraction), else applied to the raw samples
+        (``lifter.py:160-181``)."""
         b, levels, p = weights.shape[:3]
         nh, ns = self.num_heads, self.num_samples
         head_dim = self.embed_proj(0).kernel.shape[1]
@@ -140,16 +153,19 @@ class DeformableBlock(nn.Module):
             for l in range(levels)
         ]
         projs = [self.embed_proj(l) for l in range(levels)]
+        scales = [None] * levels if feat_scales is None else feat_scales
         raw = sample_points_levels(
             features, pos, padding_mode="border", align_corners=True,
             impl=self.sampler_impl,
-            projs=[pr.kernel if pr_on else None
-                   for pr, pr_on in zip(projs, pre)],
+            projs=[(pr.kernel if s is None else pr.kernel * s)
+                   if pr_on else None
+                   for pr, pr_on, s in zip(projs, pre, scales)],
             biases=[pr.bias if pr_on else None
                     for pr, pr_on in zip(projs, pre)],
         )  # level l: (b, p, nh*ns, C_l or head_dim)
         sampled = torch.stack(
-            [raw[l] if pre[l] else projs[l](raw[l]) for l in range(levels)],
+            [raw[l] if pre[l] else projs[l](_dequant(raw[l], scales[l]))
+             for l in range(levels)],
             dim=1,
         ).reshape(b, levels, p, nh, ns, head_dim)
         pooled = torch.einsum("blphs,blphsd->blphd",
@@ -158,12 +174,12 @@ class DeformableBlock(nn.Module):
 
     def forward(self, tokens: torch.Tensor, ref: torch.Tensor,
                 features: Sequence[torch.Tensor], deterministic: bool = True,
-                generator=None) -> torch.Tensor:
+                generator=None, feat_scales=None) -> torch.Tensor:
         b, lp1, p, _ = tokens.shape
         x0, x = tokens[:, :1], tokens[:, 1:]
         weights, packed = self.sampling(tokens, ref)
         pos = packed.reshape(b, lp1 - 1, p, -1, 2)  # a view: no copy
-        pooled = self.pool(features, pos, weights).to(x.dtype)
+        pooled = self.pool(features, pos, weights, feat_scales).to(x.dtype)
         x = x + self.drop_path1(pooled, deterministic, generator)
         if self.mlp_impl == "fused" and not self.drop_path2.active(
                 deterministic):
@@ -237,11 +253,12 @@ class PoseLifter(nn.Module):
 
     def forward(self, keypoints_2d: torch.Tensor, ref: torch.Tensor,
                 features: Sequence[torch.Tensor], deterministic: bool = True,
-                generator=None) -> torch.Tensor:
+                generator=None, feat_scales=None) -> torch.Tensor:
         """keypoints_2d (b, J, 2) full-frame normalized coords; ref (b, J, 2)
         crop coords in [-1, 1]; features: the backbone's NHWC maps in its
         order, one per ``feature_dims`` entry (HRNet finest first, CPN's
-        native pyramid deepest first).
+        native pyramid deepest first); int8 maps come with ``feat_scales``,
+        one fp32 dequant scale a level.
         ``deterministic=False`` draws dropout and drop-path masks from
         ``generator``."""
         cfg = self.cfg
@@ -257,6 +274,9 @@ class PoseLifter(nn.Module):
             features, ref_pts, padding_mode="zeros", align_corners=True,
             impl=cfg.sampler,
         )  # level l: (b, p, C_l)
+        if feat_scales is not None:  # the 17-point samples of int8 maps
+            ref_samples = [_dequant(r, s)
+                           for r, s in zip(ref_samples, feat_scales)]
         tokens = torch.stack(
             [x] + [getattr(self, f"feat_embed_{l}")(ref_samples[l])
                    for l in range(levels)],
@@ -265,7 +285,8 @@ class PoseLifter(nn.Module):
         tokens = tokens + self.pos_embed.to(tokens.dtype)
         tokens = self.pos_drop(tokens, deterministic, generator)
         for blk in self._blocks("context"):
-            tokens = blk(tokens, ref, features, deterministic, generator)
+            tokens = blk(tokens, ref, features, deterministic, generator,
+                         feat_scales)
         # per-joint attention over the level axis
         t = tokens.transpose(1, 2).reshape(b * p, levels + 1, d)
         for blk in self._blocks("res"):

@@ -60,8 +60,17 @@ SIGNATURES = {
     "capf_attention_middle": (_I, [_I, _P, _P, _I, _I, _I, _I, _I, _P]),
     # (args struct*, device, stream)
     "capf_int8_conv": (_I, [_P, _I, _P]),
+    # (args struct*, mode, device, stream)
+    "capf_int8_conv_probe": (_I, [_P, _I, _I, _P]),
+    # (args struct*, device, stream)
+    "capf_int8_requant": (_I, [_P, _I, _P]),
+    # (x, amax, out, n, device, stream)
+    "capf_int8_quantize": (_I, [_P, _P, _P, ctypes.c_longlong, _I, _P]),
     # (args struct*, device, stream)
     "capf_layer1_block": (_I, [_P, _I, _P]),
+    "capf_layer1_block_floor": (_I, [_P, _I, _P]),
+    # (xf, wt, amax, out, words, device, stream)
+    "capf_window_matmul": (_I, [_P, _P, _P, _P, _I, _I, _P]),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

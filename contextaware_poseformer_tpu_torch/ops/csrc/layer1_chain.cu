@@ -28,6 +28,13 @@
 // shared operand are padded by 16 bytes so fragment reads are free of bank
 // conflicts. Blocks 1-3 stage their output in place over their input rows
 // (each element is read as the residual by the thread that then writes it).
+//
+// The floor build (capf_layer1_block_floor) is the counterpart of the TPU
+// probe experiments/layer1_chain_floor.py::_kernel_mm: the same MMAs and bf16
+// epilogues, with the requant stages (t1, t2, out) cut to a plain conversion
+// and the 3x3's shifted, predicated window reads cut to the centre rows, so
+// its numerics are wrong on purpose and its time bounds what the MMAs and
+// epilogues cost.
 
 #include "common.cuh"
 
@@ -167,6 +174,12 @@ __device__ __forceinline__ void store2(int8_t* p, int8_t a, int8_t b) {
   *reinterpret_cast<char2*>(p) = v;
 }
 
+// the floor build's stand-in for a requant: a plain conversion
+__device__ __forceinline__ int8_t floor_cast(float v) {
+  return static_cast<int8_t>(static_cast<int>(v));
+}
+
+template <bool kFloor>
 __global__ void __launch_bounds__(kThreads, 1)
     layer1_block_kernel(const Layer1BlockArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -278,7 +291,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             const float y1 = fmaxf(
                 affine_bf16(acc[j][half * 2 + e], eff1[n + e], b1[n + e]),
                 0.f);
-            q[e] = to_int8_rne(__fmul_rn(y1, q_t1));
+            q[e] = kFloor ? floor_cast(y1)
+                          : to_int8_rne(__fmul_rn(y1, q_t1));
           }
         }
         store2(s_t1 + p * kTRow + n, q[0], q[1]);
@@ -299,10 +313,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int tap = 0; tap < 9; ++tap) {
       const int dy = tap / 3;
       const int dx = tap % 3 - 1;
-      const bool ok0 = p0 < owned && x0 + dx >= 0 && x0 + dx < W;
-      const bool ok1 = p1 < owned && x1 + dx >= 0 && x1 + dx < W;
-      const int8_t* ra0 = s_t1 + (ok0 ? p0 + dy * W + dx : 0) * kTRow + t * 4;
-      const int8_t* ra1 = s_t1 + (ok1 ? p1 + dy * W + dx : 0) * kTRow + t * 4;
+      const bool ok0 =
+          kFloor || (p0 < owned && x0 + dx >= 0 && x0 + dx < W);
+      const bool ok1 =
+          kFloor || (p1 < owned && x1 + dx >= 0 && x1 + dx < W);
+      // the floor reads the centre rows for every tap: no shift, no test
+      const int s0 = kFloor ? p0 + W : (ok0 ? p0 + dy * W + dx : 0);
+      const int s1 = kFloor ? p1 + W : (ok1 ? p1 + dy * W + dx : 0);
+      const int8_t* ra0 = s_t1 + s0 * kTRow + t * 4;
+      const int8_t* ra1 = s_t1 + s1 * kTRow + t * 4;
 #pragma unroll
       for (int k = 0; k < kPlanes; k += 32) {
         const uint32_t af[4] = {ok0 ? lds32(ra0 + k) : 0u,
@@ -331,7 +350,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             const float y2 = fmaxf(
                 affine_bf16(acc[j][half * 2 + e], eff2[n + e], b2[n + e]),
                 0.f);
-            q[e] = to_int8_rne(__fmul_rn(y2, q_t2));
+            q[e] = kFloor ? floor_cast(y2)
+                          : to_int8_rne(__fmul_rn(y2, q_t2));
           }
         }
         store2(s_t2 + p * kTRow + n, q[0], q[1]);
@@ -388,7 +408,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float y3 = affine_bf16(acc[j][i], eff3[n + e], b3[n + e]);
           const float o =
               fmaxf(round_to<__nv_bfloat16>(__fadd_rn(y3, res[j][i])), 0.f);
-          q[e] = to_int8_rne(__fmul_rn(o, q_out));
+          q[e] = kFloor ? floor_cast(o) : to_int8_rne(__fmul_rn(o, q_out));
         }
         store2(s_out + p * kOutRow + n, q[0], q[1]);
       }
@@ -409,21 +429,37 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace
 
-extern "C" int capf_layer1_block(const Layer1BlockArgs* args, int device,
-                                 cudaStream_t stream) {
+namespace {
+
+template <bool kFloor>
+int launch_block(const Layer1BlockArgs* args, int device,
+                 cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Layer1BlockArgs& a = *args;
   const bool first = a.cin == kPlanes;
-  if (a.batch < 1 || a.batch > 65535 || a.h < 1 || a.w < 1 || a.rows < 1 ||
+  if (a.batch < 1 || a.batch > 65535 || a.h < 1 || a.rows < 1 ||
+      a.w < (kFloor ? 16 : 1) ||
       (a.cin != kPlanes && a.cin != kExp) || first != (a.wd != nullptr)) {
     return cudaErrorInvalidValue;
   }
   const Layout L = layer1_layout(a.w, a.cin, a.rows);
   if (L.total > kSmemLimit) return cudaErrorInvalidValue;
-  err = capf::allow_smem(layer1_block_kernel, L.total);
+  err = capf::allow_smem(layer1_block_kernel<kFloor>, L.total);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.h + a.rows - 1) / a.rows, a.batch);
-  layer1_block_kernel<<<grid, kThreads, L.total, stream>>>(a);
+  layer1_block_kernel<kFloor><<<grid, kThreads, L.total, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int capf_layer1_block(const Layer1BlockArgs* args, int device,
+                                 cudaStream_t stream) {
+  return launch_block<false>(args, device, stream);
+}
+
+extern "C" int capf_layer1_block_floor(const Layer1BlockArgs* args,
+                                       int device, cudaStream_t stream) {
+  return launch_block<true>(args, device, stream);
 }

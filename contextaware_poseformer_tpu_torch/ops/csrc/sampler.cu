@@ -44,8 +44,10 @@
 //
 // int8 maps (the deploy graph's raw quantized samples, K1 and K8): a
 // 16-byte load carries 16 channels (C % 16 == 0), the blend stays fp32 and
-// rounds once to bf16, as the TPU kernel's bf16 output; the caller owns the
-// dequant scale, so an int8 level takes no projection.
+// rounds once to bf16, as the TPU kernel's bf16 output. The caller owns the
+// dequant scale: a projected int8 level (the CPN deploy graph's lifter)
+// takes projection weights already multiplied by it, and projects the fp32
+// blend of the raw int8 taps as any other level (deformable.py:541-561).
 //
 // Grid: (point tiles, levels, batch); block: kThreads threads.
 
@@ -228,10 +230,7 @@ extern "C" int capf_sample_levels(const CapfSampleArgs* args, int device,
     const CapfSampleLevel& lv = args->levels[l];
     if (lv.c % vec != 0) return cudaErrorInvalidValue;
     if (lv.proj_w != nullptr) {
-      // an int8 level would need its dequant scale: no projection
-      if (args->dtype == capf::kInt8 || lv.cout % 4 != 0) {
-        return cudaErrorInvalidValue;  // C: above
-      }
+      if (lv.cout % 4 != 0) return cudaErrorInvalidValue;  // C: above
       const size_t need =
           static_cast<size_t>(lv.c) * (lv.cout + kTile) * sizeof(float);
       smem = need > smem ? need : smem;

@@ -29,8 +29,11 @@ refuse a projection in zeros mode.
 
 int8 maps hold raw quantized numbers (the caller owns the dequant scale):
 the plain versions return their samples in float32, as the JAX gather
-does, and the kernel (K1, K8) in bf16, as the TPU kernel does. An int8
-level takes no fused projection, which would need the scale.
+does, and the kernel (K1, K8) in bf16, as the TPU kernel does
+(``deformable.py:555-561``). An int8 level's fused projection takes
+weights the caller has already scaled by the dequant scale (the lifter's
+``feat_scales``): the int8 taps blend in fp32, project in fp32 and round
+once, to float32 (plain) or bf16 (kernel).
 
 K7 (``csrc/aggregate.cu``) samples every level, projects each sample with
 the level's W (C_l, hd) plus b, weights it and sums a head's ns samples,
@@ -101,10 +104,6 @@ def _check_projection(padding_mode, projs, features):
             f"{padding_mode!r}"
         )
     for f, p in zip(features, projs):
-        if p is not None and f.dtype == torch.int8:
-            raise ValueError("an int8 map takes no fused projection: its "
-                             "samples are raw quantized numbers, and the "
-                             "projection would need the dequant scale")
         if p is not None and (p.dim() != 2 or p.shape[0] != f.shape[-1]):
             raise ValueError(f"projection of shape {tuple(p.shape)} does not "
                              f"match {f.shape[-1]} channels")
@@ -504,8 +503,9 @@ def sample_points_multi(
     features: L maps (b, H_l, W_l, C_l), all float32, all bfloat16 or all
     int8 (raw quantized numbers, C_l % 16 == 0, sampled to bfloat16);
     points: (b, L, ..., 2) xy in [-1, 1]. Levels with ``projs[l]`` set
-    return ``sample @ W + b`` (border mode only, no int8). Returns a tuple
-    of (b, ..., C_l or hd) in the maps' dtype. Covers the JAX package's
+    return ``sample @ W + b`` (border mode only; on int8 maps W carries
+    the dequant scale). Returns a tuple of (b, ..., C_l or hd) in the maps'
+    dtype (bfloat16 for int8). Covers the JAX package's
     ``sample_points_multi`` and ``sample_project_points_multi``. Under
     autograd the backward is K6 (or the plain VJP with projections).
     """

@@ -1,24 +1,34 @@
-"""The int8 convolution of the HRNet deploy graph (K10): CUDA kernel
-wrapper, plain version and dispatcher.
+"""The int8 convolution of the deploy graphs (K10): CUDA kernel wrapper,
+plain version and dispatcher.
 
 Port of the int8 routes of ``ConvBN`` in
 ``contextaware_poseformer_tpu/models/backbone_common.py`` (157-213), which
-the JAX package leaves to XLA (PyTorch has no CUDA int8 convolution). NHWC
-input, a (Cout, kh*kw*Cin) int8 kernel with K ordered (kh, kw, Cin),
-square 1x1 or 3x3, stride 1 or 2, zero padding (k - 1) // 2:
+the JAX package leaves to XLA (PyTorch has no CUDA int8 convolution), with
+the elementwise ops that the CPN int8 stream fuses into its convs
+(``models/cpn.py:43-51, 123-181``). NHWC input, a (Cout, kh*kw*Cin) int8
+kernel with K ordered (kh, kw, Cin), square 1x1 or 3x3, stride 1 or 2,
+zero padding (k - 1) // 2:
 
-    int8 x (``x_quant``):  step = max(amax, 1e-12) / 127, xq = x
-    float x (dynamic):     step = max|x| / 127,
-                           xq = clip(round(x / step), -127, 127)
+    int8 x (``x_quant``):      step = max(amax, 1e-12) / 127, xq = x
+    float x, calibrated amax:  step = max(amax, 1e-12) / 127  (static)
+    float x, amax=None:        step = max|x| / 127            (dynamic)
+                               xq = clip(round(x / step), -127, 127)
     acc = conv(xq, kernel_q)                      int32, exact
-    y = bf16(acc) * bf16(scale * wscale * step) + bf16(bias), then ReLU
+    y = bf16(acc) * bf16(scale * wscale * step) + bf16(bias)
+    y = y + residual                              optional, in bf16
+    y = relu(y)                                   optional
+    out = y, or clip(round(y * (127 / max(out_amax, 1e-12))), -127, 127)
 
 with the JAX package's rounding points as it serves them (under ``jit``):
-fp32 for the scales (``/ 127`` as a multiplication by fl32(1/127)), the
-division by ``step`` and the round-half-even; the affine as a bf16 multiply
-and a bf16 add, two roundings. The kernel is ``csrc/int8_conv.cu``; it quantizes a bf16 input
-as it loads it, and takes the max|x| reduction from ``torch`` (the JAX
-package computes it outside any kernel as well).
+fp32 for the scales (``/ 127`` as a multiplication by fl32(1/127), while
+``127 / amax`` stays an IEEE division), the division by ``step``, the
+requantization and the round-half-even; the affine as a bf16 multiply and a
+bf16 add, two roundings; the residual add in bf16. A residual is the
+downsample conv's output in the conv's dtype, or an int8 skip with its
+calibrated amax, dequantized as ``bf16(xq) * bf16(max(amax, 1e-12) / 127)``
+(``cpn.py:139``). The kernel is ``csrc/int8_conv.cu``; it quantizes a bf16
+input as it loads it, and takes the max|x| reduction from ``torch`` (the
+JAX package computes it outside any kernel as well).
 """
 
 from __future__ import annotations
@@ -62,6 +72,21 @@ def dequant_step(amax: torch.Tensor, clamp: bool) -> torch.Tensor:
     return a * RECIP_127
 
 
+def quant(t: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+    """clip(round(t * (127 / max(amax, 1e-12))), -127, 127) -> int8, in
+    fp32: the JAX package's ``_quant_i8`` (``models/cpn.py:43-51``) and
+    ``HRNet._layer1_int8.quant``."""
+    a = torch.clamp(amax.float(), min=1e-12)
+    r = torch.div(f32_const(127.0, a), a)
+    return torch.clamp(torch.round(t.float() * r), -127, 127).to(torch.int8)
+
+
+def dequant(xq: torch.Tensor, amax: torch.Tensor, dtype) -> torch.Tensor:
+    """An int8 tensor's values in ``dtype``: ``dtype(xq) * dtype(max(amax,
+    1e-12) / 127)``, one rounding (the residual skip of ``cpn.py:139``)."""
+    return xq.to(dtype) * dequant_step(amax, clamp=True).to(dtype)
+
+
 def _kernel_size(kernel_q: torch.Tensor, cin: int) -> int:
     taps = kernel_q.shape[1] // cin
     k = math.isqrt(taps)
@@ -71,68 +96,101 @@ def _kernel_size(kernel_q: torch.Tensor, cin: int) -> int:
     return k
 
 
+def _conv64(x, kernel, stride):
+    """conv(x, kernel) in float64, NHWC in and out, ``kernel`` (Cout,
+    kh*kw*Cin) with K ordered (kh, kw, Cin)."""
+    ksize = _kernel_size(kernel, x.shape[-1])
+    w = kernel.reshape(kernel.shape[0], ksize, ksize, -1)
+    return F.conv2d(x.permute(0, 3, 1, 2).double(),
+                    w.permute(0, 3, 1, 2).double(), stride=stride,
+                    padding=(ksize - 1) // 2).permute(0, 2, 3, 1)
+
+
+def accumulate_float(x, kernel, stride):
+    """conv(x, kernel) of float operands (bf16 in the bf16 probe) summed in
+    float64, as fp32."""
+    return _conv64(x, kernel, stride).float()
+
+
 def accumulate(xq, kernel_q, stride):
     """The int32 accumulation of the int8 values ``xq`` (NHWC, int8 or
     float holding integers) with ``kernel_q``, in float64: exact, since
     every product is below 2**14 and every sum below 2**26 (rounded before
     the cast, in case the library's algorithm leaves a residue far below
     0.5)."""
-    ksize = _kernel_size(kernel_q, xq.shape[-1])
-    w = kernel_q.reshape(kernel_q.shape[0], ksize, ksize, -1)
-    acc = F.conv2d(xq.permute(0, 3, 1, 2).double(),
-                   w.permute(0, 3, 1, 2).double(), stride=stride,
-                   padding=(ksize - 1) // 2)
-    return torch.round(acc).permute(0, 2, 3, 1).to(torch.int32)
+    return torch.round(_conv64(xq, kernel_q, stride)).to(torch.int32)
 
 
 def int8_conv_reference(x, kernel_q, wscale, scale, bias, amax, stride,
-                        relu, dtype=torch.bfloat16):
+                        relu, dtype=torch.bfloat16, residual=None,
+                        res_amax=None, out_amax=None):
     """Plain version. ``x`` (B, H, W, Cin) int8 with ``amax`` its calibrated
-    max|value|, or float with ``amax=None`` (dynamic)."""
+    max|value|, or float with ``amax`` its calibrated max|value| (static)
+    or None (dynamic). ``residual`` (B, Ho, Wo, Cout): float, or int8 with
+    ``res_amax``; ``relu`` applies after it; ``out_amax`` requantizes the
+    output to int8."""
     if x.dtype == torch.int8:
         step = dequant_step(amax, clamp=True)
         xq = x
     else:
-        step = dequant_step(absmax(x), clamp=False)
+        step = (dequant_step(absmax(x), clamp=False) if amax is None
+                else dequant_step(amax, clamp=True))
         xq = torch.clamp(torch.round(x.float() / step), -127, 127)
     acc = accumulate(xq, kernel_q, stride)
     eff = (scale.float() * wscale.float() * step).to(dtype)
     y = acc.to(dtype) * eff + bias.to(dtype)
-    return torch.relu(y) if relu else y
+    if residual is not None:
+        y = y + (dequant(residual, res_amax, dtype)
+                 if residual.dtype == torch.int8 else residual.to(dtype))
+    if relu:
+        y = torch.relu(y)
+    return y if out_amax is None else quant(y, out_amax)
 
 
 class _Args(ctypes.Structure):
-    _fields_ = [
-        ("x", ctypes.c_void_p),
-        ("wq", ctypes.c_void_p),
-        ("wscale", ctypes.c_void_p),
-        ("scale", ctypes.c_void_p),
-        ("bias", ctypes.c_void_p),
-        ("amax", ctypes.c_void_p),
-        ("out", ctypes.c_void_p),
-        ("batch", ctypes.c_int),
-        ("h", ctypes.c_int),
-        ("w", ctypes.c_int),
-        ("cin", ctypes.c_int),
-        ("cout", ctypes.c_int),
-        ("ksize", ctypes.c_int),
-        ("stride", ctypes.c_int),
-        ("ho", ctypes.c_int),
-        ("wo", ctypes.c_int),
-        ("x_int8", ctypes.c_int),
-        ("relu", ctypes.c_int),
-    ]
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "x", "wq", "wscale", "scale", "bias", "amax", "res", "res_amax",
+        "out_amax", "out")] + [(n, ctypes.c_int) for n in (
+            "batch", "h", "w", "cin", "cout", "ksize", "stride", "ho", "wo",
+            "x_int8", "clamp_amax", "res_int8", "relu")]
+
+
+def out_size(size: int, ksize: int, stride: int) -> int:
+    pad = (ksize - 1) // 2
+    return (size + 2 * pad - ksize) // stride + 1
+
+
+def conv_args(x, kernel_q, amax, stride, out, **fields) -> _Args:
+    """The kernel's argument block for ``x`` (B, H, W, Cin) and ``out``
+    (B, Ho, Wo, Cout); ``fields`` fill the rest (pointers as ints)."""
+    b, h, w, cin = x.shape
+    ksize = _kernel_size(kernel_q, cin)
+    return _Args(x=x.data_ptr(), wq=kernel_q.data_ptr(),
+                 amax=None if amax is None else amax.data_ptr(),
+                 out=out.data_ptr(), batch=b, h=h, w=w, cin=cin,
+                 cout=kernel_q.shape[0], ksize=ksize, stride=stride,
+                 ho=out.shape[1], wo=out.shape[2],
+                 x_int8=int(x.dtype == torch.int8), **fields)
+
+
+def _scalar(name, t):
+    if t is None or t.numel() != 1:
+        raise ValueError(f"int8_conv: {name} must be a one-element tensor")
+    return t.reshape(()).float().contiguous()
 
 
 def int8_conv_kernel(x, kernel_q, wscale, scale, bias, amax, stride, relu,
-                     dtype=torch.bfloat16):
+                     dtype=torch.bfloat16, residual=None, res_amax=None,
+                     out_amax=None):
     """The CUDA kernel: same contract as ``int8_conv_reference``, for a
-    bf16 output; ``x`` int8 or bf16 with Cin a multiple of 32, Cout a
-    multiple of 8, fp32 ``wscale``/``scale``/``bias``."""
+    bf16 (or, with ``out_amax``, int8) output; ``x`` int8 or bf16 with Cin
+    a multiple of 32, Cout a multiple of 8, fp32 ``wscale``/``scale``/
+    ``bias``, a bf16 or int8 ``residual``."""
     global launches
     name = "int8_conv"
     if dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel writes bf16, not {dtype}")
+        raise TypeError(f"{name}: the CUDA kernel computes in bf16, not "
+                        f"{dtype}")
     if x.dim() != 4 or x.dtype not in (torch.int8, torch.bfloat16):
         raise TypeError(f"{name}: x must be NHWC int8 or bf16, got "
                         f"{tuple(x.shape)} {x.dtype}")
@@ -148,28 +206,40 @@ def int8_conv_kernel(x, kernel_q, wscale, scale, bias, amax, stride, relu,
     if any(v.dtype != torch.float32 or v.shape != (cout,) for v in vecs):
         raise TypeError(f"{name}: wscale, scale and bias must be fp32 "
                         f"({cout},)")
-    if x.dtype == torch.int8:
-        if amax is None:
-            raise ValueError(f"{name}: an int8 input needs its amax")
-        amax = amax.float()
-    else:
-        if amax is not None:
-            raise ValueError(f"{name}: a float input is quantized with its "
-                             "own max|x| (amax=None)")
-        amax = absmax(x)
-    _build.require_cuda(name, x, kernel_q, *vecs, amax)
+    if x.dtype == torch.int8 and amax is None:
+        raise ValueError(f"{name}: an int8 input needs its amax")
+    clamp = amax is not None
+    amax = absmax(x) if amax is None else _scalar("amax", amax)
+    ho, wo = out_size(h, ksize, stride), out_size(w, ksize, stride)
+    keep = [x, kernel_q, *vecs, amax]
+    fields = {}
+    if residual is not None:
+        if (residual.shape != (b, ho, wo, cout)
+                or residual.dtype not in (torch.int8, torch.bfloat16)):
+            raise TypeError(f"{name}: residual must be bf16 or int8 "
+                            f"{(b, ho, wo, cout)}, got {residual.dtype} "
+                            f"{tuple(residual.shape)}")
+        keep.append(residual)
+        fields.update(res=residual.data_ptr(),
+                      res_int8=int(residual.dtype == torch.int8))
+        if residual.dtype == torch.int8:
+            res_amax = _scalar("res_amax", res_amax)
+            keep.append(res_amax)
+            fields["res_amax"] = res_amax.data_ptr()
+    if out_amax is not None:
+        out_amax = _scalar("out_amax", out_amax)
+        keep.append(out_amax)
+        fields["out_amax"] = out_amax.data_ptr()
+    _build.require_cuda(name, *keep)
     if x.data_ptr() % 16 or kernel_q.data_ptr() % 16:
         raise ValueError(f"{name}: x and kernel_q must start on a 16-byte "
                          "boundary (16-byte loads)")
-    pad = (ksize - 1) // 2
-    ho = (h + 2 * pad - ksize) // stride + 1
-    wo = (w + 2 * pad - ksize) // stride + 1
-    out = torch.empty((b, ho, wo, cout), dtype=torch.bfloat16,
-                      device=x.device)
-    args = _Args(x.data_ptr(), kernel_q.data_ptr(), wscale.data_ptr(),
-                 scale.data_ptr(), bias.data_ptr(), amax.data_ptr(),
-                 out.data_ptr(), b, h, w, cin, cout, ksize, stride, ho, wo,
-                 int(x.dtype == torch.int8), int(relu))
+    out = torch.empty((b, ho, wo, cout), device=x.device,
+                      dtype=torch.bfloat16 if out_amax is None
+                      else torch.int8)
+    args = conv_args(x, kernel_q, amax, stride, out, wscale=wscale.data_ptr(),
+                     scale=scale.data_ptr(), bias=bias.data_ptr(),
+                     clamp_amax=int(clamp), relu=int(relu), **fields)
     lib = _build.library()
     err = lib.capf_int8_conv(ctypes.addressof(args),
                              *_build.launch_target(x))
@@ -179,14 +249,16 @@ def int8_conv_kernel(x, kernel_q, wscale, scale, bias, amax, stride, relu,
 
 
 def int8_conv(x, kernel_q, wscale, scale, bias, amax, stride, relu,
-              dtype=torch.bfloat16, impl: str = "auto"):
+              dtype=torch.bfloat16, impl: str = "auto", residual=None,
+              res_amax=None, out_amax=None):
     """Dispatcher: the plain version for a CPU tensor or ``impl="plain"``,
     the CUDA kernel for any other (which raises unless it is a CUDA
     tensor)."""
     if impl == "plain" or x.device.type == "cpu":
         return int8_conv_reference(x, kernel_q, wscale, scale, bias, amax,
-                                   stride, relu, dtype)
+                                   stride, relu, dtype, residual, res_amax,
+                                   out_amax)
     if impl != "auto":
         raise ValueError(f"int8_conv: impl {impl!r} (auto or plain)")
     return int8_conv_kernel(x, kernel_q, wscale, scale, bias, amax, stride,
-                            relu, dtype)
+                            relu, dtype, residual, res_amax, out_amax)

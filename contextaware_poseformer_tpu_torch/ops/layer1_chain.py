@@ -35,21 +35,14 @@ import ctypes
 import torch
 
 from contextaware_poseformer_tpu_torch.ops import _build, int8_conv
-from contextaware_poseformer_tpu_torch.ops.int8_conv import f32_const
+from contextaware_poseformer_tpu_torch.ops.int8_conv import quant
 
-launches = 0  # kernel launches made by layer1_chain_kernel (4 a chain)
+launches = 0  # kernel launches made by layer1_block_kernel (4 a chain)
+launches_floor = 0  # launches of its floor build (a probe's counterpart)
 
 PLANES = 64
 EXPANSION = 256
 ROWS = 4  # output rows a block of csrc/layer1_chain.cu owns
-
-
-def quant(t: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
-    """clip(round(t * (127 / max(amax, 1e-12))), -127, 127) -> int8, in
-    fp32 (``HRNet._layer1_int8.quant``)."""
-    a = torch.clamp(amax.float(), min=1e-12)
-    r = torch.div(f32_const(127.0, a), a)
-    return torch.clamp(torch.round(t.float() * r), -127, 127).to(torch.int8)
 
 
 def layer1_int8_chain(x, in_amax, blocks, conv=int8_conv.int8_conv):
@@ -71,7 +64,7 @@ def layer1_int8_chain(x, in_amax, blocks, conv=int8_conv.int8_conv):
         if blk["downsample"] is not None:
             res = conv(xq, *blk["downsample"], a, 1, False, dtype)
         else:
-            res = xq.to(dtype) * int8_conv.dequant_step(a, True).to(dtype)
+            res = int8_conv.dequant(xq, a, dtype)
         a = blk["out"]
         xq = quant(torch.relu(y + res), a)
     return xq
@@ -114,71 +107,93 @@ def _vec(name, t, n):
     return t
 
 
-def layer1_chain_kernel(x, in_amax, blocks):
-    """The CUDA kernel: one launch per block, same contract as
-    ``layer1_chain_reference`` for a bf16 ``x``."""
-    global launches
+def layer1_block_kernel(x, in_amax, blk, out=None, floor=False):
+    """One launch of the CUDA kernel: Bottleneck block ``blk`` (a dict as
+    in ``layer1_int8_chain``) on ``x``, bf16 (B, H, W, 64) for block 0
+    (with a downsample) or int8 (B, H, W, 256) with its amax ``in_amax``;
+    returns int8 (B, H, W, 256), written into ``out`` when given. ``floor``
+    launches the floor build (the TPU probe ``layer1_chain_floor``: the
+    same MMAs and epilogues without the requant and window stages, wrong
+    numerics on purpose), counted apart in ``launches_floor``."""
+    global launches, launches_floor
     name = "layer1_chain"
-    if x.dtype != torch.bfloat16 or x.dim() != 4 or x.shape[-1] != PLANES:
-        raise TypeError(f"{name}: x must be bf16 (B, H, W, {PLANES}), got "
-                        f"{x.dtype} {tuple(x.shape)}")
-    if len(blocks) != 4:
-        raise ValueError(f"{name}: 4 blocks, got {len(blocks)}")
+    first = x.dtype == torch.bfloat16
+    cin = PLANES if first else EXPANSION
+    if x.dim() != 4 or x.shape[-1] != cin or x.dtype not in (
+            torch.bfloat16, torch.int8):
+        raise TypeError(f"{name}: x must be bf16 (B, H, W, {PLANES}) or "
+                        f"int8 (B, H, W, {EXPANSION}), got {x.dtype} "
+                        f"{tuple(x.shape)}")
     b, h, w, _ = x.shape
-    for cin in (PLANES, EXPANSION):
-        if smem_bytes(w, cin) > _build.SMEM_LIMIT:
-            raise ValueError(f"{name}: width {w} needs more shared memory "
-                             "than a block has")
+    if smem_bytes(w, cin) > _build.SMEM_LIMIT:
+        raise ValueError(f"{name}: width {w} needs more shared memory than "
+                         "a block has")
+    shapes = {"conv1": (PLANES, cin), "conv2": (PLANES, 9 * PLANES),
+              "conv3": (EXPANSION, PLANES), "downsample": (EXPANSION, PLANES)}
+    pieces = {}
+    for conv, (o, k) in shapes.items():
+        p = blk[conv]
+        if (p is None) == (conv != "downsample" or first):
+            raise ValueError(f"{name}: {conv} is "
+                             f"{'missing' if p is None else 'unexpected'} "
+                             f"on a {x.dtype} input (only block 0, on the "
+                             "bf16 stem output, has a downsample)")
+        if p is None:
+            continue
+        kq, ws, sc, bi = p
+        if kq.dtype != torch.int8 or kq.shape != (o, k):
+            raise TypeError(f"{name}: {conv} kernel {kq.dtype} "
+                            f"{tuple(kq.shape)}, expected int8 ({o}, {k})")
+        pieces[conv] = (kq, *(_vec(conv, v, o) for v in (ws, sc, bi)))
+    amax = [in_amax.float(), blk["t1"].float(), blk["t2"].float(),
+            blk["out"].float()]
+    if out is None:
+        out = torch.empty((b, h, w, EXPANSION), dtype=torch.int8,
+                          device=x.device)
+    tensors = [x, out, *amax] + [t for p in pieces.values() for t in p]
+    _build.require_cuda(name, *tensors)
+    if any(t.data_ptr() % 16 for t in (x, out, *(p[0] for p in
+                                                 pieces.values()))):
+        raise ValueError(f"{name}: activations and kernels must start on a "
+                         "16-byte boundary (16-byte loads)")
+
+    def ptrs(conv):
+        p = pieces.get(conv)
+        return [None] * 4 if p is None else [t.data_ptr() for t in p]
+
+    (w1, ws1, sc1, bi1), (w2, ws2, sc2, bi2), (w3, ws3, sc3, bi3), \
+        (wd, wsd, scd, bid) = (ptrs(c) for c in shapes)
+    args = _BlockArgs(
+        x.data_ptr(), out.data_ptr(), w1, w2, w3, wd,
+        ws1, sc1, bi1, ws2, sc2, bi2, ws3, sc3, bi3, wsd, scd, bid,
+        *(a.data_ptr() for a in amax), b, h, w, cin, ROWS)
     lib = _build.library()
+    entry = lib.capf_layer1_block_floor if floor else lib.capf_layer1_block
+    err = entry(ctypes.addressof(args), *_build.launch_target(x))
+    _build.check(lib, err, name)
+    if floor:
+        launches_floor += 1
+    else:
+        launches += 1
+    return out
+
+
+def layer1_chain_kernel(x, in_amax, blocks, floor=False):
+    """The CUDA kernel: one launch per block, same contract as
+    ``layer1_chain_reference`` for a bf16 ``x`` (``floor``: the floor
+    build, see ``layer1_block_kernel``)."""
+    if x.dtype != torch.bfloat16 or x.dim() != 4 or x.shape[-1] != PLANES:
+        raise TypeError(f"layer1_chain: x must be bf16 (B, H, W, {PLANES}), "
+                        f"got {x.dtype} {tuple(x.shape)}")
+    if len(blocks) != 4:
+        raise ValueError(f"layer1_chain: 4 blocks, got {len(blocks)}")
+    b, h, w, _ = x.shape
     bufs = [torch.empty((b, h, w, EXPANSION), dtype=torch.int8,
                         device=x.device) for _ in range(2)]
     src, a_in = x, in_amax
     for i, blk in enumerate(blocks):
-        cin = PLANES if i == 0 else EXPANSION
-        shapes = {"conv1": (PLANES, cin), "conv2": (PLANES, 9 * PLANES),
-                  "conv3": (EXPANSION, PLANES),
-                  "downsample": (EXPANSION, PLANES)}
-        pieces = {}
-        for conv, (o, k) in shapes.items():
-            p = blk[conv]
-            if p is None:
-                if conv == "downsample" and i == 0:
-                    raise ValueError(f"{name}: block 0 needs a downsample")
-                continue
-            if conv == "downsample" and i > 0:
-                raise ValueError(f"{name}: only block 0 has a downsample")
-            kq, ws, sc, bi = p
-            if kq.dtype != torch.int8 or kq.shape != (o, k):
-                raise TypeError(f"{name}: block {i} {conv} kernel "
-                                f"{kq.dtype} {tuple(kq.shape)}, expected "
-                                f"int8 ({o}, {k})")
-            pieces[conv] = (kq, *(_vec(f"block {i} {conv}", v, o)
-                                  for v in (ws, sc, bi)))
-        amax = [a_in.float(), blk["t1"].float(), blk["t2"].float(),
-                blk["out"].float()]
-        out = bufs[i % 2]
-        tensors = [src, out, *amax] + [t for p in pieces.values() for t in p]
-        _build.require_cuda(name, *tensors)
-        if any(t.data_ptr() % 16 for t in (src, out, *(p[0] for p in
-                                                       pieces.values()))):
-            raise ValueError(f"{name}: activations and kernels must start "
-                             "on a 16-byte boundary (16-byte loads)")
-
-        def ptrs(conv):
-            p = pieces.get(conv)
-            return [None] * 4 if p is None else [t.data_ptr() for t in p]
-
-        (w1, ws1, sc1, bi1), (w2, ws2, sc2, bi2), (w3, ws3, sc3, bi3), \
-            (wd, wsd, scd, bid) = (ptrs(c) for c in shapes)
-        args = _BlockArgs(
-            src.data_ptr(), out.data_ptr(), w1, w2, w3, wd,
-            ws1, sc1, bi1, ws2, sc2, bi2, ws3, sc3, bi3, wsd, scd, bid,
-            *(a.data_ptr() for a in amax), b, h, w, cin, ROWS)
-        err = lib.capf_layer1_block(ctypes.addressof(args),
-                                    *_build.launch_target(x))
-        _build.check(lib, err, f"{name} block {i}")
-        launches += 1
-        src, a_in = out, blk["out"]
+        src = layer1_block_kernel(src, a_in, blk, bufs[i % 2], floor)
+        a_in = blk["out"]
     return src
 
 

@@ -6,14 +6,17 @@ serving graph): in-graph normalization of raw BGR frames, the backbone
 
 Two serving configurations of a preset:
 
-- ``deploy_config(name)``, the deploy graph of the four HRNet presets
-  (``h36m_hrnet_32``, the default model, ``h36m_hrnet_48``,
-  ``mpi_3dhp_hrnet_32``, ``mpi_3dhp_hrnet_48``): ``deploy(preset(name))``
-  with ``layer1_impl="pallas"``. The bf16 HRNet with the int8 layer1 (K9),
-  int8 wide convs (K10) and the bf16 lifter with the fused sampler,
+- ``deploy_config(name)``, the int8 deploy graph: ``deploy(preset(name))``.
+  For ``h36m_cpn`` (``bench.py``'s default path) the bf16 CPN with the
+  calibrated int8 wide convs (``serve_static_amax``), the int8 residual
+  stream (``cpn_int8_stream``) and int8 pyramid maps (``cpn_int8_maps``),
+  every int8 conv through K10 and the maps through K1's int8 input; for the
+  four HRNet presets (``h36m_hrnet_32``, the default model,
+  ``h36m_hrnet_48``, ``mpi_3dhp_hrnet_32``, ``mpi_3dhp_hrnet_48``) with
+  ``layer1_impl="pallas"``: the bf16 HRNet with the int8 layer1 (K9) and
+  int8 wide convs (K10). Either with the bf16 lifter and its fused sampler,
   attention and MLP kernels. It needs ``prepare``/``prepare_serving``
-  (calibration and int8 weights) before it serves. ``h36m_cpn``'s int8
-  stack is not ported (ROADMAP 5a).
+  (calibration and int8 weights) before it serves.
 - ``slice_config(name)``, any preset: ``deploy(preset(name))`` with the
   backbone's int8 stack switched off (``quantize="none"``, no static amax,
   no int8 stream or maps): the bf16 backbone (for CPN with the
@@ -21,7 +24,7 @@ Two serving configurations of a preset:
 
 Usage::
 
-    cfg = deploy_config("h36m_hrnet_32")
+    cfg = deploy_config("h36m_cpn")
     model = build_serving_model(cfg, "cuda",
                                 generator=torch.Generator().manual_seed(0))
     prepare(model, [calibration_frames_u8])             # int8 configs only
@@ -47,6 +50,9 @@ from contextaware_poseformer_tpu_torch.models.capf import (
 from contextaware_poseformer_tpu_torch.models.init import init_parameters
 
 
+CALIB_CHUNK = 16  # frames a calibration pass takes (bench.py's chunks)
+
+
 def slice_config(name: str = "h36m_cpn") -> Config:
     """The ported serving configuration of preset ``name`` (see the module
     docstring)."""
@@ -59,16 +65,12 @@ def slice_config(name: str = "h36m_cpn") -> Config:
 
 
 def deploy_config(name: str = "h36m_hrnet_32") -> Config:
-    """The int8 deploy graph of an HRNet preset (see the module
+    """The int8 deploy graph of preset ``name`` (see the module
     docstring)."""
     cfg = deploy(preset(name))
     backbone = cfg.model.backbone
     if backbone.kind != "hrnet":
-        raise NotImplementedError(
-            f"{name}: the {backbone.kind} int8 deploy stack "
-            "(serve_static_amax, cpn_int8_stream, cpn_int8_maps and K1's "
-            "int8-map input; ROADMAP 5a) is not ported; serve "
-            f"slice_config({name!r})")
+        return cfg
     return replace(cfg, model=replace(cfg.model, backbone=replace(
         backbone, layer1_impl="pallas")))
 
@@ -108,13 +110,19 @@ def build_serving_model(cfg: Config, device, generator=None,
 def prepare(model: ContextAwarePoseFormer, frames_batches) -> None:
     """Calibrate an int8 model and quantize its weights
     (``models.capf.prepare_serving``) on batches of uint8 BGR frames
-    (b, H, W, 3), normalized as ``lift`` normalizes them. A no-op for a
-    float model."""
+    (b, H, W, 3), normalized as ``lift`` normalizes them, each cut into
+    chunks of ``CALIB_CHUNK`` frames as ``bench.py`` calibrates: the
+    calibration histogram counts in fp32 as ``jnp.histogram`` does, and a
+    bin stops at 2**24, which a larger chunk's zeros reach (the CPN stem
+    output, 786,432 values a frame, about half of them ReLU zeros, does at
+    43 frames and then yields a scale of max/2048). A no-op for a float
+    model."""
     dev = model.lifter.head.kernel.device
     with torch.no_grad():
         batches = [(augment.serving_images(
-            f.to(dev), model.cfg.backbone, dtype=model.backbone.dtype),)
-            for f in frames_batches]
+            f[i:i + CALIB_CHUNK].to(dev), model.cfg.backbone,
+            dtype=model.backbone.dtype),)
+            for f in frames_batches for i in range(0, len(f), CALIB_CHUNK)]
     prepare_serving(model, None, batches)
 
 

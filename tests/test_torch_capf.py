@@ -227,9 +227,18 @@ def test_slice_config_and_int8_refusal():
     assert (lif.attention, lif.attention_joint, lif.mlp) == (
         "fused", "grouped", "fused")
     assert lif.sampler_pre_project and lif.sampler == "auto"
-    with pytest.raises(NotImplementedError, match="int8"):
-        ContextAwarePoseFormer(deploy(preset("h36m_cpn")).model)
-    # HRNet's int8 deploy graph is ported (tests/test_torch_int8.py)
+    # both int8 deploy graphs are ported (tests/test_torch_int8.py,
+    # tests/test_torch_cpn_int8.py); what stays refused is named
+    cpn = ContextAwarePoseFormer(deploy(preset("h36m_cpn")).model,
+                                 device="meta")
+    assert cpn.backbone.serve and cpn.backbone.stream
+    assert cpn.backbone.int8_maps
+    for knob in ("cpn_fold_normalize", "cpn_int8_topdown"):
+        model = deploy(preset("h36m_cpn")).model
+        model = replace(model, backbone=replace(model.backbone,
+                                                **{knob: True}))
+        with pytest.raises(NotImplementedError, match=knob):
+            ContextAwarePoseFormer(model, device="meta")
     deployed = ContextAwarePoseFormer(deploy(preset("h36m_hrnet_32")).model,
                                       device="meta")
     assert deployed.backbone.serve
@@ -272,6 +281,20 @@ model = serve.build_serving_model(cfg, "cpu",
                                   generator=torch.Generator().manual_seed(0))
 out = serve.lift(model, torch.zeros(2, 64, 64, 3, dtype=torch.uint8),
                  torch.zeros(2, 17, 2), torch.full((2, 17, 2), 32.0))
+assert out.shape == (2, 17, 3) and bool(torch.isfinite(out).all())
+# the CPN int8 deploy graph: calibration, int8 stream and maps
+dcfg = serve.deploy_config("h36m_cpn")
+dcfg = replace(dcfg, model=replace(
+    dcfg.model, image_shape=(64, 64),
+    backbone=replace(dcfg.model.backbone, cpn_layers=(1, 1, 1, 1)),
+    lifter=replace(dcfg.model.lifter, embed_dim_ratio=32, depth=1)))
+dmodel = serve.build_serving_model(dcfg, "cpu",
+                                   generator=torch.Generator().manual_seed(0))
+frames = torch.randint(0, 256, (2, 64, 64, 3), dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(1))
+serve.prepare(dmodel, [frames])
+out = serve.lift(dmodel, frames, torch.zeros(2, 17, 2),
+                 torch.full((2, 17, 2), 32.0))
 assert out.shape == (2, 17, 3) and bool(torch.isfinite(out).all())
 # the training path: every module, one step and one flip-test batch
 train_modules = [

@@ -363,6 +363,81 @@ def test_k10_int8_conv_matches_plain_version(cuda_device, case):
     assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
 
 
+# K10's CPN-stream variants (batch 8): (name, H, W, Cin, Cout, k, stride,
+# input kind, residual kind, int8 output)
+K10_CPN_CASES = [
+    ("layer1 conv2 int8->int8", 64, 48, 64, 64, 3, 1, "int8", None, True),
+    ("layer2 conv2 s2 int8->int8", 64, 48, 128, 128, 3, 2, "int8", None,
+     True),
+    ("conv3 + bf16 downsample", 32, 24, 128, 512, 1, 1, "int8", "bf16",
+     True),
+    ("conv3 + int8 skip", 16, 12, 256, 1024, 1, 1, "int8", "int8", True),
+    ("refine conv3, bf16 out", 8, 6, 128, 256, 1, 1, "int8", "bf16", False),
+    ("up-conv, calibrated amax", 16, 12, 256, 256, 1, 1, "static", None,
+     False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K10_CPN_CASES, ids=lambda c: c[0])
+def test_k10_cpn_variants_match_plain_version(cuda_device, case):
+    """K10's variants of the CPN int8 stream: a bf16 input with its
+    calibrated amax (``serve_static_amax``), a bf16 or int8 residual added
+    before the ReLU, the requantizing int8 output: equal to the plain
+    version, one launch."""
+    _, h, w, cin, cout, k, stride, kind, res, out8 = case
+    g = torch.Generator().manual_seed(cin + cout + k)
+    x, kq, vecs, amax = _int8_conv_case(g, cuda_device, 8, h, w, cin, cout,
+                                        k, kind == "int8")
+    if kind == "static":
+        amax = torch.tensor(4.5, device=cuda_device)  # some values clip
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    kw = {"out_amax": torch.tensor(20.0, device=cuda_device) if out8
+          else None}
+    if res == "bf16":
+        kw["residual"] = (torch.randn(8, ho, wo, cout, generator=g) * 3).to(
+            cuda_device, torch.bfloat16)
+    elif res == "int8":
+        kw["residual"] = torch.randint(-127, 128, (8, ho, wo, cout),
+                                       generator=g, dtype=torch.int8).to(
+            cuda_device)
+        kw["res_amax"] = torch.tensor(11.0, device=cuda_device)
+    before = int8_conv.launches
+    with torch.inference_mode():
+        out = int8_conv.int8_conv(x, kq, *vecs, amax, stride, True, **kw)
+        ref = int8_conv.int8_conv_reference(x, kq, *vecs, amax, stride, True,
+                                            **kw)
+    assert int8_conv.launches == before + 1
+    assert out.dtype == ref.dtype == (torch.int8 if out8 else torch.bfloat16)
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
+
+
+@pytest.mark.cuda
+def test_k1_projects_int8_maps(cuda_device):
+    """K1 projecting the CPN pyramid's int8 levels (weights carrying the
+    dequant scale) to bf16 samples, against the plain version's fp32:
+    within the bf16 tolerance."""
+    g = torch.Generator().manual_seed(3)
+    maps = [torch.randint(-127, 128, (3, h, w, 256), generator=g,
+                          dtype=torch.int8).to(cuda_device)
+            for h, w in LEVELS]
+    pts = (torch.rand(3, 4, 17, 16, 2, generator=g) * 3 - 1.5).to(cuda_device)
+    projs = [((torch.rand(256, 32, generator=g) * 2 - 1) / 16 * 0.02).to(
+        cuda_device) for _ in maps]
+    biases = [(torch.rand(32, generator=g) * 0.2 - 0.1).to(cuda_device)
+              for _ in maps]
+    before = deformable.launches
+    out = deformable.sample_points_multi(maps, pts, "border", True, projs,
+                                         biases)
+    ref = deformable.sample_points_multi_reference(maps, pts, "border", True,
+                                                   projs, biases)
+    assert deformable.launches == before + 1
+    for o, r in zip(out, ref):
+        assert o.dtype == torch.bfloat16 and r.dtype == torch.float32
+        err = (o.float() - r).abs().max() / r.abs().max()
+        assert err <= 2e-2, err
+
+
 def _layer1_blocks(g, dev):
     def pieces(o, k):
         return (torch.randint(-127, 128, (o, k), generator=g,
@@ -559,3 +634,96 @@ def test_k7_k8_run_under_autograd(cuda_device):
     assert (deformable.launches_k8, deformable.launches_bwd,
             deformable.launches_k7) == (before[0] + 1, before[1] + 1,
                                         before[2] + 1)
+
+
+@pytest.mark.cuda
+def test_cpn_deploy_request_launch_counts(cuda_device, monkeypatch):
+    """One request of the full-width h36m_cpn deploy graph (batch 2, after
+    ``serve.prepare``) launches K10 83 times (every conv but the stem)
+    beside K1-K4's 5/12/4/4, and agrees with the plain versions of every
+    kernel (relative RMS 2e-2)."""
+    counters = [(m, "launches") for m in (*KERNEL_MODULES, int8_conv)]
+    cfg = serve.deploy_config("h36m_cpn")
+    plain_cfg = replace(cfg, model=replace(cfg.model, lifter=replace(
+        cfg.model.lifter, sampler="gather", attention="einsum",
+        attention_joint="einsum", mlp="einsum")))
+    gen = torch.Generator().manual_seed(0)
+    model = serve.build_serving_model(cfg, cuda_device, generator=gen)
+    h, w = cfg.model.image_shape
+    frames = torch.randint(0, 256, (2, h, w, 3), dtype=torch.uint8,
+                           generator=gen)
+    serve.prepare(model, [frames])
+    plain = serve.build_serving_model(plain_cfg, cuda_device, generator=gen)
+    plain.load_state_dict(model.state_dict())
+    plain.backbone.int8_impl = "plain"
+    kp = torch.rand(2, 17, 2, generator=gen) * 2 - 1
+    kpc = torch.rand(2, 17, 2, generator=gen) * w
+    for mod, attr in counters:
+        monkeypatch.setattr(mod, attr, 0)
+    out = serve.lift(model, frames, kp, kpc)
+    expected = [5, 12, 4, 4, 83]
+    assert [getattr(m, a) for m, a in counters] == expected
+    ref = serve.lift(plain, frames, kp, kpc)
+    assert [getattr(m, a) for m, a in counters] == expected
+    assert out.shape == (2, 17, 3) and bool(torch.isfinite(out).all())
+    rel = ((out - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
+    assert rel.item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_probe_counterparts_match_plain_versions(cuda_device):
+    """The TPU probes' counterparts at a small batch: K10's int8 chain, its
+    int32 main loop (and the build without border predication, which
+    differs only at the edges), the epilogue alone, the quantize-on-load
+    alone and the bf16 main loop; K9 on one block against K10's chain of
+    it, K9's floor build; the window shift both ways."""
+    from contextaware_poseformer_tpu_torch.probes import int8_chain, window
+
+    g = torch.Generator().manual_seed(5)
+    dev = cuda_device
+    b, h, w, c = 2, int8_chain.H, int8_chain.W, int8_chain.C
+    x = torch.randint(0, 128, (b, h, w, c), generator=g,
+                      dtype=torch.int8).to(dev)
+    convs = [(torch.randint(-8, 9, (c, 9 * c), generator=g,
+                            dtype=torch.int8).to(dev),
+              torch.full((c,), 0.02, device=dev),
+              (torch.rand(c, generator=g) + 0.5).to(dev),
+              (torch.randn(c, generator=g) * 0.1).to(dev)) for _ in range(3)]
+    amaxes = [torch.tensor(10.0, device=dev)] * 4
+    with torch.inference_mode():
+        assert torch.equal(int8_chain.chain(x, convs, amaxes),
+                           int8_chain.chain(x, convs, amaxes, impl="plain"))
+        kq = convs[0][0]
+        acc = int8_chain.accum(x, kq)
+        assert torch.equal(acc, int8_chain.accum_reference(x, kq))
+        nomask = int8_chain.accum(x, kq, mask=False)
+        inner = (slice(None), slice(1, -1), slice(1, -1))
+        assert torch.equal(nomask[inner], acc[inner])
+        ws, sc, bi = convs[0][1:]
+        a_in, a_out = amaxes[0], torch.tensor(12.0, device=dev)
+        assert torch.equal(
+            int8_chain.requant(acc, ws, sc, bi, a_in, a_out),
+            int8_chain.requant_reference(acc, ws, sc, bi, a_in, a_out))
+        xb = torch.randn(b, h, w, c, generator=g).to(dev, torch.bfloat16)
+        assert torch.equal(int8_chain.quantize(xb, a_in),
+                           int8_chain.quantize_reference(xb, a_in))
+        wb = (torch.randn(c, 9 * c, generator=g) / 17).to(dev, torch.bfloat16)
+        got = int8_chain.bf16_conv(xb, wb)
+        ref = int8_chain.bf16_conv_reference(xb, wb)
+        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+        x9 = (torch.randn(b, 64, 48, 64, generator=g) * 2).to(
+            dev, torch.bfloat16)
+        blocks = _layer1_blocks(g, dev)
+        a9 = torch.tensor(6.0, device=dev)
+        one = layer1_chain.layer1_block_kernel(x9, a9, blocks[0])
+        assert torch.equal(one, layer1_chain.layer1_int8_chain(
+            x9, a9, blocks[:1]))
+        floor = layer1_chain.layer1_chain_kernel(x9, a9, blocks, floor=True)
+        assert floor.shape == (b, 64, 48, 256) and floor.dtype == torch.int8
+        xf = (torch.randn(window.M, window.LANES, generator=g) * 2).to(dev)
+        wv = torch.randint(-20, 21, (window.K, window.N), generator=g,
+                           dtype=torch.int8).to(dev)
+        a4 = torch.tensor(4.0, device=dev)
+        want = window.window_matmul_reference(xf, wv, a4)
+        for words in (False, True):
+            assert torch.equal(window.window_matmul(xf, wv, a4, words), want)

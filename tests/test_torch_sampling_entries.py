@@ -257,9 +257,16 @@ def test_entries_refuse_what_they_do_not_take(monkeypatch):
                   deformable.aggregate_reference):
         with pytest.raises(TypeError, match="int8 maps are refused"):
             entry(int8_maps, *args[1:])
-    with pytest.raises(ValueError, match="int8 map takes no fused"):
+    # an int8 level takes a fused projection (weights carrying its dequant
+    # scale; tests/test_torch_cpn_int8.py), in border mode only
+    proj = deformable.sample_points_levels(
+        int8_maps[:1], args[1][:, :1, :, 0], "border", projs=args[3][:1],
+        biases=args[4][:1])
+    assert proj[0].dtype == torch.float32
+    assert proj[0].shape[-1] == args[3][0].shape[1]
+    with pytest.raises(ValueError, match="border mode"):
         deformable.sample_points_levels(int8_maps[:1], args[1][:, :1, :, 0],
-                                        "border", projs=args[3][:1],
+                                        "zeros", projs=args[3][:1],
                                         biases=args[4][:1])
     with pytest.raises(ValueError, match="CUDA"):
         deformable.deformable_aggregate_kernel(*args)
