@@ -52,10 +52,12 @@ Phases, one line of output each (failures raise and exit non-zero):
    64-2048 channels; int8 or calibrated bf16 input, bf16 or int8 residual,
    bf16 or int8 output) with its calls a request, and K10 on that
    request's own tensors must equal its plain version bit for bit
-   (median kernel and plain ms, the bound); then 3 requests as the int8
-   phase serves them, with K1 5, K2 12, K3 4, K4 4 and K10 83 launches a
-   request (every conv but the float stem: the JAX graph's 83 int8
-   convolutions, tests/test_torch_cpn_int8.py), agreement with the plain
+   (median kernel and plain ms, the bound; a bf16 input's quantize pass,
+   K10q, timed apart and K10 on its output); then 3 requests as the int8
+   phase serves them, with K1 5, K2 12, K3 4, K4 4, K10 83 and K10q 3
+   launches a request (every conv but the float stem: the JAX graph's 83
+   int8 convolutions, tests/test_torch_cpn_int8.py; the 3 up-convs read
+   bf16; HRNet: K10 87 and K10q 85), agreement with the plain
    versions of every kernel to 2e-2 relative RMS and, for information, the
    float slice's output, host ms, device busy and idle and the top
    kernels; then K1 projecting the int8 pyramid (the lifter's border
@@ -69,7 +71,7 @@ Phases, one line of output each (failures raise and exit non-zero):
    cuDNN's bf16 conv + affine + ReLU); K10's pieces at that shape (the
    int32 main loop with and without border predication, the (98304, 576)
    x (576, 128) GEMM over a pre-windowed input against ``torch._int_mm``,
-   the epilogue alone, the quantize-on-load alone, the bf16 main loop
+   the epilogue alone, the quantize pass alone, the bf16 main loop
    against cuDNN's conv); K9 at batch 128; K9 on one block against K10's
    chain of it; K9's floor build; the int8 window shift by an address
    offset and by a word shift;
@@ -110,14 +112,14 @@ Phases, one line of output each (failures raise and exit non-zero):
    agree with one through the plain sampler (``sampler="gather"``) from the
    same weights on the same batch: loss to 1e-5 relative, lifter gradients
    to a global relative L2 of 1e-4. Steps/s (information only);
-12. a JSON line of per-kernel results (K1-K10, then the probes'
+12. a JSON line of per-kernel results (K1-K10 and K10q, then the probes'
    counterparts, named ``probe <name>``), then the final JSON status
    line. ``launches`` are summed over the serving, aggregate and
    training runs, each counted from 0 (the probes': their phase's main
    run). Errors are the largest over the bf16 cases (int8 maps, sampled to
    bf16, included). Times are bf16 at the CPN serving shapes for K1-K4,
-   at HRNet-W32's for K5 and K9, at the CPN int8 request's for K10, all
-   per request (the sum over a request's calls), K6's those of
+   at HRNet-W32's for K5 and K9, at the CPN int8 request's for K10 and
+   K10q, all per request (the sum over a request's calls), K6's those of
    the training step's call at batch 256 times its 4 calls a step, K7's
    the sum of its two served blocks' border calls and K8's of its two
    bf16 calls.
@@ -161,8 +163,11 @@ HRNET_REQUESTS = {"h36m_hrnet_32": REQUESTS, "h36m_hrnet_48": 1,
 # transition1's two); CPN K10 for every conv but the stem: 52 ResNet-50
 # convs (16 bottlenecks, 4 downsamples), 4 laterals, 3 up-convs and 24
 # refineNet convs (6 bottlenecks), the count of int8 convolutions in the
-# JAX package's graph (tests/test_torch_cpn_int8.py)
-INT8_PER_REQUEST = {"hrnet": {"K9": 4, "K10": 87}, "cpn": {"K10": 83}}
+# JAX package's graph (tests/test_torch_cpn_int8.py). K10q is K10's
+# quantize pass, one launch for each conv with a bf16 input: HRNet's 85
+# wide convs (transition1 reads K9's int8), CPN's 3 up-convs
+INT8_PER_REQUEST = {"hrnet": {"K9": 4, "K10": 87, "K10q": 85},
+                    "cpn": {"K10": 83, "K10q": 3}}
 TIMED_REQUESTS = 20  # host-clock frames/s, after the checked requests
 PROFILED = 5  # requests under torch.profiler
 TOP_KERNELS = 8
@@ -183,6 +188,7 @@ REPLACES = {
     "K8": "contextaware_poseformer_tpu/ops/deformable.py:215",
     "K9": "contextaware_poseformer_tpu/ops/layer1_chain.py:51",
     "K10": "contextaware_poseformer_tpu/models/backbone_common.py:204",
+    "K10q": "contextaware_poseformer_tpu/models/backbone_common.py:201",
     # the TPU probes' counterparts (probes phase)
     "chain_conv": "experiments/int8_chain_conv.py:54",
     "micro_matmul3": "experiments/int8_chain_micro.py:20",
@@ -202,6 +208,7 @@ SOURCES = {"K1": "sampler.cu", "K2": "fused_mlp.cu",
            "K5": "sampler.cu", "K6": "sampler_bwd.cu",
            "K7": "aggregate.cu", "K8": "sampler.cu",
            "K9": "layer1_chain.cu", "K10": "int8_conv.cu",
+           "K10q": "int8_conv.cu",
            "chain_conv": "int8_conv.cu", "micro_matmul3": "int8_conv.cu",
            "micro_matmul3_nomask": "int8_conv.cu",
            "micro_requant": "int8_conv.cu", "micro_matmul1": "int8_conv.cu",
@@ -795,6 +802,7 @@ def check_cpn_int8(results, card):
         raise AssertionError(f"recorded {calls} K10 calls a request")
     res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
            "library_ms": None}
+    quant = {**res, "bound_by": "bytes"}
     largest = 0.0
     with torch.inference_mode():
         for key, (n, args) in seen.items():
@@ -807,10 +815,35 @@ def check_cpn_int8(results, card):
             out, ref = fn(), plain()
             torch.cuda.synchronize()
             eq, err = _exact(out, ref)
-            ms, plain_ms = _median_ms(fn), _median_ms(plain)
             x, kq, residual = args[0], args[1], args[9]
+            timed = args
+            note = ""
+            if x.dtype == torch.bfloat16:
+                # the quantize pass apart; K10 timed on its int8 output,
+                # the same convolution (a calibrated amax on both routes)
+                amax = args[5]
+                xq = int8_conv.quantize_kernel(x, amax, True)
+                qeq, _ = _exact(xq, int8_conv.quantize_reference(x, amax))
+                q_ms = _median_ms(lambda: int8_conv.quantize_kernel(
+                    x, amax, True))
+                q_plain = _median_ms(lambda: int8_conv.quantize_reference(
+                    x, amax))
+                q_bound, q_by = _bound(x.numel() * 3, 3 * x.numel(),
+                                       torch.float32)
+                note = (f"; quantize pass equal {qeq:.6f}, {q_ms:.4f} ms, "
+                        f"plain {q_plain:.4f} ms, bound {q_bound:.4f} ms "
+                        f"({q_by})")
+                if qeq != 1.0:
+                    raise AssertionError(f"K10q {key}: equal share {qeq}")
+                quant["ms"] += n * q_ms
+                quant["plain_ms"] += n * q_plain
+                quant["bound_ms"] += n * q_bound
+                quant["bound_by"] = q_by
+                timed = (xq, *args[1:])
+            ms = _median_ms(lambda: int8_conv.int8_conv_kernel(*timed))
+            plain_ms = _median_ms(plain)
             m = out.shape[0] * out.shape[1] * out.shape[2]
-            nbytes = (x.numel() * x.element_size() + kq.numel()
+            nbytes = (timed[0].numel() * timed[0].element_size() + kq.numel()
                       + 3 * 4 * kq.shape[0]
                       + out.numel() * out.element_size()
                       + (0 if residual is None
@@ -820,7 +853,8 @@ def check_cpn_int8(results, card):
             print(f"cpn_int8: K10 {key}: equal {eq:.6f}, max_abs_err "
                   f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {bound_ms:.4f} ms ({by}: {work[0]} B, {work[1]} "
-                  f"ops), {n} a request ({card})", flush=True)
+                  f"ops), tile 64x{int8_conv.plan(m, kq.shape[0])}, {n} a "
+                  f"request{note} ({card})", flush=True)
             if eq != 1.0:
                 raise AssertionError(f"K10 {key}: equal share {eq}")
             res["ms"] += n * ms
@@ -830,9 +864,12 @@ def check_cpn_int8(results, card):
                 largest, res["bound_by"] = n * bound_ms, by
     print(f"cpn_int8: K10 over a request's {calls} calls ({len(seen)} "
           f"shapes and variants): kernel {res['ms']:.4f} ms, plain "
-          f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-          f"({card})", flush=True)
+          f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms; its "
+          f"quantize pass (K10q, {INT8_PER_REQUEST['cpn']['K10q']} calls) "
+          f"{quant['ms']:.4f} ms, plain {quant['plain_ms']:.4f} ms, bound "
+          f"{quant['bound_ms']:.4f} ms ({card})", flush=True)
     results["K10"] = res
+    results["K10q"] = quant
     seen.clear()
     err = _k1_int8_projection(card)
     results["K1"]["max_abs_err"] = max(results["K1"]["max_abs_err"], err)
@@ -1048,7 +1085,7 @@ def check_probes(card):
                           _median_ms(lambda: int8_chain.quantize_reference(
                               xb, a_in)),
                           (xb.numel() * 3, 3 * xb.numel()), torch.float32)
-        _print_probe("micro quantize", "K10's quantize-on-load alone, bf16 "
+        _print_probe("micro quantize", "K10's quantize pass alone, bf16 "
                      "-> int8", f"equal {eq:.6f}", r, card)
         if eq != 1.0:
             raise AssertionError(f"quantize: equal share {eq}")
@@ -1066,7 +1103,7 @@ def check_probes(card):
                           _median_ms(lambda: F.conv2d(xnchw, wlib3,
                                                       padding=1)))
         _print_probe("micro bf16_matmul3", "K10's main loop on bf16 "
-                     "operands (mma m16n8k16), fp32 out",
+                     "operands (wgmma m64nNk16), fp32 out",
                      f"rel {rel:.3e} (tol 1e-5: fp32 sums in another order)",
                      r, card)
         if not rel <= 1e-5:
@@ -1172,7 +1209,8 @@ def _counters():
             "K7": (deformable, "launches_k7"),
             "K8": (deformable, "launches_k8"),
             "K9": (layer1_chain, "launches"),
-            "K10": (int8_conv, "launches")}
+            "K10": (int8_conv, "launches"),
+            "K10q": (int8_conv, "launches_quantize")}
 
 
 def _counts():

@@ -56,16 +56,17 @@ SIGNATURES = {
     #  device, stream)
     "capf_small_attention": (
         _I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    # (dtype, qkv, out, batch, tokens, d, heads, device, stream)
-    "capf_attention_middle": (_I, [_I, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # (dtype, qkv, out, batch, tokens, d, heads, heads a block, device,
+    #  stream)
+    "capf_attention_middle": (_I, [_I, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     # (args struct*, device, stream)
     "capf_int8_conv": (_I, [_P, _I, _P]),
     # (args struct*, mode, device, stream)
     "capf_int8_conv_probe": (_I, [_P, _I, _I, _P]),
     # (args struct*, device, stream)
     "capf_int8_requant": (_I, [_P, _I, _P]),
-    # (x, amax, out, n, device, stream)
-    "capf_int8_quantize": (_I, [_P, _P, _P, ctypes.c_longlong, _I, _P]),
+    # (x, amax, out, n, clamp, device, stream)
+    "capf_int8_quantize": (_I, [_P, _P, _P, ctypes.c_longlong, _I, _I, _P]),
     # (args struct*, device, stream)
     "capf_layer1_block": (_I, [_P, _I, _P]),
     "capf_layer1_block_floor": (_I, [_P, _I, _P]),

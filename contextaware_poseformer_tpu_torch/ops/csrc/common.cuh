@@ -129,6 +129,20 @@ __device__ __forceinline__ void mma_s8_16x8x32(int (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// D += A B on the tensor cores in bf16: A 16x16 (row-major fragment a[4]),
+// B 16x8 (column-major fragment b[2]), D 16x8 fp32, with the same lane
+// layout of D as mma_s8_16x8x32; lane l holds the bf16 pairs at
+// k = 2(l%4) (+8) of its rows of A and its column of B.
+__device__ __forceinline__ void mma_bf16_16x8x16(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory when needed.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

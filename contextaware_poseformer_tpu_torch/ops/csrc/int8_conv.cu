@@ -5,61 +5,90 @@
 // routes, 157-213; the conv at 204-213), which has no Pallas kernel and no
 // PyTorch CUDA counterpart, together with the elementwise ops that the CPN
 // int8 stream fuses into it (contextaware_poseformer_tpu/models/cpn.py:
-// 43-51, 123-181). NHWC input, either int8 with a calibrated amax (the
-// x_quant route: step = max(amax, 1e-12) / 127), or bf16 quantized as it is
-// loaded: with the calibrated amax of the serve_static_amax route (clamped
-// as above) or with max|x| (the dynamic route, unclamped; the max comes from
-// the wrapper); round(x / step) clipped to +-127. A (Cout, kh*kw*Cin) int8
-// kernel, 1x1 or 3x3, stride 1 or 2, zero padding (k - 1) / 2; exact int32
-// accumulation; then the folded affine with the JAX package's rounding
-// points (common.cuh, affine_bf16); an optional residual added in bf16 (the
+// 43-51, 123-181). The JAX package quantizes a float input once
+// (backbone_common.py:192-203) and then convolves the int8 tensor; so does
+// this file: int8_quantize_kernel writes round(x / step) clipped to +-127
+// (the step max(amax, 1e-12) / 127 of a calibrated amax, or max|x| / 127,
+// unclamped, of the dynamic route), and the convolution always reads int8.
+// The convolution: NHWC int8 input, a (Cout, kh*kw*Cin) int8 kernel, 1x1 or
+// 3x3, stride 1 or 2, zero padding (k - 1) / 2; exact int32 accumulation;
+// then the folded affine with the JAX package's rounding points
+// (common.cuh, affine_bf16); an optional residual added in bf16 (the
 // downsample conv's bf16 output, or an int8 skip dequantized as
-// bf16(xq) * bf16(amax / 127)); an optional ReLU; out in bf16, or requantized
-// to int8 with a calibrated amax, clip(round(y * (127 / amax))) in fp32.
+// bf16(xq) * bf16(amax / 127)); an optional ReLU; out in bf16, or
+// requantized to int8 with a calibrated amax, clip(round(y * (127 / amax))).
 // That requantizing variant, chained, is also the counterpart of the TPU
 // probe experiments/int8_chain_conv.py::kernel (an n-conv int8 3x3 chain).
 //
 // What bounds it on the H100: the deploy graphs' convs (batch 64, 8x6 to
-// 64x48 maps, 64-2048 channels) are 0.4-30 GOP on a few to 50 MB, so the
-// int8 tensor-core rate bounds the wide ones and HBM the thin ones. This
-// first kernel is a plain implicit GEMM: a block owns 64 output pixels x 64
-// output channels, stages 64 input channels of one tap at a time for both
-// operands in shared memory (rows padded to 80 bytes, so fragment reads are
-// free of bank conflicts) and runs mma.sync m16n8k32 on them; four warps,
-// 32x32 each. No software pipelining, wgmma or TMA yet.
+// 64x48 maps, 64-2048 channels) are 0.4-30 GOP on a few to 100 MB, so HBM
+// and latency bound the CPN stream (its 64x48 convs with Cin 64 have one
+// K stage) and the int8 tensor-core rate only the widest convs. The design
+// is an implicit GEMM (M = output pixels, N = Cout, K = kh*kw*Cin
+// flattened) on Hopper's asynchronous machinery, so that loads overlap the
+// products and every byte moves in 16-byte pieces:
+// - a ring of up to kStages shared-memory stages, each 128 bytes of K for a
+//   BM x BN tile, in the 128-byte-swizzled K-major layout that the wgmma
+//   descriptors name; one producer warpgroup fills it, one consumer
+//   warpgroup (the tile's 64 output rows) drains it; full/empty mbarriers;
+// - B, the weights, by TMA (a 2-D map over the (Cout, K) bytes, encoded on
+//   the host and cached by pointer and shape; its zero fill pads K and Cout);
+// - A, the implicit im2col rows, by 16-byte cp.async with zero fill (src-size
+//   0) for taps outside the image and for K past its end. A 4-D TMA box
+//   cannot follow a tile of consecutive output pixels across rows and
+//   images, so cp.async, which addresses each 16-byte piece, takes A; a
+//   piece never straddles two taps (Cin is a multiple of 32), so a stage
+//   may span taps (Cin 32 and 64 fill whole 128-byte stages);
+// - wgmma.mma_async m64nNk32 s8 x s8 -> s32 (N = BN, 64 or 128) from shared
+//   memory, K-major for both operands, the only layout int8 wgmma takes;
+// - the producer also prefetches the tile's residual into shared memory by
+//   cp.async behind the ring's first fill, so the epilogue reads no global
+//   memory but its stores; a block caps its registers at 128 a thread, so
+//   that two blocks share an SM and one's loads hide the other's latency
+//   (a 128-row tile on two consumer warpgroups, measured, never won);
+// - the epilogue applies the affine in the accumulator layout, stages the
+//   bf16 tile in the ring, then each thread finishes 8 (or 16) consecutive
+//   channels of one pixel and stores 16 bytes (8 for an int8 output whose
+//   Cout is not a multiple of 16).
+// The tile (64 x 64 or 64 x 128) comes from ops/int8_conv.py::plan,
+// which picks it per (M, N) from measured times.
 //
 // The TPU probe experiments/int8_chain_micro.py timed the pieces of such a
 // chain apart; its counterparts are builds of this file's code: the main
 // loop alone with an int32 output (Mode::kAccum; a 1x1 call over a
 // pre-windowed 576-channel input is the probe's matmul1), the same with the
-// border predication compiled out (Mode::kAccumNoMask, wrong at the edges on
-// purpose), the main loop on bf16 operands (bf16_conv_kernel, mma m16n8k16),
-// the epilogue alone (int8_requant_kernel) and the quantize-on-load alone
-// (int8_quantize_kernel).
+// border test compiled out (Mode::kAccumNoMask, wrong at the edges on
+// purpose), the same ring on bf16 operands (wgmma m64nNk16, fp32 out), the
+// epilogue alone (int8_requant_kernel: the same arithmetic and stores) and the
+// quantize pass (int8_quantize_kernel, on the path).
+
+#include <cuda.h>  // CUtensorMap and its enums (driver types only: no -lcuda)
+#include <mutex>
+#include <type_traits>
 
 #include "common.cuh"
 
 using capf::affine_bf16;
 using capf::folded_scale;
-using capf::lds32;
 using capf::round_to;
 using capf::to_int8_rne;
 
 // the entry points' argument block, passed by pointer from ctypes
 extern "C" {
 struct Int8ConvArgs {  // mirrored by ops/int8_conv.py::_Args
-  const void* x;         // (B, H, W, Cin) int8 or bf16
+  const void* x;         // (B, H, W, Cin) int8 (bf16 in the bf16 probe)
   const void* wq;        // (Cout, kh*kw*Cin) int8 (bf16 in the bf16 probe)
   const float* wscale;   // (Cout,)
   const float* scale;    // (Cout,) BN scale
   const float* bias;     // (Cout,) BN bias
-  const float* amax;     // scalar: calibrated amax, or max|x|
+  const float* amax;     // scalar: the calibrated amax, or max|x|
   const void* res;       // (B, Ho, Wo, Cout) bf16 or int8, or null
   const float* res_amax; // scalar: the int8 residual's calibrated amax
   const float* out_amax; // scalar: the int8 output's amax; null: bf16 out
   void* out;             // (B, Ho, Wo, Cout) bf16, int8, or int32/fp32
   int batch, h, w, cin, cout, ksize, stride, ho, wo;
-  int x_int8, clamp_amax, res_int8, relu;
+  int clamp_amax, res_int8, relu;
+  int tile_n;            // the plan: the tile's width, 64 or 128
 };
 
 struct Int8RequantArgs {  // mirrored by probes/int8_chain.py::_RequantArgs
@@ -76,12 +105,276 @@ struct Int8RequantArgs {  // mirrored by probes/int8_chain.py::_RequantArgs
 
 namespace {
 
-constexpr int kTile = 64;      // output pixels and channels a block owns
-constexpr int kK = 64;         // input bytes staged per row and step
-constexpr int kRow = kK + 16;  // bytes a staged row takes
-constexpr int kThreads = 128;  // 4 warps, 2 x 2 over the tile
+constexpr int kBK = 128;     // bytes of K a stage holds: one swizzle row
+constexpr int kStages = 4;   // the ring's depth
+constexpr int kWarpgroup = 128;
 
 enum class Mode { kProduct, kAccum, kAccumNoMask };
+
+// ---- Hopper primitives (PTX) ---------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// spin until the phase of parity ``parity`` has completed; a phase that
+// never completes (a fault in the ring's bookkeeping) traps after ~2^28
+// polls, seconds, so that the launch fails instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 28)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// 16 bytes global -> shared; ``bytes`` 0 writes 16 zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// 8 bytes global -> shared (both 8-byte aligned)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// the barrier counts one arrival when this thread's cp.asyncs have landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A wgmma operand in shared memory: K-major rows of 128 bytes, 8-row groups
+// 1024 bytes apart, 128-byte swizzle (as TMA's SWIZZLE_128B writes it). The
+// k-th 32-byte step of a row is the same descriptor 32 * k bytes further on.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (1ull << 16) |   // leading byte offset: unused with the swizzle
+         (64ull << 32) |  // stride byte offset: 1024 bytes
+         (1ull << 62);    // 128-byte swizzle
+}
+
+// where the 16-byte piece ``chunk`` of tile row ``row`` lies in a stage
+__device__ __forceinline__ int sw128_offset(int row, int chunk) {
+  return row * kBK + ((chunk ^ (row & 7)) << 4);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// keep the compiler from moving accumulator accesses across async wgmmas
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N) += A (64 x 32 s8) B (N x 32 s8)^T, and the bf16 probe's
+// D (64 x N, fp32) += A (64 x 16 bf16) B (N x 16 bf16)^T; both operands
+// K-major in shared memory. Thread t of the warpgroup holds, for each 8
+// columns j, d[4j], d[4j+1] at row 16(t/32) + (t%32)/4, columns
+// 8j + 2(t%4) + {0, 1}, and d[4j+2], d[4j+3] eight rows further down.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t desc_a,
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t desc_a,
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t desc_a,
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+
+template <int kBN>
+__device__ __forceinline__ void wgmma_tile(int (&d)[kBN / 2], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (kBN == 64) {
+    wgmma_s8_n64(d, da, db);
+  } else {
+    wgmma_s8_n128(d, da, db);
+  }
+}
+template <int kBN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[kBN / 2], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (kBN == 64) {
+    wgmma_bf16_n64(d, da, db);
+  } else {
+    wgmma_bf16_n128(d, da, db);
+  }
+}
+
+// ---- the epilogue's arithmetic ----------------------------------------------
+
+// the quantization step: max(amax, 1e-12) / 127 for a calibrated amax,
+// max|x| / 127 for a runtime one (a multiply by fl32(1 / 127), as XLA
+// compiles the division under jit)
+__device__ __forceinline__ float input_step(float amax, bool clamp) {
+  return __fmul_rn(clamp ? fmaxf(amax, 1e-12f) : amax, capf::kRecip127);
+}
 
 // round(v / step) clipped, as int8. A zero skips the division: the IEEE
 // division's range check sends a zero dividend down its slow path, and the
@@ -89,28 +382,6 @@ enum class Mode { kProduct, kAccum, kAccumNoMask };
 __device__ __forceinline__ int8_t quantize(__nv_bfloat16 v, float step) {
   const float x = __bfloat162float(v);
   return x == 0.f ? 0 : to_int8_rne(__fdiv_rn(x, step));
-}
-
-// 16 bf16 values (two 16-byte loads) -> 16 int8
-__device__ __forceinline__ int4 quantize16(int4 lo, int4 hi, float step) {
-  const __nv_bfloat16* v0 = reinterpret_cast<const __nv_bfloat16*>(&lo);
-  const __nv_bfloat16* v1 = reinterpret_cast<const __nv_bfloat16*>(&hi);
-  int4 out;
-  int8_t* o = reinterpret_cast<int8_t*>(&out);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    o[i] = quantize(v0[i], step);
-    o[8 + i] = quantize(v1[i], step);
-  }
-  return out;
-}
-
-// the quantization step of the input: max(amax, 1e-12) / 127 for a
-// calibrated amax, max|x| / 127 for a runtime one (a multiply by
-// fl32(1 / 127), as XLA compiles the division under jit)
-__device__ __forceinline__ float input_step(const Int8ConvArgs& a) {
-  const float amax = a.clamp_amax ? fmaxf(*a.amax, 1e-12f) : *a.amax;
-  return __fmul_rn(amax, capf::kRecip127);
 }
 
 // 127 / max(amax, 1e-12), an IEEE division as XLA computes it
@@ -132,368 +403,578 @@ __device__ __forceinline__ float finish(float y, float res, bool has_res,
   return relu ? fmaxf(y, 0.f) : y;
 }
 
-// where an A row's tap reads: (pixel offset in x, inside the image)
-template <Mode kMode>
-__device__ __forceinline__ bool tap_pixel(const Int8ConvArgs& a, bool a_row,
-                                          int ab, int ay, int ax, int tap,
-                                          int pad, size_t* pix) {
-  const int iy = ay * a.stride + tap / a.ksize - pad;
-  const int ix = ax * a.stride + tap % a.ksize - pad;
-  if constexpr (kMode == Mode::kAccumNoMask) {
-    // no border test: the tap's pixel, clamped into the tensor only so that
-    // no read leaves it (a neighbouring row's pixel stands in for the zero)
-    const long long last = 1LL * a.batch * a.h * a.w - 1;
-    long long p = (1LL * ab * a.h + iy) * a.w + ix;
-    p = p < 0 ? 0 : (p > last ? last : p);
-    *pix = static_cast<size_t>(p) * a.cin;
-    return a_row;
+// 8 consecutive residual values of one pixel as floats: a bf16 residual as
+// it is, an int8 skip dequantized as bf16(xq) * bf16(amax / 127)
+__device__ __forceinline__ void residual8(const void* p, bool res_int8,
+                                          float res_deq, float* r) {
+  if (res_int8) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const uint32_t w = e < 4 ? q.x : q.y;
+      const int8_t v = static_cast<int8_t>((w >> (8 * (e % 4))) & 0xff);
+      r[e] = round_to<__nv_bfloat16>(__fmul_rn(static_cast<float>(v),
+                                               res_deq));
+    }
   } else {
-    const bool in = a_row && iy >= 0 && iy < a.h && ix >= 0 && ix < a.w;
-    *pix = in ? (static_cast<size_t>(ab * a.h + iy) * a.w + ix) * a.cin : 0;
-    return in;
+    const uint4 f = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      r[e] = __bfloat162float(__ushort_as_bfloat16(
+          static_cast<unsigned short>(w[e / 2] >> (16 * (e % 2)))));
+    }
   }
 }
 
-template <Mode kMode>
-__global__ void __launch_bounds__(kThreads)
-    int8_conv_kernel(const Int8ConvArgs a) {
-  __shared__ __align__(16) int8_t s_a[kTile * kRow];
-  __shared__ __align__(16) int8_t s_b[kTile * kRow];
-  __shared__ float s_eff[kTile];
-  __shared__ float s_bias[kTile];
+// 8 consecutive bf16 values (16 bytes) as floats
+__device__ __forceinline__ void load_bf16x8(const __nv_bfloat16* p,
+                                            float* y) {
+  const uint4 f = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    y[e] = __bfloat162float(__ushort_as_bfloat16(
+        static_cast<unsigned short>(w[e / 2] >> (16 * (e % 2)))));
+  }
+}
+
+// four int8 in one word, the first in the low byte
+__device__ __forceinline__ uint32_t pack_int8x4(int8_t a, int8_t b, int8_t c,
+                                                int8_t d) {
+  return static_cast<uint32_t>(static_cast<uint8_t>(a)) |
+         static_cast<uint32_t>(static_cast<uint8_t>(b)) << 8 |
+         static_cast<uint32_t>(static_cast<uint8_t>(c)) << 16 |
+         static_cast<uint32_t>(static_cast<uint8_t>(d)) << 24;
+}
+
+// kCH (8 or 16) finished values -> int8 with the output's requant scale,
+// one store of kCH bytes
+template <int kCH>
+__device__ __forceinline__ void store_int8(int8_t* out, const float* y,
+                                           float q_out) {
+  uint32_t w[kCH / 4];
+#pragma unroll
+  for (int i = 0; i < kCH / 4; ++i) {
+    w[i] = pack_int8x4(to_int8_rne(__fmul_rn(y[4 * i], q_out)),
+                       to_int8_rne(__fmul_rn(y[4 * i + 1], q_out)),
+                       to_int8_rne(__fmul_rn(y[4 * i + 2], q_out)),
+                       to_int8_rne(__fmul_rn(y[4 * i + 3], q_out)));
+  }
+  if constexpr (kCH == 16) {
+    *reinterpret_cast<uint4*>(out) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    *reinterpret_cast<uint2*>(out) = make_uint2(w[0], w[1]);
+  }
+}
+
+// 8 finished values -> bf16, one 16-byte store (exact: every value is a
+// bf16 number already)
+__device__ __forceinline__ void store_bf16x8(__nv_bfloat16* out,
+                                             const float* y) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(y[2 * i], y[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+  *reinterpret_cast<uint4*>(out) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// ---- the convolution ------------------------------------------------------
+
+template <int kBN>
+struct Tile {
+  static constexpr int kBM = 64;  // output pixels: one consumer warpgroup
+  static constexpr int kConsumers = kWarpgroup;
+  static constexpr int kThreads = kConsumers + kWarpgroup;
+  // two blocks an SM (registers capped at 128 a thread), so that one
+  // block's loads hide the other's latency
+  static constexpr int kMinBlocks = 2;
+  static constexpr int kAStage = kBM * kBK;       // bytes
+  static constexpr int kBStage = kBN * kBK;
+  static constexpr int kStage = kAStage + kBStage;
+  static constexpr int kPitch = kBN + 8;  // a staged row's values (bf16 or
+                                          // the probes' 32-bit sums)
+  static constexpr int kBarriers = (2 * kStages + 1) * sizeof(uint64_t);
+  // the staged tile: the affine's bf16 output (the product), the probes'
+  // 32-bit sums
+  __host__ __device__ static constexpr int staged(bool product) {
+    return kBM * kPitch * (product ? 2 : 4);
+  }
+  // the ring's bytes, ``stages`` deep: at least the staged tile, which
+  // reuses it once the products are done
+  __host__ __device__ static constexpr int ring(int stages, bool product) {
+    return stages * kStage > staged(product) ? stages * kStage
+                                             : staged(product);
+  }
+  // the block's shared memory: slack to align the ring to the 1024 bytes
+  // the swizzle needs, the ring, the prefetched residual tile, the barriers
+  // and the epilogue's scales
+  __host__ __device__ static constexpr int smem(int stages, bool product,
+                                                int res_bytes) {
+    return 1024 + ring(stages, product) + res_bytes + kBarriers +
+           2 * kBN * static_cast<int>(sizeof(float));
+  }
+  // smem() at its largest: the full ring and a bf16 residual
+  static constexpr int kSmemMax = 1024 + kStages * kStage + kBM * kBN * 2 +
+                                  kBarriers +
+                                  2 * kBN * static_cast<int>(sizeof(float));
+  static_assert(kStages * kStage >= kBM * kPitch * 4, "the tile fits");
+};
+
+// Grid: one block per (M tile, N tile), N tiles fastest so that the blocks
+// sharing an A tile run together and A crosses HBM once. Threads: one
+// consumer warpgroup (the 64 output rows), then one producer warpgroup.
+// kBf16: the bf16 probe (bf16 operands, fp32 out).
+template <int kBN, Mode kMode, bool kBf16>
+__global__ void __launch_bounds__(Tile<kBN>::kThreads, Tile<kBN>::kMinBlocks)
+    conv_kernel(const __grid_constant__ CUtensorMap wmap,
+                const Int8ConvArgs a) {
+  using T = Tile<kBN>;
+  using Acc = typename std::conditional<kBf16, float, int>::type;
+  constexpr int kBM = T::kBM;
+  constexpr int kConsumers = T::kConsumers;
+  constexpr bool kProduct = kMode == Mode::kProduct;
+  constexpr int kEs = kBf16 ? 1 : 0;  // log2 of the operands' element bytes
+  static_assert(!kBf16 || kMode == Mode::kAccum, "the bf16 probe");
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = blockIdx.x * kTile;
-  const int n0 = blockIdx.y * kTile;
+  const int n_tiles = (a.cout + kBN - 1) / kBN;
+  const int n0 = (blockIdx.x % n_tiles) * kBN;
+  const int m0 = (blockIdx.x / n_tiles) * kBM;
   const int m_total = a.batch * a.ho * a.wo;
+  const int kbytes = (a.ksize * a.ksize * a.cin) << kEs;
+  const int ktiles = (kbytes + kBK - 1) / kBK;
+  const int stages = ktiles < kStages ? ktiles : kStages;  // the ring's depth
+  const bool has_res = kProduct && a.res != nullptr;
+  const int res_elem = a.res_int8 ? 1 : 2;
 
-  // the probes' int32 builds on an int8 input take no amax
-  const float step =
-      kMode == Mode::kProduct || !a.x_int8 ? input_step(a) : 0.f;
-  if (kMode == Mode::kProduct && tid < kTile) {
-    const int n = n0 + tid;
-    s_eff[tid] = n < a.cout ? folded_scale(a.scale[n], a.wscale[n], step)
-                            : 0.f;
-    s_bias[tid] = n < a.cout ? round_to<__nv_bfloat16>(a.bias[n]) : 0.f;
-  }
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* s_a = ring;                        // stages x A
+  unsigned char* s_b = ring + stages * T::kAStage;  // stages x B
+  unsigned char* s_res = ring + T::ring(stages, kProduct);  // the residual
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      s_res + (has_res ? kBM * kBN * res_elem : 0));
+  uint64_t* empty = full + kStages;
+  uint64_t* res_full = empty + kStages;
+  float* s_eff = reinterpret_cast<float*>(res_full + 1);
+  float* s_bias = s_eff + kBN;
 
-  // loads: thread -> one row of the tile and 32 of the staged channels
-  const int lr = tid >> 1;
-  const int lc = (tid & 1) * 32;
-  const int am = m0 + lr;
-  const bool a_row = am < m_total;
-  int ab = 0, ay = 0, ax = 0;
-  if (a_row) {
-    ab = am / (a.ho * a.wo);
-    const int r = am - ab * a.ho * a.wo;
-    ay = r / a.wo;
-    ax = r - ay * a.wo;
-  }
-  const int bn = n0 + lr;
-  const bool b_row = bn < a.cout;
-  const int taps = a.ksize * a.ksize;
-  const int pad = (a.ksize - 1) / 2;
-  const size_t kdim = static_cast<size_t>(taps) * a.cin;
-  const int8_t* wq = static_cast<const int8_t*>(a.wq);
-
-  int acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-  const int wm = (warp >> 1) * 32;
-  const int wn = (warp & 1) * 32;
-
-  for (int tap = 0; tap < taps; ++tap) {
-    size_t pix;
-    const bool in = tap_pixel<kMode>(a, a_row, ab, ay, ax, tap, pad, &pix);
-    for (int c0 = 0; c0 < a.cin; c0 += kK) {
-      const int c = c0 + lc;
-      int4 lo = make_int4(0, 0, 0, 0), hi = lo;
-      if (in && c < a.cin) {
-        if (a.x_int8) {
-          const int4* src = reinterpret_cast<const int4*>(
-              static_cast<const int8_t*>(a.x) + pix + c);
-          lo = src[0];
-          hi = src[1];
-        } else {
-          const int4* src = reinterpret_cast<const int4*>(
-              static_cast<const __nv_bfloat16*>(a.x) + pix + c);
-          lo = quantize16(src[0], src[1], step);
-          hi = quantize16(src[2], src[3], step);
-        }
-      }
-      int4* da = reinterpret_cast<int4*>(s_a + lr * kRow + lc);
-      da[0] = lo;
-      da[1] = hi;
-      int4 wlo = make_int4(0, 0, 0, 0), whi = wlo;
-      if (b_row && c < a.cin) {
-        const int4* src = reinterpret_cast<const int4*>(
-            wq + bn * kdim + static_cast<size_t>(tap) * a.cin + c);
-        wlo = src[0];
-        whi = src[1];
-      }
-      int4* db = reinterpret_cast<int4*>(s_b + lr * kRow + lc);
-      db[0] = wlo;
-      db[1] = whi;
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kK; kk += 32) {
-        uint32_t af[2][4], bf[4][2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int8_t* r0 = s_a + (wm + i * 16 + g) * kRow + kk + t * 4;
-          const int8_t* r8 = r0 + 8 * kRow;
-          af[i][0] = lds32(r0);
-          af[i][1] = lds32(r8);
-          af[i][2] = lds32(r0 + 16);
-          af[i][3] = lds32(r8 + 16);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int8_t* col = s_b + (wn + j * 8 + g) * kRow + kk + t * 4;
-          bf[j][0] = lds32(col);
-          bf[j][1] = lds32(col + 16);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            capf::mma_s8_16x8x32(acc[i][j], af[i], bf[j]);
-          }
-      }
-      __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      // full: the producer's 128 cp.async arrivals and one expect_tx
+      mbar_init(&full[s], kWarpgroup + 1);
+      mbar_init(&empty[s], 1);  // the consumer warpgroup's arrival
     }
+    mbar_init(res_full, kWarpgroup);  // the producer's residual cp.asyncs
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  const bool has_res = a.res != nullptr;
-  const bool int8_out = a.out_amax != nullptr;
-  const float q_out = int8_out ? requant_scale(a.out_amax) : 0.f;
-  const float res_deq =
-      has_res && a.res_int8 ? dequant_scale(a.res_amax) : 0.f;
+  if (tid >= kConsumers) {
+    // ---- producer: B by TMA, A by cp.async, ``stages`` ahead; then the
+    // residual tile, which the epilogue reads from shared memory ----
+    const int p = tid - kConsumers;
+    const int chunk = p & 7;         // the 16-byte piece of a row it loads
+    constexpr int kRows = kBM / 16;  // rows it loads: p / 8 + 16 i
+    const int pad = (a.ksize - 1) / 2;
+    int row_pix[kRows], row_y[kRows], row_x[kRows];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < kRows; ++i) {
+      const int m = m0 + (p >> 3) + 16 * i;
+      const int mm = m < m_total ? m : m_total - 1;
+      const int b = mm / (a.ho * a.wo);
+      const int r = mm - b * a.ho * a.wo;
+      const int oy = r / a.wo;
+      const int ox = r - oy * a.wo;
+      row_pix[i] = m < m_total ? b * a.h * a.w : -1;  // -1: past M
+      row_y[i] = oy * a.stride - pad;
+      row_x[i] = ox * a.stride - pad;
+    }
+    const int8_t* x = static_cast<const int8_t*>(a.x);
+    const long long last_pix = 1LL * a.batch * a.h * a.w - 1;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int s = kt % stages;
+      mbar_wait(&empty[s], ((kt / stages) & 1) ^ 1);
+      if (p == 0) {
+        mbar_arrive_expect_tx(&full[s], T::kBStage);
+        tma_load_2d(s_b + s * T::kBStage, &wmap, kt * kBK, n0, &full[s]);
+      }
+      const int kb = kt * kBK + chunk * 16;  // byte of K
+      const int ke = kb >> kEs;              // element of K
+      const int tap = ke / a.cin;
+      const int c = ke - tap * a.cin;
+      const int ky = tap / a.ksize;
+      const int kx = tap - ky * a.ksize;
+      const bool k_in = kb < kbytes;
+      unsigned char* stage = s_a + s * T::kAStage;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm + i * 16 + g + half * 8;
-      if (m >= m_total) continue;
-      const size_t row = static_cast<size_t>(m) * a.cout;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = wn + j * 8 + t * 2;
-        const int n = n0 + col;
-        if (n >= a.cout) continue;  // Cout % 8 == 0: n + 1 < Cout too
-        const int v[2] = {acc[i][j][half * 2], acc[i][j][half * 2 + 1]};
-        if constexpr (kMode != Mode::kProduct) {
-          *reinterpret_cast<int2*>(static_cast<int*>(a.out) + row + n) =
-              make_int2(v[0], v[1]);
-          continue;
+      for (int i = 0; i < kRows; ++i) {
+        const int row = (p >> 3) + 16 * i;
+        const int iy = row_y[i] + ky;
+        const int ix = row_x[i] + kx;
+        long long pix;
+        bool in;
+        if constexpr (kMode == Mode::kAccumNoMask) {
+          // no border test: the tap's pixel clamped into the tensor only so
+          // that no read leaves it (a neighbouring pixel stands in for the
+          // zero), as the TPU probe's unmasked build reads its neighbours
+          const long long base = row_pix[i] < 0 ? 0 : row_pix[i];
+          pix = base + 1LL * iy * a.w + ix;
+          pix = pix < 0 ? 0 : (pix > last_pix ? last_pix : pix);
+          in = k_in;
+        } else {
+          in = k_in && row_pix[i] >= 0 && iy >= 0 && iy < a.h && ix >= 0 &&
+               ix < a.w;
+          pix = in ? row_pix[i] + 1LL * iy * a.w + ix : 0;
         }
-        float r[2] = {0.f, 0.f};
-        if (has_res) {
-          if (a.res_int8) {
-            const char2 q = *reinterpret_cast<const char2*>(
-                static_cast<const int8_t*>(a.res) + row + n);
-            r[0] = round_to<__nv_bfloat16>(
-                __fmul_rn(static_cast<float>(q.x), res_deq));
-            r[1] = round_to<__nv_bfloat16>(
-                __fmul_rn(static_cast<float>(q.y), res_deq));
+        const int8_t* src =
+            in ? x + ((static_cast<size_t>(pix) * a.cin + c) << kEs) : x;
+        cp_async16(stage + sw128_offset(row, chunk), src, in ? 16 : 0);
+      }
+      cp_async_arrive(&full[s]);
+      if (has_res && kt == stages - 1) {
+        // the residual tile, behind the ring's first fill: BM rows of BN
+        // values in 16-byte pieces (8-byte ones for an int8 residual whose
+        // rows are not 16-byte aligned)
+        const int row_bytes = kBN * res_elem;
+        const int valid = (a.cout - n0 < kBN ? a.cout - n0 : kBN) * res_elem;
+        const int piece = a.res_int8 && a.cout % 16 ? 8 : 16;
+        const int pieces = row_bytes / piece;
+        const unsigned char* res = static_cast<const unsigned char*>(a.res);
+        for (int idx = p; idx < kBM * pieces; idx += kWarpgroup) {
+          const int r = idx / pieces;
+          const int off = (idx - r * pieces) * piece;
+          if (m0 + r >= m_total || off >= valid) continue;  // never read
+          const unsigned char* src =
+              res + (static_cast<size_t>(m0 + r) * a.cout + n0) * res_elem +
+              off;
+          if (piece == 16) {
+            cp_async16(s_res + r * row_bytes + off, src, 16);
           } else {
-            const float2 f = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(
-                    static_cast<const __nv_bfloat16*>(a.res) + row + n));
-            r[0] = f.x;
-            r[1] = f.y;
+            cp_async8(s_res + r * row_bytes + off, src);
           }
         }
-        float y[2];
+        cp_async_arrive(res_full);
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    // ---- consumers: wgmma on each stage as it lands, then the epilogue
+    if constexpr (kProduct) {
+      const float step = input_step(*a.amax, a.clamp_amax != 0);
+      for (int i = tid; i < kBN; i += kConsumers) {
+        const int n = n0 + i;
+        s_eff[i] = n < a.cout ? folded_scale(a.scale[n], a.wscale[n], step)
+                              : 0.f;
+        s_bias[i] = n < a.cout ? round_to<__nv_bfloat16>(a.bias[n]) : 0.f;
+      }
+    }
+    Acc acc[kBN / 2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          y[e] = finish(affine_bf16(v[e], s_eff[col + e], s_bias[col + e]),
-                        r[e], has_res, a.relu != 0);
+    for (int i = 0; i < kBN / 2; ++i) acc[i] = 0;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int s = kt % stages;
+      mbar_wait(&full[s], (kt / stages) & 1);
+      // the cp.async bytes were written through the generic proxy; wgmma
+      // reads through the async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      const unsigned char* sa = s_a + s * T::kAStage;
+      const unsigned char* sb = s_b + s * T::kBStage;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kBK; k += 32) {
+        wgmma_tile<kBN>(acc, sw128_desc(sa + k), sw128_desc(sb + k));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done with it
+      fence_regs(acc);
+      if (kt > 0 && tid == 0) mbar_arrive(&empty[(kt - 1) % stages]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // stage the tile through the ring, which no one reads any more: the
+    // affine's bf16 output (the product), the 32-bit sums (the probes)
+    named_sync(1, kConsumers);
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int row = warp * 16 + lane / 4;
+    const int col0 = 2 * (lane % 4);
+    if constexpr (kProduct) {
+      __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(ring);
+#pragma unroll
+      for (int q = 0; q < kBN / 8; ++q) {
+        const int col = 8 * q + col0;
+        const float e0 = s_eff[col], e1 = s_eff[col + 1];
+        const float b0 = s_bias[col], b1 = s_bias[col + 1];
+        *reinterpret_cast<__nv_bfloat162*>(tile + row * T::kPitch + col) =
+            __floats2bfloat162_rn(affine_bf16(acc[4 * q], e0, b0),
+                                  affine_bf16(acc[4 * q + 1], e1, b1));
+        *reinterpret_cast<__nv_bfloat162*>(tile + (row + 8) * T::kPitch +
+                                           col) =
+            __floats2bfloat162_rn(affine_bf16(acc[4 * q + 2], e0, b0),
+                                  affine_bf16(acc[4 * q + 3], e1, b1));
+      }
+    } else {
+      int* tile = reinterpret_cast<int*>(ring);
+#pragma unroll
+      for (int q = 0; q < kBN / 8; ++q) {
+        int v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (kBf16) {
+            v[e] = __float_as_int(acc[4 * q + e]);
+          } else {
+            v[e] = acc[4 * q + e];
+          }
         }
-        if (int8_out) {
-          char2 q;
-          q.x = to_int8_rne(__fmul_rn(y[0], q_out));
-          q.y = to_int8_rne(__fmul_rn(y[1], q_out));
-          *reinterpret_cast<char2*>(static_cast<int8_t*>(a.out) + row + n) =
-              q;
+        const int col = 8 * q + col0;
+        *reinterpret_cast<int2*>(tile + row * T::kPitch + col) =
+            make_int2(v[0], v[1]);
+        *reinterpret_cast<int2*>(tile + (row + 8) * T::kPitch + col) =
+            make_int2(v[2], v[3]);
+      }
+    }
+    named_sync(1, kConsumers);
+
+    if constexpr (!kProduct) {
+      // the probes: the raw 32-bit sums, 4 channels (16 bytes) a store
+      const int* tile = reinterpret_cast<const int*>(ring);
+      constexpr int kChunks = kBN / 4;
+      for (int idx = tid; idx < kBM * kChunks; idx += kConsumers) {
+        const int r = idx / kChunks;
+        const int col = (idx - r * kChunks) * 4;
+        const int m = m0 + r;
+        const int n = n0 + col;
+        if (m >= m_total || n >= a.cout) continue;  // Cout % 8 == 0
+        *reinterpret_cast<int4*>(static_cast<int*>(a.out) +
+                                 static_cast<size_t>(m) * a.cout + n) =
+            *reinterpret_cast<const int4*>(tile + r * T::kPitch + col);
+      }
+    } else {
+      const __nv_bfloat16* tile = reinterpret_cast<const __nv_bfloat16*>(ring);
+      const float res_deq =
+          has_res && a.res_int8 ? dequant_scale(a.res_amax) : 0.f;
+      if (has_res) mbar_wait(res_full, 0);
+      const bool int8_out = a.out_amax != nullptr;
+      const float q_out = int8_out ? requant_scale(a.out_amax) : 0.f;
+      const bool relu = a.relu != 0;
+      // the staged affine output of 8 channels from column c of row r, the
+      // residual added, the ReLU
+      auto finish8 = [&](int r, int c, float* y) {
+        float res[8];
+        load_bf16x8(tile + r * T::kPitch + c, y);
+        if (has_res) {
+          residual8(s_res + (r * kBN + c) * res_elem, a.res_int8 != 0,
+                    res_deq, res);
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          y[e] = finish(y[e], has_res ? res[e] : 0.f, has_res, relu);
+        }
+      };
+      // 8 channels a thread (16 bytes of bf16 out), or 16 for an int8 out
+      // whose Cout is a multiple of 16
+      const int ch = int8_out && a.cout % 16 == 0 ? 16 : 8;
+      const int chunks = kBN / ch;
+      for (int idx = tid; idx < kBM * chunks; idx += kConsumers) {
+        const int r = idx / chunks;
+        const int col = (idx - r * chunks) * ch;
+        const int m = m0 + r;
+        const int n = n0 + col;
+        if (m >= m_total || n >= a.cout) continue;  // n + ch <= Cout then
+        const size_t off = static_cast<size_t>(m) * a.cout + n;
+        if (ch == 16) {
+          float y[16];
+          finish8(r, col, y);
+          finish8(r, col + 8, y + 8);
+          store_int8<16>(static_cast<int8_t*>(a.out) + off, y, q_out);
         } else {
-          *reinterpret_cast<__nv_bfloat162*>(
-              static_cast<__nv_bfloat16*>(a.out) + row + n) =
-              __floats2bfloat162_rn(y[0], y[1]);
+          float y[8];
+          finish8(r, col, y);
+          if (int8_out) {
+            store_int8<8>(static_cast<int8_t*>(a.out) + off, y, q_out);
+          } else {
+            store_bf16x8(static_cast<__nv_bfloat16*>(a.out) + off, y);
+          }
         }
       }
     }
   }
-}
-
-// D += A B on the tensor cores in bf16: A 16x16 (row-major fragment a[4]),
-// B 16x8 (column-major fragment b[2]), D 16x8 fp32, with the same lane
-// layout of D as mma_s8_16x8x32; lane l holds the bf16 pairs at
-// k = 2(l%4) (+8) of its rows of A and its column of B.
-__device__ __forceinline__ void mma_bf16_16x8x16(float (&d)[4],
-                                                 const uint32_t (&a)[4],
-                                                 const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The bf16 probe (experiments/int8_chain_micro.py::bf16_matmul3_kernel):
-// K10's main loop on bf16 operands, kK bytes = 32 channels a step, fp32 out.
-__global__ void __launch_bounds__(kThreads)
-    bf16_conv_kernel(const Int8ConvArgs a) {
-  __shared__ __align__(16) int8_t s_a[kTile * kRow];
-  __shared__ __align__(16) int8_t s_b[kTile * kRow];
-  constexpr int kC = kK / 2;  // bf16 channels a staged row holds
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = blockIdx.x * kTile;
-  const int n0 = blockIdx.y * kTile;
-  const int m_total = a.batch * a.ho * a.wo;
-
-  const int lr = tid >> 1;
-  const int lc = (tid & 1) * (kC / 2);  // 16 channels, 32 bytes
-  const int am = m0 + lr;
-  const bool a_row = am < m_total;
-  int ab = 0, ay = 0, ax = 0;
-  if (a_row) {
-    ab = am / (a.ho * a.wo);
-    const int r = am - ab * a.ho * a.wo;
-    ay = r / a.wo;
-    ax = r - ay * a.wo;
-  }
-  const int bn = n0 + lr;
-  const bool b_row = bn < a.cout;
-  const int taps = a.ksize * a.ksize;
-  const int pad = (a.ksize - 1) / 2;
-  const size_t kdim = static_cast<size_t>(taps) * a.cin;
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
-  const __nv_bfloat16* wk = static_cast<const __nv_bfloat16*>(a.wq);
-
-  float acc[2][4][4] = {};
-  const int wm = (warp >> 1) * 32;
-  const int wn = (warp & 1) * 32;
-
-  for (int tap = 0; tap < taps; ++tap) {
-    size_t pix;
-    const bool in =
-        tap_pixel<Mode::kAccum>(a, a_row, ab, ay, ax, tap, pad, &pix);
-    for (int c0 = 0; c0 < a.cin; c0 += kC) {
-      const int c = c0 + lc;
-      int4 lo = make_int4(0, 0, 0, 0), hi = lo;
-      if (in && c < a.cin) {
-        const int4* src = reinterpret_cast<const int4*>(x + pix + c);
-        lo = src[0];
-        hi = src[1];
-      }
-      int4* da = reinterpret_cast<int4*>(s_a + lr * kRow + lc * 2);
-      da[0] = lo;
-      da[1] = hi;
-      int4 wlo = make_int4(0, 0, 0, 0), whi = wlo;
-      if (b_row && c < a.cin) {
-        const int4* src = reinterpret_cast<const int4*>(
-            wk + bn * kdim + static_cast<size_t>(tap) * a.cin + c);
-        wlo = src[0];
-        whi = src[1];
-      }
-      int4* db = reinterpret_cast<int4*>(s_b + lr * kRow + lc * 2);
-      db[0] = wlo;
-      db[1] = whi;
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kK; kk += 32) {  // 16 bf16 = 32 bytes a step
-        uint32_t af[2][4], bf[4][2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int8_t* r0 = s_a + (wm + i * 16 + g) * kRow + kk + t * 4;
-          const int8_t* r8 = r0 + 8 * kRow;
-          af[i][0] = lds32(r0);
-          af[i][1] = lds32(r8);
-          af[i][2] = lds32(r0 + 16);
-          af[i][3] = lds32(r8 + 16);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int8_t* col = s_b + (wn + j * 8 + g) * kRow + kk + t * 4;
-          bf[j][0] = lds32(col);
-          bf[j][1] = lds32(col + 16);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16_16x8x16(acc[i][j], af[i], bf[j]);
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm + i * 16 + g + half * 8;
-      if (m >= m_total) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn + j * 8 + t * 2;
-        if (n >= a.cout) continue;
-        *reinterpret_cast<float2*>(static_cast<float*>(a.out) +
-                                   static_cast<size_t>(m) * a.cout + n) =
-            make_float2(acc[i][j][half * 2], acc[i][j][half * 2 + 1]);
-      }
-    }
 }
 
 // The epilogue alone (the requant probe): int32 acc -> the folded bf16
-// affine -> ReLU -> int8 with the output's calibrated amax, a thread per
-// pair of channels.
+// affine -> ReLU -> int8 with the output's calibrated amax; K10's
+// arithmetic and stores, 16 channels a thread, 16-byte loads and stores.
 __global__ void int8_requant_kernel(const Int8RequantArgs a) {
   const size_t i = (static_cast<size_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x) * 2;
+                    threadIdx.x) * 16;
   if (i >= static_cast<size_t>(a.rows) * a.cols) return;
   const int n = static_cast<int>(i % a.cols);
-  const float step =
-      __fmul_rn(fmaxf(*a.amax, 1e-12f), capf::kRecip127);
-  const float q_out = requant_scale(a.out_amax);
-  const int2 v = *reinterpret_cast<const int2*>(a.acc + i);
-  const int vs[2] = {v.x, v.y};
-  char2 q;
-  int8_t* qs = reinterpret_cast<int8_t*>(&q);
+  const float step = input_step(*a.amax, true);
+  float y[16];
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const float y = finish(
-        affine_bf16(vs[e], folded_scale(a.scale[n + e], a.wscale[n + e], step),
-                    round_to<__nv_bfloat16>(a.bias[n + e])),
-        0.f, false, a.relu != 0);
-    qs[e] = to_int8_rne(__fmul_rn(y, q_out));
+  for (int q = 0; q < 4; ++q) {
+    const int4 v = reinterpret_cast<const int4*>(a.acc + i)[q];
+    const int acc[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = n + 4 * q + e;
+      y[4 * q + e] = finish(
+          affine_bf16(acc[e], folded_scale(a.scale[c], a.wscale[c], step),
+                      round_to<__nv_bfloat16>(a.bias[c])),
+          0.f, false, a.relu != 0);
+    }
   }
-  *reinterpret_cast<char2*>(a.out + i) = q;
+  store_int8<16>(a.out + i, y, requant_scale(a.out_amax));
 }
 
-// Quantize-on-load alone: bf16 x -> int8 with K10's quantize16, 16 values a
-// thread; the step that of a calibrated amax, max(amax, 1e-12) / 127.
-__global__ void int8_quantize_kernel(const __nv_bfloat16* x, const float* amax,
+// The quantize pass: bf16 x -> int8, 16 values a thread (two 16-byte loads,
+// one 16-byte store), with the calibrated (``clamp``) or dynamic step.
+__global__ void int8_quantize_kernel(const __nv_bfloat16* x,
+                                     const float* amax, int clamp,
                                      int8_t* out, size_t n) {
   const size_t i = (static_cast<size_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x) * 16;
   if (i >= n) return;
-  const float step = __fmul_rn(fmaxf(*amax, 1e-12f), capf::kRecip127);
+  const float step = input_step(*amax, clamp != 0);
   const int4* src = reinterpret_cast<const int4*>(x + i);
-  *reinterpret_cast<int4*>(out + i) = quantize16(src[0], src[1], step);
+  const int4 lo = src[0], hi = src[1];
+  const __nv_bfloat16* v0 = reinterpret_cast<const __nv_bfloat16*>(&lo);
+  const __nv_bfloat16* v1 = reinterpret_cast<const __nv_bfloat16*>(&hi);
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    w[j] = pack_int8x4(quantize(v0[4 * j], step), quantize(v0[4 * j + 1], step),
+                       quantize(v0[4 * j + 2], step),
+                       quantize(v0[4 * j + 3], step));
+    w[2 + j] = pack_int8x4(
+        quantize(v1[4 * j], step), quantize(v1[4 * j + 1], step),
+        quantize(v1[4 * j + 2], step), quantize(v1[4 * j + 3], step));
+  }
+  *reinterpret_cast<uint4*>(out + i) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// ---- host side -------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function and the library is not
+// linked against libcuda: the runtime hands out the driver's entry point.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  });
+  return fn;
+}
+
+// The weights' TMA map: the (Cout, K) bytes, a box of 128 bytes x BN rows,
+// 128-byte swizzle, zero fill past K and Cout. Encoding takes microseconds
+// on the host, so maps are cached by (pointer, K, Cout, BN): the same key
+// always encodes the same map.
+struct MapEntry {
+  const void* ptr;
+  unsigned long long kbytes, rows;
+  unsigned box_rows;
+  CUtensorMap map;
+};
+constexpr int kMapCache = 256;
+std::mutex map_mutex;
+MapEntry map_cache[kMapCache];
+int map_count = 0, map_next = 0;
+
+cudaError_t weight_map(const void* ptr, unsigned long long kbytes,
+                       unsigned long long rows, unsigned box_rows,
+                       CUtensorMap* out) {
+  std::lock_guard<std::mutex> lock(map_mutex);
+  for (int i = 0; i < map_count; ++i) {
+    const MapEntry& e = map_cache[i];
+    if (e.ptr == ptr && e.kbytes == kbytes && e.rows == rows &&
+        e.box_rows == box_rows) {
+      *out = e.map;
+      return cudaSuccess;
+    }
+  }
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  MapEntry& e = map_cache[map_next];
+  const cuuint64_t dims[2] = {kbytes, rows};
+  const cuuint64_t strides[1] = {kbytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK), box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(
+      &e.map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  e.ptr = ptr;
+  e.kbytes = kbytes;
+  e.rows = rows;
+  e.box_rows = box_rows;
+  *out = e.map;
+  map_next = (map_next + 1) % kMapCache;
+  if (map_count < kMapCache) ++map_count;
+  return cudaSuccess;
+}
+
+template <int kBN, Mode kMode, bool kBf16>
+cudaError_t launch(const Int8ConvArgs& a, cudaStream_t stream) {
+  using T = Tile<kBN>;
+  constexpr bool kProduct = kMode == Mode::kProduct;
+  const int es = kBf16 ? 2 : 1;
+  const long long kbytes = 1LL * a.ksize * a.ksize * a.cin * es;
+  CUtensorMap map;
+  cudaError_t err = weight_map(a.wq, kbytes, a.cout, kBN, &map);
+  if (err != cudaSuccess) return err;
+  auto kernel = conv_kernel<kBN, kMode, kBf16>;
+  static bool opted = false;  // once per instantiation (one device)
+  if (!opted) {
+    err = capf::allow_smem(kernel, T::kSmemMax);
+    if (err != cudaSuccess) return err;
+    opted = true;
+  }
+  const int ktiles = static_cast<int>((kbytes + kBK - 1) / kBK);
+  const int stages = ktiles < kStages ? ktiles : kStages;
+  const int res_bytes = kProduct && a.res != nullptr
+                            ? T::kBM * kBN * (a.res_int8 ? 1 : 2)
+                            : 0;
+  const long long m_total = 1LL * a.batch * a.ho * a.wo;
+  const long long blocks = ((m_total + T::kBM - 1) / T::kBM) *
+                           ((a.cout + kBN - 1) / kBN);
+  kernel<<<static_cast<unsigned>(blocks), T::kThreads,
+           T::smem(stages, kProduct, res_bytes), stream>>>(map, a);
+  return cudaGetLastError();
+}
+
+template <Mode kMode, bool kBf16>
+cudaError_t dispatch(const Int8ConvArgs& a, cudaStream_t stream) {
+  if (a.tile_n == 128) return launch<128, kMode, kBf16>(a, stream);
+  if (a.tile_n == 64) return launch<64, kMode, kBf16>(a, stream);
+  return cudaErrorInvalidValue;
 }
 
 bool valid(const Int8ConvArgs& a, int multiple) {
@@ -501,13 +982,8 @@ bool valid(const Int8ConvArgs& a, int multiple) {
   return a.batch >= 1 && a.cin >= multiple && a.cin % multiple == 0 &&
          a.cout >= 8 && a.cout % 8 == 0 && (a.ksize == 1 || a.ksize == 3) &&
          (a.stride == 1 || a.stride == 2) && m_total >= 1 &&
-         m_total <= (1LL << 30);
-}
-
-dim3 conv_grid(const Int8ConvArgs& a) {
-  const long long m_total = 1LL * a.batch * a.ho * a.wo;
-  return dim3(static_cast<unsigned>((m_total + kTile - 1) / kTile),
-              (a.cout + kTile - 1) / kTile);
+         m_total <= (1LL << 30) && 1LL * a.batch * a.h * a.w <= (1LL << 30) &&
+         1LL * a.ksize * a.ksize * a.cin <= (1 << 20);
 }
 
 }  // namespace
@@ -517,32 +993,31 @@ extern "C" int capf_int8_conv(const Int8ConvArgs* args, int device,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Int8ConvArgs& a = *args;
-  if (!valid(a, 32) || (a.res != nullptr && a.res_int8 && !a.res_amax)) {
+  if (!valid(a, 32) || a.amax == nullptr ||
+      (a.res != nullptr && a.res_int8 && !a.res_amax)) {
     return cudaErrorInvalidValue;
   }
-  int8_conv_kernel<Mode::kProduct><<<conv_grid(a), kThreads, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(dispatch<Mode::kProduct, false>(a, stream));
 }
 
 // The probes' builds of the main loop: mode 1 the int32 accumulation, mode 2
-// the same without border predication, mode 3 the bf16 main loop (fp32 out).
+// the same without the border test, mode 3 the bf16 main loop (fp32 out).
 extern "C" int capf_int8_conv_probe(const Int8ConvArgs* args, int mode,
                                     int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Int8ConvArgs& a = *args;
   if (!valid(a, mode == 3 ? 16 : 32)) return cudaErrorInvalidValue;
-  const dim3 grid = conv_grid(a);
   if (mode == 1) {
-    int8_conv_kernel<Mode::kAccum><<<grid, kThreads, 0, stream>>>(a);
+    err = dispatch<Mode::kAccum, false>(a, stream);
   } else if (mode == 2) {
-    int8_conv_kernel<Mode::kAccumNoMask><<<grid, kThreads, 0, stream>>>(a);
+    err = dispatch<Mode::kAccumNoMask, false>(a, stream);
   } else if (mode == 3) {
-    bf16_conv_kernel<<<grid, kThreads, 0, stream>>>(a);
+    err = dispatch<Mode::kAccum, true>(a, stream);
   } else {
-    return cudaErrorInvalidValue;
+    err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 extern "C" int capf_int8_requant(const Int8RequantArgs* args, int device,
@@ -550,18 +1025,19 @@ extern "C" int capf_int8_requant(const Int8RequantArgs* args, int device,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Int8RequantArgs& a = *args;
-  const long long pairs = 1LL * a.rows * a.cols / 2;
-  if (a.rows < 1 || a.cols < 2 || a.cols % 2 || pairs > (1LL << 34)) {
+  const long long groups = 1LL * a.rows * a.cols / 16;
+  if (a.rows < 1 || a.cols < 16 || a.cols % 16 || groups > (1LL << 34)) {
     return cudaErrorInvalidValue;
   }
   const int threads = 256;
-  int8_requant_kernel<<<static_cast<unsigned>((pairs + threads - 1) / threads),
+  int8_requant_kernel<<<static_cast<unsigned>((groups + threads - 1) /
+                                              threads),
                         threads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int capf_int8_quantize(const void* x, const float* amax, void* out,
-                                  long long n, int device,
+                                  long long n, int clamp, int device,
                                   cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -571,7 +1047,7 @@ extern "C" int capf_int8_quantize(const void* x, const float* amax, void* out,
   int8_quantize_kernel<<<static_cast<unsigned>((groups + threads - 1) /
                                                threads),
                          threads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), amax, static_cast<int8_t*>(out),
-      static_cast<size_t>(n));
+      static_cast<const __nv_bfloat16*>(x), amax, clamp,
+      static_cast<int8_t*>(out), static_cast<size_t>(n));
   return static_cast<int>(cudaGetLastError());
 }

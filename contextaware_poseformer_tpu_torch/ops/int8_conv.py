@@ -26,14 +26,19 @@ requantization and the round-half-even; the affine as a bf16 multiply and a
 bf16 add, two roundings; the residual add in bf16. A residual is the
 downsample conv's output in the conv's dtype, or an int8 skip with its
 calibrated amax, dequantized as ``bf16(xq) * bf16(max(amax, 1e-12) / 127)``
-(``cpn.py:139``). The kernel is ``csrc/int8_conv.cu``; it quantizes a bf16
-input as it loads it, and takes the max|x| reduction from ``torch`` (the
-JAX package computes it outside any kernel as well).
+(``cpn.py:139``). The kernel is ``csrc/int8_conv.cu``. A float input is
+quantized once, as the JAX package does (``backbone_common.py:192-203``), by
+the quantize pass into an int8 scratch tensor (its launches counted in
+``launches_quantize``); the max|x| reduction of the dynamic route comes from
+``torch``, as the JAX package computes it outside any kernel too. The
+convolution then always reads int8: an implicit GEMM on ``wgmma`` whose
+tile ``plan`` picks per shape.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -43,8 +48,14 @@ import torch.nn.functional as F
 from contextaware_poseformer_tpu_torch.ops import _build
 
 launches = 0  # kernel launches made by int8_conv_kernel
+launches_quantize = 0  # quantize-pass launches made by quantize_kernel
 
-_CHUNK = 32  # input channels a thread loads at once
+CIN_MULTIPLE = 32  # input channels: K's 16-byte pieces never straddle taps
+K_TILE = 128  # bytes of K a stage of the kernel's ring holds
+K_PIECE = 16  # bytes of K one load moves: one tap's channels
+STAGES = 4  # the ring's depth (csrc/int8_conv.cu kStages)
+BLOCK_M = 64  # output pixels a block owns: one consumer warpgroup
+TILE_N = (128, 64)  # the output-channel widths of the tiles it builds
 RECIP_127 = float(np.float32(1) / np.float32(127))  # fl32(1 / 127)
 
 
@@ -121,6 +132,46 @@ def accumulate(xq, kernel_q, stride):
     return torch.round(_conv64(xq, kernel_q, stride)).to(torch.int32)
 
 
+def input_step(x, amax):
+    """The quantization step of a K10 input: ``max(amax, 1e-12) / 127`` for
+    a calibrated ``amax``, ``max|x| / 127`` unclamped for ``amax=None``."""
+    return (dequant_step(absmax(x), clamp=False) if amax is None
+            else dequant_step(amax, clamp=True))
+
+
+def quantize_reference(x, amax):
+    """Plain version of the quantize pass: a float ``x`` -> int8
+    ``clip(round(x / step), -127, 127)`` with ``input_step(x, amax)``, an
+    IEEE division and round-half-even, as the JAX package serves it."""
+    step = input_step(x, amax)
+    return torch.clamp(torch.round(x.float() / step), -127,
+                       127).to(torch.int8)
+
+
+def plan_smem(tile_n: int) -> int:
+    """The most shared memory a block of the 64 x ``tile_n`` tile takes
+    (``csrc/int8_conv.cu`` ``Tile::kSmemMax``): the slack that aligns the
+    ring to 1024 bytes, the full ring (which the staged tile reuses), a
+    bf16 residual tile, the barriers and the epilogue's scales."""
+    return (1024 + STAGES * (BLOCK_M + tile_n) * K_TILE
+            + BLOCK_M * tile_n * 2 + (2 * STAGES + 1) * 8 + 2 * tile_n * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m: int, n: int) -> int:
+    """The width (BN) of the kernel's 64-row tile for an (M, N) output,
+    from K10's times on the card at every shape of the CPN and W32 deploy
+    graphs, each width forced in turn (PERF.md, PR 7; 128-row tiles on two
+    consumer warpgroups never won and are not built): 128 channels, unless
+    N fits 64 (less padding), M is past 2**17 (the 64x48 maps at batch 64:
+    bytes decide, and the smaller tile keeps more blocks in flight) or
+    64-wide tiles pad N less. K takes whole 128-byte stages whatever the
+    tile; split-K is not built (the smallest deploy shape, 3,072 x 128,
+    still gives 48 blocks)."""
+    pad = {bn: -(-n // bn) * bn - n for bn in TILE_N}
+    return 64 if n <= 64 or m >= 2 ** 17 or pad[64] < pad[128] else 128
+
+
 def int8_conv_reference(x, kernel_q, wscale, scale, bias, amax, stride,
                         relu, dtype=torch.bfloat16, residual=None,
                         res_amax=None, out_amax=None):
@@ -152,7 +203,7 @@ class _Args(ctypes.Structure):
         "x", "wq", "wscale", "scale", "bias", "amax", "res", "res_amax",
         "out_amax", "out")] + [(n, ctypes.c_int) for n in (
             "batch", "h", "w", "cin", "cout", "ksize", "stride", "ho", "wo",
-            "x_int8", "clamp_amax", "res_int8", "relu")]
+            "clamp_amax", "res_int8", "relu", "tile_n")]
 
 
 def out_size(size: int, ksize: int, stride: int) -> int:
@@ -170,7 +221,8 @@ def conv_args(x, kernel_q, amax, stride, out, **fields) -> _Args:
                  out=out.data_ptr(), batch=b, h=h, w=w, cin=cin,
                  cout=kernel_q.shape[0], ksize=ksize, stride=stride,
                  ho=out.shape[1], wo=out.shape[2],
-                 x_int8=int(x.dtype == torch.int8), **fields)
+                 tile_n=plan(b * out.shape[1] * out.shape[2],
+                             kernel_q.shape[0]), **fields)
 
 
 def _scalar(name, t):
@@ -179,13 +231,37 @@ def _scalar(name, t):
     return t.reshape(()).float().contiguous()
 
 
+def quantize_kernel(x, amax, clamp):
+    """The quantize pass on the card: bf16 ``x`` -> int8 with the step of
+    ``amax`` (fp32, one element: calibrated with ``clamp``, max|x|
+    without), into a fresh tensor; same function as ``quantize_reference``
+    (numel a multiple of 16)."""
+    global launches_quantize
+    name = "int8_quantize"
+    if x.dtype != torch.bfloat16 or x.numel() % 16:
+        raise TypeError(f"{name}: bf16 x with a multiple of 16 elements, "
+                        f"got {x.dtype} {tuple(x.shape)}")
+    _build.require_cuda(name, x, amax)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must start on a 16-byte boundary")
+    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    lib = _build.library()
+    err = lib.capf_int8_quantize(x.data_ptr(), amax.data_ptr(),
+                                 out.data_ptr(), x.numel(), int(clamp),
+                                 *_build.launch_target(x))
+    _build.check(lib, err, name)
+    launches_quantize += 1
+    return out
+
+
 def int8_conv_kernel(x, kernel_q, wscale, scale, bias, amax, stride, relu,
                      dtype=torch.bfloat16, residual=None, res_amax=None,
                      out_amax=None):
     """The CUDA kernel: same contract as ``int8_conv_reference``, for a
     bf16 (or, with ``out_amax``, int8) output; ``x`` int8 or bf16 with Cin
     a multiple of 32, Cout a multiple of 8, fp32 ``wscale``/``scale``/
-    ``bias``, a bf16 or int8 ``residual``."""
+    ``bias``, a bf16 or int8 ``residual``. A bf16 ``x`` goes through the
+    quantize pass first."""
     global launches
     name = "int8_conv"
     if dtype != torch.bfloat16:
@@ -197,9 +273,10 @@ def int8_conv_kernel(x, kernel_q, wscale, scale, bias, amax, stride, relu,
     b, h, w, cin = x.shape
     cout = kernel_q.shape[0]
     ksize = _kernel_size(kernel_q, cin)
-    if cin % _CHUNK or cout % 8 or stride not in (1, 2):
-        raise ValueError(f"{name}: Cin {cin} (multiple of {_CHUNK}), Cout "
-                         f"{cout} (multiple of 8), stride {stride} (1 or 2)")
+    if cin % CIN_MULTIPLE or cout % 8 or stride not in (1, 2):
+        raise ValueError(f"{name}: Cin {cin} (multiple of {CIN_MULTIPLE}), "
+                         f"Cout {cout} (multiple of 8), stride {stride} (1 "
+                         "or 2)")
     if kernel_q.dtype != torch.int8:
         raise TypeError(f"{name}: kernel_q must be int8")
     vecs = (wscale, scale, bias)
@@ -231,9 +308,11 @@ def int8_conv_kernel(x, kernel_q, wscale, scale, bias, amax, stride, relu,
         keep.append(out_amax)
         fields["out_amax"] = out_amax.data_ptr()
     _build.require_cuda(name, *keep)
-    if x.data_ptr() % 16 or kernel_q.data_ptr() % 16:
-        raise ValueError(f"{name}: x and kernel_q must start on a 16-byte "
-                         "boundary (16-byte loads)")
+    if any(t.data_ptr() % 16 for t in (x, kernel_q, *keep[5:])):
+        raise ValueError(f"{name}: x, kernel_q and residual must start on a "
+                         "16-byte boundary (16-byte loads)")
+    if x.dtype == torch.bfloat16:
+        x = quantize_kernel(x, amax, clamp)
     out = torch.empty((b, ho, wo, cout), device=x.device,
                       dtype=torch.bfloat16 if out_amax is None
                       else torch.int8)

@@ -4,11 +4,16 @@ plain version and dispatcher.
 Port of ``contextaware_poseformer_tpu/ops/joint_attention.py:35-119``: qkv
 (B, N, 3D) -> softmax(q k^T / sqrt(hd)) v -> (B, N, D); the qkv and output
 projections stay plain matmuls in the caller. The CUDA kernel
-(``csrc/joint_attention.cu``) runs one block per (image, head) on exactly N
-tokens, so the TPU kernel's padding to 24 tokens and its mask are gone.
+(``csrc/joint_attention.cu``) runs one block per (image, head or group of
+heads), pads the tokens to 32 and, in bf16, runs the scores and AV on the
+tensor cores (``mma.sync``); fp32 stays on exact FMAs. It takes N <= 32
+tokens (the lifter's joint blocks have 17), D a multiple of 8 and an even
+head dim (at most 128 in bf16).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -19,6 +24,21 @@ from contextaware_poseformer_tpu_torch.ops.small_attention import (
 )
 
 launches = 0  # kernel launches made by attention_middle_kernel
+
+MAX_TOKENS = 32  # tokens a block pads to (csrc/joint_attention.cu)
+MAX_HEAD_DIM_BF16 = 128
+
+
+@functools.lru_cache(maxsize=None)
+def heads_per_block(heads: int, hd: int) -> int:
+    """The heads one block of the kernel takes (two warps a head): the
+    fewest whose values of a token fill whole 16-byte pieces, one for head
+    dims 40 and 80, two for 60 (one a block measured 4% faster than two at
+    (64, 17, 640) on the card, PERF.md, PR 7)."""
+    for hb in range(1, heads + 1):
+        if heads % hb == 0 and hb * hd % 8 == 0:
+            return hb
+    raise ValueError(f"attention_middle: {heads} heads of {hd}")
 
 
 def attention_middle_reference(qkv, num_heads):
@@ -47,14 +67,20 @@ def _launch(qkv, num_heads):
                          f"{num_heads} heads")
     b, n, d3 = qkv.shape
     d = d3 // 3
-    if (3 * n * (d // num_heads) + n * n) * 4 > _build.SMEM_LIMIT:
-        raise ValueError(f"{name}: N={n}, D={d} do not fit in shared memory")
+    hd = d // num_heads
+    if n > MAX_TOKENS or d % 8 or hd % 2 or (
+            qkv.dtype == torch.bfloat16 and hd > MAX_HEAD_DIM_BF16):
+        raise ValueError(f"{name}: N={n} (at most {MAX_TOKENS}), D={d} (a "
+                         f"multiple of 8), head dim {hd} (even; at most "
+                         f"{MAX_HEAD_DIM_BF16} in bf16)")
     _build.require_cuda(name, qkv)
+    if qkv.data_ptr() % 16:
+        raise ValueError(f"{name}: qkv must start on a 16-byte boundary")
     out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
     lib = _build.library()
     err = lib.capf_attention_middle(
         code, qkv.data_ptr(), out.data_ptr(), b, n, d, num_heads,
-        *_build.launch_target(qkv),
+        heads_per_block(num_heads, hd), *_build.launch_target(qkv),
     )
     _build.check(lib, err, name)
     launches += 1

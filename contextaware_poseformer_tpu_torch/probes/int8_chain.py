@@ -11,16 +11,17 @@ pre-windowed input; ``requant``: the epilogue back to int8;
 (``ops/int8_conv.py``), each conv reading the previous one's int8 tensor,
 and the pieces are builds of K10's code in ``csrc/int8_conv.cu``:
 
-- ``accum``: the main loop alone with an int32 output (``matmul3``; over a
-  (B, 64, 12, 576) pre-windowed input with a 1x1 kernel it is the
-  ``matmul1`` GEMM), and with ``mask=False`` the same with the border
-  predication compiled out (``matmul3_nomask``: wrong at the edges on
-  purpose, timing only);
-- ``bf16_conv``: the main loop on bf16 operands, fp32 out
-  (``bf16_matmul3``);
+- ``accum``: the main loop alone (the ``wgmma`` ring) with an int32 output
+  (``matmul3``; over a (B, 64, 12, 576) pre-windowed input with a 1x1
+  kernel it is the ``matmul1`` GEMM), and with ``mask=False`` the same
+  with the border test compiled out (``matmul3_nomask``: wrong at the
+  edges on purpose, timing only);
+- ``bf16_conv``: the same ring on bf16 operands (``wgmma`` m64nNk16), fp32
+  out (``bf16_matmul3``);
 - ``requant``: the epilogue alone, int32 -> folded bf16 affine -> ReLU ->
-  int8;
-- ``quantize``: quantize-on-load alone, bf16 -> int8.
+  int8, K10's per-chunk code;
+- ``quantize``: the quantize pass alone, bf16 -> int8 (K10's own, on the
+  path since the quantize-once design).
 
 Each has a plain version here; every wrapper launches only on CUDA tensors
 and counts its launches in ``launches``.
@@ -102,7 +103,7 @@ def bf16_conv_reference(x, weight):
 
 
 def bf16_conv(x, weight):
-    """K10's main loop on bf16 operands (mma m16n8k16): ``x`` bf16 (B, H,
+    """K10's main loop on bf16 operands (wgmma m64nNk16): ``x`` bf16 (B, H,
     W, Cin), ``weight`` bf16 (Cout, 9 * Cin) ordered as ``kernel_q``;
     fp32 (B, H, W, Cout)."""
     if x.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
@@ -128,7 +129,8 @@ class _RequantArgs(ctypes.Structure):
 
 
 def requant(acc, wscale, scale, bias, amax, out_amax, relu=True):
-    """The epilogue alone: int32 ``acc`` (..., N), N even -> int8."""
+    """The epilogue alone: int32 ``acc`` (..., N), N a multiple of 16 ->
+    int8."""
     name = "requant"
     if acc.dtype != torch.int32:
         raise TypeError(f"{name}: int32 acc")
@@ -150,24 +152,12 @@ def requant(acc, wscale, scale, bias, amax, out_amax, relu=True):
 def quantize_reference(x, amax):
     """Plain version of ``quantize``: clip(round(x / step)) with the
     calibrated step max(amax, 1e-12) / 127."""
-    step = int8_conv.dequant_step(amax, clamp=True)
-    return torch.clamp(torch.round(x.float() / step), -127,
-                       127).to(torch.int8)
+    return int8_conv.quantize_reference(x, amax)
 
 
 def quantize(x, amax):
-    """K10's quantize-on-load alone: bf16 ``x`` -> int8 (numel a multiple
-    of 16), the calibrated route's step."""
-    name = "quantize"
-    if x.dtype != torch.bfloat16 or x.numel() % 16:
-        raise TypeError(f"{name}: bf16 x with a multiple of 16 elements")
-    amax = amax.float()
-    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    _build.require_cuda(name, x, amax, out)
-    lib = _build.library()
-    err = lib.capf_int8_quantize(x.data_ptr(), amax.data_ptr(),
-                                 out.data_ptr(), x.numel(),
-                                 *_build.launch_target(x))
-    _build.check(lib, err, name)
-    launches[name] += 1
+    """K10's quantize pass alone: bf16 ``x`` -> int8 (numel a multiple of
+    16), the calibrated route's step."""
+    out = int8_conv.quantize_kernel(x, amax.float().reshape(()), True)
+    launches["quantize"] += 1
     return out

@@ -674,7 +674,7 @@ def test_cpn_deploy_request_launch_counts(cuda_device, monkeypatch):
 def test_probe_counterparts_match_plain_versions(cuda_device):
     """The TPU probes' counterparts at a small batch: K10's int8 chain, its
     int32 main loop (and the build without border predication, which
-    differs only at the edges), the epilogue alone, the quantize-on-load
+    differs only at the edges), the epilogue alone, the quantize pass
     alone and the bf16 main loop; K9 on one block against K10's chain of
     it, K9's floor build; the window shift both ways."""
     from contextaware_poseformer_tpu_torch.probes import int8_chain, window
@@ -727,3 +727,128 @@ def test_probe_counterparts_match_plain_versions(cuda_device):
         want = window.window_matmul_reference(xf, wv, a4)
         for words in (False, True):
             assert torch.equal(window.window_matmul(xf, wv, a4, words), want)
+
+
+# K10 at ragged shapes: (name, batch, H, W, Cin, Cout, k, stride); batch 1,
+# a stride-2 8x6 -> 4x3 map, Cout 8, 24 and 72, Cin 32, 64 and 576
+K10_RAGGED = [
+    ("batch 1, 16x12 64->64 k3", 1, 16, 12, 64, 64, 3, 1),
+    ("8x6 s2 -> 4x3, 32->24 k3", 2, 8, 6, 32, 24, 3, 2),
+    ("Cout 8, 16x12 32->8 k1", 2, 16, 12, 32, 8, 1, 1),
+    ("Cout 72, 8x6 64->72 k3", 3, 8, 6, 64, 72, 3, 1),
+    ("Cin 576, 8x6 576->128 k1", 2, 8, 6, 576, 128, 1, 1),
+    ("Cin 576, 8x6 s2 576->72 k3", 1, 8, 6, 576, 72, 3, 2),
+]
+
+
+def _k10_variants():
+    """Every variant: (input, residual, relu, int8 out)."""
+    return [(kind, res, relu, out8)
+            for kind in ("int8", "dynamic", "static")
+            for res in (None, "bf16", "int8")
+            for relu in (False, True)
+            for out8 in (False, True)]
+
+
+def _k10_variant_args(g, dev, b, h, w, cin, cout, k, stride, kind, res,
+                      out8):
+    x, kq, vecs, amax = _int8_conv_case(g, dev, b, h, w, cin, cout, k,
+                                        kind == "int8")
+    if kind == "static":
+        amax = torch.tensor(4.5, device=dev)  # some values clip
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    kw = {"out_amax": torch.tensor(20.0, device=dev) if out8 else None}
+    if res == "bf16":
+        kw["residual"] = (torch.randn(b, ho, wo, cout, generator=g) * 3).to(
+            dev, torch.bfloat16)
+    elif res == "int8":
+        kw["residual"] = torch.randint(-127, 128, (b, ho, wo, cout),
+                                       generator=g, dtype=torch.int8).to(dev)
+        kw["res_amax"] = torch.tensor(11.0, device=dev)
+    return (x, kq, *vecs, amax, stride), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K10_RAGGED, ids=lambda c: c[0])
+def test_k10_ragged_shapes_every_variant(cuda_device, case):
+    """K10 at ragged M and N tiles, in every variant (int8, dynamic or
+    calibrated bf16 input; no, bf16 or int8 residual; ReLU or not; bf16 or
+    requantized int8 output): equal to the plain version, one K10 launch
+    and one quantize launch for a bf16 input."""
+    _, b, h, w, cin, cout, k, stride = case
+    g = torch.Generator().manual_seed(b + cin + cout + k + stride)
+    for kind, res, relu, out8 in _k10_variants():
+        args, kw = _k10_variant_args(g, cuda_device, b, h, w, cin, cout, k,
+                                     stride, kind, res, out8)
+        before = (int8_conv.launches, int8_conv.launches_quantize)
+        with torch.inference_mode():
+            out = int8_conv.int8_conv(*args, relu, **kw)
+            ref = int8_conv.int8_conv_reference(*args, relu, **kw)
+        assert (int8_conv.launches, int8_conv.launches_quantize) == (
+            before[0] + 1, before[1] + int(kind != "int8"))
+        assert out.dtype == ref.dtype and out.shape == ref.shape
+        assert torch.equal(out, ref), (kind, res, relu, out8, (
+            out.float() - ref.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", int8_conv.TILE_N)
+def test_k10_every_tile_matches_plain_version(cuda_device, monkeypatch,
+                                              tile):
+    """Each tile width the kernel builds, forced on one shape with ragged
+    M and N (3x8x6 pixels, Cout 200) and a K of 4.5 stages: equal to the
+    plain version, bf16 and int8 outputs, with a residual."""
+    monkeypatch.setattr(int8_conv, "plan", lambda m, n: tile)
+    g = torch.Generator().manual_seed(tile)
+    for kind, res, out8 in (("dynamic", "bf16", False),
+                            ("int8", "int8", True)):
+        args, kw = _k10_variant_args(g, cuda_device, 3, 8, 6, 64, 200, 3, 1,
+                                     kind, res, out8)
+        with torch.inference_mode():
+            out = int8_conv.int8_conv(*args, True, **kw)
+            ref = int8_conv.int8_conv_reference(*args, True, **kw)
+        assert torch.equal(out, ref), (tile, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("calibrated", [False, True])
+def test_quantize_pass_matches_plain_version(cuda_device, calibrated):
+    """The quantize pass on the card equals its plain version bit for bit,
+    zeros, exact halves of the step and +-amax included (amax 127/16: the
+    step is 1/16 exactly, so (k + 0.5) / 16 lies halfway)."""
+    g = torch.Generator().manual_seed(11)
+    amax = torch.tensor(127 / 16)
+    x = (torch.randn(4, 8, 6, 64, generator=g) * 3).clamp(-amax, amax).to(
+        torch.bfloat16)
+    flat = x.view(-1)
+    flat[:8] = 0
+    flat[8:16] = (torch.arange(8) - 3.5) / 16
+    flat[16], flat[17] = amax, -amax
+    x = x.to(cuda_device)
+    a = amax.to(cuda_device)
+    before = int8_conv.launches_quantize
+    got = int8_conv.quantize_kernel(x, a, calibrated)
+    assert int8_conv.launches_quantize == before + 1
+    want = int8_conv.quantize_reference(x, a if calibrated else None)
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [40, 60, 80])
+@pytest.mark.parametrize("n", [1, 17, 24, 32])
+def test_k4_token_and_head_counts(cuda_device, n, hd, dtype):
+    """K4 at N = 1, 17, 24 and 32 tokens and head dims 40, 60 and 80 (8
+    heads), against its plain version: 1e-4 of max|plain| in fp32 (TF32
+    off), 2e-2 in bf16."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(n + hd)
+    qkv = torch.randn(5, n, 3 * 8 * hd, generator=g).to(cuda_device, dtype)
+    before = joint_attention.launches
+    with torch.inference_mode():
+        out = joint_attention.attention_middle_kernel(qkv, 8)
+        ref = joint_attention.attention_middle_reference(qkv, 8)
+    assert joint_attention.launches == before + 1
+    assert out.shape == ref.shape == (5, n, 8 * hd) and out.dtype == dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item()

@@ -1,0 +1,201 @@
+"""K10's quantize-once design and its tile planner, on the CPU.
+
+The CUDA kernel (``ops/csrc/int8_conv.cu``) quantizes a float input once and
+then convolves the int8 tensor, as the JAX package does
+(``models/backbone_common.py:192-204``). These tests hold the pieces that
+design rests on, without a GPU:
+
+- the quantize pass's plain version against the JAX package's
+  ``clip(round(x / step))`` served under ``jit``, bit for bit;
+- ``int8_conv_reference`` on a float input against the int8-input route on
+  the quantized tensor (the identity the kernel relies on);
+- the tile planner over every K10 call of the five deploy graphs at batch
+  64, enumerated from their configurations on the meta device.
+"""
+
+from dataclasses import replace
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from contextaware_poseformer_tpu_torch import config, serve
+from contextaware_poseformer_tpu_torch.models.cpn import CPN
+from contextaware_poseformer_tpu_torch.models.hrnet import HRNet
+from contextaware_poseformer_tpu_torch.ops import int8_conv, layer1_chain
+
+BATCH = 64
+STEP_AMAX = 127 / 16  # its step, amax * fl32(1/127), is 1/16 exactly
+
+
+@jax.jit
+def _jax_quantize_dynamic(x):
+    # backbone_common.py:197-200, the dynamic route
+    amax = jnp.max(jnp.abs(x)).astype(jnp.float32) / 127.0
+    return jnp.clip(jnp.round(x.astype(jnp.float32) / amax), -127,
+                    127).astype(jnp.int8)
+
+
+@jax.jit
+def _jax_quantize_static(x, amax_v):
+    # backbone_common.py:195-196 and 198-200, serve_static_amax
+    amax = jnp.maximum(amax_v, 1e-12) / 127.0
+    return jnp.clip(jnp.round(x.astype(jnp.float32) / amax), -127,
+                    127).astype(jnp.int8)
+
+
+def _bf16_input(seed, amax):
+    """bf16 NHWC values within +-amax with zeros, exact halves of the step
+    1/16 (ties that round half to even) and +-amax; as a float32 array of
+    bf16 numbers."""
+    rng = np.random.RandomState(seed)
+    x = np.clip(rng.randn(2, 6, 5, 64) * amax / 2.5, -amax, amax)
+    flat = x.reshape(-1)
+    flat[:16] = 0.0
+    flat[16:32] = (np.arange(16) - 7.5) / 16
+    flat[32], flat[33] = amax, -amax
+    return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("route", ["dynamic", "static", "static clipped"])
+def test_quantize_pass_matches_jax_under_jit(route, seed):
+    """The quantize pass's plain version equals the JAX package's served
+    quantization bit for bit: the dynamic step max|x| / 127 unclamped, the
+    static one max(amax, 1e-12) / 127; an IEEE division, round half to
+    even, a clip at +-127 (the clipped case calibrates a smaller amax)."""
+    x = _bf16_input(seed, STEP_AMAX)
+    xj = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    if route == "dynamic":
+        ours = int8_conv.quantize_reference(x, None)
+        theirs = _jax_quantize_dynamic(xj)
+    else:
+        amax = np.float32(STEP_AMAX if route == "static" else 2.5)
+        ours = int8_conv.quantize_reference(x, torch.tensor(amax))
+        theirs = _jax_quantize_static(xj, jnp.float32(amax))
+    assert ours.dtype == torch.int8
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(theirs))
+    if route != "static clipped":  # the ties went to even
+        halves = ours.reshape(-1)[16:32].tolist()
+        assert halves == [-8, -6, -6, -4, -4, -2, -2, 0, 0, 2, 2, 4, 4, 6,
+                          6, 8]
+
+
+@pytest.mark.parametrize("variant", [
+    ("dynamic", None, False, 1, 3),
+    ("dynamic", "bf16", True, 2, 3),
+    ("static", None, True, 1, 1),
+    ("static", "int8", False, 1, 3),
+    ("static", "bf16", False, 2, 1),
+], ids=lambda v: "-".join(map(str, v)))
+def test_float_input_equals_int8_route_on_the_quantized_tensor(variant):
+    """``int8_conv_reference`` on a bf16 input equals the int8-input route
+    on the quantize pass's output with the same step: the identity that
+    lets the kernel quantize once and then read only int8."""
+    kind, res, out8, stride, k = variant
+    rng = np.random.RandomState(7)
+    x = torch.relu(torch.from_numpy(rng.randn(2, 7, 6, 32) * 2)).to(
+        torch.bfloat16)
+    cout = 24
+    kq = torch.from_numpy(rng.randint(-127, 128, (cout, k * k * 32))).to(
+        torch.int8)
+    vecs = [torch.from_numpy(v.astype(np.float32)) for v in (
+        rng.rand(cout) * 0.01 + 1e-3, rng.rand(cout) + 0.5,
+        rng.randn(cout) * 0.1)]
+    amax = None if kind == "dynamic" else torch.tensor(3.0)
+    ho = int8_conv.out_size(7, k, stride)
+    wo = int8_conv.out_size(6, k, stride)
+    kw = {"out_amax": torch.tensor(20.0) if out8 else None}
+    if res == "bf16":
+        kw["residual"] = torch.from_numpy(
+            rng.randn(2, ho, wo, cout).astype(np.float32) * 3).to(
+                torch.bfloat16)
+    elif res == "int8":
+        kw["residual"] = torch.from_numpy(
+            rng.randint(-127, 128, (2, ho, wo, cout))).to(torch.int8)
+        kw["res_amax"] = torch.tensor(11.0)
+    float_route = int8_conv.int8_conv_reference(x, kq, *vecs, amax, stride,
+                                                True, **kw)
+    xq = int8_conv.quantize_reference(x, amax)
+    # the int8 route clamps its amax at 1e-12; max|x| is far above it
+    step_amax = int8_conv.absmax(x) if amax is None else amax
+    int8_route = int8_conv.int8_conv_reference(xq, kq, *vecs, step_amax,
+                                               stride, True, **kw)
+    assert float_route.dtype == int8_route.dtype
+    assert torch.equal(float_route, int8_route)
+
+
+def _deploy_k10_calls(name, monkeypatch):
+    """Every K10 call of ``deploy_config(name)``'s backbone at batch 64 on
+    its frames: [(M, N, Cin, k, stride, input dtype)], from a forward on
+    the meta device (shapes only; K9 and K10 stubbed)."""
+    calls = []
+
+    def k10(x, kq, ws, sc, bi, amax, stride, relu, dtype=torch.bfloat16,
+            impl="auto", residual=None, res_amax=None, out_amax=None):
+        k = int8_conv._kernel_size(kq, x.shape[-1])
+        ho = int8_conv.out_size(x.shape[1], k, stride)
+        wo = int8_conv.out_size(x.shape[2], k, stride)
+        calls.append((x.shape[0] * ho * wo, kq.shape[0], x.shape[-1], k,
+                      stride, x.dtype))
+        return torch.empty((x.shape[0], ho, wo, kq.shape[0]),
+                           dtype=torch.bfloat16 if out_amax is None
+                           else torch.int8, device=x.device)
+
+    def k9(x, in_amax, blocks, impl="auto"):
+        return torch.empty((*x.shape[:3], 256), dtype=torch.int8,
+                           device=x.device)
+
+    monkeypatch.setattr(int8_conv, "int8_conv", k10)
+    monkeypatch.setattr(layer1_chain, "layer1_chain", k9)
+    cfg = serve.deploy_config(name).model
+    kind = {"cpn": CPN, "hrnet": HRNet}[cfg.backbone.kind]
+    backbone = kind(cfg.backbone, dtype=torch.bfloat16, device="meta")
+    images = torch.empty(BATCH, *cfg.image_shape, 3, dtype=torch.bfloat16,
+                         device="meta")
+    with torch.inference_mode():
+        backbone(images)
+    return calls
+
+
+# the five deploy graphs' K10 calls a request (tests/test_torch_cuda.py,
+# chip_smoke.py): CPN 83, HRNet 87
+K10_CALLS = {"h36m_cpn": 83, "h36m_hrnet_32": 87, "h36m_hrnet_48": 87,
+             "mpi_3dhp_hrnet_32": 87, "mpi_3dhp_hrnet_48": 87}
+
+
+@pytest.mark.parametrize("name", sorted(config.PRESETS))
+def test_plan_covers_every_deploy_k10_shape(name, monkeypatch):
+    """The tile planner at every K10 call of each deploy graph (batch 64):
+    a tile width the kernel builds, whose shared memory fits 227 KB, whose
+    blocks cover M x N, and whose K stages hold whole 16-byte pieces of one
+    tap (Cin a multiple of 32 divides into them) and cover K."""
+    calls = _deploy_k10_calls(name, monkeypatch)
+    assert len(calls) == K10_CALLS[name]
+    for m, n, cin, k, stride, dtype in set(calls):
+        bm, bn = int8_conv.BLOCK_M, int8_conv.plan(m, n)
+        assert bn in int8_conv.TILE_N
+        assert int8_conv.plan_smem(bn) <= 227 * 1024
+        assert -(-m // bm) * bm >= m and -(-n // bn) * bn >= n
+        assert cin % int8_conv.CIN_MULTIPLE == 0
+        assert cin % int8_conv.K_PIECE == 0  # a piece stays in one tap
+        assert int8_conv.K_TILE % int8_conv.K_PIECE == 0
+        stages = -(-k * k * cin // int8_conv.K_TILE)
+        assert stages * int8_conv.K_TILE >= k * k * cin
+        assert n % 8 == 0 and stride in (1, 2) and k in (1, 3)
+        assert dtype in (torch.int8, torch.bfloat16)
+
+
+def test_plan_fills_the_card_at_the_w32_shapes():
+    """Two W32 shapes the planner exists for: 8x6x256 (M 3,072, N 256)
+    would give 48 blocks of 128x128 and 16x12x128 (M 12,288, N 128) 96 for
+    132 SMs; the planner's 64-row tiles give twice as many, and the 64x48
+    maps of the CPN stream (M 196,608) take 64x64 tiles."""
+    for (m, n), least in (((3072, 256), 96), ((12288, 128), 192)):
+        bm, bn = int8_conv.BLOCK_M, int8_conv.plan(m, n)
+        assert -(-m // bm) * -(-n // bn) >= least
+    assert int8_conv.plan(64 * 64 * 48, 256) == 64
+    assert int8_conv.plan(3072, 192) == 64  # pads N less

@@ -115,7 +115,7 @@ def test_micro_pieces_plain_versions():
     """The pieces' plain versions are K10's arithmetic cut apart: the
     accumulation is the probe's banded ``matmul3`` and, over a
     pre-windowed 576-lane input, its ``matmul1``; the epilogue and the
-    quantize-on-load compose to K10's plain version; the bf16 main loop
+    quantize pass compose to K10's plain version; the bf16 main loop
     sums exact bf16 products."""
     rng = np.random.RandomState(1)
     img = rng.randint(-127, 128, (1, H, W, C)).astype(np.int8)
@@ -147,7 +147,7 @@ def test_micro_pieces_plain_versions():
         int8_conv.int8_conv_reference(torch.from_numpy(img), kq, ws, sc, bi,
                                       a_in, 1, True,
                                       out_amax=a_out).numpy())
-    # quantize-on-load, then the accumulation, is the calibrated route's
+    # the quantize pass, then the accumulation, is the calibrated route's
     xb = torch.from_numpy(rng.randn(1, H, W, C).astype(np.float32) * 3).to(
         torch.bfloat16)
     xq = int8_chain.quantize_reference(xb, torch.tensor(5.0))
