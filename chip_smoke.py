@@ -8,13 +8,20 @@ Phases, one line of output each (failures raise and exit non-zero):
    and power limit as ``nvidia-smi --query-gpu=name,power.limit
    --format=csv,noheader`` gives them;
 2. build: compiles the hand-written kernels (ops/csrc/*.cu) from the
-   checkout into build/kernels/ and prints the build seconds;
+   checkout into build/kernels/ and prints the build seconds, each
+   kernel's registers, spills and shared memory (``-Xptxas -v``), and, by
+   ``cuobjdump -sass``, the tensor-core and asynchronous-copy instructions
+   of K1's and K2's kernels: K2's bf16 kernels must hold HGMMA (``wgmma``)
+   and K1's bf16/int8 sampler HMMA, each with LDGSTS (``cp.async``) or
+   UTMALDG (TMA);
 3. kernels: each of K1-K4 against its plain PyTorch version on the card, at
    the H36M serving path's shapes with batch 64 (K2-K4 also at the 3DHP
-   lifters' widths: K2 at D=64/96/320/480, K3 at 64/96, K4 at head dims
-   40/60), and K5 (the sampler at the HRNet-W32 and W48 pyramids: the
-   zeros 17-point call and the border 272-point call with the lifter's
-   mixed in-kernel projection), in bf16 and fp32 (TF32 off): max abs
+   lifters' widths: K2 at D=64/96/320/480, each with the route
+   ``fused_mlp.plan`` picks, K3 at 64/96, K4 at head dims 40/60), and K5
+   (the sampler at the HRNet-W32 and W48 pyramids: the zeros 17-point call
+   and the border 272-point call with the lifter's mixed in-kernel
+   projection; K1 and K5 also that border call without the projection, the
+   gather alone), in bf16 and fp32 (TF32 off): max abs
    error, error relative to max|plain|, median kernel and plain device
    times over 20 CUDA-event-timed runs, and the time of the PyTorch call
    that computes the same function where there is one (information only;
@@ -27,7 +34,8 @@ Phases, one line of output each (failures raise and exit non-zero):
    agree to a relative RMS of 2e-2. Information only: host ms a request and
    frames/s over 20 requests, stage times by CUDA events, and under
    torch.profiler the device busy ms a request, its idle share of the
-   unprofiled host time and the top kernels;
+   unprofiled host time, K1's and K2's device ms and share of it, and the
+   top kernels;
 5. hrnet: the same for the full-width h36m_hrnet_32 slice (bf16 HRNet-W32,
    3 requests), then one request each of h36m_hrnet_48, mpi_3dhp_hrnet_32
    and mpi_3dhp_hrnet_48;
@@ -61,7 +69,10 @@ Phases, one line of output each (failures raise and exit non-zero):
    versions of every kernel to 2e-2 relative RMS and, for information, the
    float slice's output, host ms, device busy and idle and the top
    kernels; then K1 projecting the int8 pyramid (the lifter's border
-   call, weights carrying the dequant scale) against its plain version;
+   call, weights carrying the dequant scale) against its plain version,
+   its bound with the blend at the fp32 rate and the projection at the
+   bf16 rate beside the count of both at the fp32 rate (the yardstick of
+   a projection on CUDA cores), and the same call's gather alone;
 8. probes: the TPU probes' counterparts (``probes/``, K9's one-block and
    floor builds), their main path run once with every launch count set to
    0 before it and read after it, then each against its plain version
@@ -126,7 +137,9 @@ Phases, one line of output each (failures raise and exit non-zero):
    ``bound_ms`` is the larger of the bytes the calls must move over
    3.35 TB/s and their operations over 989 TFLOP/s (bf16), 67 TFLOP/s
    (fp32) or 1979 TOP/s (int8), the H100 SXM peaks (K7's and the int8
-   samplers' arithmetic, which runs in fp32, at the fp32 rate); a sampler
+   samplers' arithmetic, which runs in fp32, at the fp32 rate; the bf16
+   and int8 samplers' projection, on the tensor cores, at the bf16 rate and
+   their blend at the fp32 rate, the larger of the two); a sampler
    must read only the distinct map rows its points' taps touch, counted
    from this run's points. K7's operations are the least its function
    needs: it may pool each head's ns samples before one projection a row.
@@ -232,6 +245,29 @@ K8_CASES = (
 )
 AGGREGATE_PRESETS = ("h36m_cpn", "h36m_hrnet_32")  # K7 on their blocks
 SLEEP_CYCLES = 4_000_000  # ~2 ms of device clock ahead of a timed window
+# kernels whose share of a served request's device time is printed, by the
+# names of their CUDA kernels (K1 and K2 redesigned for Hopper in the port)
+SHARE_KERNELS = {"K1": ("sample_levels_kernel",),
+                 "K2": ("ln_mlp_resident_kernel", "ln_fc1_kernel",
+                        "fc2_residual_kernel", "ln_mlp_fp32_kernel")}
+# SASS instructions that show a build runs on Hopper's machinery: the
+# tensor cores (HGMMA: wgmma, HMMA: mma.sync) and the asynchronous copies
+# (LDGSTS: cp.async, UTMALDG: TMA); per kernel: (function name parts, the
+# instructions it must hold, one of which suffices for each tuple)
+SASS_OPS = ("HGMMA", "HMMA", "IGMMA", "LDGSTS", "UTMALDG")
+_WGMMA_ASYNC = (("HGMMA",), ("LDGSTS", "UTMALDG"))
+_MMA_ASYNC = (("HMMA", "HGMMA"), ("LDGSTS", "UTMALDG"))
+SASS_REQUIRED = (
+    ("K2", ("fused_mlp", "resident_kernel"), _WGMMA_ASYNC),
+    ("K2", ("fused_mlp", "ln_fc1_kernel"), _WGMMA_ASYNC),
+    ("K2", ("fused_mlp", "fc2_residual_kernel"), _WGMMA_ASYNC),
+    # the sampler's builds with the tensor-core projected body (kTc = true;
+    # the gather-only builds hold none by design)
+    ("K1", ("sampler_cu", "sample_levels_kernelI13__nv_bfloat16S1_Lb1"),
+     _MMA_ASYNC),
+    ("K1", ("sampler_cu", "sample_levels_kernelIa13__nv_bfloat16Lb1"),
+     _MMA_ASYNC),
+)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,  # dense FLOP/s
             torch.int8: 1979e12}  # dense int8 TOP/s
@@ -289,8 +325,14 @@ def _fmt_rels(rels):
 
 
 def _bound(nbytes, ops, dtype):
-    """(bound ms, what bounds it) for work of ``nbytes`` and ``ops``."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS[dtype]
+    """(bound ms, what bounds it) for work of ``nbytes`` and ``ops``, all of
+    type ``dtype``, or ``ops`` {type: operations} of several types, each at
+    its own rate (the tensor cores and the fp32 units run side by side)."""
+    t_bytes = nbytes / PEAK_BYTES
+    if isinstance(ops, dict):
+        t_ops = max(n / PEAK_OPS[dt] for dt, n in ops.items())
+    else:
+        t_ops = ops / PEAK_OPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -314,15 +356,21 @@ def _distinct_taps(f, pts, border):
     return torch.unique(torch.cat(rows)).numel()
 
 
-def _sampler_work(maps, pts, projs, border):
+def _ops_total(ops):
+    return sum(ops.values()) if isinstance(ops, dict) else ops
+
+
+def _sampler_work(maps, pts, projs, border, split=False):
     """(bytes, operations) of one sampler call: the distinct tap rows, the
     points, the outputs and the projection weights; 8 operations a sampled
     channel (4 taps, multiply and add) plus the projection's 2*C*Cout a
-    point."""
+    point. ``split``: the operations as {type: count}, the blend in fp32
+    and the projection in bf16 (the tensor-core body of bf16 and int8 maps,
+    and the JAX kernel's DEFAULT precision)."""
     b, levels = pts.shape[:2]
     p = pts[0, 0].numel() // 2
     pts = pts.reshape(b, levels, p, 2)
-    nbytes, ops = pts.numel() * 4, 0
+    nbytes, ops, proj_ops = pts.numel() * 4, 0, 0
     for l, f in enumerate(maps):
         c, elem = f.shape[-1], f.element_size()
         nbytes += _distinct_taps(f, pts[:, l], border) * c * elem
@@ -330,11 +378,13 @@ def _sampler_work(maps, pts, projs, border):
         if projs is not None and projs[l] is not None:
             cout = projs[l].shape[1]
             nbytes += (c + 1) * cout * 4
-            ops += 2 * b * p * c * cout
+            proj_ops += 2 * b * p * c * cout
         # an int8 map's samples are written as bf16
         nbytes += b * p * cout * (2 if f.dtype == torch.int8 else elem)
         ops += 8 * b * p * c
-    return nbytes, ops
+    if split:
+        return nbytes, {torch.float32: ops, torch.bfloat16: proj_ops}
+    return nbytes, ops + proj_ops
 
 
 def _grid_sample_fn(maps, pts, mode, projs=None, biases=None):
@@ -379,11 +429,14 @@ def _sampler_cases(gen, dtype, b, dims, mixed_proj):
         projs.append(uniform(-1, 1, c, HEAD_DIM) / c ** 0.5 if on else None)
         biases.append(uniform(-0.1, 0.1, HEAD_DIM) if on else None)
     levels = len(dims)
+    border = uniform(-1.5, 1.5, b, levels, 17, 16, 2)
     return [
         ("zeros P=17", 1, maps, uniform(-1.1, 1.1, b, levels, 17, 2),
          "zeros", None, None),
-        ("border+proj P=272", 4, maps,
-         uniform(-1.5, 1.5, b, levels, 17, 16, 2), "border", projs, biases),
+        ("border+proj P=272", 4, maps, border, "border", projs, biases),
+        # the same call's gather alone: the split between gather and
+        # projection (no request makes this call)
+        ("border P=272 gather only", 0, maps, border, "border", None, None),
     ]
 
 
@@ -420,7 +473,8 @@ def _kernel_cases(dtype, gen):
                 lambda maps=maps, pts=pts, mode=mode, projs=projs,
                 biases=biases: deformable.sample_points_multi_reference(
                     maps, pts, mode, True, projs, biases),
-                _sampler_work(maps, pts, projs, mode == "border"),
+                _sampler_work(maps, pts, projs, mode == "border",
+                              split=dtype != torch.float32),
                 _grid_sample_fn(maps, pts, mode, projs, biases),
             ))
     # the H36M lifter's widths (embed 128, joint 5 x 128), then the 3DHP
@@ -437,14 +491,19 @@ def _kernel_cases(dtype, gen):
     ):
         d = shape[-1]
         x = randn(*shape)
-        p = (uniform(0.5, 1.5, d), uniform(-0.1, 0.1, d),
-             uniform(-1, 1, d, 2 * d) / d ** 0.5,
-             uniform(-0.1, 0.1, 2 * d),
-             uniform(-1, 1, 2 * d, d) / (2 * d) ** 0.5,
-             uniform(-0.1, 0.1, d))
+        # parameters as the served lifter holds them: made outside inference
+        # mode, so that the bf16 routes cast them once
+        # (fused_mlp.kernel_weight)
+        with torch.inference_mode(False):
+            p = (uniform(0.5, 1.5, d), uniform(-0.1, 0.1, d),
+                 uniform(-1, 1, d, 2 * d) / d ** 0.5,
+                 uniform(-0.1, 0.1, 2 * d),
+                 uniform(-1, 1, 2 * d, d) / (2 * d) ** 0.5,
+                 uniform(-0.1, 0.1, d))
         rows = x.numel() // d
+        route = fused_mlp.plan(dtype, d, 2 * d).route
         cases.append((
-            "K2", f"{label} D={d}", calls,
+            "K2", f"{label} D={d} ({route})", calls,
             lambda x=x, p=p, eps=eps: fused_mlp.ln_mlp_residual_kernel(
                 x, *p, eps),
             lambda x=x, p=p, eps=eps: fused_mlp.ln_mlp_reference(
@@ -527,7 +586,7 @@ def check_kernels():
                       f"rel {rel:.3e} (tol {TOL[dtype]:.0e}); kernel "
                       f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib},"
                       f" bound {bound_ms:.4f} ms ({by}: {work[0]} B, "
-                      f"{work[1]} ops)", flush=True)
+                      f"{_ops_total(work[1])} ops)", flush=True)
                 if not rel <= TOL[dtype]:
                     raise AssertionError(
                         f"{kern} {case} {name}: rel error {rel:.3e} > "
@@ -768,17 +827,28 @@ def _k1_int8_projection(card):
         return deformable.sample_points_multi_reference(
             maps, pts, "border", True, projs, biases)
 
+    def gather():  # the same call without the projection: the gather alone
+        return deformable.sample_points_multi(maps, pts, "border", True)
+
     out, ref = fn(), plain()
     err, rel = _err(out, ref)
     ms, plain_ms = _median_ms(fn), _median_ms(plain)
-    work = _sampler_work(maps, pts, projs, True)
-    bound_ms, by = _bound(*work, torch.float32)
+    gather_ms = _median_ms(gather)
+    # the blend's operations at the fp32 rate, the projection's at the bf16
+    # tensor-core rate; beside it both at the fp32 rate, the yardstick of a
+    # projection on CUDA cores
+    work = _sampler_work(maps, pts, projs, True, split=True)
+    bound_ms, by = _bound(*work, None)
+    fp32_ms, _ = _bound(work[0], _ops_total(work[1]), torch.float32)
     tol = TOL[torch.bfloat16]
     print(f"cpn_int8: K1 int8 maps border+proj P=272 -> bfloat16: "
           f"max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:.0e}); kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({by}: {work[0]} B, {work[1]} ops), 4 a request ({card})",
-          flush=True)
+          f"({by}: {work[0]} B, {work[1][torch.float32]} fp32 ops, "
+          f"{work[1][torch.bfloat16]} bf16 ops; all at the fp32 rate "
+          f"{fp32_ms:.4f} ms); the gather alone (no projection, bf16 "
+          f"samples of 256 channels) {gather_ms:.4f} ms; 4 a request "
+          f"({card})", flush=True)
     if not rel <= tol:
         raise AssertionError(f"K1 int8 projection: rel error {rel:.3e}")
     return err
@@ -1397,6 +1467,12 @@ def _where_time_goes(phase, name, cfg, model, req, host_ms, tag):
           f"{1 - busy_ms / host_ms:.1%} of the unprofiled {host_ms:.3f} ms "
           f"(torch.profiler over {PROFILED} requests, which took "
           f"{profiled_ms:.3f} ms each; {tag})", flush=True)
+    for kern, names in SHARE_KERNELS.items():
+        ms = sum(e.self_device_time_total for e in kernels
+                 if any(n in e.key for n in names)) / 1e3 / PROFILED
+        print(f"{phase}: {name}: {kern} {ms:.3f} ms a request, "
+              f"{ms / busy_ms:.1%} of the device busy time ({tag})",
+              flush=True)
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in kernels[:TOP_KERNELS]:
         print(f"{phase}: {name}: kernel "
@@ -1938,6 +2014,43 @@ def check_train(card):
     return {k: launches[k] + evaluated[k] for k in launches}
 
 
+def check_sass(path):
+    """Count, with ``cuobjdump -sass``, the SASS instructions of SASS_OPS in
+    each K1 and K2 kernel of the built library, print them, and fail unless
+    each kernel of SASS_REQUIRED holds what it must. Prints "not measured"
+    where the toolkit has no cuobjdump."""
+    import shutil
+    from pathlib import Path
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("sass: not measured (no cuobjdump)", flush=True)
+        return
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            for op in SASS_OPS:
+                if op in line:
+                    counts[fn][op] += 1
+    for kern, parts, required in SASS_REQUIRED:
+        found = [(f, c) for f, c in counts.items()
+                 if all(p in f for p in parts)]
+        if not found:
+            raise AssertionError(f"sass: no {kern} kernel matching {parts}")
+        for f, c in found:
+            held = " ".join(f"{op} {n}" for op, n in c.items() if n)
+            print(f"sass: {kern} {f[:100]}: {held or 'none'}", flush=True)
+            for ops in required:
+                if not any(c[op] for op in ops):
+                    raise AssertionError(
+                        f"sass: {kern} {f} holds none of {ops}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs "
@@ -1966,6 +2079,7 @@ def main() -> None:
     print(f"build: {seconds:.1f} s -> {path.name}", flush=True)
     for ln in usage:
         print(f"build: {ln}", flush=True)
+    check_sass(path)
 
     results = check_kernels()
     served = [check_serving("h36m_cpn", REQUESTS, card)]

@@ -39,7 +39,6 @@ NVCC_FLAGS = (
 # ctypes signature of every exported function: (restype, argtypes)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 SIGNATURES = {
     "capf_error_string": (ctypes.c_char_p, [_I]),
     # (args struct*, device, stream)
@@ -48,10 +47,8 @@ SIGNATURES = {
     "capf_sample_levels_bwd": (_I, [_P, _I, _P]),
     # (args struct*, device, stream)
     "capf_deformable_aggregate": (_I, [_P, _I, _P]),
-    # (dtype, x, ln_scale, ln_bias, w1, b1, w2, b2, out, rows, d, h, eps,
-    #  device, stream)
-    "capf_ln_mlp_residual": (
-        _I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
+    # (args struct*, device, stream)
+    "capf_ln_mlp_residual": (_I, [_P, _I, _P]),
     # (dtype, x, wqkv, bqkv, wproj, bproj, out, rows, tokens, d, heads,
     #  device, stream)
     "capf_small_attention": (

@@ -3,60 +3,104 @@
 // Replaces contextaware_poseformer_tpu/ops/fused_mlp.py::_kernel (entry
 // ln_mlp_residual): y = x + fc2(gelu(fc1(LN(x)))) per row, LN statistics with
 // the fast variance E[x^2] - mu^2 and the residual add in fp32, the matmul
-// operands in the call's dtype with fp32 accumulation.
+// operands in the call's dtype with fp32 accumulation; in bf16 the LN output
+// and the GELU output are rounded to bf16 before the product that reads them.
 //
-// What bounds it on the H100: at the lifter's widths (D = 128 or 640,
-// H = 2D) the work is 4*D*H MACs per row against 2*D*bytes of row traffic,
-// so with the (rows, H) hidden activation kept on chip the kernel is bound by
-// arithmetic and by how a block reads W1 and W2 from L2, not by device
-// memory. The design keeps that property of the TPU kernel: a block keeps its
-// rows, their LN output and their GELU output in shared memory and streams
-// W1 and W2 once per block.
+// What bounds it on the H100: 4*D*H MACs a row against 4*D bytes of row
+// traffic (bf16), so with the (rows, H) hidden kept on chip or in L2 the
+// lifter's calls (1088 to 5440 rows at D = 64..640, H = 2D) need 0.4-3.6 GFLOP
+// and 1.5-9 MB: a few microseconds at the bf16 tensor-core rate. What costs
+// more is reading W1 and W2 (64 KB to 3.3 MB in bf16) from L2 once for every
+// small row tile, the weights' per-call cast, and idle SMs. The bf16 routes
+// are built on Hopper's asynchronous machinery (hopper.cuh): wgmma m64nNk16
+// from 128-byte-swizzled K-major operands in shared memory, the weights by
+// TMA, fp32 accumulators in registers. The wrapper (ops/fused_mlp.py) hands
+// the weights over as bf16 W1^T (H, D) and W2^T (D, H), K-major for wgmma,
+// cast once per parameter state.
 //
-// Two bodies, one contract:
-// - bf16 (the serving path): tensor cores through WMMA 16x16x16 tiles, one
-//   16-row tile per block. A warp computes a 16 x 32 output strip at a time.
-//   Its B operand (W1 or W2) comes from L2 in coalesced 16-byte loads,
-//   kGroup k-steps at once, and is staged in the warp's own shared-memory
-//   buffer, because WMMA reads a row-major bf16 B tile from device memory
-//   two bytes at a time (measured: 0.27 ms for the joint blocks' call that
-//   way). The epilogue (bias, GELU or residual) runs through a 16x16 fp32
-//   staging tile. Rows in shared memory are padded by kPad elements so the
-//   tensor cores' 8-row reads hit distinct banks. Needs D and H to be
-//   multiples of 32.
-// - fp32 (parity runs): CUDA cores, 8 rows per block, one output column per
-//   thread with 8 accumulators; any D and H that fit in shared memory.
+// A row tile is 64 rows, wgmma's M, so the lifter's calls have only 17 to
+// 85 of them: a tile's latency, not the card's throughput, sets the time.
+// Two warpgroups share each tile (the LN and the exact-erf GELU epilogue
+// run on CUDA cores), and every load of a step is in flight at once.
+// ops/fused_mlp.py::plan picks the route from D and the shared-memory
+// budget:
 //
-// Grid: ceil(rows / rows per block) blocks of kThreads threads.
-
-#include <mma.h>
+// - weights-resident (route 1; D = 64, 96, 128 with H = 2D: the context and
+//   res blocks, 3DHP's 64 and 96): a persistent kernel, one block an SM,
+//   min(SMs, row tiles) blocks. Each block loads W1^T and W2^T into shared
+//   memory ONCE by TMA (128 KB at D = 128), then walks 64-row tiles, the
+//   next tile's x arriving by cp.async while the current one runs: LN in
+//   registers -> bf16 A (swizzled) -> fc1 in 64-column tiles by wgmma, the
+//   warpgroups taking alternate tiles -> bias + GELU in registers -> bf16
+//   hidden (swizzled) -> fc2, each warpgroup half of D's columns -> bias +
+//   fp32 residual, written over the x tile in place -> 16-byte stores.
+// - two-phase (route 2; any other D and H that are multiples of 16: the
+//   joint blocks at D = 640, 3DHP's 320 and 480): W1 and W2 (3.3 MB at
+//   D = 640) fit no block, so a call is two launches.
+//   Phase 1, a block a (64-row tile, kBN1 hidden columns, half of them a
+//   warpgroup): the tile's x rows land by cp.async in the swizzled bf16 A
+//   operand (80 KB at D = 640) while the first W1^T chunks arrive through
+//   a TMA ring of 4 stages; the LN runs there in place; fc1 by wgmma;
+//   bias + GELU, rounded to bf16 into the (rows, H) hidden workspace (2.8
+//   MB at the joint shape, which stays in L2). The block's fixed cost (x,
+//   LN) is most of its time, so ops/fused_mlp.py::plan takes kBN1 = 256
+//   from D = 480 on (one wave of blocks at the joint shape, half the LN
+//   work: 51 -> 30 us at D = 640 on an H100 80GB HBM3) and 128 below
+//   (D = 320's 85 blocks fill one wave already; 256 was slower there).
+//   Phase 2, a block a (64-row tile, 64 output columns): hidden and W2^T
+//   chunks through the same kind of ring (zero fill past H), fc2 by wgmma
+//   m64n64k16, then bias + fp32 residual and 16-byte stores.
+//   The grid runs column tiles fastest, so the blocks that share a row
+//   tile run together and read it from L2 while it is hot.
+// - fp32 (route 0, parity runs and training): CUDA cores, 8 rows a block,
+//   one output column a thread with 8 accumulators; any D and H that fit.
+//
+// Every ring and operand region starts on a 1024-byte boundary, as the
+// swizzle needs. A wait on a TMA barrier traps after ~2^28 polls, so a
+// fault fails the launch instead of hanging the card.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
-using capf::from_float;
 using capf::to_float;
+
+extern "C" {
+struct CapfMlpArgs {  // mirrored by ops/fused_mlp.py::_Args
+  const void* x;          // (rows, D) in the call's dtype
+  const float* ln_scale;  // (D,)
+  const float* ln_bias;   // (D,)
+  const void* w1;         // fp32 (D, H); bf16 W1^T (H, D)
+  const float* b1;        // (H,)
+  const void* w2;         // fp32 (H, D); bf16 W2^T (D, H)
+  const float* b2;        // (D,)
+  void* hidden;           // route 2: the (rows, H) bf16 workspace
+  void* out;              // (rows, D)
+  int rows, d, hdim;
+  float eps;
+  int dtype, route;       // route: 0 fp32, 1 weights-resident, 2 two-phase
+  int tile1;              // route 2: phase 1's hidden columns a block
+};
+}  // extern "C"
 
 namespace {
 
-namespace wmma = nvcuda::wmma;
+using namespace capf::sm90;
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // fp32 body
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 8;     // fp32 body: rows per block
-constexpr int kTcRows = 16;  // bf16 body: one WMMA row tile per block
-constexpr int kTile = 16;    // WMMA tile edge
-constexpr int kStrip = 32;   // bf16 body: output columns per warp pass
-constexpr int kGroup = 4;    // bf16 body: k-steps whose B loads go together
-constexpr int kPad = 8;      // bf16 body: padding of a shared-memory row
-constexpr int kBufLd = kStrip + kPad;                  // staged B row
-constexpr int kBufElems = kGroup * kTile * kBufLd;     // one warp's buffer
+constexpr int kRows = 8;       // fp32 body: rows per block
 
-using FragA =
-    wmma::fragment<wmma::matrix_a, kTile, kTile, kTile, bf16, wmma::row_major>;
-using FragB =
-    wmma::fragment<wmma::matrix_b, kTile, kTile, kTile, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, kTile, kTile, kTile, float>;
+constexpr int kWg = 128;             // threads of a warpgroup
+constexpr int kWgs = 2;              // bf16 routes (but phase 2): warpgroups
+constexpr int kTcThreads = kWgs * kWg;
+constexpr int kBM = 64;              // rows of a tile: wgmma's M
+constexpr int kChunk = kSwizzleRow;  // bytes of K in a swizzled chunk
+constexpr int kChunkElems = kChunk / 2;  // 64 bf16
+constexpr int kATile = kBM * kChunk;     // one 64-row chunk of A: 8 KB
+constexpr int kStages = 4;               // route 2: the TMA ring's depth
+constexpr int kBN2 = 64;                 // route 2 phase 2: output columns
+constexpr int kAlign = 1024;
 
 __device__ __forceinline__ float gelu_erf(float a) {
   return 0.5f * a * (1.f + erff(a * 0.70710678118654752f));
@@ -153,193 +197,628 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// This lane's share of B for the (up to) kGroup k-steps from k0 of a strip
-// starting at bn: 16 bytes of rows lrow and lrow + 8 of each k-step.
-__device__ __forceinline__ void load_b_group(const bf16* bn, int ldb, int k0,
-                                             int steps, int lrow, int lcol,
-                                             uint4 (&r)[kGroup][2]) {
-#pragma unroll
-  for (int s = 0; s < kGroup; ++s) {
-    if (s < steps) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const size_t row = k0 + s * kTile + h * 8 + lrow;
-        r[s][h] = *reinterpret_cast<const uint4*>(bn + row * ldb + lcol);
-      }
+// ---- the bf16 routes ------------------------------------------------------
+
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + kAlign - 1) & ~uintptr_t(kAlign - 1));
+}
+
+__device__ __forceinline__ float2 load_bf16x2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void store_bf16x2(void* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Element pair (k, k + 1) (k even) of row r in a swizzled K-major operand
+// of 64-row chunks: chunk k / 64, its 16-byte piece, its byte in the piece.
+__device__ __forceinline__ unsigned char* a_pair(unsigned char* s_a, int r,
+                                                 int k) {
+  const int kk = k % kChunkElems;
+  return s_a + (k / kChunkElems) * kATile + sw128_offset(r, kk / 8) +
+         (kk % 8) * 2;
+}
+
+// LayerNorm of a 64-row tile (d values a row; ``src(r, k)`` points at the
+// bf16 pair k, k + 1 of row r; rows from ``valid`` on read as zeros) into
+// the swizzled bf16 A operand, which may be the source itself: each pair is
+// read and written by the same lane. A warp takes every (warps)-th row; a
+// lane the pairs 2 lane + 64 i, so that a row's reads are coalesced and its
+// swizzled writes hit 32 distinct banks.
+template <typename Src>
+__device__ __forceinline__ void ln_tile(Src src, int valid, int d,
+                                        const float* scale, const float* bias,
+                                        float eps, unsigned char* s_a) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int r = warp; r < kBM; r += blockDim.x / 32) {
+    const bool live = r < valid;
+    float s = 0.f, ss = 0.f;
+#pragma unroll 4
+    for (int k = 2 * lane; k < d; k += 64) {
+      const float2 v = live ? load_bf16x2(src(r, k)) : make_float2(0.f, 0.f);
+      s += v.x + v.y;
+      ss += v.x * v.x + v.y * v.y;
+    }
+    s = capf::warp_sum(s);
+    ss = capf::warp_sum(ss);
+    const float mu = s / d;
+    const float rstd = rsqrtf(ss / d - mu * mu + eps);
+#pragma unroll 4
+    for (int k = 2 * lane; k < d; k += 64) {
+      const float2 v = live ? load_bf16x2(src(r, k)) : make_float2(0.f, 0.f);
+      store_bf16x2(a_pair(s_a, r, k),
+                   (v.x - mu) * rstd * scale[k] + bias[k],
+                   (v.y - mu) * rstd * scale[k + 1] + bias[k + 1]);
     }
   }
 }
 
-// One 16 x kStrip output strip, by one warp: A (16 x k, shared memory, row
-// stride lda) times columns n0 .. n0 + kStrip - 1 of B (k x ldb, device
-// memory), into acc[0] and acc[1]. Each lane loads 16 bytes of a row of B,
-// for kGroup k-steps at once; a group is staged in buf (the warp's
-// kGroup x 16 x kBufLd buffer) for the tensor cores, and the next group's
-// loads are issued before the staged group's products, so they are in
-// flight while the tensor cores work.
-__device__ __forceinline__ void strip_product(const bf16* a, int lda,
-                                              const bf16* b, int ldb, int k,
-                                              int n0, bf16* buf,
-                                              FragC (&acc)[2]) {
-  const int lane = threadIdx.x & 31;
-  const int lrow = lane / 4;        // rows lrow and lrow + 8 of a k-step
-  const int lcol = (lane % 4) * 8;  // 8 bf16 = 16 bytes
-  const bf16* bn = b + n0;
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  uint4 r[kGroup][2];
-  int next_steps = min(kGroup, k / kTile);  // warp-uniform
-  load_b_group(bn, ldb, 0, next_steps, lrow, lcol, r);
-  for (int k0 = 0; k0 < k; k0 += kGroup * kTile) {
-    const int steps = next_steps;
-    __syncwarp();  // the previous group's tiles have been read from buf
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N]) {
 #pragma unroll
-    for (int s = 0; s < kGroup; ++s) {
-      if (s < steps) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          *reinterpret_cast<uint4*>(
-              buf + (s * kTile + h * 8 + lrow) * kBufLd + lcol) = r[s][h];
-        }
-      }
-    }
-    __syncwarp();
-    const int next = k0 + kGroup * kTile;
-    next_steps = next < k ? min(kGroup, (k - next) / kTile) : 0;
-    load_b_group(bn, ldb, next, next_steps, lrow, lcol, r);
-#pragma unroll
-    for (int s = 0; s < kGroup; ++s) {
-      if (s < steps) {
-        FragA fa;
-        wmma::load_matrix_sync(fa, a + k0 + s * kTile, lda);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          FragB fb;
-          wmma::load_matrix_sync(fb, buf + s * kTile * kBufLd + j * kTile,
-                                 kBufLd);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-    }
+  for (int i = 0; i < N; ++i) acc[i] = 0.f;
+}
+
+// The accumulator layout of wgmma m64nNk16 (hopper.cuh): thread t of a
+// warpgroup holds, for each 8 columns j, columns 8j + 2(t%4) + {0, 1} of
+// rows 16(t/32) + (t%32)/4 (acc[4j], acc[4j+1]) and 8 rows further down
+// (acc[4j+2], acc[4j+3]).
+struct AccPos {
+  int row, col;
+  __device__ __forceinline__ AccPos()
+      : row(16 * (threadIdx.x % kWg / 32) + (threadIdx.x % 32) / 4),
+        col(2 * (threadIdx.x % 4)) {}
+};
+
+// The shared memory of the weights-resident route at width D, H = 2D:
+// W1^T and W2^T (swizzled, K-major), the LN and hidden operands, two x
+// tiles (row-major, rows padded by 8 values so that the epilogue's
+// accumulator-layout accesses hit distinct banks), the biases and LN
+// parameters, two barriers.
+// ops/fused_mlp.py::_resident_smem mirrors kSmem.
+template <int D, int H>
+struct Resident {
+  static constexpr int kKc1 = (D + kChunkElems - 1) / kChunkElems;
+  static constexpr int kKc2 = H / kChunkElems;
+  static constexpr int kW1 = kKc1 * H * kChunk;
+  static constexpr int kW2 = kKc2 * D * kChunk;
+  static constexpr int kA = kKc1 * kATile;
+  static constexpr int kHid = kKc2 * kATile;
+  static constexpr int kXPitch = D + 8;
+  static constexpr int kX = kBM * kXPitch * 2;
+  static constexpr int kVecs = (H + 3 * D) * 4;
+  static constexpr int kSmem =
+      kAlign + kW1 + kW2 + kA + kHid + 2 * kX + kVecs + 2 * 8;
+  static constexpr int kN2 = D / kWgs;  // fc2's columns a warpgroup
+  static_assert(D % 16 == 0 && H % kChunkElems == 0 && H <= 256 &&
+                    D <= 256 && kN2 % 16 == 0,
+                "widths the wgmma and TMA box sizes take");
+  static_assert(kSmem <= 232448, "fits one block's shared memory");
+};
+
+// x rows [tile * 64, tile * 64 + 64) into a row-major tile of row pitch
+// D + 8 by 16-byte cp.asyncs; rows past the end are zero-filled (src-size 0)
+template <int D>
+__device__ __forceinline__ void load_x_tile(const bf16* x, int rows,
+                                            int tile, bf16* dst) {
+  constexpr int kPieces = D / 8;
+  for (int i = threadIdx.x; i < kBM * kPieces; i += kTcThreads) {
+    const int r = i / kPieces;
+    const int row = tile * kBM + r;
+    const bool in = row < rows;
+    const bf16* src = in ? x + static_cast<size_t>(row) * D +
+                               (i - r * kPieces) * 8
+                         : x;
+    cp_async16(dst + r * (D + 8) + (i - r * kPieces) * 8, src, in ? 16 : 0);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    ln_mlp_bf16_kernel(const bf16* __restrict__ x,
-                       const float* __restrict__ ln_scale,
-                       const float* __restrict__ ln_bias,
-                       const bf16* __restrict__ w1,
-                       const float* __restrict__ b1,
-                       const bf16* __restrict__ w2,
-                       const float* __restrict__ b2, bf16* __restrict__ out,
-                       int rows, int d, int hdim, float eps) {
-  // every region starts on a 32-byte boundary, as WMMA loads and stores need
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* s_x = reinterpret_cast<float*>(smem_raw);     // (16, d) input
-  float* s_stage = s_x + kTcRows * d;                  // (warps, 16, 16)
-  bf16* s_buf = reinterpret_cast<bf16*>(s_stage + kWarps * kTile * kTile);
-  bf16* s_a = s_buf + kWarps * kBufElems;              // (16, d + kPad)
-  bf16* s_g = s_a + kTcRows * (d + kPad);              // (16, hdim + kPad)
-  const int lda = d + kPad;
-  const int ldg = hdim + kPad;
+template <int D, int H>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    ln_mlp_resident_kernel(const __grid_constant__ CUtensorMap w1map,
+                           const __grid_constant__ CUtensorMap w2map,
+                           const CapfMlpArgs a) {
+  using L = Resident<D, H>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* s_w1 = align_smem(smem_raw);
+  unsigned char* s_w2 = s_w1 + L::kW1;
+  unsigned char* s_a = s_w2 + L::kW2;
+  unsigned char* s_hid = s_a + L::kA;
+  bf16* s_x = reinterpret_cast<bf16*>(s_hid + L::kHid);  // two x tiles
+  float* s_b1 = reinterpret_cast<float*>(s_x + 2 * kBM * L::kXPitch);
+  float* s_b2 = s_b1 + H;
+  float* s_ls = s_b2 + D;
+  float* s_lb = s_ls + D;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(s_lb + D);  // W1, W2
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.x * kTcRows;
-  const int n_rows = min(kTcRows, rows - row0);
-  float* stage = s_stage + warp * kTile * kTile;
-  bf16* buf = s_buf + warp * kBufElems;
+  const int wg = tid / kWg;
+  const int tiles = (a.rows + kBM - 1) / kBM;
+  const bf16* x = static_cast<const bf16*>(a.x);
+  bf16* out = static_cast<bf16*>(a.out);
 
-  load_rows(x + static_cast<size_t>(row0) * d, s_x, kTcRows, n_rows, d);
-  __syncthreads();
-
-  // LayerNorm into s_a, rounded to bf16 for the tensor cores
-  for (int r = warp; r < kTcRows; r += kWarps) {
-    const float* xr = s_x + r * d;
-    const float2 st = row_stats(xr, d, lane, eps);
-    for (int k = lane; k < d; k += 32) {
-      s_a[r * lda + k] =
-          from_float<bf16>((xr[k] - st.x) * st.y * ln_scale[k] + ln_bias[k]);
-    }
+  if (tid == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  if (tid == 0) {  // the weights, once: every chunk of K, all rows a box
+    mbar_arrive_expect_tx(&bars[0], L::kW1);
+    for (int c = 0; c < L::kKc1; ++c) {
+      tma_load_2d(s_w1 + c * H * kChunk, &w1map, c * kChunk, 0, &bars[0]);
+    }
+    mbar_arrive_expect_tx(&bars[1], L::kW2);
+    for (int c = 0; c < L::kKc2; ++c) {
+      tma_load_2d(s_w2 + c * D * kChunk, &w2map, c * kChunk, 0, &bars[1]);
+    }
+  }
+  for (int i = tid; i < H; i += kTcThreads) s_b1[i] = a.b1[i];
+  for (int i = tid; i < D; i += kTcThreads) {
+    s_b2[i] = a.b2[i];
+    s_ls[i] = a.ln_scale[i];
+    s_lb[i] = a.ln_bias[i];
+  }
 
-  // fc1 + bias + GELU into s_g; warp w takes strips w, w + kWarps, ...
-  FragC acc[2];
-  for (int n0 = warp * kStrip; n0 < hdim; n0 += kWarps * kStrip) {
-    strip_product(s_a, lda, w1, hdim, d, n0, buf, acc);
+  const AccPos pos;
+  int tile = blockIdx.x;
+  load_x_tile<D>(x, a.rows, tile, s_x);
+  cp_async_commit();
+  for (int buf = 0; tile < tiles; tile += gridDim.x, buf ^= 1) {
+    const int next = tile + gridDim.x;
+    if (next < tiles) {
+      load_x_tile<D>(x, a.rows, next, s_x + (buf ^ 1) * kBM * L::kXPitch);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's pieces have landed
+    __syncthreads();     // ... everyone's (and the vectors above)
+    bf16* xt = s_x + buf * kBM * L::kXPitch;
+
+    ln_tile([&](int r, int k) { return xt + r * L::kXPitch + k; },
+            a.rows - tile * kBM, D, s_ls, s_lb, a.eps, s_a);
+    fence_proxy_async();
+    __syncthreads();
+    mbar_wait(&bars[0], 0);
+
+    // fc1 + bias + GELU, 64 hidden columns (one K chunk of fc2) at a time,
+    // the warpgroups taking alternate column tiles
+#pragma unroll 1
+    for (int nt = wg; nt < H / kChunkElems; nt += kWgs) {
+      float acc[32];
+      zero(acc);
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage, acc[j], kTile, wmma::mem_row_major);
-      __syncwarp();
-      for (int i = lane; i < kTile * kTile; i += 32) {
-        const int r = i / kTile;
-        const int c = n0 + j * kTile + i % kTile;
-        s_g[r * ldg + c] = from_float<bf16>(gelu_erf(stage[i] + b1[c]));
+      for (int ks = 0; ks < D / 16; ++ks) {
+        wgmma_bf16<64>(
+            acc, sw128_desc(s_a + (ks / 4) * kATile + (ks % 4) * 32),
+            sw128_desc(s_w1 + (ks / 4) * H * kChunk + nt * 64 * kChunk +
+                       (ks % 4) * 32));
       }
-      __syncwarp();  // the staging tile is overwritten next
-    }
-  }
-  __syncthreads();
-
-  // fc2 + bias + fp32 residual into out
-  for (int n0 = warp * kStrip; n0 < d; n0 += kWarps * kStrip) {
-    strip_product(s_g, ldg, w2, d, hdim, n0, buf, acc);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      unsigned char* hid = s_hid + nt * kATile;
+      const float* b1 = s_b1 + nt * kChunkElems;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage, acc[j], kTile, wmma::mem_row_major);
-      __syncwarp();
-      for (int i = lane; i < kTile * kTile; i += 32) {
-        const int r = i / kTile;
-        const int c = n0 + j * kTile + i % kTile;
-        if (r < n_rows) {
-          out[static_cast<size_t>(row0 + r) * d + c] =
-              from_float<bf16>(s_x[r * d + c] + (stage[i] + b2[c]));
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + pos.col;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = pos.row + 8 * h;
+          store_bf16x2(hid + sw128_offset(r, j) + pos.col * 2,
+                       gelu_erf(acc[4 * j + 2 * h] + b1[c]),
+                       gelu_erf(acc[4 * j + 2 * h + 1] + b1[c + 1]));
         }
       }
-      __syncwarp();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    mbar_wait(&bars[1], 0);
+
+    // fc2, each warpgroup kN2 of the D output columns
+    constexpr int kN2 = L::kN2;
+    float acc[kN2 / 2];
+    zero(acc);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < H / 16; ++ks) {
+      wgmma_bf16<kN2>(
+          acc, sw128_desc(s_hid + (ks / 4) * kATile + (ks % 4) * 32),
+          sw128_desc(s_w2 + (ks / 4) * D * kChunk + wg * kN2 * kChunk +
+                     (ks % 4) * 32));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // bias and the fp32 residual, written over the x tile in place (each
+    // element by the thread that reads it), then 16-byte stores
+#pragma unroll
+    for (int j = 0; j < kN2 / 8; ++j) {
+      const int c = wg * kN2 + 8 * j + pos.col;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        bf16* p = xt + (pos.row + 8 * h) * L::kXPitch + c;
+        const float2 xv = load_bf16x2(p);
+        store_bf16x2(p, xv.x + (acc[4 * j + 2 * h] + s_b2[c]),
+                     xv.y + (acc[4 * j + 2 * h + 1] + s_b2[c + 1]));
+      }
+    }
+    __syncthreads();
+    constexpr int kPieces = D / 8;
+    for (int i = tid; i < kBM * kPieces; i += kTcThreads) {
+      const int r = i / kPieces;
+      const int row = tile * kBM + r;
+      if (row < a.rows) {
+        *reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * D +
+                                  (i - r * kPieces) * 8) =
+            *reinterpret_cast<const uint4*>(xt + r * L::kXPitch +
+                                            (i - r * kPieces) * 8);
+      }
+    }
+    __syncthreads();  // the tile's buffer is refilled two tiles on
+  }
+}
+
+// ---- route 2, phase 1: LN + fc1 + GELU into the hidden workspace ----------
+
+// the ring's bytes (at least the staged bf16 output tile, which reuses it)
+__host__ __device__ constexpr int phase1_ring(int bn1, int stages) {
+  return stages * bn1 * kChunk > kBM * (bn1 + 8) * 2
+             ? stages * bn1 * kChunk
+             : kBM * (bn1 + 8) * 2;
+}
+__host__ __device__ constexpr int phase2_ring(int stages) {
+  return stages * (kBM + kBN2) * kChunk > kBM * (kBN2 + 8) * 4
+             ? stages * (kBM + kBN2) * kChunk
+             : kBM * (kBN2 + 8) * 4;
+}
+__host__ __device__ constexpr int ring_stages(int chunks) {
+  return chunks < kStages ? chunks : kStages;
+}
+// ops/fused_mlp.py::_two_phase_smem mirrors these two: phase 1 holds the
+// A operand, the ring, the barriers and the LN parameters
+__host__ __device__ constexpr int phase1_smem(int bn1, int d) {
+  return kAlign + ((d + kChunkElems - 1) / kChunkElems) * kATile +
+         phase1_ring(bn1, ring_stages((d + kChunkElems - 1) / kChunkElems)) +
+         kStages * 8 + 2 * d * 4;
+}
+__host__ __device__ constexpr int phase2_smem(int hdim) {
+  return kAlign + phase2_ring(ring_stages((hdim + kChunkElems - 1) /
+                                          kChunkElems)) +
+         kStages * 8;
+}
+
+// Grid: (hidden column tiles of kBN1, row tiles of 64). Warpgroup g takes
+// the tile's columns kBN1 / 2 * g and the next kBN1 / 2. kBN1 (128 or 256)
+// comes from ops/fused_mlp.py::plan.
+template <int kBN1>
+__global__ void __launch_bounds__(kTcThreads)
+    ln_fc1_kernel(const __grid_constant__ CUtensorMap w1map,
+                  const CapfMlpArgs a) {
+  const int n0 = blockIdx.x * kBN1;
+  const int m0 = blockIdx.y * kBM;
+  const int chunks = (a.d + kChunkElems - 1) / kChunkElems;
+  const int stages = ring_stages(chunks);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* s_a = align_smem(smem_raw);
+  unsigned char* ring = s_a + chunks * kATile;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + phase1_ring(kBN1, stages));
+  float* s_ls = reinterpret_cast<float*>(full + kStages);
+  float* s_lb = s_ls + a.d;
+  const int tid = threadIdx.x;
+  const int wg = tid / kWg;
+  constexpr int kStage = kBN1 * kChunk;
+  constexpr int kN = kBN1 / kWgs;  // a warpgroup's columns
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {  // W1^T's first chunks arrive while the rows are normed
+    for (int s = 0; s < stages; ++s) {
+      mbar_arrive_expect_tx(&full[s], kStage);
+      tma_load_2d(ring + s * kStage, &w1map, s * kChunk, n0, &full[s]);
     }
   }
+  // the tile's x rows into the A operand's swizzled slots, every 16-byte
+  // piece in flight at once (rows past the end: zeros); then the LN in place
+  const bf16* x = static_cast<const bf16*>(a.x);
+  const int pieces = a.d / 8;
+  for (int i = tid; i < kBM * pieces; i += kTcThreads) {
+    const int r = i / pieces;
+    const int k8 = i - r * pieces;
+    const bool in = m0 + r < a.rows;
+    cp_async16(s_a + (k8 / 8) * kATile + sw128_offset(r, k8 % 8),
+               in ? x + static_cast<size_t>(m0 + r) * a.d + k8 * 8 : x,
+               in ? 16 : 0);
+  }
+  cp_async_commit();
+  for (int i = tid; i < a.d; i += kTcThreads) {
+    s_ls[i] = a.ln_scale[i];
+    s_lb[i] = a.ln_bias[i];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  ln_tile([&](int r, int k) { return reinterpret_cast<const bf16*>(
+                                  a_pair(s_a, r, k)); },
+          a.rows - m0, a.d, s_ls, s_lb, a.eps, s_a);
+  fence_proxy_async();
+  __syncthreads();
+
+  float acc[kN / 2];
+  zero(acc);
+  for (int kt = 0; kt < chunks; ++kt) {
+    const int s = kt % stages;
+    mbar_wait(&full[s], (kt / stages) & 1);
+    const int steps = min(4, (a.d - kt * kChunkElems) / 16);
+    const unsigned char* sa = s_a + kt * kATile;
+    const unsigned char* sb = ring + s * kStage;
+    fence_regs(acc);
+    wgmma_fence();
+    for (int k = 0; k < steps; ++k) {
+      wgmma_bf16<kN>(acc, sw128_desc(sa + 32 * k),
+                     sw128_desc(sb + wg * kN * kChunk + 32 * k));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous chunk's products are done with its stage
+    fence_regs(acc);
+    __syncthreads();  // ... in both warpgroups
+    const int refill = kt - 1 + stages;
+    if (tid == 0 && kt > 0 && refill < chunks) {
+      const int ps = (kt - 1) % stages;
+      mbar_arrive_expect_tx(&full[ps], kStage);
+      tma_load_2d(ring + ps * kStage, &w1map, refill * kChunk, n0, &full[ps]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  __syncthreads();  // every product is done with the ring
+
+  // bias + GELU, rounded to bf16, staged row-major in the ring, then
+  // 16-byte stores of the rows and columns inside (rows, H)
+  const AccPos pos;
+  bf16* tile = reinterpret_cast<bf16*>(ring);
+  constexpr int kPitch = kBN1 + 8;
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j) {
+    const int c = wg * kN + 8 * j + pos.col;
+    const float b0 = n0 + c < a.hdim ? a.b1[n0 + c] : 0.f;
+    const float b1 = n0 + c + 1 < a.hdim ? a.b1[n0 + c + 1] : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      store_bf16x2(tile + (pos.row + 8 * h) * kPitch + c,
+                   gelu_erf(acc[4 * j + 2 * h] + b0),
+                   gelu_erf(acc[4 * j + 2 * h + 1] + b1));
+    }
+  }
+  __syncthreads();
+  bf16* hidden = static_cast<bf16*>(a.hidden);
+  constexpr int kPieces = kBN1 / 8;
+  for (int i = tid; i < kBM * kPieces; i += kTcThreads) {
+    const int r = i / kPieces;
+    const int c = (i - r * kPieces) * 8;
+    if (m0 + r < a.rows && n0 + c < a.hdim) {  // H % 8 == 0
+      *reinterpret_cast<uint4*>(hidden + static_cast<size_t>(m0 + r) * a.hdim +
+                                n0 + c) =
+          *reinterpret_cast<const uint4*>(tile + r * kPitch + c);
+    }
+  }
+}
+
+// ---- route 2, phase 2: fc2 + bias + residual ---------------------------------
+
+// Grid: (output column tiles of kBN2, row tiles of 64). A stage holds a
+// 128-byte K chunk of 64 hidden rows (A) and of 64 W2^T rows (B); TMA
+// zero-fills K past H and rows past the ends.
+__global__ void __launch_bounds__(kWg)
+    fc2_residual_kernel(const __grid_constant__ CUtensorMap hmap,
+                        const __grid_constant__ CUtensorMap w2map,
+                        const CapfMlpArgs a) {
+  const int n0 = blockIdx.x * kBN2;
+  const int m0 = blockIdx.y * kBM;
+  const int chunks = (a.hdim + kChunkElems - 1) / kChunkElems;
+  const int stages = ring_stages(chunks);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + phase2_ring(stages));
+  const int tid = threadIdx.x;
+  constexpr int kStage = (kBM + kBN2) * kChunk;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto load = [&](int s, int kt) {
+    mbar_arrive_expect_tx(&full[s], kStage);
+    tma_load_2d(ring + s * kStage, &hmap, kt * kChunk, m0, &full[s]);
+    tma_load_2d(ring + s * kStage + kATile, &w2map, kt * kChunk, n0,
+                &full[s]);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) load(s, s);
+  }
+
+  float acc[kBN2 / 2];
+  zero(acc);
+  for (int kt = 0; kt < chunks; ++kt) {
+    const int s = kt % stages;
+    mbar_wait(&full[s], (kt / stages) & 1);
+    const unsigned char* sa = ring + s * kStage;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      wgmma_bf16<kBN2>(acc, sw128_desc(sa + 32 * k),
+                       sw128_desc(sa + kATile + 32 * k));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(acc);
+    const int refill = kt - 1 + stages;
+    if (tid == 0 && kt > 0 && refill < chunks) load((kt - 1) % stages, refill);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  __syncthreads();
+
+  // acc + b2 staged in fp32; then 8 columns a thread: the bf16 residual
+  // added in fp32, one 16-byte load and one 16-byte store
+  const AccPos pos;
+  float* tile = reinterpret_cast<float*>(ring);
+  constexpr int kPitch = kBN2 + 8;
+#pragma unroll
+  for (int j = 0; j < kBN2 / 8; ++j) {
+    const int c = 8 * j + pos.col;
+    const float b0 = n0 + c < a.d ? a.b2[n0 + c] : 0.f;
+    const float b1 = n0 + c + 1 < a.d ? a.b2[n0 + c + 1] : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float2*>(tile + (pos.row + 8 * h) * kPitch + c) =
+          make_float2(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
+    }
+  }
+  __syncthreads();
+  const bf16* x = static_cast<const bf16*>(a.x);
+  bf16* out = static_cast<bf16*>(a.out);
+  constexpr int kPieces = kBN2 / 8;
+  for (int i = tid; i < kBM * kPieces; i += kWg) {
+    const int r = i / kPieces;
+    const int c = (i - r * kPieces) * 8;
+    if (m0 + r >= a.rows || n0 + c >= a.d) continue;  // D % 8 == 0
+    const size_t off = static_cast<size_t>(m0 + r) * a.d + n0 + c;
+    const uint4 xv = *reinterpret_cast<const uint4*>(x + off);
+    const bf16* xe = reinterpret_cast<const bf16*>(&xv);
+    const float* v = tile + r * kPitch + c;
+    uint4 yv;
+    uint32_t* yw = reinterpret_cast<uint32_t*>(&yv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 y = __floats2bfloat162_rn(
+          __bfloat162float(xe[2 * e]) + v[2 * e],
+          __bfloat162float(xe[2 * e + 1]) + v[2 * e + 1]);
+      yw[e] = *reinterpret_cast<const uint32_t*>(&y);
+    }
+    *reinterpret_cast<uint4*>(out + off) = yv;
+  }
+}
+
+// ---- host side ---------------------------------------------------------------
+
+int sm_count(int device) {
+  static int counts[64] = {};
+  if (device < 0 || device >= 64) return 132;
+  if (counts[device] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
+            cudaSuccess ||
+        n < 1) {
+      n = 132;
+    }
+    counts[device] = n;
+  }
+  return counts[device];
+}
+
+template <int D, int H>
+cudaError_t launch_resident(const CapfMlpArgs& a, int device,
+                            cudaStream_t stream) {
+  using L = Resident<D, H>;
+  CUtensorMap w1map, w2map;
+  cudaError_t err = weight_map(a.w1, 2ull * D, H, H, &w1map);
+  if (err != cudaSuccess) return err;
+  err = weight_map(a.w2, 2ull * H, D, D, &w2map);
+  if (err != cudaSuccess) return err;
+  auto kernel = ln_mlp_resident_kernel<D, H>;
+  static bool opted = false;  // once per instantiation (one device)
+  if (!opted) {
+    err = capf::allow_smem(kernel, L::kSmem);
+    if (err != cudaSuccess) return err;
+    opted = true;
+  }
+  const int tiles = (a.rows + kBM - 1) / kBM;
+  const int blocks = tiles < sm_count(device) ? tiles : sm_count(device);
+  kernel<<<blocks, kTcThreads, L::kSmem, stream>>>(w1map, w2map, a);
+  return cudaGetLastError();
+}
+
+template <int kBN1>
+cudaError_t launch_two_phase(const CapfMlpArgs& a, cudaStream_t stream) {
+  const int smem1 = phase1_smem(kBN1, a.d), smem2 = phase2_smem(a.hdim);
+  if (smem1 > 232448 || smem2 > 232448) return cudaErrorInvalidValue;
+  CUtensorMap w1map, hmap, w2map;
+  cudaError_t err = weight_map(a.w1, 2ull * a.d, a.hdim, kBN1, &w1map);
+  if (err != cudaSuccess) return err;
+  err = weight_map(a.hidden, 2ull * a.hdim, a.rows, kBM, &hmap);
+  if (err != cudaSuccess) return err;
+  err = weight_map(a.w2, 2ull * a.hdim, a.d, kBN2, &w2map);
+  if (err != cudaSuccess) return err;
+  // the largest shared memory opted in so far (once per instantiation)
+  static int opted1 = 0, opted2 = 0;
+  if (smem1 > opted1) {
+    err = capf::allow_smem(ln_fc1_kernel<kBN1>, smem1);
+    if (err != cudaSuccess) return err;
+    opted1 = smem1;
+  }
+  if (smem2 > opted2) {
+    err = capf::allow_smem(fc2_residual_kernel, smem2);
+    if (err != cudaSuccess) return err;
+    opted2 = smem2;
+  }
+  const unsigned row_tiles = (a.rows + kBM - 1) / kBM;
+  ln_fc1_kernel<kBN1><<<dim3((a.hdim + kBN1 - 1) / kBN1, row_tiles),
+                        kTcThreads, smem1, stream>>>(w1map, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fc2_residual_kernel<<<dim3((a.d + kBN2 - 1) / kBN2, row_tiles), kWg, smem2,
+                        stream>>>(hmap, w2map, a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int capf_ln_mlp_residual(int dtype, const void* x,
-                                    const float* ln_scale,
-                                    const float* ln_bias, const void* w1,
-                                    const float* b1, const void* w2,
-                                    const float* b2, void* out, int rows,
-                                    int d, int hdim, float eps, int device,
+extern "C" int capf_ln_mlp_residual(const CapfMlpArgs* args, int device,
                                     cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (rows < 1 || d < 1 || hdim < 1) return cudaErrorInvalidValue;
-  if (dtype == capf::kBFloat16) {
-    if (d % kStrip != 0 || hdim % kStrip != 0) return cudaErrorInvalidValue;
+  const CapfMlpArgs& a = *args;
+  if (a.rows < 1 || a.d < 1 || a.hdim < 1 || a.rows >= (1 << 22)) {
+    return cudaErrorInvalidValue;
+  }
+  if (a.dtype == capf::kFloat32 && a.route == 0) {
     const size_t smem =
-        (static_cast<size_t>(kTcRows) * d + kWarps * kTile * kTile) *
-            sizeof(float) +
-        (static_cast<size_t>(kWarps) * kBufElems +
-         static_cast<size_t>(kTcRows) * (d + hdim + 2 * kPad)) *
-            sizeof(bf16);
-    err = capf::allow_smem(ln_mlp_bf16_kernel, smem);
-    if (err != cudaSuccess) return err;
-    ln_mlp_bf16_kernel<<<(rows + kTcRows - 1) / kTcRows, kThreads, smem,
-                         stream>>>(
-        static_cast<const bf16*>(x), ln_scale, ln_bias,
-        static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2,
-        static_cast<bf16*>(out), rows, d, hdim, eps);
-  } else {
-    const size_t smem =
-        static_cast<size_t>(kRows) * (2 * d + hdim) * sizeof(float);
+        static_cast<size_t>(kRows) * (2 * a.d + a.hdim) * sizeof(float);
     err = capf::allow_smem(ln_mlp_fp32_kernel, smem);
     if (err != cudaSuccess) return err;
-    ln_mlp_fp32_kernel<<<(rows + kRows - 1) / kRows, kThreads, smem,
+    ln_mlp_fp32_kernel<<<(a.rows + kRows - 1) / kRows, kThreads, smem,
                          stream>>>(
-        static_cast<const float*>(x), ln_scale, ln_bias,
-        static_cast<const float*>(w1), b1, static_cast<const float*>(w2), b2,
-        static_cast<float*>(out), rows, d, hdim, eps);
+        static_cast<const float*>(a.x), a.ln_scale, a.ln_bias,
+        static_cast<const float*>(a.w1), a.b1,
+        static_cast<const float*>(a.w2), a.b2, static_cast<float*>(a.out),
+        a.rows, a.d, a.hdim, a.eps);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  if (a.dtype != capf::kBFloat16 || a.d % 16 || a.hdim % 16) {
+    return cudaErrorInvalidValue;
+  }
+  if (a.route == 1) {
+    if (a.hdim != 2 * a.d) return cudaErrorInvalidValue;
+    if (a.d == 64) return launch_resident<64, 128>(a, device, stream);
+    if (a.d == 96) return launch_resident<96, 192>(a, device, stream);
+    if (a.d == 128) return launch_resident<128, 256>(a, device, stream);
+    return cudaErrorInvalidValue;
+  }
+  if (a.route == 2 && a.hidden != nullptr) {
+    if (a.tile1 == 128) return launch_two_phase<128>(a, stream);
+    if (a.tile1 == 256) return launch_two_phase<256>(a, stream);
+  }
+  return cudaErrorInvalidValue;
 }

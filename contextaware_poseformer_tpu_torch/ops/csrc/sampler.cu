@@ -18,15 +18,31 @@
 // keep device memory busy (2-byte loads left the deformable call at 0.18 ms).
 // Needs C divisible by 8 (bf16) or 4 (fp32) and 16-byte aligned maps.
 //
-// Projection (deformable blocks, border mode only): sample-then-project. A
-// tile of kTile points is blended in fp32 into shared memory, then multiplied
-// by W (C x Cout, staged in shared memory) plus b. For 272 points against a
-// 3072-pixel map this is ~11x less work than projecting the map first, and it
-// equals sample(F @ W + b) exactly because border-mode weights sum to 1 (the
-// Python wrapper refuses a projection in zeros mode). The product reads
-// shared memory as float4: a thread takes one point and 4 outputs, and one
-// sample load and 4 weight loads feed 16 FMAs. Needs C and Cout divisible
-// by 4.
+// Projection (deformable blocks, border mode only): sample-then-project. For
+// 272 points against a 3072-pixel map this is ~11x less work than projecting
+// the map first, and it equals sample(F @ W + b) exactly because border-mode
+// weights sum to 1 (the Python wrapper refuses a projection in zeros mode).
+// - bf16 and int8 maps (the serving path): one block a (item, level, chunk
+//   of kChunk = 64 points), so the 272-point call is 5 chunks a level. The
+//   block first issues its level's W (fp32, 32 KB at C = 256, Cout = 32)
+//   into shared memory by 16-byte cp.asyncs, which stay in flight while it
+//   gathers; it issues the taps of kBatch (point, 16-byte channel group)
+//   items a thread before it blends any of them; the blend is fp32,
+//   rounded once to bf16 into a padded A tile in shared memory. The
+//   projection runs on the tensor cores (mma.sync m16n8k16 bf16 -> fp32; a
+//   warp takes one 16-point row tile and every other 8-output column tile;
+//   W is rounded to bf16 as its fragments are built), then the bias, and
+//   the bf16 tile is staged for 16-byte stores. Rounding points: the blend and W are rounded
+//   to bf16, the products accumulate in fp32. The plain version projects
+//   fp32 blends with fp32 W; the JAX kernel projects with bf16 operands and
+//   fp32 accumulation (DEFAULT precision), so these roundings are the
+//   reference's own arithmetic. Needs C divisible by 16 and Cout by 8,
+//   Cout <= 64; the padded rows make every fragment load conflict-free.
+// - fp32 maps (parity runs and training): a tile of kTile points is blended
+//   in fp32 into shared memory, then multiplied by W (C x Cout, fp32 in
+//   shared memory) plus b on CUDA cores, float4 reads: a thread takes one
+//   point and 4 outputs, and one sample load and 4 weight loads feed 16
+//   FMAs. Needs C and Cout divisible by 4.
 //
 // K5: the same kernel also replaces the separable two-stage branch of
 // _sample_body_xy (deformable.py:148-197), which the TPU takes on large
@@ -42,16 +58,21 @@
 // reached through sample_points) is this kernel launched with one level;
 // the TPU's one-stage and two-stage bodies both become this gather.
 //
+// Grid: (chunks of kChunk points where every level of the call takes the
+// tensor-core projection, else tiles of kTile points; levels; batch). A
+// call with no such level launches the build without that body.
+//
 // int8 maps (the deploy graph's raw quantized samples, K1 and K8): a
 // 16-byte load carries 16 channels (C % 16 == 0), the blend stays fp32 and
 // rounds once to bf16, as the TPU kernel's bf16 output. The caller owns the
 // dequant scale: a projected int8 level (the CPN deploy graph's lifter)
-// takes projection weights already multiplied by it, and projects the fp32
+// takes projection weights already multiplied by it, and projects the
 // blend of the raw int8 taps as any other level (deformable.py:541-561).
-//
-// Grid: (point tiles, levels, batch); block: kThreads threads.
+
+#include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using capf::from_float;
 using capf::to_float;
@@ -60,7 +81,11 @@ namespace {
 
 constexpr int kMaxLevels = 8;
 constexpr int kThreads = 256;
-constexpr int kTile = 32;  // points per block
+constexpr int kTile = 32;     // points a block: the gather, fp32 projection
+constexpr int kChunk = 64;    // points a block: the tensor-core projection
+constexpr int kMaxCout = 64;  // its outputs: up to 4 n-tiles of 8 a warp
+constexpr int kPad = 8;       // bf16 padding of its shared-memory rows
+constexpr int kBatch = 4;     // gather items whose taps load together
 
 }  // namespace
 
@@ -84,44 +109,223 @@ struct CapfSampleArgs {
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
+// The tap rows and bilinear weights of points p0 .. p0 + n - 1 of one level
+// into s_rows / s_wts (threads 0 .. n_slots - 1; slots past n: row 0,
+// weight 0).
+__device__ __forceinline__ void stage_taps(const CapfSampleArgs& args,
+                                           const CapfSampleLevel& lv, int lvl,
+                                           int b, int p0, int n, int n_slots,
+                                           int (*s_rows)[4],
+                                           float (*s_wts)[4]) {
+  const int tid = threadIdx.x;
+  if (tid >= n_slots) return;
+  if (tid < n) {
+    const float* pt =
+        args.points +
+        ((static_cast<size_t>(b) * args.num_levels + lvl) * args.num_points +
+         p0 + tid) *
+            2;
+    capf::point_taps(pt[0], pt[1], lv.h, lv.w, args.border != 0,
+                     args.align_corners != 0, s_rows[tid], s_wts[tid]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      s_rows[tid][k] = 0;
+      s_wts[tid][k] = 0.f;
+    }
+  }
+}
+
+// two fp32 values rounded to bf16 (round to nearest even), the first in the
+// low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The projected body on the tensor cores (bf16 or int8 maps T): points
+// p0 .. p0 + 63 of one (item, level), sampled, projected by W and b, stored
+// as bf16. Shared memory: the A tile (kChunk, lda) bf16, which later stages
+// the output, then W (C, ldw) fp32, its rows padded by 4 so that the B
+// fragments' loads hit distinct banks; ops/deformable.py::projected_plan
+// mirrors its size.
+template <typename T>
+__device__ __forceinline__ void project_chunk(const CapfSampleArgs& args,
+                                              const CapfSampleLevel& lv,
+                                              int lvl, int b,
+                                              unsigned char* smem,
+                                              int (*s_rows)[4],
+                                              float (*s_wts)[4]) {
+  const int tid = threadIdx.x;
+  const int num_points = args.num_points;
+  const int p0 = blockIdx.x * kChunk;
+  const int n = min(kChunk, num_points - p0);
+  const int c = lv.c, cout = lv.cout;
+  const int lda = (c > cout ? c : cout) + kPad;
+  const int ldw = cout + 4;
+  bf16* s_a = reinterpret_cast<bf16*>(smem);
+  float* s_w = reinterpret_cast<float*>(s_a + kChunk * lda);
+
+  // W: fp32 (C, Cout) by 16-byte cp.asyncs, landing while the taps load
+  const int quads = cout / 4;
+  for (int i = tid; i < c * quads; i += kThreads) {
+    const int k = i / quads;
+    capf::sm90::cp_async16(s_w + k * ldw + (i - k * quads) * 4,
+                           lv.proj_w + 4 * i, 16);
+  }
+  capf::sm90::cp_async_commit();
+  stage_taps(args, lv, lvl, b, p0, n, kChunk, s_rows, s_wts);
+  __syncthreads();
+
+  // gather: an item is one 16-byte channel group (8 bf16 or 16 int8
+  // channels) of one point; a thread loads the 4 taps of kBatch items, then
+  // blends them in fp32 and rounds once to bf16 into the A tile. Rows of
+  // points past n are never written: their products are never stored.
+  const T* feat = static_cast<const T*>(lv.feat) +
+                  static_cast<size_t>(b) * lv.h * lv.w * c;
+  constexpr int kVec = 16 / sizeof(T);
+  const int groups = c / kVec;
+  const int items = n * groups;
+  for (int i0 = tid; i0 < items; i0 += kThreads * kBatch) {
+    uint4 raw[kBatch][4];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < items) {
+        const int pl = i / groups;
+        const int ch = (i - pl * groups) * kVec;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          raw[u][k] = *reinterpret_cast<const uint4*>(
+              feat + static_cast<size_t>(s_rows[pl][k]) * c + ch);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < items) {
+        const int pl = i / groups;
+        const int ch = (i - pl * groups) * kVec;
+        float acc[kVec] = {};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const T* tap = reinterpret_cast<const T*>(&raw[u][k]);
+          const float wk = s_wts[pl][k];
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) acc[e] += wk * to_float(tap[e]);
+        }
+        uint32_t words[kVec / 2];
+#pragma unroll
+        for (int e = 0; e < kVec / 2; ++e) {
+          const __nv_bfloat162 v2 =
+              __floats2bfloat162_rn(acc[2 * e], acc[2 * e + 1]);
+          words[e] = *reinterpret_cast<const uint32_t*>(&v2);
+        }
+        uint4* dst = reinterpret_cast<uint4*>(s_a + pl * lda + ch);
+#pragma unroll
+        for (int s = 0; s < kVec / 8; ++s) {
+          dst[s] = make_uint4(words[4 * s], words[4 * s + 1],
+                              words[4 * s + 2], words[4 * s + 3]);
+        }
+      }
+    }
+  }
+  capf::sm90::cp_async_wait<0>();
+  __syncthreads();
+
+  // project: warp w takes rows 16 (w % 4) .. + 15 and the 8-output column
+  // tiles w / 4, w / 4 + 2, ...; fragments by 32-bit loads (common.cuh's
+  // mma_bf16_16x8x16 layout), W's rounded to bf16 as they are built
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int row = 16 * (warp % 4) + g;
+  const int ntiles = cout / 8;
+  float acc[kMaxCout / 16][4] = {};
+  const bf16* a_row = s_a + row * lda + 2 * q;
+  for (int k0 = 0; k0 < c; k0 += 16) {
+    const uint32_t a[4] = {
+        *reinterpret_cast<const uint32_t*>(a_row + k0),
+        *reinterpret_cast<const uint32_t*>(a_row + 8 * lda + k0),
+        *reinterpret_cast<const uint32_t*>(a_row + k0 + 8),
+        *reinterpret_cast<const uint32_t*>(a_row + 8 * lda + k0 + 8)};
+#pragma unroll
+    for (int j = 0; j < kMaxCout / 16; ++j) {
+      const int nt = warp / 4 + 2 * j;
+      if (nt < ntiles) {
+        const float* w0 = s_w + (k0 + 2 * q) * ldw + nt * 8 + g;
+        const uint32_t bw[2] = {pack_bf16(w0[0], w0[ldw]),
+                                pack_bf16(w0[8 * ldw], w0[9 * ldw])};
+        capf::mma_bf16_16x8x16(acc[j], a, bw);
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with the A tile
+
+  // bias, rounded to bf16, staged over the A tile; then 16-byte stores
+  const int ldo = cout + kPad;
+#pragma unroll
+  for (int j = 0; j < kMaxCout / 16; ++j) {
+    const int nt = warp / 4 + 2 * j;
+    if (nt < ntiles) {
+      const int col = nt * 8 + 2 * q;
+      const float b0 = lv.proj_b != nullptr ? lv.proj_b[col] : 0.f;
+      const float b1 = lv.proj_b != nullptr ? lv.proj_b[col + 1] : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(s_a + row * ldo + col) =
+          __floats2bfloat162_rn(acc[j][0] + b0, acc[j][1] + b1);
+      *reinterpret_cast<__nv_bfloat162*>(s_a + (row + 8) * ldo + col) =
+          __floats2bfloat162_rn(acc[j][2] + b0, acc[j][3] + b1);
+    }
+  }
+  __syncthreads();
+  bf16* out = static_cast<bf16*>(lv.out) +
+              (static_cast<size_t>(b) * num_points + p0) * cout;
+  const int pieces = cout / 8;
+  for (int i = tid; i < n * pieces; i += kThreads) {
+    const int r = i / pieces;
+    const int pc = (i - r * pieces) * 8;
+    *reinterpret_cast<uint4*>(out + r * cout + pc) =
+        *reinterpret_cast<const uint4*>(s_a + r * ldo + pc);
+  }
+}
+
 // T: the maps' type (float, __nv_bfloat16 or int8_t); O: the outputs'
-// (T, or __nv_bfloat16 for int8 maps)
-template <typename T, typename O>
+// (T, or __nv_bfloat16 for int8 maps). kTc: the build with the tensor-core
+// projected body, launched only for calls that have such a level, so that
+// the gather alone (the zeros call, K8) keeps its own, smaller register
+// budget and its occupancy.
+template <typename T, typename O, bool kTc>
 __global__ void __launch_bounds__(kThreads)
     sample_levels_kernel(const CapfSampleArgs args) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_rows[kTile][4];
-  __shared__ float s_wts[kTile][4];
+  __shared__ int s_rows[kChunk][4];
+  __shared__ float s_wts[kChunk][4];
 
   const int lvl = blockIdx.y;
   const int b = blockIdx.z;
-  const int tile0 = blockIdx.x * kTile;
   const int tid = threadIdx.x;
   const CapfSampleLevel lv = args.levels[lvl];
   const int num_points = args.num_points;
   const int c = lv.c;
   const bool proj = lv.proj_w != nullptr;
+  if constexpr (kTc && !std::is_same<T, float>::value) {
+    if (proj) {  // uniform per block: the level decides
+      if (blockIdx.x * kChunk < num_points) {
+        project_chunk<T>(args, lv, lvl, b, smem_raw, s_rows, s_wts);
+      }
+      return;
+    }
+  }
+  const int tile0 = blockIdx.x * kTile;
+  if (tile0 >= num_points) return;
 
   float* s_w = reinterpret_cast<float*>(smem_raw);  // (C, Cout)
   float* s_samp = s_w + (proj ? c * lv.cout : 0);   // (kTile, C)
 
-  if (tid < kTile) {
-    const int p = tile0 + tid;
-    if (p < num_points) {
-      const float* pt =
-          args.points +
-          ((static_cast<size_t>(b) * args.num_levels + lvl) * num_points + p) *
-              2;
-      capf::point_taps(pt[0], pt[1], lv.h, lv.w, args.border != 0,
-                       args.align_corners != 0, s_rows[tid], s_wts[tid]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        s_rows[tid][k] = 0;
-        s_wts[tid][k] = 0.f;
-      }
-    }
-  }
+  stage_taps(args, lv, lvl, b, tile0, min(kTile, num_points - tile0), kTile,
+             s_rows, s_wts);
   if (proj) {
     const float4* w4 = reinterpret_cast<const float4*>(lv.proj_w);
     float4* s_w4 = reinterpret_cast<float4*>(s_w);
@@ -202,13 +406,16 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, typename O>
-cudaError_t launch(const CapfSampleArgs& args, size_t smem,
-                   cudaStream_t stream) {
-  cudaError_t err = capf::allow_smem(sample_levels_kernel<T, O>, smem);
+cudaError_t launch(const CapfSampleArgs& args, size_t smem, bool tc,
+                   bool all_tc, cudaStream_t stream) {
+  auto kernel = tc ? sample_levels_kernel<T, O, true>
+                   : sample_levels_kernel<T, O, false>;
+  cudaError_t err = capf::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((args.num_points + kTile - 1) / kTile, args.num_levels,
+  const int tile = all_tc ? kChunk : kTile;
+  const dim3 grid((args.num_points + tile - 1) / tile, args.num_levels,
                   args.batch);
-  sample_levels_kernel<T, O><<<grid, kThreads, smem, stream>>>(args);
+  kernel<<<grid, kThreads, smem, stream>>>(args);
   return cudaGetLastError();
 }
 
@@ -223,25 +430,37 @@ extern "C" int capf_sample_levels(const CapfSampleArgs* args, int device,
     return cudaErrorInvalidValue;
   }
   size_t smem = 0;
-  const int vec = args->dtype == capf::kInt8       ? 16
-                  : args->dtype == capf::kBFloat16 ? 8
-                                                   : 4;
+  const bool fp32 = args->dtype == capf::kFloat32;
+  const int vec = args->dtype == capf::kInt8 ? 16 : fp32 ? 4 : 8;
+  bool any_tc = false, all_tc = true;  // levels taking the tensor-core body
   for (int l = 0; l < args->num_levels; ++l) {
     const CapfSampleLevel& lv = args->levels[l];
     if (lv.c % vec != 0) return cudaErrorInvalidValue;
-    if (lv.proj_w != nullptr) {
+    const bool tc = !fp32 && lv.proj_w != nullptr;
+    any_tc = any_tc || tc;
+    all_tc = all_tc && tc;
+    if (lv.proj_w == nullptr) continue;
+    size_t need;
+    if (fp32) {
       if (lv.cout % 4 != 0) return cudaErrorInvalidValue;  // C: above
-      const size_t need =
-          static_cast<size_t>(lv.c) * (lv.cout + kTile) * sizeof(float);
-      smem = need > smem ? need : smem;
+      need = static_cast<size_t>(lv.c) * (lv.cout + kTile) * sizeof(float);
+    } else {
+      if (lv.c % 16 || lv.cout % 8 || lv.cout > kMaxCout) {
+        return cudaErrorInvalidValue;
+      }
+      const int lda = (lv.c > lv.cout ? lv.c : lv.cout) + kPad;
+      need = static_cast<size_t>(kChunk) * lda * sizeof(__nv_bfloat16) +
+             static_cast<size_t>(lv.c) * (lv.cout + 4) * sizeof(float);
     }
+    smem = need > smem ? need : smem;
   }
   if (args->dtype == capf::kInt8) {
-    err = launch<int8_t, __nv_bfloat16>(*args, smem, stream);
+    err = launch<int8_t, __nv_bfloat16>(*args, smem, any_tc, all_tc, stream);
   } else if (args->dtype == capf::kBFloat16) {
-    err = launch<__nv_bfloat16, __nv_bfloat16>(*args, smem, stream);
+    err = launch<__nv_bfloat16, __nv_bfloat16>(*args, smem, any_tc, all_tc,
+                                               stream);
   } else {
-    err = launch<float, float>(*args, smem, stream);
+    err = launch<float, float>(*args, smem, false, false, stream);
   }
   return static_cast<int>(err);
 }

@@ -32,8 +32,12 @@ the plain versions return their samples in float32, as the JAX gather
 does, and the kernel (K1, K8) in bf16, as the TPU kernel does
 (``deformable.py:555-561``). An int8 level's fused projection takes
 weights the caller has already scaled by the dequant scale (the lifter's
-``feat_scales``): the int8 taps blend in fp32, project in fp32 and round
-once, to float32 (plain) or bf16 (kernel).
+``feat_scales``). The plain version blends in fp32, projects in fp32 and
+rounds once (to float32 for int8 maps). The kernel's projection on bf16
+and int8 maps runs on the tensor cores: the fp32 blend and W are rounded
+to bf16 and the products accumulate in fp32, as the JAX kernel projects
+at DEFAULT precision (``deformable.py:453-462``); ``projected_plan`` says
+which levels it takes. Its fp32 body projects in fp32.
 
 K7 (``csrc/aggregate.cu``) samples every level, projects each sample with
 the level's W (C_l, hd) plus b, weights it and sums a head's ns samples,
@@ -73,7 +77,38 @@ launches_k8 = 0  # K8 launches: the sampler kernel for sample_points
 
 MAX_LEVELS = 8
 _TILE = 32  # points per block in csrc/sampler.cu and csrc/aggregate.cu
+# csrc/sampler.cu's tensor-core projected body (bf16 and int8 maps): points
+# a block, most outputs, bf16 padding of a shared-memory row
+_CHUNK, _MAX_COUT, _PAD = 64, 64, 8
 _SAMPLER_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+
+
+def projected_plan(dtype: torch.dtype, c: int, cout: int,
+                   points: int) -> tuple[int, int]:
+    """(blocks an (item, level), shared memory bytes a block) of a level
+    the sampler projects from C to Cout channels, ``points`` points a
+    call. bf16 and int8 maps take the tensor-core body (64 points a block;
+    the bf16 A tile, which later stages the output, and W in fp32): C a
+    multiple of 16, Cout of 8, at most 64. fp32 maps take the CUDA-core
+    body (32 points; W and the samples in fp32): C and Cout multiples of 4.
+    Raises ValueError for a level neither takes."""
+    name = "sample_points_multi"
+    if dtype == torch.float32:
+        if c % 4 or cout % 4:
+            raise ValueError(f"{name}: the fp32 projection needs C and Cout "
+                             f"divisible by 4, got {c} -> {cout}")
+        blocks, smem = -(-points // _TILE), c * (cout + _TILE) * 4
+    else:
+        if c % 16 or cout % 8 or cout > _MAX_COUT:
+            raise ValueError(
+                f"{name}: the tensor-core projection needs C divisible by "
+                f"16 and Cout by 8, at most {_MAX_COUT}; got {c} -> {cout}")
+        blocks = -(-points // _CHUNK)
+        smem = 2 * _CHUNK * (max(c, cout) + _PAD) + 4 * c * (cout + 4)
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(f"{name}: projection {c}x{cout} does not fit in "
+                         "shared memory")
+    return blocks, smem
 
 
 def kernel_can_preproject(h: int, w: int, c: int, hd: int) -> bool:
@@ -206,12 +241,7 @@ def _prepare(features, points, padding_mode, align_corners, projs, biases):
         if projs[l] is not None:
             wk = projs[l].float().contiguous()
             cout = wk.shape[1]
-            if c * (cout + _TILE) * 4 > _build.SMEM_LIMIT:
-                raise ValueError(f"{name}: level {l} projection {c}x{cout} "
-                                 "does not fit in shared memory")
-            if cout % 4:
-                raise ValueError(f"{name}: level {l} projection to {cout} "
-                                 "outputs; the kernel needs a multiple of 4")
+            projected_plan(dtype, c, cout, p)
             lv.proj_w = wk.data_ptr()
             keep.append(wk)
             if biases[l] is not None:

@@ -1,5 +1,5 @@
-"""Fused LayerNorm -> MLP -> residual (K2): CUDA kernel wrapper, plain
-version and dispatcher.
+"""Fused LayerNorm -> MLP -> residual (K2): CUDA kernel wrapper, route
+planner, plain version and dispatcher.
 
 Port of ``contextaware_poseformer_tpu/ops/fused_mlp.py:59-157``:
 
@@ -10,33 +10,108 @@ LN statistics and the residual add are fp32; the matmul operands are in
 accumulation, and the LN and GELU outputs are rounded to ``x.dtype`` before
 the matmul that reads them. GELU is the exact erf form (the TPU kernel's
 rational erf approximation was a Mosaic workaround; CUDA has ``erff``).
-The kernel is ``csrc/fused_mlp.cu``: its bf16 body runs the products on
-tensor cores (WMMA) and needs D and H divisible by 32; its fp32 body runs
-them on CUDA cores.
+The kernel is ``csrc/fused_mlp.cu``. Its bf16 routes run the products on
+Hopper's tensor cores (``wgmma``) and need D and H divisible by 16:
+``plan`` picks the weights-resident route (one persistent block an SM that
+loads W1 and W2 once) where both fit in shared memory, else the two-phase
+route (LN + fc1 + GELU into a bf16 hidden workspace, then fc2 + residual:
+two launches a call). Its fp32 body runs the products on CUDA cores. The
+bf16 routes read the weights as bf16 W1^T and W2^T, cast once per
+parameter state (``kernel_weight``).
 """
 
 from __future__ import annotations
+
+import ctypes
+import weakref
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from contextaware_poseformer_tpu_torch.ops import _build
 
-launches = 0  # kernel launches made by ln_mlp_residual_kernel
+launches = 0  # calls of ln_mlp_residual_kernel (two launches on route 2)
 
 _ROWS = 8  # rows per block of the fp32 body in csrc/fused_mlp.cu
-# the bf16 (WMMA) body: rows per block, warps, tile edge, output strip,
-# k-steps per B load group, row padding
-_TC_ROWS, _WARPS, _TILE, _STRIP, _GROUP, _PAD = 16, 8, 16, 32, 4, 8
+# the bf16 routes: rows of a tile (wgmma's M), bytes of a swizzled K chunk
+# (64 bf16), the two-phase ring's depth and its column tiles, the 1024-byte
+# alignment of the swizzled regions
+_BM, _CHUNK, _STAGES, _BN2, _ALIGN = 64, 128, 4, 64, 1024
+_CHUNK_ELEMS = _CHUNK // 2
+RESIDENT_WIDTHS = (64, 96, 128)  # D instantiated with H = 2D in the .cu
+# the two-phase route's phase-1 tile (hidden columns a block): 256 from
+# D = 480 on, 128 below; the block's fixed cost (x and its LN) is most of
+# its time, and 256 halves the blocks (one wave at the joint shape) and
+# the LN work: 51 -> 30 us at D = 640, 50 -> 29 at D = 480, but 18 -> 20
+# at D = 320, whose 85 blocks fill one wave already (batch 64, an H100 80GB
+# HBM3; PERF.md)
+_BN1_WIDE_FROM = 480
+_ROUTE_CODES = {"fp32": 0, "resident": 1, "two-phase": 2}
 
 
-def _smem_bytes(dtype, d, hdim):
-    """Shared memory one block of csrc/fused_mlp.cu takes."""
-    if dtype == torch.bfloat16:
-        b_buffers = _WARPS * _GROUP * _TILE * (_STRIP + _PAD)
-        return (4 * (_TC_ROWS * d + _WARPS * _TILE * _TILE)
-                + 2 * (b_buffers + _TC_ROWS * (d + hdim + 2 * _PAD)))
-    return 4 * _ROWS * (2 * d + hdim)
+@dataclass(frozen=True)
+class Plan:
+    """A K2 call's route: its shared memory a block for each launch, and
+    the column widths its products take (resident: fc1's hidden tile and
+    fc2's full width D; two-phase: phase 1's hidden tile and phase 2's
+    output tile; a tile past H or D is masked)."""
+
+    route: str
+    smem: tuple[int, ...]
+    tiles: tuple[int, ...]
+
+
+def _chunks(n: int) -> int:
+    return -(-n // _CHUNK_ELEMS)
+
+
+def _resident_smem(d: int, hdim: int) -> int:
+    """``Resident<D, H>::kSmem`` of csrc/fused_mlp.cu."""
+    kc1, kc2 = _chunks(d), hdim // _CHUNK_ELEMS
+    return (_ALIGN + kc1 * hdim * _CHUNK + kc2 * d * _CHUNK
+            + (kc1 + kc2) * _BM * _CHUNK + 2 * _BM * (d + 8) * 2
+            + (hdim + 3 * d) * 4 + 2 * 8)
+
+
+def _two_phase_smem(d: int, hdim: int, bn1: int) -> tuple[int, int]:
+    """``phase1_smem(bn1, d)`` and ``phase2_smem(hdim)`` of
+    csrc/fused_mlp.cu."""
+    kc1, kc2 = _chunks(d), _chunks(hdim)
+    ring1 = max(min(_STAGES, kc1) * bn1 * _CHUNK, _BM * (bn1 + 8) * 2)
+    ring2 = max(min(_STAGES, kc2) * (_BM + _BN2) * _CHUNK,
+                _BM * (_BN2 + 8) * 4)
+    return (_ALIGN + kc1 * _BM * _CHUNK + ring1 + _STAGES * 8 + 2 * d * 4,
+            _ALIGN + ring2 + _STAGES * 8)
+
+
+def plan(dtype: torch.dtype, d: int, hdim: int) -> Plan:
+    """The route of a K2 call at width D and hidden width H: fp32 -> the
+    CUDA-core body; bf16 -> weights-resident where the kernel has the width
+    and both weights fit in shared memory, else two-phase. Raises
+    ValueError for a shape no route takes."""
+    name = "ln_mlp_residual"
+    if dtype == torch.float32:
+        smem = 4 * _ROWS * (2 * d + hdim)
+        if smem > _build.SMEM_LIMIT:
+            raise ValueError(f"{name}: D={d}, H={hdim} rows do not fit in "
+                             "shared memory")
+        return Plan("fp32", (smem,), ())
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or bfloat16, "
+                        f"got {dtype}")
+    if d % 16 or hdim % 16:
+        raise ValueError(f"{name}: the bf16 (wgmma) kernel needs D and H "
+                         f"divisible by 16, got D={d}, H={hdim}")
+    if d in RESIDENT_WIDTHS and hdim == 2 * d:
+        smem = _resident_smem(d, hdim)
+        if smem <= _build.SMEM_LIMIT:
+            return Plan("resident", (smem,), (_CHUNK_ELEMS, d))
+    for bn1 in (256, 128) if d >= _BN1_WIDE_FROM else (128,):
+        smem = _two_phase_smem(d, hdim, bn1)
+        if max(smem) <= _build.SMEM_LIMIT:
+            return Plan("two-phase", smem, (bn1, _BN2))
+    raise ValueError(f"{name}: D={d} rows do not fit in shared memory")
 
 
 def ln_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps):
@@ -58,6 +133,57 @@ def ln_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps):
     return (xf + o).to(dt)
 
 
+# id(weight) -> (weak reference, _version, data_ptr, cast)
+_CASTS: dict[int, tuple] = {}
+
+
+def _cast_t(w: torch.Tensor) -> torch.Tensor:
+    with torch.no_grad():
+        return w.detach().t().to(torch.bfloat16,
+                                 memory_format=torch.contiguous_format)
+
+
+def kernel_weight(w: torch.Tensor) -> torch.Tensor:
+    """A weight (K, N) as the bf16 routes read it: W^T (N, K) in bf16,
+    contiguous. Cast once per parameter state: cached by the tensor itself
+    (a weak reference) and its ``_version``, so an in-place update (an
+    optimizer step, a ``copy_``) casts anew. A tensor made under
+    ``torch.inference_mode()`` has no version counter and is cast on every
+    call."""
+    if w.is_inference():
+        return _cast_t(w)
+    key = id(w)
+    hit = _CASTS.get(key)
+    if (hit is not None and hit[0]() is w and hit[1] == w._version
+            and hit[2] == w.data_ptr()):
+        return hit[3]
+    cast = _cast_t(w)
+    ref = weakref.ref(w, lambda _, key=key: _CASTS.pop(key, None))
+    _CASTS[key] = (ref, w._version, w.data_ptr(), cast)
+    return cast
+
+
+class _Args(ctypes.Structure):  # csrc/fused_mlp.cu::CapfMlpArgs
+    _fields_ = [
+        ("x", ctypes.c_void_p),
+        ("ln_scale", ctypes.c_void_p),
+        ("ln_bias", ctypes.c_void_p),
+        ("w1", ctypes.c_void_p),
+        ("b1", ctypes.c_void_p),
+        ("w2", ctypes.c_void_p),
+        ("b2", ctypes.c_void_p),
+        ("hidden", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("rows", ctypes.c_int),
+        ("d", ctypes.c_int),
+        ("hdim", ctypes.c_int),
+        ("eps", ctypes.c_float),
+        ("dtype", ctypes.c_int),
+        ("route", ctypes.c_int),
+        ("tile1", ctypes.c_int),
+    ]
+
+
 def ln_mlp_residual_kernel(x, ln_scale, ln_bias, w1, b1, w2, b2, eps):
     """The CUDA kernel: same contract as ``ln_mlp_reference``; the weights
     are cast to ``x.dtype`` and the LN parameters and biases to fp32. Under
@@ -77,32 +203,36 @@ def _launch(x, ln_scale, ln_bias, w1, b1, w2, b2, eps):
     if w1.shape != (d, hdim) or w2.shape != (hdim, d):
         raise ValueError(f"{name}: w1 {tuple(w1.shape)} / w2 "
                          f"{tuple(w2.shape)} do not fit D={d}")
-    if _smem_bytes(x.dtype, d, hdim) > _build.SMEM_LIMIT:
-        raise ValueError(f"{name}: D={d}, H={hdim} rows do not fit in "
-                         "shared memory")
-    if x.dtype == torch.bfloat16 and (d % _STRIP or hdim % _STRIP):
-        raise ValueError(f"{name}: the bf16 (tensor-core) kernel needs D "
-                         f"and H divisible by {_STRIP}, got D={d}, H={hdim}")
     for v, n in ((ln_scale, d), (ln_bias, d), (b1, hdim), (b2, d)):
         if v.shape != (n,):
             raise ValueError(f"{name}: vector of shape {tuple(v.shape)}, "
                              f"expected ({n},)")
-    w1c = w1.to(x.dtype).contiguous()
-    w2c = w2.to(x.dtype).contiguous()
+    p = plan(x.dtype, d, hdim)
+    route = p.route
+    if route == "fp32":
+        w1k, w2k = (w.to(x.dtype).contiguous() for w in (w1, w2))
+    else:
+        w1k, w2k = kernel_weight(w1), kernel_weight(w2)
     vecs = [v.float().contiguous() for v in (ln_scale, ln_bias, b1, b2)]
-    _build.require_cuda(name, x, w1c, w2c, *vecs)
-    if x.dtype == torch.bfloat16 and (w1c.data_ptr() % 16
-                                      or w2c.data_ptr() % 16):
-        raise ValueError(f"{name}: the weights must start on a 16-byte "
-                         "boundary (the kernel loads them 16 bytes a lane)")
+    _build.require_cuda(name, x, w1k, w2k, *vecs)
     out = torch.empty_like(x)
     rows = x.numel() // d
+    hidden = (torch.empty((rows, hdim), dtype=torch.bfloat16,
+                          device=x.device) if route == "two-phase" else None)
+    if route != "fp32" and any(
+            t.data_ptr() % 16 for t in (x, out, w1k, w2k)):
+        raise ValueError(f"{name}: x, out and the weights must start on a "
+                         "16-byte boundary (16-byte loads, TMA)")
     ls, lb, b1c, b2c = (v.data_ptr() for v in vecs)
+    args = _Args(x=x.data_ptr(), ln_scale=ls, ln_bias=lb,
+                 w1=w1k.data_ptr(), b1=b1c, w2=w2k.data_ptr(), b2=b2c,
+                 hidden=None if hidden is None else hidden.data_ptr(),
+                 out=out.data_ptr(), rows=rows, d=d, hdim=hdim,
+                 eps=float(eps), dtype=code, route=_ROUTE_CODES[route],
+                 tile1=p.tiles[0] if route == "two-phase" else 0)
     lib = _build.library()
-    err = lib.capf_ln_mlp_residual(
-        code, x.data_ptr(), ls, lb, w1c.data_ptr(), b1c, w2c.data_ptr(), b2c,
-        out.data_ptr(), rows, d, hdim, float(eps), *_build.launch_target(x),
-    )
+    err = lib.capf_ln_mlp_residual(ctypes.addressof(args),
+                                   *_build.launch_target(x))
     _build.check(lib, err, name)
     launches += 1
     return out

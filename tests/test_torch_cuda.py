@@ -852,3 +852,127 @@ def test_k4_token_and_head_counts(cuda_device, n, hd, dtype):
     assert out.shape == ref.shape == (5, n, 8 * hd) and out.dtype == dtype
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= tol * ref.float().abs().max().item()
+
+
+def _mlp_params(g, dev, d):
+    """LN and MLP parameters at width D (H = 2D), fp32 as the lifter holds
+    them, made outside inference mode (the bf16 routes cast them once)."""
+    def u(lo, hi, *shape):
+        return (torch.rand(*shape, generator=g) * (hi - lo) + lo).to(dev)
+
+    return [u(0.5, 1.5, d), u(-0.1, 0.1, d),
+            u(-1, 1, d, 2 * d) / d ** 0.5, u(-0.1, 0.1, 2 * d),
+            u(-1, 1, 2 * d, d) / (2 * d) ** 0.5, u(-0.1, 0.1, d)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 63, 65, 1088, 5440])
+@pytest.mark.parametrize("d", [64, 96, 128, 320, 480, 640])
+def test_k2_routes_at_every_width_and_ragged_rows(cuda_device, d, rows):
+    """K2's bf16 routes (weights-resident at D <= 128, two-phase above) at
+    the six lifter widths and row counts that leave partial 64-row tiles,
+    against the plain version: 2e-2 of max|plain|; one call counted."""
+    g = torch.Generator().manual_seed(d + rows)
+    x = torch.randn(rows, d, generator=g).to(cuda_device, torch.bfloat16)
+    p = _mlp_params(g, cuda_device, d)
+    route = fused_mlp.plan(torch.bfloat16, d, 2 * d).route
+    assert route == ("resident" if d <= 128 else "two-phase")
+    before = fused_mlp.launches
+    out = fused_mlp.ln_mlp_residual_kernel(x, *p, 1e-6)
+    ref = fused_mlp.ln_mlp_reference(x, *p, 1e-6)
+    assert fused_mlp.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * ref.float().abs().max().item(), (route, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 640])
+def test_k2_bf16_routes_run_under_autograd(cuda_device, d):
+    """Both bf16 routes under autograd: the forward is the kernel, the
+    backward the plain version's VJP; outputs within 2e-2 and gradients
+    of x and the weights within 2e-2 of max|plain grad| of autograd
+    through the plain version."""
+    g = torch.Generator().manual_seed(d)
+    x0 = torch.randn(3, 17, d, generator=g).to(cuda_device, torch.bfloat16)
+    p0 = _mlp_params(g, cuda_device, d)
+    w = torch.randn(3, 17, d, generator=g).to(cuda_device, torch.bfloat16)
+    results = []
+    for fn in (fused_mlp.ln_mlp_residual_kernel, fused_mlp.ln_mlp_reference):
+        x = x0.clone().requires_grad_(True)
+        p = [t.clone().requires_grad_(True) for t in p0]
+        out = fn(x, *p, 1e-6)
+        out.backward(w)
+        results.append([out.detach(), x.grad] + [t.grad for t in p])
+    for a, b in zip(*results):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 2e-2 * b.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_k2_weight_cast_follows_in_place_updates(cuda_device):
+    """The bf16 routes cast W1 and W2 once per parameter state: an in-place
+    update of a weight changes the next call's output, as the plain
+    version's; tensors made under inference mode are cast every call."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(70, 128, generator=g).to(cuda_device, torch.bfloat16)
+    p = _mlp_params(g, cuda_device, 128)
+    first = fused_mlp.ln_mlp_residual_kernel(x, *p, 1e-6)
+    with torch.no_grad():
+        p[2].mul_(-1.0)
+    second = fused_mlp.ln_mlp_residual_kernel(x, *p, 1e-6)
+    ref = fused_mlp.ln_mlp_reference(x, *p, 1e-6)
+    assert not torch.equal(first, second)
+    err = (second.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * ref.float().abs().max().item()
+    with torch.inference_mode():
+        q = [t.clone() for t in p]
+        out = fused_mlp.ln_mlp_residual_kernel(x, *q, 1e-6)
+    assert torch.equal(out, second)
+
+
+K1_PYRAMIDS = {"CPN": tuple((h, w, 256) for h, w in LEVELS),
+               **HRNET_PYRAMIDS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("points", [(17,), (17, 16), (300,)],
+                         ids=["P17", "P272", "P300"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("pyramid", sorted(K1_PYRAMIDS))
+def test_k1_projected_body_at_every_pyramid(cuda_device, pyramid, dtype,
+                                            points):
+    """K1 (K5 at the HRNet pyramids) in border mode with the lifter's
+    in-sampler projection to 32 channels on every level with C > 32, on
+    bf16 and int8 maps (weights carrying a dequant scale), against the
+    plain version, level by level: 2e-2 of max|plain|; one launch."""
+    dims = K1_PYRAMIDS[pyramid]
+    g = torch.Generator().manual_seed(len(points) + dims[0][2])
+    if dtype == torch.int8:
+        maps = [torch.randint(-127, 128, (3, h, w, c), generator=g,
+                              dtype=torch.int8).to(cuda_device)
+                for h, w, c in dims]
+        scale = 0.02
+    else:
+        maps = [torch.randn(3, h, w, c, generator=g).to(cuda_device, dtype)
+                for h, w, c in dims]
+        scale = 1.0
+    pts = (torch.rand(3, 4, *points, 2, generator=g) * 3 - 1.5).to(
+        cuda_device)
+    projs = [((torch.rand(c, 32, generator=g) * 2 - 1) / c ** 0.5
+              * scale).to(cuda_device) if c > 32 else None
+             for *_, c in dims]
+    biases = [(torch.rand(32, generator=g) * 0.2 - 0.1).to(cuda_device)
+              if c > 32 else None for *_, c in dims]
+    before = deformable.launches
+    out = deformable.sample_points_multi(maps, pts, "border", True, projs,
+                                         biases)
+    ref = deformable.sample_points_multi_reference(maps, pts, "border", True,
+                                                   projs, biases)
+    assert deformable.launches == before + 1
+    for o, r, (*_, c) in zip(out, ref, dims):
+        assert o.dtype == torch.bfloat16
+        assert o.shape == r.shape == (3, *points, 32 if c > 32 else c)
+        err = (o.float() - r.float()).abs().max().item()
+        assert err <= 2e-2 * r.float().abs().max().item(), (c, err)
