@@ -11,9 +11,10 @@ Phases, one line of output each (failures raise and exit non-zero):
    checkout into build/kernels/ and prints the build seconds, each
    kernel's registers, spills and shared memory (``-Xptxas -v``), and, by
    ``cuobjdump -sass``, the tensor-core and asynchronous-copy instructions
-   of K1's and K2's kernels: K2's bf16 kernels must hold HGMMA (``wgmma``)
-   and K1's bf16/int8 sampler HMMA, each with LDGSTS (``cp.async``) or
-   UTMALDG (TMA);
+   of K1's, K2's, K3's and K9's kernels: K2's and K3's bf16 kernels must
+   hold HGMMA (``wgmma``), K1's bf16/int8 sampler HMMA, K9's builds IGMMA
+   (int8 ``wgmma``) and IMMA (``mma.sync``), each with LDGSTS
+   (``cp.async``) or UTMALDG (TMA);
 3. kernels: each of K1-K4 against its plain PyTorch version on the card, at
    the H36M serving path's shapes with batch 64 (K2-K4 also at the 3DHP
    lifters' widths: K2 at D=64/96/320/480, each with the route
@@ -34,8 +35,8 @@ Phases, one line of output each (failures raise and exit non-zero):
    agree to a relative RMS of 2e-2. Information only: host ms a request and
    frames/s over 20 requests, stage times by CUDA events, and under
    torch.profiler the device busy ms a request, its idle share of the
-   unprofiled host time, K1's and K2's device ms and share of it, and the
-   top kernels;
+   unprofiled host time, K1's, K2's, K3's and K9's device ms and share of
+   it, and the top kernels;
 5. hrnet: the same for the full-width h36m_hrnet_32 slice (bf16 HRNet-W32,
    3 requests), then one request each of h36m_hrnet_48, mpi_3dhp_hrnet_32
    and mpi_3dhp_hrnet_48;
@@ -246,18 +247,26 @@ K8_CASES = (
 AGGREGATE_PRESETS = ("h36m_cpn", "h36m_hrnet_32")  # K7 on their blocks
 SLEEP_CYCLES = 4_000_000  # ~2 ms of device clock ahead of a timed window
 # kernels whose share of a served request's device time is printed, by the
-# names of their CUDA kernels (K1 and K2 redesigned for Hopper in the port)
+# names of their CUDA kernels (those redesigned for Hopper in the port)
 SHARE_KERNELS = {"K1": ("sample_levels_kernel",),
                  "K2": ("ln_mlp_resident_kernel", "ln_fc1_kernel",
-                        "fc2_residual_kernel", "ln_mlp_fp32_kernel")}
+                        "fc2_residual_kernel", "ln_mlp_fp32_kernel"),
+                 "K3": ("small_attention_tc_kernel",
+                        "small_attention_cores_kernel"),
+                 "K9": ("layer1_block_kernel",)}
 # SASS instructions that show a build runs on Hopper's machinery: the
-# tensor cores (HGMMA: wgmma, HMMA: mma.sync) and the asynchronous copies
-# (LDGSTS: cp.async, UTMALDG: TMA); per kernel: (function name parts, the
-# instructions it must hold, one of which suffices for each tuple)
-SASS_OPS = ("HGMMA", "HMMA", "IGMMA", "LDGSTS", "UTMALDG")
+# tensor cores (HGMMA / IGMMA: bf16 / int8 wgmma, HMMA / IMMA: mma.sync) and
+# the asynchronous copies (LDGSTS: cp.async, UTMALDG: TMA); per kernel:
+# (function name parts, the instructions it must hold, one of which
+# suffices for each tuple)
+SASS_OPS = ("HGMMA", "HMMA", "IGMMA", "IMMA", "LDGSTS", "UTMALDG")
 _WGMMA_ASYNC = (("HGMMA",), ("LDGSTS", "UTMALDG"))
 _MMA_ASYNC = (("HMMA", "HGMMA"), ("LDGSTS", "UTMALDG"))
 SASS_REQUIRED = (
+    # K3's bf16 body; K9's four builds (1x1 convs on wgmma, conv2 on mma.sync)
+    ("K3", ("small_attention_tc_kernel",), _WGMMA_ASYNC),
+    ("K9", ("layer1_block_kernel",),
+     (("IGMMA",), ("IMMA",), ("LDGSTS", "UTMALDG"))),
     ("K2", ("fused_mlp", "resident_kernel"), _WGMMA_ASYNC),
     ("K2", ("fused_mlp", "ln_fc1_kernel"), _WGMMA_ASYNC),
     ("K2", ("fused_mlp", "fc2_residual_kernel"), _WGMMA_ASYNC),
@@ -515,10 +524,17 @@ def _kernel_cases(dtype, gen):
     r, n = b * 17, 5
     for d, calls in ((128, 4), (64, 0), (96, 0)):
         xa = randn(r, n, d)
-        wa = (randn(d, 3 * d, scale=d ** -0.5), randn(3 * d, scale=0.1),
-              randn(d, d, scale=d ** -0.5), randn(d, scale=0.1))
-        # the library's layout: (out, in) weights, (N, R, D) tokens
-        w_in, w_out = wa[0].t().contiguous(), wa[2].t().contiguous()
+        # fp32 parameters made outside inference mode, as the served lifter
+        # holds them: the bf16 route makes its operands once
+        # (small_attention.kernel_operands)
+        with torch.inference_mode(False):
+            wa = tuple(t.float() for t in (
+                randn(d, 3 * d, scale=d ** -0.5), randn(3 * d, scale=0.1),
+                randn(d, d, scale=d ** -0.5), randn(d, scale=0.1)))
+        # the library's layout: (out, in) weights in the call's dtype,
+        # (N, R, D) tokens
+        wl = [t.to(dtype) for t in wa]
+        w_in, w_out = wl[0].t().contiguous(), wl[2].t().contiguous()
         xt = xa.transpose(0, 1)
         cases.append((
             "K3", f"{'' if calls else '3DHP '}R=b*17 N={n} D={d}", calls,
@@ -527,12 +543,12 @@ def _kernel_cases(dtype, gen):
             lambda xa=xa, wa=wa: small_attention.attention_reference(
                 xa, *wa, 8),
             (2 * xa.numel() * xa.element_size()
-             + sum(t.numel() * t.element_size() for t in wa),
+             + sum(t.numel() * t.element_size() for t in wl),
              2 * r * n * d * 4 * d + 4 * r * n * n * d),
-            lambda xt=xt, d=d, wa=wa, w_in=w_in, w_out=w_out:
+            lambda xt=xt, d=d, wl=wl, w_in=w_in, w_out=w_out:
                 F.multi_head_attention_forward(
-                    xt, xt, xt, d, 8, w_in, wa[1], None, None, False, 0.0,
-                    w_out, wa[3], training=False, need_weights=False),
+                    xt, xt, xt, d, 8, w_in, wl[1], None, None, False, 0.0,
+                    w_out, wl[3], training=False, need_weights=False),
         ))
     for d, calls in ((640, 4), (320, 0), (480, 0)):
         qkv = randn(b, 17, 3 * d)
@@ -739,7 +755,12 @@ def check_int8_kernels(card):
                 2 * pixels * (64 * 64 + 3 * 256 * 64 + 4 * 576 * 64
                               + 4 * 64 * 256 + 256 * 64))
         bound_ms, by = _bound(*work, torch.int8)
-        print(f"int8: K9 (W{width} run) {b}x64x48x64 bf16 -> int8 x256: "
+        sched = layer1_chain.plan(b, 64, 48, layer1_chain.EXPANSION,
+                                  layer1_chain._sms(x.device))
+        print(f"int8: K9 (W{width} run) {b}x64x48x64 bf16 -> int8 x256, "
+              f"strips of {sched.strip_rows} rows, {sched.strips} strips on "
+              f"a grid of {sched.grid} blocks (weights staged once a "
+              f"block), ring depth {sched.depth}: "
               f"equal {eq:.6f} (plain), {eq_chain:.6f} (K10 chain on the "
               f"card), max_abs_err {err:.0f}, saturated "
               f"{(ref.abs() == 127).float().mean().item():.3f}; kernel "
@@ -2016,9 +2037,9 @@ def check_train(card):
 
 def check_sass(path):
     """Count, with ``cuobjdump -sass``, the SASS instructions of SASS_OPS in
-    each K1 and K2 kernel of the built library, print them, and fail unless
-    each kernel of SASS_REQUIRED holds what it must. Prints "not measured"
-    where the toolkit has no cuobjdump."""
+    each K1, K2, K3 and K9 kernel of the built library, print them, and
+    fail unless each kernel of SASS_REQUIRED holds what it must. Prints
+    "not measured" where the toolkit has no cuobjdump."""
     import shutil
     from pathlib import Path
 

@@ -212,14 +212,14 @@ class Attention(nn.Module):
             out = attention_middle(self.qkv(x), self.num_heads)
             return self.proj(out)
         if self.impl == "fused" and droppable:
-            dt = self.dtype or x.dtype
+            # the weights go as they are: the kernel casts them once per
+            # parameter state, the plain version per call
             bq = self.qkv.bias
             if bq is None:
                 bq = torch.zeros(3 * c, device=x.device)
             return small_attention(
-                x.to(dt), self.qkv.kernel.to(dt), bq.to(dt),
-                self.proj.kernel.to(dt), self.proj.bias.to(dt),
-                self.num_heads,
+                x.to(self.dtype or x.dtype), self.qkv.kernel, bq,
+                self.proj.kernel, self.proj.bias, self.num_heads,
             )
         q, k, v = _heads_split(self.qkv(x), c, self.num_heads)
         if self.attn_drop.active(deterministic):

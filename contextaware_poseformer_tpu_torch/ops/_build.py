@@ -25,6 +25,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+import weakref
 from pathlib import Path
 
 import torch
@@ -50,9 +51,9 @@ SIGNATURES = {
     # (args struct*, device, stream)
     "capf_ln_mlp_residual": (_I, [_P, _I, _P]),
     # (dtype, x, wqkv, bqkv, wproj, bproj, out, rows, tokens, d, heads,
-    #  device, stream)
+    #  heads a group, device, stream)
     "capf_small_attention": (
-        _I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        _I, [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     # (dtype, qkv, out, batch, tokens, d, heads, heads a block, device,
     #  stream)
     "capf_attention_middle": (_I, [_I, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
@@ -234,6 +235,33 @@ class PlainVjp(torch.autograd.Function):
         for i, g in zip(wrt, found):
             grads[i] = g
         return (None, None, *grads)
+
+
+# (id(tensor), tag) -> (weak reference, _version, data_ptr, operand)
+_OPERANDS: dict[tuple, tuple] = {}
+
+
+def cached_operand(w: torch.Tensor, tag, make) -> torch.Tensor:
+    """``make(w)`` (a kernel's operand made from parameter ``w``: a cast, a
+    transpose, a permutation), computed once per parameter state: cached by
+    the tensor itself (a weak reference), ``tag`` (what is made) and its
+    ``_version`` and data pointer, so an in-place update (an optimizer step,
+    a ``copy_``) makes it anew. A tensor made under
+    ``torch.inference_mode()`` has no version counter and is made on every
+    call."""
+    if w.is_inference():
+        with torch.no_grad():
+            return make(w.detach())
+    key = (id(w), tag)
+    hit = _OPERANDS.get(key)
+    if (hit is not None and hit[0]() is w and hit[1] == w._version
+            and hit[2] == w.data_ptr()):
+        return hit[3]
+    with torch.no_grad():
+        made = make(w.detach())
+    ref = weakref.ref(w, lambda _, key=key: _OPERANDS.pop(key, None))
+    _OPERANDS[key] = (ref, w._version, w.data_ptr(), made)
+    return made
 
 
 def dtype_code(name: str, dtype: torch.dtype, accepted=FLOATS) -> int:

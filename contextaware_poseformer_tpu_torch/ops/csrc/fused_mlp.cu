@@ -713,21 +713,6 @@ __global__ void __launch_bounds__(kWg)
 
 // ---- host side ---------------------------------------------------------------
 
-int sm_count(int device) {
-  static int counts[64] = {};
-  if (device < 0 || device >= 64) return 132;
-  if (counts[device] == 0) {
-    int n = 0;
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
-            cudaSuccess ||
-        n < 1) {
-      n = 132;
-    }
-    counts[device] = n;
-  }
-  return counts[device];
-}
-
 template <int D, int H>
 cudaError_t launch_resident(const CapfMlpArgs& a, int device,
                             cudaStream_t stream) {

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's asynchronous
-// kernels: K10 (int8_conv.cu) and K2 (fused_mlp.cu).
+// kernels: K10 (int8_conv.cu), K2 (fused_mlp.cu), K3 (small_attention.cu)
+// and K9 (layer1_chain.cu).
 //
 // - mbarriers with a bounded wait, cp.async (16 and 8 bytes, with the
 //   mbarrier arrival), 2-D TMA loads and named barriers;
@@ -7,11 +8,13 @@
 //   name and TMA's SWIZZLE_128B writes (sw128_desc, sw128_offset): rows of
 //   128 bytes, 8-row groups 1024 bytes apart, in a region that starts on a
 //   1024-byte boundary;
-// - wgmma.mma_async m64nNk32 s8 (N = 64, 128) and m64nNk16 bf16 -> fp32
-//   (N = 32, 48, 64, 96, 128), both operands K-major in shared memory;
-// - on the host, cuTensorMapEncodeTiled through the runtime's driver entry
-//   point (the library links no -lcuda) and a cache of 2-D byte maps keyed
-//   by (pointer, row bytes, rows, box rows).
+// - wgmma.mma_async m64nNk32 s8 (N = 16, 64, 128) and m64nNk16 bf16 ->
+//   fp32 (N = 32, 48, 64, 72, 96, 128), both operands K-major in shared
+//   memory; ldmatrix for the mma.sync fragments of a gathered operand;
+// - on the host, the card's SM count (cached), cuTensorMapEncodeTiled
+//   through the runtime's driver entry point (the library links no -lcuda)
+//   and a cache of 2-D byte maps keyed by (pointer, row bytes, rows, box
+//   rows).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (driver types only: no -lcuda)
@@ -168,6 +171,18 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // K-major in shared memory. Thread t of the warpgroup holds, for each 8
 // columns j, d[4j], d[4j+1] at row 16(t/32) + (t%32)/4, columns
 // 8j + 2(t%4) + {0, 1}, and d[4j+2], d[4j+3] eight rows further down.
+__device__ __forceinline__ void wgmma_s8_n16(int (&d)[8], uint64_t desc_a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t desc_a,
                                              uint64_t desc_b) {
   asm volatile(
@@ -309,6 +324,29 @@ __device__ __forceinline__ void wgmma_bf16_n48(float (&d)[24], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_bf16_n72(float (&d)[36], uint64_t desc_a,
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35"
+      "}, %36, %37, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_bf16_n96(float (&d)[48], uint64_t desc_a,
                                                uint64_t desc_b) {
   asm volatile(
@@ -341,7 +379,8 @@ __device__ __forceinline__ void wgmma_bf16_n96(float (&d)[48], uint64_t desc_a,
 template <int N>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
                                            uint64_t db) {
-  static_assert(N == 32 || N == 48 || N == 64 || N == 96 || N == 128,
+  static_assert(N == 32 || N == 48 || N == 64 || N == 72 || N == 96 ||
+                    N == 128,
                 "a wgmma width above");
   if constexpr (N == 32) {
     wgmma_bf16_n32(d, da, db);
@@ -349,6 +388,8 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
     wgmma_bf16_n48(d, da, db);
   } else if constexpr (N == 64) {
     wgmma_bf16_n64(d, da, db);
+  } else if constexpr (N == 72) {
+    wgmma_bf16_n72(d, da, db);
   } else if constexpr (N == 96) {
     wgmma_bf16_n96(d, da, db);
   } else {
@@ -356,7 +397,35 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
   }
 }
 
+// Four 8x8 matrices of 16-bit pairs (8 rows of 16 bytes each) from shared
+// memory: lane l gives the row address of row l % 8 of matrix l / 8, and
+// receives in r[m] the 32-bit word l % 4 of row l / 4 of matrix m. For int8
+// rows that is mma.sync m16n8k32's A fragment (matrices: rows 0-7 and 8-15
+// at bytes 0-15, then both at bytes 16-31) or two n-tiles of its B fragment.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
 // ---- host side -------------------------------------------------------------
+
+// the device's SM count, asked once per device (132 on an H100 SXM)
+inline int sm_count(int device) {
+  static int counts[64] = {};
+  if (device < 0 || device >= 64) return 132;
+  if (counts[device] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) !=
+            cudaSuccess ||
+        n < 1) {
+      n = 132;
+    }
+    counts[device] = n;
+  }
+  return counts[device];
+}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,

@@ -4,30 +4,54 @@
 // Replaces contextaware_poseformer_tpu/ops/small_attention.py::_attn_kernel
 // (entry small_attention): x (R, N, D) -> qkv = x @ Wqkv + b ->
 // softmax(q k^T / sqrt(hd)) v per head -> @ Wproj + b, for the lifter's res
-// blocks (N = 5 level tokens, D = 128, 8 heads of 16). qkv, the scores and the
-// softmax stay fp32; the attention output is rounded to the call's dtype
-// before the projection, as in the TPU kernel.
+// blocks (N = 5 level tokens, D = 128, 8 heads of 16; 3DHP D = 64, 96). qkv,
+// the scores and the softmax stay fp32; the attention output is rounded to
+// the call's dtype before the projection, as in the TPU kernel.
 //
 // What bounds it on the H100: per row the projections are 4*N*D^2 MACs and
-// the attention itself only 2*N^2*D, so the two small matmuls dominate and
-// the row data (N*D values) is tiny. A block stages kMaxTok tokens (whole
-// rows) in shared memory, computes their qkv with Wqkv streamed once per
-// block from L2, runs one thread per (token, head) for scores, softmax and
-// AV, then the projection, so no intermediate touches device memory. This
-// first version uses the CUDA cores; tensor cores are later work. In the
-// projections every weight meets all kMaxTok tokens, so the tokens are read
-// from shared memory 4 channels at a time (one float4 load per 4 FMAs, not
-// one load per FMA). Needs D divisible by 4.
+// the attention itself only 2*N^2*D; at R = 1088 rows that is 0.71 GFLOP
+// against 2.9 MB of rows and weights, a few microseconds either way. What
+// costs more is reading the weights (128 KB in bf16 at D = 128) once for
+// every few tokens, and idle SMs.
 //
-// Grid: ceil(R / rows_per_block) blocks, rows_per_block = kMaxTok / N.
+// bf16 (the served path), on Hopper's machinery (hopper.cuh): a persistent
+// block an SM, two warpgroups. Each block copies Wqkv and Wproj ONCE by
+// cp.async into 128-byte-swizzled K-major shared memory (the wrapper,
+// ops/small_attention.py, hands them over cast to bf16, transposed, and
+// Wqkv's rows permuted into head-group order, once per parameter state),
+// the block's first 64-token tile arriving beside them. A tile holds whole
+// rows of N tokens (12 rows of 5: 60 tokens, padded to wgmma's M of 64), so
+// R = 1088 gives 91 tiles, one wave. Per tile:
+// - qkv a head group at a time: the q, k and v columns of kGH heads make
+//   one wgmma width (n96 at D = 128 and 64, n72 at D = 96), fp32 sums from
+//   bf16 products; the warpgroups take alternate groups, so the whole
+//   64 x 3D fp32 qkv is never held at once;
+// - the group's qkv (+ bias) goes through a small fp32 exchange tile in
+//   shared memory to the middle on CUDA cores, one thread a (token, head):
+//   fp32 scores, softmax and AV, o rounded to bf16 into the swizzled A
+//   operand of the projection;
+// - the next tile's x is requested as soon as the qkv products have read
+//   this one, and lands during the projection and the stores;
+// - the projection by wgmma, each warpgroup half of D's columns, + bias,
+//   staged as bf16 rows and written with 16-byte stores.
+//
+// fp32 (parity runs and the training forward), and bf16 at widths the
+// tensor-core body is not built for: a body on CUDA cores, exact fp32
+// FMAs. A block stages kMaxTok tokens (whole rows) in shared memory,
+// computes their qkv with Wqkv streamed from L2, runs one thread per
+// (token, head) for scores, softmax and AV, then the projection; every
+// weight meets all kMaxTok tokens, read 4 channels at a time. Needs D
+// divisible by 4.
 
 #include "common.cuh"
-
-using capf::from_float;
-using capf::round_to;
-using capf::to_float;
+#include "hopper.cuh"
 
 namespace {
+
+using namespace capf::sm90;
+using bf16 = __nv_bfloat16;
+
+// ---- CUDA cores ------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kMaxTok = 20;  // tokens per block: 4 rows of 5
@@ -43,7 +67,7 @@ __device__ __forceinline__ void tokens_times_column(const float* src, int d,
     float wv[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      wv[u] = to_float(w[static_cast<size_t>(k + u) * ldw + col]);
+      wv[u] = capf::to_float(w[static_cast<size_t>(k + u) * ldw + col]);
     }
 #pragma unroll
     for (int t = 0; t < kMaxTok; ++t) {
@@ -58,11 +82,13 @@ __device__ __forceinline__ void tokens_times_column(const float* src, int d,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    small_attention_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
-                           const T* __restrict__ bqkv,
-                           const T* __restrict__ wproj,
-                           const T* __restrict__ bproj, T* __restrict__ out,
-                           int rows, int n, int d, int heads) {
+    small_attention_cores_kernel(const T* __restrict__ x,
+                                 const T* __restrict__ wqkv,
+                                 const T* __restrict__ bqkv,
+                                 const T* __restrict__ wproj,
+                                 const T* __restrict__ bproj,
+                                 T* __restrict__ out, int rows, int n, int d,
+                                 int heads) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* s_x = reinterpret_cast<float*>(smem_raw);  // (kMaxTok, d): x, then o
   float* s_qkv = s_x + kMaxTok * d;                 // (kMaxTok, 3d)
@@ -75,7 +101,7 @@ __global__ void __launch_bounds__(kThreads)
   const size_t tok0 = static_cast<size_t>(row0) * n;
 
   for (int i = tid; i < kMaxTok * d; i += kThreads) {
-    s_x[i] = i < n_tok * d ? to_float(x[tok0 * d + i]) : 0.f;
+    s_x[i] = i < n_tok * d ? capf::to_float(x[tok0 * d + i]) : 0.f;
   }
   __syncthreads();
 
@@ -85,7 +111,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int t = 0; t < kMaxTok; ++t) acc[t] = 0.f;
     tokens_times_column(s_x, d, wqkv, d3, j, acc);
-    const float bj = to_float(bqkv[j]);
+    const float bj = capf::to_float(bqkv[j]);
 #pragma unroll
     for (int t = 0; t < kMaxTok; ++t) {
       if (t < n_tok) s_qkv[t * d3 + j] = acc[t] + bj;
@@ -132,7 +158,7 @@ __global__ void __launch_bounds__(kThreads)
           o += (p[j] * inv) * s_qkv[(first + j) * d3 + 2 * d + h * hd + e];
         }
       }
-      s_x[t * d + h * hd + e] = round_to<T>(o);
+      s_x[t * d + h * hd + e] = capf::round_to<T>(o);
     }
   }
   __syncthreads();
@@ -143,49 +169,403 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int t = 0; t < kMaxTok; ++t) acc[t] = 0.f;
     tokens_times_column(s_x, d, wproj, d, i, acc);
-    const float bi = to_float(bproj[i]);
+    const float bi = capf::to_float(bproj[i]);
 #pragma unroll
     for (int t = 0; t < kMaxTok; ++t) {
-      if (t < n_tok) out[(tok0 + t) * d + i] = from_float<T>(acc[t] + bi);
+      if (t < n_tok) {
+        out[(tok0 + t) * d + i] = capf::from_float<T>(acc[t] + bi);
+      }
     }
   }
 }
 
+// ---- bf16: tensor cores ----------------------------------------------------
+
+constexpr int kWg = 128;                 // threads of a warpgroup
+constexpr int kTcThreads = 2 * kWg;      // two warpgroups
+constexpr int kBM = 64;                  // tokens of a tile: wgmma's M
+constexpr int kChunk = kSwizzleRow;      // bytes of K in a swizzled chunk
+constexpr int kATile = kBM * kChunk;     // one 64-row chunk of A: 8 KB
+constexpr int kAlign = 1024;
+constexpr int kMaxN = 16;                // tokens a row on this route
+
+// The shared memory of the tensor-core route at width D, head dim HD and
+// NG = 3 * kGH * HD qkv columns a head group: Wqkv^T (3D rows, permuted)
+// and Wproj^T (D rows), swizzled K-major in chunks of 64 values; the x and
+// o tiles (A operands, the same layout); one fp32 exchange tile a
+// warpgroup (rows padded by 4 values, so that a quarter warp's 16-byte
+// reads of 4 tokens x 2 heads hit distinct banks), which the output tile,
+// staged as bf16 rows, reuses. ops/small_attention.py::smem_bytes mirrors
+// kSmem.
+template <int D, int HD, int NG>
+struct Tc {
+  static constexpr int kGH = NG / (3 * HD);  // heads a group
+  static constexpr int kGroups = D / HD / kGH;
+  static constexpr int kKc = (D + 63) / 64;  // chunks of K
+  static constexpr int kWqkv = kKc * 3 * D * kChunk;
+  static constexpr int kWproj = kKc * D * kChunk;
+  static constexpr int kTile = kKc * kATile;
+  static constexpr int kEPitch = NG + 4;
+  static constexpr int kE = kBM * kEPitch * 4;
+  static constexpr int kOutPitch = D + 8;  // bf16 values a staged row
+  static constexpr int kSmem = kAlign + kWqkv + kWproj + 2 * kTile + 2 * kE;
+  static_assert(NG % (3 * HD) == 0 && (D / HD) % kGH == 0 && NG % 8 == 0 &&
+                    NG <= 256 && D % 16 == 0 && (D / 2) % 8 == 0 &&
+                    HD % 4 == 0,
+                "widths the wgmma shapes and the 16-byte reads take");
+  static_assert(2 * kE >= kBM * kOutPitch * 2, "the output tile fits");
+  static_assert(kSmem <= 232448, "fits one block's shared memory");
+};
+
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + kAlign - 1) & ~uintptr_t(kAlign - 1));
+}
+
+// the byte of value k of row r in a swizzled K-major operand of 64-row
+// (or ``rows``-row) chunks
+__device__ __forceinline__ int sw_byte(int r, int k, int chunk_bytes) {
+  return (k / 64) * chunk_bytes + sw128_offset(r, (k % 64) / 8) +
+         (k % 8) * 2;
+}
+
+// ``rows`` rows of D bf16 values from ``src`` (row-major) into a swizzled
+// K-major operand of chunks of ``chunk_rows`` rows; rows from ``valid`` on
+// are zero-filled (src-size 0). One 16-byte cp.async a piece.
+template <int D>
+__device__ __forceinline__ void load_swizzled(unsigned char* dst,
+                                              const bf16* src, int rows,
+                                              int valid, int chunk_rows) {
+  constexpr int kPieces = D / 8;
+  for (int i = threadIdx.x; i < rows * kPieces; i += kTcThreads) {
+    const int r = i / kPieces;
+    const int q = i - r * kPieces;
+    const bool in = r < valid;
+    cp_async16(dst + (q / 8) * chunk_rows * kChunk + sw128_offset(r, q % 8),
+               in ? src + static_cast<size_t>(r) * D + q * 8 : src,
+               in ? 16 : 0);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = 0.f;
+}
+
+// wgmma's accumulator layout (hopper.cuh): thread t of a warpgroup holds,
+// for each 8 columns j, columns 8j + 2(t%4) + {0, 1} of row
+// 16(t/32) + (t%32)/4 (acc[4j], acc[4j+1]) and 8 rows further down.
+struct AccPos {
+  int row, col;
+  __device__ __forceinline__ AccPos()
+      : row(16 * (threadIdx.x % kWg / 32) + (threadIdx.x % 32) / 4),
+        col(2 * (threadIdx.x % 4)) {}
+};
+
+template <int D, int HD, int NG>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    small_attention_tc_kernel(const bf16* __restrict__ x,
+                              const bf16* __restrict__ wqkv,
+                              const float* __restrict__ bqkv,
+                              const bf16* __restrict__ wproj,
+                              const float* __restrict__ bproj,
+                              bf16* __restrict__ out, int rows, int n) {
+  using L = Tc<D, HD, NG>;
+  constexpr int kGH = L::kGH;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* s_wqkv = align_smem(smem_raw);
+  unsigned char* s_wproj = s_wqkv + L::kWqkv;
+  unsigned char* s_x = s_wproj + L::kWproj;
+  unsigned char* s_o = s_x + L::kTile;
+  float* s_e = reinterpret_cast<float*>(s_o + L::kTile);  // two, then out
+  bf16* s_out = reinterpret_cast<bf16*>(s_e);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / kWg;
+  const int wt = tid % kWg;  // thread of the warpgroup
+  const int rows_per_tile = kBM / n;
+  const int tiles = (rows + rows_per_tile - 1) / rows_per_tile;
+  const float scale = 1.f / sqrtf(static_cast<float>(HD));
+  const AccPos pos;
+  float* e = s_e + wg * kBM * L::kEPitch;
+
+  auto valid_tokens = [&](int tile) {
+    return min(rows_per_tile, rows - tile * rows_per_tile) * n;
+  };
+  auto tile_x = [&](int tile) {
+    return x + static_cast<size_t>(tile) * rows_per_tile * n * D;
+  };
+
+  // the first tile and Wqkv, then Wproj: two cp.async groups
+  int tile = blockIdx.x;
+  load_swizzled<D>(s_x, tile_x(tile), kBM, valid_tokens(tile), kBM);
+  load_swizzled<D>(s_wqkv, wqkv, 3 * D, 3 * D, 3 * D);
+  cp_async_commit();
+  load_swizzled<D>(s_wproj, wproj, D, D, D);
+  cp_async_commit();
+
+  for (bool first = true; tile < tiles; tile += gridDim.x, first = false) {
+    const int valid = valid_tokens(tile);
+    if (first) {
+      cp_async_wait<1>();  // x and Wqkv; Wproj may still be in flight
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // qkv, the middle and o, a head group at a time
+#pragma unroll 1
+    for (int g = wg; g < L::kGroups; g += 2) {
+      float acc[NG / 2];
+      zero(acc);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        wgmma_bf16<NG>(
+            acc, sw128_desc(s_x + (ks / 4) * kATile + (ks % 4) * 32),
+            sw128_desc(s_wqkv + (ks / 4) * 3 * D * kChunk + g * NG * kChunk +
+                       (ks % 4) * 32));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      const float* bias = bqkv + g * NG;
+#pragma unroll
+      for (int j = 0; j < NG / 8; ++j) {
+        const int c = 8 * j + pos.col;
+        const float b0 = __ldg(bias + c), b1 = __ldg(bias + c + 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          *reinterpret_cast<float2*>(e + (pos.row + 8 * h) * L::kEPitch +
+                                     c) =
+              make_float2(acc[4 * j + 2 * h] + b0,
+                          acc[4 * j + 2 * h + 1] + b1);
+        }
+      }
+      named_sync(1 + wg, kWg);
+
+      // one thread a (token, head of the group)
+      for (int i = wt; i < kBM * kGH; i += kWg) {
+        const int t = i / kGH;
+        const int hh = i - t * kGH;
+        const int col = (g * kGH + hh) * HD;  // o's columns
+        if (t >= valid) {
+          for (int c = 0; c < HD; c += 2) {
+            *reinterpret_cast<__nv_bfloat162*>(
+                s_o + sw_byte(t, col + c, kATile)) =
+                __floats2bfloat162_rn(0.f, 0.f);
+          }
+          continue;
+        }
+        const int first_tok = (t / n) * n;
+        float q[HD];
+#pragma unroll
+        for (int c = 0; c < HD; c += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              e + t * L::kEPitch + hh * HD + c);
+          q[c] = v.x;
+          q[c + 1] = v.y;
+          q[c + 2] = v.z;
+          q[c + 3] = v.w;
+        }
+        float p[kMaxN];
+        float m = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kMaxN; ++j) {
+          if (j < n) {
+            const float* kj =
+                e + (first_tok + j) * L::kEPitch + (kGH + hh) * HD;
+            float s = 0.f;
+#pragma unroll
+            for (int c = 0; c < HD; c += 4) {
+              const float4 v = *reinterpret_cast<const float4*>(kj + c);
+              s += q[c] * v.x;
+              s += q[c + 1] * v.y;
+              s += q[c + 2] * v.z;
+              s += q[c + 3] * v.w;
+            }
+            p[j] = s * scale;
+            m = fmaxf(m, p[j]);
+          }
+        }
+        float den = 0.f;
+#pragma unroll
+        for (int j = 0; j < kMaxN; ++j) {
+          if (j < n) {
+            p[j] = expf(p[j] - m);
+            den += p[j];
+          }
+        }
+        const float inv = 1.f / den;
+        float o[HD];
+#pragma unroll
+        for (int c = 0; c < HD; ++c) o[c] = 0.f;
+#pragma unroll
+        for (int j = 0; j < kMaxN; ++j) {
+          if (j < n) {
+            const float w = p[j] * inv;
+            const float* vj =
+                e + (first_tok + j) * L::kEPitch + (2 * kGH + hh) * HD;
+#pragma unroll
+            for (int c = 0; c < HD; c += 4) {
+              const float4 v = *reinterpret_cast<const float4*>(vj + c);
+              o[c] += w * v.x;
+              o[c + 1] += w * v.y;
+              o[c + 2] += w * v.z;
+              o[c + 3] += w * v.w;
+            }
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < HD; c += 2) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              s_o + sw_byte(t, col + c, kATile)) =
+              __floats2bfloat162_rn(o[c], o[c + 1]);
+        }
+      }
+      named_sync(1 + wg, kWg);  // the exchange tile is refilled next group
+    }
+    fence_proxy_async();
+    __syncthreads();  // o complete; every qkv product has read x
+
+    // the next tile's x lands during the projection and the stores
+    const int next = tile + gridDim.x;
+    if (next < tiles) {
+      load_swizzled<D>(s_x, tile_x(next), kBM, valid_tokens(next), kBM);
+    }
+    cp_async_commit();
+    if (first) {  // Wproj
+      cp_async_wait<1>();
+      fence_proxy_async();
+      __syncthreads();
+    }
+
+    // the projection, each warpgroup D / 2 output columns
+    constexpr int kN = D / 2;
+    float acc[kN / 2];
+    zero(acc);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      wgmma_bf16<kN>(acc,
+                     sw128_desc(s_o + (ks / 4) * kATile + (ks % 4) * 32),
+                     sw128_desc(s_wproj + (ks / 4) * D * kChunk +
+                                wg * kN * kChunk + (ks % 4) * 32));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+      const int c = wg * kN + 8 * j + pos.col;
+      const float b0 = __ldg(bproj + c), b1 = __ldg(bproj + c + 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            s_out + (pos.row + 8 * h) * L::kOutPitch + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h] + b0,
+                                  acc[4 * j + 2 * h + 1] + b1);
+      }
+    }
+    __syncthreads();
+    constexpr int kPieces = D / 8;
+    bf16* dst = out + static_cast<size_t>(tile) * rows_per_tile * n * D;
+    for (int i = tid; i < valid * kPieces; i += kTcThreads) {
+      const int r = i / kPieces;
+      const int q = i - r * kPieces;
+      *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * D + q * 8) =
+          *reinterpret_cast<const uint4*>(s_out + r * L::kOutPitch + q * 8);
+    }
+    // the next tile's first barrier keeps its exchange writes behind these
+    // reads of the staged output
+  }
+}
+
+template <int D, int HD, int NG>
+cudaError_t launch_tc(const void* x, const void* wqkv, const void* bqkv,
+                      const void* wproj, const void* bproj, void* out,
+                      int rows, int n, int device, cudaStream_t stream) {
+  using L = Tc<D, HD, NG>;
+  auto kernel = small_attention_tc_kernel<D, HD, NG>;
+  static bool opted = false;  // once per instantiation (one device)
+  if (!opted) {
+    const cudaError_t err = capf::allow_smem(kernel, L::kSmem);
+    if (err != cudaSuccess) return err;
+    opted = true;
+  }
+  const int rows_per_tile = kBM / n;
+  const int tiles = (rows + rows_per_tile - 1) / rows_per_tile;
+  const int blocks = tiles < sm_count(device) ? tiles : sm_count(device);
+  kernel<<<blocks, kTcThreads, L::kSmem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const bf16*>(wproj),
+      static_cast<const float*>(bproj), static_cast<bf16*>(out), rows, n);
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t launch(const void* x, const void* wqkv, const void* bqkv,
-                   const void* wproj, const void* bproj, void* out, int rows,
-                   int n, int d, int heads, cudaStream_t stream) {
+cudaError_t launch_cores(const void* x, const void* wqkv, const void* bqkv,
+                         const void* wproj, const void* bproj, void* out,
+                         int rows, int n, int d, int heads,
+                         cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(kMaxTok) * 4 * d * sizeof(float);
-  cudaError_t err = capf::allow_smem(small_attention_kernel<T>, smem);
+  cudaError_t err = capf::allow_smem(small_attention_cores_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   const int rows_per_block = kMaxTok / n;
-  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  small_attention_kernel<T><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wqkv),
-      static_cast<const T*>(bqkv), static_cast<const T*>(wproj),
-      static_cast<const T*>(bproj), static_cast<T*>(out), rows, n, d, heads);
+  small_attention_cores_kernel<T>
+      <<<(rows + rows_per_block - 1) / rows_per_block, kThreads, smem,
+         stream>>>(static_cast<const T*>(x), static_cast<const T*>(wqkv),
+                   static_cast<const T*>(bqkv), static_cast<const T*>(wproj),
+                   static_cast<const T*>(bproj), static_cast<T*>(out), rows,
+                   n, d, heads);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// group > 0 (bf16 on the tensor cores): wqkv is Wqkv^T (3D, D) bf16 with
+// its rows in head-group order (``group`` heads a group), bqkv fp32 in the
+// same order, wproj Wproj^T (D, D) bf16, bproj fp32
+// (ops/small_attention.py::kernel_operands). group 0 (the CUDA cores): the
+// weights as the model holds them, (D, 3D) and (D, D), in the call's dtype.
 extern "C" int capf_small_attention(int dtype, const void* x, const void* wqkv,
                                     const void* bqkv, const void* wproj,
                                     const void* bproj, void* out, int rows,
-                                    int n, int d, int heads, int device,
-                                    cudaStream_t stream) {
+                                    int n, int d, int heads, int group,
+                                    int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (rows < 1 || n < 1 || n > kMaxTok || heads < 1 || d % heads != 0 ||
-      d % 4 != 0) {
+  if (rows < 1 || n < 1 || heads < 1 || d % heads != 0 ||
+      (dtype != capf::kFloat32 && dtype != capf::kBFloat16)) {
     return cudaErrorInvalidValue;
   }
-  if (dtype == capf::kBFloat16) {
-    err = launch<__nv_bfloat16>(x, wqkv, bqkv, wproj, bproj, out, rows, n, d,
-                                heads, stream);
+  if (group == 0) {
+    if (n > kMaxTok || d % 4 != 0) return cudaErrorInvalidValue;
+    err = dtype == capf::kFloat32
+              ? launch_cores<float>(x, wqkv, bqkv, wproj, bproj, out, rows,
+                                    n, d, heads, stream)
+              : launch_cores<bf16>(x, wqkv, bqkv, wproj, bproj, out, rows, n,
+                                   d, heads, stream);
+    return static_cast<int>(err);
+  }
+  if (dtype != capf::kBFloat16 || n > kMaxN) return cudaErrorInvalidValue;
+  const int hd = d / heads;
+  // the instantiations ops/small_attention.py::TC_SHAPES lists
+  if (d == 128 && hd == 16 && group == 2) {
+    err = launch_tc<128, 16, 96>(x, wqkv, bqkv, wproj, bproj, out, rows, n,
+                                 device, stream);
+  } else if (d == 64 && hd == 8 && group == 4) {
+    err = launch_tc<64, 8, 96>(x, wqkv, bqkv, wproj, bproj, out, rows, n,
+                               device, stream);
+  } else if (d == 96 && hd == 12 && group == 2) {
+    err = launch_tc<96, 12, 72>(x, wqkv, bqkv, wproj, bproj, out, rows, n,
+                                device, stream);
   } else {
-    err = launch<float>(x, wqkv, bqkv, wproj, bproj, out, rows, n, d, heads,
-                        stream);
+    return cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

@@ -23,7 +23,6 @@ parameter state (``kernel_weight``).
 from __future__ import annotations
 
 import ctypes
-import weakref
 from dataclasses import dataclass
 
 import torch
@@ -133,34 +132,16 @@ def ln_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps):
     return (xf + o).to(dt)
 
 
-# id(weight) -> (weak reference, _version, data_ptr, cast)
-_CASTS: dict[int, tuple] = {}
-
-
 def _cast_t(w: torch.Tensor) -> torch.Tensor:
-    with torch.no_grad():
-        return w.detach().t().to(torch.bfloat16,
-                                 memory_format=torch.contiguous_format)
+    return w.t().to(torch.bfloat16).contiguous()
 
 
 def kernel_weight(w: torch.Tensor) -> torch.Tensor:
     """A weight (K, N) as the bf16 routes read it: W^T (N, K) in bf16,
-    contiguous. Cast once per parameter state: cached by the tensor itself
-    (a weak reference) and its ``_version``, so an in-place update (an
-    optimizer step, a ``copy_``) casts anew. A tensor made under
-    ``torch.inference_mode()`` has no version counter and is cast on every
-    call."""
-    if w.is_inference():
-        return _cast_t(w)
-    key = id(w)
-    hit = _CASTS.get(key)
-    if (hit is not None and hit[0]() is w and hit[1] == w._version
-            and hit[2] == w.data_ptr()):
-        return hit[3]
-    cast = _cast_t(w)
-    ref = weakref.ref(w, lambda _, key=key: _CASTS.pop(key, None))
-    _CASTS[key] = (ref, w._version, w.data_ptr(), cast)
-    return cast
+    contiguous, cast once per parameter state (``_build.cached_operand``:
+    an in-place update casts anew; a tensor made under
+    ``torch.inference_mode()`` is cast on every call)."""
+    return _build.cached_operand(w, "t_bf16", _cast_t)
 
 
 class _Args(ctypes.Structure):  # csrc/fused_mlp.cu::CapfMlpArgs

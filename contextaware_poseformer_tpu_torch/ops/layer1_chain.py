@@ -23,14 +23,17 @@ therefore agrees with K10's per-conv chain bit for bit.
 The TPU kernel keeps one image's whole chain in VMEM; one image's
 256-channel int8 tensor (786 KB at 64x48) exceeds a Hopper block's 227 KB
 of shared memory, so ``csrc/layer1_chain.cu`` launches once per block: a
-CUDA block owns ``ROWS`` output rows of one image and keeps their input
-rows (plus the 3x3's halo), t1, t2 and the block's weights in shared
-memory, so only the block's input and output touch device memory.
+persistent grid whose blocks stage the block's weights once and walk strips
+of whole rows of one image, 64 pixels a step, carrying t1's halo from step
+to step and loading the next input tiles while the products run; only the
+block's input and output touch device memory. ``plan`` picks the strip,
+the grid and the input ring's depth.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -42,7 +45,64 @@ launches_floor = 0  # launches of its floor build (a probe's counterpart)
 
 PLANES = 64
 EXPANSION = 256
-ROWS = 4  # output rows a block of csrc/layer1_chain.cu owns
+TILE = 64  # pixels a step of csrc/layer1_chain.cu (wgmma's M)
+# input tiles in flight ahead of the step: 2 and 3 measured no faster on an
+# H100 (tools/torch_kernel_ab.py --sweep)
+DEPTH = 1
+SMS = 132  # H100 SXM: the grid's bound when the card is not asked
+
+
+@dataclass(frozen=True)
+class Plan:
+    strip_rows: int  # whole rows of one image a block walks in order
+    strips: int  # batch * ceil(H / strip_rows)
+    grid: int  # persistent blocks, min(strips, SMs)
+    lead: int  # t1 tiles conv1 runs ahead: ceil((W + 1) / 64)
+    depth: int  # input tiles in flight ahead of the step
+    smem: int  # dynamic shared memory a block takes
+
+
+def smem_bytes(cin: int, lead: int, depth: int) -> int:
+    """Dynamic shared memory one block of csrc/layer1_chain.cu takes
+    (mirrors ``layer1_layout`` there): w1 (swizzled chunks of 8 KB), w3 and
+    wd in one 32 KB region, the input ring (lead + 1 + depth tiles of 64
+    pixels: bf16 64 or int8 256 channels), t2 (8 KB), w2 and t1's ring of
+    2 lead + 1 tiles in rows padded by 16 bytes, a zero row, the staged
+    output tile, the bf16 folded scales and biases, and 1 KB to align the
+    base."""
+    stage = TILE * (2 * PLANES if cin == PLANES else EXPANSION)
+    return (8192 * (1 if cin == PLANES else 2) + EXPANSION * 128
+            + (lead + 1 + depth) * stage + 8192
+            + PLANES * (9 * PLANES + 16)
+            + (2 * lead + 1) * TILE * (PLANES + 16) + (PLANES + 16)
+            + TILE * (EXPANSION + 16) + 2 * (4 * PLANES + 4 * EXPANSION)
+            + 1024)
+
+
+def plan(batch: int, h: int, w: int, cin: int, sms: int = SMS) -> Plan:
+    """The schedule of one launch: the strip length that minimises the
+    steps of the slowest block (waves of strips x (tiles a strip + 2 lead
+    tiles of conv1 ahead of its first output)), then the steps of all
+    blocks together; an input ring DEPTH tiles deep. ValueError for a shape
+    whose layout fits no block."""
+    if min(batch, h, w) < 1 or cin not in (PLANES, EXPANSION):
+        raise ValueError(f"layer1_chain: no schedule for batch {batch}, "
+                         f"{h}x{w}x{cin}")
+    lead = -(-(w + 1) // TILE)
+    smem = smem_bytes(cin, lead, DEPTH)
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(f"layer1_chain: width {w} needs {smem} bytes of "
+                         f"shared memory, more than a block has")
+    best = None
+    for rows in range(1, h + 1):
+        strips = batch * -(-h // rows)
+        steps = -(-rows * w // TILE) + 2 * lead
+        waves = -(-strips // sms)
+        key = (waves * steps, strips * steps)
+        if best is None or key < best[0]:
+            best = (key, rows, strips)
+    _, rows, strips = best
+    return Plan(rows, strips, min(strips, sms), lead, DEPTH, smem)
 
 
 def layer1_int8_chain(x, in_amax, blocks, conv=int8_conv.int8_conv):
@@ -81,23 +141,12 @@ class _BlockArgs(ctypes.Structure):
         "x", "out", "w1", "w2", "w3", "wd",
         "ws1", "sc1", "bi1", "ws2", "sc2", "bi2", "ws3", "sc3", "bi3",
         "wsd", "scd", "bid", "a_in", "a_t1", "a_t2", "a_out")] + [
-        (n, ctypes.c_int) for n in ("batch", "h", "w", "cin", "rows")]
+        (n, ctypes.c_int) for n in ("batch", "h", "w", "cin", "strip_rows",
+                                    "lead", "depth", "grid")]
 
 
-def smem_bytes(w: int, cin: int, rows: int = ROWS) -> int:
-    """Dynamic shared memory one block of csrc/layer1_chain.cu takes
-    (mirrors ``layer1_layout`` there)."""
-    def tiles(n):  # pixel rows rounded up to whole 16-row MMA tiles
-        return -(-n // 16) * 16
-
-    m1, m2 = tiles((rows + 2) * w), tiles(rows * w)
-    pad = 16
-    total = (m1 * (cin + pad) + m1 * (PLANES + pad) + m2 * (PLANES + pad)
-             + PLANES * (cin + pad) + PLANES * (9 * PLANES + pad)
-             + EXPANSION * (PLANES + pad))
-    if cin == PLANES:  # block 0: downsample weights and its own output
-        total += EXPANSION * (PLANES + pad) + m2 * (EXPANSION + pad)
-    return total + 4 * (4 * PLANES + 4 * EXPANSION)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _vec(name, t, n):
@@ -125,9 +174,6 @@ def layer1_block_kernel(x, in_amax, blk, out=None, floor=False):
                         f"int8 (B, H, W, {EXPANSION}), got {x.dtype} "
                         f"{tuple(x.shape)}")
     b, h, w, _ = x.shape
-    if smem_bytes(w, cin) > _build.SMEM_LIMIT:
-        raise ValueError(f"{name}: width {w} needs more shared memory than "
-                         "a block has")
     shapes = {"conv1": (PLANES, cin), "conv2": (PLANES, 9 * PLANES),
               "conv3": (EXPANSION, PLANES), "downsample": (EXPANSION, PLANES)}
     pieces = {}
@@ -152,6 +198,7 @@ def layer1_block_kernel(x, in_amax, blk, out=None, floor=False):
                           device=x.device)
     tensors = [x, out, *amax] + [t for p in pieces.values() for t in p]
     _build.require_cuda(name, *tensors)
+    sched = plan(b, h, w, cin, _sms(x.device))
     if any(t.data_ptr() % 16 for t in (x, out, *(p[0] for p in
                                                  pieces.values()))):
         raise ValueError(f"{name}: activations and kernels must start on a "
@@ -166,7 +213,8 @@ def layer1_block_kernel(x, in_amax, blk, out=None, floor=False):
     args = _BlockArgs(
         x.data_ptr(), out.data_ptr(), w1, w2, w3, wd,
         ws1, sc1, bi1, ws2, sc2, bi2, ws3, sc3, bi3, wsd, scd, bid,
-        *(a.data_ptr() for a in amax), b, h, w, cin, ROWS)
+        *(a.data_ptr() for a in amax), b, h, w, cin, sched.strip_rows,
+        sched.lead, sched.depth, sched.grid)
     lib = _build.library()
     entry = lib.capf_layer1_block_floor if floor else lib.capf_layer1_block
     err = entry(ctypes.addressof(args), *_build.launch_target(x))

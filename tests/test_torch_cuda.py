@@ -480,6 +480,75 @@ def test_k9_layer1_chain_matches_plain_version(cuda_device, batch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch,h", [(1, 64), (3, 64), (64, 64), (64, 61),
+                                     (3, 37)])
+def test_k9_blocks_at_ragged_shapes(cuda_device, batch, h):
+    """K9's persistent schedule at ragged batches and at heights the strip
+    does not divide (64x61: strips of 31 rows), block 0 (bf16 stem output
+    in) and blocks 1-3 (int8 in) launched one at a time: each equal bit for
+    bit to its plain version and to K10's per-conv chain on the card."""
+    p = layer1_chain.plan(batch, h, 48, layer1_chain.EXPANSION,
+                          layer1_chain._sms(cuda_device))
+    if (batch, h) == (64, 61):
+        assert h % p.strip_rows != 0
+    g = torch.Generator().manual_seed(batch * h)
+    x = (torch.randn(batch, h, 48, 64, generator=g) * 2).to(
+        cuda_device, torch.bfloat16)
+    blocks = _layer1_blocks(g, cuda_device)
+    src, amax = x, torch.tensor(6.0, device=cuda_device)
+    with torch.inference_mode():
+        for i, blk in enumerate(blocks):
+            before = layer1_chain.launches
+            out = layer1_chain.layer1_block_kernel(src, amax, blk)
+            assert layer1_chain.launches == before + 1
+            if i == 0:
+                ref = layer1_chain.layer1_chain_reference(x, amax, blocks[:1])
+                chain = layer1_chain.layer1_int8_chain(x, amax, blocks[:1])
+            else:  # the per-conv chain of block i on the int8 input
+                res = int8_conv.dequant(src, amax, torch.bfloat16)
+                outs = []
+                for conv in (int8_conv.int8_conv_reference,
+                             int8_conv.int8_conv):
+                    y = conv(src, *blk["conv1"], amax, 1, True)
+                    y = conv(int8_conv.quant(y, blk["t1"]), *blk["conv2"],
+                             blk["t1"], 1, True)
+                    y = conv(int8_conv.quant(y, blk["t2"]), *blk["conv3"],
+                             blk["t2"], 1, False)
+                    outs.append(int8_conv.quant(torch.relu(y + res),
+                                                blk["out"]))
+                ref, chain = outs
+            assert out.shape == (batch, h, 48, 256)
+            assert torch.equal(out, ref), i
+            assert torch.equal(out, chain), i
+            src, amax = out, blk["out"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 13, 1088, 1089])
+@pytest.mark.parametrize("d", [64, 96, 128])
+def test_k3_at_every_width_and_ragged_rows(cuda_device, d, rows, dtype):
+    """K3 (the tensor-core route in bf16, the CUDA-core one in fp32) at the
+    lifters' widths and row counts that leave a partial 12-row tile,
+    against its plain version; fp32 parameters made outside inference mode,
+    as the lifter holds them."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(d + rows)
+    x = torch.randn(rows, 5, d, generator=g).to(cuda_device, dtype)
+    w = [(torch.randn(*s, generator=g) * sc).to(cuda_device) for s, sc in (
+        ((d, 3 * d), d ** -0.5), ((3 * d,), 0.1), ((d, d), d ** -0.5),
+        ((d,), 0.1))]
+    before = small_attention.launches
+    with torch.inference_mode():
+        out = small_attention.small_attention_kernel(x, *w, 8)
+        ref = small_attention.attention_reference(x, *w, 8)
+    assert small_attention.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
 def test_deploy_request_launch_counts(cuda_device, monkeypatch):
     """One request of the full-width h36m_hrnet_32 deploy graph (batch 2,
     after ``serve.prepare``) launches K9 4 times and K10 87 times, beside
