@@ -9,20 +9,24 @@ Phases, one line of output each (failures raise and exit non-zero):
    --format=csv,noheader`` gives them;
 2. build: compiles the hand-written kernels (ops/csrc/*.cu) from the
    checkout into build/kernels/ and prints the build seconds, each
-   kernel's registers, spills and shared memory (``-Xptxas -v``), and, by
-   ``cuobjdump -sass``, the tensor-core and asynchronous-copy instructions
-   of K1's, K2's, K3's and K9's kernels: K2's and K3's bf16 kernels must
-   hold HGMMA (``wgmma``), K1's bf16/int8 sampler HMMA, K9's builds IGMMA
-   (int8 ``wgmma``) and IMMA (``mma.sync``), each with LDGSTS
-   (``cp.async``) or UTMALDG (TMA);
+   kernel's registers, spills and shared memory (``-Xptxas -v``; every
+   build of the sampler (K1, K5, K8) and of K7 must be free of spills),
+   and, by ``cuobjdump -sass``, the tensor-core and asynchronous-copy
+   instructions of K1's, K2's, K3's, K7's and K9's kernels: K2's and K3's
+   bf16 kernels must hold HGMMA (``wgmma``), K1's bf16/int8 sampler and
+   K7's bf16 body HMMA, K9's builds IGMMA (int8 ``wgmma``) and IMMA
+   (``mma.sync``), each with LDGSTS (``cp.async``) or UTMALDG (TMA);
 3. kernels: each of K1-K4 against its plain PyTorch version on the card, at
    the H36M serving path's shapes with batch 64 (K2-K4 also at the 3DHP
    lifters' widths: K2 at D=64/96/320/480, each with the route
    ``fused_mlp.plan`` picks, K3 at 64/96, K4 at head dims 40/60), and K5
    (the sampler at the HRNet-W32 and W48 pyramids: the zeros 17-point call
    and the border 272-point call with the lifter's mixed in-kernel
-   projection; K1 and K5 also that border call without the projection, the
-   gather alone), in bf16 and fp32 (TF32 off): max abs
+   projection, W made as the lifter's parameters are; K1 and K5 also that
+   border call without the projection, the gather alone; K5 each level of
+   the border call alone), in bf16 and fp32 (TF32 off), each sampler
+   call with its plan (``deformable.sampler_plan``: per level the body,
+   points a unit and units, the order, the shared memory): max abs
    error, error relative to max|plain|, median kernel and plain device
    times over 20 CUDA-event-timed runs, and the time of the PyTorch call
    that computes the same function where there is one (information only;
@@ -70,7 +74,8 @@ Phases, one line of output each (failures raise and exit non-zero):
    versions of every kernel to 2e-2 relative RMS and, for information, the
    float slice's output, host ms, device busy and idle and the top
    kernels; then K1 projecting the int8 pyramid (the lifter's border
-   call, weights carrying the dequant scale) against its plain version,
+   call, W a parameter and each level's dequant scale apart, as the
+   lifter serves it) against its plain version,
    its bound with the blend at the fp32 rate and the projection at the
    bf16 rate beside the count of both at the fp32 rate (the yardstick of
    a projection on CUDA cores), and the same call's gather alone;
@@ -137,13 +142,14 @@ Phases, one line of output each (failures raise and exit non-zero):
    bf16 calls.
    ``bound_ms`` is the larger of the bytes the calls must move over
    3.35 TB/s and their operations over 989 TFLOP/s (bf16), 67 TFLOP/s
-   (fp32) or 1979 TOP/s (int8), the H100 SXM peaks (K7's and the int8
-   samplers' arithmetic, which runs in fp32, at the fp32 rate; the bf16
-   and int8 samplers' projection, on the tensor cores, at the bf16 rate and
-   their blend at the fp32 rate, the larger of the two); a sampler
-   must read only the distinct map rows its points' taps touch, counted
-   from this run's points. K7's operations are the least its function
-   needs: it may pool each head's ns samples before one projection a row.
+   (fp32) or 1979 TOP/s (int8), the H100 SXM peaks (the samplers' and
+   K7's blend and weighting, which run in fp32, at the fp32 rate; their
+   projection on bf16 and int8 maps, on the tensor cores, at the bf16 rate,
+   the larger of the two; W counted at the element size the kernel reads);
+   a sampler must read only the distinct map rows its points' taps touch,
+   counted from this run's points. K7's operations are the least its
+   function needs: it may pool each head's ns samples before one
+   projection a row.
 """
 
 from __future__ import annotations
@@ -263,6 +269,8 @@ SASS_OPS = ("HGMMA", "HMMA", "IGMMA", "IMMA", "LDGSTS", "UTMALDG")
 _WGMMA_ASYNC = (("HGMMA",), ("LDGSTS", "UTMALDG"))
 _MMA_ASYNC = (("HMMA", "HGMMA"), ("LDGSTS", "UTMALDG"))
 SASS_REQUIRED = (
+    # K7's bf16 body (pool first, then mma.sync; W by cp.async)
+    ("K7", ("aggregate_cu", "aggregate_kernelI13__nv_bfloat16"), _MMA_ASYNC),
     # K3's bf16 body; K9's four builds (1x1 convs on wgmma, conv2 on mma.sync)
     ("K3", ("small_attention_tc_kernel",), _WGMMA_ASYNC),
     ("K9", ("layer1_block_kernel",),
@@ -277,6 +285,10 @@ SASS_REQUIRED = (
     ("K1", ("sampler_cu", "sample_levels_kernelIa13__nv_bfloat16Lb1"),
      _MMA_ASYNC),
 )
+# kernels whose builds must not spill registers (-Xptxas -v): the
+# sampler's (K1, K5, K8; the gather's batched taps and the tensor-core
+# builds' register cap) and K7's
+NO_SPILLS = ("sample_levels_kernel", "aggregate_kernel")
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,  # dense FLOP/s
             torch.int8: 1979e12}  # dense int8 TOP/s
@@ -371,11 +383,12 @@ def _ops_total(ops):
 
 def _sampler_work(maps, pts, projs, border, split=False):
     """(bytes, operations) of one sampler call: the distinct tap rows, the
-    points, the outputs and the projection weights; 8 operations a sampled
-    channel (4 taps, multiply and add) plus the projection's 2*C*Cout a
-    point. ``split``: the operations as {type: count}, the blend in fp32
-    and the projection in bf16 (the tensor-core body of bf16 and int8 maps,
-    and the JAX kernel's DEFAULT precision)."""
+    points, the outputs and the projection weights (W in bf16 where the
+    tensor-core body reads W^T, bf16 and int8 maps, else fp32; the bias in
+    fp32); 8 operations a sampled channel (4 taps, multiply and add) plus
+    the projection's 2*C*Cout a point. ``split``: the operations as {type:
+    count}, the blend in fp32 and the projection in bf16 (the tensor-core
+    body of bf16 and int8 maps, and the JAX kernel's DEFAULT precision)."""
     b, levels = pts.shape[:2]
     p = pts[0, 0].numel() // 2
     pts = pts.reshape(b, levels, p, 2)
@@ -386,7 +399,8 @@ def _sampler_work(maps, pts, projs, border, split=False):
         cout = c
         if projs is not None and projs[l] is not None:
             cout = projs[l].shape[1]
-            nbytes += (c + 1) * cout * 4
+            w_elem = 4 if f.dtype == torch.float32 else 2
+            nbytes += c * cout * w_elem + cout * 4
             proj_ops += 2 * b * p * c * cout
         # an int8 map's samples are written as bf16
         nbytes += b * p * cout * (2 if f.dtype == torch.int8 else elem)
@@ -432,14 +446,19 @@ def _sampler_cases(gen, dtype, b, dims, mixed_proj):
     maps = [torch.randn(b, h, w, c, generator=gen).to("cuda", dtype)
             for h, w, c in dims]
     projs, biases = [], []
-    for h, w, c in dims:
-        on = not mixed_proj or deformable.kernel_can_preproject(
-            h, w, c, HEAD_DIM)
-        projs.append(uniform(-1, 1, c, HEAD_DIM) / c ** 0.5 if on else None)
-        biases.append(uniform(-0.1, 0.1, HEAD_DIM) if on else None)
+    # parameters as the served lifter holds them: made outside inference
+    # mode, so that the tensor-core body reads W^T in bf16, cast once
+    # (deformable.kernel_weight)
+    with torch.inference_mode(False):
+        for h, w, c in dims:
+            on = not mixed_proj or deformable.kernel_can_preproject(
+                h, w, c, HEAD_DIM)
+            projs.append(uniform(-1, 1, c, HEAD_DIM) / c ** 0.5 if on
+                         else None)
+            biases.append(uniform(-0.1, 0.1, HEAD_DIM) if on else None)
     levels = len(dims)
     border = uniform(-1.5, 1.5, b, levels, 17, 16, 2)
-    return [
+    cases = [
         ("zeros P=17", 1, maps, uniform(-1.1, 1.1, b, levels, 17, 2),
          "zeros", None, None),
         ("border+proj P=272", 4, maps, border, "border", projs, biases),
@@ -447,11 +466,37 @@ def _sampler_cases(gen, dtype, b, dims, mixed_proj):
         # projection (no request makes this call)
         ("border P=272 gather only", 0, maps, border, "border", None, None),
     ]
+    if mixed_proj:  # K5: each level of the border call alone
+        cases += [(f"border+proj P=272 level {l} {dims[l]} alone", 0,
+                   [maps[l]], border[:, l:l + 1].contiguous(), "border",
+                   [projs[l]], [biases[l]]) for l in range(levels)]
+    return cases
+
+
+def _sampler_plan_line(maps, pts, projs):
+    """The sampler's plan of a call (``deformable.sampler_plan``): per
+    level the body, points a unit and units, then the shared memory a
+    block reserves."""
+    from contextaware_poseformer_tpu_torch.ops import deformable
+
+    dtype = maps[0].dtype
+    projs = projs or [None] * len(maps)
+    spec = [(f.shape[-1], None if w is None else w.shape[1])
+            for f, w in zip(maps, projs)]
+    p = pts[0, 0].numel() // 2
+    plan = deformable.sampler_plan(dtype, spec, pts.shape[0], p)
+    levels = ", ".join(
+        f"{tuple(f.shape[1:])} {body} {size} points x {n}"
+        for f, body, size, n in zip(maps, plan.bodies, plan.unit_points,
+                                    plan.units))
+    return (f"{levels}; {plan.blocks} blocks, order {list(plan.order)}, "
+            f"{plan.smem} B shared memory a block")
 
 
 def _kernel_cases(dtype, gen):
     """(kernel, case name, calls, kernel fn, plain fn, work, library fn or
-    None) at the serving shapes with batch BATCH. ``calls``: the case's
+    None, the sampler's plan or None) at the serving shapes with batch
+    BATCH. ``calls``: the case's
     calls in the request whose times the JSON line reports (CPN's for
     K1-K4, HRNet-W32's for K5), 0 at another preset's shapes; ``work`` is
     (bytes, operations) of one call."""
@@ -485,6 +530,7 @@ def _kernel_cases(dtype, gen):
                 _sampler_work(maps, pts, projs, mode == "border",
                               split=dtype != torch.float32),
                 _grid_sample_fn(maps, pts, mode, projs, biases),
+                _sampler_plan_line(maps, pts, projs),
             ))
     # the H36M lifter's widths (embed 128, joint 5 x 128), then the 3DHP
     # lifters' (embed 64/96, joint 320/480), which no request timed here
@@ -520,6 +566,7 @@ def _kernel_cases(dtype, gen):
             (2 * x.numel() * x.element_size()
              + sum(t.numel() * 4 for t in p), 8 * rows * d * d),
             None,
+            None,
         ))
     r, n = b * 17, 5
     for d, calls in ((128, 4), (64, 0), (96, 0)):
@@ -549,6 +596,7 @@ def _kernel_cases(dtype, gen):
                 F.multi_head_attention_forward(
                     xt, xt, xt, d, 8, w_in, wl[1], None, None, False, 0.0,
                     w_out, wl[3], training=False, need_weights=False),
+            None,
         ))
     for d, calls in ((640, 4), (320, 0), (480, 0)):
         qkv = randn(b, 17, 3 * d)
@@ -561,6 +609,7 @@ def _kernel_cases(dtype, gen):
             (qkv.numel() * qkv.element_size() * 4 // 3,
              4 * b * 17 * 17 * d),
             lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
+            None,
         ))
     return cases
 
@@ -589,8 +638,8 @@ def check_kernels():
         gen = torch.Generator().manual_seed(1234)
         name = str(dtype).removeprefix("torch.")
         with torch.inference_mode():
-            for kern, case, calls, fn, plain, work, library in _kernel_cases(
-                    dtype, gen):
+            for (kern, case, calls, fn, plain, work, library,
+                 plan) in _kernel_cases(dtype, gen):
                 out, ref = fn(), plain()
                 torch.cuda.synchronize()
                 err, rel = _err(out, ref)
@@ -598,6 +647,9 @@ def check_kernels():
                 lib_ms = None if library is None else _median_ms(library)
                 bound_ms, by = _bound(*work, dtype)
                 lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+                if plan is not None:
+                    print(f"kernels: {kern} {case} {name} plan: {plan}",
+                          flush=True)
                 print(f"kernels: {kern} {case} {name}: max_abs_err {err:.3e} "
                       f"rel {rel:.3e} (tol {TOL[dtype]:.0e}); kernel "
                       f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib},"
@@ -824,8 +876,10 @@ def _record_k10(model, req, seen):
 
 def _k1_int8_projection(card):
     """K1 on the CPN deploy pyramid as int8 maps with the lifter's
-    in-kernel projection (weights carrying the dequant scale), the border
-    272-point call, against its plain version. Returns the max abs
+    in-kernel projection, the border 272-point call, against its plain
+    version, run as the served lifter runs it: under inference mode, W a
+    parameter made outside it (its bf16 W^T cast once) and each level's
+    dequant scale a one-element tensor on the card. Returns the max abs
     error."""
     from contextaware_poseformer_tpu_torch.ops import deformable
 
@@ -834,22 +888,28 @@ def _k1_int8_projection(card):
                           dtype=torch.int8).cuda() for h, w in LEVELS]
     pts = (torch.rand(BATCH, len(LEVELS), 17, 16, 2, generator=gen) * 3
            - 1.5).cuda()
-    scales = [0.01 + 0.01 * l for l in range(len(LEVELS))]
-    projs = [((torch.rand(256, HEAD_DIM, generator=gen) * 2 - 1) / 16
-              * s).cuda() for s in scales]
+    with torch.inference_mode(False):
+        projs = [torch.nn.Parameter(((torch.rand(
+            256, HEAD_DIM, generator=gen) * 2 - 1) / 16).cuda())
+            for _ in LEVELS]
+    scales = [torch.tensor(0.01 + 0.01 * l, device="cuda")
+              for l in range(len(LEVELS))]
     biases = [(torch.rand(HEAD_DIM, generator=gen) * 0.2 - 0.1).cuda()
               for _ in LEVELS]
 
     def fn():
-        return deformable.sample_points_multi(maps, pts, "border", True,
-                                              projs, biases)
+        with torch.inference_mode():
+            return deformable.sample_points_multi(maps, pts, "border", True,
+                                                  projs, biases, scales)
 
     def plain():
-        return deformable.sample_points_multi_reference(
-            maps, pts, "border", True, projs, biases)
+        with torch.inference_mode():
+            return deformable.sample_points_multi_reference(
+                maps, pts, "border", True, projs, biases, scales)
 
     def gather():  # the same call without the projection: the gather alone
-        return deformable.sample_points_multi(maps, pts, "border", True)
+        with torch.inference_mode():
+            return deformable.sample_points_multi(maps, pts, "border", True)
 
     out, ref = fn(), plain()
     err, rel = _err(out, ref)
@@ -1530,13 +1590,15 @@ def _served_block(name):
 
 
 def _aggregate_work(maps, pts, weights, hd, border):
-    """(bytes, fp32 operations) of one K7 call: the distinct tap rows, the
-    points, weights, projections and output; the least operations of the
-    function, which pools before it projects: sum_s w_s (x_s W + b) =
-    (sum_s w_s x_s) W + (sum_s w_s) b. So 8 a sampled channel, 2 a channel
-    for the weighted sum over ns, and for each (joint, head) row one
-    C -> hd projection (2 * C * hd), ns for the sum of its weights and
-    2 * hd for the bias times that sum and its add."""
+    """(bytes, {type: operations}) of one K7 call: the distinct tap rows,
+    the points, weights, projections (W at the element size the kernel
+    reads: bf16 W^T for bf16 maps, fp32 W for fp32 maps; the bias in fp32)
+    and output; the least operations of the function, which pools before it
+    projects: sum_s w_s (x_s W + b) = (sum_s w_s x_s) W + (sum_s w_s) b. So
+    8 a sampled channel, 2 a channel for the weighted sum over ns, ns for
+    the sum of a (joint, head) row's weights and 2 * hd for the bias times
+    that sum and its add, all in fp32; and each row's C -> hd projection
+    (2 * C * hd), in bf16 on bf16 maps (the tensor cores), else fp32."""
     b, levels = pts.shape[:2]
     flat = pts.reshape(b, levels, -1, 2)
     n = flat.shape[2]  # points a level and item
@@ -1545,13 +1607,16 @@ def _aggregate_work(maps, pts, weights, hd, border):
     elem = maps[0].element_size()
     nbytes = flat.numel() * 4 + weights.numel() * 4
     nbytes += b * levels * rows * hd * elem
-    ops = 0
+    ops, proj_ops = 0, 0
     for l, f in enumerate(maps):
         c = f.shape[-1]
         nbytes += _distinct_taps(f, flat[:, l], border) * c * elem
-        nbytes += (c + 1) * hd * 4
-        ops += b * n * (8 * c + 2 * c) + b * rows * (2 * c * hd + ns + 2 * hd)
-    return nbytes, ops
+        nbytes += c * hd * elem + hd * 4
+        ops += b * n * (8 * c + 2 * c) + b * rows * (ns + 2 * hd)
+        proj_ops += b * rows * 2 * c * hd
+    if maps[0].dtype == torch.bfloat16:
+        return nbytes, {torch.float32: ops, torch.bfloat16: proj_ops}
+    return nbytes, {torch.float32: ops + proj_ops}
 
 
 def _aggregate_library_fn(maps, pos, weights, projs, biases, mode):
@@ -1701,7 +1766,7 @@ def check_aggregate(results, card):
             lib_rels = _level_errs(lib_fn(), ref)[1]
             work = _aggregate_work(args[0], args[1], args[2],
                                    args[3][0].shape[1], mode == "border")
-            bound_ms, by = _bound(*work, torch.float32)
+            bound_ms, by = _bound(*work, None)
             route = ""
             if block is not None:  # the block's own route: K1 + Linear + einsum
                 def route_fn(block=block, args=args):
@@ -1721,8 +1786,10 @@ def check_aggregate(results, card):
                   f"{TOL[dtype]:.0e} each); kernel {ms:.4f} ms{route}; "
                   f"plain {plain_ms:.4f} ms; library {lib_ms:.4f} ms (rel "
                   f"by level {_fmt_rels(lib_rels)}); bound "
-                  f"{bound_ms:.4f} ms ({by}: {work[0]} B, {work[1]} fp32 "
-                  f"ops; {card})", flush=True)
+                  f"{bound_ms:.4f} ms ({by}: {work[0]} B, "
+                  f"{work[1].get(torch.float32, 0)} fp32 ops, "
+                  f"{work[1].get(torch.bfloat16, 0)} bf16 ops; {card})",
+                  flush=True)
             if not rel <= TOL[dtype] or (route and not route_err <= TOL[dtype]):
                 raise AssertionError(f"K7 {case} {name}: rel error by level "
                                      f"{_fmt_rels(rels)}{route} > "
@@ -2035,6 +2102,32 @@ def check_train(card):
     return {k: launches[k] + evaluated[k] for k in launches}
 
 
+def ptxas_usage(log):
+    """{kernel: (registers, spill store bytes)} from nvcc's ``-Xptxas -v``
+    output."""
+    usage, fn = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+            usage[fn] = (0, 0)
+        elif fn and "spill stores" in ln:
+            spills = int(ln.split("bytes spill stores")[0].split()[-1])
+            usage[fn] = (usage[fn][0], spills)
+        elif fn and "Used" in ln and "registers" in ln:
+            usage[fn] = (int(ln.split("Used ")[1].split()[0]), usage[fn][1])
+    return usage
+
+
+def check_spills(log):
+    """Fail if a build of NO_SPILLS spills registers; print each one's."""
+    for fn, (regs, spills) in ptxas_usage(log).items():
+        if any(k in fn for k in NO_SPILLS):
+            print(f"build: {fn[-72:]}: {regs} registers, {spills} bytes "
+                  "spill stores", flush=True)
+            if spills:
+                raise AssertionError(f"build: {fn} spills {spills} bytes")
+
+
 def check_sass(path):
     """Count, with ``cuobjdump -sass``, the SASS instructions of SASS_OPS in
     each K1, K2, K3 and K9 kernel of the built library, print them, and
@@ -2100,6 +2193,8 @@ def main() -> None:
     print(f"build: {seconds:.1f} s -> {path.name}", flush=True)
     for ln in usage:
         print(f"build: {ln}", flush=True)
+    if log.exists():
+        check_spills(log.read_text())
     check_sass(path)
 
     results = check_kernels()

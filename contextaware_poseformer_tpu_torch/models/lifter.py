@@ -140,9 +140,10 @@ class DeformableBlock(nn.Module):
         nh * ns, 2): the sampler (with ``embed_proj`` inside it where
         ``pre_project`` allows), ``embed_proj`` on the other levels, and
         the weighted sum over each head's samples. ``feat_scales``: the
-        int8 maps' dequant scales, folded into the in-sampler projection's
-        kernel (sampling and projecting are linear; the bias adds after
-        the contraction), else applied to the raw samples
+        int8 maps' dequant scales, handed to the sampler with the
+        in-sampler projection's kernel, which scales the product before the
+        bias (sampling and projecting are linear; the JAX lifter folds the
+        scale into the kernel instead), else applied to the raw samples
         (``lifter.py:160-181``)."""
         b, levels, p = weights.shape[:3]
         nh, ns = self.num_heads, self.num_samples
@@ -157,11 +158,11 @@ class DeformableBlock(nn.Module):
         raw = sample_points_levels(
             features, pos, padding_mode="border", align_corners=True,
             impl=self.sampler_impl,
-            projs=[(pr.kernel if s is None else pr.kernel * s)
-                   if pr_on else None
-                   for pr, pr_on, s in zip(projs, pre, scales)],
+            projs=[pr.kernel if pr_on else None
+                   for pr, pr_on in zip(projs, pre)],
             biases=[pr.bias if pr_on else None
                     for pr, pr_on in zip(projs, pre)],
+            scales=[s if pr_on else None for s, pr_on in zip(scales, pre)],
         )  # level l: (b, p, nh*ns, C_l or head_dim)
         sampled = torch.stack(
             [raw[l] if pre[l] else projs[l](_dequant(raw[l], scales[l]))

@@ -14,11 +14,18 @@ dispatcher (1210-1270).
 The TPU kernel's one-hot/triangle matmul formulation, its batch chunking and
 its VMEM level grouping are TPU workarounds and are not carried over: the
 CUDA kernel (``csrc/sampler.cu``) gathers the four taps of each point and
-covers every level of a call in one launch. K5, the TPU kernel's separable
-two-stage body for large maps with few channels (``is_k5_level``: HRNet's
-64x48 level 0 with C = 32 or 48), exists only to fill the TPU's 128 output
-lanes; the gather reads each point's four taps whatever C is, so K5's port
-is the same CUDA kernel at those shapes, counted apart in ``launches_k5``.
+covers every level of a call in one launch. Its grid is one flat list of
+work units: each level's points, flattened over (item, point), cut into
+units of that level's own size (``sampler_plan``): 64 points for the
+tensor-core projection, 32 for the fp32 projection, and for the gather
+enough 16-byte channel groups that each thread blends 4, at most one
+item's points; the units of the widest levels run first. K5, the
+TPU kernel's separable two-stage body for large maps with few channels
+(``is_k5_level``: HRNet's 64x48 level 0 with C = 32 or 48), exists only to
+fill the TPU's 128 output lanes; the gather reads each point's four taps
+whatever C is, so K5's port is the same CUDA kernel at those shapes (W32's
+unprojected level 0 in 256-point gather units), counted apart in
+``launches_k5``.
 K8, the single-level sampler behind ``sample_points`` (the TPU's one-stage
 and two-stage bodies alike), is the same kernel launched with one level,
 counted apart in ``launches_k8``.
@@ -30,21 +37,26 @@ refuse a projection in zeros mode.
 int8 maps hold raw quantized numbers (the caller owns the dequant scale):
 the plain versions return their samples in float32, as the JAX gather
 does, and the kernel (K1, K8) in bf16, as the TPU kernel does
-(``deformable.py:555-561``). An int8 level's fused projection takes
-weights the caller has already scaled by the dequant scale (the lifter's
-``feat_scales``). The plain version blends in fp32, projects in fp32 and
-rounds once (to float32 for int8 maps). The kernel's projection on bf16
-and int8 maps runs on the tensor cores: the fp32 blend and W are rounded
-to bf16 and the products accumulate in fp32, as the JAX kernel projects
-at DEFAULT precision (``deformable.py:453-462``); ``projected_plan`` says
-which levels it takes. Its fp32 body projects in fp32.
+(``deformable.py:555-561``). An int8 level's fused projection takes the
+dequant scale as ``scales[l]`` (the lifter's ``feat_scales``), which
+multiplies the projection before the bias: the JAX package hands its
+kernel W * scale instead. The plain version blends in fp32, projects in
+fp32 with W * scale and rounds once (to float32 for int8 maps). The
+kernel's projection on bf16 and int8 maps runs on the tensor cores: the
+fp32 blend and W are rounded to bf16 and the products accumulate in fp32,
+as the JAX kernel projects at DEFAULT precision
+(``deformable.py:453-462``), then the scale and the bias in fp32. W
+reaches it as bf16 W^T made once per parameter state (``kernel_weight``),
+so no call gains a launch. Its fp32 body projects in fp32.
 
-K7 (``csrc/aggregate.cu``) samples every level, projects each sample with
-the level's W (C_l, hd) plus b, weights it and sums a head's ns samples,
-in one launch. It is sample-then-project in both padding modes, and the
-bias is added to every sample before the weighting (the weights need not
-sum to one). Its backward is the plain version's VJP, as the JAX
-``_aggregate_bwd`` takes.
+K7 (``csrc/aggregate.cu``) samples every level, weights and sums a head's
+ns samples and projects the pooled row once with the level's W (C_l, hd)
+plus (sum of the weights) * b, in one launch: sum_s w_s (x_s W + b) =
+(sum_s w_s x_s) W + (sum_s w_s) b, in both padding modes (the weights need
+not sum to one). Rows are flattened over items in tiles of 64
+(``aggregate_plan``); bf16 maps project the pooled rows, rounded once to
+bf16, on the tensor cores, fp32 maps on CUDA cores. Its backward is the
+plain version's VJP, as the JAX ``_aggregate_bwd`` takes.
 
 Gradients: every sampler call where an input requires grad goes through
 ``_SampleLevels``, whose forward is K1 (the plain forward for CPU tensors)
@@ -57,6 +69,7 @@ map requires grad; with the frozen backbone it never does.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
@@ -76,39 +89,125 @@ launches_k7 = 0  # K7 launches (deformable_aggregate_kernel)
 launches_k8 = 0  # K8 launches: the sampler kernel for sample_points
 
 MAX_LEVELS = 8
-_TILE = 32  # points per block in csrc/sampler.cu and csrc/aggregate.cu
-# csrc/sampler.cu's tensor-core projected body (bf16 and int8 maps): points
-# a block, most outputs, bf16 padding of a shared-memory row
-_CHUNK, _MAX_COUT, _PAD = 64, 64, 8
+# csrc/sampler.cu: points a unit of the fp32 projection, of the tensor-core
+# projection (bf16 and int8 maps) and at most of the gather; its most
+# outputs, the bf16 padding of a shared-memory row, a block's threads, the
+# items a gather thread blends, a point's tap rows and weights in bytes
+_TILE, _CHUNK, _MAX_POINTS = 32, 64, 256
+_MAX_COUT, _PAD, _THREADS, _ITEMS, _TAP_BYTES = 64, 8, 256, 4, 32
 _SAMPLER_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+
+
+def gather_points(dtype: torch.dtype, c: int, points: int) -> int:
+    """Points a gather unit of the sampler takes at C channels, ``points``
+    a level and item: enough 16-byte (point, channel group) items that each
+    of the block's 256 threads blends 4 (bf16: 256 points at C = 32, 170 at
+    C = 48, 32 at C = 256), at most 256 points and at most one item's: a
+    17-point call keeps a unit an item (measured on the card against units
+    of 1, 2 and 4 items a thread across items: PERF.md)."""
+    groups = c * dtype.itemsize // 16
+    return max(1, min(_MAX_POINTS, _THREADS * _ITEMS // groups, points))
 
 
 def projected_plan(dtype: torch.dtype, c: int, cout: int,
                    points: int) -> tuple[int, int]:
-    """(blocks an (item, level), shared memory bytes a block) of a level
-    the sampler projects from C to Cout channels, ``points`` points a
-    call. bf16 and int8 maps take the tensor-core body (64 points a block;
-    the bf16 A tile, which later stages the output, and W in fp32): C a
-    multiple of 16, Cout of 8, at most 64. fp32 maps take the CUDA-core
-    body (32 points; W and the samples in fp32): C and Cout multiples of 4.
-    Raises ValueError for a level neither takes."""
+    """(units, shared memory bytes a unit) of a level the sampler projects
+    from C to Cout channels, ``points`` points in all. bf16 and int8 maps
+    take the tensor-core body (64 points a unit: their taps, the bf16 A
+    tile, which later stages the output, and W^T in bf16): C a multiple of
+    16, Cout of 8, at most 64. fp32
+    maps take the CUDA-core body (32 points; W and the samples in fp32): C
+    and Cout multiples of 4. Raises ValueError for a level neither takes."""
     name = "sample_points_multi"
     if dtype == torch.float32:
         if c % 4 or cout % 4:
             raise ValueError(f"{name}: the fp32 projection needs C and Cout "
                              f"divisible by 4, got {c} -> {cout}")
-        blocks, smem = -(-points // _TILE), c * (cout + _TILE) * 4
+        units = -(-points // _TILE)
+        smem = _TAP_BYTES * _TILE + 4 * c * (cout + _TILE)
     else:
         if c % 16 or cout % 8 or cout > _MAX_COUT:
             raise ValueError(
                 f"{name}: the tensor-core projection needs C divisible by "
                 f"16 and Cout by 8, at most {_MAX_COUT}; got {c} -> {cout}")
-        blocks = -(-points // _CHUNK)
-        smem = 2 * _CHUNK * (max(c, cout) + _PAD) + 4 * c * (cout + 4)
+        units = -(-points // _CHUNK)
+        smem = (_TAP_BYTES * _CHUNK + 2 * _CHUNK * (max(c, cout) + _PAD)
+                + 2 * cout * (c + _PAD))
     if smem > _build.SMEM_LIMIT:
         raise ValueError(f"{name}: projection {c}x{cout} does not fit in "
                          "shared memory")
-    return blocks, smem
+    return units, smem
+
+
+@dataclass(frozen=True)
+class SamplerPlan:
+    """One launch of the sampler: per level its body ("gather", "tc": the
+    tensor-core projection, "fp32": the fp32 projection), the points a unit
+    takes and the units; the dynamic shared memory every block reserves
+    (the largest level's); whether the build with the tensor-core body is
+    launched; and the order in which the levels' units fill the grid: most
+    work a unit (points x channels) first, ties in level order. The kernel
+    takes the units, the order and ``unit_end`` from here."""
+    bodies: tuple[str, ...]
+    unit_points: tuple[int, ...]
+    units: tuple[int, ...]
+    smem: int
+    tensor_cores: bool
+    order: tuple[int, ...]
+
+    @property
+    def blocks(self) -> int:
+        return sum(self.units)
+
+    @property
+    def unit_end(self) -> tuple[int, ...]:
+        """The units of the first i + 1 levels in ``order``."""
+        ends, total = [], 0
+        for l in self.order:
+            total += self.units[l]
+            ends.append(total)
+        return tuple(ends)
+
+
+def sampler_plan(dtype: torch.dtype, levels, batch: int,
+                 points: int) -> SamplerPlan:
+    """The plan of a sampler call, which ``csrc/sampler.cu``'s host entry
+    checks: ``levels`` per level (C, Cout or None without a projection);
+    ``points`` a level and item. Raises ValueError for a level no body
+    takes."""
+    if dtype not in _SAMPLER_DTYPES:
+        raise TypeError(f"sample_points_multi: no sampler body for {dtype}")
+    total = batch * points
+    if not levels or batch < 1 or points < 1:
+        raise ValueError("sample_points_multi: an empty call")
+    bodies, sizes, units, smem = [], [], [], 0
+    for c, cout in levels:
+        vec = 16 // dtype.itemsize
+        if c < vec or c % vec:
+            raise ValueError(f"sample_points_multi: {c} channels; the kernel "
+                             f"needs a multiple of {vec}")
+        if cout is None:
+            body, size = "gather", gather_points(dtype, c, points)
+            need = _TAP_BYTES * size
+        else:
+            body = "fp32" if dtype == torch.float32 else "tc"
+            size = _TILE if body == "fp32" else _CHUNK
+            need = projected_plan(dtype, c, cout, total)[1]
+        bodies.append(body)
+        sizes.append(size)
+        units.append(-(-total // size))
+        smem = max(smem, need)
+    order = sorted(range(len(levels)), key=lambda l: -sizes[l] * levels[l][0])
+    return SamplerPlan(tuple(bodies), tuple(sizes), tuple(units), smem,
+                       "tc" in bodies, tuple(order))
+
+
+def kernel_weight(w: torch.Tensor) -> torch.Tensor:
+    """The bf16 W^T (Cout, C) of a projection W (C, Cout) that the
+    tensor-core bodies of K1 and K7 read, made once per parameter state
+    (``_build.cached_operand``)."""
+    return _build.cached_operand(
+        w, "sampler_wt", lambda t: t.t().to(torch.bfloat16).contiguous())
 
 
 def kernel_can_preproject(h: int, w: int, c: int, hd: int) -> bool:
@@ -131,17 +230,21 @@ def _per_level(values, levels):
     return (None,) * levels if values is None else tuple(values)
 
 
-def _check_projection(padding_mode, projs, features):
+def _check_projection(padding_mode, projs, features, scales):
     if any(p is not None for p in projs) and padding_mode != "border":
         raise ValueError(
             "a fused projection is exact only in border mode (the bilinear "
             "weights sum to 1 there); got padding_mode="
             f"{padding_mode!r}"
         )
-    for f, p in zip(features, projs):
+    for f, p, s in zip(features, projs, scales):
         if p is not None and (p.dim() != 2 or p.shape[0] != f.shape[-1]):
             raise ValueError(f"projection of shape {tuple(p.shape)} does not "
                              f"match {f.shape[-1]} channels")
+        if s is not None and (p is None or not torch.is_tensor(s)
+                              or s.numel() != 1):
+            raise ValueError("a scale is a one-element tensor that "
+                             "multiplies a projected level's product")
 
 
 def sample_points_multi_reference(
@@ -151,20 +254,23 @@ def sample_points_multi_reference(
     align_corners: bool = True,
     projs=None,
     biases=None,
+    scales=None,
 ) -> tuple:
     """Plain version of ``sample_points_multi``: per-level gathers in fp32,
-    then the optional projection in fp32, rounded once to the map dtype
-    (int8 maps: float32 samples)."""
+    then the optional projection in fp32 (by W * scale), rounded once to the
+    map dtype (int8 maps: float32 samples)."""
     levels = len(features)
     projs = _per_level(projs, levels)
     biases = _per_level(biases, levels)
-    _check_projection(padding_mode, projs, features)
+    scales = _per_level(scales, levels)
+    _check_projection(padding_mode, projs, features, scales)
     outs = []
     for l, f in enumerate(features):
         s = sample_points_fp32(f, points[:, l], padding_mode=padding_mode,
                                align_corners=align_corners)
         if projs[l] is not None:
-            s = s @ projs[l].float()
+            w = projs[l] if scales[l] is None else projs[l] * scales[l]
+            s = s @ w.float()
             if biases[l] is not None:
                 s = s + biases[l].float()
         outs.append(s.to(sample_dtype(f.dtype)))
@@ -176,11 +282,13 @@ class _Level(ctypes.Structure):
         ("feat", ctypes.c_void_p),
         ("proj_w", ctypes.c_void_p),
         ("proj_b", ctypes.c_void_p),
+        ("proj_scale", ctypes.c_void_p),
         ("out", ctypes.c_void_p),
         ("h", ctypes.c_int),
         ("w", ctypes.c_int),
         ("c", ctypes.c_int),
         ("cout", ctypes.c_int),
+        ("unit_points", ctypes.c_int),
     ]
 
 
@@ -194,6 +302,10 @@ class _Args(ctypes.Structure):
         ("border", ctypes.c_int),
         ("align_corners", ctypes.c_int),
         ("dtype", ctypes.c_int),
+        # the levels in the order their units run, and the units of the
+        # first i + 1 of them (``SamplerPlan``)
+        ("order", ctypes.c_int * MAX_LEVELS),
+        ("unit_end", ctypes.c_int * MAX_LEVELS),
     ]
 
 
@@ -210,7 +322,8 @@ def _check_levels(name, features, points, padding_mode):
     return points.reshape(b, levels, -1, 2).float().contiguous()
 
 
-def _prepare(features, points, padding_mode, align_corners, projs, biases):
+def _prepare(features, points, padding_mode, align_corners, projs, biases,
+             scales):
     """Validate a kernel call and lay out its arguments: returns (ctypes
     args, outputs, tensors the launch reads, output shapes)."""
     name = "sample_points_multi"
@@ -218,7 +331,8 @@ def _prepare(features, points, padding_mode, align_corners, projs, biases):
     b, levels, p, _ = pts.shape
     projs = _per_level(projs, levels)
     biases = _per_level(biases, levels)
-    _check_projection(padding_mode, projs, features)
+    scales = _per_level(scales, levels)
+    _check_projection(padding_mode, projs, features, scales)
     dtype = features[0].dtype
     code = _build.dtype_code(name, dtype, _SAMPLER_DTYPES)
     out_dtype = torch.bfloat16 if dtype == torch.int8 else dtype
@@ -226,24 +340,25 @@ def _prepare(features, points, padding_mode, align_corners, projs, biases):
     args = _Args(points=pts.data_ptr(), num_levels=levels, batch=b,
                  num_points=p, border=int(padding_mode == "border"),
                  align_corners=int(align_corners), dtype=code)
-    outs, shapes, keep = [], [], [pts]
+    outs, shapes, keep, spec = [], [], [pts], []
     for l, f in enumerate(features):
         if f.dim() != 4 or f.shape[0] != b or f.dtype != dtype:
             raise ValueError(f"{name}: level {l} is {tuple(f.shape)} "
                              f"{f.dtype}, expected (b={b}, H, W, C) {dtype}")
         _, h, w, c = f.shape
-        vec = 16 // f.element_size()  # channels per 16-byte load
-        if c % vec:
-            raise ValueError(f"{name}: level {l} has {c} channels; the "
-                             f"kernel needs a multiple of {vec}")
-        cout = c
-        lv = args.levels[l]
+        cout, lv = c, args.levels[l]
         if projs[l] is not None:
-            wk = projs[l].float().contiguous()
-            cout = wk.shape[1]
-            projected_plan(dtype, c, cout, p)
+            cout = projs[l].shape[1]
+            # the tensor-core body reads W as bf16 W^T, made once per
+            # parameter state; the fp32 body W in fp32
+            wk = (projs[l].float().contiguous() if dtype == torch.float32
+                  else kernel_weight(projs[l]))
             lv.proj_w = wk.data_ptr()
             keep.append(wk)
+            if scales[l] is not None:
+                sk = scales[l].float().reshape(1).contiguous()
+                lv.proj_scale = sk.data_ptr()
+                keep.append(sk)
             if biases[l] is not None:
                 bk = biases[l].float().contiguous()
                 if bk.shape != (cout,):
@@ -251,23 +366,29 @@ def _prepare(features, points, padding_mode, align_corners, projs, biases):
                                      f"{cout} outputs")
                 lv.proj_b = bk.data_ptr()
                 keep.append(bk)
+        spec.append((c, None if projs[l] is None else cout))
         out = torch.empty((b, p, cout), dtype=out_dtype, device=f.device)
         lv.feat, lv.out = f.data_ptr(), out.data_ptr()
         lv.h, lv.w, lv.c, lv.cout = h, w, c, cout
         outs.append(out)
         shapes.append((b, *batch_shape, cout))
         keep.append(f)
+    plan = sampler_plan(dtype, spec, b, p)
+    for lv, size in zip(args.levels, plan.unit_points):
+        lv.unit_points = size
+    for i, (l, end) in enumerate(zip(plan.order, plan.unit_end)):
+        args.order[i], args.unit_end[i] = l, end
     return args, outs, keep, shapes
 
 
 def _launch_forward(features, points, padding_mode, align_corners, projs,
-                    biases, k8=False) -> tuple:
+                    biases, scales=None, k8=False) -> tuple:
     """One launch of the sampler kernel (no autograd): K1, where a launch
     with a K5 level counts for K5 as well, or, with ``k8``, K8 (one
     level)."""
     global launches, launches_k5, launches_k8
     args, outs, keep, shapes = _prepare(
-        features, points, padding_mode, align_corners, projs, biases)
+        features, points, padding_mode, align_corners, projs, biases, scales)
     _build.require_cuda("sample_points_multi", *keep)
     if any(ptr % 16 for lv in args.levels[:len(features)]
            for ptr in (lv.feat, lv.proj_w) if ptr):
@@ -456,15 +577,15 @@ class _SampleLevels(torch.autograd.Function):
     """The sampler under autograd. ``spec`` = (padding_mode, align_corners,
     kernel): ``kernel`` "K1" or "K8" selects that kernel's forward and K6
     (CUDA tensors), None the plain forward and backward (CPU tensors).
-    ``tensors`` = maps, projections, biases (L each; projections and
-    biases may be None)."""
+    ``tensors`` = maps, projections, biases, scales (L each; projections,
+    biases and scales may be None)."""
 
     @staticmethod
     def forward(ctx, spec, points, *tensors):
         padding_mode, align_corners, kernel = spec
-        n = len(tensors) // 3
+        n = len(tensors) // 4
         args = (tensors[:n], points, padding_mode, align_corners,
-                tensors[n:2 * n], tensors[2 * n:])
+                tensors[n:2 * n], tensors[2 * n:3 * n], tensors[3 * n:])
         outs = (_launch_forward(*args, k8=kernel == "K8") if kernel
                 else sample_points_multi_reference(*args))
         ctx.spec = spec
@@ -475,9 +596,8 @@ class _SampleLevels(torch.autograd.Function):
     def backward(ctx, *grads):
         padding_mode, align_corners, kernel = ctx.spec
         points, *tensors = ctx.saved_tensors
-        n = len(tensors) // 3
-        features, projs, biases = (tensors[:n], tensors[n:2 * n],
-                                   tensors[2 * n:])
+        n = len(tensors) // 4
+        features, projs = tensors[:n], tensors[n:2 * n]
         needs = ctx.needs_input_grad[1:]  # points, then tensors
         if any(p is not None for p in projs):
             return (None, *_projected_vjp(
@@ -494,7 +614,7 @@ class _SampleLevels(torch.autograd.Function):
         dfs = [None] * n if dfs is None else list(dfs)
         return (None, dpoints if needs[0] else None,
                 *(d if need else None for d, need in zip(dfs, needs[1:])),
-                *(None,) * (2 * n))
+                *(None,) * (3 * n))
 
 
 def _projected_vjp(points, tensors, grads, needs, padding_mode,
@@ -502,14 +622,14 @@ def _projected_vjp(points, tensors, grads, needs, padding_mode,
     """The plain version's VJP with fused projections (JAX
     ``_multi_proj_bwd``): recompute ``sample_points_multi_reference`` under
     autograd and differentiate it."""
-    n = len(tensors) // 3
+    n = len(tensors) // 4
     ins = [t if t is None else t.detach().requires_grad_(need)
            for t, need in zip((points, *tensors), needs)]
     wrt = [i for i, t in enumerate(ins) if t is not None and t.requires_grad]
     with torch.enable_grad():
         outs = sample_points_multi_reference(
             ins[1:1 + n], ins[0], padding_mode, align_corners,
-            ins[1 + n:1 + 2 * n], ins[1 + 2 * n:])
+            ins[1 + n:1 + 2 * n], ins[1 + 2 * n:1 + 3 * n], ins[1 + 3 * n:])
         pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
         found = torch.autograd.grad(
             [o for o, _ in pairs], [ins[i] for i in wrt],
@@ -527,14 +647,16 @@ def sample_points_multi(
     align_corners: bool = True,
     projs=None,
     biases=None,
+    scales=None,
 ) -> tuple:
     """Sample L NHWC maps at per-level points in ONE CUDA kernel launch (K1).
 
     features: L maps (b, H_l, W_l, C_l), all float32, all bfloat16 or all
     int8 (raw quantized numbers, C_l % 16 == 0, sampled to bfloat16);
     points: (b, L, ..., 2) xy in [-1, 1]. Levels with ``projs[l]`` set
-    return ``sample @ W + b`` (border mode only; on int8 maps W carries
-    the dequant scale). Returns a tuple of (b, ..., C_l or hd) in the maps'
+    return ``(sample @ W) * scale + b`` (border mode only; ``scales[l]``, a
+    one-element tensor or None, is an int8 level's dequant scale). Returns
+    a tuple of (b, ..., C_l or hd) in the maps'
     dtype (bfloat16 for int8). Covers the JAX package's
     ``sample_points_multi`` and ``sample_project_points_multi``. Under
     autograd the backward is K6 (or the plain VJP with projections).
@@ -542,11 +664,13 @@ def sample_points_multi(
     levels = len(features)
     projs = _per_level(projs, levels)
     biases = _per_level(biases, levels)
-    if _build.needs_grad(points, *features, *projs, *biases):
+    scales = _per_level(scales, levels)
+    if _build.needs_grad(points, *features, *projs, *biases, *scales):
         return _SampleLevels.apply((padding_mode, align_corners, "K1"),
-                                   points, *features, *projs, *biases)
+                                   points, *features, *projs, *biases,
+                                   *scales)
     return _launch_forward(features, points, padding_mode, align_corners,
-                           projs, biases)
+                           projs, biases, scales)
 
 
 def sample_points_levels(
@@ -557,6 +681,7 @@ def sample_points_levels(
     impl: str = "auto",
     projs=None,
     biases=None,
+    scales=None,
 ) -> tuple:
     """Level-set dispatcher. ``impl``: "auto" (K1/K6 for CUDA tensors, the
     plain forward and backward behind the same autograd Function for CPU
@@ -565,19 +690,21 @@ def sample_points_levels(
     if impl == "auto" and features[0].device.type != "cpu":
         impl = "fused"
     if impl == "fused":
-        return sample_points_multi(
-            features, points, padding_mode, align_corners, projs, biases)
+        return sample_points_multi(features, points, padding_mode,
+                                   align_corners, projs, biases, scales)
     if impl not in ("auto", "gather"):
         raise ValueError(f"unknown sampler impl: {impl!r}")
     levels = len(features)
     projs = _per_level(projs, levels)
     biases = _per_level(biases, levels)
+    scales = _per_level(scales, levels)
     if impl == "auto" and _build.needs_grad(points, *features, *projs,
-                                            *biases):
+                                            *biases, *scales):
         return _SampleLevels.apply((padding_mode, align_corners, None),
-                                   points, *features, *projs, *biases)
+                                   points, *features, *projs, *biases,
+                                   *scales)
     return sample_points_multi_reference(
-        features, points, padding_mode, align_corners, projs, biases)
+        features, points, padding_mode, align_corners, projs, biases, scales)
 
 
 def sample_points(
@@ -612,7 +739,7 @@ def sample_points(
     pts = points[:, None]  # one level: (b, 1, ..., 2)
     if _build.needs_grad(points, features):
         (out,) = _SampleLevels.apply((padding_mode, align_corners, kernel),
-                                     pts, features, None, None)
+                                     pts, features, None, None, None)
     elif kernel:
         (out,) = _launch_forward((features,), pts, padding_mode,
                                  align_corners, (None,), (None,), k8=True)
@@ -698,28 +825,75 @@ class _AggregateArgs(ctypes.Structure):
         ("rows", ctypes.c_int),
         ("ns", ctypes.c_int),
         ("hd", ctypes.c_int),
-        ("rows_per_tile", ctypes.c_int),
         ("border", ctypes.c_int),
         ("align_corners", ctypes.c_int),
         ("dtype", ctypes.c_int),
     ]
 
 
+_ROWS, _MAX_HD = 64, 64  # csrc/aggregate.cu: rows a tile, most bf16 outputs
+
+
+@dataclass(frozen=True)
+class AggregatePlan:
+    """One launch of K7: 64-row tiles a level (rows flattened over items),
+    one a block; blocks; and the dynamic shared memory a block reserves
+    (the widest level's)."""
+    tiles: int
+    blocks: int
+    smem: int
+
+
+def _aggregate_smem(dtype, c, hd, ns):
+    """``csrc/aggregate.cu``'s ``smem_bytes``: the tile's taps and weight
+    sums, then bf16 the A tile, W^T (C padded to 16) and the output
+    staging, or fp32 the pooled rows and W."""
+    head = _ROWS * ns * _TAP_BYTES + _ROWS * 4
+    if dtype == torch.bfloat16:
+        ld = -(-c // 16) * 16 + _PAD
+        return head + 2 * ((_ROWS + hd) * ld + _ROWS * (hd + _PAD))
+    return head + 4 * (_ROWS * (c + 4) + c * hd)
+
+
+def aggregate_plan(dtype: torch.dtype, channels, hd: int, ns: int,
+                   batch: int, rows: int) -> AggregatePlan:
+    """The plan of a K7 call: C_l of each level, head dim ``hd``, ``ns``
+    samples a row, ``rows`` = p * nh rows a level and item. bf16: C a
+    multiple of 8, hd of 8 and at most 64; fp32: C and hd multiples of 4.
+    Raises ValueError for what it cannot take."""
+    name = "deformable_aggregate"
+    bf = dtype == torch.bfloat16
+    vec, hd_step = (8, 8) if bf else (4, 4)
+    if hd % hd_step or hd < 4 or (bf and hd > _MAX_HD):
+        raise ValueError(f"{name}: head dim {hd}; the kernel needs a "
+                         f"multiple of {hd_step}"
+                         + (f", at most {_MAX_HD}" if bf else ""))
+    for c in channels:
+        if c < vec or c % vec:
+            raise ValueError(f"{name}: {c} channels; the kernel needs a "
+                             f"multiple of {vec}")
+    smem = max(_aggregate_smem(dtype, c, hd, ns) for c in channels)
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(f"{name}: {max(channels)} channels with ns={ns} "
+                         f"and hd={hd} need {smem} bytes of shared memory")
+    tiles = -(-batch * rows // _ROWS)
+    return AggregatePlan(tiles, len(channels) * tiles, smem)
+
+
 def deformable_aggregate_kernel(features, points, weights, projs, biases,
                                 padding_mode="border", align_corners=True):
-    """K7: ``aggregate_reference``'s contract in ONE CUDA kernel launch. A
-    block takes whole rows (joint, head) of one level, ``_TILE // ns`` of
-    them (at least one), so any ns and p need no padding."""
+    """K7: ``aggregate_reference``'s contract in ONE CUDA kernel launch,
+    pooling each row's samples before one projection (``aggregate_plan``).
+    bf16 maps read W as bf16 W^T made once per parameter state
+    (``kernel_weight``); fp32 maps read W in fp32."""
     global launches_k7
     name = "deformable_aggregate"
     b, levels, p, nh, ns, hd = _check_aggregate(
         name, features, points, weights, projs, biases, padding_mode)
     dtype = features[0].dtype
     code = _build.dtype_code(name, dtype)
-    if hd % 4:
-        raise ValueError(f"{name}: head dim {hd}; the kernel needs a "
-                         "multiple of 4")
-    rows, tile_rows = p * nh, max(1, _TILE // ns)
+    rows = p * nh
+    aggregate_plan(dtype, [f.shape[-1] for f in features], hd, ns, b, rows)
     pts = points.reshape(b, levels, rows * ns, 2).float().contiguous()
     wts = weights.reshape(b, levels, rows * ns).float().contiguous()
     out = torch.empty((b, levels, p, nh * hd), dtype=dtype,
@@ -727,26 +901,18 @@ def deformable_aggregate_kernel(features, points, weights, projs, biases,
     args = _AggregateArgs(
         points=pts.data_ptr(), weights=wts.data_ptr(), out=out.data_ptr(),
         num_levels=levels, batch=b, rows=rows, ns=ns, hd=hd,
-        rows_per_tile=tile_rows, border=int(padding_mode == "border"),
+        border=int(padding_mode == "border"),
         align_corners=int(align_corners), dtype=code)
     keep = [pts, wts, out]
     for l, f in enumerate(features):
         _, h, w, c = f.shape
-        if c % (16 // f.element_size()):
-            raise ValueError(f"{name}: level {l} has {c} channels; the "
-                             f"kernel needs a multiple of "
-                             f"{16 // f.element_size()}")
-        wk = projs[l].float().contiguous()
+        wk = (kernel_weight(projs[l]) if dtype == torch.bfloat16
+              else projs[l].float().contiguous())
         bk = biases[l].float().contiguous()
         lv = args.levels[l]
         lv.feat, lv.h, lv.w, lv.c = f.data_ptr(), h, w, c
         lv.proj_w, lv.proj_b = wk.data_ptr(), bk.data_ptr()
         keep += [f, wk, bk]
-    c_max = max(f.shape[-1] for f in features)
-    smem = (c_max * hd + tile_rows * ns * (c_max + hd + 8)) * 4
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"{name}: {c_max} channels with ns={ns} and "
-                         f"hd={hd} need {smem} bytes of shared memory")
     _build.require_cuda(name, *keep)
     if any(ptr % 16 for lv in args.levels[:levels]
            for ptr in (lv.feat, lv.proj_w)):

@@ -668,6 +668,118 @@ def test_k7_aggregate_matches_plain_version(cuda_device, case, mode, dtype):
         assert err <= tol * r.abs().max().item(), (level, err)
 
 
+def _k5_mixed_case(dev, dims, points, batch, mode, dtype, g):
+    """Maps of an HRNet pyramid (int8: raw quantized numbers) and points
+    (batch, 4, points, 2), with the lifter's projections in border mode
+    (where ``kernel_can_preproject`` holds; to 32 channels; parameters, as
+    the lifter holds them) and, on int8 maps, each projected level's
+    dequant scale."""
+    if dtype == torch.int8:
+        feats = [torch.randint(-127, 128, (batch, h, w, c), generator=g,
+                               dtype=torch.int8).to(dev) for h, w, c in dims]
+    else:
+        feats = [torch.randn(batch, h, w, c, generator=g).to(dev, dtype)
+                 for h, w, c in dims]
+    pts = (torch.rand(batch, len(dims), points, 2, generator=g) * 3
+           - 1.5).to(dev)
+    projs = biases = scales = None
+    if mode == "border":
+        on = [deformable.kernel_can_preproject(h, w, c, 32)
+              for h, w, c in dims]
+        projs = [torch.nn.Parameter(
+            (torch.randn(c, 32, generator=g) * c ** -0.5).to(dev))
+            if o else None for (_, _, c), o in zip(dims, on)]
+        biases = [(torch.randn(32, generator=g) * 0.1).to(dev) if o else None
+                  for o in on]
+        if dtype == torch.int8:
+            scales = [torch.tensor(0.02, device=dev) if o else None
+                      for o in on]
+    return feats, pts, projs, biases, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("points", [1, 17, 272, 300])
+@pytest.mark.parametrize("pyramid", sorted(HRNET_PYRAMIDS))
+def test_k5_mixed_calls_at_every_point_count(cuda_device, pyramid, points,
+                                             batch, mode, dtype):
+    """K5's call geometry (one flat grid of per-level units,
+    ``deformable.sampler_plan``) at the W32 and W48 pyramids: 1, 17, 272
+    and 300 points (ragged last units), batch 1 and 3, fp32, bf16 and int8
+    maps (sampled to bf16), zeros and border. In border mode the lifter's
+    projections run as served: W a parameter (the tensor-core body reads
+    its cached bf16 W^T), and on int8 maps the dequant scale applied to
+    the product. One K1 and one K5 launch a call; tolerance as above (bf16
+    for int8)."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(points + batch)
+    feats, pts, projs, biases, scales = _k5_mixed_case(
+        cuda_device, HRNET_PYRAMIDS[pyramid], points, batch, mode, dtype, g)
+    before = (deformable.launches, deformable.launches_k5)
+    with torch.inference_mode():
+        outs = deformable.sample_points_multi(feats, pts, mode, True, projs,
+                                              biases, scales)
+        refs = deformable.sample_points_multi_reference(
+            feats, pts, mode, True, projs, biases, scales)
+    assert (deformable.launches, deformable.launches_k5) == (
+        before[0] + 1, before[1] + 1)
+    for o, r in zip(outs, refs):
+        assert o.shape == r.shape
+        assert o.dtype == (torch.bfloat16 if dtype == torch.int8 else dtype)
+        err = (o.float() - r.float()).abs().max().item()
+        assert err <= tol * r.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unit", [1, 7, 33, 255])
+def test_k5_gather_units_of_any_size(cuda_device, monkeypatch, unit):
+    """The gather takes any unit of 1..256 points (the sweep's sizes): the
+    W32 pyramid's zeros call, bf16, batch 3, 272 points."""
+    monkeypatch.setattr(deformable, "gather_points",
+                        lambda dtype, c, points: unit)
+    g = torch.Generator().manual_seed(unit)
+    feats, pts, *_ = _k5_mixed_case(cuda_device, HRNET_PYRAMIDS["W32"], 272,
+                                    3, "zeros", torch.bfloat16, g)
+    with torch.inference_mode():
+        outs = deformable.sample_points_multi(feats, pts, "zeros")
+        refs = deformable.sample_points_multi_reference(feats, pts, "zeros")
+    for o, r in zip(outs, refs):
+        err = (o.float() - r.float()).abs().max().item()
+        assert err <= 2e-2 * r.float().abs().max().item(), err
+
+
+K7_PAD = ((8, 6, 24), (4, 3, 40))  # C a multiple of 8, not of 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+@pytest.mark.parametrize("ns", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["W48", "pad"])
+def test_k7_pools_every_sample_count(cuda_device, case, ns, mode, dtype):
+    """K7's pool-first body: ns = 1, 2, 4 and 8 samples a row, 3 items of
+    68 rows (204 rows a level: the last 64-row tile is ragged), weights
+    that do not sum to 1 (the bias counts once a sample), both padding
+    modes, at the W48 pyramid (hd 32) and at C = 24 and 40 (hd 16: the A
+    tile and W^T zero-padded to 16 channels); level by level against the
+    plain version, tolerance as above."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    dims, hd = (HRNET_PYRAMIDS["W48"], 32) if case == "W48" else (K7_PAD, 16)
+    args = _k7_case(cuda_device, dims, ns, hd, dtype, batch=3)
+    before = deformable.launches_k7
+    with torch.inference_mode():
+        out = deformable.deformable_aggregate(*args, mode)
+        ref = deformable.aggregate_reference(*args, mode)
+    assert deformable.launches_k7 == before + 1
+    assert out.shape == ref.shape == (3, len(dims), 17, 4 * hd)
+    for level in range(len(dims)):
+        o, r = out[:, level].float(), ref[:, level].float()
+        err = (o - r).abs().max().item()
+        assert err <= tol * r.abs().max().item(), (level, err)
+
+
 @pytest.mark.cuda
 def test_k7_k8_run_under_autograd(cuda_device):
     """K8 under autograd takes K6 as its backward, K7 its plain version's

@@ -14,7 +14,8 @@ what a level takes. These tests hold, without a GPU:
 - K1's plan at every projected level of the five presets' pyramids, and
   the shapes it refuses;
 - K1's rounding points (the blend and W rounded to bf16, fp32
-  accumulation), emulated in torch, against the plain version and against
+  accumulation, an int8 level's dequant scale and the bias applied in
+  fp32), emulated in torch, against the plain version and against
   the JAX package's K1 in interpret mode at DEFAULT precision (bf16
   operands, fp32 accumulation), to 2e-2 of max|reference|: the card's bf16
   tolerance. The samples of a point are held, not the map: the JAX kernel
@@ -177,17 +178,18 @@ def test_k1_plan_refuses_fp32_channels_off_four():
         deformable.projected_plan(torch.float32, 64, 6, 272)
 
 
-def _tensor_core_projection(maps, points, projs, biases):
+def _tensor_core_projection(maps, points, projs, biases, scale):
     """K1's projected body on bf16 or int8 maps, emulated: the fp32 blend
     rounded to bf16, W rounded to bf16, the products accumulated in fp32,
-    the bias added in fp32, the result rounded to bf16."""
+    multiplied by the level's scale and the bias added in fp32, the result
+    rounded to bf16."""
     outs = []
     for l, f in enumerate(maps):
         s = sample_points_fp32(f, points[:, l], padding_mode="border",
                                align_corners=True)
         a = s.to(torch.bfloat16).float()
         w = projs[l].to(torch.bfloat16).float()
-        outs.append((a @ w + biases[l]).to(torch.bfloat16))
+        outs.append(((a @ w) * scale + biases[l]).to(torch.bfloat16))
     return tuple(outs)
 
 
@@ -198,13 +200,13 @@ def test_k1_rounding_points_match_plain_and_jax(dtype):
     if dtype == torch.int8:
         maps_np = [rng.randint(-127, 128, (b, h, w, c)).astype(np.int8)
                    for h, w, c in dims]
-        scale = 0.02  # the dequant scale the lifter folds into W
+        scale = 0.02  # the dequant scale of the int8 maps
     else:
         maps_np = [rng.randn(b, h, w, c).astype(np.float32)
                    for h, w, c in dims]
         scale = 1.0
-    projs_np = [(rng.uniform(-1, 1, (c, hd)) / np.sqrt(c) * scale).astype(
-        np.float32) for *_, c in dims]
+    projs_np = [(rng.uniform(-1, 1, (c, hd)) / np.sqrt(c)).astype(np.float32)
+                for *_, c in dims]
     biases_np = [rng.uniform(-0.1, 0.1, hd).astype(np.float32) for _ in dims]
     pts_np = rng.uniform(-1.5, 1.5, (b, len(dims), 17, 4, 2)).astype(
         np.float32)
@@ -213,14 +215,18 @@ def test_k1_rounding_points_match_plain_and_jax(dtype):
     pts = torch.from_numpy(pts_np)
     projs = [torch.from_numpy(w) for w in projs_np]
     biases = [torch.from_numpy(v) for v in biases_np]
-    ours = _tensor_core_projection(maps, pts, projs, biases)
+    # the port hands the sampler W and the scale apart; the JAX lifter
+    # folds the scale into W
+    scales = [torch.tensor(scale, dtype=torch.float32)] * len(dims)
+    ours = _tensor_core_projection(maps, pts, projs, biases, scale)
     plain = deformable.sample_points_multi_reference(
-        maps, pts, "border", True, projs, biases)
+        maps, pts, "border", True, projs, biases, scales)
     jdt = jnp.int8 if dtype == torch.int8 else jnp.bfloat16
     theirs = jdef.sample_points_levels(
         [jnp.asarray(m).astype(jdt) for m in maps_np], jnp.asarray(pts_np),
         padding_mode="border", align_corners=True, impl="fused_interpret",
-        precision="default", projs=[jnp.asarray(w) for w in projs_np],
+        precision="default",
+        projs=[jnp.asarray(w) * np.float32(scale) for w in projs_np],
         biases=[jnp.asarray(v) for v in biases_np])
     for o, p, t in zip(ours, plain, theirs):
         assert o.dtype == torch.bfloat16 and t.dtype == jnp.bfloat16

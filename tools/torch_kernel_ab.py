@@ -1,8 +1,8 @@
-"""Same-call A/B of the port's K3 and K9 against another commit's, on the card.
+"""Same-call A/B on the card of the port's K3, K9, K5 and K7 against another's.
 
     git archive <commit> contextaware_poseformer_tpu_torch/ops \\
         | tar -x -C build/parent
-    python3 tools/torch_kernel_ab.py --parent build/parent
+    python3 tools/torch_kernel_ab.py --parent build/parent [--only K5,K7]
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc. The
 other commit's ``ops`` package is loaded by path with its own ``_build``
@@ -16,7 +16,17 @@ at the shapes the serving and training paths launch:
   four per-call casts its lifter made), and fp32 at R = 1088 and at the
   training batch's R = 4352;
 - K9: the four-launch chain, block 0 and block 1 alone, and the floor build,
-  at batch 64 and 128 on the 64x48x64 stem output.
+  at batch 64 and 128 on the 64x48x64 stem output;
+- K5 (the sampler at the HRNet pyramids, batch 64): the W32 and W48 border
+  calls with the lifter's projections (W a parameter, as served), each of
+  their levels alone, the zeros 17-point calls, the W32 border call's gather
+  alone and in fp32; and, as K1's guard, the CPN calls: bf16 zeros and
+  border+proj, and the main path's int8 calls (zeros, and border+proj as
+  each commit's lifter serves it: the other commit is handed W * scale made
+  per call, the port W and the scale apart);
+- K7: the first DeformableBlock's call of a served h36m_cpn and
+  h36m_hrnet_32 request (batch 64), bf16 and fp32, beside the block's own
+  route (K1 + ``embed_proj`` + einsum) with the new ops.
 
 ``--sweep`` times the new K9 chain at each input-ring depth and at fixed
 strip lengths. ``--breakdown`` builds variants of the new
@@ -46,6 +56,7 @@ import chip_smoke as cs  # noqa: E402
 from contextaware_poseformer_tpu_torch import serve  # noqa: E402
 from contextaware_poseformer_tpu_torch.ops import (  # noqa: E402
     _build,
+    deformable,
     layer1_chain,
     small_attention,
 )
@@ -56,6 +67,7 @@ RUNS = 50
 def _load(name, path, build=None):
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod  # a dataclass looks its module up there
     spec.loader.exec_module(mod)
     if build is not None:
         mod._build = build
@@ -129,6 +141,117 @@ def _k9(parent, card):
                 lambda: layer1_chain.layer1_chain_kernel(x, amax, blocks,
                                                          floor=True),
                 card)
+
+
+def _k5_cases():
+    """(label, maps, points, mode, projs, biases, scales, the other
+    commit's projs) of the sampler calls the K5 A/B times, batch 64;
+    projections made outside inference mode, as the served lifter's
+    parameters. int8 levels carry a dequant scale: the port takes it apart
+    from W, the other commit (as its lifter served) W * scale made per
+    call under inference mode."""
+    gen = torch.Generator().manual_seed(10)
+
+    def uniform(lo, hi, *shape):
+        return (torch.rand(*shape, generator=gen) * (hi - lo) + lo).cuda()
+
+    b, hd, cases = cs.BATCH, cs.HEAD_DIM, []
+    pyramids = {**cs.HRNET_PYRAMIDS,
+                "CPN": tuple((h, w, 256) for h, w in cs.LEVELS)}
+    for name, dims in pyramids.items():
+        for dtype in (torch.bfloat16, torch.int8, torch.float32):
+            # int8: the CPN pyramid only; fp32: the W32 border call only
+            if dtype != torch.bfloat16 and name != {
+                    torch.int8: "CPN", torch.float32: "W32"}[dtype]:
+                continue
+            if dtype == torch.int8:
+                maps = [torch.randint(-127, 128, (b, h, w, c), generator=gen,
+                                      dtype=torch.int8).cuda()
+                        for h, w, c in dims]
+            else:
+                maps = [torch.randn(b, h, w, c, generator=gen).to(
+                    "cuda", dtype) for h, w, c in dims]
+            on = [deformable.kernel_can_preproject(h, w, c, hd)
+                  for h, w, c in dims]
+            projs = [uniform(-1, 1, c, hd) / c ** 0.5 if o else None
+                     for (_, _, c), o in zip(dims, on)]
+            biases = [uniform(-0.1, 0.1, hd) if o else None for o in on]
+            border = uniform(-1.5, 1.5, b, len(dims), 17, 16, 2)
+            zeros = uniform(-1.1, 1.1, b, len(dims), 17, 2)
+            tag = f"{name} {str(dtype).removeprefix('torch.')}"
+            if dtype == torch.float32:
+                if name == "W32":
+                    cases.append((f"{tag} border+proj P=272", maps, border,
+                                  "border", projs, biases, None, projs))
+                continue
+            scales, folded = None, projs
+            if dtype == torch.int8:
+                scales = [torch.tensor(0.02, device="cuda") for _ in projs]
+                with torch.inference_mode():  # W * scale, made per call
+                    folded = [None if w is None else w * 0.02
+                              for w in projs]
+            cases.append((f"{tag} zeros P=17", maps, zeros, "zeros", None,
+                          None, None, None))
+            cases.append((f"{tag} border+proj P=272", maps, border, "border",
+                          projs, biases, scales, folded))
+            if name != "CPN" and dtype == torch.bfloat16:
+                cases.append((f"{tag} border P=272 gather only", maps,
+                              border, "border", None, None, None, None))
+                for l in range(len(dims)):
+                    cases.append((
+                        f"{tag} border+proj P=272 level {l} "
+                        f"{dims[l]} alone", [maps[l]],
+                        border[:, l:l + 1].contiguous(),
+                        "border", [projs[l]], [biases[l]], None,
+                        [projs[l]]))
+    return cases
+
+
+def _k5(parent, card):
+    for (label, maps, pts, mode, projs, biases, scales,
+         folded) in _k5_cases():
+        with torch.inference_mode():
+            _ab(f"K5/K1 {label}",
+                lambda: parent.sample_points_multi(maps, pts, mode, True,
+                                                   folded, biases),
+                lambda: deformable.sample_points_multi(
+                    maps, pts, mode, True, projs, biases, scales),
+                card)
+
+
+def _k7_cases():
+    """(label, block, args) of K7 on the first DeformableBlock of a served
+    h36m_cpn and h36m_hrnet_32 request (``chip_smoke._served_block``),
+    bf16 and fp32."""
+    cases = []
+    for name in cs.AGGREGATE_PRESETS:
+        block, tokens, ref, features = cs._served_block(name)
+        with torch.inference_mode():
+            weights, packed = block.sampling(tokens, ref)
+        b, lp1, p, _ = tokens.shape
+        pos = packed.reshape(b, lp1 - 1, p, -1, 2)
+        levels = range(lp1 - 1)
+        args = (features, pos, weights,
+                [block.embed_proj(l).kernel for l in levels],
+                [block.embed_proj(l).bias for l in levels])
+        cases.append((f"{name} block bf16", block, args))
+        cases.append((f"{name} block fp32", None,
+                      ([f.float() for f in features], *args[1:])))
+    return cases
+
+
+def _k7(parent, card):
+    for label, block, args in _k7_cases():
+        with torch.inference_mode():
+            _ab(f"K7 {label}",
+                lambda: parent.deformable_aggregate(*args, "border"),
+                lambda: deformable.deformable_aggregate(*args, "border"),
+                card)
+            if block is not None:
+                ms = cs._median_ms(lambda: block.pool(*args[:3]), runs=RUNS)
+                print(f"ab: K7 {label}: the block's own route (K1 + "
+                      f"embed_proj + einsum, new ops) {ms:.4f} ms ({card})",
+                      flush=True)
 
 
 def _sweep(card):
@@ -244,6 +367,8 @@ def main() -> None:
     ap.add_argument("--parent", type=Path,
                     help="a directory holding the other commit's "
                          "contextaware_poseformer_tpu_torch/ops")
+    ap.add_argument("--only", default="K3,K9,K5,K7",
+                    help="the kernels to A/B, comma-separated")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--breakdown", action="store_true")
     args = ap.parse_args()
@@ -255,15 +380,19 @@ def main() -> None:
         check=True).stdout.strip().splitlines()[0]
     serve.configure_numerics()
     _build.library()
+    only = set(args.only.split(","))
     if args.parent is not None:
         ops = args.parent.resolve() / "contextaware_poseformer_tpu_torch" / \
             "ops"
         pbuild = _load("parent_build", ops / "_build.py")
         pbuild.library()
-        _k3(_load("parent_small_attention", ops / "small_attention.py",
-                  pbuild), card)
-        _k9(_load("parent_layer1_chain", ops / "layer1_chain.py", pbuild),
-            card)
+        for kern, module, run in (("K3", "small_attention", _k3),
+                                  ("K9", "layer1_chain", _k9),
+                                  ("K5", "deformable", _k5),
+                                  ("K7", "deformable", _k7)):
+            if kern in only:
+                run(_load(f"parent_{module}", ops / f"{module}.py", pbuild),
+                    card)
     if args.sweep:
         _sweep(card)
     if args.breakdown:
