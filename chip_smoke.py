@@ -117,27 +117,56 @@ Phases, one line of output each (failures raise and exit non-zero):
    64x48x256 maps, batch 64, 4x272 border points and 4x17 zeros points),
    fp32 and bf16, with and without dF: max abs error and error / max|plain|
    of d(points) and dF, median kernel and plain device times; then the
-   training step's own call (fp32, border, no dF) at batch 256;
-11. train: the h36m_cpn training preset at full width (fp32 CPN ResNet-50
+   training steps' own calls (fp32, border, no dF): the CPN's four
+   64x48x256 maps at batch 256 and the HRNet-W32 (64x48x32, 32x24x64,
+   16x12x128, 8x6x256) and W48 (48/96/192/384 channels) pyramids at batch
+   512, each with the library call (``grid_sampler_2d_backward``) and the
+   bound;
+11. train: three presets at full width, each set up by its training CLI's
+   own parsing (``build_argparser``, ``make_config``, ``make_datasets``;
+   synthetic data and weights from seed 0; TF32 off), through the
+   ``Trainer`` (``Trainer3dhp`` for 3DHP): h36m_cpn (fp32 CPN ResNet-50
    with the /4 graph, lifter embed 128 depth 4 with deformable blocks,
-   AdamW, batch 256, flip augmentation, drop-path 0.2; TF32 off; synthetic
-   data and weights from seed 0), set up by the training CLI's own
-   ``make_config`` and ``make_datasets``, takes 4 steps and evaluates 1
-   flip-test batch through the ``Trainer``. Every loss must be finite, the
-   lifter must change and the backbone must not, K1 must launch 5 times and
-   K6 4 times a step, and one deterministic step through the kernels must
-   agree with one through the plain sampler (``sampler="gather"``) from the
-   same weights on the same batch: loss to 1e-5 relative, lifter gradients
-   to a global relative L2 of 1e-4. Steps/s (information only);
-12. a JSON line of per-kernel results (K1-K10 and K10q, then the probes'
+   AdamW, batch 256, flip augmentation, drop-path 0.2; 2 steps),
+   h36m_hrnet_32 (the fp32 frozen HRNet-W32, the same lifter, batch 512; 4
+   steps) and mpi_3dhp_hrnet_32 (the lifter without deformable blocks,
+   root joint 14, batch 160; 4 steps), then one flip-test eval batch each
+   (3DHP: P1, PCK and AUC). Every loss must be finite, the lifter must
+   change and the backbone must not, and the launches must match: K1 5 and
+   K6 4 a step on H36M (HRNet: K5 5), K1 and K5 1 on 3DHP. For each, one
+   deterministic step through the kernels must agree with one through the
+   plain sampler (``sampler="gather"``) from the same weights on the same
+   batch: loss to 1e-5 relative, lifter gradients to a global relative L2
+   of 1e-4. Steps/s (information only);
+12. gate: the deploy-numerics gate (``deploy_numerics.preset_gate``, 250
+   steps of the tiny model of h36m_cpn, h36m_hrnet_32 and
+   mpi_3dhp_hrnet_32 on the synthetic task, then P1 of the fp32 model and
+   of its int8 deploy stack calibrated by ``serve.prepare``): fails when
+   the deploy P1 differs from the fp32 P1 by more than 1.0 mm either way,
+   or the gate's training launched other than K1 3 and K6 2 a step (3DHP:
+   K1 1). Then, at the gate's own shapes (embed 32, head dim 8, 64x64
+   frames, batch 16): the trained fp32 model's deterministic step through
+   the kernels against the plain sampler, as in phase 11; on one
+   validation batch of the calibrated deploy model, its backbone maps
+   through K9/K10/K10q against K9's and K10's plain versions bit for bit
+   (HRNet: and against ``config.deploy``'s own layer1, the per-conv int8
+   chain, bit for bit), each K1-K4 call of its lifter, recorded, against
+   its plain version (error / max|plain| within the bf16 tolerance), and
+   its flip-test predictions against the plain lifter (``sampler=
+   "gather"``, einsum attention and MLP) in bf16 and in fp32: the
+   kernels' relative RMS distance to the fp32 lifter may exceed the plain
+   bf16 lifter's by at most 2e-2 (the tiny bf16 lifter itself sits 3-6%
+   from its fp32 version). Each of those kernels must have launched in
+   that batch and none in the plain runs;
+13. a JSON line of per-kernel results (K1-K10 and K10q, then the probes'
    counterparts, named ``probe <name>``), then the final JSON status
-   line. ``launches`` are summed over the serving, aggregate and
-   training runs, each counted from 0 (the probes': their phase's main
+   line. ``launches`` are summed over the serving, aggregate, training
+   and gate runs, each counted from 0 (the probes': their phase's main
    run). Errors are the largest over the bf16 cases (int8 maps, sampled to
    bf16, included). Times are bf16 at the CPN serving shapes for K1-K4,
    at HRNet-W32's for K5 and K9, at the CPN int8 request's for K10 and
    K10q, all per request (the sum over a request's calls), K6's those of
-   the training step's call at batch 256 times its 4 calls a step, K7's
+   the CPN training step's call at batch 256 times its 4 calls a step, K7's
    the sum of its two served blocks' border calls and K8's of its two
    bf16 calls.
    ``bound_ms`` is the larger of the bytes the calls must move over
@@ -191,11 +220,37 @@ INT8_PER_REQUEST = {"hrnet": {"K9": 4, "K10": 87, "K10q": 85},
 TIMED_REQUESTS = 20  # host-clock frames/s, after the checked requests
 PROFILED = 5  # requests under torch.profiler
 TOP_KERNELS = 8
-TRAIN_STEPS = 4
 TRAIN_BATCH = 256  # the h36m_cpn preset's batch
-PER_TRAIN_STEP = {"K1": 5, "K6": 4}  # the 17 reference points need no K6
+HRNET_TRAIN_BATCH = 512  # the HRNet H36M presets' batch
+K6_CALLS_A_STEP = 4  # one a deformable block
+# the training runs: (preset, its batch, steps, launches a step, launches
+# of the flip-test eval batch, the deterministic kernels-vs-plain step).
+# The 17 reference points need no K6; each sampler call on HRNet samples
+# its 64x48x32 level (K5)
+TRAIN_RUNS = (
+    ("h36m_cpn", TRAIN_BATCH, 2, {"K1": 5, "K6": K6_CALLS_A_STEP},
+     {"K1": 5}, True),
+    ("h36m_hrnet_32", HRNET_TRAIN_BATCH, 4,
+     {"K1": 5, "K5": 5, "K6": K6_CALLS_A_STEP}, {"K1": 5, "K5": 5}, True),
+    ("mpi_3dhp_hrnet_32", 160, 4, {"K1": 1, "K5": 1}, {"K1": 1, "K5": 1},
+     True),
+)
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_REL_L2 = 1e-4
+# the deploy-numerics gate: one preset of each tiny class, with its
+# launches a training step (the tiny lifter has depth 2: the reference
+# points' call and one a deformable block) and the kernels one validation
+# batch of its deploy model must launch; fail beyond this P1 delta (deploy
+# minus fp32), either way
+_GATE_LIFTER = ("K1", "K2", "K3", "K4")
+GATE_PRESETS = {
+    "h36m_cpn": ({"K1": 3, "K6": 2}, (*_GATE_LIFTER, "K10", "K10q")),
+    "h36m_hrnet_32": ({"K1": 3, "K6": 2},
+                      (*_GATE_LIFTER, "K9", "K10", "K10q")),
+    "mpi_3dhp_hrnet_32": ({"K1": 1}, (*_GATE_LIFTER, "K9", "K10", "K10q")),
+}
+GATE_STEPS = 250
+GATE_MAX_DELTA_MM = 1.0
 CSRC = "contextaware_poseformer_tpu_torch/ops/csrc/"
 REPLACES = {
     "K1": "contextaware_poseformer_tpu/ops/deformable.py:409",
@@ -452,7 +507,7 @@ def _sampler_cases(gen, dtype, b, dims, mixed_proj):
     with torch.inference_mode(False):
         for h, w, c in dims:
             on = not mixed_proj or deformable.kernel_can_preproject(
-                h, w, c, HEAD_DIM)
+                h, w, c, HEAD_DIM, dtype)
             projs.append(uniform(-1, 1, c, HEAD_DIM) / c ** 0.5 if on
                          else None)
             biases.append(uniform(-0.1, 0.1, HEAD_DIM) if on else None)
@@ -1812,7 +1867,7 @@ def check_aggregate(results, card):
                                      f"copied before K1 ({ptrs})")
             hd = args[3][0].shape[1]
             pre = [block.pre_project and deformable.kernel_can_preproject(
-                *f.shape[1:], hd) for f in features]
+                *f.shape[1:], hd, f.dtype) for f in features]
             projs = [w if on else None for w, on in zip(args[3], pre)]
             biases = [v if on else None for v, on in zip(args[4], pre)]
             k1_ms = _median_ms(lambda: deformable.sample_points_multi(
@@ -1922,9 +1977,10 @@ def _grid_sample_backward_fn(maps, pts, grads, mode, need_df):
 
 
 def check_backward():
-    """Phase 8: K6 against the plain backward. Returns K6's JSON numbers:
-    fp32 d(points) error and per-step times of the training step's call
-    (border, no dF, batch TRAIN_BATCH; 4 calls a step)."""
+    """Phase 10: K6 against the plain backward. Returns K6's JSON numbers:
+    the largest fp32 d(points) error of the training steps' calls (border,
+    no dF) and the per-step times of the CPN's (batch TRAIN_BATCH; 4 calls
+    a step); the HRNet calls' times are printed."""
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         gen = torch.Generator().manual_seed(4321)
@@ -1942,164 +1998,448 @@ def check_backward():
                     pts, grads, mode, need_df)
         del maps
 
-    # the training step's call at its batch: fp32, border, no dF
+    # the training step's calls at their batches: fp32, border, no dF; the
+    # CPN's four 64x48x256 maps, then HRNet-W32's and W48's pyramids
+    cases = [("CPN", TRAIN_BATCH, ((64, 48, 256),) * 4)]
+    cases += [(name, HRNET_TRAIN_BATCH, dims)
+              for name, dims in HRNET_PYRAMIDS.items()]
+    rows = {}
+    for name, b, dims in cases:
+        rows[name] = _train_backward_case(name, b, dims)
+        torch.cuda.empty_cache()
+    return {**rows["CPN"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values())}
+
+
+def _train_backward_case(name, b, dims):
+    """K6 at a training step's call (fp32, border, no dF, 4x272 points) on
+    maps of ``dims`` at batch ``b``: checked and timed against the plain
+    backward, the library call and the bound; returns K6's JSON numbers
+    for a step (K6_CALLS_A_STEP calls)."""
     gen = torch.Generator("cuda").manual_seed(4321)
-    maps = [torch.randn(TRAIN_BATCH, 64, 48, 256, device="cuda",
-                        generator=gen) for _ in range(4)]
-    pts = _edge_points(torch.Generator().manual_seed(4321), TRAIN_BATCH, 4,
-                       17, 16, 2)
-    grads = [torch.randn(TRAIN_BATCH, 17, 16, 256, device="cuda",
-                         generator=gen) for _ in range(4)]
+    maps = [torch.randn(b, h, w, c, device="cuda", generator=gen)
+            for h, w, c in dims]
+    pts = _edge_points(torch.Generator().manual_seed(4321), b, len(dims), 17,
+                       16, 2)
+    grads = [torch.randn(b, 17, 16, c, device="cuda", generator=gen)
+             for _, _, c in dims]
+    channels = "/".join(str(c) for _, _, c in dims)
     err, ms, plain_ms = _backward_case(
-        f"K6 border P=272 float32 without dF, batch {TRAIN_BATCH} (the "
-        "training step's call)", torch.float32, maps, pts, grads, "border",
-        False)
+        f"K6 {name} border P=272 float32 without dF, batch {b}, C "
+        f"{channels} (a training step's call)", torch.float32, maps, pts,
+        grads, "border", False)
     lib_ms = _median_ms(_grid_sample_backward_fn(maps, pts, grads, "border",
                                                  False))
     # bytes: the distinct tap rows, the upstream gradients, the points in
     # and their gradients out; 16 operations a sampled channel
     nbytes, ops = 2 * pts.numel() * 4, 0
     for l, (f, g) in enumerate(zip(maps, grads)):
-        nbytes += (_distinct_taps(f, pts.reshape(TRAIN_BATCH, 4, -1, 2)[:, l],
+        nbytes += (_distinct_taps(f, pts.reshape(b, len(dims), -1, 2)[:, l],
                                   True) * f.shape[-1] * 4
                    + g.numel() * 4)
         ops += 16 * g.numel()
     bound_ms, by = _bound(nbytes, ops, torch.float32)
-    calls = PER_TRAIN_STEP["K6"]
-    print(f"backward: K6 the training step's call: library {lib_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({by}: {nbytes} B, {ops} ops)",
-          flush=True)
+    calls = K6_CALLS_A_STEP
+    print(f"backward: K6 {name} a step ({calls} calls): kernel "
+          f"{calls * ms:.4f} ms, plain {calls * plain_ms:.4f} ms, library "
+          f"{calls * lib_ms:.4f} ms, bound {calls * bound_ms:.4f} ms ({by}: "
+          f"{nbytes} B, {ops} ops a call)", flush=True)
     return {"max_abs_err": err, "ms": calls * ms, "plain_ms": calls * plain_ms,
             "bound_ms": calls * bound_ms, "bound_by": by,
             "library_ms": calls * lib_ms}
 
 
-def check_train(card):
-    """Phase 9: returns the training run's launch counts."""
-    from contextaware_poseformer_tpu_torch.data import pipeline
+def _kernels_vs_plain_step(tag, cfg, model, raw, task, per_step):
+    """One deterministic train step of ``model`` through the kernels and one
+    of a copy through the plain sampler (``sampler="gather"``), from the
+    same weights on the same device batch ``raw``: the kernels' launches
+    must be ``per_step`` and the plain run's none, the loss must agree to
+    TRAIN_LOSS_RTOL and the lifter gradients to TRAIN_GRAD_REL_L2 (global
+    relative L2). Returns the plain copy."""
     from contextaware_poseformer_tpu_torch.models.capf import (
         ContextAwarePoseFormer,
     )
-    from contextaware_poseformer_tpu_torch.train import steps, train_h36m
-    from contextaware_poseformer_tpu_torch.train.loop import Trainer
+    from contextaware_poseformer_tpu_torch.train import steps
 
-    t0 = time.perf_counter()
-    args = train_h36m.build_argparser().parse_args(
-        ["--preset", "h36m_cpn", "--synthetic", "--device", "cuda"])
-    train_h36m.check_ported(args)
-    cfg = train_h36m.make_config(args)
-    if cfg.train.batch_size != TRAIN_BATCH:
-        raise AssertionError(f"h36m_cpn batch {cfg.train.batch_size}")
-    train_ds, val_ds = train_h36m.make_datasets(cfg, args)
-    trainer = Trainer(cfg, train_ds, val_ds, "cuda")
-    state = trainer.init_state(cfg.train.seed)
-    lifter0 = [p.detach().clone() for p in state.model.lifter.parameters()]
-    backbone0 = {k: v.clone()
-                 for k, v in state.model.backbone.state_dict().items()}
-    torch.cuda.synchronize()
-    lc = cfg.model.lifter
-    print(f"train: h36m_cpn built in {time.perf_counter() - t0:.1f} s "
-          f"(image {cfg.model.image_shape}, batch {cfg.train.batch_size}, "
-          f"lifter embed {lc.embed_dim_ratio} depth {lc.depth}, drop-path "
-          f"{lc.drop_path_rate}, flip {cfg.train.flip_aug}, "
-          f"{cfg.model.compute_dtype})", flush=True)
-
-    _reset_counts()
-    t0 = time.perf_counter()
-    m = trainer.train_epoch(state, 0, max_steps=TRAIN_STEPS)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = _counts()
-    if launches != _expected(PER_TRAIN_STEP, TRAIN_STEPS):
-        raise AssertionError(f"{TRAIN_STEPS} train steps launched {launches}"
-                             f", expected {PER_TRAIN_STEP} a step")
-    losses = m["step_losses"]
-    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"train losses {losses}")
-    _reset_counts()
-    summary, _ = trainer.evaluate(state, max_batches=1)
-    torch.cuda.synchronize()
-    evaluated = _counts()
-    if evaluated != _expected({"K1": 5}):
-        raise AssertionError(f"the flip-test batch launched {evaluated}")
-    if not all(map(math.isfinite, summary.values())):
-        raise AssertionError(f"eval summary {summary}")
-    changed = any(not torch.equal(a, p.detach()) for a, p in
-                  zip(lifter0, state.model.lifter.parameters()))
-    frozen = all(torch.equal(backbone0[k], v) for k, v in
-                 state.model.backbone.state_dict().items())
-    print(f"train: {TRAIN_STEPS} steps, losses "
-          f"{[f'{v:.6f}' for v in losses]}, {TRAIN_STEPS / seconds:.2f} "
-          f"steps/s (first steps included); launches {launches}; flip-test "
-          f"batch p1 {summary['p1_mm']:.2f} mm, launches {evaluated}; lifter "
-          f"changed {changed}, backbone bit-identical {frozen}", flush=True)
-    if not (changed and frozen):
-        raise AssertionError("the lifter must change and the backbone not")
-
-    t0 = time.perf_counter()
-    warm = trainer.train_epoch(state, 1, max_steps=TRAIN_STEPS)
-    torch.cuda.synchronize()
-    trainer_rate = TRAIN_STEPS / (time.perf_counter() - t0)
-    if not all(map(math.isfinite, warm["step_losses"])):
-        raise AssertionError(f"warm epoch losses {warm['step_losses']}")
-
-    # one deterministic step through the kernels and one through the plain
-    # sampler, from the same weights on the same batch
     plain_cfg = replace(cfg, model=replace(cfg.model, lifter=replace(
-        lc, sampler="gather")))
+        cfg.model.lifter, sampler="gather")))
     plain = ContextAwarePoseFormer(plain_cfg.model, device="cuda")
-    plain.load_state_dict(state.model.state_dict())
+    plain.load_state_dict(model.state_dict())
     plain.backbone.to(memory_format=torch.channels_last)
     plain.backbone.requires_grad_(False)
-    raw, _ = next(pipeline.batch_iterator(train_ds, cfg.train.batch_size,
-                                          shuffle=False, num_workers=8))
-    raw = pipeline.to_device(raw, "cuda")
-    batch = steps.prepare(raw, cfg.model.backbone, trainer.task)
+    batch = steps.prepare(raw, cfg.model.backbone, task)
     results = []
-    for model in (state.model, plain):
+    for m in (model, plain):
         before = _counts()
-        model.zero_grad(set_to_none=True)
-        loss = steps.loss_and_grads(model, cfg, batch, None,
-                                    deterministic=True)
+        m.zero_grad(set_to_none=True)
+        loss = steps.loss_and_grads(m, cfg, batch, None, deterministic=True)
         torch.cuda.synchronize()
         grew = {k: v - before[k] for k, v in _counts().items()}
         results.append((loss.item(), [p.grad.clone() for p in
-                                      model.lifter.parameters()], grew))
-    if results[0][2] != _expected(PER_TRAIN_STEP) or any(
-            results[1][2].values()):
-        raise AssertionError(f"deterministic step launches: kernels "
+                                      m.lifter.parameters()], grew))
+    del batch
+    if results[0][2] != _expected(per_step) or any(results[1][2].values()):
+        raise AssertionError(f"{tag}: deterministic step launches: kernels "
                              f"{results[0][2]}, plain {results[1][2]}")
     (loss_k, grads_k, _), (loss_p, grads_p, _) = results
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     num = sum((a - b).pow(2).sum() for a, b in zip(grads_k, grads_p))
     den = sum(b.pow(2).sum() for b in grads_p)
     grad_rel = (num.sqrt() / den.sqrt()).item()
+    print(f"{tag}: deterministic step (batch {raw.images_u8.shape[0]}), "
+          f"kernels vs plain sampler: loss {loss_k:.8f} vs {loss_p:.8f} (rel "
+          f"{loss_rel:.3e}, tol {TRAIN_LOSS_RTOL:.0e}), lifter gradients "
+          f"global rel L2 {grad_rel:.3e} (tol {TRAIN_GRAD_REL_L2:.0e})",
+          flush=True)
+    if not (loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_REL_L2):
+        raise AssertionError(f"{tag}: kernels vs plain: loss rel "
+                             f"{loss_rel:.3e}, gradient rel L2 {grad_rel:.3e}")
+    return plain
+
+
+def check_train(card, run):
+    """Phase 11: one TRAIN_RUNS entry through its CLI's own parsing at
+    full width: steps through ``Trainer.train_epoch``, one flip-test eval
+    batch, launch counts, a finite loss, a lifter that moved and a
+    backbone that did not; with ``deterministic``, one deterministic step
+    through the kernels against one through the plain sampler; steps/s
+    (information). Returns the run's launch counts."""
+    from contextaware_poseformer_tpu_torch.data import pipeline
+    from contextaware_poseformer_tpu_torch.train import (
+        steps, train_3dhp, train_h36m,
+    )
+    from contextaware_poseformer_tpu_torch.train.loop import Trainer
+
+    name, batch, n_steps, per_step, per_eval, deterministic = run
+    cli, trainer_cls = ((train_3dhp, train_3dhp.Trainer3dhp)
+                           if name.startswith("mpi") else (train_h36m, Trainer))
+    t0 = time.perf_counter()
+    args = cli.build_argparser().parse_args(
+        ["--preset", name, "--synthetic", "--device", "cuda"])
+    train_h36m.check_ported(args)
+    cfg = cli.make_config(args)
+    if cfg.train.batch_size != batch:
+        raise AssertionError(f"{name} batch {cfg.train.batch_size}")
+    train_ds, val_ds = cli.make_datasets(cfg, args)
+    trainer = trainer_cls(cfg, train_ds, val_ds, "cuda")
+    state = trainer.init_state(cfg.train.seed)
+    lifter0 = [p.detach().clone() for p in state.model.lifter.parameters()]
+    backbone0 = {k: v.clone()
+                 for k, v in state.model.backbone.state_dict().items()}
+    torch.cuda.synchronize()
+    lc = cfg.model.lifter
+    print(f"train: {name} built in {time.perf_counter() - t0:.1f} s "
+          f"(image {cfg.model.image_shape}, batch {cfg.train.batch_size}, "
+          f"lifter embed {lc.embed_dim_ratio} depth {lc.depth}, deformable "
+          f"{lc.use_deformable}, drop-path {lc.drop_path_rate}, flip "
+          f"{cfg.train.flip_aug}, {cfg.model.compute_dtype})", flush=True)
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    m = trainer.train_epoch(state, 0, max_steps=n_steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    if launches != _expected(per_step, n_steps):
+        raise AssertionError(f"{name}: {n_steps} train steps launched "
+                             f"{launches}, expected {per_step} a step")
+    losses = m["step_losses"]
+    if len(losses) != n_steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{name}: train losses {losses}")
+    _reset_counts()
+    summary, _ = trainer.evaluate(state, max_batches=1)
+    torch.cuda.synchronize()
+    evaluated = _counts()
+    if evaluated != _expected(per_eval):
+        raise AssertionError(f"{name}: the flip-test batch launched "
+                             f"{evaluated}")
+    if not all(map(math.isfinite, summary.values())):
+        raise AssertionError(f"{name}: eval summary {summary}")
+    changed = any(not torch.equal(a, p.detach()) for a, p in
+                  zip(lifter0, state.model.lifter.parameters()))
+    frozen = all(torch.equal(backbone0[k], v) for k, v in
+                 state.model.backbone.state_dict().items())
+    del backbone0
+    scores = ", ".join(f"{k} {v:.2f}" for k, v in summary.items())
+    print(f"train: {name}: {n_steps} steps, losses "
+          f"{[f'{v:.6f}' for v in losses]}, {n_steps / seconds:.2f} "
+          f"steps/s (first steps included); launches {launches}; flip-test "
+          f"batch {scores}, launches {evaluated}; lifter changed {changed}, "
+          f"backbone bit-identical {frozen}", flush=True)
+    if not (changed and frozen):
+        raise AssertionError("the lifter must change and the backbone not")
+
+    t0 = time.perf_counter()
+    warm = trainer.train_epoch(state, 1, max_steps=n_steps)
+    torch.cuda.synchronize()
+    trainer_rate = n_steps / (time.perf_counter() - t0)
+    if not all(map(math.isfinite, warm["step_losses"])):
+        raise AssertionError(f"warm epoch losses {warm['step_losses']}")
+    raw, _ = next(pipeline.batch_iterator(train_ds, cfg.train.batch_size,
+                                          shuffle=False, num_workers=8))
+    raw = pipeline.to_device(raw, "cuda")
+    models = [state.model]
+
+    if deterministic:
+        models.append(_kernels_vs_plain_step(f"train: {name}", cfg,
+                                             state.model, raw, trainer.task,
+                                             per_step))
 
     rates = []
-    for model in (state.model, plain):
-        run = steps.TrainState(
+    for model in models:
+        run_state = steps.TrainState(
             model, steps.make_optimizer(cfg, trainer.steps_per_epoch, model))
-        steps.train_step(run, raw, cfg, trainer.task, 1)
+        steps.train_step(run_state, raw, cfg, trainer.task, 1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
-            steps.train_step(run, raw, cfg, trainer.task, 1)
+            steps.train_step(run_state, raw, cfg, trainer.task, 1)
         torch.cuda.synchronize()
         rates.append(3 / (time.perf_counter() - t0))
-    print(f"train: deterministic step, kernels vs plain sampler: loss "
-          f"{loss_k:.8f} vs {loss_p:.8f} (rel {loss_rel:.3e}, tol "
-          f"{TRAIN_LOSS_RTOL:.0e}), lifter gradients global rel L2 "
-          f"{grad_rel:.3e} (tol {TRAIN_GRAD_REL_L2:.0e})", flush=True)
-    print(f"train: {trainer_rate:.3f} steps/s through the Trainer (a warm "
-          f"epoch of {TRAIN_STEPS} steps, host batch assembly and copy "
+    plain_rate = (f", {rates[1]:.3f} steps/s with the plain sampler"
+                  if deterministic else "")
+    print(f"train: {name}: {trainer_rate:.3f} steps/s through the Trainer "
+          f"(a warm epoch of {n_steps} steps, host batch assembly and copy "
           f"included); train_step on a device-resident batch: "
-          f"{rates[0]:.3f} steps/s with the kernels, {rates[1]:.3f} steps/s "
-          f"with the plain sampler (information only; batch "
-          f"{cfg.train.batch_size}, {card})", flush=True)
-    if not (loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_REL_L2):
-        raise AssertionError(f"kernels vs plain: loss rel {loss_rel:.3e}, "
-                             f"gradient rel L2 {grad_rel:.3e}")
+          f"{rates[0]:.3f} steps/s with the kernels{plain_rate} "
+          f"(information only; batch {cfg.train.batch_size}, {card})",
+          flush=True)
+    del models, state, trainer
+    torch.cuda.empty_cache()
     return {k: launches[k] + evaluated[k] for k in launches}
+
+
+def _gate_backbone(model, images):
+    """The backbone maps and their int8 scales (None for float maps)."""
+    from contextaware_poseformer_tpu_torch.models.capf import backbone_maps
+
+    with torch.inference_mode():
+        features, scales = backbone_maps(model.backbone(images))
+    return list(features), list(scales or ())
+
+
+def _lifter_entries():
+    """{kernel: (module, its kernel entry, its plain version)} of the
+    lifter's bf16 kernels, K1-K4."""
+    from contextaware_poseformer_tpu_torch.ops import (
+        deformable, fused_mlp, joint_attention, small_attention,
+    )
+
+    return {"K1": (deformable, "_launch_forward",
+                   deformable.sample_points_multi_reference),
+            "K2": (fused_mlp, "ln_mlp_residual_kernel",
+                   fused_mlp.ln_mlp_reference),
+            "K3": (small_attention, "small_attention_kernel",
+                   small_attention.attention_reference),
+            "K4": (joint_attention, "attention_middle_kernel",
+                   joint_attention.attention_middle_reference)}
+
+
+def _cloned(v):
+    if isinstance(v, torch.Tensor):
+        return v.detach().clone()
+    if isinstance(v, (list, tuple)):
+        return type(v)(_cloned(t) for t in v)
+    return v
+
+
+def _record_lifter_calls(run):
+    """``run()`` with K1-K4's kernel entries recording a copy of each
+    call's arguments: {kernel: [args, ...]}."""
+    entries = _lifter_entries()
+    calls = {k: [] for k in entries}
+    real = {k: getattr(mod, attr) for k, (mod, attr, _) in entries.items()}
+
+    def recorder(k):
+        def record(*args):
+            calls[k].append(_cloned(args))
+            return real[k](*args)
+        return record
+
+    for k, (mod, attr, _) in entries.items():
+        setattr(mod, attr, recorder(k))
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        for k, (mod, attr, _) in entries.items():
+            setattr(mod, attr, real[k])
+    return out, calls
+
+
+def _replay_lifter_calls(calls):
+    """Each recorded call again through its kernel and its plain version:
+    {kernel: (calls, largest error / max|plain| over the calls and, for
+    K1, its levels, the first call's leading shape)}."""
+    entries = _lifter_entries()
+    res = {}
+    for k, recorded in calls.items():
+        mod, attr, plain = entries[k]
+        worst = 0.0
+        for args in recorded:
+            with torch.no_grad():
+                out, ref = getattr(mod, attr)(*args), plain(*args)
+            outs = out if isinstance(out, tuple) else (out,)
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            worst = max([worst] + [_err(o, r)[1] for o, r in zip(outs, refs)])
+        if recorded:
+            first = recorded[0][0]
+            shape = ([tuple(f.shape[1:]) for f in first] if k == "K1"
+                     else tuple(first.shape))
+            res[k] = (len(recorded), worst, shape)
+    return res
+
+
+def _gate_deploy_check(name, trainer, state, needed):
+    """One validation batch of the gate's calibrated deploy model: each of
+    its K1-K4 calls against the plain version to the bf16 tolerance; its
+    backbone maps through the kernels against K9's and K10's plain versions
+    and, on HRNet, against ``config.deploy``'s per-conv layer1, bit for bit;
+    its flip-test predictions against those of the same model with the
+    plain lifter knobs and, as their yardstick, with the plain lifter in
+    fp32. The tiny bf16 lifter amplifies rounding: on an H100 both bf16
+    routes sat 3-6% (relative RMS) from the fp32 lifter and 3% from each
+    other (the sampler's rounding, per call 0.6% of max|plain|), so the
+    kernels' route may sit no more than SLICE_REL_RMS farther from the fp32
+    lifter than the plain bf16 route does. Every kernel of ``needed`` must
+    launch in the kernels' run and none in the plain runs."""
+    from contextaware_poseformer_tpu_torch import serve
+    from contextaware_poseformer_tpu_torch.data import pipeline
+    from contextaware_poseformer_tpu_torch.data.augment import (
+        serving_images,
+    )
+    from contextaware_poseformer_tpu_torch.train import steps
+
+    cfg, model = trainer.cfg, state.model
+    lc, bc = cfg.model.lifter, cfg.model.backbone
+    raw, _ = next(pipeline.batch_iterator(trainer.val_ds, cfg.train.batch_size,
+                                          shuffle=False, num_workers=1))
+    raw = pipeline.to_device(raw, "cuda")
+    images = serving_images(raw.images_u8, bc, dtype=model.backbone.dtype)
+
+    def copy(model_cfg):
+        m = serve.build_serving_model(
+            replace(cfg, model=model_cfg), "cuda",
+            generator=torch.Generator().manual_seed(1))
+        m.load_state_dict(model.state_dict())
+        return m
+
+    plain_cfg = replace(cfg, model=replace(cfg.model, lifter=replace(
+        lc, sampler="gather", attention="einsum", attention_joint="einsum",
+        mlp="einsum")))
+    fp32_cfg = replace(plain_cfg, model=replace(
+        plain_cfg.model, lifter=replace(plain_cfg.model.lifter,
+                                        compute_dtype="float32")))
+    plain, fp32 = copy(plain_cfg.model), copy(fp32_cfg.model)
+    for m in (plain, fp32):
+        m.backbone.int8_impl = "plain"
+    other = {"plain": plain}
+    if bc.kind == "hrnet":
+        other["config.deploy layer1"] = copy(replace(
+            cfg.model, backbone=replace(bc, layer1_impl="xla")))
+    before = _counts()
+    maps = _gate_backbone(model, images)
+    pred, calls = _record_lifter_calls(
+        lambda: steps.eval_step(model, raw, cfg, trainer.task)[0])
+    grew = {k: v - before[k] for k, v in _counts().items()}
+    missing = [k for k in needed if not grew[k]]
+    if missing:
+        raise AssertionError(f"gate {name}: {missing} never launched in the "
+                             f"deploy batch ({grew})")
+    replayed = _replay_lifter_calls(calls)
+    equal = {}
+    for label, m in other.items():
+        got = _gate_backbone(m, images)
+        eq = [_exact(a, b)[0] for a, b in zip(maps[0] + maps[1],
+                                              got[0] + got[1])]
+        equal[label] = min(eq)
+    before = _counts()
+    ref = steps.eval_step(plain, raw, plain_cfg, trainer.task)[0]
+    ref32 = steps.eval_step(fp32, raw, fp32_cfg, trainer.task)[0]
+    torch.cuda.synchronize()
+    if _counts() != before:
+        raise AssertionError(f"gate {name}: the plain path launched a kernel")
+
+    def rms(a, b):
+        return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
+
+    err, rel = _err(pred, ref)
+    to_plain, to_fp32, plain_fp32 = (rms(pred, ref), rms(pred, ref32),
+                                     rms(ref, ref32))
+    tol = TOL[torch.bfloat16]
+    print(f"gate: {name}: one deploy batch ({raw.images_u8.shape[0]} frames, "
+          f"flip test; maps {[tuple(f.shape[1:]) for f in maps[0]]} "
+          f"{maps[0][0].dtype}, lifter embed {lc.embed_dim_ratio}, sampler "
+          f"head dim {lc.embed_dim_ratio // lc.deform_heads}): launches "
+          f"{grew}; each call against its plain version, error / "
+          f"max|plain| (tol {tol:.0e}): "
+          + ", ".join(f"{k} {n} calls at {shape} {worst:.3e}"
+                      for k, (n, worst, shape) in replayed.items())
+          + "; backbone maps equal share vs "
+          + ", ".join(f"{k} {v:.6f}" for k, v in equal.items())
+          + f"; predictions vs the plain bf16 lifter max_abs_err {err:.3e} "
+          f"rel {rel:.3e}, rel RMS {to_plain:.3e}; vs the fp32 lifter rel "
+          f"RMS {to_fp32:.3e}, the plain bf16 lifter's {plain_fp32:.3e} "
+          f"(limit + {SLICE_REL_RMS:.0e})", flush=True)
+    if (any(v != 1.0 for v in equal.values())
+            or any(not w <= tol for _, w, _ in replayed.values())
+            or not to_fp32 <= plain_fp32 + SLICE_REL_RMS):
+        raise AssertionError(f"gate {name}: kernels vs plain: equal {equal}, "
+                             f"calls {replayed}, rel RMS to the fp32 lifter "
+                             f"{to_fp32:.3e} (plain bf16 {plain_fp32:.3e})")
+    del plain, fp32, other
+
+
+def check_gate(card):
+    """Phase 12: the deploy-numerics gate (``deploy_numerics.preset_gate``)
+    for one preset of each tiny class: fp32 P1, the deploy stack's P1 and
+    the delta, within GATE_MAX_DELTA_MM either way; each gate's launches
+    counted from 0 (training: K1 and K6 a step as GATE_PRESETS says; the
+    evaluations K1 and, on the deploy stack, K2-K4, K9, K10 and K10q);
+    then, on the gate's trained models, the kernels against their plain
+    versions at the gate's shapes (launches not counted). Returns the
+    launches summed over the gates."""
+    from contextaware_poseformer_tpu_torch import deploy_numerics
+    from contextaware_poseformer_tpu_torch.data import pipeline
+
+    total = dict.fromkeys(_counters(), 0)
+    for name, (per_step, needed) in GATE_PRESETS.items():
+        run = {}
+
+        def inspect(fp32, deploy, name=name, per_step=per_step,
+                    needed=needed, run=run):
+            torch.cuda.synchronize()
+            run["counts"] = _counts()
+            trainer, state = fp32
+            raw, _ = next(pipeline.batch_iterator(
+                trainer.train_ds, trainer.cfg.train.batch_size,
+                shuffle=False, num_workers=1))
+            _kernels_vs_plain_step(f"gate: {name}", trainer.cfg, state.model,
+                                   pipeline.to_device(raw, "cuda"),
+                                   trainer.task, per_step)
+            _gate_deploy_check(name, *deploy, needed)
+
+        _reset_counts()
+        t0 = time.perf_counter()
+        row = deploy_numerics.preset_gate(name, GATE_STEPS, "cuda",
+                                          inspect=inspect)
+        counts = run["counts"]
+        for k, v in counts.items():
+            total[k] += v
+        delta = row["tiny_trained_delta_mm"]
+        print(f"gate: {name}: {GATE_STEPS} steps, fp32 P1 "
+              f"{row['tiny_trained_fp32_p1_mm']:.4f} mm, deploy P1 "
+              f"{row['tiny_trained_deploy_p1_mm']:.4f} mm, delta "
+              f"{delta:+.4f} mm (limit +-{GATE_MAX_DELTA_MM} mm); launches "
+              f"{counts}; {time.perf_counter() - t0:.1f} s ({card})",
+              flush=True)
+        missing = [k for k in needed if not counts[k]]
+        if missing or counts["K6"] != GATE_STEPS * per_step.get("K6", 0):
+            raise AssertionError(f"gate {name}: launches {counts}")
+        if not (abs(delta) <= GATE_MAX_DELTA_MM
+                and math.isfinite(row["tiny_trained_fp32_p1_mm"])):
+            raise AssertionError(f"gate {name}: {row}")
+    return total
 
 
 def ptxas_usage(log):
@@ -2208,11 +2548,12 @@ def main() -> None:
     probes = check_probes(card)
     served.append(check_aggregate(results, card))
     results["K6"] = check_backward()
-    trained = check_train(card)
+    trained = [check_train(card, run) for run in TRAIN_RUNS]
+    trained.append(check_gate(card))
     kernels = [
         {"name": k, "route": "cuda", "source": CSRC + SOURCES[k],
          "replaces": REPLACES[k],
-         "launches": sum(s[k] for s in served) + trained[k], **results[k]}
+         "launches": sum(s[k] for s in served + trained), **results[k]}
         for k in _counters()
     ] + [
         {"name": f"probe {k}", "route": "cuda", "source": CSRC + SOURCES[k],

@@ -43,6 +43,13 @@ def module_name(torch_prefix: str) -> str:
     return torch_prefix.replace(".", "_")
 
 
+def add_conv(parent: nn.Module, torch_prefix: str, conv: nn.Module) -> None:
+    """Register a backbone conv under ``module_name(torch_prefix)`` and keep
+    its flax name as ``conv.flax_name`` (``bridge.variables_to_jax``)."""
+    conv.flax_name = torch_prefix
+    parent.add_module(module_name(torch_prefix), conv)
+
+
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 

@@ -26,7 +26,10 @@ every flax leaf must land on a tensor of the same shape and every parameter
 assigned, otherwise loading raises. A collection the tree does not carry
 leaves its buffers at zero: the model then needs ``prepare_serving``.
 Reference torch checkpoints reach the port through ``convert.py`` first
-(``convert_composite`` gives the flax params tree).
+(``convert_composite`` gives the flax params tree). ``variables_to_jax``
+is the inverse on the parameters: the port's model as a flax-layout
+``params`` tree, the shapes tree ``convert.convert_conv_backbone`` takes
+(a backbone conv keeps its dotted flax name as ``flax_name``).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from contextaware_poseformer_tpu_torch.models.backbone_common import (
     quantize_weight,
     stamp_fingerprint,
 )
+from contextaware_poseformer_tpu_torch.models.layers import Linear
 
 SERVING = ("calib", "qweights")  # the int8 serving collections
 IGNORED = ("qmeta",)  # the JAX package's fingerprint of its own params
@@ -96,6 +100,33 @@ def variables_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                 raise ValueError(f"two flax leaves map to {key!r}")
             sd[key] = torch.tensor(arr)  # a copy: flax leaves may be read-only
     return sd
+
+
+def variables_to_jax(model: nn.Module) -> dict[str, Any]:
+    """The parameters of ``model`` as flax variables ``{"params": tree}``
+    with numpy fp32 leaves, the inverse of ``variables_from_jax`` on the
+    ``params`` collection: a ``Linear``'s parameters gain the ``dense``
+    level, a backbone conv takes its flax name (``flax_name``) and its 4-D
+    ``weight`` becomes the HWIO ``kernel``. The int8 serving buffers are
+    not carried (``prepare_serving`` makes them from the parameters)."""
+    tree: dict[str, Any] = {}
+
+    def walk(module, path):
+        if isinstance(module, Linear):
+            path = path + ("dense",)
+        for leaf, p in module.named_parameters(recurse=False):
+            arr = p.detach().to("cpu", torch.float32).numpy()
+            if leaf == "weight" and arr.ndim == 4:
+                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)  # -> HWIO
+            node = tree
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = np.ascontiguousarray(arr)
+        for name, child in module.named_children():
+            walk(child, path + (getattr(child, "flax_name", name),))
+
+    walk(model, ())
+    return {"params": tree}
 
 
 def load_jax_variables(model: nn.Module, tree: Mapping[str, Any]) -> None:

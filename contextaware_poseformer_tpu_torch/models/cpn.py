@@ -42,6 +42,7 @@ from torch import nn
 from contextaware_poseformer_tpu_torch.config import BackboneConfig
 from contextaware_poseformer_tpu_torch.models.backbone_common import (
     ConvBN,
+    add_conv,
     max_pool_3x3_s2,
     module_name,
     observe,
@@ -102,7 +103,7 @@ class CPN(nn.Module):
             # it the wide ones
             int8 = self.serve and name != "resnet.conv1" and (
                 self.stream or (cin >= 128 and cout >= 128))
-            self.add_module(module_name(name), ConvBN(
+            add_conv(self, name, ConvBN(
                 cin, cout, ks, stride, relu, dtype, device=device, int8=int8,
                 static=cfg.serve_static_amax, quantile=cfg.calib_quantile))
 

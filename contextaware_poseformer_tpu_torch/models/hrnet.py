@@ -50,6 +50,7 @@ from contextaware_poseformer_tpu_torch.models import backbone_common
 from contextaware_poseformer_tpu_torch.models.backbone_common import (
     WIDE,
     ConvBN,
+    add_conv,
     add_upsampled_nearest,
     module_name,
 )
@@ -121,7 +122,7 @@ class HRNet(nn.Module):
             int8 = self.serve and (
                 (cin >= WIDE and cout >= WIDE)
                 or name.startswith(("layer1.", "transition1.")))
-            self.add_module(module_name(name), ConvBN(
+            add_conv(self, name, ConvBN(
                 cin, cout, ks, stride, relu, dtype, device=device,
                 int8=int8, static=cfg.serve_static_amax,
                 quantile=cfg.calib_quantile))

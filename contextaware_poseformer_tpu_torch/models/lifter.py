@@ -150,7 +150,8 @@ class DeformableBlock(nn.Module):
         head_dim = self.embed_proj(0).kernel.shape[1]
         pre = [
             self.pre_project
-            and kernel_can_preproject(*features[l].shape[1:], head_dim)
+            and kernel_can_preproject(*features[l].shape[1:], head_dim,
+                                      features[l].dtype)
             for l in range(levels)
         ]
         projs = [self.embed_proj(l) for l in range(levels)]

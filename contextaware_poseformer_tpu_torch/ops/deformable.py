@@ -109,6 +109,28 @@ def gather_points(dtype: torch.dtype, c: int, points: int) -> int:
     return max(1, min(_MAX_POINTS, _THREADS * _ITEMS // groups, points))
 
 
+def _projection_refusal(dtype: torch.dtype, c: int, cout: int) -> str | None:
+    """Why no projected body of the sampler takes a C -> Cout projection of
+    ``dtype`` maps, or None when one does (see ``projected_plan``)."""
+    if dtype == torch.float32:
+        if c % 4 or cout % 4:
+            return (f"the fp32 projection needs C and Cout divisible by 4, "
+                    f"got {c} -> {cout}")
+    elif c % 16 or cout % 8 or cout > _MAX_COUT:
+        return (f"the tensor-core projection needs C divisible by 16 and "
+                f"Cout by 8, at most {_MAX_COUT}; got {c} -> {cout}")
+    if _projection_smem(dtype, c, cout) > _build.SMEM_LIMIT:
+        return f"projection {c}x{cout} does not fit in shared memory"
+    return None
+
+
+def _projection_smem(dtype: torch.dtype, c: int, cout: int) -> int:
+    if dtype == torch.float32:
+        return _TAP_BYTES * _TILE + 4 * c * (cout + _TILE)
+    return (_TAP_BYTES * _CHUNK + 2 * _CHUNK * (max(c, cout) + _PAD)
+            + 2 * cout * (c + _PAD))
+
+
 def projected_plan(dtype: torch.dtype, c: int, cout: int,
                    points: int) -> tuple[int, int]:
     """(units, shared memory bytes a unit) of a level the sampler projects
@@ -118,25 +140,11 @@ def projected_plan(dtype: torch.dtype, c: int, cout: int,
     16, Cout of 8, at most 64. fp32
     maps take the CUDA-core body (32 points; W and the samples in fp32): C
     and Cout multiples of 4. Raises ValueError for a level neither takes."""
-    name = "sample_points_multi"
-    if dtype == torch.float32:
-        if c % 4 or cout % 4:
-            raise ValueError(f"{name}: the fp32 projection needs C and Cout "
-                             f"divisible by 4, got {c} -> {cout}")
-        units = -(-points // _TILE)
-        smem = _TAP_BYTES * _TILE + 4 * c * (cout + _TILE)
-    else:
-        if c % 16 or cout % 8 or cout > _MAX_COUT:
-            raise ValueError(
-                f"{name}: the tensor-core projection needs C divisible by "
-                f"16 and Cout by 8, at most {_MAX_COUT}; got {c} -> {cout}")
-        units = -(-points // _CHUNK)
-        smem = (_TAP_BYTES * _CHUNK + 2 * _CHUNK * (max(c, cout) + _PAD)
-                + 2 * cout * (c + _PAD))
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"{name}: projection {c}x{cout} does not fit in "
-                         "shared memory")
-    return units, smem
+    refusal = _projection_refusal(dtype, c, cout)
+    if refusal:
+        raise ValueError(f"sample_points_multi: {refusal}")
+    size = _TILE if dtype == torch.float32 else _CHUNK
+    return -(-points // size), _projection_smem(dtype, c, cout)
 
 
 @dataclass(frozen=True)
@@ -210,14 +218,18 @@ def kernel_weight(w: torch.Tensor) -> torch.Tensor:
         w, "sampler_wt", lambda t: t.t().to(torch.bfloat16).contiguous())
 
 
-def kernel_can_preproject(h: int, w: int, c: int, hd: int) -> bool:
-    """True when a level's embed_proj runs inside the sampler (C -> hd).
+def kernel_can_preproject(h: int, w: int, c: int, hd: int,
+                          dtype: torch.dtype) -> bool:
+    """True when a level's embed_proj runs inside the sampler (C -> hd) on
+    ``dtype`` maps: the projection narrows the samples (C > hd) and a
+    projected body of the kernel takes it (``projected_plan``); otherwise
+    the lifter projects the gathered samples.
 
     The JAX version also excludes its separable two-stage levels unless a TPU
-    switch is set; the CUDA kernel has one body for every level, so only the
-    width condition is left: projecting pays when it narrows the samples."""
+    switch is set; the CUDA kernel has one body for every level, so that
+    condition does not carry over."""
     del h, w
-    return c > hd
+    return c > hd and _projection_refusal(dtype, c, hd) is None
 
 
 def is_k5_level(h: int, w: int, c: int) -> bool:

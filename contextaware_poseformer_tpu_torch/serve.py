@@ -67,7 +67,13 @@ def slice_config(name: str = "h36m_cpn") -> Config:
 def deploy_config(name: str = "h36m_hrnet_32") -> Config:
     """The int8 deploy graph of preset ``name`` (see the module
     docstring)."""
-    cfg = deploy(preset(name))
+    return deploy_graph(preset(name))
+
+
+def deploy_graph(cfg: Config) -> Config:
+    """The int8 deploy graph of any configuration: ``deploy(cfg)``, with an
+    HRNet's layer1 through K9 (``layer1_impl="pallas"``)."""
+    cfg = deploy(cfg)
     backbone = cfg.model.backbone
     if backbone.kind != "hrnet":
         return cfg

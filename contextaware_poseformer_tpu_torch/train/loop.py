@@ -3,8 +3,10 @@
 Port of ``contextaware_poseformer_tpu/train/loop.py:39-294`` without the
 mesh and the multi-host parts (reference: ContextPose/train.py:140-213,
 369-412): the loop owns data iteration, device staging, metric aggregation,
-the per-epoch log line and the best-P1 checkpoint policy; the device work is
-``train/steps.py``.
+the per-epoch log line, the best-P1 checkpoint policy, the reference
+checkpoints' loading (through ``models/convert.py`` and
+``models/bridge.py``) and, for an int8 deploy config, the calibration
+before its first evaluation; the device work is ``train/steps.py``.
 """
 
 from __future__ import annotations
@@ -19,11 +21,18 @@ import torch
 
 from contextaware_poseformer_tpu_torch.config import Config
 from contextaware_poseformer_tpu_torch.data import pipeline
+from contextaware_poseformer_tpu_torch.models import bridge, convert
+from contextaware_poseformer_tpu_torch.models.backbone_common import (
+    to_storage,
+)
 from contextaware_poseformer_tpu_torch.models.capf import (
     ContextAwarePoseFormer,
 )
 from contextaware_poseformer_tpu_torch.models.init import init_parameters
-from contextaware_poseformer_tpu_torch.serve import configure_numerics
+from contextaware_poseformer_tpu_torch.serve import (
+    configure_numerics,
+    prepare,
+)
 from contextaware_poseformer_tpu_torch.train import metrics as metrics_lib
 from contextaware_poseformer_tpu_torch.train import steps
 from contextaware_poseformer_tpu_torch.train.checkpoint import (
@@ -54,8 +63,9 @@ class MetricWriter:
 
 class Trainer:
     """Trains ``cfg`` on ``device`` (a CUDA device, or the CPU for tests).
-    The backbone is frozen and stored in channels-last layout; fp32 runs
-    at full precision (TF32 off) as the JAX reference does."""
+    The backbone is frozen and stored in channels-last layout (an int8
+    deploy config's int8 convs keep fp32 parameters); fp32 runs at full
+    precision (TF32 off) as the JAX reference does."""
 
     def __init__(self, cfg: Config, train_ds, val_ds, device,
                  logdir: str | None = None):
@@ -78,12 +88,45 @@ class Trainer:
         model = ContextAwarePoseFormer(self.cfg.model, dtype=dtype,
                                        device=self.device)
         init_parameters(model, torch.Generator().manual_seed(seed))
-        model.backbone.to(dtype=dtype, memory_format=torch.channels_last)
+        to_storage(model.backbone, dtype)
         if self.cfg.model.backbone.frozen:
             model.backbone.requires_grad_(False)
         optimizer = steps.make_optimizer(self.cfg, self.steps_per_epoch,
                                          model)
         return steps.TrainState(model, optimizer, 0)
+
+    def load_backbone(self, state: steps.TrainState,
+                      checkpoint_path: str) -> steps.TrainState:
+        """COCO-pretrained backbone init (train.py:292-304): the reference
+        checkpoint's convs with their BN folded
+        (``convert.convert_conv_backbone``; HRNet's ``final_layer`` and the
+        CPN's predict heads skipped), loaded in place: on the trainer's
+        device, in each tensor's dtype and layout, still frozen."""
+        sd = convert.load_torch_state_dict(checkpoint_path)
+        variables = bridge.variables_to_jax(state.model)
+        params = variables["params"]
+        params["backbone"] = convert.convert_conv_backbone(
+            sd, params["backbone"],
+            skip_patterns=convert.BACKBONE_SKIPS[self.cfg.model.backbone.kind])
+        bridge.load_jax_variables(state.model, variables)
+        return state
+
+    def load_model(self, state: steps.TrainState,
+                   checkpoint_path: str) -> steps.TrainState:
+        """A trained reference CA_PF checkpoint (train.py:307-314;
+        ``backbone.*`` and ``volume_net.*``) through
+        ``convert.convert_composite``, loaded in place as
+        ``load_backbone`` loads."""
+        sd = convert.load_torch_state_dict(checkpoint_path)
+        model_cfg = self.cfg.model
+        params = bridge.variables_to_jax(state.model)["params"]
+        full = convert.convert_composite(
+            sd, params["backbone"], depth=model_cfg.lifter.depth,
+            levels=model_cfg.lifter.levels,
+            use_deformable=model_cfg.lifter.use_deformable,
+            backbone_kind=model_cfg.backbone.kind)
+        bridge.load_jax_variables(state.model, {"params": full})
+        return state
 
     def train_epoch(self, state: steps.TrainState, epoch: int,
                     max_steps: int | None = None) -> dict[str, Any]:
@@ -108,27 +151,45 @@ class Trainer:
                 "epoch_time_s": time.time() - t0, "steps": n,
                 "step_losses": step_losses}
 
-    def evaluate(self, state: steps.TrainState,
-                 max_batches: int | None = None):
-        """(summary in mm, per-action scores) over the validation set; the
-        padded last batch is trimmed to its valid rows."""
+    def ensure_serving_ready(self, model) -> None:
+        """An int8 deploy config (``quantize="serve"``) is calibrated and
+        its int8 weights made (``serve.prepare``) before its first
+        evaluation, on the first 64 validation frames in chunks of 16, as
+        the JAX loop's ``_ensure_serving_ready`` does; a no-op for a float
+        config and for a model already prepared (its backbone is frozen)."""
+        if (self.cfg.model.backbone.quantize == "none"
+                or bool(model.backbone.serving_fingerprint.any())):
+            return
+        n = min(len(self.val_ds), 64)
+        frames = np.stack([self.val_ds.load_image(i) for i in range(n)])
+        prepare(model, [torch.from_numpy(frames).to(self.device)])
+
+    def predict(self, state: steps.TrainState,
+                max_batches: int | None = None):
+        """(predictions, ground truth) over the validation set as float32
+        numpy arrays, the padded last batch trimmed to its valid rows."""
+        self.ensure_serving_ready(state.model)
         host_iter = pipeline.batch_iterator(
             self.val_ds, self.cfg.train.batch_size, shuffle=False,
             drop_remainder=False, num_workers=self.cfg.data.num_workers,
         )
-        preds, gts, total = [], [], 0
+        preds, gts = [], []
         for i, (raw, valid) in enumerate(host_iter):
             batch = pipeline.to_device(raw, self.device)
             pred, gt = steps.eval_step(state.model, batch, self.cfg,
                                        self.task)
             preds.append(pred[:valid].float().cpu().numpy())
             gts.append(gt[:valid].float().cpu().numpy())
-            total += valid
             if max_batches and i + 1 >= max_batches:
                 break
+        return np.concatenate(preds), np.concatenate(gts)
+
+    def evaluate(self, state: steps.TrainState,
+                 max_batches: int | None = None):
+        """(summary in mm, per-action scores) over the validation set."""
+        pred, gt = self.predict(state, max_batches)
         scores = metrics_lib.h36m_evaluate(
-            np.concatenate(gts), np.concatenate(preds),
-            np.asarray(self.val_ds.action_idx[:total]))
+            gt, pred, np.asarray(self.val_ds.action_idx[:len(pred)]))
         return metrics_lib.h36m_summary(scores), scores
 
     def fit(self, state: steps.TrainState, n_epochs: int,

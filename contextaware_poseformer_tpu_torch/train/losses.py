@@ -1,10 +1,11 @@
 """Losses and evaluation errors.
 
-Port of ``contextaware_poseformer_tpu/train/losses.py:21-157``: the
-training losses in PyTorch (``LOSSES``, ``n_mpjpe``, ``limb_length_error``)
-and the host-side evaluation errors in numpy, exactly as the JAX package
-keeps them (``p_mpjpe``, ``mpjve``), since that module imports JAX. The COCO
-and volumetric losses come with their slices.
+Port of ``contextaware_poseformer_tpu/train/losses.py:21-197``: the
+training losses in PyTorch (``LOSSES``, ``n_mpjpe``, ``limb_length_error``,
+``uncertainty_loss``, ``volumetric_ce_loss``) and the host-side evaluation
+errors in numpy, exactly as the JAX package keeps them (``p_mpjpe``,
+``mpjve``), since that module imports JAX. The COCO losses come with their
+slice.
 """
 
 from __future__ import annotations
@@ -130,3 +131,34 @@ def mpjve(pred: np.ndarray, gt: np.ndarray) -> float:
     vel_p = np.diff(pred, axis=0)
     vel_g = np.diff(gt, axis=0)
     return float(np.mean(np.linalg.norm(vel_p - vel_g, axis=-1)))
+
+
+def uncertainty_loss(sigma_list, pred, gt):
+    """Heteroscedastic uncertainty loss (loss.py:8-13 UNCERTAINTY): L2 scaled
+    by per-joint sigma plus a log-sigma regularizer."""
+    diff = pred - gt
+    total = 0.0
+    for sigma in sigma_list:
+        total = total + (
+            torch.linalg.vector_norm(diff / (sigma + 1e-6), dim=-1).mean()
+            + 0.01 * torch.log(sigma + 1e-6).mean()
+        )
+    return total
+
+
+def volumetric_ce_loss(coord_volumes, volumes_pred, keypoints_gt, validity):
+    """Volumetric cross-entropy (loss.py:150-178 VolumetricCELoss, the legacy
+    ContextPose volumetric head): -log of the predicted probability at the
+    voxel nearest each GT joint, masked by validity.
+
+    coord_volumes: (b, X, Y, Z, 3); volumes_pred: (b, j, X, Y, Z) softmaxed;
+    keypoints_gt: (b, j, 3); validity: (b, j, 1).
+    """
+    b, j = keypoints_gt.shape[:2]
+    coords = coord_volumes.reshape(b, 1, -1, 3)
+    dists = ((coords - keypoints_gt[:, :, None, :]) ** 2).sum(-1)  # (b, j, XYZ)
+    idx = dists.argmin(-1)  # (b, j)
+    flat = volumes_pred.reshape(b, j, -1)
+    picked = torch.gather(flat, -1, idx[..., None])[..., 0]
+    losses_ = -torch.log(picked + 1e-6) * validity[..., 0]
+    return losses_.sum() / (b * j)

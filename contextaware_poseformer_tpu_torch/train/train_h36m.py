@@ -4,20 +4,29 @@ The CLI of ``contextaware_poseformer_tpu/train/train_h36m.py:28-250``
 (reference recipe: AdamW wd 0.1 over the lifter, per-epoch decay, flip
 augmentation, flip-test evaluation, best-P1 checkpoints with true resume),
 on one device given by ``--device``, which is required and never falls back
-to another::
+to another. Every preset trains (``h36m_hrnet_32``, the default model,
+``h36m_hrnet_48`` and ``h36m_cpn``: the frozen fp32 backbone, the lifter
+with its deformable blocks); a ``_deploy`` preset evaluates the int8 deploy
+graph (``--eval``), calibrated on the first 64 validation frames::
 
   python -m contextaware_poseformer_tpu_torch.train.train_h36m \\
-      --preset h36m_cpn --synthetic --device cuda --epochs 1 \\
+      --preset h36m_hrnet_32 --synthetic --device cuda --epochs 1 \\
       --steps-per-epoch 4 --eval-batches 1
 
-What is not ported yet is refused with the slice it waits for: the HRNet
-presets and ``--tiny`` (a tiny HRNet in the JAX driver), ``--backbone-ckpt``
-and ``--model-ckpt``, and ``--distributed`` / ``--model-parallel > 1``. A
-small CPN comes from a YAML overlay (``--config``), for instance::
+``--tiny`` cuts the backbone to a width-8 HRNet with one block a stage and
+the lifter to embed 32, depth 2, on 64x64 frames (the JAX CLI's tiny
+model; a CPU smoke run: ``--tiny --synthetic --device cpu``).
+``--backbone-ckpt`` loads a COCO-pretrained reference backbone and
+``--model-ckpt`` a trained reference CA_PF checkpoint, both through the
+port's copy of ``models/convert.py``. A YAML overlay (``--config``) cuts
+any preset, for instance the CPN::
 
   model: {image_shape: [64, 64], backbone: {cpn_layers: [1, 1, 1, 1]},
           lifter: {embed_dim_ratio: 32, depth: 1}}
   train: {batch_size: 2}
+
+Multi-device training (``--distributed``, ``--model-parallel > 1``) is
+refused: it is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,12 +39,6 @@ import torch
 from contextaware_poseformer_tpu_torch import config as cfglib
 
 NOT_PORTED = {
-    "hrnet": "the HRNet backbone is not ported yet (ROADMAP queue 1, item "
-             "7); use --preset h36m_cpn",
-    "tiny": "--tiny selects a tiny HRNet, which is not ported yet (ROADMAP "
-            "queue 1, item 7); cut the CPN with a --config overlay instead",
-    "ckpt": "loading backbone and model checkpoints is not ported yet "
-            "(ROADMAP queue 1, item 8)",
     "multi": "multi-device training is not ported yet (ROADMAP queue 1, "
              "item 11)",
 }
@@ -56,8 +59,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--data-root", default=None)
     p.add_argument("--train-labels", default=None)
     p.add_argument("--val-labels", default=None)
-    p.add_argument("--backbone-ckpt", default=None)
-    p.add_argument("--model-ckpt", default=None)
+    p.add_argument("--backbone-ckpt", default=None,
+                   help="COCO-pretrained torch backbone checkpoint")
+    p.add_argument("--model-ckpt", default=None,
+                   help="trained torch CA_PF checkpoint to convert+load")
     p.add_argument("--logdir", default="logs/h36m")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--seed", type=int, default=0)
@@ -66,7 +71,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--model-parallel", type=int, default=1)
     p.add_argument("--synthetic", action="store_true",
                    help="synthetic data smoke mode (no H36M needed)")
-    p.add_argument("--tiny", action="store_true")
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny model (synthetic smoke/testing)")
     p.add_argument("--steps-per-epoch", type=int, default=None)
     p.add_argument("--eval-batches", type=int, default=None)
     p.add_argument("--distributed", action="store_true")
@@ -74,14 +80,35 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def check_ported(args) -> None:
-    if "hrnet" in args.preset:
-        raise SystemExit(NOT_PORTED["hrnet"])
-    if args.tiny:
-        raise SystemExit(NOT_PORTED["tiny"])
-    if args.backbone_ckpt or args.model_ckpt:
-        raise SystemExit(NOT_PORTED["ckpt"])
     if args.distributed or args.model_parallel > 1:
         raise SystemExit(NOT_PORTED["multi"])
+
+
+def tiny(cfg: cfglib.Config, width: int = 8) -> cfglib.Config:
+    """The tiny model of the JAX CLI's ``--tiny``
+    (``train_h36m.py:124-150`` of the JAX package): an HRNet of ``width``
+    (8 there; the deploy-numerics gate's is 32) with one block a stage, the
+    lifter at embed 32, depth 2, 64x64 frames. Only the structure shrinks;
+    the numerics knobs stay, so ``--tiny --preset <x>_deploy`` still runs
+    the deploy graph."""
+    w = width
+    c = (w, 2 * w, 4 * w, 8 * w)
+    return dataclasses.replace(
+        cfg,
+        model=dataclasses.replace(
+            cfg.model,
+            backbone=dataclasses.replace(
+                cfg.model.backbone, kind="hrnet", width=w,
+                stage2=cfglib.HRNetStageConfig(1, 2, (2, 2), c[:2]),
+                stage3=cfglib.HRNetStageConfig(1, 3, (2, 2, 2), c[:3]),
+                stage4=cfglib.HRNetStageConfig(1, 4, (2, 2, 2, 2), c),
+            ),
+            lifter=dataclasses.replace(
+                cfg.model.lifter, embed_dim_ratio=32, depth=2, levels=4,
+            ),
+            image_shape=(64, 64),
+        ),
+    )
 
 
 def make_config(args) -> cfglib.Config:
@@ -98,9 +125,10 @@ def make_config(args) -> cfglib.Config:
     data = {k: v for k, v in (("root", args.data_root),
                               ("train_labels_path", args.train_labels),
                               ("val_labels_path", args.val_labels)) if v}
-    return dataclasses.replace(
+    cfg = dataclasses.replace(
         cfg, train=dataclasses.replace(cfg.train, **train),
         data=dataclasses.replace(cfg.data, **data))
+    return tiny(cfg) if args.tiny else cfg
 
 
 def make_datasets(cfg, args):
@@ -150,6 +178,12 @@ def main(argv=None):
     state = trainer.init_state(cfg.train.seed)
     print("Trainable parameter count:",  # train.py:358-359
           sum(p.numel() for p in state.model.lifter.parameters()))
+    if args.backbone_ckpt:
+        state = trainer.load_backbone(state, args.backbone_ckpt)
+        print(f"Loaded backbone from {args.backbone_ckpt}")
+    if args.model_ckpt:
+        state = trainer.load_model(state, args.model_ckpt)
+        print(f"Loaded full model from {args.model_ckpt}")
 
     start_epoch = 0
     if args.resume and trainer.ckpt:

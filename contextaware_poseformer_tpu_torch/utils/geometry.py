@@ -1,5 +1,7 @@
-"""Affine crop transforms: the port's copy of ``get_affine_transform`` and
-``warp_affine_bilinear`` from ``contextaware_poseformer_tpu/utils/geometry.py``.
+"""Affine crop transforms and screen coordinates: the port's copy of
+``get_affine_transform``, ``warp_affine_bilinear`` and
+``normalize_screen_coordinates`` from
+``contextaware_poseformer_tpu/utils/geometry.py``.
 
 - ``get_affine_transform``: center/scale*200 with `(w-1)*0.5` centering
   (ContextPose/mvn/utils/img.py:16-48); the cv2.getAffineTransform call is
@@ -107,3 +109,10 @@ def warp_affine_bilinear(image: np.ndarray, trans: np.ndarray,
     if np.issubdtype(image.dtype, np.integer):
         out = np.clip(np.round(out), 0, 255)
     return out.astype(image.dtype)
+
+
+def normalize_screen_coordinates(x: np.ndarray, w: float, h: float) -> np.ndarray:
+    """Map [0,w]x[0,h] pixels to [-1,1] x-range preserving aspect ratio."""
+    x = np.asarray(x)
+    assert x.shape[-1] == 2
+    return x / w * 2.0 - np.array([1.0, h / w])

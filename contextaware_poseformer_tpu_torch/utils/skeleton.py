@@ -1,4 +1,5 @@
-"""Skeleton roots, flip permutations and action names: the port's copy of
+"""Skeleton roots, flip permutations, action names and the 3DHP test
+sequences: the port's copy of
 what it uses from ``contextaware_poseformer_tpu/utils/skeleton.py``.
 
 Index tables match the reference exactly:
@@ -32,6 +33,15 @@ H36M_ACTION_NAMES = tuple(
     )
     for trial in (1, 2)
 )
+
+MPI3DHP_TEST_SEQUENCES = ("TS1", "TS2", "TS3", "TS4", "TS5", "TS6")
+# Frame counts per test sequence used for scene-setting aggregation
+# (ContextPose_mpi/3dhp_test/README.txt:20-24).
+MPI3DHP_SCENE_SETTINGS = {
+    "studio_green_screen": (("TS1", 603), ("TS2", 540)),
+    "studio_no_green_screen": (("TS3", 505), ("TS4", 553)),
+    "outdoor": (("TS5", 276), ("TS6", 452)),
+}
 
 
 def flip_permutation(joints_left, joints_right, num_joints: int = NUM_JOINTS):

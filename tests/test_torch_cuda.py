@@ -131,7 +131,7 @@ def test_k5_sampler_matches_plain_version(cuda_device, pyramid, mode, dtype):
     pts = (torch.rand(3, 4, *p, 2, generator=g) * 3 - 1.5).to(cuda_device)
     projs = biases = None
     if mode == "border":
-        on = [deformable.kernel_can_preproject(h, w, c, 32)
+        on = [deformable.kernel_can_preproject(h, w, c, 32, dtype)
               for h, w, c in dims]
         assert on == [pyramid == "W48", True, True, True]
         projs = [(torch.randn(c, 32, generator=g) * c ** -0.5).to(cuda_device)
@@ -684,7 +684,7 @@ def _k5_mixed_case(dev, dims, points, batch, mode, dtype, g):
            - 1.5).to(dev)
     projs = biases = scales = None
     if mode == "border":
-        on = [deformable.kernel_can_preproject(h, w, c, 32)
+        on = [deformable.kernel_can_preproject(h, w, c, 32, dtype)
               for h, w, c in dims]
         projs = [torch.nn.Parameter(
             (torch.randn(c, 32, generator=g) * c ** -0.5).to(dev))
@@ -1157,3 +1157,48 @@ def test_k1_projected_body_at_every_pyramid(cuda_device, pyramid, dtype,
         assert o.shape == r.shape == (3, *points, 32 if c > 32 else c)
         err = (o.float() - r.float()).abs().max().item()
         assert err <= 2e-2 * r.float().abs().max().item(), (c, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("hd", [20, 72])
+def test_f6_deformable_block_serves_head_dims_the_projection_refuses(
+        cuda_device, hd, dtype):
+    """F6: a deformable block with the in-sampler projection on serves head
+    dims the tensor-core projection refuses (20: not a multiple of 8; 72:
+    above 64) on the W32 pyramid's bf16 and int8 maps, through K1 (the
+    levels gathered, then ``embed_proj``), and agrees with its plain
+    version (``sampler="gather"``) to 2e-2 relative to max|plain|."""
+    from contextaware_poseformer_tpu_torch.models.init import init_parameters
+    from contextaware_poseformer_tpu_torch.models.lifter import (
+        DeformableBlock,
+    )
+
+    dims = [c for _, _, c in HRNET_PYRAMIDS["W32"]]
+    g = torch.Generator().manual_seed(6)
+    blocks = []
+    for impl in ("auto", "gather"):
+        block = DeformableBlock(4 * hd, dims, sampler_impl=impl,
+                                dtype=torch.bfloat16, pre_project=True,
+                                device=cuda_device)
+        init_parameters(block, torch.Generator().manual_seed(0))
+        blocks.append(block)
+    if dtype == torch.int8:
+        feats = [torch.randint(-127, 128, (4, h, w, c), generator=g,
+                               dtype=torch.int8).to(cuda_device)
+                 for h, w, c in HRNET_PYRAMIDS["W32"]]
+        scales = [torch.tensor([0.02], device=cuda_device) for _ in dims]
+    else:
+        feats = [torch.randn(4, h, w, c, generator=g).to(cuda_device, dtype)
+                 for h, w, c in HRNET_PYRAMIDS["W32"]]
+        scales = None
+    tokens = torch.randn(4, 5, 17, 4 * hd, generator=g).to(
+        cuda_device, torch.bfloat16)
+    ref = (torch.rand(4, 17, 2, generator=g) * 2 - 1).to(cuda_device)
+    before = deformable.launches
+    with torch.no_grad():
+        out, plain = (b(tokens, ref, feats, feat_scales=scales)
+                      for b in blocks)
+    assert deformable.launches == before + 1
+    err = (out.float() - plain.float()).abs().max().item()
+    assert err <= 2e-2 * plain.float().abs().max().item()

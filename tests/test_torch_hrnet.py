@@ -250,7 +250,8 @@ def test_lifter_projects_levels_as_the_deploy_knobs_say():
         dims = cfg.backbone.feature_dims
         hd = cfg.lifter.embed_dim_ratio // cfg.lifter.deform_heads
         assert [block.pre_project and deformable.kernel_can_preproject(
-            64 >> l, 48 >> l, c, hd) for l, c in enumerate(dims)] == pre
+            64 >> l, 48 >> l, c, hd, torch.bfloat16)
+            for l, c in enumerate(dims)] == pre
     cfg = serve.slice_config("mpi_3dhp_hrnet_32").model
     lifter = PoseLifter(cfg.lifter, cfg.backbone.feature_dims, device="meta")
     assert not lifter._blocks("context")

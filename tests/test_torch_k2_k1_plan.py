@@ -132,9 +132,10 @@ def test_k2_weight_cast_of_inference_tensors():
     assert torch.equal(a, w.t().to(torch.bfloat16))
 
 
-def _projected_levels(name):
+def _projected_levels(name, dtype):
     """(C, Cout, points a call) of every level the preset's lifter projects
-    inside the sampler (none without deformable blocks)."""
+    inside the sampler on ``dtype`` maps (none without deformable
+    blocks)."""
     cfg = config.preset(name)
     lc = cfg.model.lifter
     if not lc.use_deformable:
@@ -142,13 +143,13 @@ def _projected_levels(name):
     head_dim = lc.embed_dim_ratio // lc.deform_heads
     points = lc.num_joints * lc.deform_heads * lc.deform_samples
     return [(c, head_dim, points) for c in cfg.model.backbone.feature_dims
-            if deformable.kernel_can_preproject(0, 0, c, head_dim)]
+            if deformable.kernel_can_preproject(0, 0, c, head_dim, dtype)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("name", config.PRESETS)
 def test_k1_plan_at_every_projected_level(name, dtype):
-    levels = _projected_levels(name)
+    levels = _projected_levels(name, dtype)
     if name.startswith("h36m"):
         assert len(levels) >= 3  # W32 projects 3 levels, W48 and CPN 4
     else:

@@ -62,7 +62,7 @@ def _pyramid(name):
     return [(64 >> l, 48 >> l, c) for l, c in enumerate(dims)]
 
 
-def _calls(name):
+def _calls(name, dtype):
     """(points a level and item, per level the projection's Cout or None)
     of each sampler call the preset's lifter makes: the 17 reference points
     (zeros, no projection) and, with deformable blocks, the border call
@@ -74,7 +74,7 @@ def _calls(name):
         hd = lc.embed_dim_ratio // lc.deform_heads
         points = lc.num_joints * lc.deform_heads * lc.deform_samples
         calls.append((points, [hd if deformable.kernel_can_preproject(
-            h, w, c, hd) else None for h, w, c in levels]))
+            h, w, c, hd, dtype) else None for h, w, c in levels]))
     return calls
 
 
@@ -83,7 +83,7 @@ def _calls(name):
 def test_sampler_plan_at_every_preset_call(name, dtype):
     levels = _pyramid(name)
     for batch in (1, 3, 64):
-        for points, couts in _calls(name):
+        for points, couts in _calls(name, dtype):
             spec = [(c, cout) for (_, _, c), cout in zip(levels, couts)]
             plan = deformable.sampler_plan(dtype, spec, batch, points)
             total = batch * points

@@ -7,6 +7,7 @@ in interpret mode. Tolerance: max abs error <= 1e-4 x RMS of the JAX output
 (fp32; summation order and erf differ in the last bits).
 """
 
+import math
 from dataclasses import replace
 
 import numpy as np
@@ -22,12 +23,15 @@ from contextaware_poseformer_tpu.models.lifter import (
     _offset_bias_init as jax_offset_bias_init,
 )
 from contextaware_poseformer_tpu_torch.models import layers
+from contextaware_poseformer_tpu_torch.models import lifter as lifter_module
 from contextaware_poseformer_tpu_torch.models.bridge import load_jax_variables
 from contextaware_poseformer_tpu_torch.models.init import init_parameters
 from contextaware_poseformer_tpu_torch.models.lifter import (
+    DeformableBlock,
     PoseLifter,
     _offset_bias_init,
 )
+from contextaware_poseformer_tpu_torch.ops import deformable
 
 # serving knobs (config.deploy) in fp32; pre-projection is exact in border
 # mode. Channels (8, 16, 24, 40) against head_dim 8: level 0 samples
@@ -86,9 +90,13 @@ def _jax_lifter(cfg, rng, kp2d, ref, feats):
     return variables, np.asarray(out)
 
 
-def test_pose_lifter_matches_jax():
+@pytest.mark.parametrize("embed", [32, 80])
+def test_pose_lifter_matches_jax(embed):
+    """Head dims 8 and 20 (embed over 4 deformable heads); 20 is F6's case,
+    a head dim the tensor-core projection refuses."""
     rng = np.random.RandomState(0)
-    cfg = replace(LifterConfig(embed_dim_ratio=32, depth=1), **SLICE_KNOBS)
+    cfg = replace(LifterConfig(embed_dim_ratio=embed, depth=1),
+                  **SLICE_KNOBS)
     kp2d, ref, feats = _inputs(rng)
     variables, theirs = _jax_lifter(cfg, rng, kp2d, ref, feats)
 
@@ -146,3 +154,60 @@ def test_linear_dtype_promotion_matches_flax():
     lin16 = layers.Linear(4, 3, dtype=torch.bfloat16)
     lin16.load_state_dict(lin.state_dict())
     assert lin16(x).dtype == torch.bfloat16
+
+
+# the per-level channels of the backbones' maps: CPN, HRNet-W32, HRNet-W48
+F6_PYRAMIDS = ((256, 256, 256, 256), (32, 64, 128, 256), (48, 96, 192, 384))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("hd", [8, 12, 20, 24, 72, 128])
+def test_lifter_hands_the_sampler_only_levels_it_takes(hd, dtype,
+                                                       monkeypatch):
+    """F6: a deformable block with the in-sampler projection on (as every
+    deploy config has it) hands ``sampler_plan`` only levels a body of the
+    kernel takes, at head dims the tensor-core projection refuses (not a
+    multiple of 8, above 64) and those it takes, on each backbone's
+    channels and every map dtype. The plan alone is checked; the samples
+    come from the plain version."""
+    plans = []
+
+    def planned(features, points, padding_mode="zeros", align_corners=True,
+                impl="auto", projs=None, biases=None, scales=None):
+        spec = [(f.shape[-1], None if w is None else w.shape[1])
+                for f, w in zip(features, projs or [None] * len(features))]
+        plans.append(deformable.sampler_plan(
+            features[0].dtype, spec, points.shape[0],
+            math.prod(points.shape[2:-1])))
+        return deformable.sample_points_levels(
+            features, points, padding_mode, align_corners, "gather", projs,
+            biases, scales)
+
+    monkeypatch.setattr(lifter_module, "sample_points_levels", planned)
+    g = torch.Generator().manual_seed(6)
+    compute = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    for dims in F6_PYRAMIDS:
+        block = DeformableBlock(4 * hd, dims, num_heads=4, num_samples=4,
+                                dtype=compute, pre_project=True)
+        init_parameters(block, torch.Generator().manual_seed(0))
+        if dtype == torch.int8:
+            feats = [torch.randint(-127, 128, (1, 3, 2, c), generator=g,
+                                   dtype=torch.int8) for c in dims]
+            scales = [torch.tensor([0.01]) for _ in dims]
+        else:
+            feats = [torch.randn(1, 3, 2, c, generator=g).to(dtype)
+                     for c in dims]
+            scales = None
+        tokens = torch.randn(1, len(dims) + 1, 17, 4 * hd, generator=g)
+        ref = torch.rand(1, 17, 2, generator=g) * 2 - 1
+        with torch.no_grad():
+            out = block(tokens.to(compute), ref, feats, feat_scales=scales)
+        assert out.shape == tokens.shape and torch.isfinite(out).all()
+        projected = [l for l, c in enumerate(dims) if c > hd and
+                     deformable.kernel_can_preproject(0, 0, c, hd, dtype)]
+        bodies = plans[-1].bodies
+        assert [l for l, b in enumerate(bodies) if b != "gather"] == projected
+        if hd in (8, 24):  # every body takes it: each wider level projects
+            assert projected == [l for l, c in enumerate(dims) if c > hd]
+        elif dtype != torch.float32:  # the tensor-core body refuses it
+            assert projected == []

@@ -204,6 +204,8 @@ def test_projection_needs_border_mode():
 
 def test_kernel_can_preproject():
     # every CPN level projects 256 -> 32 in the sampler
-    assert all(deformable.kernel_can_preproject(h, w, 256, 32)
-               for h, w in CPN_LEVELS)
-    assert not deformable.kernel_can_preproject(64, 48, 32, 32)
+    assert all(deformable.kernel_can_preproject(h, w, 256, 32, dtype)
+               for h, w in CPN_LEVELS
+               for dtype in (torch.bfloat16, torch.int8, torch.float32))
+    assert not deformable.kernel_can_preproject(64, 48, 32, 32,
+                                                torch.bfloat16)

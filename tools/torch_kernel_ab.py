@@ -171,7 +171,7 @@ def _k5_cases():
             else:
                 maps = [torch.randn(b, h, w, c, generator=gen).to(
                     "cuda", dtype) for h, w, c in dims]
-            on = [deformable.kernel_can_preproject(h, w, c, hd)
+            on = [deformable.kernel_can_preproject(h, w, c, hd, dtype)
                   for h, w, c in dims]
             projs = [uniform(-1, 1, c, hd) / c ** 0.5 if o else None
                      for (_, _, c), o in zip(dims, on)]
