@@ -79,7 +79,39 @@ Phases, one line of output each (failures raise and exit non-zero):
    its bound with the blend at the fp32 rate and the projection at the
    bf16 rate beside the count of both at the fp32 rate (the yardstick of
    a projection on CUDA cores), and the same call's gather alone;
-8. probes: the TPU probes' counterparts (``probes/``, K9's one-block and
+8. quantize: the backbone's other int8 modes (``serve.quantize_config``:
+   the float slice with ``quantize`` "static" or "c128" and the 0.999
+   calibration quantile, random weights from seed 0), each prepared by
+   ``serve.prepare`` on one seeded batch of 64 frames and served as the
+   int8 phase serves the deploy graphs: h36m_hrnet_32 "static" 3 requests,
+   h36m_hrnet_48 and h36m_cpn "static" and h36m_hrnet_32 and h36m_cpn
+   "c128" one each, with K10 and K10q once a static or wide conv ("static"
+   HRNet 256, CPN 76; "c128" HRNet 85, CPN 73; no K9) beside the lifter's
+   kernels, agreement with the plain versions of every kernel to 2e-2
+   relative RMS; each "c128" graph's first request, served before
+   ``prepare`` (its weights quantized each call), must equal the prepared
+   model's bit for bit; for information the float slice's distance, host
+   ms, device busy and idle, K10's and K10q's share and the top kernels.
+   One request of each graph (and of h36m_hrnet_48 "c128") records every
+   distinct K10 shape and variant (among them W48's Cin 48 at stride 1
+   and 2, whose K of 432 bytes ends in a zero-filled stage, and the 3x3
+   64->64 stem and layer1 convs), and K10 on that request's own tensors
+   must equal its plain version bit for bit, with median kernel and plain
+   ms and the bound (a bf16 input's quantize pass, K10q, timed apart),
+   summed into each graph's K10 and K10q ms a request;
+9. streaming: ``models.streaming.StreamingLifter`` over
+   ``deploy_config("h36m_cpn")`` at batch 64 (its weights the JAX-format
+   variables of the model drawn from seed 0): ``lift_batch`` refused
+   before ``prepare``, then prepared on one seeded batch; 4 cameras x 38
+   time slots (152 frames: two full chunks, one padded from 24 by
+   repeating its last row) through the double-buffered ``lift_batch``,
+   each chunk equal bit for bit to ``serve.lift`` on the same padded
+   chunk, launches 3x a request's; ``stream`` with ``ema_alpha=0.5``
+   equal to the per-camera EMA of ``lift_batch``'s poses to 1e-6; for
+   information ``latency_stats`` over 20 passes (p50/p90/p99 ms, frames/s)
+   beside the same frames through ``serve.lift`` chunk by chunk with no
+   overlap; then one pass of ``deploy_config("h36m_hrnet_32")`` (K5, K9);
+10. probes: the TPU probes' counterparts (``probes/``, K9's one-block and
    floor builds), their main path run once with every launch count set to
    0 before it and read after it, then each against its plain version
    (bit for bit; the two timing-only builds, wrong by design, run and are
@@ -92,7 +124,7 @@ Phases, one line of output each (failures raise and exit non-zero):
    against cuDNN's conv); K9 at batch 128; K9 on one block against K10's
    chain of it; K9's floor build; the int8 window shift by an address
    offset and by a word shift;
-9. aggregate: this phase's main path, with every launch count set to 0
+11. aggregate: this phase's main path, with every launch count set to 0
    before it and read after it: K8 through ``sample_points`` at full
    width, batch 64 (the CPN pyramid's 64x48x256 level with 17 zeros
    points and HRNet-W32's 64x48x32 level with 272 border points, in bf16
@@ -113,7 +145,7 @@ Phases, one line of output each (failures raise and exit non-zero):
    packed offsets, the (b, L, p, nh*ns, 2) points and the tensor K1 is
    handed share one storage, and K1's time on that view; then K1 on the
    CPN pyramid as int8 maps (bf16 samples) against its plain version;
-10. backward: K6 against the plain backward at the training shapes (four
+12. backward: K6 against the plain backward at the training shapes (four
    64x48x256 maps, batch 64, 4x272 border points and 4x17 zeros points),
    fp32 and bf16, with and without dF: max abs error and error / max|plain|
    of d(points) and dF, median kernel and plain device times; then the
@@ -122,12 +154,12 @@ Phases, one line of output each (failures raise and exit non-zero):
    16x12x128, 8x6x256) and W48 (48/96/192/384 channels) pyramids at batch
    512, each with the library call (``grid_sampler_2d_backward``) and the
    bound;
-11. train: three presets at full width, each set up by its training CLI's
+13. train: three presets at full width, each set up by its training CLI's
    own parsing (``build_argparser``, ``make_config``, ``make_datasets``;
    synthetic data and weights from seed 0; TF32 off), through the
    ``Trainer`` (``Trainer3dhp`` for 3DHP): h36m_cpn (fp32 CPN ResNet-50
    with the /4 graph, lifter embed 128 depth 4 with deformable blocks,
-   AdamW, batch 256, flip augmentation, drop-path 0.2; 2 steps),
+   AdamW, batch 256, flip augmentation, drop-path 0.2; 3 steps),
    h36m_hrnet_32 (the fp32 frozen HRNet-W32, the same lifter, batch 512; 4
    steps) and mpi_3dhp_hrnet_32 (the lifter without deformable blocks,
    root joint 14, batch 160; 4 steps), then one flip-test eval batch each
@@ -137,8 +169,15 @@ Phases, one line of output each (failures raise and exit non-zero):
    deterministic step through the kernels must agree with one through the
    plain sampler (``sampler="gather"``) from the same weights on the same
    batch: loss to 1e-5 relative, lifter gradients to a global relative L2
-   of 1e-4. Steps/s (information only);
-12. gate: the deploy-numerics gate (``deploy_numerics.preset_gate``, 250
+   of 1e-4. The Trainer stages its batches through
+   ``pipeline.device_prefetch`` (a producer thread, pinned memory, copies
+   on a side stream): its step losses must equal, bit for bit, those of
+   the same batches copied by ``pipeline.to_device`` from the same initial
+   state. Steps/s through the Trainer beside ``train_step`` on a
+   device-resident batch, and, from a profiled warm epoch, the
+   host-to-device copies' streams and how much of their time overlaps
+   kernels on another stream (information only);
+14. gate: the deploy-numerics gate (``deploy_numerics.preset_gate``, 250
    steps of the tiny model of h36m_cpn, h36m_hrnet_32 and
    mpi_3dhp_hrnet_32 on the synthetic task, then P1 of the fp32 model and
    of its int8 deploy stack calibrated by ``serve.prepare``): fails when
@@ -146,7 +185,7 @@ Phases, one line of output each (failures raise and exit non-zero):
    or the gate's training launched other than K1 3 and K6 2 a step (3DHP:
    K1 1). Then, at the gate's own shapes (embed 32, head dim 8, 64x64
    frames, batch 16): the trained fp32 model's deterministic step through
-   the kernels against the plain sampler, as in phase 11; on one
+   the kernels against the plain sampler, as in phase 13; on one
    validation batch of the calibrated deploy model, its backbone maps
    through K9/K10/K10q against K9's and K10's plain versions bit for bit
    (HRNet: and against ``config.deploy``'s own layer1, the per-conv int8
@@ -158,11 +197,12 @@ Phases, one line of output each (failures raise and exit non-zero):
    bf16 lifter's by at most 2e-2 (the tiny bf16 lifter itself sits 3-6%
    from its fp32 version). Each of those kernels must have launched in
    that batch and none in the plain runs;
-13. a JSON line of per-kernel results (K1-K10 and K10q, then the probes'
+15. a JSON line of per-kernel results (K1-K10 and K10q, then the probes'
    counterparts, named ``probe <name>``), then the final JSON status
-   line. ``launches`` are summed over the serving, aggregate, training
-   and gate runs, each counted from 0 (the probes': their phase's main
-   run). Errors are the largest over the bf16 cases (int8 maps, sampled to
+   line. ``launches`` are summed over the serving (quantize and streaming
+   included), aggregate, training and gate runs, each counted from 0 (the
+   probes': their phase's main run). Each phase's seconds are printed as
+   it ends and summed by phase before the JSON lines. Errors are the largest over the bf16 cases (int8 maps, sampled to
    bf16, included). Times are bf16 at the CPN serving shapes for K1-K4,
    at HRNet-W32's for K5 and K9, at the CPN int8 request's for K10 and
    K10q, all per request (the sum over a request's calls), K6's those of
@@ -217,6 +257,30 @@ HRNET_REQUESTS = {"h36m_hrnet_32": REQUESTS, "h36m_hrnet_48": 1,
 # wide convs (transition1 reads K9's int8), CPN's 3 up-convs
 INT8_PER_REQUEST = {"hrnet": {"K9": 4, "K10": 87, "K10q": 85},
                     "cpn": {"K10": 83, "K10q": 3}}
+# the backbone's other quantize modes (serve.quantize_config): K10 and its
+# quantize pass K10q once for each int8 conv, every input bf16; "static"
+# every 3x3 conv with both channel counts >= 16 and every wide conv (HRNet
+# 256, CPN 76), "c128" the wide convs (HRNet 85, CPN 73): the JAX graphs'
+# counts (tests/test_torch_k10_plan.py). K9 runs in neither
+QUANT_PER_REQUEST = {
+    "static": {"hrnet": {"K10": 256, "K10q": 256},
+               "cpn": {"K10": 76, "K10q": 76}},
+    "c128": {"hrnet": {"K10": 85, "K10q": 85},
+             "cpn": {"K10": 73, "K10q": 73}},
+}
+# (preset, mode, requests served) of the quantize phase; each graph's K10
+# shapes are checked, and those of QUANT_SHAPES_ONLY
+QUANT_GRAPHS = (("h36m_hrnet_32", "static", REQUESTS),
+                ("h36m_hrnet_48", "static", 1), ("h36m_cpn", "static", 1),
+                ("h36m_hrnet_32", "c128", 1), ("h36m_cpn", "c128", 1))
+QUANT_SHAPES_ONLY = (("h36m_hrnet_48", "c128"),)
+QUANT_TIMED = 10  # host-clock requests of a quantize graph
+# the streaming phase: 4 cameras x 38 time slots through the h36m_cpn
+# deploy graph at batch 64 (two full chunks, one padded from 24), then one
+# pass of the h36m_hrnet_32 deploy graph; passes timed for latency_stats
+STREAM_CAMERAS, STREAM_SLOTS = 4, 38
+STREAM_PASSES = 20
+STREAM_EMA = 0.5
 TIMED_REQUESTS = 20  # host-clock frames/s, after the checked requests
 PROFILED = 5  # requests under torch.profiler
 TOP_KERNELS = 8
@@ -228,7 +292,7 @@ K6_CALLS_A_STEP = 4  # one a deformable block
 # The 17 reference points need no K6; each sampler call on HRNet samples
 # its 64x48x32 level (K5)
 TRAIN_RUNS = (
-    ("h36m_cpn", TRAIN_BATCH, 2, {"K1": 5, "K6": K6_CALLS_A_STEP},
+    ("h36m_cpn", TRAIN_BATCH, 3, {"K1": 5, "K6": K6_CALLS_A_STEP},
      {"K1": 5}, True),
     ("h36m_hrnet_32", HRNET_TRAIN_BATCH, 4,
      {"K1": 5, "K5": 5, "K6": K6_CALLS_A_STEP}, {"K1": 5, "K5": 5}, True),
@@ -314,7 +378,9 @@ SHARE_KERNELS = {"K1": ("sample_levels_kernel",),
                         "fc2_residual_kernel", "ln_mlp_fp32_kernel"),
                  "K3": ("small_attention_tc_kernel",
                         "small_attention_cores_kernel"),
-                 "K9": ("layer1_block_kernel",)}
+                 "K9": ("layer1_block_kernel",),
+                 "K10": ("::conv_kernel<",),
+                 "K10q": ("int8_quantize_kernel",)}
 # SASS instructions that show a build runs on Hopper's machinery: the
 # tensor cores (HGMMA / IGMMA: bf16 / int8 wgmma, HMMA / IMMA: mma.sync) and
 # the asynchronous copies (LDGSTS: cp.async, UTMALDG: TMA); per kernel:
@@ -1012,30 +1078,12 @@ def check_cpn_int8(results, card):
     largest = 0.0
     with torch.inference_mode():
         for key, (n, args) in seen.items():
-            def fn(args=args):
-                return int8_conv.int8_conv_kernel(*args)
-
-            def plain(args=args):
-                return int8_conv.int8_conv_reference(*args)
-
-            out, ref = fn(), plain()
-            torch.cuda.synchronize()
-            eq, err = _exact(out, ref)
-            x, kq, residual = args[0], args[1], args[9]
-            timed = args
+            eq, err, ms, plain_ms, (bound_ms, by), q = _k10_entry_ms(args)
+            out_shape = _k10_out_shape(args)
+            m = out_shape[0] * out_shape[1] * out_shape[2]
             note = ""
-            if x.dtype == torch.bfloat16:
-                # the quantize pass apart; K10 timed on its int8 output,
-                # the same convolution (a calibrated amax on both routes)
-                amax = args[5]
-                xq = int8_conv.quantize_kernel(x, amax, True)
-                qeq, _ = _exact(xq, int8_conv.quantize_reference(x, amax))
-                q_ms = _median_ms(lambda: int8_conv.quantize_kernel(
-                    x, amax, True))
-                q_plain = _median_ms(lambda: int8_conv.quantize_reference(
-                    x, amax))
-                q_bound, q_by = _bound(x.numel() * 3, 3 * x.numel(),
-                                       torch.float32)
+            if q is not None:
+                qeq, q_ms, q_plain, (q_bound, q_by) = q
                 note = (f"; quantize pass equal {qeq:.6f}, {q_ms:.4f} ms, "
                         f"plain {q_plain:.4f} ms, bound {q_bound:.4f} ms "
                         f"({q_by})")
@@ -1045,21 +1093,10 @@ def check_cpn_int8(results, card):
                 quant["plain_ms"] += n * q_plain
                 quant["bound_ms"] += n * q_bound
                 quant["bound_by"] = q_by
-                timed = (xq, *args[1:])
-            ms = _median_ms(lambda: int8_conv.int8_conv_kernel(*timed))
-            plain_ms = _median_ms(plain)
-            m = out.shape[0] * out.shape[1] * out.shape[2]
-            nbytes = (timed[0].numel() * timed[0].element_size() + kq.numel()
-                      + 3 * 4 * kq.shape[0]
-                      + out.numel() * out.element_size()
-                      + (0 if residual is None
-                         else residual.numel() * residual.element_size()))
-            work = (nbytes, 2 * m * kq.shape[0] * kq.shape[1])
-            bound_ms, by = _bound(*work, torch.int8)
             print(f"cpn_int8: K10 {key}: equal {eq:.6f}, max_abs_err "
                   f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms ({by}: {work[0]} B, {work[1]} "
-                  f"ops), tile 64x{int8_conv.plan(m, kq.shape[0])}, {n} a "
+                  f"bound {bound_ms:.4f} ms ({by}), tile "
+                  f"64x{int8_conv.plan(m, args[1].shape[0])}, {n} a "
                   f"request{note} ({card})", flush=True)
             if eq != 1.0:
                 raise AssertionError(f"K10 {key}: equal share {eq}")
@@ -1083,6 +1120,320 @@ def check_cpn_int8(results, card):
     return launches
 
 
+def _k10_out_shape(args):
+    """The output shape (B, Ho, Wo, Cout) of a recorded K10 call."""
+    from contextaware_poseformer_tpu_torch.ops import int8_conv
+
+    x, kq, stride = args[0], args[1], args[6]
+    k = math.isqrt(kq.shape[1] // x.shape[-1])
+    return (x.shape[0], int8_conv.out_size(x.shape[1], k, stride),
+            int8_conv.out_size(x.shape[2], k, stride), kq.shape[0])
+
+
+def _k10_entry_ms(args):
+    """K10 on one recorded call: (bit-equal share, max abs error, kernel ms,
+    plain ms, bound (ms, by), the K10q numbers of a bf16 input or None).
+    A bf16 input's quantize pass is timed apart and K10 on its int8
+    output, the same convolution."""
+    from contextaware_poseformer_tpu_torch.ops import int8_conv
+
+    x, kq, residual, amax = args[0], args[1], args[9], args[5]
+
+    def plain():
+        return int8_conv.int8_conv_reference(*args)
+
+    out, ref = int8_conv.int8_conv_kernel(*args), plain()
+    torch.cuda.synchronize()
+    eq, err = _exact(out, ref)
+    timed, quant = args, None
+    if x.dtype == torch.bfloat16:
+        clamp = amax is not None
+        a = amax if clamp else int8_conv.absmax(x)
+        xq = int8_conv.quantize_kernel(x, a, clamp)
+        qeq, _ = _exact(xq, int8_conv.quantize_reference(x, amax))
+        quant = (qeq,
+                 _median_ms(lambda: int8_conv.quantize_kernel(x, a, clamp)),
+                 _median_ms(lambda: int8_conv.quantize_reference(x, amax)),
+                 _bound(x.numel() * 3, 3 * x.numel(), torch.float32))
+        timed = (xq, *args[1:5], a, *args[6:])
+    ms = _median_ms(lambda: int8_conv.int8_conv_kernel(*timed))
+    plain_ms = _median_ms(plain)
+    m = out.shape[0] * out.shape[1] * out.shape[2]
+    nbytes = (timed[0].numel() * timed[0].element_size() + kq.numel()
+              + 3 * 4 * kq.shape[0] + out.numel() * out.element_size()
+              + (0 if residual is None
+                 else residual.numel() * residual.element_size()))
+    bound = _bound(nbytes, 2 * m * kq.shape[0] * kq.shape[1], torch.int8)
+    return eq, err, ms, plain_ms, bound, quant
+
+
+def check_quantize(card):
+    """Phase 8: the backbone's "static" and "c128" graphs
+    (``serve.quantize_config``). Each graph of QUANT_GRAPHS is served as
+    the int8 phase serves the deploy graphs (``check_serving``; a "c128"
+    request before ``prepare`` equal to the prepared one), while one of its
+    requests records K10's calls; QUANT_SHAPES_ONLY's graphs record one
+    request. Then K10 at every distinct shape and variant recorded, on that
+    request's own tensors, against its plain version bit for bit (K10q
+    apart), with median kernel and plain ms and the bound; each graph's
+    K10 and K10q ms a request. Returns the served requests' launches."""
+    from contextaware_poseformer_tpu_torch import serve
+
+    seen = {}  # signature -> [a call's arguments, {graph: calls a request}]
+
+    def recorder(graph):
+        def inspect(model, req):
+            calls = {}
+            _record_k10(model, req, calls)
+            for key, (n, args) in calls.items():
+                seen.setdefault(key, [args, {}])[1][graph] = n
+        return inspect
+
+    launches = [check_serving(name, n, card, inspect=recorder(
+        f"{name} {mode}"), mode=mode, timed=QUANT_TIMED)
+        for name, mode, n in QUANT_GRAPHS]
+    for name, mode in QUANT_SHAPES_ONLY:
+        cfg = serve.quantize_config(name, mode)
+        model = serve.build_serving_model(
+            cfg, "cuda", generator=torch.Generator().manual_seed(0))
+        h, w = cfg.model.image_shape
+        gen = torch.Generator().manual_seed(1)
+        serve.prepare(model, [torch.randint(0, 256, (BATCH, h, w, 3),
+                                            dtype=torch.uint8,
+                                            generator=gen).cuda()])
+        req = (torch.randint(0, 256, (BATCH, h, w, 3), dtype=torch.uint8,
+                             generator=gen).cuda(),
+               (torch.rand(BATCH, 17, 2, generator=gen) * 2 - 1).cuda(),
+               (torch.rand(BATCH, 17, 2, generator=gen) * w).cuda())
+        recorder(f"{name} {mode}")(model, req)
+        del model
+    graphs = [f"{n} {m}" for n, m, _ in QUANT_GRAPHS] + [
+        f"{n} {m}" for n, m in QUANT_SHAPES_ONLY]
+    per_graph = {g: dict.fromkeys(("ms", "plain_ms", "bound_ms", "q_ms",
+                                   "calls"), 0.0) for g in graphs}
+    shapes = set()
+    with torch.inference_mode():
+        for key, (args, calls) in sorted(seen.items()):
+            eq, err, ms, plain_ms, (bound_ms, by), quant = _k10_entry_ms(args)
+            x, kq, stride = args[0], args[1], args[6]
+            shapes.add((x.shape[-1], kq.shape[0],
+                        math.isqrt(kq.shape[1] // x.shape[-1]), stride))
+            note = ""
+            if quant is not None:
+                qeq, q_ms, q_plain, (q_bound, q_by) = quant
+                note = (f"; K10q equal {qeq:.6f}, {q_ms:.4f} ms, plain "
+                        f"{q_plain:.4f} ms, bound {q_bound:.4f} ms ({q_by})")
+                if qeq != 1.0:
+                    raise AssertionError(f"K10q {key}: equal share {qeq}")
+            print(f"quantize: K10 {key}: equal {eq:.6f}, max_abs_err "
+                  f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({by}), a request: "
+                  + ", ".join(f"{g} {n}" for g, n in calls.items())
+                  + f"{note} ({card})", flush=True)
+            if eq != 1.0:
+                raise AssertionError(f"K10 {key}: equal share {eq}")
+            for g, n in calls.items():
+                res = per_graph[g]
+                res["ms"] += n * ms
+                res["plain_ms"] += n * plain_ms
+                res["bound_ms"] += n * bound_ms
+                res["calls"] += n
+                if quant is not None:
+                    res["q_ms"] += n * quant[1]
+    seen.clear()
+    needed = {(48, 48, 3, 1), (48, 96, 3, 2), (64, 64, 3, 2),
+              (64, 64, 3, 1)}
+    if not needed <= shapes:
+        raise AssertionError(f"quantize: K10 shapes {sorted(shapes)} miss "
+                             f"{sorted(needed - shapes)}")
+    for g, res in per_graph.items():
+        print(f"quantize: {g}: K10 {res['calls']:.0f} calls a request, "
+              f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+              f"bound {res['bound_ms']:.4f} ms; K10q {res['q_ms']:.4f} ms "
+              f"a request ({card})", flush=True)
+    torch.cuda.empty_cache()
+    return _sum_counts(launches)
+
+
+def _sum_counts(counts):
+    return {k: sum(c[k] for c in counts) for k in _counters()}
+
+
+def _stream_inputs(rng, n, hw, cams):
+    """``n`` frames of ``cams`` cameras in time order (slot-major): crops,
+    full-frame detections, each camera's box; (frames, kp_full, centers,
+    scales, camera ids, boxes)."""
+    import numpy as np
+
+    boxes = {c: (np.array([480.0 + 20 * c, 500.0]),
+                 np.array([1.0 + 0.05 * c, 1.1])) for c in range(cams)}
+    ids = np.tile(np.arange(cams), n // cams)
+    frames = rng.randint(0, 256, (n, *hw, 3)).astype(np.uint8)
+    kp_full = rng.uniform(100, 900, (n, 17, 2))
+    centers = np.stack([boxes[c][0] for c in ids])
+    scales = np.stack([boxes[c][1] for c in ids])
+    return frames, kp_full, centers, scales, ids, boxes
+
+
+def _streamer(name):
+    """A ``StreamingLifter`` of ``deploy_config(name)`` at batch BATCH on
+    the card, its weights the JAX-format variables of the model drawn from
+    seed 0."""
+    from contextaware_poseformer_tpu_torch import serve
+    from contextaware_poseformer_tpu_torch.models import bridge, streaming
+
+    cfg = serve.deploy_config(name)
+    src = serve.build_serving_model(
+        cfg, "cuda", generator=torch.Generator().manual_seed(0))
+    variables = bridge.variables_to_jax(src)
+    del src
+    return streaming.StreamingLifter(
+        cfg.model, variables, streaming.StreamingConfig(batch_size=BATCH),
+        device="cuda")
+
+
+def check_streaming(card):
+    """Phase 9: ``models.streaming.StreamingLifter`` over the h36m_cpn
+    deploy graph at batch BATCH: refused before ``prepare``; prepared on
+    one seeded batch; 4 cameras x 38 time slots (152 frames: two full
+    chunks, one padded from 24) through ``lift_batch``, each chunk equal
+    bit for bit to ``serve.lift`` on the same padded chunk, launches 3x a
+    request's; ``stream`` with the EMA equal to the per-camera EMA of
+    ``lift_batch``'s poses (1e-6); ``latency_stats`` over STREAM_PASSES
+    passes beside the same frames through ``serve.lift`` chunk by chunk
+    with no overlap (information); then one pass of the h36m_hrnet_32
+    deploy graph (K5, K9). Returns the counted runs' launches."""
+    import numpy as np
+
+    from contextaware_poseformer_tpu_torch import serve
+
+    image_wh = (1000, 1000)
+    n = STREAM_CAMERAS * STREAM_SLOTS
+    chunks = -(-n // BATCH)
+    counted = []
+    sl = _streamer("h36m_cpn")
+    hw = sl.model_cfg.image_shape
+    rng = np.random.RandomState(0)
+    frames, kp, centers, scales, ids, boxes = _stream_inputs(
+        rng, n, hw, STREAM_CAMERAS)
+    args = (frames, kp, image_wh, centers, scales)
+    try:
+        sl.lift_batch(*args)
+    except ValueError as e:
+        print(f"streaming: h36m_cpn deploy refused before prepare: {e}",
+              flush=True)
+    else:
+        raise AssertionError("streaming: lift_batch ran before prepare")
+    calib = _stream_inputs(np.random.RandomState(1), BATCH, hw,
+                           STREAM_CAMERAS)
+    sl.prepare(calib[0], calib[1], image_wh, calib[2], calib[3])
+    per_request = {**PER_REQUEST["h36m_cpn"], **INT8_PER_REQUEST["cpn"]}
+
+    _reset_counts()
+    out = sl.lift_batch(*args)
+    torch.cuda.synchronize()
+    counted.append(_counts())
+    if counted[-1] != _expected(per_request, chunks):
+        raise AssertionError(f"streaming: {n} frames launched "
+                             f"{counted[-1]}, expected {chunks} x "
+                             f"{per_request}")
+    if out.shape != (n, 17, 3) or not np.isfinite(out).all():
+        raise AssertionError(f"streaming: bad poses {out.shape}")
+    kp_norm, crop = sl._preprocess(kp, image_wh, centers, scales)
+    equal = []
+    for start in range(0, n, BATCH):
+        idx = slice(start, min(start + BATCH, n))
+        ref = serve.lift(sl.model, *(
+            torch.from_numpy(np.ascontiguousarray(sl.pad(a[idx], BATCH)))
+            .cuda() for a in (frames, kp_norm, crop)))
+        equal.append(np.array_equal(out[idx],
+                                    ref[:idx.stop - start].cpu().numpy()))
+    print(f"streaming: h36m_cpn deploy: {STREAM_CAMERAS} cameras x "
+          f"{STREAM_SLOTS} slots = {n} frames in {chunks} chunks of "
+          f"{BATCH} (the last padded from {n - (chunks - 1) * BATCH}); "
+          f"launches {counted[-1]}; each chunk equal to serve.lift on the "
+          f"padded chunk: {equal}", flush=True)
+    if not all(equal):
+        raise AssertionError(f"streaming: chunks equal {equal}")
+
+    sl.cfg = replace(sl.cfg, ema_alpha=STREAM_EMA)
+    _reset_counts()
+    items = [(int(c), frames[i], kp[i]) for i, c in enumerate(ids)]
+    streamed = list(sl.stream(iter(items), image_wh, lambda c: boxes[c]))
+    torch.cuda.synchronize()
+    counted.append(_counts())
+    sl.cfg = replace(sl.cfg, ema_alpha=0.0)
+    if [c for c, _ in streamed] != [int(c) for c in ids]:
+        raise AssertionError("streaming: stream() reordered the cameras")
+    ema, err = {}, 0.0
+    for (cam, pose), raw in zip(streamed, out):
+        want = raw if cam not in ema else (STREAM_EMA * ema[cam]
+                                           + (1 - STREAM_EMA) * raw)
+        ema[cam] = want
+        err = max(err, float(np.abs(pose - want).max()))
+    print(f"streaming: stream() with ema_alpha {STREAM_EMA}: max abs error "
+          f"{err:.3e} against the per-camera EMA of lift_batch (tol 1e-6); "
+          f"launches {counted[-1]}", flush=True)
+    if not err <= 1e-6 or counted[-1] != _expected(per_request, chunks):
+        raise AssertionError(f"streaming: EMA error {err}, launches "
+                             f"{counted[-1]}")
+
+    def chunk_by_chunk():  # serve.lift a chunk at a time, nothing overlapped
+        t1 = time.perf_counter()
+        knorm, kcrop = sl._preprocess(kp, image_wh, centers, scales)
+        for start in range(0, n, BATCH):
+            idx = slice(start, min(start + BATCH, n))
+            serve.lift(sl.model, *(
+                torch.from_numpy(np.ascontiguousarray(sl.pad(a[idx], BATCH)))
+                .cuda() for a in (frames, knorm, kcrop))).cpu()
+        return (time.perf_counter() - t1) * 1e3
+
+    sl._latencies.clear()
+    lat = []
+    for i in range(STREAM_PASSES):  # in turns, each side first half the time
+        if i % 2:
+            lat.append(chunk_by_chunk())
+        sl.lift_batch(*args)
+        if not i % 2:
+            lat.append(chunk_by_chunk())
+    stats = sl.latency_stats()
+    lat = np.asarray(lat)
+    print(f"streaming: lift_batch of {n} frames over {stats['n']} passes: "
+          f"p50 {stats['p50_ms']:.3f} ms, p90 {stats['p90_ms']:.3f}, p99 "
+          f"{stats['p99_ms']:.3f}, mean {stats['mean_ms']:.3f}, "
+          f"{stats['frames_per_sec']:.1f} frames/s; serve.lift chunk by "
+          f"chunk without overlap: p50 {np.percentile(lat, 50):.3f} ms, p90 "
+          f"{np.percentile(lat, 90):.3f}, p99 {np.percentile(lat, 99):.3f}, "
+          f"{n * len(lat) / (lat.sum() / 1e3):.1f} frames/s (information "
+          f"only; host clock, the two in turns; {card})", flush=True)
+    del sl
+    torch.cuda.empty_cache()
+
+    sl = _streamer("h36m_hrnet_32")
+    hw = sl.model_cfg.image_shape
+    frames, kp, centers, scales, _, _ = _stream_inputs(
+        np.random.RandomState(2), n, hw, STREAM_CAMERAS)
+    calib = _stream_inputs(np.random.RandomState(3), BATCH, hw,
+                           STREAM_CAMERAS)
+    sl.prepare(calib[0], calib[1], image_wh, calib[2], calib[3])
+    per_request = {**PER_REQUEST["h36m_hrnet_32"],
+                   **INT8_PER_REQUEST["hrnet"]}
+    _reset_counts()
+    out = sl.lift_batch(frames, kp, image_wh, centers, scales)
+    torch.cuda.synchronize()
+    counted.append(_counts())
+    print(f"streaming: h36m_hrnet_32 deploy: {n} frames -> {out.shape}, "
+          f"finite {bool(np.isfinite(out).all())}; launches {counted[-1]}",
+          flush=True)
+    if (counted[-1] != _expected(per_request, chunks)
+            or not np.isfinite(out).all()):
+        raise AssertionError(f"streaming: h36m_hrnet_32 launches "
+                             f"{counted[-1]}")
+    del sl
+    torch.cuda.empty_cache()
+    return _sum_counts(counted)
+
+
 def _probe_result(err, ms, plain_ms, work, dtype, library_ms=None):
     bound_ms, by = _bound(*work, dtype)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1098,7 +1449,7 @@ def _print_probe(name, what, check, r, card):
 
 
 def check_probes(card):
-    """Phase 8: the TPU probes' counterparts. Their main path (each run
+    """Phase 10: the TPU probes' counterparts. Their main path (each run
     once, every launch count set to 0 before it and read after it), then
     each held against its plain version (bit for bit where the function is
     integer; the two timing-only builds, wrong by design, run and are
@@ -1432,41 +1783,39 @@ def _expected(per_call, calls=1):
     return {k: calls * per_call.get(k, 0) for k in _counters()}
 
 
-def check_serving(name, requests_n, card, int8=False, inspect=None):
-    """Phases 4, 5, 6b and 7b: serve ``requests_n`` requests of the
+def check_serving(name, requests_n, card, int8=False, inspect=None,
+                  mode=None, timed=TIMED_REQUESTS):
+    """Phases 4, 5, 6b, 7b and 8b: serve ``requests_n`` requests of the
     full-width ``slice_config(name)`` (``deploy_config(name)`` with
-    ``int8``, after ``serve.prepare`` on one seeded batch) through
-    ``serve.lift``, checking each request's launches and the output, and
-    one request against the plain knobs (and, with ``int8``, K9's and K10's
-    plain versions). ``inspect(model, request)`` runs before the counted
-    requests. Returns the launch counts of the requests."""
+    ``int8``, ``quantize_config(name, mode)`` with ``mode``, either after
+    ``serve.prepare`` on one seeded batch) through ``serve.lift``, checking
+    each request's launches and the output, and one request against the
+    plain knobs (and, for an int8 graph, K9's and K10's plain versions); a
+    "c128" graph's first request, served before ``prepare``, must equal
+    the prepared model's. ``inspect(model, request)`` runs before the
+    counted requests. Returns the launch counts of the requests."""
     from contextaware_poseformer_tpu_torch import serve
 
     phase = ("slice" if name == "h36m_cpn" else "hrnet") if not int8 else (
         "cpn_int8" if name == "h36m_cpn" else "int8")
-    cfg = serve.deploy_config(name) if int8 else serve.slice_config(name)
+    if mode is not None:
+        phase = "quantize"
+        cfg = serve.quantize_config(name, mode)
+    else:
+        cfg = serve.deploy_config(name) if int8 else serve.slice_config(name)
+    kind = cfg.model.backbone.kind
     per_request = PER_REQUEST[name]
     if int8:
-        per_request = {**per_request,
-                       **INT8_PER_REQUEST[cfg.model.backbone.kind]}
+        per_request = {**per_request, **INT8_PER_REQUEST[kind]}
+    if mode is not None:
+        per_request = {**per_request, **QUANT_PER_REQUEST[mode][kind]}
+    quantized = int8 or mode is not None
+    label = name if mode is None else f"{name} {mode}"
     t0 = time.perf_counter()
     model = serve.build_serving_model(
         cfg, "cuda", generator=torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
     h, w = cfg.model.image_shape
-    if int8:
-        calib = torch.randint(0, 256, (BATCH, h, w, 3), dtype=torch.uint8,
-                              generator=torch.Generator().manual_seed(1))
-        t1 = time.perf_counter()
-        serve.prepare(model, [calib.cuda()])
-        torch.cuda.synchronize()
-        from contextaware_poseformer_tpu_torch.models import backbone_common
-        scales = backbone_common.calibration_buffers(model.backbone)
-        print(f"{phase}: {name} prepared in {time.perf_counter() - t1:.1f} "
-              f"s (calibration on {BATCH} seeded frames, quantile "
-              f"{cfg.model.backbone.calib_quantile}; {len(scales)} scales "
-              f"{min(v.item() for v in scales.values()):.4g}.."
-              f"{max(v.item() for v in scales.values()):.4g})", flush=True)
     gen = torch.Generator().manual_seed(0)
     requests = [
         (torch.randint(0, 256, (BATCH, h, w, 3), dtype=torch.uint8,
@@ -1475,12 +1824,31 @@ def check_serving(name, requests_n, card, int8=False, inspect=None):
          (torch.rand(BATCH, 17, 2, generator=gen) * w).cuda())
         for _ in range(requests_n)
     ]
+    unprepared = None
+    if mode == "c128":  # it serves without prepare, weights quantized a call
+        unprepared = serve.lift(model, *requests[0])
+    if quantized:
+        calib = torch.randint(0, 256, (BATCH, h, w, 3), dtype=torch.uint8,
+                              generator=torch.Generator().manual_seed(1))
+        t1 = time.perf_counter()
+        serve.prepare(model, [calib.cuda()])
+        torch.cuda.synchronize()
+        from contextaware_poseformer_tpu_torch.models import backbone_common
+        scales = backbone_common.calibration_buffers(model.backbone)
+        what = (f"{len(scales)} scales "
+                f"{min(v.item() for v in scales.values()):.4g}.."
+                f"{max(v.item() for v in scales.values()):.4g}" if scales
+                else "weights only, no scales")
+        print(f"{phase}: {label} prepared in "
+              f"{time.perf_counter() - t1:.1f} s (calibration on {BATCH} "
+              f"seeded frames, quantile {cfg.model.backbone.calib_quantile}; "
+              f"{what})", flush=True)
     lc, bc = cfg.model.lifter, cfg.model.backbone
-    print(f"{phase}: {name} built in {time.perf_counter() - t0:.1f} s "
+    print(f"{phase}: {label} built in {time.perf_counter() - t0:.1f} s "
           f"(image {h}x{w}, {bc.kind} width {bc.width}, maps "
           f"{bc.feature_dims}, lifter embed {lc.embed_dim_ratio} depth "
           f"{lc.depth} deformable {lc.use_deformable}, "
-          f"{cfg.model.compute_dtype})", flush=True)
+          f"{cfg.model.compute_dtype}, quantize {bc.quantize})", flush=True)
     if inspect is not None:
         inspect(model, requests[0])
 
@@ -1492,13 +1860,20 @@ def check_serving(name, requests_n, card, int8=False, inspect=None):
         torch.cuda.synchronize()
         grew = {k: v - before[k] for k, v in _counts().items()}
         if grew != _expected(per_request):
-            raise AssertionError(f"{name} request {i}: kernel launches "
+            raise AssertionError(f"{label} request {i}: kernel launches "
                                  f"{grew}, expected {per_request}")
     launches = _counts()
     for out in outs:
         if out.shape != (BATCH, 17, 3) or not torch.isfinite(out).all():
-            raise AssertionError(f"{name}: bad output {tuple(out.shape)}, "
+            raise AssertionError(f"{label}: bad output {tuple(out.shape)}, "
                                  f"finite={bool(torch.isfinite(out).all())}")
+    if unprepared is not None:
+        same = torch.equal(unprepared, outs[0])
+        print(f"{phase}: {label}: the request served before prepare (weights"
+              f" quantized each call) equals the prepared model's bit for "
+              f"bit: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{label}: unprepared output differs")
 
     plain_cfg = replace(cfg, model=replace(cfg.model, lifter=replace(
         lc, sampler="gather", attention="einsum", attention_joint="einsum",
@@ -1506,30 +1881,30 @@ def check_serving(name, requests_n, card, int8=False, inspect=None):
     plain = serve.build_serving_model(
         plain_cfg, "cuda", generator=torch.Generator().manual_seed(1))
     plain.load_state_dict(model.state_dict())
-    if int8:
+    if quantized:
         plain.backbone.int8_impl = "plain"
     before = _counts()
     ref = serve.lift(plain, *requests[0])
     torch.cuda.synchronize()
     if _counts() != before:
-        raise AssertionError(f"{name}: the plain path launched a kernel")
+        raise AssertionError(f"{label}: the plain path launched a kernel")
     rel = ((outs[0] - ref).pow(2).mean().sqrt()
            / ref.pow(2).mean().sqrt()).item()
-    print(f"{phase}: {name}: {requests_n} request(s) of {BATCH} frames -> "
+    print(f"{phase}: {label}: {requests_n} request(s) of {BATCH} frames -> "
           f"{tuple(outs[0].shape)} finite; launches per request "
           f"{per_request}; kernel vs plain rel RMS {rel:.3e} (tol "
           f"{SLICE_REL_RMS:.0e})", flush=True)
     if not rel <= SLICE_REL_RMS:
-        raise AssertionError(f"{name} rel RMS {rel:.3e} > {SLICE_REL_RMS}")
-    if int8:  # the float slice drawn from the same seed: the same weights
+        raise AssertionError(f"{label} rel RMS {rel:.3e} > {SLICE_REL_RMS}")
+    if quantized:  # the float slice drawn from the same seed: same weights
         floating = serve.build_serving_model(
             serve.slice_config(name), "cuda",
             generator=torch.Generator().manual_seed(0))
         flt = serve.lift(floating, *requests[0])
         rel_float = ((outs[0] - flt).pow(2).mean().sqrt()
                      / flt.pow(2).mean().sqrt()).item()
-        print(f"{phase}: {name}: int8 deploy vs the float bf16 slice of the "
-              f"same weights: rel RMS {rel_float:.3e} (information only)",
+        print(f"{phase}: {label}: int8 vs the float bf16 slice of the same "
+              f"weights: rel RMS {rel_float:.3e} (information only)",
               flush=True)
         del floating
 
@@ -1538,16 +1913,16 @@ def check_serving(name, requests_n, card, int8=False, inspect=None):
         serve.lift(m, *requests[0])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(TIMED_REQUESTS):
+        for i in range(timed):
             serve.lift(m, *requests[i % requests_n])
         torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3 / TIMED_REQUESTS)
-    print(f"{phase}: {name}: {host_ms[0]:.3f} ms a request, "
+        host_ms.append((time.perf_counter() - t0) * 1e3 / timed)
+    print(f"{phase}: {label}: {host_ms[0]:.3f} ms a request, "
           f"{BATCH * 1e3 / host_ms[0]:.1f} frames/s with the kernels; "
           f"{host_ms[1]:.3f} ms, {BATCH * 1e3 / host_ms[1]:.1f} frames/s "
-          f"plain (information only; host clock over {TIMED_REQUESTS} "
+          f"plain (information only; host clock over {timed} "
           f"requests, batch {BATCH}, {card})", flush=True)
-    _where_time_goes(phase, name, cfg, model, requests[0], host_ms[0],
+    _where_time_goes(phase, label, cfg, model, requests[0], host_ms[0],
                      f"batch {BATCH}, {card}")
     del model, plain
     torch.cuda.empty_cache()
@@ -1560,6 +1935,8 @@ def _where_time_goes(phase, name, cfg, model, req, host_ms, tag):
     then over PROFILED requests under torch.profiler the device busy ms a
     request, the idle share of the unprofiled host time a request
     ``host_ms``, and the TOP_KERNELS kernels by device time."""
+    import tempfile
+
     from contextaware_poseformer_tpu_torch import serve
     from contextaware_poseformer_tpu_torch.data import augment
     from contextaware_poseformer_tpu_torch.models.capf import (
@@ -1567,6 +1944,7 @@ def _where_time_goes(phase, name, cfg, model, req, host_ms, tag):
         crop_coords_to_grid,
         lifter_maps,
     )
+    from contextaware_poseformer_tpu_torch.utils import profiling
 
     frames, kp, kpc = req
     events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -1588,9 +1966,7 @@ def _where_time_goes(phase, name, cfg, model, req, host_ms, tag):
             ("normalize", "backbone", "lifter"), stages))
         + f" (CUDA events, one request; {tag})", flush=True)
 
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    with tempfile.TemporaryDirectory() as d, profiling.trace(d) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILED):
             serve.lift(model, *req)
@@ -1716,7 +2092,7 @@ def _k8_cases(gen):
 
 
 def check_aggregate(results, card):
-    """Phase 7: K8 and K7 through their public entries at full width (this
+    """Phase 11: K8 and K7 through their public entries at full width (this
     phase's main path, its launches counted from 0), each against its plain
     version, with kernel, plain, library and bound times; the A/B of K7
     against the DeformableBlock's own route on the served h36m_cpn and
@@ -1977,7 +2353,7 @@ def _grid_sample_backward_fn(maps, pts, grads, mode, need_df):
 
 
 def check_backward():
-    """Phase 10: K6 against the plain backward. Returns K6's JSON numbers:
+    """Phase 12: K6 against the plain backward. Returns K6's JSON numbers:
     the largest fp32 d(points) error of the training steps' calls (border,
     no dF) and the per-step times of the CPN's (batch TRAIN_BATCH; 4 calls
     a step); the HRNet calls' times are printed."""
@@ -2097,8 +2473,82 @@ def _kernels_vs_plain_step(tag, cfg, model, raw, task, per_step):
     return plain
 
 
+def _losses_through_to_device(trainer, n_steps):
+    """The first ``n_steps`` step losses of epoch 0 from a fresh state
+    (the Trainer's seed), each batch copied by ``pipeline.to_device`` on
+    the current stream, as the Trainer staged them before
+    ``device_prefetch``."""
+    from contextaware_poseformer_tpu_torch.data import pipeline
+    from contextaware_poseformer_tpu_torch.train import steps
+
+    cfg = trainer.cfg
+    state = trainer.init_state(cfg.train.seed)
+    losses = []
+    for raw, _ in pipeline.batch_iterator(
+            trainer.train_ds, cfg.train.batch_size, shuffle=True,
+            seed=cfg.train.seed, epoch=0, num_workers=cfg.data.num_workers):
+        m = steps.train_step(state, pipeline.to_device(raw, trainer.device),
+                             cfg, trainer.task, cfg.train.seed + 1)
+        losses.append(float(m["loss"]))
+        if len(losses) == n_steps:
+            break
+    del state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _intervals_union(spans):
+    merged = []
+    for a, b in sorted(spans):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def _h2d_overlap(name, trainer, state, n_steps, card):
+    """Information: a warm epoch of ``n_steps`` under torch.profiler; the
+    host-to-device copies by stream, and how much of their time overlaps
+    kernels running on another stream."""
+    import glob
+    import tempfile
+
+    from contextaware_poseformer_tpu_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            trainer.train_epoch(state, 2, max_steps=n_steps)
+            torch.cuda.synchronize()
+        (path,) = glob.glob(f"{d}/trace_*.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    copy_streams = sorted({e["args"].get("stream") for e in copies})
+    kernel_streams = sorted({e["args"].get("stream") for e in kernels})
+    overlap = total = 0.0
+    for s in copy_streams:
+        busy = _intervals_union(
+            [(k["ts"], k["ts"] + k["dur"]) for k in kernels
+             if k["args"].get("stream") != s])
+        for c in copies:
+            if c["args"].get("stream") != s:
+                continue
+            a, b = c["ts"], c["ts"] + c["dur"]
+            total += b - a
+            overlap += sum(max(0.0, min(b, y) - max(a, x)) for x, y in busy)
+    print(f"train: {name}: profiled warm epoch ({n_steps} steps): "
+          f"{len(copies)} host-to-device copies, {total / 1e3:.3f} ms, on "
+          f"stream(s) {copy_streams}; kernels on stream(s) {kernel_streams};"
+          f" {overlap / 1e3:.3f} ms of the copies overlap kernels on another"
+          f" stream: overlapping {overlap > 0} (torch.profiler; {card})",
+          flush=True)
+
+
 def check_train(card, run):
-    """Phase 11: one TRAIN_RUNS entry through its CLI's own parsing at
+    """Phase 13: one TRAIN_RUNS entry through its CLI's own parsing at
     full width: steps through ``Trainer.train_epoch``, one flip-test eval
     batch, launch counts, a finite loss, a lifter that moved and a
     backbone that did not; with ``deterministic``, one deterministic step
@@ -2146,6 +2596,14 @@ def check_train(card, run):
     losses = m["step_losses"]
     if len(losses) != n_steps or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{name}: train losses {losses}")
+    staged = _losses_through_to_device(trainer, n_steps)
+    print(f"train: {name}: the Trainer's step losses (device_prefetch: "
+          f"pinned staging, copies on a side stream) equal the same batches "
+          f"through to_device from the same state: {staged == losses} "
+          f"({[f'{v:.9g}' for v in staged]})", flush=True)
+    if staged != losses:
+        raise AssertionError(f"{name}: prefetched losses {losses}, "
+                             f"to_device {staged}")
     _reset_counts()
     summary, _ = trainer.evaluate(state, max_batches=1)
     torch.cuda.synchronize()
@@ -2175,6 +2633,7 @@ def check_train(card, run):
     trainer_rate = n_steps / (time.perf_counter() - t0)
     if not all(map(math.isfinite, warm["step_losses"])):
         raise AssertionError(f"warm epoch losses {warm['step_losses']}")
+    _h2d_overlap(name, trainer, state, n_steps, card)
     raw, _ = next(pipeline.batch_iterator(train_ds, cfg.train.batch_size,
                                           shuffle=False, num_workers=8))
     raw = pipeline.to_device(raw, "cuda")
@@ -2391,7 +2850,7 @@ def _gate_deploy_check(name, trainer, state, needed):
 
 
 def check_gate(card):
-    """Phase 12: the deploy-numerics gate (``deploy_numerics.preset_gate``)
+    """Phase 14: the deploy-numerics gate (``deploy_numerics.preset_gate``)
     for one preset of each tiny class: fp32 P1, the deploy stack's P1 and
     the delta, within GATE_MAX_DELTA_MM either way; each gate's launches
     counted from 0 (training: K1 and K6 a step as GATE_PRESETS says; the
@@ -2505,6 +2964,26 @@ def check_sass(path):
                         f"sass: {kern} {f} holds none of {ops}")
 
 
+class _PhaseClock:
+    """Seconds each phase took (host clock), printed as it ends and summed
+    by phase at the end."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def __call__(self, phase, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        dt = time.perf_counter() - t0
+        self.seconds[phase] = self.seconds.get(phase, 0.0) + dt
+        print(f"{phase}: phase step took {dt:.1f} s", flush=True)
+        return out
+
+    def report(self):
+        print("phases: " + ", ".join(f"{p} {t:.1f} s" for p, t in
+                                     self.seconds.items()), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs "
@@ -2537,19 +3016,23 @@ def main() -> None:
         check_spills(log.read_text())
     check_sass(path)
 
-    results = check_kernels()
-    served = [check_serving("h36m_cpn", REQUESTS, card)]
-    served += [check_serving(name, n, card)
+    clock = _PhaseClock()
+    results = clock("kernels", check_kernels)
+    served = [clock("slice", check_serving, "h36m_cpn", REQUESTS, card)]
+    served += [clock("hrnet", check_serving, name, n, card)
                for name, n in HRNET_REQUESTS.items()]
-    results.update(check_int8_kernels(card))
-    served += [check_serving(name, n, card, int8=True)
+    results.update(clock("int8", check_int8_kernels, card))
+    served += [clock("int8", check_serving, name, n, card, int8=True)
                for name, n in HRNET_REQUESTS.items()]
-    served.append(check_cpn_int8(results, card))
-    probes = check_probes(card)
-    served.append(check_aggregate(results, card))
-    results["K6"] = check_backward()
-    trained = [check_train(card, run) for run in TRAIN_RUNS]
-    trained.append(check_gate(card))
+    served.append(clock("cpn_int8", check_cpn_int8, results, card))
+    served.append(clock("quantize", check_quantize, card))
+    served.append(clock("streaming", check_streaming, card))
+    probes = clock("probes", check_probes, card)
+    served.append(clock("aggregate", check_aggregate, results, card))
+    results["K6"] = clock("backward", check_backward)
+    trained = [clock("train", check_train, card, run) for run in TRAIN_RUNS]
+    trained.append(clock("gate", check_gate, card))
+    clock.report()
     kernels = [
         {"name": k, "route": "cuda", "source": CSRC + SOURCES[k],
          "replaces": REPLACES[k],

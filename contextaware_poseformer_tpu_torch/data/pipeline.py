@@ -1,21 +1,24 @@
 """Host-side batch pipeline: threaded image loading into fixed-shape numpy
 batches, then a copy to the device.
 
-Port of ``contextaware_poseformer_tpu/data/pipeline.py:28-95`` without its
-JAX import: ``RawBatch`` (numpy leaves here), ``_assemble`` and
-``batch_iterator``. Datasets are the port's copies (``data/synthetic.py``,
-``data/h36m.py``).
+Port of ``contextaware_poseformer_tpu/data/pipeline.py:28-126`` without its
+JAX import: ``RawBatch`` (numpy leaves here), ``_assemble``,
+``batch_iterator`` and ``device_prefetch``. Datasets are the port's copies
+(``data/synthetic.py``, ``data/h36m.py``, ``data/mpi3dhp.py``).
 
 Fixed shapes always: train drops the remainder (shuffled anyway); eval pads
 the final batch and reports ``valid``, which the evaluator trims.
 ``to_device`` stages a batch through pinned host memory with a
-``non_blocking`` copy; a prefetcher on a side stream is not ported yet.
+``non_blocking`` copy; ``device_prefetch`` runs the assembly and that copy
+ahead of the consumer, on a thread and a CUDA side stream.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, NamedTuple, Protocol
+from typing import Callable, Iterator, NamedTuple, Protocol
 
 import numpy as np
 import torch
@@ -111,3 +114,83 @@ def to_device(batch: RawBatch, device) -> RawBatch:
                           .to(device) for a in batch))
     return RawBatch(*(torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
                       .to(device, non_blocking=True) for a in batch))
+
+
+_DONE = object()  # the producer's last item
+
+
+def device_prefetch(host_iter: Iterator[tuple[RawBatch, int]],
+                    put: Callable[[RawBatch], RawBatch],
+                    depth: int = 2) -> Iterator[tuple[RawBatch, int]]:
+    """Yield ``(put(batch), valid)`` for each item of ``host_iter``, in
+    order, with up to ``depth`` batches assembled and copied ahead of the
+    consumer (the JAX package's ``device_prefetch``, ``pipeline.py:97-126``;
+    the reference's prefetcher, ``datasets/utils.py:18,39-41,86-88``).
+
+    A daemon thread draws the host batches and calls ``put`` (such as
+    ``to_device``, which stages the batch in pinned memory and copies it
+    ``non_blocking``). Where CUDA is available it does so on a side stream
+    of its own and records an event after each batch; the consumer's
+    current stream waits for that event before the batch is handed over,
+    and each device tensor is marked as used by that stream
+    (``record_stream``), so the caching allocator does not hand its memory
+    to the side stream while a step still reads it. A CPU batch is a plain
+    copy. An error in the producer is raised in the consumer. Closing the
+    generator (the consumer stopped early) stops the producer: it never
+    blocks on a full queue, and it closes ``host_iter``."""
+    side = torch.cuda.Stream() if torch.cuda.is_available() else None
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    err: list[BaseException] = []
+
+    def offer(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        try:
+            for batch, valid in host_iter:
+                if side is None:
+                    item = (put(batch), valid, None)
+                else:
+                    with torch.cuda.stream(side):
+                        dev = put(batch)
+                        event = torch.cuda.Event()
+                        event.record(side)
+                    item = (dev, valid, event)
+                if not offer(item):
+                    return
+        except BaseException as e:  # re-raised in the consumer
+            err.append(e)
+        finally:
+            close = getattr(host_iter, "close", None)
+            if close is not None:
+                close()
+            offer(_DONE)
+
+    thread = threading.Thread(target=produce, daemon=True,
+                              name="device_prefetch")
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _DONE:
+                if err:
+                    raise err[0]
+                return
+            batch, valid, event = item
+            if event is not None:
+                stream = torch.cuda.current_stream()
+                stream.wait_event(event)
+                for t in batch:
+                    if isinstance(t, torch.Tensor) and t.is_cuda:
+                        t.record_stream(stream)
+            yield batch, valid
+    finally:
+        stop.set()
+        thread.join()

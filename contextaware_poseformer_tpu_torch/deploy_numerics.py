@@ -15,7 +15,9 @@ stages, so the int8 rule for convs with both channel counts >= 128 engages
 (branch 3 has 128 channels, branch 4 256)::
 
   python -m contextaware_poseformer_tpu_torch.deploy_numerics \\
-      --preset h36m_hrnet_32 --device cuda [--seed 1]
+      --preset h36m_hrnet_32 [--device cpu] [--seed 1]
+
+(on the card unless ``--device`` names another).
 
 The weights come from the port's own initializers and training, not from
 the JAX gate's, so its deltas are this gate's own and not a replay of the
@@ -120,8 +122,9 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--preset", action="append", choices=cfglib.PRESETS,
                     help="preset whose class is gated (repeatable; default "
                          "every preset)")
-    ap.add_argument("--device", required=True,
-                    help="torch device to run on, e.g. cuda or cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default cuda; cpu for a "
+                    "smoke run)")
     ap.add_argument("--steps", type=int, default=250)
     ap.add_argument("--seed", type=int, default=0,
                     help="draws the initial weights and the training batches")

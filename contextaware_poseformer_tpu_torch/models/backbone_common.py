@@ -1,16 +1,17 @@
 """Backbone building blocks: folded-BN convolution and resize ops, NHWC.
 
 Port of ``contextaware_poseformer_tpu/models/backbone_common.py``: ``ConvBN``
-(54-227) with its float path and the int8 routes of ``quantize="serve"``
-(dynamic wide convs, their calibrated amax under ``serve_static_amax``,
-``x_quant`` and ``packed``), ``observed_amax`` (31-51),
-``add_upsampled_nearest`` (235-246), ``resize_bilinear_align_corners``
-(249-280), ``max_pool_3x3_s2`` (389-412), and the serving-state idioms of
-283-386 (``prepare_int8_weights``, ``check_calibrated``, a parameter
-fingerprint and ``check_serving_fresh``). ``quantize="static"`` (calibrated
-scales on the narrow 3x3 convs) and ``"c128"`` are not ported; nor is
-ConvBN's ``raw`` output, which only the refused ``cpn_fold_normalize``
-uses.
+(54-227) with its float path and every int8 route of the three quantize
+modes (``"c128"``: dynamic wide convs; ``"static"``: calibrated scales on
+the 3x3 convs with both channel counts >= 16 and on the wide convs;
+``"serve"``: the dynamic wide convs, their calibrated amax under
+``serve_static_amax``, ``x_quant`` and ``packed``), ``observed_amax``
+(31-51), ``add_upsampled_nearest`` (235-246),
+``resize_bilinear_align_corners`` (249-280), ``max_pool_3x3_s2``
+(389-412), and the serving state of 283-386 (``calibrate_quantization``,
+``prepare_int8_weights``, ``check_calibrated``, a parameter fingerprint and
+``check_serving_fresh``). ConvBN's ``raw`` output, which only the refused
+``cpn_fold_normalize`` uses, is not ported.
 
 Tensors are NHWC at every function here. Each op runs on the NCHW-shaped
 ``permute`` view of its input, which for an NHWC-contiguous tensor is
@@ -117,23 +118,28 @@ class ConvBN(nn.Module):
     ``weight`` is OIHW (PyTorch's layout; the flax kernel is HWIO), padding
     (k - 1) // 2 on both sides.
 
-    ``int8=True`` (the convs of ``quantize="serve"`` that the JAX package
-    runs in int8) adds the buffers ``kernel_q`` ((O, kh*kw*I) int8) and
+    ``int8=True`` (a conv that the JAX package runs in int8 under its
+    quantize mode) adds the buffers ``kernel_q`` ((O, kh*kw*I) int8) and
     ``wscale`` ((O,) fp32), filled by ``prepare_int8_weights``; such a conv
     keeps its parameters in fp32 (``to_storage``), since its int8 state and
-    its folded dequant scale derive from them. It runs the int8 convolution
-    K10 (``ops/int8_conv.py``):
+    its folded dequant scale derive from them. Until they are filled
+    (``weights_ready``), each call quantizes the weight itself, to the same
+    values (the JAX package's ConvBN without a ``qweights`` collection,
+    ``backbone_common.py:185-188``). It runs the int8 convolution K10
+    (``ops/int8_conv.py``):
 
     - with ``x_quant=(xq, amax)``: the caller's int8 tensor and its
       calibrated max|value|;
-    - on a float ``x`` when both channel counts are >= 128 (``dynamic``):
-      quantized with its runtime max|x|, or, with ``static=True`` (the JAX
-      package's ``serve_static_amax``), with its calibrated max|x|, the
-      buffer ``amax``; the calibration pass (``calibrate=True``) folds the
-      input's ``observed_amax(x, quantile)`` into it and then runs the
-      dynamic route, as the JAX package's does;
-    - any other float call takes the float path (the narrow convs while
-      calibrating).
+    - on a float ``x`` with ``static=True``: quantized with its calibrated
+      max|x|, the buffer ``amax``; the calibration pass (``calibrate=True``)
+      folds the input's ``observed_amax(x, quantile)`` into it, then runs
+      the float path (``float_calibration``, ``quantize="static"``) or the
+      dynamic route (the wide convs of ``serve_static_amax``), as the JAX
+      package's does (``backbone_common.py:143-156``);
+    - on a float ``x`` when both channel counts are >= 128 and the conv is
+      not static (``dynamic``): quantized with its runtime max|x|;
+    - any other float call takes the float path (the layer1 convs of the
+      HRNet deploy graph while calibrating).
 
     An int8 route also takes a ``residual`` added before the ReLU (a float
     tensor, or an int8 ``(xq, amax)`` pair dequantized in the epilogue),
@@ -144,16 +150,22 @@ class ConvBN(nn.Module):
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
                  stride: int = 1, relu: bool = False, dtype=torch.float32,
                  device=None, int8: bool = False, static: bool = False,
-                 quantile: float = 1.0):
+                 quantile: float = 1.0, float_calibration: bool = False):
         super().__init__()
         self.stride = stride
         self.padding = (kernel_size - 1) // 2
         self.relu = relu
         self.dtype = dtype
         self.int8 = int8
-        self.dynamic = int8 and in_ch >= WIDE and features >= WIDE
-        self.static = self.dynamic and static
+        wide = in_ch >= WIDE and features >= WIDE
+        self.static = int8 and static and (wide or float_calibration)
+        self.float_calibration = self.static and float_calibration
+        self.dynamic = int8 and wide and not self.float_calibration
         self.quantile = quantile
+        # kernel_q/wscale hold the weight's quantization (set by
+        # prepare_int8_weights, and by loading a state whose wscale is
+        # filled: a prepared model's, or the "qweights" collection)
+        self.weights_ready = False
         self.weight = nn.Parameter(torch.empty(
             features, in_ch, kernel_size, kernel_size, device=device))
         self.scale = nn.Parameter(torch.empty(features, device=device))
@@ -164,6 +176,7 @@ class ConvBN(nn.Module):
                 dtype=torch.int8, device=device))
             self.register_buffer("wscale", torch.zeros(
                 features, dtype=torch.float32, device=device))
+            self.register_load_state_dict_post_hook(_loaded_weights_ready)
         if self.static:
             self.register_buffer("amax", torch.zeros(
                 (), dtype=torch.float32, device=device))
@@ -185,8 +198,13 @@ class ConvBN(nn.Module):
 
     def packed(self):
         """(kernel_q, wscale, scale, bias): the pieces an int8 chain
-        assembles itself (the JAX package's ``packed=True``)."""
-        return self.kernel_q, self.wscale, self.scale, self.bias
+        assembles itself (the JAX package's ``packed=True``); the weight
+        quantized on the spot until ``prepare_int8_weights`` stored it."""
+        if self.weights_ready:
+            kq, ws = self.kernel_q, self.wscale
+        else:
+            kq, ws = quantize_weight(self.weight)
+        return kq, ws, self.scale, self.bias
 
     def forward(self, x, x_quant=None, impl: str = "auto",
                 calibrate: bool = False, residual=None, out_amax=None,
@@ -199,24 +217,59 @@ class ConvBN(nn.Module):
             xin, amax = x_quant
         elif self.static and not calibrate:
             xin, amax = x, self.amax
+        elif self.static and self.float_calibration:
+            observe(self.amax, x, self.quantile)
+            return self._float(x, residual, out_amax, relu)
         elif self.dynamic:
             if self.static:
                 observe(self.amax, x, self.quantile)
             xin, amax = x, None
         else:
-            if residual is not None or out_amax is not None:
-                raise ValueError("ConvBN: a residual or an int8 output "
-                                 "needs an int8 route")
-            dt = self.dtype
-            y = _nhwc(F.conv2d(_nchw(x.to(dt)), self.weight.to(dt),
-                               stride=self.stride, padding=self.padding))
-            y = torch.addcmul(self.bias.to(dt), y, self.scale.to(dt))
-            return torch.relu(y) if relu else y
+            return self._float(x, residual, out_amax, relu)
         res, res_amax = (residual if isinstance(residual, tuple)
                          else (residual, None))
         return int8_conv.int8_conv(xin, *self.packed(), amax, self.stride,
                                    relu, self.dtype, impl, res, res_amax,
                                    out_amax)
+
+    def _float(self, x, residual, out_amax, relu):
+        if residual is not None or out_amax is not None:
+            raise ValueError("ConvBN: a residual or an int8 output needs an "
+                             "int8 route")
+        dt = self.dtype
+        y = _nhwc(F.conv2d(_nchw(x.to(dt)), self.weight.to(dt),
+                           stride=self.stride, padding=self.padding))
+        y = torch.addcmul(self.bias.to(dt), y, self.scale.to(dt))
+        return torch.relu(y) if relu else y
+
+
+def _loaded_weights_ready(conv: ConvBN, incompatible_keys) -> None:
+    """After ``load_state_dict``: the stored kernels travel with the
+    state, so a loaded conv uses them when they were filled (a zero
+    ``wscale`` is an unprepared state)."""
+    conv.weights_ready = bool(conv.wscale.any())
+
+
+def int8_route(cfg, cin: int, cout: int, ksize: int,
+               serve_chain: bool = False) -> dict:
+    """The int8 arguments of a backbone ConvBN under ``cfg.quantize``, as
+    the JAX package's ConvBN picks its route (``backbone_common.py:130-142``):
+    ``"c128"`` the wide convs (both channel counts >= 128), dynamic;
+    ``"static"`` those and the 3x3 convs with both counts >= 16, each with
+    a calibrated scale, calibrated in float; ``"serve"`` the wide convs
+    (with a calibrated scale under ``serve_static_amax``) and the convs of
+    an int8 chain (``serve_chain``: HRNet's layer1 and transition1, every
+    conv of the CPN's int8 stream), which take the chain's int8 input."""
+    wide = cin >= WIDE and cout >= WIDE
+    if cfg.quantize == "c128":
+        return {"int8": wide}
+    if cfg.quantize == "static":
+        on = wide or (ksize == 3 and cin >= 16 and cout >= 16)
+        return {"int8": on, "static": on, "float_calibration": True}
+    if cfg.quantize == "serve":
+        return {"int8": wide or serve_chain,
+                "static": cfg.serve_static_amax}
+    return {}
 
 
 def int8_convs(module: nn.Module):
@@ -234,14 +287,28 @@ def to_storage(module: nn.Module, dtype) -> None:
 
 def prepare_int8_weights(module: nn.Module) -> None:
     """Fill ``kernel_q``/``wscale`` of every int8 conv from its weight
-    (``quantize_weight``). The JAX package does this with one forward pass
-    in the "qweights" collection; the values are the same. Re-run after any
-    change to the backbone's parameters."""
+    (``quantize_weight``) and mark them ready. The JAX package does this
+    with one forward pass in the "qweights" collection; the values are the
+    same. Re-run after any change to the backbone's parameters."""
     with torch.no_grad():
         for _, m in int8_convs(module):
             kq, ws = quantize_weight(m.weight)
             m.kernel_q.copy_(kq)
             m.wscale.copy_(ws)
+            m.weights_ready = True
+
+
+def calibrate_quantization(module: nn.Module, batches) -> None:
+    """Fold the activation scales of ``batches`` (tuples whose first item
+    is a batch of normalized images) into a backbone's calibration buffers
+    by max, in place: one calibration pass (``forward(x, calibrate=True)``)
+    a batch, as the JAX package's ``calibrate_quantization``
+    (``backbone_common.py:283-297``) runs one with ``mutable=["calib"]``.
+    Under ``quantize="static"`` the pass runs every conv in float; under
+    ``"serve"`` the dynamic wide convs in int8."""
+    with torch.no_grad():
+        for batch in batches:
+            module(batch[0], calibrate=True)
 
 
 def calibration_buffers(module: nn.Module) -> dict[str, torch.Tensor]:
@@ -251,9 +318,10 @@ def calibration_buffers(module: nn.Module) -> dict[str, torch.Tensor]:
 
 
 def check_calibrated(module: nn.Module) -> None:
-    """Raise unless every calibrated scale is finite and positive: an
+    """Raise unless every calibrated scale (``quantize="serve"``'s and
+    ``"static"``'s, ``calibration_buffers``) is finite and positive: an
     uncalibrated (zero) scale saturates every activation to +-127 without
-    an error."""
+    an error (the JAX package's ``check_calibrated``, 371-386)."""
     bad = [n for n, b in calibration_buffers(module).items()
            if not bool(torch.isfinite(b).all() and (b > 0).all())]
     if bad:

@@ -27,9 +27,10 @@ assigned, otherwise loading raises. A collection the tree does not carry
 leaves its buffers at zero: the model then needs ``prepare_serving``.
 Reference torch checkpoints reach the port through ``convert.py`` first
 (``convert_composite`` gives the flax params tree). ``variables_to_jax``
-is the inverse on the parameters: the port's model as a flax-layout
-``params`` tree, the shapes tree ``convert.convert_conv_backbone`` takes
-(a backbone conv keeps its dotted flax name as ``flax_name``).
+is the inverse on the parameters and the calibrated scales: the port's
+model as a flax-layout ``params`` tree, the shapes tree
+``convert.convert_conv_backbone`` takes (a backbone conv keeps its dotted
+flax name as ``flax_name``), and its ``calib`` collection.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ import torch
 from torch import nn
 
 from contextaware_poseformer_tpu_torch.models.backbone_common import (
+    calibration_buffers,
     int8_convs,
     is_calib_name,
     quantize_weight,
@@ -104,12 +106,21 @@ def variables_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 def variables_to_jax(model: nn.Module) -> dict[str, Any]:
     """The parameters of ``model`` as flax variables ``{"params": tree}``
-    with numpy fp32 leaves, the inverse of ``variables_from_jax`` on the
-    ``params`` collection: a ``Linear``'s parameters gain the ``dense``
-    level, a backbone conv takes its flax name (``flax_name``) and its 4-D
-    ``weight`` becomes the HWIO ``kernel``. The int8 serving buffers are
-    not carried (``prepare_serving`` makes them from the parameters)."""
-    tree: dict[str, Any] = {}
+    with numpy fp32 leaves, and its calibrated activation scales, if it has
+    any, as ``"calib"``: the inverse of ``variables_from_jax`` on those two
+    collections. A ``Linear``'s parameters gain the ``dense`` level, a
+    backbone conv takes its flax name (``flax_name``), its 4-D ``weight``
+    becomes the HWIO ``kernel`` and its ``amax`` stays ``amax``; a
+    backbone's own scales take their flax names (``calib_flax_names``).
+    The int8 weights are not carried (``prepare_serving`` makes them from
+    the parameters)."""
+    tree: dict[str, Any] = {"params": {}, "calib": {}}
+
+    def put(coll, path, leaf, arr):
+        node = tree[coll]
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(arr)  # a contiguous copy (0-dim stays 0-dim)
 
     def walk(module, path):
         if isinstance(module, Linear):
@@ -118,15 +129,19 @@ def variables_to_jax(model: nn.Module) -> dict[str, Any]:
             arr = p.detach().to("cpu", torch.float32).numpy()
             if leaf == "weight" and arr.ndim == 4:
                 leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)  # -> HWIO
-            node = tree
-            for part in path:
-                node = node.setdefault(part, {})
-            node[leaf] = np.ascontiguousarray(arr)
+            put("params", path, leaf, arr)
+        names = getattr(module, "calib_flax_names", {})
+        for leaf, b in module.named_buffers(recurse=False):
+            if is_calib_name(leaf):
+                put("calib", path, names.get(leaf, leaf),
+                    b.detach().to("cpu", torch.float32).numpy())
         for name, child in module.named_children():
             walk(child, path + (getattr(child, "flax_name", name),))
 
     walk(model, ())
-    return {"params": tree}
+    if not tree["calib"]:
+        del tree["calib"]
+    return tree
 
 
 def load_jax_variables(model: nn.Module, tree: Mapping[str, Any]) -> None:
@@ -171,7 +186,11 @@ def load_jax_variables(model: nn.Module, tree: Mapping[str, Any]) -> None:
     full = {k: (sd[k] if k in sd else torch.zeros_like(v))
             for k, v in own.items()}
     model.load_state_dict(full, strict=True)
-    if "qweights" in carried and "calib" in carried:
-        for m in model.modules():
-            if hasattr(m, "serving_fingerprint"):
-                stamp_fingerprint(m)
+    if "qweights" not in carried:
+        return
+    for m in model.modules():
+        # a backbone is servable once its collections are loaded: the
+        # qweights, and the calib of a mode that calibrates (c128 has none)
+        if hasattr(m, "serving_fingerprint") and (
+                "calib" in carried or not calibration_buffers(m)):
+            stamp_fingerprint(m)

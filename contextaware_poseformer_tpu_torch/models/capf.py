@@ -8,7 +8,8 @@ takes their dequant scales. With ``cfg.backbone.frozen`` (every preset)
 the backbone runs under ``torch.no_grad()`` and its maps are detached, the
 counterpart of the JAX package's stop-gradient (``capf.py:136-139``): no gradient reaches
 the conv stack and none of its activations are kept for a backward.
-``prepare_serving`` makes an int8 (``quantize="serve"``) model servable.
+``prepare_serving`` makes an int8 (``quantize`` "c128", "static" or
+"serve") model servable.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from torch import nn
 
 from contextaware_poseformer_tpu_torch.config import ModelConfig
 from contextaware_poseformer_tpu_torch.models.backbone_common import (
+    calibrate_quantization,
     check_calibrated,
     check_serving_fresh,
     prepare_int8_weights,
@@ -55,30 +57,30 @@ def lifter_maps(features, compute_dtype: str):
 
 def prepare_serving(model: "ContextAwarePoseFormer", example_args,
                     batches=None) -> "ContextAwarePoseFormer":
-    """Make an int8 (``quantize="serve"``) model servable, in place: fill
-    the int8 kernels from the weights (``prepare_int8_weights``), run the
-    calibration pass over ``batches`` (tuples whose first item is a batch
-    of normalized images, as ``model`` takes them; default
-    ``[example_args]``; use real frames for deployment), check every
-    calibrated scale, and stamp the fingerprint of the backbone parameters
-    they were prepared from. Raises if the model's int8 state was prepared
-    for other parameters (``check_serving_fresh``). A no-op for a float
-    model. Only the backbone holds int8 state, so only it runs.
+    """Make an int8 model servable, in place: store the int8 kernels of
+    every int8 conv from its weights (``prepare_int8_weights``); for
+    ``quantize="serve"`` and ``"static"`` also run the calibration pass over
+    ``batches`` (tuples whose first item is a batch of normalized images,
+    as ``model`` takes them; default ``[example_args]``; use real frames
+    for deployment) and check every calibrated scale; then stamp the
+    fingerprint of the backbone parameters they were prepared from. Raises
+    if the model's int8 state was prepared for other parameters
+    (``check_serving_fresh``). A no-op for a float model. Only the backbone
+    holds int8 state, so only it runs.
 
-    Port of ``capf.py:42-99``. The JAX package calibrates first and then
+    Port of ``capf.py:43-100``. The JAX package calibrates first and then
     stores the kernels; its calibration pass quantizes the wide convs'
     kernels on the fly to the same values, so the order does not matter."""
     backbone = model.backbone
-    if model.cfg.backbone.quantize == "none":
+    quant = model.cfg.backbone.quantize
+    if quant == "none":
         return model
     check_serving_fresh(backbone)
-    batches = list(batches) if batches is not None else []
-    batches = batches or [example_args]
     prepare_int8_weights(backbone)
-    with torch.no_grad():
-        for batch in batches:
-            backbone(batch[0], calibrate=True)
-    check_calibrated(backbone)
+    if quant in ("serve", "static"):
+        batches = list(batches) if batches is not None else []
+        calibrate_quantization(backbone, batches or [example_args])
+        check_calibrated(backbone)
     stamp_fingerprint(backbone)
     return model
 

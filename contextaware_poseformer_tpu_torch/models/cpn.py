@@ -25,7 +25,13 @@ the int8 stage outputs. With ``cpn_int8_maps`` (and the native pyramid)
 the backbone returns ``(int8 maps, dequant scales)`` (``cpn.py:347-412``).
 ``forward(x, calibrate=True)`` is the JAX package's calibration pass: the
 per-conv serve graph (wide convs dynamic int8, the rest in float) observing
-every scale the stream and the static convs use. ``cpn_fold_normalize`` and
+every scale the stream and the static convs use. ``quantize="c128"`` runs
+the wide convs in dynamic int8 and the rest as the float graph;
+``quantize="static"`` runs every conv but the stem that is 3x3 with both
+channel counts >= 16, or wide, in int8 with a calibrated scale each (K10
+per conv), and calibrates on the float graph. The int8 stream, the int8
+maps, ``serve_static_amax`` and the up-convs before their upsample act only
+under ``"serve"`` (``cpn.py:79,98,191,297``). ``cpn_fold_normalize`` and
 ``cpn_int8_topdown`` are refused: they are off in ``deploy`` and not ported.
 
 Conv modules are named after the torch parameter prefixes with dots turned
@@ -43,6 +49,7 @@ from contextaware_poseformer_tpu_torch.config import BackboneConfig
 from contextaware_poseformer_tpu_torch.models.backbone_common import (
     ConvBN,
     add_conv,
+    int8_route,
     max_pool_3x3_s2,
     module_name,
     observe,
@@ -80,10 +87,8 @@ class CPN(nn.Module):
         super().__init__()
         if cfg.kind != "cpn":
             raise ValueError(f"CPN with a {cfg.kind!r} backbone config")
-        if cfg.quantize not in ("none", "serve"):
-            raise NotImplementedError(
-                f"CPN quantize={cfg.quantize!r}: the port runs 'none' and "
-                "'serve' (the deploy graph)")
+        if cfg.quantize not in ("none", "c128", "static", "serve"):
+            raise ValueError(f"CPN quantize={cfg.quantize!r}")
         if cfg.cpn_fold_normalize or cfg.cpn_int8_topdown:
             raise NotImplementedError(
                 "cpn_fold_normalize and cpn_int8_topdown are not ported: "
@@ -99,13 +104,14 @@ class CPN(nn.Module):
         self.int8_impl = "auto"
 
         def conv(name, cin, cout, ks, stride, relu):
-            # with the stream every conv but the stem runs in int8; without
-            # it the wide ones
-            int8 = self.serve and name != "resnet.conv1" and (
-                self.stream or (cin >= 128 and cout >= 128))
+            # the stem is float in every mode (the JAX package builds it
+            # without a quantize mode); with the stream every other conv
+            # runs in int8
+            route = ({} if name == "resnet.conv1" else
+                     int8_route(cfg, cin, cout, ks, self.stream))
             add_conv(self, name, ConvBN(
-                cin, cout, ks, stride, relu, dtype, device=device, int8=int8,
-                static=cfg.serve_static_amax, quantile=cfg.calib_quantile))
+                cin, cout, ks, stride, relu, dtype, device=device,
+                quantile=cfg.calib_quantile, **route))
 
         conv("resnet.conv1", 3, 64, 7, 2, True)
         cin = 64
@@ -133,10 +139,13 @@ class CPN(nn.Module):
                      False)
                 conv(f"{pre}.downsample.0", LATERAL_CH, 2 * REFINE_PLANES, 1,
                      1, False)
-        if self.serve:
-            for n in calib_names(cfg) if self.stream else ():
-                self.register_buffer(module_name(n), torch.zeros(
-                    (), dtype=torch.float32, device=device))
+        # the stream's calibrated scales, by their flax names
+        self.calib_flax_names = ({module_name(n): n for n in calib_names(cfg)}
+                                 if self.stream else {})
+        for n in self.calib_flax_names:
+            self.register_buffer(n, torch.zeros(
+                (), dtype=torch.float32, device=device))
+        if cfg.quantize != "none":
             self.register_buffer("serving_fingerprint", torch.zeros(
                 16, dtype=torch.uint8, device=device))
 
@@ -190,10 +199,12 @@ class CPN(nn.Module):
     def forward(self, x: torch.Tensor, calibrate: bool = False):
         """x: (N, H, W, 3) normalized -> 4 NHWC maps of 256 channels,
         deepest first; with the int8 maps ``(maps, scales)``: int8 maps and
-        their fp32 dequant scales. ``calibrate=True`` (``quantize="serve"``):
-        the calibration pass, which updates the scale buffers in place."""
-        if calibrate and not self.serve:
-            raise ValueError("calibrate=True needs quantize='serve'")
+        their fp32 dequant scales. ``calibrate=True`` (``quantize="serve"``
+        or ``"static"``): the calibration pass, which updates the scale
+        buffers in place."""
+        if calibrate and self.cfg.quantize not in ("serve", "static"):
+            raise ValueError("calibrate=True needs quantize='serve' or "
+                             "'static'")
         stream = self.stream and not calibrate
         int8_maps = self.int8_maps and stream
         x = self._conv("resnet.conv1", x)
@@ -236,7 +247,7 @@ class CPN(nn.Module):
                         (2 * h, 2 * w))
                 else:
                     up = self._conv(up_name, resize_bilinear_align_corners(
-                        feature, (2 * h, 2 * w)))
+                        feature, (2 * h, 2 * w)), calibrate)
 
         out_hw = tuple(global_fms[-1].shape[1:3])
         refine_fms, scales = [], []

@@ -28,8 +28,15 @@ with their input's calibrated amax instead (``hrnet.py:49``, the ConvBN's
 calibration pass: it records the layer1 activation scales while layer1 runs
 in float, and the static convs' input scales while they run dynamic (the
 wide convs stay int8), so the observed scales describe that graph.
-``quantize="static"`` is not ported; the constructor refuses it. Conv
-modules are named after the flax names with dots turned into underscores
+``quantize="c128"`` runs only the wide convs in dynamic int8, the rest as
+the float graph; ``quantize="static"`` runs every 3x3 conv with both
+channel counts >= 16 (the stem's conv2, layer1's conv2s, the transitions,
+the branch BasicBlocks and the stride-2 fuse convs) and the wide 1x1s in
+int8 with a calibrated scale each (K10 per conv; layer1 as float
+bottlenecks around its int8 conv2s, so K9 is not used), and its
+calibration pass runs the float graph. ``layer1_impl`` and
+``serve_static_amax`` act only under ``"serve"``, as in the JAX package.
+Conv modules are named after the flax names with dots turned into underscores
 (``stage2.0.branches.0.0.conv1`` -> ``stage2_0_branches_0_0_conv1``), as in
 ``models/cpn.py``; so are the calibration buffers (``layer1.in_amax`` ->
 ``layer1_in_amax``).
@@ -48,7 +55,6 @@ from contextaware_poseformer_tpu_torch.config import (
 )
 from contextaware_poseformer_tpu_torch.models import backbone_common
 from contextaware_poseformer_tpu_torch.models.backbone_common import (
-    WIDE,
     ConvBN,
     add_conv,
     add_upsampled_nearest,
@@ -96,12 +102,8 @@ class HRNet(nn.Module):
         super().__init__()
         if cfg.kind != "hrnet":
             raise ValueError(f"HRNet with a {cfg.kind!r} backbone config")
-        if cfg.quantize not in ("none", "serve"):
-            raise NotImplementedError(
-                f"HRNet quantize={cfg.quantize!r}: the port runs 'none' and "
-                "'serve' (int8 wide convs, int8 layer1); 'static' "
-                "(calibrated per-conv scales on the narrow 3x3 convs) and "
-                "'c128' are not ported")
+        if cfg.quantize not in ("none", "c128", "static", "serve"):
+            raise ValueError(f"HRNet quantize={cfg.quantize!r}")
         if cfg.layer1_impl not in ("xla", "pallas"):
             raise ValueError(f"layer1_impl {cfg.layer1_impl!r}")
         for stage in (cfg.stage2, cfg.stage3, cfg.stage4):
@@ -119,13 +121,12 @@ class HRNet(nn.Module):
                                else cfg.stage4.num_modules)
 
         def conv(name, cin, cout, ks, stride, relu):
-            int8 = self.serve and (
-                (cin >= WIDE and cout >= WIDE)
-                or name.startswith(("layer1.", "transition1.")))
             add_conv(self, name, ConvBN(
                 cin, cout, ks, stride, relu, dtype, device=device,
-                int8=int8, static=cfg.serve_static_amax,
-                quantile=cfg.calib_quantile))
+                quantile=cfg.calib_quantile,
+                **backbone_common.int8_route(
+                    cfg, cin, cout, ks, name.startswith(
+                        ("layer1.", "transition1.")))))
 
         conv("conv1", 3, STEM_CH, 3, 2, True)
         conv("conv2", STEM_CH, STEM_CH, 3, 2, True)
@@ -146,10 +147,13 @@ class HRNet(nn.Module):
         _build_stage(conv, "stage3", cfg.stage3, cfg.stage3.num_modules, True)
         conv("transition3.3.0.0", c3[-1], c4[3], 3, 2, True)
         _build_stage(conv, "stage4", cfg.stage4, self.stage4_modules, False)
-        if self.serve:
-            for n in CALIB_NAMES:
-                self.register_buffer(module_name(n), torch.zeros(
-                    (), dtype=torch.float32, device=device))
+        # the backbone's own calibrated scales, by their flax names
+        self.calib_flax_names = ({module_name(n): n for n in CALIB_NAMES}
+                                 if self.serve else {})
+        for n in self.calib_flax_names:
+            self.register_buffer(n, torch.zeros(
+                (), dtype=torch.float32, device=device))
+        if cfg.quantize != "none":
             self.register_buffer("serving_fingerprint", torch.zeros(
                 16, dtype=torch.uint8, device=device))
 
@@ -258,8 +262,8 @@ class HRNet(nn.Module):
     def forward(self, x: torch.Tensor,
                 calibrate: bool = False) -> list[torch.Tensor]:
         """x: (N, H, W, 3) normalized -> 4 NHWC maps, finest first.
-        ``calibrate=True`` (``quantize="serve"``): the calibration pass,
-        which updates the scale buffers in place."""
+        ``calibrate=True`` (``quantize="serve"`` or ``"static"``): the
+        calibration pass, which updates the scale buffers in place."""
         self._calibrating = calibrate
         try:
             return self._forward(x, calibrate)

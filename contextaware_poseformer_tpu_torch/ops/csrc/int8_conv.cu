@@ -37,8 +37,11 @@
 //   0) for taps outside the image and for K past its end. A 4-D TMA box
 //   cannot follow a tile of consecutive output pixels across rows and
 //   images, so cp.async, which addresses each 16-byte piece, takes A; a
-//   piece never straddles two taps (Cin is a multiple of 32), so a stage
-//   may span taps (Cin 32 and 64 fill whole 128-byte stages);
+//   piece never straddles two taps (Cin is a multiple of 16), so a stage
+//   may span taps (Cin 32 and 64 fill whole 128-byte stages; where K =
+//   kh*kw*Cin does not, as K = 144 or 432 at Cin 16 or 48, the last
+//   stage's tail pieces load nothing and the map's box past K is zero
+//   filled, so those K columns are zero in both operands and add nothing);
 // - wgmma.mma_async m64nNk32 s8 x s8 -> s32 (N = BN, 64 or 128) from shared
 //   memory, K-major for both operands, the only layout int8 wgmma takes;
 // - the producer also prefetches the tile's residual into shared memory by
@@ -680,7 +683,7 @@ extern "C" int capf_int8_conv(const Int8ConvArgs* args, int device,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Int8ConvArgs& a = *args;
-  if (!valid(a, 32) || a.amax == nullptr ||
+  if (!valid(a, 16) || a.amax == nullptr ||
       (a.res != nullptr && a.res_int8 && !a.res_amax)) {
     return cudaErrorInvalidValue;
   }

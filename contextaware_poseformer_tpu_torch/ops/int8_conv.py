@@ -50,7 +50,7 @@ from contextaware_poseformer_tpu_torch.ops import _build
 launches = 0  # kernel launches made by int8_conv_kernel
 launches_quantize = 0  # quantize-pass launches made by quantize_kernel
 
-CIN_MULTIPLE = 32  # input channels: K's 16-byte pieces never straddle taps
+CIN_MULTIPLE = 16  # input channels: K's 16-byte pieces never straddle taps
 K_TILE = 128  # bytes of K a stage of the kernel's ring holds
 K_PIECE = 16  # bytes of K one load moves: one tap's channels
 STAGES = 4  # the ring's depth (csrc/int8_conv.cu kStages)
@@ -259,9 +259,13 @@ def int8_conv_kernel(x, kernel_q, wscale, scale, bias, amax, stride, relu,
                      out_amax=None):
     """The CUDA kernel: same contract as ``int8_conv_reference``, for a
     bf16 (or, with ``out_amax``, int8) output; ``x`` int8 or bf16 with Cin
-    a multiple of 32, Cout a multiple of 8, fp32 ``wscale``/``scale``/
+    a multiple of 16, Cout a multiple of 8, fp32 ``wscale``/``scale``/
     ``bias``, a bf16 or int8 ``residual``. A bf16 ``x`` goes through the
-    quantize pass first."""
+    quantize pass first. Where K = kh*kw*Cin does not fill whole 128-byte
+    stages (Cin 16 or 48: K 144 or 432), the last stage's tail is zero on
+    both sides: A's pieces past K load nothing (``cp.async`` with a source
+    size of 0) and the weight map's box past K is the TMA's zero fill, the
+    kernel's zero K columns."""
     global launches
     name = "int8_conv"
     if dtype != torch.bfloat16:

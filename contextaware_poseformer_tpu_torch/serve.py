@@ -21,6 +21,13 @@ Two serving configurations of a preset:
   backbone's int8 stack switched off (``quantize="none"``, no static amax,
   no int8 stream or maps): the bf16 backbone (for CPN with the
   native-resolution pyramid) and the same lifter.
+- ``quantize_config(name, mode)``: that slice with the backbone's other
+  int8 modes, ``"static"`` (a calibrated scale on every 3x3 conv with both
+  channel counts >= 16 and on the wide convs, each through K10) or
+  ``"c128"`` (the wide convs in dynamic int8), calibrated at the 0.999
+  quantile as ``deploy`` sets it. ``"static"`` needs ``prepare``;
+  ``"c128"`` serves without it, quantizing its weights each call until
+  ``prepare`` stores them.
 
 Usage::
 
@@ -70,6 +77,17 @@ def deploy_config(name: str = "h36m_hrnet_32") -> Config:
     return deploy_graph(preset(name))
 
 
+def quantize_config(name: str, mode: str) -> Config:
+    """``slice_config(name)`` with the backbone's ``quantize`` set to
+    ``mode`` ("static" or "c128") and ``calib_quantile=0.999``, as
+    ``deploy`` calibrates (see the module docstring)."""
+    if mode not in ("static", "c128"):
+        raise ValueError(f"quantize_config: mode {mode!r} (static or c128)")
+    cfg = slice_config(name)
+    return replace(cfg, model=replace(cfg.model, backbone=replace(
+        cfg.model.backbone, quantize=mode, calib_quantile=0.999)))
+
+
 def deploy_graph(cfg: Config) -> Config:
     """The int8 deploy graph of any configuration: ``deploy(cfg)``, with an
     HRNet's layer1 through K9 (``layer1_impl="pallas"``)."""
@@ -100,11 +118,18 @@ def build_serving_model(cfg: Config, device, generator=None,
     convs keep fp32 parameters). An int8 configuration then needs
     ``prepare`` unless ``variables`` carry its ``calib`` and ``qweights``
     collections."""
+    return build_model(cfg.model, getattr(torch, cfg.model.compute_dtype),
+                       device, generator, variables)
+
+
+def build_model(model_cfg, dtype, device, generator=None,
+                variables=None) -> ContextAwarePoseFormer:
+    """``build_serving_model`` for a ``ModelConfig`` with the backbone's
+    compute ``dtype`` given."""
     if variables is None and generator is None:
         raise ValueError("build_serving_model needs variables or a generator")
     configure_numerics()
-    dtype = getattr(torch, cfg.model.compute_dtype)
-    model = ContextAwarePoseFormer(cfg.model, dtype=dtype, device=device)
+    model = ContextAwarePoseFormer(model_cfg, dtype=dtype, device=device)
     to_storage(model.backbone, dtype)
     if variables is not None:
         load_jax_variables(model, variables)
@@ -114,8 +139,9 @@ def build_serving_model(cfg: Config, device, generator=None,
 
 
 def prepare(model: ContextAwarePoseFormer, frames_batches) -> None:
-    """Calibrate an int8 model and quantize its weights
-    (``models.capf.prepare_serving``) on batches of uint8 BGR frames
+    """Quantize an int8 model's weights and, for ``quantize="serve"`` and
+    ``"static"``, calibrate it (``models.capf.prepare_serving``) on
+    batches of uint8 BGR frames
     (b, H, W, 3), normalized as ``lift`` normalizes them, each cut into
     chunks of ``CALIB_CHUNK`` frames as ``bench.py`` calibrates: the
     calibration histogram counts in fp32 as ``jnp.histogram`` does, and a

@@ -11,6 +11,8 @@ before its first evaluation; the device work is ``train/steps.py``.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import time
@@ -128,6 +130,14 @@ class Trainer:
         bridge.load_jax_variables(state.model, {"params": full})
         return state
 
+    def _batches(self, host_iter):
+        """The device batches of ``host_iter``, assembled and copied ahead
+        of the consumer (``pipeline.device_prefetch``); close it (``with``)
+        to stop the producer."""
+        return contextlib.closing(pipeline.device_prefetch(
+            host_iter, functools.partial(pipeline.to_device,
+                                         device=self.device)))
+
     def train_epoch(self, state: steps.TrainState, epoch: int,
                     max_steps: int | None = None) -> dict[str, Any]:
         host_iter = pipeline.batch_iterator(
@@ -137,14 +147,14 @@ class Trainer:
         )
         losses, n = [], 0
         t0 = time.time()
-        for raw, _valid in host_iter:
-            batch = pipeline.to_device(raw, self.device)
-            m = steps.train_step(state, batch, self.cfg, self.task,
-                                 self.cfg.train.seed + 1)
-            losses.append(m["loss"])
-            n += 1
-            if max_steps and n >= max_steps:
-                break
+        with self._batches(host_iter) as batches:
+            for batch, _valid in batches:
+                m = steps.train_step(state, batch, self.cfg, self.task,
+                                     self.cfg.train.seed + 1)
+                losses.append(m["loss"])
+                n += 1
+                if max_steps and n >= max_steps:
+                    break
         step_losses = [float(v) for v in losses]
         return {"train_loss": (float(np.mean(step_losses)) if step_losses
                                else float("nan")),
@@ -152,11 +162,12 @@ class Trainer:
                 "step_losses": step_losses}
 
     def ensure_serving_ready(self, model) -> None:
-        """An int8 deploy config (``quantize="serve"``) is calibrated and
-        its int8 weights made (``serve.prepare``) before its first
-        evaluation, on the first 64 validation frames in chunks of 16, as
-        the JAX loop's ``_ensure_serving_ready`` does; a no-op for a float
-        config and for a model already prepared (its backbone is frozen)."""
+        """An int8 config (``quantize`` "serve", "static" or "c128") has
+        its int8 weights made and, where its mode calibrates, its scales
+        (``serve.prepare``) before its first evaluation, on the first 64
+        validation frames in chunks of 16, as the JAX loop's
+        ``_ensure_serving_ready`` does; a no-op for a float config and for
+        a model already prepared (its backbone is frozen)."""
         if (self.cfg.model.backbone.quantize == "none"
                 or bool(model.backbone.serving_fingerprint.any())):
             return
@@ -174,14 +185,14 @@ class Trainer:
             drop_remainder=False, num_workers=self.cfg.data.num_workers,
         )
         preds, gts = [], []
-        for i, (raw, valid) in enumerate(host_iter):
-            batch = pipeline.to_device(raw, self.device)
-            pred, gt = steps.eval_step(state.model, batch, self.cfg,
-                                       self.task)
-            preds.append(pred[:valid].float().cpu().numpy())
-            gts.append(gt[:valid].float().cpu().numpy())
-            if max_batches and i + 1 >= max_batches:
-                break
+        with self._batches(host_iter) as batches:
+            for i, (batch, valid) in enumerate(batches):
+                pred, gt = steps.eval_step(state.model, batch, self.cfg,
+                                           self.task)
+                preds.append(pred[:valid].float().cpu().numpy())
+                gts.append(gt[:valid].float().cpu().numpy())
+                if max_batches and i + 1 >= max_batches:
+                    break
         return np.concatenate(preds), np.concatenate(gts)
 
     def evaluate(self, state: steps.TrainState,

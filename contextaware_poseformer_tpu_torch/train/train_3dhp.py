@@ -8,7 +8,7 @@ flip-test evaluation with PCK@150 and AUC per sequence
 (``train/metrics.mpi3dhp_evaluate``), an optional ``inference_data.mat``
 for the reference's MATLAB pipeline (``--export-mat``, with ``--eval``),
 best-P1 checkpoints with true resume. One device, given by ``--device``
-(required, never another)::
+(default ``cuda``, never another)::
 
   python -m contextaware_poseformer_tpu_torch.train.train_3dhp \\
       --preset mpi_3dhp_hrnet_32 --synthetic --device cuda --epochs 1 \\
@@ -66,8 +66,9 @@ def build_argparser() -> argparse.ArgumentParser:
         choices=[n + s for n in ("mpi_3dhp_hrnet_32", "mpi_3dhp_hrnet_48")
                  for s in ("", "_deploy")],
     )
-    p.add_argument("--device", required=True,
-                   help="torch device to run on, e.g. cuda or cpu")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; cpu for a "
+                   "smoke run)")
     p.add_argument("--eval", action="store_true")
     p.add_argument("--data-root", default="dataset")
     p.add_argument("--train-npz", default=None)

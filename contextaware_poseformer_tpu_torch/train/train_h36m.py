@@ -3,8 +3,8 @@
 The CLI of ``contextaware_poseformer_tpu/train/train_h36m.py:28-250``
 (reference recipe: AdamW wd 0.1 over the lifter, per-epoch decay, flip
 augmentation, flip-test evaluation, best-P1 checkpoints with true resume),
-on one device given by ``--device``, which is required and never falls back
-to another. Every preset trains (``h36m_hrnet_32``, the default model,
+on one device given by ``--device`` (default ``cuda``; ``cpu`` for a smoke
+run), which never falls back to another. Every preset trains (``h36m_hrnet_32``, the default model,
 ``h36m_hrnet_48`` and ``h36m_cpn``: the frozen fp32 backbone, the lifter
 with its deformable blocks); a ``_deploy`` preset evaluates the int8 deploy
 graph (``--eval``), calibrated on the first 64 validation frames::
@@ -52,8 +52,9 @@ def build_argparser() -> argparse.ArgumentParser:
         choices=[n + s for n in ("h36m_hrnet_32", "h36m_hrnet_48", "h36m_cpn")
                  for s in ("", "_deploy")],
     )
-    p.add_argument("--device", required=True,
-                   help="torch device to run on, e.g. cuda or cpu")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; cpu for a "
+                   "smoke run)")
     p.add_argument("--config", default=None, help="YAML overlay path")
     p.add_argument("--eval", action="store_true", help="evaluate only")
     p.add_argument("--data-root", default=None)

@@ -1,11 +1,14 @@
 """Affine crop transforms and screen coordinates: the port's copy of
-``get_affine_transform``, ``warp_affine_bilinear`` and
-``normalize_screen_coordinates`` from
+``get_affine_transform``, ``affine_transform``,
+``get_affine_transform_batch``, ``affine_transform_batch``,
+``bbox_center_scale``, ``warp_affine_bilinear``,
+``normalize_screen_coordinates`` and ``image_coordinates`` from
 ``contextaware_poseformer_tpu/utils/geometry.py``.
 
 - ``get_affine_transform``: center/scale*200 with `(w-1)*0.5` centering
   (ContextPose/mvn/utils/img.py:16-48); the cv2.getAffineTransform call is
-  an exact 3-point linear solve.
+  an exact 3-point linear solve. ``get_affine_transform_batch`` is the same
+  solve over (N, 3, 3) stacked systems, for streaming's per-chunk crops.
 - ``warp_affine_bilinear``: cv2.warpAffine(INTER_LINEAR, zero border) in
   numpy, for hosts without cv2.
 """
@@ -63,6 +66,74 @@ def get_affine_transform(
     return trans.astype(np.float64)
 
 
+def affine_transform(points: np.ndarray, trans: np.ndarray) -> np.ndarray:
+    """Apply a 2x3 affine to (..., 2) points."""
+    pts = np.asarray(points, dtype=np.float64)
+    return pts @ trans[:, :2].T + trans[:, 2]
+
+
+def get_affine_transform_batch(
+    centers: np.ndarray,  # (N, 2)
+    scales: np.ndarray,  # (N, 2)
+    output_size,
+    inv: bool = False,
+) -> np.ndarray:
+    """Batched get_affine_transform -> (N, 2, 3), bit-identical per row:
+    one stacked (N, 3, 3) solve instead of a per-frame loop."""
+    centers = np.asarray(centers, dtype=np.float32).reshape(-1, 2)
+    scales = np.asarray(scales, dtype=np.float32).reshape(-1, 2)
+    n = len(centers)
+    scale_tmp = scales * 200.0
+    src_w = scale_tmp[:, 0]  # (N,)
+    dst_w, dst_h = float(output_size[0]), float(output_size[1])
+
+    src = np.zeros((n, 3, 2), dtype=np.float32)
+    dst = np.zeros((n, 3, 2), dtype=np.float32)
+    src[:, 0] = centers
+    src[:, 1] = centers + np.stack(
+        [np.zeros(n, np.float32), (src_w - 1) * -0.5], axis=1
+    )
+    dst[:, 0] = [(dst_w - 1) * 0.5, (dst_h - 1) * 0.5]
+    dst[:, 1] = dst[:, 0] + np.array([0.0, (dst_w - 1) * -0.5], np.float32)
+    # third point: rotate (p0 - p1) by 90deg around p1
+    for pts in (src, dst):
+        d = pts[:, 0] - pts[:, 1]
+        pts[:, 2, 0] = pts[:, 1, 0] - d[:, 1]
+        pts[:, 2, 1] = pts[:, 1, 1] + d[:, 0]
+
+    if inv:
+        src, dst = dst, src
+    ones = np.ones((n, 3, 1), dtype=np.float64)
+    lhs = np.concatenate([src.astype(np.float64), ones], axis=2)  # (N,3,3)
+    sol = np.linalg.solve(lhs, dst.astype(np.float64))  # (N,3,2)
+    return np.transpose(sol, (0, 2, 1))  # (N,2,3)
+
+
+def affine_transform_batch(points: np.ndarray,
+                           trans: np.ndarray) -> np.ndarray:
+    """Apply per-item 2x3 affines: (N, ..., 2) @ (N, 2, 3)."""
+    pts = np.asarray(points, dtype=np.float64)
+    lin = np.einsum("n...j,nij->n...i", pts, trans[:, :, :2])
+    offs = trans[:, :, 2].reshape((len(trans),) + (1,) * (pts.ndim - 2) + (2,))
+    return lin + offs
+
+
+def bbox_center_scale(box, aspect_ratio: float, pixel_std: float = 200.0):
+    """(x1,y1,x2,y2) -> (center, scale): width or height grown to match
+    ``aspect_ratio`` (w/h), scale = size / pixel_std."""
+    box = np.asarray(box, dtype=np.float32)
+    center = np.array(
+        [(box[0] + box[2]) * 0.5, (box[1] + box[3]) * 0.5], dtype=np.float32
+    )
+    w, h = box[2] - box[0], box[3] - box[1]
+    if w > aspect_ratio * h:
+        h = w / aspect_ratio
+    elif w < aspect_ratio * h:
+        w = h * aspect_ratio
+    scale = np.array([w / pixel_std, h / pixel_std], dtype=np.float32)
+    return center, scale
+
+
 def warp_affine_bilinear(image: np.ndarray, trans: np.ndarray,
                          output_size) -> np.ndarray:
     """cv2.warpAffine(INTER_LINEAR, zero border) replacement in numpy.
@@ -116,3 +187,10 @@ def normalize_screen_coordinates(x: np.ndarray, w: float, h: float) -> np.ndarra
     x = np.asarray(x)
     assert x.shape[-1] == 2
     return x / w * 2.0 - np.array([1.0, h / w])
+
+
+def image_coordinates(x: np.ndarray, w: float, h: float) -> np.ndarray:
+    """Inverse of normalize_screen_coordinates."""
+    x = np.asarray(x)
+    assert x.shape[-1] == 2
+    return (x + np.array([1.0, h / w])) * w / 2.0

@@ -340,6 +340,28 @@ hmodel = serve.build_serving_model(hcfg, "cpu",
 out = serve.lift(hmodel, torch.zeros(2, 64, 64, 3, dtype=torch.uint8),
                  torch.zeros(2, 17, 2), torch.full((2, 17, 2), 32.0))
 assert out.shape == (2, 17, 3) and bool(torch.isfinite(out).all())
+# the same small HRNet as a "static" serve, prepared, and through the
+# streaming lifter (its weights as JAX-format variables)
+from contextaware_poseformer_tpu_torch.models import bridge, streaming
+scfg = replace(hcfg.model, backbone=replace(hcfg.model.backbone,
+                                            quantize="static"))
+smodel = serve.build_model(scfg, torch.float32, "cpu",
+                           generator=torch.Generator().manual_seed(0))
+serve.prepare(smodel, [frames])
+out = serve.lift(smodel, frames, torch.zeros(2, 17, 2),
+                 torch.full((2, 17, 2), 32.0))
+assert out.shape == (2, 17, 3) and bool(torch.isfinite(out).all())
+import numpy as np
+lifter = streaming.StreamingLifter(
+    scfg, bridge.variables_to_jax(hmodel),
+    streaming.StreamingConfig(batch_size=2, use_bf16=False), device="cpu")
+rng = np.random.RandomState(0)
+args = (rng.randint(0, 256, (3, 64, 64, 3)).astype(np.uint8),
+        rng.uniform(100, 900, (3, 17, 2)), (1000, 1000),
+        np.full((3, 2), 500.0), np.full((3, 2), 1.0))
+lifter.prepare(*args)
+poses = lifter.lift_batch(*args)
+assert poses.shape == (3, 17, 3) and np.isfinite(poses).all()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax")
              or m == "contextaware_poseformer_tpu"

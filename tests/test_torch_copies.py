@@ -116,6 +116,39 @@ def test_geometry_equals_the_jax_package():
         np.testing.assert_array_equal(ours, theirs)
 
 
+def test_batch_geometry_equals_the_jax_package():
+    """The streaming path's host geometry, bit for bit in the same
+    dtypes: the batched affine solve and its application, the single
+    affine, the bbox conversion and the inverse screen mapping."""
+    rng = np.random.RandomState(1)
+    centers = rng.uniform(100, 900, (6, 2)).astype(np.float32)
+    scales = rng.uniform(0.8, 2.4, (6, 2)).astype(np.float32)
+    pts = rng.uniform(0, 1000, (6, 17, 2)).astype(np.float32)
+    for inv in (False, True):
+        ours = geometry.get_affine_transform_batch(centers, scales, (48, 64),
+                                                   inv=inv)
+        theirs = jgeometry.get_affine_transform_batch(centers, scales,
+                                                      (48, 64), inv=inv)
+        assert ours.dtype == theirs.dtype
+        np.testing.assert_array_equal(ours, theirs)
+        mapped = geometry.affine_transform_batch(pts, ours)
+        assert mapped.dtype == np.float64
+        np.testing.assert_array_equal(
+            mapped, jgeometry.affine_transform_batch(pts, theirs))
+        np.testing.assert_array_equal(
+            geometry.affine_transform(pts[0], ours[0]),
+            jgeometry.affine_transform(pts[0], theirs[0]))
+    for box in ((10, 20, 110, 140), (0, 0, 300, 90), (5, 5, 77, 102.4)):
+        for ours, theirs in zip(geometry.bbox_center_scale(box, 0.75),
+                                jgeometry.bbox_center_scale(box, 0.75)):
+            assert ours.dtype == theirs.dtype
+            np.testing.assert_array_equal(ours, theirs)
+    norm = geometry.normalize_screen_coordinates(pts, 1000, 1002)
+    ours = geometry.image_coordinates(norm, 1000, 1002)
+    np.testing.assert_array_equal(
+        ours, jgeometry.image_coordinates(norm, 1000, 1002))
+
+
 def _labels(n, rng):
     return [{
         "joints_3d": rng.randn(17, 3), "joints_2d_cpn": rng.randn(17, 2),
@@ -372,6 +405,9 @@ def test_the_port_imports_nothing_of_the_jax_package():
     files = sorted((REPO / "contextaware_poseformer_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 30
+    pkg = REPO / "contextaware_poseformer_tpu_torch"
+    assert {pkg / "models/streaming.py", pkg / "utils/profiling.py",
+            pkg / "data/pipeline.py"} <= set(files)
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_modules(f)
            if m == JAX_PACKAGE or m.startswith(JAX_PACKAGE + ".")

@@ -543,10 +543,11 @@ def test_deploy_config_and_its_int8_convs():
     assert all(n.startswith(("resnet_layer2", "resnet_layer3",
                              "resnet_layer4", "global_net", "refine_net"))
                for n in static)
-    for bad in ({"cpn_fold_normalize": True}, {"cpn_int8_topdown": True},
-                {"quantize": "static"}):
+    for bad in ({"cpn_fold_normalize": True}, {"cpn_int8_topdown": True}):
         with pytest.raises(NotImplementedError):
             CPN(replace(b, **bad), device="meta")
+    with pytest.raises(ValueError, match="int4"):
+        CPN(replace(b, quantize="int4"), device="meta")
 
 
 def test_prepare_calibrates_in_chunks_of_16(monkeypatch):

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from contextaware_poseformer_tpu_torch import serve
+from contextaware_poseformer_tpu_torch.data import augment
 from contextaware_poseformer_tpu_torch.ops import (
     deformable,
     fused_mlp,
@@ -584,6 +585,79 @@ def test_deploy_request_launch_counts(cuda_device, monkeypatch):
     assert out.shape == (2, 17, 3) and bool(torch.isfinite(out).all())
     rel = ((out - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
     assert rel.item() <= 2e-2
+
+
+# K10 at the narrow inputs of the "static" graphs: K = 9 Cin = 144 or 432
+# bytes fills no whole 128-byte stage (W48's 48-channel branch and fuse
+# convs, stride 1 and 2; the CPU tests' width-16 branch), beside Cin 64
+K10_NARROW = [(cin, cout, k, stride) for cin, cout in ((16, 16), (16, 32),
+                                                      (48, 48), (48, 96))
+              for k, stride in ((3, 1), (3, 2))] + [(48, 48, 1, 1),
+                                                    (64, 64, 3, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K10_NARROW,
+                         ids=lambda c: "cin{}-cout{}-k{}-s{}".format(*c))
+@pytest.mark.parametrize("route", ["static", "int8"])
+def test_k10_at_cin_16_and_48_matches_plain_version(cuda_device, case,
+                                                    route):
+    """K10 with Cin a multiple of 16 (zero-filled K tails), batch 8 at
+    W48's 64x48 level: a bf16 input with its calibrated amax (the "static"
+    route: the quantize pass, then the conv) or an int8 input, equal to the
+    plain version bit for bit, one conv launch."""
+    cin, cout, k, stride = case
+    g = torch.Generator().manual_seed(cin + cout + k + stride)
+    x, kq, vecs, amax = _int8_conv_case(g, cuda_device, 8, 64, 48, cin,
+                                        cout, k, route == "int8")
+    if route == "static":
+        amax = torch.tensor(4.5, device=cuda_device)  # some values clip
+    before = int8_conv.launches, int8_conv.launches_quantize
+    with torch.inference_mode():
+        out = int8_conv.int8_conv(x, kq, *vecs, amax, stride, True)
+        ref = int8_conv.int8_conv_reference(x, kq, *vecs, amax, stride, True)
+    assert (int8_conv.launches, int8_conv.launches_quantize) == (
+        before[0] + 1, before[1] + (route == "static"))
+    assert out.shape == ref.shape and out.dtype == ref.dtype == torch.bfloat16
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["h36m_hrnet_48", "h36m_cpn"])
+@pytest.mark.parametrize("mode", ["static", "c128"])
+def test_quantize_mode_request_matches_plain_version(cuda_device, name,
+                                                     mode):
+    """One request (batch 2) of ``serve.quantize_config(name, mode)`` at
+    full width after ``serve.prepare``: K10 once a static or wide conv (the
+    counts of tests/test_torch_k10_plan.py), K10q as often, and the maps
+    equal K10's plain version bit for bit; "c128" unprepared equals
+    prepared."""
+    calls = {("static", "h36m_hrnet_48"): 256, ("static", "h36m_cpn"): 76,
+             ("c128", "h36m_hrnet_48"): 85, ("c128", "h36m_cpn"): 73}
+    cfg = serve.quantize_config(name, mode)
+    gen = torch.Generator().manual_seed(0)
+    model = serve.build_serving_model(cfg, cuda_device, generator=gen)
+    h, w = cfg.model.image_shape
+    frames = torch.randint(0, 256, (2, h, w, 3), dtype=torch.uint8,
+                           generator=gen).to(cuda_device)
+    images = augment.serving_images(frames, cfg.model.backbone,
+                                    dtype=torch.bfloat16)
+    with torch.inference_mode():
+        unprepared = (model.backbone(images) if mode == "c128" else None)
+    serve.prepare(model, [frames])
+    before = int8_conv.launches, int8_conv.launches_quantize
+    with torch.inference_mode():
+        maps = model.backbone(images)
+        n = calls[(mode, name)]
+        assert (int8_conv.launches, int8_conv.launches_quantize) == (
+            before[0] + n, before[1] + n)
+        model.backbone.int8_impl = "plain"
+        plain = model.backbone(images)
+    for a, b in zip(maps, plain):
+        assert torch.equal(a, b)
+    if unprepared is not None:
+        for a, b in zip(maps, unprepared):
+            assert torch.equal(a, b)
 
 
 def _k8_case(dev, dims, mode, dtype, batch=8):

@@ -309,13 +309,17 @@ def test_bridge_accounting_on_a_full_width_hrnet():
 def test_int8_hrnet_is_refused_and_the_slice_builds():
     """The int8 deploy backbone (quantize="serve") builds with its int8
     convs (held against the JAX package in tests/test_torch_int8.py);
-    quantize="static" is still refused; the float slice builds."""
+    quantize="static" builds too, its layer1 conv2 a calibrated int8 conv
+    outside any int8 chain (tests/test_torch_quantize_modes.py), and an
+    unknown mode is refused; the float slice builds."""
     deployed = config.deploy(config.preset("h36m_hrnet_32")).model.backbone
     model = HRNet(deployed, device="meta")
     assert model.serve and model.layer1_0_conv2.int8
     assert not model.conv1.int8 and model.stage4_0_branches_3_0_conv1.dynamic
-    with pytest.raises(NotImplementedError, match="static"):
-        HRNet(replace(deployed, quantize="static"), device="meta")
+    static = HRNet(replace(deployed, quantize="static"), device="meta")
+    assert not static.serve and static.layer1_0_conv2.static
+    with pytest.raises(ValueError, match="int4"):
+        HRNet(replace(deployed, quantize="int4"), device="meta")
     cfg = serve.slice_config("h36m_hrnet_32")
     b = cfg.model.backbone
     assert (b.kind, b.width, b.quantize) == ("hrnet", 32, "none")

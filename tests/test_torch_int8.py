@@ -560,25 +560,6 @@ def test_deploy_config_and_its_int8_convs(name):
     assert len(convs) == 85 + 2 + 13
 
 
-def test_the_remaining_int8_refusals():
-    """``quantize="static"`` and ``"c128"`` are not ported, and say so;
-    CPN's int8 deploy graph and HRNet's ``serve_static_amax`` are ported
-    (``tests/test_torch_cpn_int8.py``)."""
-    cpn = serve.deploy_config("h36m_cpn")
-    assert cpn == config.deploy(config.preset("h36m_cpn"))
-    ContextAwarePoseFormer(cpn.model, device="meta")
-    backbone = config.preset("h36m_hrnet_32").model.backbone
-    for mode in ("static", "c128"):
-        with pytest.raises(NotImplementedError, match=mode):
-            HRNet(replace(backbone, quantize=mode), device="meta")
-        with pytest.raises(NotImplementedError, match=mode):
-            ContextAwarePoseFormer(replace(cpn.model, backbone=replace(
-                cpn.model.backbone, quantize=mode)), device="meta")
-    static = HRNet(replace(backbone, quantize="serve",
-                           serve_static_amax=True), device="meta")
-    assert sum(m.static for _, m in bc.int8_convs(static)) == 85
-
-
 def test_serve_static_amax_matches_jax():
     """HRNet with ``serve_static_amax`` (the JAX ConvBN's static route on
     every wide conv, ``hrnet.py:49``), fp32: the port's calibration pass

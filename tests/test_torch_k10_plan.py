@@ -128,10 +128,11 @@ def test_float_input_equals_int8_route_on_the_quantized_tensor(variant):
     assert torch.equal(float_route, int8_route)
 
 
-def _deploy_k10_calls(name, monkeypatch):
-    """Every K10 call of ``deploy_config(name)``'s backbone at batch 64 on
-    its frames: [(M, N, Cin, k, stride, input dtype)], from a forward on
-    the meta device (shapes only; K9 and K10 stubbed)."""
+def _deploy_k10_calls(name, monkeypatch, mode="serve"):
+    """Every K10 call of ``deploy_config(name)``'s backbone (``mode``
+    "serve"), or of ``quantize_config(name, mode)``'s ("static", "c128"),
+    at batch 64 on its frames: [(M, N, Cin, k, stride, input dtype)], from
+    a forward on the meta device (shapes only; K9 and K10 stubbed)."""
     calls = []
 
     def k10(x, kq, ws, sc, bi, amax, stride, relu, dtype=torch.bfloat16,
@@ -151,7 +152,8 @@ def _deploy_k10_calls(name, monkeypatch):
 
     monkeypatch.setattr(int8_conv, "int8_conv", k10)
     monkeypatch.setattr(layer1_chain, "layer1_chain", k9)
-    cfg = serve.deploy_config(name).model
+    cfg = (serve.deploy_config(name) if mode == "serve"
+           else serve.quantize_config(name, mode)).model
     kind = {"cpn": CPN, "hrnet": HRNet}[cfg.backbone.kind]
     backbone = kind(cfg.backbone, dtype=torch.bfloat16, device="meta")
     images = torch.empty(BATCH, *cfg.image_shape, 3, dtype=torch.bfloat16,
@@ -161,20 +163,38 @@ def _deploy_k10_calls(name, monkeypatch):
     return calls
 
 
-# the five deploy graphs' K10 calls a request (tests/test_torch_cuda.py,
-# chip_smoke.py): CPN 83, HRNet 87
-K10_CALLS = {"h36m_cpn": 83, "h36m_hrnet_32": 87, "h36m_hrnet_48": 87,
-             "mpi_3dhp_hrnet_32": 87, "mpi_3dhp_hrnet_48": 87}
+# the K10 calls a request of the five presets' graphs (tests/
+# test_torch_cuda.py, chip_smoke.py): the deploy graphs ("serve": CPN 83,
+# HRNet 87); "static" (every 3x3 conv with both channel counts >= 16 and
+# every wide conv: CPN 76, HRNet 256, its 208 branch convs included);
+# "c128" (the wide convs: CPN 73, HRNet 85). Each is the JAX graph's count
+# of "qweights" (the "static" ones, of "calib" too)
+K10_CALLS = {
+    "serve": {"h36m_cpn": 83, "h36m_hrnet_32": 87, "h36m_hrnet_48": 87,
+              "mpi_3dhp_hrnet_32": 87, "mpi_3dhp_hrnet_48": 87},
+    "static": {"h36m_cpn": 76, "h36m_hrnet_32": 256, "h36m_hrnet_48": 256,
+               "mpi_3dhp_hrnet_32": 256, "mpi_3dhp_hrnet_48": 256},
+    "c128": {"h36m_cpn": 73, "h36m_hrnet_32": 85, "h36m_hrnet_48": 85,
+             "mpi_3dhp_hrnet_32": 85, "mpi_3dhp_hrnet_48": 85},
+}
 
 
-@pytest.mark.parametrize("name", sorted(config.PRESETS))
-def test_plan_covers_every_deploy_k10_shape(name, monkeypatch):
-    """The tile planner at every K10 call of each deploy graph (batch 64):
-    a tile width the kernel builds, whose shared memory fits 227 KB, whose
-    blocks cover M x N, and whose K stages hold whole 16-byte pieces of one
-    tap (Cin a multiple of 32 divides into them) and cover K."""
-    calls = _deploy_k10_calls(name, monkeypatch)
-    assert len(calls) == K10_CALLS[name]
+@pytest.mark.parametrize("name,mode", [
+    pytest.param(name, mode, id=name if mode == "serve" else f"{name}-{mode}")
+    for mode in K10_CALLS for name in sorted(config.PRESETS)])
+def test_plan_covers_every_deploy_k10_shape(name, mode, monkeypatch):
+    """The tile planner at every K10 call of each int8 graph (batch 64;
+    the deploy graph, "static" and "c128"): a tile width the kernel
+    builds, whose shared memory fits 227 KB, whose blocks cover M x N, and
+    whose K stages hold whole 16-byte pieces of one tap (Cin a multiple of
+    16 divides into them) and cover K, the last stage's tail zero-filled
+    where K = 9 Cin is not a multiple of 128 bytes (W48's Cin 48 under
+    "static")."""
+    calls = _deploy_k10_calls(name, monkeypatch, mode)
+    assert int8_conv.CIN_MULTIPLE == 16
+    assert len(calls) == K10_CALLS[mode][name]
+    if mode == "static" and name.endswith("_48"):
+        assert {(c[2], c[4]) for c in calls} >= {(48, 1), (48, 2)}
     for m, n, cin, k, stride, dtype in set(calls):
         bm, bn = int8_conv.BLOCK_M, int8_conv.plan(m, n)
         assert bn in int8_conv.TILE_N

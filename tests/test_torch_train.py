@@ -28,6 +28,7 @@ from contextaware_poseformer_tpu.train import losses as jlosses
 from contextaware_poseformer_tpu.train import metrics as jmetrics
 from contextaware_poseformer_tpu.train import steps as jsteps
 from contextaware_poseformer_tpu.utils import skeleton
+from contextaware_poseformer_tpu_torch import deploy_numerics
 from contextaware_poseformer_tpu_torch.data import augment, pipeline
 from contextaware_poseformer_tpu_torch.models.bridge import (
     load_jax_variables,
@@ -631,8 +632,19 @@ def test_cli_refuses_what_is_not_ported(cli, argv):
         cli.main(["--synthetic", "--device", "cpu", *argv])
 
 
-def test_cli_needs_a_device():
-    with pytest.raises(SystemExit):
-        train_h36m.build_argparser().parse_args(["--synthetic"])
+def test_cli_needs_a_device(monkeypatch):
+    """The CLIs run on the card unless ``--device`` names another: without
+    ``--device`` they take ``cuda``, and where there is no card they refuse
+    to run rather than fall back to the CPU; ``--device cpu`` stays."""
+    assert train_h36m.build_argparser().parse_args(
+        ["--synthetic"]).device == "cuda"
+    assert train_3dhp.build_argparser().parse_args(
+        ["--synthetic"]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main, argv in ((train_h36m.main, ["--tiny", "--synthetic"]),
+                       (train_3dhp.main, ["--tiny", "--synthetic"]),
+                       (deploy_numerics.main, ["--preset", "h36m_cpn"])):
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            main(argv)
     assert dataclasses.is_dataclass(train_h36m.make_config(
         train_h36m.build_argparser().parse_args(["--device", "cpu"])))
