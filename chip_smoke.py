@@ -177,7 +177,34 @@ Phases, one line of output each (failures raise and exit non-zero):
    device-resident batch, and, from a profiled warm epoch, the
    host-to-device copies' streams and how much of their time overlaps
    kernels on another stream (information only);
-14. gate: the deploy-numerics gate (``deploy_numerics.preset_gate``, 250
+14. parallel: data-parallel training. (a) h36m_cpn at full width (batch
+   256 a rank, fp32, TF32 off, set up by ``train_h36m``'s parsing with
+   ``--distributed``): 3 ``train_step``s through a plain ``Trainer``, then
+   through one under ``DistributedDataParallel`` over NCCL with world size
+   1 (``parallel.distributed.initialize`` in-process on a free port), on
+   the same device batches and seed: the losses must agree to 1e-6
+   relative, the lifter's parameters to 1e-5 relative L2, and both runs
+   launch K1 5 and K6 4 a step; steps/s of both (information). (b)
+   ``parallel.dryrun``: two processes on this one card over gloo (the
+   model's CUDA gradients reduced through gloo), the tiny config with
+   augmentation and dropout off, 2 steps: the loss falls, every rank holds
+   the same parameters and P1, and those equal one process on the
+   concatenated batch (``dryrun.reference``) to 1e-5 relative L2; each rank
+   gathers 3 and 2 rows (``allgather_hosts``) in rank order. (c) Where
+   there are two cards or more, the same over NCCL with one rank a card;
+15. coco: the CPN COCO detector (``models/cpn_coco.py``,
+   ``train/train_coco.py``) at full width (ResNet-50 (3, 4, 6, 3), 256x192,
+   K = 17, live BN, fp32, TF32 off, random weights from seed 0): the card
+   against the CPU on the same weights at batch 4 (eval-mode global and
+   refine heads, one train step's loss and the BN running statistics, each
+   to 1e-4 relative RMS); 8 Adam steps at batch 32 on one repeated
+   synthetic batch, whose loss must be finite and fall; ``train_coco
+   --eval --flip`` on a synthetic person_keypoints set (6 JPEG frames
+   written by cv2 to a temporary directory, with detections): one result a
+   frame and an AP in [0, 1]. Information: ms a warm training step at
+   batch 32 and flip-test eval frames/s (the model computes
+   channels-last);
+16. gate: the deploy-numerics gate (``deploy_numerics.preset_gate``, 250
    steps of the tiny model of h36m_cpn, h36m_hrnet_32 and
    mpi_3dhp_hrnet_32 on the synthetic task, then P1 of the fp32 model and
    of its int8 deploy stack calibrated by ``serve.prepare``): fails when
@@ -197,10 +224,11 @@ Phases, one line of output each (failures raise and exit non-zero):
    bf16 lifter's by at most 2e-2 (the tiny bf16 lifter itself sits 3-6%
    from its fp32 version). Each of those kernels must have launched in
    that batch and none in the plain runs;
-15. a JSON line of per-kernel results (K1-K10 and K10q, then the probes'
+17. a JSON line of per-kernel results (K1-K10 and K10q, then the probes'
    counterparts, named ``probe <name>``), then the final JSON status
    line. ``launches`` are summed over the serving (quantize and streaming
-   included), aggregate, training and gate runs, each counted from 0 (the
+   included), aggregate, training, parallel (the full-width DDP run) and
+   gate runs, each counted from 0 (the
    probes': their phase's main run). Each phase's seconds are printed as
    it ends and summed by phase before the JSON lines. Errors are the largest over the bf16 cases (int8 maps, sampled to
    bf16, included). Times are bf16 at the CPN serving shapes for K1-K4,
@@ -301,6 +329,20 @@ TRAIN_RUNS = (
 )
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_REL_L2 = 1e-4
+# the parallel phase: h36m_cpn under DDP (world size 1) against the plain
+# Trainer, then the tiny dry run's ranks against one process
+PARALLEL_STEPS = 3
+PARALLEL_PER_STEP = {"K1": 5, "K6": K6_CALLS_A_STEP}
+PARALLEL_LOSS_RTOL = 1e-6
+PARALLEL_REL_L2 = 1e-5
+PARALLEL_DRYRUN_STEPS = 2
+# the coco phase: card vs CPU at batch 4 (relative RMS), Adam steps on one
+# batch of the recipe's 32, timed calls a layout, frames of the --eval run
+COCO_CHECK_BATCH = 4
+COCO_REL = 1e-4
+COCO_STEPS = 8
+COCO_TIMED = 5
+COCO_EVAL_IMAGES = 6
 # the deploy-numerics gate: one preset of each tiny class, with its
 # launches a training step (the tiny lifter has depth 2: the reference
 # points' call and one a deformable block) and the kernels one validation
@@ -2668,6 +2710,278 @@ def check_train(card, run):
     return {k: launches[k] + evaluated[k] for k in launches}
 
 
+def _lifter_vector(model):
+    return torch.cat([p.detach().reshape(-1).double()
+                      for p in model.lifter.parameters()])
+
+
+def _ddp_vs_plain(cfg, train_ds, val_ds, raws, card):
+    """Phase 14a: PARALLEL_STEPS train steps of ``cfg`` on the device
+    batches ``raws`` through a plain ``Trainer``'s state, then through one
+    under DDP over NCCL with world size 1 (the process group joined
+    in-process on a free port): the losses to PARALLEL_LOSS_RTOL, the
+    lifter's parameters to PARALLEL_REL_L2; the DDP run's launch counts
+    (returned) must be its steps'; steps/s of both on one batch
+    (information)."""
+    from contextaware_poseformer_tpu_torch.parallel import distributed, dryrun
+    from contextaware_poseformer_tpu_torch.train import steps
+    from contextaware_poseformer_tpu_torch.train.loop import Trainer
+
+    def run():
+        trainer = Trainer(cfg, train_ds, val_ds, "cuda")
+        state = trainer.init_state(cfg.train.seed)
+        torch.cuda.synchronize()
+        _reset_counts()
+        losses = [float(steps.train_step(state, raw, cfg, trainer.task,
+                                         cfg.train.seed + 1)["loss"])
+                  for raw in raws]
+        torch.cuda.synchronize()
+        counts = _counts()
+        params = _lifter_vector(state.model)
+        t0 = time.perf_counter()
+        for _ in range(PARALLEL_STEPS):
+            steps.train_step(state, raws[0], cfg, trainer.task, 1)
+        torch.cuda.synchronize()
+        rate = PARALLEL_STEPS / (time.perf_counter() - t0)
+        return state.ddp is not None, losses, params, counts, rate
+
+    plain = run()
+    topo = distributed.initialize(
+        "cuda", init_method=f"tcp://localhost:{dryrun.free_port()}", rank=0,
+        world_size=1)
+    try:
+        backend = torch.distributed.get_backend()
+        ddp = run()
+    finally:
+        distributed.shutdown()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ddp[1], plain[1]))
+    rel = ((ddp[2] - plain[2]).norm() / plain[2].norm()).item()
+    print(f"parallel: h36m_cpn batch {cfg.train.batch_size} a rank, "
+          f"{PARALLEL_STEPS} steps under DDP over {backend} (topology "
+          f"{topo}, wrapped {ddp[0]}) vs the plain Trainer (wrapped "
+          f"{plain[0]}): losses {[f'{v:.9g}' for v in ddp[1]]} vs "
+          f"{[f'{v:.9g}' for v in plain[1]]} (max rel {loss_rel:.3e}, tol "
+          f"{PARALLEL_LOSS_RTOL:.0e}); lifter parameters rel L2 {rel:.3e} "
+          f"(tol {PARALLEL_REL_L2:.0e}); launches {ddp[3]} (plain "
+          f"{plain[3]})", flush=True)
+    print(f"parallel: train_step on a device-resident batch: "
+          f"{ddp[4]:.3f} steps/s under DDP (world size 1), {plain[4]:.3f} "
+          f"without (information only; batch {cfg.train.batch_size}, "
+          f"{card})", flush=True)
+    if not (ddp[0] and not plain[0] and backend == "nccl"):
+        raise AssertionError("parallel: the DDP run must wrap over NCCL")
+    if loss_rel > PARALLEL_LOSS_RTOL or rel > PARALLEL_REL_L2:
+        raise AssertionError(f"parallel: DDP vs plain: loss rel {loss_rel}"
+                             f", parameters rel L2 {rel}")
+    if ddp[3] != plain[3] or ddp[3] != _expected(PARALLEL_PER_STEP,
+                                                  PARALLEL_STEPS):
+        raise AssertionError(f"parallel: launches {ddp[3]}, plain "
+                             f"{plain[3]}, expected {PARALLEL_PER_STEP} a "
+                             "step")
+    return ddp[3]
+
+
+def _dryrun_vs_one_process(nproc, backend, what):
+    """``parallel.dryrun.run`` of ``nproc`` ranks over ``backend`` on the
+    card(s) against ``dryrun.reference`` in this process: each rank's
+    lifter parameters to PARALLEL_REL_L2, P1 to 1e-5 relative; the gather
+    of 3 and 2 rows (checked by ``dryrun.check``)."""
+    from contextaware_poseformer_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    ranks = dryrun.run(nproc, "cuda", backend=backend,
+                       steps=PARALLEL_DRYRUN_STEPS, timeout=300)
+    ref = dryrun.reference(nproc, "cuda", steps=PARALLEL_DRYRUN_STEPS)
+    rels = [dryrun.rel_l2(r["params"], ref["params"]) for r in ranks]
+    p1_rel = abs(ranks[0]["p1_mm"] - ref["p1_mm"]) / ref["p1_mm"]
+    print(f"parallel: {what}: {nproc} ranks over {ranks[0]['backend']} "
+          f"(rank 0's topology {ranks[0]['topology']}), tiny "
+          f"config, {PARALLEL_DRYRUN_STEPS} steps, augmentation and dropout "
+          f"off: losses {[f'{v:.6f}' for v in ranks[0]['losses']]} equal on "
+          f"every rank, parameters equal on every rank; against one process "
+          f"on the concatenated batch: rel L2 {[f'{v:.3e}' for v in rels]} "
+          f"(tol {PARALLEL_REL_L2:.0e}), P1 {ranks[0]['p1_mm']:.4f} vs "
+          f"{ref['p1_mm']:.4f} mm (rel {p1_rel:.3e}); allgather_hosts of "
+          f"3 and 2 rows: {ranks[0]['gathered'].tolist()} on every rank "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if max(rels) > PARALLEL_REL_L2 or p1_rel > 1e-5:
+        raise AssertionError(f"parallel: {what}: rel L2 {rels}, P1 rel "
+                             f"{p1_rel}")
+
+
+def check_parallel(card):
+    """Phase 14: data-parallel training. Returns the launch counts of the
+    full-width DDP run."""
+    from contextaware_poseformer_tpu_torch.data import pipeline
+    from contextaware_poseformer_tpu_torch.train import train_h36m
+
+    args = train_h36m.build_argparser().parse_args(
+        ["--preset", "h36m_cpn", "--synthetic", "--device", "cuda",
+         "--distributed"])
+    cfg = train_h36m.make_config(args)
+    if cfg.train.batch_size != TRAIN_BATCH:
+        raise AssertionError(f"h36m_cpn batch {cfg.train.batch_size}")
+    train_ds, val_ds = train_h36m.make_datasets(cfg, args)
+    it = pipeline.batch_iterator(train_ds, cfg.train.batch_size,
+                                 shuffle=False, num_workers=8)
+    raws = [pipeline.to_device(next(it)[0], "cuda")
+            for _ in range(PARALLEL_STEPS)]
+    counts = _ddp_vs_plain(cfg, train_ds, val_ds, raws, card)
+    del raws
+    torch.cuda.empty_cache()
+    _dryrun_vs_one_process(2, "gloo", "two ranks on one card")
+    n = torch.cuda.device_count()
+    if n >= 2:
+        _dryrun_vs_one_process(n, "nccl", "one rank a card")
+    else:
+        print(f"parallel: NCCL with one rank a card: not run ({n} card)",
+              flush=True)
+    return counts
+
+
+def _rel_rms(a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
+
+
+def _bn_stats(model):
+    return torch.cat([t.detach().double().cpu().reshape(-1)
+                      for n, t in model.state_dict().items()
+                      if n.endswith(("running_mean", "running_var"))])
+
+
+def _write_coco(directory, n_imgs):
+    """A synthetic person_keypoints set of ``n_imgs`` random JPEG frames
+    (cv2), one person each, and detections on them, as
+    ``tests/test_cpn_coco.py`` builds its own."""
+    import os
+
+    import cv2
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    images, anns, dets = [], [], []
+    for i in range(n_imgs):
+        w, h = 320, 256
+        name = f"{i:012d}.jpg"
+        cv2.imwrite(os.path.join(directory, name),
+                    rng.randint(0, 255, (h, w, 3), np.uint8))
+        images.append({"id": i, "file_name": name, "width": w, "height": h})
+        kps = np.zeros((17, 3))
+        kps[:, 0] = rng.uniform(80, 240, 17)
+        kps[:, 1] = rng.uniform(40, 220, 17)
+        kps[:, 2] = rng.randint(1, 3, 17)
+        box = [70.0, 30.0, 180.0, 200.0]
+        anns.append({"id": 100 + i, "image_id": i, "category_id": 1,
+                     "keypoints": kps.reshape(-1).tolist(),
+                     "num_keypoints": 17, "iscrowd": 0, "bbox": box,
+                     "area": box[2] * box[3]})
+        dets.append({"image_id": i, "bbox": box, "score": 0.9,
+                     "category_id": 1})
+    ann = os.path.join(directory, "ann.json")
+    with open(ann, "w") as f:
+        json.dump({"images": images, "annotations": anns}, f)
+    det_path = os.path.join(directory, "dets.json")
+    with open(det_path, "w") as f:
+        json.dump(dets, f)
+    return ann, det_path
+
+
+def check_coco(card):
+    """Phase 15: the CPN COCO detector at full width."""
+    import tempfile
+
+    import numpy as np
+
+    from contextaware_poseformer_tpu_torch.config import cpn_backbone
+    from contextaware_poseformer_tpu_torch.data import coco as coco_data
+    from contextaware_poseformer_tpu_torch.data import pipeline
+    from contextaware_poseformer_tpu_torch.train import train_coco
+
+    def batch_of(n, seed, device):
+        b = next(train_coco._synthetic_batches(
+            np.random.RandomState(seed), 1, n, coco_data.DATA_SHAPE))
+        return pipeline.to_device(train_coco.host_batch(b), device)
+
+    # the card against the CPU on the same weights, batch COCO_CHECK_BATCH
+    model = train_coco.build_model(cpn_backbone(), "cuda", 0)
+    cpu = train_coco.build_model(cpn_backbone(), "cpu", 0)
+    cpu.load_state_dict(model.state_dict())
+    host = batch_of(COCO_CHECK_BATCH, 1, "cpu")
+    dev = batch_of(COCO_CHECK_BATCH, 1, "cuda")
+    with torch.no_grad():
+        outs = [m.eval()(b.image) for m, b in ((model, dev), (cpu, host))]
+    rels = [_rel_rms(a, b) for a, b in
+            zip([*outs[0][0], outs[0][1]], [*outs[1][0], outs[1][1]])]
+    losses = []
+    for m, b in ((model, dev), (cpu, host)):
+        opt = train_coco.Optimizer(m.parameters(), 1)
+        losses.append(float(train_coco.train_step(m, opt, b)["loss"]))
+    loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    stats_rel = _rel_rms(_bn_stats(model), _bn_stats(cpu))
+    print(f"coco: CPNCoco ResNet-50 {cpn_backbone().cpn_layers}, "
+          f"{coco_data.DATA_SHAPE}, K={coco_data.NUM_JOINTS}, fp32, TF32 "
+          f"off, random weights from seed 0; card vs CPU, batch "
+          f"{COCO_CHECK_BATCH}: eval heads (4 global, refine) rel RMS "
+          f"{[f'{v:.2e}' for v in rels]} (tol {COCO_REL:.0e}); one train "
+          f"step: loss {losses[0]:.6f} vs {losses[1]:.6f} (rel "
+          f"{loss_rel:.2e}), BN running statistics rel RMS {stats_rel:.2e}",
+          flush=True)
+    if max(rels) > COCO_REL or loss_rel > COCO_REL or stats_rel > COCO_REL:
+        raise AssertionError(f"coco: card vs CPU: heads {rels}, loss "
+                             f"{loss_rel}, BN statistics {stats_rel}")
+    del cpu, outs
+
+    # COCO_STEPS Adam steps at the recipe's batch on one repeated batch
+    model = train_coco.build_model(cpn_backbone(), "cuda", 0)
+    opt = train_coco.Optimizer(model.parameters(), 1000)
+    dev = batch_of(train_coco.BATCH_SIZE, 2, "cuda")
+    losses = [float(train_coco.train_step(model, opt, dev)["loss"])
+              for _ in range(COCO_STEPS)]
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"coco: the loss must be finite and fall: "
+                             f"{losses}")
+    print(f"coco: {COCO_STEPS} Adam steps at batch {train_coco.BATCH_SIZE} "
+          f"on one batch: losses {[f'{v:.3f}' for v in losses]}", flush=True)
+
+    # information: warm steps and flip-test eval of the same model
+    train_coco.eval_step(model, dev.image, True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(COCO_TIMED):
+        train_coco.train_step(model, opt, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(COCO_TIMED):
+        train_coco.eval_step(model, dev.image, True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"coco: batch {train_coco.BATCH_SIZE}, warm, host clock over "
+          f"{COCO_TIMED} with syncs: {1e3 * (t1 - t0) / COCO_TIMED:.2f} ms a "
+          f"training step ({COCO_TIMED / (t1 - t0):.3f} steps/s), "
+          f"{COCO_TIMED * train_coco.BATCH_SIZE / (t2 - t1):.1f} flip-test "
+          f"eval frames/s (one forward of 2B) (information only; {card})",
+          flush=True)
+    del model, opt, dev
+    torch.cuda.empty_cache()
+
+    # the CLI's --eval on a synthetic person_keypoints set
+    with tempfile.TemporaryDirectory() as d:
+        ann, dets = _write_coco(d, COCO_EVAL_IMAGES)
+        summary = train_coco.main(["--eval", "--device", "cuda", "--ann",
+                                   ann, "--dets", dets, "--image-dir", d,
+                                   "--batch", "4", "--flip",
+                                   "--result", d])
+        with open(f"{d}/result.json") as f:
+            n_results = len(json.load(f))
+    print(f"coco: train_coco --eval --flip on {COCO_EVAL_IMAGES} synthetic "
+          f"frames: {n_results} results, " + ", ".join(
+              f"{k} {v:.4f}" for k, v in summary.items()), flush=True)
+    if not (math.isfinite(summary["AP"]) and 0.0 <= summary["AP"] <= 1.0
+            and n_results == COCO_EVAL_IMAGES):
+        raise AssertionError(f"coco: --eval summary {summary}")
+
+
 def _gate_backbone(model, images):
     """The backbone maps and their int8 scales (None for float maps)."""
     from contextaware_poseformer_tpu_torch.models.capf import backbone_maps
@@ -2850,7 +3164,7 @@ def _gate_deploy_check(name, trainer, state, needed):
 
 
 def check_gate(card):
-    """Phase 14: the deploy-numerics gate (``deploy_numerics.preset_gate``)
+    """Phase 16: the deploy-numerics gate (``deploy_numerics.preset_gate``)
     for one preset of each tiny class: fp32 P1, the deploy stack's P1 and
     the delta, within GATE_MAX_DELTA_MM either way; each gate's launches
     counted from 0 (training: K1 and K6 a step as GATE_PRESETS says; the
@@ -3031,6 +3345,8 @@ def main() -> None:
     served.append(clock("aggregate", check_aggregate, results, card))
     results["K6"] = clock("backward", check_backward)
     trained = [clock("train", check_train, card, run) for run in TRAIN_RUNS]
+    trained.append(clock("parallel", check_parallel, card))
+    clock("coco", check_coco, card)
     trained.append(clock("gate", check_gate, card))
     clock.report()
     kernels = [

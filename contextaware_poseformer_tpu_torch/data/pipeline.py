@@ -104,16 +104,18 @@ def batch_iterator(
             yield _assemble(ds, idxs, pool)
 
 
-def to_device(batch: RawBatch, device) -> RawBatch:
-    """Copy a host batch to ``device``: through pinned memory and a
-    ``non_blocking`` copy for a CUDA device (the copy overlaps work already
-    queued on the stream)."""
+def to_device(batch, device):
+    """Copy a host batch (a ``RawBatch``, or another named tuple of numpy
+    arrays) to ``device``, as the same named tuple of tensors: through
+    pinned memory and a ``non_blocking`` copy for a CUDA device (the copy
+    overlaps work already queued on the stream)."""
     device = torch.device(device)
     if device.type != "cuda":
-        return RawBatch(*(torch.from_numpy(np.ascontiguousarray(a))
-                          .to(device) for a in batch))
-    return RawBatch(*(torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
-                      .to(device, non_blocking=True) for a in batch))
+        return type(batch)(*(torch.from_numpy(np.ascontiguousarray(a))
+                             .to(device) for a in batch))
+    return type(batch)(*(torch.from_numpy(np.ascontiguousarray(a))
+                         .pin_memory().to(device, non_blocking=True)
+                         for a in batch))
 
 
 _DONE = object()  # the producer's last item

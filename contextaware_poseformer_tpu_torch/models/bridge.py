@@ -31,6 +31,10 @@ is the inverse on the parameters and the calibrated scales: the port's
 model as a flax-layout ``params`` tree, the shapes tree
 ``convert.convert_conv_backbone`` takes (a backbone conv keeps its dotted
 flax name as ``flax_name``), and its ``calib`` collection.
+
+The COCO detector (``models/cpn_coco.py``) has its own pair,
+``cpn_coco_from_jax`` and ``cpn_coco_to_jax``, for the JAX package's flat
+``{params, batch_stats}`` tree of ``CPNCoco``.
 """
 
 from __future__ import annotations
@@ -194,3 +198,80 @@ def load_jax_variables(model: nn.Module, tree: Mapping[str, Any]) -> None:
         if hasattr(m, "serving_fingerprint") and (
                 "calib" in carried or not calibration_buffers(m)):
             stamp_fingerprint(m)
+
+
+def cpn_coco_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX package's ``CPNCoco`` variables (its flat ``params`` and
+    ``batch_stats`` trees, keyed by dotted torch-prefix names; numpy
+    leaves) -> the state dict of the port's ``CPNCoco``. Three kinds of
+    entry: a ``ConvBNLive`` (``{kernel, bn: {scale, bias}}``, its running
+    statistics under ``batch_stats[name]["bn"]``), a bare head conv
+    (``"<name>.kernel"``) and a standalone BN (``{scale, bias}``); kernels
+    HWIO -> OIHW, BN scale/bias/mean/var -> weight/bias/running_mean/
+    running_var, and ``num_batches_tracked`` (which the JAX tree lacks and
+    ``momentum`` makes unused) 0. ``load_state_dict`` (strict) then checks
+    that every tensor was given."""
+    if sorted(variables) != ["batch_stats", "params"]:
+        raise ValueError("expected CPNCoco variables {params, batch_stats}; "
+                         f"got {sorted(variables)}")
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: dict[str, torch.Tensor] = {}
+
+    def bn(key, p, s):
+        sd[f"{key}.weight"] = torch.tensor(np.asarray(p["scale"], np.float32))
+        sd[f"{key}.bias"] = torch.tensor(np.asarray(p["bias"], np.float32))
+        sd[f"{key}.running_mean"] = torch.tensor(
+            np.asarray(s["mean"], np.float32))
+        sd[f"{key}.running_var"] = torch.tensor(
+            np.asarray(s["var"], np.float32))
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+    def kernel(key, arr):
+        sd[f"{key}.weight"] = torch.tensor(
+            np.asarray(arr, np.float32).transpose(3, 2, 0, 1))
+
+    for name, leaf in params.items():
+        key = name.replace(".", "_")
+        if not isinstance(leaf, Mapping):  # "<name>.kernel": a head conv
+            if not name.endswith(".kernel"):
+                raise ValueError(f"unexpected CPNCoco leaf {name!r}")
+            kernel(key.removesuffix("_kernel"), leaf)
+        elif "bn" in leaf:
+            kernel(key, leaf["kernel"])
+            bn(f"{key}.bn", leaf["bn"], stats[name]["bn"])
+        else:
+            bn(key, leaf, stats[name])
+    unused = sorted(set(stats) - set(params))
+    if unused:
+        raise ValueError(f"batch_stats without params: {unused[:10]}")
+    return sd
+
+
+def cpn_coco_to_jax(model: nn.Module) -> dict[str, Any]:
+    """The inverse of ``cpn_coco_from_jax``: the port's ``CPNCoco`` as the
+    JAX package's ``{params, batch_stats}`` tree (numpy fp32 leaves), the
+    structure ``convert.convert_cpn_coco`` takes as its target."""
+    from contextaware_poseformer_tpu_torch.models.cpn_coco import ConvBNLive
+
+    params: dict[str, Any] = {}
+    stats: dict[str, Any] = {}
+
+    def arr(t):
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    def bn(m):
+        return ({"scale": arr(m.weight), "bias": arr(m.bias)},
+                {"mean": arr(m.running_mean), "var": arr(m.running_var)})
+
+    for child in model.children():
+        name = child.flax_name
+        if isinstance(child, ConvBNLive):
+            p, s = bn(child.bn)
+            params[name] = {"kernel": arr(child.weight).transpose(2, 3, 1, 0),
+                            "bn": p}
+            stats[name] = {"bn": s}
+        elif isinstance(child, nn.Conv2d):
+            params[f"{name}.kernel"] = arr(child.weight).transpose(2, 3, 1, 0)
+        else:
+            params[name], stats[name] = bn(child)
+    return {"params": params, "batch_stats": stats}

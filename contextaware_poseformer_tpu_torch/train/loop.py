@@ -1,18 +1,26 @@
-"""Epoch-level training and evaluation on one device.
+"""Epoch-level training and evaluation, on one device or data-parallel.
 
-Port of ``contextaware_poseformer_tpu/train/loop.py:39-294`` without the
-mesh and the multi-host parts (reference: ContextPose/train.py:140-213,
-369-412): the loop owns data iteration, device staging, metric aggregation,
-the per-epoch log line, the best-P1 checkpoint policy, the reference
-checkpoints' loading (through ``models/convert.py`` and
-``models/bridge.py``) and, for an int8 deploy config, the calibration
+Port of ``contextaware_poseformer_tpu/train/loop.py:39-294`` (reference:
+ContextPose/train.py:140-213,369-412): the loop owns data iteration, device
+staging, metric aggregation, the per-epoch log line, the best-P1 checkpoint
+policy, the reference checkpoints' loading (through ``models/convert.py``
+and ``models/bridge.py``) and, for an int8 deploy config, the calibration
 before its first evaluation; the device work is ``train/steps.py``.
+
+Once the process group is joined (``parallel.distributed.initialize``, a
+world of one included) the lifter trains under ``DistributedDataParallel``
+(the data axis of ``parallel.make_mesh``): each rank steps on its own shard
+of the data (``train_h36m.shard_datasets``) with the per-rank batch, the
+gradients are averaged over the ranks, only rank 0 writes metrics and
+checkpoints (train.py:228-237), evaluation gathers every rank's
+predictions, and an int8 deploy model serves rank 0's calibration.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import json
 import os
 import time
@@ -25,12 +33,14 @@ from contextaware_poseformer_tpu_torch.config import Config
 from contextaware_poseformer_tpu_torch.data import pipeline
 from contextaware_poseformer_tpu_torch.models import bridge, convert
 from contextaware_poseformer_tpu_torch.models.backbone_common import (
+    calibration_buffers,
     to_storage,
 )
 from contextaware_poseformer_tpu_torch.models.capf import (
     ContextAwarePoseFormer,
 )
 from contextaware_poseformer_tpu_torch.models.init import init_parameters
+from contextaware_poseformer_tpu_torch.parallel import distributed
 from contextaware_poseformer_tpu_torch.serve import (
     configure_numerics,
     prepare,
@@ -67,7 +77,8 @@ class Trainer:
     """Trains ``cfg`` on ``device`` (a CUDA device, or the CPU for tests).
     The backbone is frozen and stored in channels-last layout (an int8
     deploy config's int8 convs keep fp32 parameters); fp32 runs at full
-    precision (TF32 off) as the JAX reference does."""
+    precision (TF32 off) as the JAX reference does. ``train_ds`` and
+    ``val_ds`` are this rank's shards under data parallelism."""
 
     def __init__(self, cfg: Config, train_ds, val_ds, device,
                  logdir: str | None = None):
@@ -76,8 +87,16 @@ class Trainer:
         self.val_ds = val_ds
         self.device = torch.device(device)
         self.task = steps.Task.for_config(cfg)
-        self.steps_per_epoch = max(len(train_ds) // cfg.train.batch_size, 1)
-        self.writer = MetricWriter(logdir)
+        self.data_parallel = torch.distributed.is_initialized()
+        # the last rank's shard holds the remainder rows: every rank takes
+        # the fewest full batches of any rank, so that each DDP step is
+        # joined by every rank and the epochs end at the same update
+        self.batches_per_epoch = distributed.min_over_ranks(
+            len(train_ds) // cfg.train.batch_size)
+        self.steps_per_epoch = max(self.batches_per_epoch, 1)
+        self.is_main = distributed.rank() == 0
+        self.writer = MetricWriter(logdir if self.is_main else None)
+        # every rank reads a checkpoint to resume; rank 0 alone writes
         self.ckpt = (CheckpointManager(os.path.join(logdir, "checkpoints"))
                      if logdir else None)
         if self.device.type == "cuda":
@@ -95,7 +114,16 @@ class Trainer:
             model.backbone.requires_grad_(False)
         optimizer = steps.make_optimizer(self.cfg, self.steps_per_epoch,
                                          model)
-        return steps.TrainState(model, optimizer, 0)
+        ddp = None
+        if self.data_parallel:
+            # the frozen backbone has no gradient to reduce and no batch
+            # statistics to broadcast; every parameter of the lifter takes
+            # part in every step (drop-path and dropout multiply by a mask).
+            # The inputs already sit on the model's one device.
+            ddp = torch.nn.parallel.DistributedDataParallel(
+                model, device_ids=None, broadcast_buffers=False)
+        return steps.TrainState(model, optimizer, 0, ddp=ddp,
+                                rank=distributed.rank())
 
     def load_backbone(self, state: steps.TrainState,
                       checkpoint_path: str) -> steps.TrainState:
@@ -145,16 +173,16 @@ class Trainer:
             seed=self.cfg.train.seed, epoch=epoch,
             num_workers=self.cfg.data.num_workers,
         )
+        limit = min(max_steps or self.batches_per_epoch,
+                    self.batches_per_epoch)
         losses, n = [], 0
         t0 = time.time()
         with self._batches(host_iter) as batches:
-            for batch, _valid in batches:
+            for batch, _valid in itertools.islice(batches, limit):
                 m = steps.train_step(state, batch, self.cfg, self.task,
                                      self.cfg.train.seed + 1)
                 losses.append(m["loss"])
                 n += 1
-                if max_steps and n >= max_steps:
-                    break
         step_losses = [float(v) for v in losses]
         return {"train_loss": (float(np.mean(step_losses)) if step_losses
                                else float("nan")),
@@ -174,11 +202,16 @@ class Trainer:
         n = min(len(self.val_ds), 64)
         frames = np.stack([self.val_ds.load_image(i) for i in range(n)])
         prepare(model, [torch.from_numpy(frames).to(self.device)])
+        # each rank calibrated on its own shard: serve rank 0's scales, so
+        # that the gathered predictions do not depend on the rank count
+        # (``loop.py:233-238``)
+        distributed.broadcast_pytree(calibration_buffers(model.backbone))
 
-    def predict(self, state: steps.TrainState,
-                max_batches: int | None = None):
-        """(predictions, ground truth) over the validation set as float32
-        numpy arrays, the padded last batch trimmed to its valid rows."""
+    def predict_local(self, state: steps.TrainState,
+                      max_batches: int | None = None):
+        """(predictions, ground truth) over this rank's validation set as
+        float32 numpy arrays, the padded last batch trimmed to its valid
+        rows."""
         self.ensure_serving_ready(state.model)
         host_iter = pipeline.batch_iterator(
             self.val_ds, self.cfg.train.batch_size, shuffle=False,
@@ -195,12 +228,21 @@ class Trainer:
                     break
         return np.concatenate(preds), np.concatenate(gts)
 
+    def predict(self, state: steps.TrainState,
+                max_batches: int | None = None):
+        """``predict_local`` of every rank, gathered in rank order."""
+        return tuple(map(distributed.allgather_hosts,
+                         self.predict_local(state, max_batches)))
+
     def evaluate(self, state: steps.TrainState,
                  max_batches: int | None = None):
-        """(summary in mm, per-action scores) over the validation set."""
-        pred, gt = self.predict(state, max_batches)
-        scores = metrics_lib.h36m_evaluate(
-            gt, pred, np.asarray(self.val_ds.action_idx[:len(pred)]))
+        """(summary in mm, per-action scores) over the validation set (of
+        every rank)."""
+        pred, gt = self.predict_local(state, max_batches)
+        action_idx = np.asarray(self.val_ds.action_idx[:len(pred)])
+        pred, gt, action_idx = map(distributed.allgather_hosts,
+                                   (pred, gt, action_idx))
+        scores = metrics_lib.h36m_evaluate(gt, pred, action_idx)
         return metrics_lib.h36m_summary(scores), scores
 
     def fit(self, state: steps.TrainState, n_epochs: int,
@@ -215,9 +257,10 @@ class Trainer:
             summary, _ = self.evaluate(state, max_batches=eval_batches)
             lr = steps.lr_schedule(self.cfg, self.steps_per_epoch)(state.step)
             train_m.pop("step_losses")
-            self.writer.write({"epoch": epoch, "lr": lr, **train_m,
-                               **summary})
-            if self.ckpt:
+            if self.is_main:
+                self.writer.write({"epoch": epoch, "lr": lr, **train_m,
+                                   **summary})
+            if self.ckpt and self.is_main:
                 self.ckpt.save(epoch, state, {"p1_mm": summary["p1_mm"]})
             best_p1 = min(best_p1, summary["p1_mm"])
         return state, best_p1

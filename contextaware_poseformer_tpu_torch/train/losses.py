@@ -1,11 +1,11 @@
 """Losses and evaluation errors.
 
-Port of ``contextaware_poseformer_tpu/train/losses.py:21-197``: the
+Port of ``contextaware_poseformer_tpu/train/losses.py:21-226``: the
 training losses in PyTorch (``LOSSES``, ``n_mpjpe``, ``limb_length_error``,
-``uncertainty_loss``, ``volumetric_ce_loss``) and the host-side evaluation
-errors in numpy, exactly as the JAX package keeps them (``p_mpjpe``,
-``mpjve``), since that module imports JAX. The COCO losses come with their
-slice.
+``uncertainty_loss``, ``volumetric_ce_loss``, the CPN COCO detector's
+``coco_global_loss`` and ``coco_refine_ohkm_loss``) and the host-side
+evaluation errors in numpy, exactly as the JAX package keeps them
+(``p_mpjpe``, ``mpjve``), since that module imports JAX.
 """
 
 from __future__ import annotations
@@ -162,3 +162,38 @@ def volumetric_ce_loss(coord_volumes, volumes_pred, keypoints_gt, validity):
     picked = torch.gather(flat, -1, idx[..., None])[..., 0]
     losses_ = -torch.log(picked + 1e-6) * validity[..., 0]
     return losses_.sum() / (b * j)
+
+
+# ---------------------------------------------------------------------------
+# CPN COCO detector losses (mvn/models/cpn/train.py:83-128)
+# ---------------------------------------------------------------------------
+
+
+def coco_global_loss(global_outs, targets, valid):
+    """Sum of the 4 globalNet head losses (cpn/train.py:118-123).
+
+    Each level: MSELoss(output, target * (valid > 1.1)) / 2 — the label is
+    ZEROED (not the loss masked) for joints that are not fully visible, so
+    invisible joints still push the prediction toward 0.
+
+    global_outs/targets: 4 x (N, Ho, Wo, K) NHWC (deepest-first, paired with
+    the gk15/11/9/7 targets in that order); valid: (N, K).
+    """
+    mask = (valid > 1.1).to(torch.float32)[:, None, None, :]
+    total = 0.0
+    for out, tgt in zip(global_outs, targets):
+        total = total + ((out - tgt * mask) ** 2).mean() / 2.0
+    return total
+
+
+def coco_refine_ohkm_loss(refine_out, target, valid, top_k: int = 8):
+    """Online hard-keypoint-mining refine loss (cpn/train.py:85-93,124-127):
+    per-(sample, joint) MSE over the map, masked by (valid > 0.1), then the
+    mean of each sample's top-8 joint losses, averaged over the batch.
+
+    refine_out/target: (N, Ho, Wo, K) NHWC; valid: (N, K).
+    """
+    per_joint = ((refine_out - target) ** 2).mean(dim=(1, 2))  # (N, K)
+    per_joint = per_joint * (valid > 0.1).to(torch.float32)
+    topk = torch.topk(per_joint, top_k, dim=1).values
+    return (topk.sum(dim=1) / top_k).mean()

@@ -12,9 +12,11 @@ in training and the flip-test average in evaluation.
               flipped copy folded into the batch axis -> merged predictions
 
 Randomness comes from one ``torch.Generator`` on the device, reseeded from
-(seed, step) at every step, the counterpart of the JAX step's
-``fold_in(rng, step)``: a resumed run draws what an uninterrupted one would.
-The draws differ from JAX's.
+(seed, step, rank) at every step, the counterpart of the JAX step's
+``fold_in(rng, step)``: a resumed run draws what an uninterrupted one would,
+and under data parallelism (``TrainState.ddp``) each rank draws for its own
+rows, as one JAX step draws over the whole global batch; rank 0 draws what a
+single process draws. The draws differ from JAX's.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from contextaware_poseformer_tpu_torch.config import Config
 from contextaware_poseformer_tpu_torch.data import augment
 from contextaware_poseformer_tpu_torch.data.pipeline import RawBatch
+from contextaware_poseformer_tpu_torch.parallel import distributed
 from contextaware_poseformer_tpu_torch.train import losses
 from contextaware_poseformer_tpu_torch.utils import skeleton
 
@@ -126,11 +129,16 @@ def make_optimizer(cfg: Config, steps_per_epoch: int, model) -> Optimizer:
 @dataclasses.dataclass
 class TrainState:
     """The model, its optimizer and the update count (mutated in place by
-    ``train_step``)."""
+    ``train_step``). Under data parallelism ``ddp`` is the model's
+    ``DistributedDataParallel`` wrapper, through which the training forward
+    runs (it averages the gradients over the ranks), and ``rank`` this
+    process's rank."""
 
     model: torch.nn.Module
     optimizer: Optimizer
     step: int = 0
+    ddp: torch.nn.Module | None = None
+    rank: int = 0
 
 
 def prepare(raw: RawBatch, backbone_cfg, task: Task,
@@ -145,10 +153,18 @@ def prepare(raw: RawBatch, backbone_cfg, task: Task,
     )
 
 
-def step_generator(device, seed: int, step: int) -> torch.Generator:
-    """The generator of one step, seeded from (seed, step)."""
+# a rank's seed offset: odd, so that the ranks stay apart modulo 2**32 (the
+# CPU generator keeps the low 32 bits of a seed) and a rank's seeds meet
+# another's only some 10**9 steps apart
+RANK_STRIDE = 0x9E3779B1
+
+
+def step_generator(device, seed: int, step: int,
+                   rank: int = 0) -> torch.Generator:
+    """The generator of one step, seeded from (seed, step, rank); rank 0's
+    is a single process's."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(seed * 1_000_003 + step)
+    gen.manual_seed(seed * 1_000_003 + step + rank * RANK_STRIDE)
     return gen
 
 
@@ -186,11 +202,17 @@ def loss_and_grads(model, cfg: Config, batch: augment.Batch,
 def train_step(state: TrainState, raw: RawBatch, cfg: Config, task: Task,
                seed: int) -> dict[str, torch.Tensor]:
     """One optimizer step on a device batch; returns {"loss", "finite"} as
-    device scalars."""
-    gen = step_generator(raw.images_u8.device, seed, state.step)
+    device scalars. Under data parallelism ``raw`` is this rank's rows, the
+    gradients are averaged over the ranks before the clip, and the loss is
+    the mean over the ranks: the global batch's, so that every rank's NaN
+    guard decides alike."""
+    gen = step_generator(raw.images_u8.device, seed, state.step, state.rank)
     batch = augmented_batch(cfg, task, raw, gen)
     state.optimizer.zero_grad()
-    loss = loss_and_grads(state.model, cfg, batch, gen)
+    model = state.model if state.ddp is None else state.ddp
+    loss = loss_and_grads(model, cfg, batch, gen)
+    if state.ddp is not None:
+        loss = distributed.mean_over_ranks(loss)
     # NaN guard (train.py:194): zero the gradients of a non-finite loss
     finite = torch.isfinite(loss)
     state.optimizer.step(state.step, finite)

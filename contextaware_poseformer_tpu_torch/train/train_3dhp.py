@@ -15,7 +15,9 @@ best-P1 checkpoints with true resume. One device, given by ``--device``
       --steps-per-epoch 4 --eval-batches 1
 
 ``--tiny`` cuts it as ``train_h36m --tiny`` does (CPU smoke run: ``--tiny
---synthetic --device cpu``); multi-device training is refused.
+--synthetic --device cpu``). ``--distributed`` trains data-parallel under
+torchrun as ``train_h36m --distributed`` does; ``--model-parallel > 1`` is
+refused (ROADMAP [11b]).
 """
 
 from __future__ import annotations
@@ -25,9 +27,9 @@ import dataclasses
 import os
 
 import numpy as np
-import torch
 
 from contextaware_poseformer_tpu_torch import config as cfglib
+from contextaware_poseformer_tpu_torch.parallel import distributed
 from contextaware_poseformer_tpu_torch.train import metrics as metrics_lib
 from contextaware_poseformer_tpu_torch.train import train_h36m
 from contextaware_poseformer_tpu_torch.train.loop import Trainer
@@ -39,12 +41,15 @@ class Trainer3dhp(Trainer):
 
     def evaluate(self, state, max_batches: int | None = None):
         """(summary: p1_mm, pck, auc; the ``mpi3dhp_evaluate`` tables).
-        Keeps the predictions for ``--export-mat`` as ``last_pred``."""
-        pred, gt = self.predict(state, max_batches)
+        Keeps the (gathered) predictions and their sequence indices for
+        ``--export-mat`` as ``last_pred`` and ``last_seq_idx``."""
+        pred, gt = self.predict_local(state, max_batches)
+        seq_idx = np.asarray(self.val_ds.seq_idx[:len(pred)])
+        pred, gt, seq_idx = map(distributed.allgather_hosts,
+                                (pred, gt, seq_idx))
         # the ground truth is root-centred at joint 14 (steps.prepare)
         pred[:, 14] = 0.0  # root zeroed before error (run_3dhp.py:118)
         p1 = float(np.mean(np.linalg.norm(pred - gt, axis=-1)))
-        seq_idx = np.asarray(self.val_ds.seq_idx[:len(pred)])
         errors = metrics_lib.joint_errors_mm(pred, gt)
         seq_errors = {
             name: errors[seq_idx == i]
@@ -53,7 +58,7 @@ class Trainer3dhp(Trainer):
         }
         tables = metrics_lib.mpi3dhp_evaluate(seq_errors)
         overall = tables.get("All", {})
-        self.last_pred = pred
+        self.last_pred, self.last_seq_idx = pred, seq_idx
         return {"p1_mm": p1, "pck": overall.get("pck", 0.0),
                 "auc": overall.get("auc", 0.0)}, tables
 
@@ -86,7 +91,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--steps-per-epoch", type=int, default=None)
     p.add_argument("--eval-batches", type=int, default=None)
     p.add_argument("--model-parallel", type=int, default=1)
-    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel run under torchrun (NCCL on cuda, "
+                   "gloo on cpu)")
     return p
 
 
@@ -138,17 +145,13 @@ def make_datasets(cfg, args):
 def main(argv=None):
     """Returns (trainer, final state, best P1 in mm or the eval summary)."""
     args = build_argparser().parse_args(argv)
-    train_h36m.check_ported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA device here")
+    topo, device = train_h36m.setup(args)
     cfg = make_config(args)
-    train_ds, val_ds = make_datasets(cfg, args)
+    train_ds, val_ds = train_h36m.shard_datasets(*make_datasets(cfg, args),
+                                                 topo)
 
     trainer = Trainer3dhp(cfg, train_ds, val_ds, device, logdir=args.logdir)
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
-    print(f"device: {device} ({name})")
+    print(train_h36m.describe(device, topo))
     state = trainer.init_state(cfg.train.seed)
     print("Trainable parameter count:",
           sum(p.numel() for p in state.model.lifter.parameters()))
@@ -170,15 +173,13 @@ def main(argv=None):
             print(f"{seq}: {line}")
         print(f"p1: {summary['p1_mm']:.2f} pck: {summary['pck']:.2f} "
               f"auc: {summary['auc']:.2f}")
-        if args.export_mat:
+        if args.export_mat and trainer.is_main:
             from contextaware_poseformer_tpu_torch.data.mpi3dhp import (
                 export_inference_mat,
             )
 
-            pred = trainer.last_pred
-            export_inference_mat(args.export_mat, pred,
-                                 np.asarray(val_ds.seq_idx[:len(pred)]),
-                                 val_ds.seq_names)
+            export_inference_mat(args.export_mat, trainer.last_pred,
+                                 trainer.last_seq_idx, val_ds.seq_names)
             print(f"wrote {args.export_mat}")
         return trainer, state, summary
 
@@ -191,4 +192,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        distributed.shutdown()

@@ -25,8 +25,17 @@ any preset, for instance the CPN::
           lifter: {embed_dim_ratio: 32, depth: 1}}
   train: {batch_size: 2}
 
-Multi-device training (``--distributed``, ``--model-parallel > 1``) is
-refused: it is not ported yet.
+Data-parallel training (the reference's DDP over NCCL) runs one process a
+device under torchrun, each on its own contiguous shard of the train and
+validation sets with ``--batch-size`` rows a step (the global batch is the
+world size times it); evaluation gathers every rank's predictions::
+
+  torchrun --nproc_per_node 8 -m \\
+      contextaware_poseformer_tpu_torch.train.train_h36m --distributed \\
+      --preset h36m_cpn --synthetic
+
+(``--device cpu`` takes gloo). ``--model-parallel > 1``, the lifter's
+tensor parallelism, is refused (ROADMAP [11b]).
 """
 
 from __future__ import annotations
@@ -37,11 +46,7 @@ import dataclasses
 import torch
 
 from contextaware_poseformer_tpu_torch import config as cfglib
-
-NOT_PORTED = {
-    "multi": "multi-device training is not ported yet (ROADMAP queue 1, "
-             "item 11)",
-}
+from contextaware_poseformer_tpu_torch.parallel import distributed, mesh
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -76,13 +81,44 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="tiny model (synthetic smoke/testing)")
     p.add_argument("--steps-per-epoch", type=int, default=None)
     p.add_argument("--eval-batches", type=int, default=None)
-    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel run under torchrun (NCCL on cuda, "
+                   "gloo on cpu)")
     return p
 
 
 def check_ported(args) -> None:
-    if args.distributed or args.model_parallel > 1:
-        raise SystemExit(NOT_PORTED["multi"])
+    """Refuse, before any process group is joined, what ``mesh.make_mesh``
+    refuses: ``--model-parallel > 1`` (ROADMAP [11b])."""
+    try:
+        mesh.make_mesh(args.model_parallel, args.device)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
+
+
+def setup(args) -> tuple[dict, torch.device]:
+    """Refuse what is not ported and a CUDA device that is missing; join
+    the process group under ``--distributed``; returns the topology and
+    this rank's device (``cuda:LOCAL_RANK`` under torchrun)."""
+    check_ported(args)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device here")
+    topo = (distributed.initialize(args.device) if args.distributed
+            else distributed.topology())
+    return topo, distributed.local_device(device)
+
+
+def shard_datasets(train_ds, val_ds, topo):
+    """Per-rank contiguous dataset shards (the reference's per-rank label
+    slicing and DistributedSampler, human36m.py:536-552, train.py:68-71).
+    Both train and val shard: the evaluation gathers its results. The last
+    rank takes the remainder rows; the ``Trainer`` steps every rank through
+    the fewest full batches of any rank."""
+    if topo["process_count"] > 1:
+        train_ds.shard(topo["process_index"], topo["process_count"])
+        val_ds.shard(topo["process_index"], topo["process_count"])
+    return train_ds, val_ds
 
 
 def tiny(cfg: cfglib.Config, width: int = 8) -> cfglib.Config:
@@ -163,19 +199,14 @@ def make_datasets(cfg, args):
 def main(argv=None):
     """Returns (trainer, final state, best P1 in mm or the eval summary)."""
     args = build_argparser().parse_args(argv)
-    check_ported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA device here")
+    topo, device = setup(args)
     cfg = make_config(args)
-    train_ds, val_ds = make_datasets(cfg, args)
+    train_ds, val_ds = shard_datasets(*make_datasets(cfg, args), topo)
 
     from contextaware_poseformer_tpu_torch.train.loop import Trainer
 
     trainer = Trainer(cfg, train_ds, val_ds, device, logdir=args.logdir)
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
-    print(f"device: {device} ({name})")
+    print(describe(device, topo))
     state = trainer.init_state(cfg.train.seed)
     print("Trainable parameter count:",  # train.py:358-359
           sum(p.numel() for p in state.model.lifter.parameters()))
@@ -212,5 +243,15 @@ def main(argv=None):
     return trainer, state, best_p1
 
 
+def describe(device, topo) -> str:
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    return (f"device: {device} ({name}) | rank {topo['process_index']} of "
+            f"{topo['process_count']}")
+
+
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        distributed.shutdown()

@@ -362,6 +362,15 @@ args = (rng.randint(0, 256, (3, 64, 64, 3)).astype(np.uint8),
 lifter.prepare(*args)
 poses = lifter.lift_batch(*args)
 assert poses.shape == (3, 17, 3) and np.isfinite(poses).all()
+# the COCO detector: one train step and one flip-test batch of the tiny
+# model; the data-parallel modules (their import above)
+from contextaware_poseformer_tpu_torch.train import train_coco
+assert "contextaware_poseformer_tpu_torch.parallel.dryrun" in sys.modules
+out = train_coco.main(["--synthetic", "--tiny", "--device", "cpu",
+                       "--epochs", "1", "--steps-per-epoch", "1",
+                       "--batch", "2"])
+maps = train_coco.eval_step(out["model"], torch.zeros(1, 64, 64, 3), True)
+assert maps.shape == (1, 16, 16, 17) and bool(torch.isfinite(maps).all())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax")
              or m == "contextaware_poseformer_tpu"

@@ -1,11 +1,14 @@
 """The port's own copies of the JAX package's framework-neutral modules
 (config, skeleton, geometry, synthetic, H36M and MPI-INF-3DHP data, the
-checkpoint converter, the 3DHP metrics) give the same results bit for bit,
+checkpoint converter, the 3DHP metrics, the COCO keypoint data and its
+decode and OKS AP) give the same results bit for bit,
 and no module of the port, nor ``chip_smoke.py``, imports the JAX
 package."""
 
 import ast
+import json
 import pickle
+import sys
 from dataclasses import asdict
 from pathlib import Path
 
@@ -15,17 +18,24 @@ import scipy.io
 import torch
 
 from contextaware_poseformer_tpu import config as jconfig
+from contextaware_poseformer_tpu.data import coco as jcoco
 from contextaware_poseformer_tpu.data import h36m as jh36m
 from contextaware_poseformer_tpu.data import mpi3dhp as jmpi3dhp
 from contextaware_poseformer_tpu.data import synthetic as jsynthetic
 from contextaware_poseformer_tpu.models import convert as jconvert
+from contextaware_poseformer_tpu.train import coco_eval as jcoco_eval
 from contextaware_poseformer_tpu.train import metrics as jmetrics
 from contextaware_poseformer_tpu.utils import geometry as jgeometry
 from contextaware_poseformer_tpu.utils import skeleton as jskeleton
 from contextaware_poseformer_tpu_torch import config
-from contextaware_poseformer_tpu_torch.data import h36m, mpi3dhp, synthetic
+from contextaware_poseformer_tpu_torch.data import (
+    coco,
+    h36m,
+    mpi3dhp,
+    synthetic,
+)
 from contextaware_poseformer_tpu_torch.models import convert
-from contextaware_poseformer_tpu_torch.train import metrics
+from contextaware_poseformer_tpu_torch.train import coco_eval, metrics
 from contextaware_poseformer_tpu_torch.utils import geometry, skeleton
 
 REPO = Path(__file__).resolve().parents[1]
@@ -389,6 +399,97 @@ def test_mpi3dhp_equals_the_jax_package(tmp_path):
     b = scipy.io.loadmat(str(tmp_path / "theirs.mat"))
     for seq in ours.seq_names:
         np.testing.assert_array_equal(a[seq], b[seq])
+
+
+def _tiny_coco(tmp_path, n_imgs=3):
+    """A person_keypoints set of ``n_imgs`` random JPEG frames (written by
+    cv2), one person each, and detections on them."""
+    import cv2
+
+    images, anns, dets = [], [], []
+    rng = np.random.RandomState(6)
+    for i in range(n_imgs):
+        w, h = 96 + 8 * i, 80
+        name = f"{i:012d}.jpg"
+        cv2.imwrite(str(tmp_path / name),
+                    rng.randint(0, 255, (h, w, 3), np.uint8))
+        images.append({"id": i, "file_name": name, "width": w, "height": h})
+        kps = np.zeros((17, 3))
+        kps[:, 0] = rng.uniform(25, 70, 17)
+        kps[:, 1] = rng.uniform(20, 60, 17)
+        kps[:, 2] = rng.randint(0, 3, 17)
+        box = [20.0 + i, 15.0, 55.0, 50.0]
+        anns.append({"id": 100 + i, "image_id": i, "category_id": 1,
+                     "keypoints": kps.reshape(-1).tolist(),
+                     "num_keypoints": 17, "iscrowd": 0, "bbox": box,
+                     "area": 55.0 * 50.0})
+        dets.append({"image_id": i, "bbox": box, "score": 0.5 + 0.1 * i,
+                     "category_id": 1})
+    (tmp_path / "ann.json").write_text(
+        json.dumps({"images": images, "annotations": anns}))
+    (tmp_path / "dets.json").write_text(json.dumps(dets))
+    return str(tmp_path / "ann.json"), str(tmp_path / "dets.json"), anns
+
+
+@pytest.mark.parametrize("cv2_present", [True, False])
+def test_coco_data_and_eval_equal_the_jax_package(tmp_path, monkeypatch,
+                                                  cv2_present):
+    """The COCO keypoint copies (``data/coco.py``, ``train/coco_eval.py``):
+    targets, augmented train batches and test crops, the two-peak decode,
+    the flip merge and OKS AP, with cv2 and with it hidden (the numpy warp,
+    PIL's decode and the separable reflect-101 blur, as on a machine
+    without cv2)."""
+    ann, det_path, anns = _tiny_coco(tmp_path)
+    if not cv2_present:
+        monkeypatch.setitem(sys.modules, "cv2", None)  # import raises
+        assert coco._cv2() is None and jcoco._cv2() is None
+    for name in ("SYMMETRY", "DATA_SHAPE", "OUTPUT_SHAPE", "GAUSS_KERNELS",
+                 "NUM_JOINTS"):
+        assert getattr(coco, name) == getattr(jcoco, name), name
+    np.testing.assert_array_equal(coco.gaussian_kernel_1d(15),
+                                  jcoco.gaussian_kernel_1d(15))
+    ours = coco.CocoKeypointDataset.from_annotations(ann, str(tmp_path))
+    theirs = jcoco.CocoKeypointDataset.from_annotations(ann, str(tmp_path))
+    a = list(ours.batches(2, rng=np.random.RandomState(1), augment=True))
+    b = list(theirs.batches(2, rng=np.random.RandomState(1), augment=True))
+    assert len(a) == len(b) == 1
+    for k in ("image", "valid"):
+        assert a[0][k].dtype == b[0][k].dtype
+        np.testing.assert_array_equal(a[0][k], b[0][k])
+    for x, y in zip(a[0]["targets"], b[0]["targets"]):
+        np.testing.assert_array_equal(x, y)
+    assert a[0]["targets"][3].max() > 0
+
+    ours = coco.CocoKeypointDataset.from_detections(det_path, ann,
+                                                    str(tmp_path))
+    theirs = jcoco.CocoKeypointDataset.from_detections(det_path, ann,
+                                                       str(tmp_path))
+    a = list(ours.batches(2, drop_last=False))
+    b = list(theirs.batches(2, drop_last=False))
+    assert [len(x["image"]) for x in a] == [2, 1]
+    rng = np.random.RandomState(7)
+    results = [[], []]
+    for x, y in zip(a, b):
+        for k in ("image", "image_id", "det_score", "details"):
+            np.testing.assert_array_equal(x[k], y[k])
+        maps = rng.rand(len(x["image"]), 64, 48, 17).astype(np.float32) * 255
+        flipped = rng.rand(*maps.shape).astype(np.float32) * 255
+        merged = coco_eval.flip_merge(maps, flipped)
+        np.testing.assert_array_equal(merged,
+                                      jcoco_eval.flip_merge(maps, flipped))
+        results[0] += coco_eval.decode_batch(
+            merged, x["details"], x["det_score"], x["image_id"])
+        results[1] += jcoco_eval.decode_batch(
+            merged, y["details"], y["det_score"], y["image_id"])
+    assert results[0] == results[1]
+    # assert_equal: an area range without ground truth is nan on both sides
+    np.testing.assert_equal(coco_eval.oks_ap(results[0], anns),
+                            jcoco_eval.oks_ap(results[1], anns))
+    gt = [{**r, "area": 2750.0, "num_keypoints": 17,
+           "bbox": [20.0, 15.0, 55.0, 50.0]} for r in results[0]]
+    perfect = coco_eval.oks_ap(results[0], gt)
+    np.testing.assert_equal(perfect, jcoco_eval.oks_ap(results[0], gt))
+    assert perfect["AP"] > 0.99
 
 
 def _imported_modules(path: Path) -> list[str]:

@@ -622,14 +622,17 @@ def test_checkpoint_manager_keeps_latest_and_best(tmp_path):
 
 
 @pytest.mark.parametrize("cli,argv", [
-    (train_h36m, ["--distributed"]),
+    (train_h36m, ["--distributed", "--model-parallel", "2"]),
     (train_h36m, ["--model-parallel", "2"]),
-    (train_3dhp, ["--distributed"]),
+    (train_3dhp, ["--distributed", "--model-parallel", "2"]),
 ])
 def test_cli_refuses_what_is_not_ported(cli, argv):
-    """Multi-device training, the one part of the CLIs not ported."""
-    with pytest.raises(SystemExit, match="multi-device"):
+    """The lifter's tensor parallelism, the one part of the CLIs not
+    ported (ROADMAP [11b]); it is refused before any process group is
+    joined."""
+    with pytest.raises(SystemExit, match=r"tensor parallelism.*\[11b\]"):
         cli.main(["--synthetic", "--device", "cpu", *argv])
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_needs_a_device(monkeypatch):
