@@ -37,7 +37,7 @@ Phases, one line of output each (failures raise and exit non-zero):
    must be finite (64, 17, 3), every kernel's launch count must grow by its
    per-request count, and the same request through the plain versions must
    agree to a relative RMS of 2e-2. Information only: host ms a request and
-   frames/s over 20 requests, stage times by CUDA events, and under
+   frames/s over 10 requests, stage times by CUDA events, and under
    torch.profiler the device busy ms a request, its idle share of the
    unprofiled host time, K1's, K2's, K3's and K9's device ms and share of
    it, and the top kernels;
@@ -191,7 +191,18 @@ Phases, one line of output each (failures raise and exit non-zero):
    the same parameters and P1, and those equal one process on the
    concatenated batch (``dryrun.reference``) to 1e-5 relative L2; each rank
    gathers 3 and 2 rows (``allgather_hosts``) in rank order. (c) Where
-   there are two cards or more, the same over NCCL with one rank a card;
+   there are two cards or more, the same over NCCL with one rank a card.
+   (d) Tensor parallelism: h36m_cpn at full width (set up by
+   ``train_h36m``'s parsing with ``--distributed --model-parallel 2``)
+   split over two gloo ranks on this one card (``parallel.dryrun.spawn``),
+   2 steps on the preset's first batches at batch 256 (or the first of 128
+   and 64 that two ranks hold, printed), against the plain ``Trainer``'s 2
+   steps on the same batches: losses to 1e-5 relative and equal on both
+   ranks, the gathered lifter parameters to 1e-6 relative L2, K1 5 and K6
+   4 a step on each rank; each rank's peak memory and steps/s on one batch
+   (information). (e) ``parallel.dryrun`` with ``--model-parallel 2``: the
+   tiny model split over two gloo ranks on the card against one process,
+   as in (b); with four cards or more, dp=2 x tp=2 over NCCL;
 15. coco: the CPN COCO detector (``models/cpn_coco.py``,
    ``train/train_coco.py``) at full width (ResNet-50 (3, 4, 6, 3), 256x192,
    K = 17, live BN, fp32, TF32 off, random weights from seed 0): the card
@@ -224,11 +235,25 @@ Phases, one line of output each (failures raise and exit non-zero):
    bf16 lifter's by at most 2e-2 (the tiny bf16 lifter itself sits 3-6%
    from its fp32 version). Each of those kernels must have launched in
    that batch and none in the plain runs;
-17. a JSON line of per-kernel results (K1-K10 and K10q, then the probes'
+17. tools: ``tools/model_flops`` (the parity graph's GFLOP a frame of
+   every preset on the meta device by XLA's per-op rules, equal to the
+   committed ``FLOPS_torch.json`` and not above the JAX package's
+   ``FLOPS.json``, XLA's optimized graph; h36m_cpn's training step and
+   deploy graph);
+   the main path (``deploy_config("h36m_cpn")``, batch 64, prepared on
+   one seeded batch): frames/s over 10 requests and its MFU against the
+   bf16 peak, and one request profiled under
+   ``tools/trace_budget.annotate`` whose named buckets (not the fallback
+   ones) must hold 95% of the device time; ``tools/train_bench.bench_batch`` for h36m_cpn at batch
+   256 (a burst of 3 steps: steps/s, MFU against the fp32 peak) with one
+   profiled step whose budget must too; ``tools/demo`` (the h36m_hrnet_32
+   float slice through ``StreamingLifter``) writes a PNG of finite poses;
+18. a JSON line of per-kernel results (K1-K10 and K10q, then the probes'
    counterparts, named ``probe <name>``), then the final JSON status
    line. ``launches`` are summed over the serving (quantize and streaming
-   included), aggregate, training, parallel (the full-width DDP run) and
-   gate runs, each counted from 0 (the
+   included), aggregate, training, parallel (the full-width DDP run and
+   both ranks of the tensor-parallel one) and gate runs, each counted from
+   0 (the
    probes': their phase's main run). Each phase's seconds are printed as
    it ends and summed by phase before the JSON lines. Errors are the largest over the bf16 cases (int8 maps, sampled to
    bf16, included). Times are bf16 at the CPN serving shapes for K1-K4,
@@ -253,6 +278,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import time
@@ -302,14 +328,14 @@ QUANT_GRAPHS = (("h36m_hrnet_32", "static", REQUESTS),
                 ("h36m_hrnet_48", "static", 1), ("h36m_cpn", "static", 1),
                 ("h36m_hrnet_32", "c128", 1), ("h36m_cpn", "c128", 1))
 QUANT_SHAPES_ONLY = (("h36m_hrnet_48", "c128"),)
-QUANT_TIMED = 10  # host-clock requests of a quantize graph
+QUANT_TIMED = 5  # host-clock requests of a quantize graph
 # the streaming phase: 4 cameras x 38 time slots through the h36m_cpn
 # deploy graph at batch 64 (two full chunks, one padded from 24), then one
 # pass of the h36m_hrnet_32 deploy graph; passes timed for latency_stats
 STREAM_CAMERAS, STREAM_SLOTS = 4, 38
 STREAM_PASSES = 20
 STREAM_EMA = 0.5
-TIMED_REQUESTS = 20  # host-clock frames/s, after the checked requests
+TIMED_REQUESTS = 10  # host-clock frames/s, after the checked requests
 PROFILED = 5  # requests under torch.profiler
 TOP_KERNELS = 8
 TRAIN_BATCH = 256  # the h36m_cpn preset's batch
@@ -336,6 +362,16 @@ PARALLEL_PER_STEP = {"K1": 5, "K6": K6_CALLS_A_STEP}
 PARALLEL_LOSS_RTOL = 1e-6
 PARALLEL_REL_L2 = 1e-5
 PARALLEL_DRYRUN_STEPS = 2
+# the tensor-parallel runs: h36m_cpn at full width (the preset's batch)
+# split over two gloo ranks on the one card against the plain Trainer on
+# the same batches, then the tiny dry run split over two ranks
+TP_STEPS = 2
+TP_TIMED = 2  # steps a rank times on one batch, after the checked steps
+TP_LOSS_RTOL = 1e-5
+TP_REL_L2 = 1e-6
+# the tools phase: timed requests of the main path, the train_bench burst
+TOOLS_REQUESTS = 10
+MIN_COVERAGE = 0.95  # of device time, by the trace budget
 # the coco phase: card vs CPU at batch 4 (relative RMS), Adam steps on one
 # batch of the recipe's 32, timed calls a layout, frames of the --eval run
 COCO_CHECK_BATCH = 4
@@ -2608,7 +2644,7 @@ def check_train(card, run):
     t0 = time.perf_counter()
     args = cli.build_argparser().parse_args(
         ["--preset", name, "--synthetic", "--device", "cuda"])
-    train_h36m.check_ported(args)
+    train_h36m.check_args(args)
     cfg = cli.make_config(args)
     if cfg.train.batch_size != batch:
         raise AssertionError(f"{name} batch {cfg.train.batch_size}")
@@ -2781,26 +2817,29 @@ def _ddp_vs_plain(cfg, train_ds, val_ds, raws, card):
     return ddp[3]
 
 
-def _dryrun_vs_one_process(nproc, backend, what):
-    """``parallel.dryrun.run`` of ``nproc`` ranks over ``backend`` on the
-    card(s) against ``dryrun.reference`` in this process: each rank's
-    lifter parameters to PARALLEL_REL_L2, P1 to 1e-5 relative; the gather
-    of 3 and 2 rows (checked by ``dryrun.check``)."""
+def _dryrun_vs_one_process(nproc, backend, what, tp=1):
+    """``parallel.dryrun.run`` of ``nproc`` ranks, ``tp`` a model group,
+    over ``backend`` on the card(s) against ``dryrun.reference`` on the
+    data ranks' rows in this process: each rank's (gathered) lifter
+    parameters to PARALLEL_REL_L2, P1 to 1e-5 relative; the gather of 3
+    and 2 rows (checked by ``dryrun.check``)."""
     from contextaware_poseformer_tpu_torch.parallel import dryrun
 
     t0 = time.perf_counter()
     ranks = dryrun.run(nproc, "cuda", backend=backend,
-                       steps=PARALLEL_DRYRUN_STEPS, timeout=300)
-    ref = dryrun.reference(nproc, "cuda", steps=PARALLEL_DRYRUN_STEPS)
+                       steps=PARALLEL_DRYRUN_STEPS, timeout=300,
+                       model_parallel=tp)
+    ref = dryrun.reference(nproc // tp, "cuda", steps=PARALLEL_DRYRUN_STEPS)
     rels = [dryrun.rel_l2(r["params"], ref["params"]) for r in ranks]
     p1_rel = abs(ranks[0]["p1_mm"] - ref["p1_mm"]) / ref["p1_mm"]
-    print(f"parallel: {what}: {nproc} ranks over {ranks[0]['backend']} "
-          f"(rank 0's topology {ranks[0]['topology']}), tiny "
-          f"config, {PARALLEL_DRYRUN_STEPS} steps, augmentation and dropout "
-          f"off: losses {[f'{v:.6f}' for v in ranks[0]['losses']]} equal on "
-          f"every rank, parameters equal on every rank; against one process "
-          f"on the concatenated batch: rel L2 {[f'{v:.3e}' for v in rels]} "
-          f"(tol {PARALLEL_REL_L2:.0e}), P1 {ranks[0]['p1_mm']:.4f} vs "
+    print(f"parallel: {what}: {nproc} ranks ({nproc // tp} data x {tp} "
+          f"model) over {ranks[0]['backend']} (rank 0's topology "
+          f"{ranks[0]['topology']}), tiny config, {PARALLEL_DRYRUN_STEPS} "
+          f"steps, augmentation and dropout off: losses "
+          f"{[f'{v:.6f}' for v in ranks[0]['losses']]} equal on every rank, "
+          f"parameters equal on every rank; against one process on the "
+          f"data ranks' rows: rel L2 {[f'{v:.3e}' for v in rels]} (tol "
+          f"{PARALLEL_REL_L2:.0e}), P1 {ranks[0]['p1_mm']:.4f} vs "
           f"{ref['p1_mm']:.4f} mm (rel {p1_rel:.3e}); allgather_hosts of "
           f"3 and 2 rows: {ranks[0]['gathered'].tolist()} on every rank "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -2809,9 +2848,109 @@ def _dryrun_vs_one_process(nproc, backend, what):
                              f"{p1_rel}")
 
 
+def _tp_rank_job(rank, world, device, batch):
+    """One rank of the full-width h36m_cpn run split over ``world`` ranks
+    (a spawned process, set up by ``train_h36m``'s parsing with
+    ``--distributed --model-parallel``): TP_STEPS steps on the preset's
+    first batches, then TP_TIMED timed steps on the first; its losses, the
+    whole lifter's parameters (gathered), launch counts of the checked
+    steps, peak memory and steps/s."""
+    from contextaware_poseformer_tpu_torch.parallel import dryrun
+    from contextaware_poseformer_tpu_torch.train import steps
+    from contextaware_poseformer_tpu_torch.train.loop import Trainer
+
+    cfg, train_ds, val_ds, raws = _tp_setup(
+        batch, ["--distributed", "--model-parallel", str(world)])
+    trainer = Trainer(cfg, train_ds, val_ds, device, model_parallel=world)
+    state = trainer.init_state(cfg.train.seed)
+    torch.cuda.synchronize()
+    _reset_counts()
+    losses = [float(steps.train_step(state, raw, cfg, trainer.task,
+                                     cfg.train.seed + 1)["loss"])
+              for raw in raws]
+    torch.cuda.synchronize()
+    counts = _counts()
+    params = dryrun.lifter_vector(state.model.lifter)
+    t0 = time.perf_counter()
+    for _ in range(TP_TIMED):
+        steps.train_step(state, raws[0], cfg, trainer.task, 1)
+    torch.cuda.synchronize()
+    return {"losses": losses, "params": params, "counts": counts,
+            "rate": TP_TIMED / (time.perf_counter() - t0),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _tp_setup(batch, extra_args=()):
+    """h36m_cpn through ``train_h36m``'s parsing at ``batch``: the config,
+    the synthetic sets and the first TP_STEPS batches on the card."""
+    from contextaware_poseformer_tpu_torch.data import pipeline
+    from contextaware_poseformer_tpu_torch.train import train_h36m
+
+    args = train_h36m.build_argparser().parse_args(
+        ["--preset", "h36m_cpn", "--synthetic", "--device", "cuda",
+         "--batch-size", str(batch), *extra_args])
+    cfg = train_h36m.make_config(args)
+    train_ds, val_ds = train_h36m.make_datasets(cfg, args)
+    it = pipeline.batch_iterator(train_ds, batch, shuffle=False,
+                                 num_workers=8)
+    raws = [pipeline.to_device(next(it)[0], "cuda") for _ in range(TP_STEPS)]
+    return cfg, train_ds, val_ds, raws
+
+
+def _tp_vs_plain(card):
+    """Phase 14d: h36m_cpn at full width split over two gloo ranks on the
+    card against the plain Trainer on the same batches, at the preset's
+    batch. Returns the ranks' launch counts."""
+    import functools
+
+    from contextaware_poseformer_tpu_torch.parallel import dryrun
+    from contextaware_poseformer_tpu_torch.train import steps
+    from contextaware_poseformer_tpu_torch.train.loop import Trainer
+
+    batch = TRAIN_BATCH
+    t0 = time.perf_counter()
+    ranks = dryrun.spawn(2, functools.partial(_tp_rank_job, batch=batch),
+                         "cuda", backend="gloo", timeout=600)
+    seconds = time.perf_counter() - t0
+    cfg, train_ds, val_ds, raws = _tp_setup(batch)
+    trainer = Trainer(cfg, train_ds, val_ds, "cuda")
+    state = trainer.init_state(cfg.train.seed)
+    plain = [float(steps.train_step(state, raw, cfg, trainer.task,
+                                    cfg.train.seed + 1)["loss"])
+             for raw in raws]
+    params = dryrun.lifter_vector(state.model.lifter)
+    del state, trainer, raws
+    torch.cuda.empty_cache()
+    want = _expected(PARALLEL_PER_STEP, TP_STEPS)
+    for r in ranks:
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                          plain))
+        rel = dryrun.rel_l2(r["params"], params)
+        print(f"parallel: h36m_cpn tp=2 rank {r['rank']} (two gloo ranks on "
+              f"one card, batch {batch}, {TP_STEPS} steps): losses "
+              f"{[f'{v:.9g}' for v in r['losses']]} vs the plain Trainer's "
+              f"{[f'{v:.9g}' for v in plain]} (max rel {loss_rel:.3e}, tol "
+              f"{TP_LOSS_RTOL:.0e}); gathered lifter parameters rel L2 "
+              f"{rel:.3e} (tol {TP_REL_L2:.0e}); launches {r['counts']}; "
+              f"peak memory {r['peak_gb']:.2f} GB; {r['rate']:.3f} steps/s "
+              f"on one batch (information only; {card})", flush=True)
+        if loss_rel > TP_LOSS_RTOL or rel > TP_REL_L2:
+            raise AssertionError(f"parallel: tp=2 rank {r['rank']}: loss "
+                                 f"rel {loss_rel}, parameters rel L2 {rel}")
+        if r["counts"] != want:
+            raise AssertionError(f"parallel: tp=2 rank {r['rank']}: "
+                                 f"launches {r['counts']}, expected "
+                                 f"{PARALLEL_PER_STEP} a step")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError("parallel: tp=2: the ranks' losses differ")
+    print(f"parallel: h36m_cpn tp=2 run {seconds:.1f} s (spawn, build, "
+          f"steps)", flush=True)
+    return _sum_counts([r["counts"] for r in ranks])
+
+
 def check_parallel(card):
-    """Phase 14: data-parallel training. Returns the launch counts of the
-    full-width DDP run."""
+    """Phase 14: data- and tensor-parallel training. Returns the launch
+    counts of the full-width DDP and tensor-parallel runs."""
     from contextaware_poseformer_tpu_torch.data import pipeline
     from contextaware_poseformer_tpu_torch.train import train_h36m
 
@@ -2836,7 +2975,142 @@ def check_parallel(card):
     else:
         print(f"parallel: NCCL with one rank a card: not run ({n} card)",
               flush=True)
-    return counts
+    tp_counts = _tp_vs_plain(card)
+    _dryrun_vs_one_process(2, "gloo", "the tiny model split over two ranks "
+                           "on one card", tp=2)
+    if n >= 4:
+        _dryrun_vs_one_process(4, "nccl", "dp=2 x tp=2, one rank a card",
+                               tp=2)
+    else:
+        print(f"parallel: dp=2 x tp=2 over NCCL: not run ({n} card)",
+              flush=True)
+    return _sum_counts([counts, tp_counts])
+
+
+def check_tools(card):
+    """Phase 17: the port's tools. ``model_flops``: GFLOP a frame of every
+    preset, equal to the committed ``FLOPS_torch.json`` and not above
+    ``FLOPS.json`` (``model_flops.against_jax``); the
+    main path (``deploy_config("h36m_cpn")``, batch 64, prepared on one
+    seeded batch) over TOOLS_REQUESTS timed requests and its MFU, and one
+    request profiled under ``trace_budget.annotate``: its budget's named
+    buckets (not the fallback ones) must hold MIN_COVERAGE of device time;
+    a ``train_bench`` burst of
+    h36m_cpn at batch 256 (steps/s, MFU) with one profiled step, whose
+    budget must too; ``demo`` writes a PNG of finite poses."""
+    import tempfile
+
+    import numpy as np
+
+    from contextaware_poseformer_tpu_torch import config, serve
+    from contextaware_poseformer_tpu_torch.tools import (
+        demo, model_flops, trace_budget, train_bench,
+    )
+    from contextaware_poseformer_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    counts = model_flops.count_all()
+    if counts != model_flops.load():
+        raise AssertionError(f"tools: model_flops counts {counts}, not the "
+                             "committed FLOPS_torch.json")
+    dev = model_flops.against_jax(counts)
+    served_flops = model_flops.count(
+        serve.deploy_config("h36m_cpn").model)["gflops_per_frame"]
+    print("tools: model_flops (the parity graph on the meta device, batch "
+          f"{model_flops.BATCH}, XLA's per-op rules; "
+          f"{time.perf_counter() - t0:.1f} s; equal to FLOPS_torch.json): "
+          + "; ".join(f"{k} {v['gflops_per_frame']:.3f} GFLOP/frame "
+                      f"({dev[k]:+.2%} vs FLOPS.json, XLA's optimized graph)"
+                      for k, v in counts.items())
+          + "; training steps " + ", ".join(
+              f"{k} {v['train_gflops_per_frame']:.3f}"
+              for k, v in counts.items())
+          + f" GFLOP/frame; the h36m_cpn deploy graph {served_flops:.3f}",
+          flush=True)
+
+    cfg = serve.deploy_config("h36m_cpn")
+    model = serve.build_serving_model(
+        cfg, "cuda", generator=torch.Generator().manual_seed(0))
+    h, w = cfg.model.image_shape
+    gen = torch.Generator().manual_seed(0)
+    serve.prepare(model, [torch.randint(0, 256, (BATCH, h, w, 3),
+                                        dtype=torch.uint8,
+                                        generator=gen).cuda()])
+    req = (torch.randint(0, 256, (BATCH, h, w, 3), dtype=torch.uint8,
+                         generator=gen).cuda(),
+           (torch.rand(BATCH, 17, 2, generator=gen) * 2 - 1).cuda(),
+           (torch.rand(BATCH, 17, 2, generator=gen) * w).cuda())
+    for _ in range(2):
+        serve.lift(model, *req)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(TOOLS_REQUESTS):
+        out = serve.lift(model, *req)
+    torch.cuda.synchronize()
+    fps = BATCH * TOOLS_REQUESTS / (time.perf_counter() - t1)
+    flops = served_flops
+    with tempfile.TemporaryDirectory() as d:
+        with trace_budget.annotate(model), profiling.trace(d):
+            serve.lift(model, *req)
+            torch.cuda.synchronize()
+        (path,) = [os.path.join(d, f) for f in os.listdir(d)]
+        served = trace_budget.budget(trace_budget.load_trace(path))
+    if not torch.isfinite(out).all():
+        raise AssertionError("tools: the main path's poses are not finite")
+    print(f"tools: main path (h36m_cpn int8 deploy graph, batch {BATCH}): "
+          f"{fps:.1f} frames/s over {TOOLS_REQUESTS} requests (host clock), "
+          f"MFU {model_flops.mfu(flops, fps) * 100:.3f}% of the bf16 peak "
+          f"at {flops:.3f} GFLOP/frame ({card})", flush=True)
+    _print_budget("main-path request", served)
+    del model, req, out
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        r = train_bench.bench_batch(config.preset("h36m_cpn"), TRAIN_BATCH,
+                                    torch.device("cuda"), iters=3, bursts=1,
+                                    evaluate=False, trace_steps=(1, 2),
+                                    logdir=d)
+    print(f"tools: train_bench h36m_cpn batch {TRAIN_BATCH}: "
+          f"{r['ms_per_step']:.1f} ms/step, {r['steps_per_s']:.3f} steps/s, "
+          f"{r['frames_per_s']:.0f} frames/s, MFU {r['mfu'] * 100:.3f}% of "
+          f"the fp32 peak at {r['train_gflops_per_frame']:.3f} GFLOP/frame "
+          f"(one burst of 3 steps; {card})", flush=True)
+    _print_budget("h36m_cpn training step", r["budget"])
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        png, preds = demo.main(["--out", os.path.join(d, "demo.png")])
+        with open(png, "rb") as f:
+            is_png = f.read(8) == b"\x89PNG\r\n\x1a\n"
+    if not (is_png and np.isfinite(preds).all()):
+        raise AssertionError("tools: demo wrote no PNG of finite poses")
+    print(f"tools: demo: h36m_hrnet_32 float slice through StreamingLifter, "
+          f"{len(preds)} synthetic frames, a PNG of finite poses", flush=True)
+    for name, b in (("main-path request", served),
+                    ("h36m_cpn training step", r["budget"])):
+        if b["named"] < MIN_COVERAGE:
+            raise AssertionError(f"tools: {name}: the trace budget's named "
+                                 f"buckets hold {b['named']:.2%}")
+
+
+def _print_budget(what, b):
+    from contextaware_poseformer_tpu_torch.tools import trace_budget
+
+    total = max(b["total_us"], 1e-9)
+    print(f"tools: trace budget of one {what}: {b['total_us'] / 1e3:.3f} ms "
+          f"of device time, {b['coverage']:.2%} attributed, "
+          f"{b['named']:.2%} to named buckets ({b['catch_all']:.2%} to the "
+          f"fallback buckets {', '.join(trace_budget.CATCH_ALL)}); "
+          + ", ".join(f"{k} {v / 1e3:.3f} ms ({v / total:.1%})"
+                      for k, v in b["buckets"].items()), flush=True)
+    for k in list(b["buckets"])[:6]:
+        print(f"tools: {what}: {k}: top kernels " + ", ".join(
+            f"{n[:70]} {us / 1e3:.3f} ms" for n, us in b["top"][k]),
+            flush=True)
+    if b["unattributed"]:
+        print(f"tools: {what}: unattributed kernels "
+              + ", ".join(f"{k[:60]} {v:.1f} us" for k, v in
+                          list(b["unattributed"].items())[:8]), flush=True)
 
 
 def _rel_rms(a, b):
@@ -3348,6 +3622,7 @@ def main() -> None:
     trained.append(clock("parallel", check_parallel, card))
     clock("coco", check_coco, card)
     trained.append(clock("gate", check_gate, card))
+    clock("tools", check_tools, card)
     clock.report()
     kernels = [
         {"name": k, "route": "cuda", "source": CSRC + SOURCES[k],

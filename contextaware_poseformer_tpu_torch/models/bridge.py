@@ -32,6 +32,10 @@ model as a flax-layout ``params`` tree, the shapes tree
 ``convert.convert_conv_backbone`` takes (a backbone conv keeps its dotted
 flax name as ``flax_name``), and its ``calib`` collection.
 
+Under tensor parallelism ``shard_for_rank`` cuts a tree (numpy leaves) to
+one rank's shards of the lifter's split Linears (``parallel/tensor.py``)
+and ``gather_shards`` joins the ranks' trees back, bit for bit.
+
 The COCO detector (``models/cpn_coco.py``) has its own pair,
 ``cpn_coco_from_jax`` and ``cpn_coco_to_jax``, for the JAX package's flat
 ``{params, batch_stats}`` tree of ``CPNCoco``.
@@ -53,6 +57,7 @@ from contextaware_poseformer_tpu_torch.models.backbone_common import (
     stamp_fingerprint,
 )
 from contextaware_poseformer_tpu_torch.models.layers import Linear
+from contextaware_poseformer_tpu_torch.parallel import tensor
 
 SERVING = ("calib", "qweights")  # the int8 serving collections
 IGNORED = ("qmeta",)  # the JAX package's fingerprint of its own params
@@ -146,6 +151,40 @@ def variables_to_jax(model: nn.Module) -> dict[str, Any]:
     if not tree["calib"]:
         del tree["calib"]
     return tree
+
+
+def _map_tree(tree: Mapping[str, Any], fn, path=()) -> dict[str, Any]:
+    return {k: (_map_tree(v, fn, path + (k,)) if isinstance(v, Mapping)
+                else fn(path + (k,), v)) for k, v in tree.items()}
+
+
+def shard_for_rank(tree: Mapping[str, Any], mesh) -> dict[str, Any]:
+    """flax variables (numpy leaves) cut to model rank ``mesh.model_rank``
+    of ``mesh.model``: the lifter's split Linears (``tensor.split_of``)
+    become that rank's shards, every other leaf stays as it is. The tree
+    itself at ``mesh.model == 1``."""
+    if mesh.model == 1:
+        return dict(tree)
+
+    def cut(path, leaf):
+        sp = tensor.split_of(path)
+        return (leaf if sp is None else np.ascontiguousarray(
+            tensor.shard(np.asarray(leaf), sp, mesh.model_rank, mesh.model)))
+
+    return _map_tree(tree, cut)
+
+
+def gather_shards(trees) -> dict[str, Any]:
+    """The whole tree from the trees of every model rank, in rank order:
+    ``shard_for_rank``'s inverse (a replicated leaf is rank 0's)."""
+    leaves = [dict(_leaves(t)) for t in trees]
+
+    def join(path, leaf):
+        sp = tensor.split_of(path)
+        return leaf if sp is None else tensor.unshard(
+            [np.asarray(t[path]) for t in leaves], sp)
+
+    return _map_tree(trees[0], join)
 
 
 def load_jax_variables(model: nn.Module, tree: Mapping[str, Any]) -> None:

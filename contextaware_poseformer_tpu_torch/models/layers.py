@@ -39,6 +39,7 @@ from contextaware_poseformer_tpu_torch.ops.small_attention import (
     small_attention,
     softmax_middle,
 )
+from contextaware_poseformer_tpu_torch.parallel import tensor
 
 
 def _dtype(name: str | None):
@@ -83,10 +84,16 @@ class Linear(nn.Module):
         else:
             init.fill_(self.bias, torch.as_tensor(self.bias_values))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp=None) -> torch.Tensor:
+        """``tp`` (a ``parallel.tensor.TensorParallel``): this Linear is a
+        row shard; its partial products are summed over the model group,
+        then the bias is added, once."""
         dt = self.dtype or torch.promote_types(x.dtype, self.kernel.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.kernel.to(dt).t(), bias)
+        if tp is None:
+            return F.linear(x.to(dt), self.kernel.to(dt).t(), bias)
+        y = tensor.reduce(F.linear(x.to(dt), self.kernel.to(dt).t()), tp)
+        return y if bias is None else y + bias
 
 
 class LayerNorm(nn.Module):
@@ -128,7 +135,11 @@ class Dropout(nn.Module):
         return tuple(x.shape)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                tp=None, axis: int = -1) -> torch.Tensor:
+        """``tp`` (a ``parallel.tensor.TensorParallel``): ``x`` is this
+        rank's shard along ``axis``; the whole tensor's mask is drawn, as
+        one process draws it, and this rank's part of it kept."""
         if not self.active(deterministic):
             return x
         if generator is None:
@@ -137,8 +148,12 @@ class Dropout(nn.Module):
         if self.rate >= 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
-        mask = torch.rand(self.mask_shape(x), generator=generator,
-                          device=x.device) < keep
+        shape = list(self.mask_shape(x))
+        if tp is not None:
+            shape[axis] *= tp.size
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        if tp is not None:
+            mask = mask.chunk(tp.size, axis)[tp.rank]
         return torch.where(mask, x / keep,
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -152,7 +167,12 @@ class DropPath(Dropout):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU -> dropout -> fc2 -> dropout."""
+    """fc1 -> GELU -> dropout -> fc2 -> dropout.
+
+    Under tensor parallelism (``tp``, set by ``parallel.tensor.
+    shard_model``) fc1 holds this rank's columns and fc2 its rows: the
+    input is ``copy``-ed in, the hidden stays this rank's, and fc2's
+    partial products are all-reduced before its bias."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, dtype=None, drop: float = 0.0,
@@ -163,11 +183,15 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden_features, out_features, dtype=dtype,
                           device=device)
         self.drop = Dropout(drop)
+        self.tp = None
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator=None) -> torch.Tensor:
-        x = self.drop(F.gelu(self.fc1(x)), deterministic, generator)  # erf
-        return self.drop(self.fc2(x), deterministic, generator)
+        tp = self.tp
+        if tp is not None:
+            x = tensor.copy(x, tp)
+        h = self.drop(F.gelu(self.fc1(x)), deterministic, generator, tp)  # erf
+        return self.drop(self.fc2(h, tp), deterministic, generator)
 
 
 def apply_ln_mlp_residual(x, norm: LayerNorm, mlp: Mlp) -> torch.Tensor:
@@ -186,7 +210,12 @@ class Attention(nn.Module):
     ``impl``: "einsum" (plain torch), "fused" (K3: the whole attention with
     qkv and proj in one kernel, for the 5-token res blocks) or "grouped"
     (K4: the softmax middle as a kernel, qkv and proj as plain matmuls, for
-    the 17-token joint blocks)."""
+    the 17-token joint blocks).
+
+    Under tensor parallelism (``tp``, set by ``parallel.tensor.
+    shard_model``; einsum only) qkv holds this rank's heads and proj their
+    rows: the input is ``copy``-ed in, the rank's heads attend, and proj's
+    partial products are all-reduced before its bias."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  dtype=None, impl: str = "einsum", attn_drop: float = 0.0,
@@ -202,6 +231,7 @@ class Attention(nn.Module):
         self.proj = Linear(dim, dim, dtype=dtype, device=device)
         self.attn_drop = Dropout(attn_drop)
         self.proj_drop = Dropout(proj_drop)
+        self.tp = None
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator=None) -> torch.Tensor:
@@ -221,16 +251,21 @@ class Attention(nn.Module):
                 x.to(self.dtype or x.dtype), self.qkv.kernel, bq,
                 self.proj.kernel, self.proj.bias, self.num_heads,
             )
-        q, k, v = _heads_split(self.qkv(x), c, self.num_heads)
+        tp, heads, width = self.tp, self.num_heads, c
+        if tp is not None:
+            x = tensor.copy(x, tp)
+            heads, width = heads // tp.size, width // tp.size
+        q, k, v = _heads_split(self.qkv(x), width, heads)
         if self.attn_drop.active(deterministic):
             a = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float())
             a = torch.softmax(a * q.shape[-1] ** -0.5, dim=-1)
-            a = self.attn_drop(a, deterministic, generator).to(v.dtype)
+            a = self.attn_drop(a, deterministic, generator, tp,
+                               axis=1).to(v.dtype)
             o = torch.einsum("bhnm,bmhd->bnhd", a, v)
         else:
             o = softmax_middle(q, k, v)
-        out = self.proj(o.reshape(b, n, c))
-        return self.proj_drop(out, deterministic, generator)
+        o = o.reshape(b, n, width)
+        return self.proj_drop(self.proj(o, tp), deterministic, generator)
 
 
 class Block(nn.Module):

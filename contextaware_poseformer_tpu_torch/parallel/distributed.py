@@ -65,8 +65,10 @@ def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def world_size() -> int:
-    return dist.get_world_size() if dist.is_initialized() else 1
+def world_size(group=None) -> int:
+    """The ranks of ``group`` (default: the world); 1 outside a process
+    group."""
+    return dist.get_world_size(group) if dist.is_initialized() else 1
 
 
 def local_device(device) -> torch.device:
@@ -93,25 +95,27 @@ def local_rows(x):
     return x
 
 
-def allgather_hosts(local) -> np.ndarray:
+def allgather_hosts(local, group=None) -> np.ndarray:
     """Concatenate per-rank arrays along axis 0 in rank order, allowing
     DIFFERENT lengths per rank: gather the counts, pad to the largest,
     gather, trim, concatenate (``distributed.py:69-93``; the reference's
     padded all_gather and ``dist_size`` trim, ContextPose/train.py:216-226).
-    A single process gets its array back."""
+    ``group``: the ranks gathered (default every rank; under tensor
+    parallelism the data group, whose ranks hold distinct rows). A single
+    process gets its array back."""
     local = np.ascontiguousarray(local)
-    if world_size() == 1:
+    if world_size(group) == 1:
         return local
     dev = _collective_device()
     n = torch.tensor([local.shape[0]], dtype=torch.int64, device=dev)
-    counts = [torch.empty_like(n) for _ in range(world_size())]
-    dist.all_gather(counts, n)
+    counts = [torch.empty_like(n) for _ in range(world_size(group))]
+    dist.all_gather(counts, n, group=group)
     counts = [int(c.item()) for c in counts]
     rows = torch.zeros((max(counts), *local.shape[1:]),
                        dtype=torch.from_numpy(local[:0]).dtype, device=dev)
     rows[:local.shape[0]] = torch.from_numpy(local).to(dev)
     parts = [torch.empty_like(rows) for _ in counts]
-    dist.all_gather(parts, rows)
+    dist.all_gather(parts, rows, group=group)
     return np.concatenate([p[:c].cpu().numpy()
                            for p, c in zip(parts, counts)], axis=0)
 
@@ -144,14 +148,15 @@ def _tensors(tree):
         raise TypeError(f"broadcast_pytree: {type(tree).__name__} leaf")
 
 
-def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
-    """The mean of a tensor over the ranks (a sum all-reduce: gloo has no
-    average), as a new tensor; in a world of one the tensor itself."""
-    if world_size() == 1:
+def mean_over_ranks(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of a tensor over the ranks of ``group`` (default every
+    rank; a sum all-reduce: gloo has no average), as a new tensor; in a
+    group of one the tensor itself."""
+    if world_size(group) == 1:
         return x
     out = x.detach().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM)
-    return out / world_size()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out / world_size(group)
 
 
 def min_over_ranks(n: int) -> int:

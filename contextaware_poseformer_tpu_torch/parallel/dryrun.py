@@ -1,20 +1,25 @@
-"""Multi-process dry run of data-parallel training.
+"""Multi-process dry run of data- and tensor-parallel training.
 
 The counterpart of the JAX package's ``__graft_entry__.dryrun_multichip``
-and ``dryrun_multiprocess`` (``__graft_entry__.py:75,354``): ``run`` spawns
+(a dp x tp mesh, tp=2), ``dryrun_multiprocess`` and ``dryrun_mp`` (tp
+across processes) (``__graft_entry__.py:75,237,354``): ``run`` spawns
 ``nproc`` processes that join one process group (gloo on the CPU or for
 several ranks on one card, NCCL with one rank a card), train the tiny model
-(``train_h36m.tiny`` of ``h36m_hrnet_32``'s recipe) through the ``Trainer`` under
-``DistributedDataParallel`` for a few steps, evaluate, and send back their
-losses, P1 and lifter parameters, and gather rows of unequal counts (3 on
-even ranks, 2 on odd ones) through ``allgather_hosts``. It fails unless the
-loss falls, every rank holds the same parameters and reports the same P1,
-and every rank gathered every rank's rows in rank order. ``reference``
-trains the same model in one process on the ranks' rows concatenated:
-with augmentation and dropout off (``config``), a data-parallel run must
-reach its parameters up to the summation order::
+(``train_h36m.tiny`` of ``h36m_hrnet_32``'s recipe) through the ``Trainer``
+for a few steps, ``model_parallel`` ranks a model group splitting its
+lifter and ``DistributedDataParallel`` over the data groups, evaluate, and
+send back their losses, P1 and whole lifter parameters (tensor-parallel
+shards gathered), and gather rows of unequal counts (3 on even ranks, 2 on
+odd ones) through ``allgather_hosts``. It fails unless the loss falls,
+every rank holds the same parameters and reports the same P1, and every
+rank gathered every rank's rows in rank order. ``reference`` trains the
+same model in one process on the data ranks' rows concatenated: with
+augmentation and dropout off (``config``), a parallel run must reach its
+parameters up to the summation order::
 
   python -m contextaware_poseformer_tpu_torch.parallel.dryrun --nproc 2
+  python -m contextaware_poseformer_tpu_torch.parallel.dryrun --nproc 4 \
+      --model-parallel 2
 
 runs on the card, NCCL with one rank a card (with fewer cards than ranks,
 pass ``--backend gloo``); ``--device cpu`` runs over gloo on the host.
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import queue as queue_lib
 import socket
 import traceback
@@ -74,50 +80,82 @@ def datasets(world: int, batch: int, rank: int | None = None):
     return train, val
 
 
+def lifter_vector(lifter) -> np.ndarray:
+    """The whole lifter's parameters as one float64 vector (a collective
+    over the model group of a split lifter)."""
+    from contextaware_poseformer_tpu_torch.parallel import tensor
+
+    full, _ = tensor.full_state(lifter)
+    return torch.cat([v.detach().reshape(-1).to("cpu", torch.float64)
+                      for v in full.values()]).numpy()
+
+
 def train_and_evaluate(trainer, steps: int) -> dict:
-    """``steps`` epochs of one step, then the evaluation; the losses, P1
-    and the lifter's parameters as one float64 vector."""
+    """``steps`` epochs of one step, then the evaluation; the losses, P1,
+    the whole lifter's parameters as one float64 vector and the rank that
+    seeded the random draws (``TrainState.rank``)."""
     state = trainer.init_state(SEED)
     losses = [trainer.train_epoch(state, epoch, max_steps=1)["step_losses"][0]
               for epoch in range(steps)]
     summary, _ = trainer.evaluate(state)
-    params = torch.cat([p.detach().reshape(-1).to("cpu", torch.float64)
-                        for p in state.model.lifter.parameters()])
     return {"losses": losses, "p1_mm": summary["p1_mm"],
-            "params": params.numpy()}
+            "params": lifter_vector(state.model.lifter),
+            "draw_rank": state.rank}
 
 
 def reference(world: int, device="cuda", steps: int = STEPS,
-              batch: int = BATCH) -> dict:
-    """One process on the concatenated rows of ``world`` ranks (batch
-    ``world * batch``), in this process, without a process group."""
+              batch: int = BATCH, cfg: cfglib.Config | None = None) -> dict:
+    """One process on the concatenated rows of ``world`` data ranks (batch
+    ``world * batch``), in this process, without a process group; ``cfg``
+    (default ``config``) with that batch."""
     from contextaware_poseformer_tpu_torch.train.loop import Trainer
 
     need_device(device)
     if torch.distributed.is_initialized():
         raise RuntimeError("dryrun.reference runs without a process group")
     train, val = datasets(world, batch)
-    trainer = Trainer(config(world * batch), train, val, device)
+    trainer = Trainer(with_batch(cfg, world * batch), train, val, device)
     return train_and_evaluate(trainer, steps)
 
 
-def _worker(rank, world, init_method, backend, device, steps, batch, out):
-    """One rank: join the group, train, evaluate, report on ``out``."""
+def with_batch(cfg: cfglib.Config | None, batch: int) -> cfglib.Config:
+    """``cfg`` at ``batch`` rows a step; ``config(batch)`` for None."""
+    if cfg is None:
+        return config(batch)
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=batch))
+
+
+def train_job(rank: int, world: int, device, steps: int, batch: int,
+              model_parallel: int = 1,
+              cfg: cfglib.Config | None = None) -> dict:
+    """One rank of ``run``: its data shard, train, evaluate, gather."""
+    from contextaware_poseformer_tpu_torch.parallel import distributed
+    from contextaware_poseformer_tpu_torch.train.loop import Trainer
+
+    data = world // model_parallel
+    train, val = datasets(data, batch, rank // model_parallel)
+    trainer = Trainer(with_batch(cfg, batch), train, val, device,
+                      model_parallel=model_parallel)
+    result = train_and_evaluate(trainer, steps)
+    result.update(gathered=distributed.allgather_hosts(gather_rows(rank)))
+    return result
+
+
+def _worker(rank, world, init_method, backend, device, job, out):
+    """One rank: join the group, run ``job(rank, world, device)``, report
+    its dict on ``out``."""
     try:
         from contextaware_poseformer_tpu_torch.parallel import distributed
-        from contextaware_poseformer_tpu_torch.train.loop import Trainer
 
         if torch.device(device).type == "cpu":
             torch.set_num_threads(1)  # the ranks share the host's cores
         topo = distributed.initialize(device, backend=backend,
                                       init_method=init_method, rank=rank,
                                       world_size=world)
-        train, val = datasets(world, batch, rank)
-        trainer = Trainer(config(batch), train, val, device)
-        result = train_and_evaluate(trainer, steps)
+        result = job(rank, world, device)
         result.update(rank=rank, topology=topo,
-                      backend=torch.distributed.get_backend(),
-                      gathered=distributed.allgather_hosts(gather_rows(rank)))
+                      backend=torch.distributed.get_backend())
         distributed.shutdown()
         out.put(result)
     except BaseException:  # reported to the parent, which raises
@@ -145,13 +183,26 @@ def need_device(device) -> None:
 
 
 def run(nproc: int = 2, device: str = "cuda", backend: str | None = None,
-        steps: int = STEPS, batch: int = BATCH,
-        timeout: float = 600.0) -> list[dict]:
-    """Spawn ``nproc`` ranks (``backend`` by default NCCL with rank ``r``
-    on ``cuda:r`` for a CUDA ``device``, else gloo, every rank on
-    ``device``), wait for their results (sorted by rank) and check them:
-    the loss falls, and every rank holds the same lifter parameters and
-    P1."""
+        steps: int = STEPS, batch: int = BATCH, timeout: float = 600.0,
+        model_parallel: int = 1,
+        cfg: cfglib.Config | None = None) -> list[dict]:
+    """Spawn ``nproc`` ranks of ``train_job`` (``model_parallel`` a model
+    group; ``cfg``, default ``config``, at ``batch`` rows a data rank) and
+    check their results (sorted by rank): the loss falls, and every rank
+    holds the same lifter parameters and P1."""
+    results = spawn(nproc, functools.partial(
+        train_job, steps=steps, batch=batch, model_parallel=model_parallel,
+        cfg=cfg), device, backend, timeout)
+    check(results)
+    return results
+
+
+def spawn(nproc: int, job, device: str = "cuda", backend: str | None = None,
+          timeout: float = 600.0) -> list[dict]:
+    """Spawn ``nproc`` ranks that join one process group (``backend`` by
+    default NCCL with rank ``r`` on ``cuda:r`` for a CUDA ``device``, else
+    gloo, every rank on ``device``) and run ``job(rank, world, device)``
+    (picklable, returning a dict); their dicts, sorted by rank."""
     import multiprocessing as mp
 
     need_device(device)
@@ -167,7 +218,7 @@ def run(nproc: int = 2, device: str = "cuda", backend: str | None = None,
     out = ctx.Queue()
     init_method = f"tcp://localhost:{free_port()}"
     procs = [ctx.Process(target=_worker, args=(
-        r, nproc, init_method, backend, devices[r], steps, batch, out))
+        r, nproc, init_method, backend, devices[r], job, out))
         for r in range(nproc)]
     for p in procs:
         p.start()
@@ -189,13 +240,13 @@ def run(nproc: int = 2, device: str = "cuda", backend: str | None = None,
                 p.kill()
                 p.join()
     results.sort(key=lambda r: r["rank"])
-    check(results)
     return results
 
 
 def check(results: list[dict]) -> None:
     """Every rank's parameters, losses and P1 equal rank 0's, bit for bit
-    (DDP reduces one gradient for all), every rank gathered every rank's
+    (DDP reduces one gradient for all, and a model group's all-reduces give
+    every rank the same sum), every rank gathered every rank's
     rows in rank order, and the loss fell."""
     first = results[0]
     want = np.concatenate([gather_rows(r["rank"]) for r in results])
@@ -227,10 +278,15 @@ def main(argv=None) -> list[dict]:
                    help="torch device (default cuda; cpu runs over gloo)")
     p.add_argument("--backend", default=None, choices=("nccl", "gloo"))
     p.add_argument("--steps", type=int, default=STEPS)
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="ranks a model group splits the lifter over")
     args = p.parse_args(argv)
-    results = run(args.nproc, args.device, args.backend, args.steps)
-    ref = reference(args.nproc, args.device, args.steps)
-    print(f"dryrun: {args.nproc} ranks over {results[0]['backend']} on "
+    tp = args.model_parallel
+    results = run(args.nproc, args.device, args.backend, args.steps,
+                  model_parallel=tp)
+    ref = reference(args.nproc // tp, args.device, args.steps)
+    print(f"dryrun: {args.nproc} ranks ({args.nproc // tp} data x {tp} "
+          f"model) over {results[0]['backend']} on "
           f"{args.device}: losses {results[0]['losses']}, P1 "
           f"{results[0]['p1_mm']:.4f} mm, equal on every rank; one process "
           f"on the concatenated rows: parameters rel L2 "

@@ -7,7 +7,9 @@ where it stopped. The frozen backbone is not saved: it is rebuilt from the
 same seed (or, later, from its checkpoint). The manager keeps the
 ``max_to_keep`` newest epochs and, beside them, the best one (smallest P1),
 and records both in ``index.json``: ``latest`` for resume, ``best`` for the
-reference's best-P1 checkpoint.
+reference's best-P1 checkpoint. A checkpoint always holds the whole lifter
+(tensor-parallel shards gathered), so it restores at any
+``model_parallel``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import os
 
 import torch
 
+from contextaware_poseformer_tpu_torch.parallel import tensor
 from contextaware_poseformer_tpu_torch.train.steps import TrainState
 
 
@@ -40,10 +43,17 @@ class CheckpointManager:
             return {"p1_mm": {}}
 
     def save(self, epoch: int, state: TrainState,
-             metrics: dict[str, float]) -> None:
+             metrics: dict[str, float], write: bool = True) -> None:
+        """Save epoch ``epoch``. A lifter split by tensor parallelism is
+        gathered whole first, a collective over its model group: every
+        rank calls ``save``, and only the one with ``write`` writes."""
+        lifter, optimizer = tensor.full_state(state.model.lifter,
+                                              state.optimizer.state_dict())
+        if not write:
+            return
         payload = {
-            "lifter": state.model.lifter.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+            "lifter": lifter,
+            "optimizer": optimizer,
             "step": state.step,
             "epoch": epoch,
             "metrics": dict(metrics),
@@ -80,8 +90,10 @@ class CheckpointManager:
             return state, 0
         payload = torch.load(self._path(epoch), map_location="cpu",
                              weights_only=True)
-        state.model.lifter.load_state_dict(payload["lifter"])
-        state.optimizer.load_state_dict(payload["optimizer"])
+        lifter, optimizer = tensor.shard_state(
+            state.model.lifter, payload["lifter"], payload["optimizer"])
+        state.model.lifter.load_state_dict(lifter)
+        state.optimizer.load_state_dict(optimizer)
         state.step = int(payload["step"])
         return state, int(payload["epoch"]) + 1
 

@@ -9,11 +9,16 @@ before its first evaluation; the device work is ``train/steps.py``.
 
 Once the process group is joined (``parallel.distributed.initialize``, a
 world of one included) the lifter trains under ``DistributedDataParallel``
-(the data axis of ``parallel.make_mesh``): each rank steps on its own shard
-of the data (``train_h36m.shard_datasets``) with the per-rank batch, the
-gradients are averaged over the ranks, only rank 0 writes metrics and
-checkpoints (train.py:228-237), evaluation gathers every rank's
-predictions, and an int8 deploy model serves rank 0's calibration.
+over the data axis of ``parallel.make_mesh``: each data rank steps on its
+own shard of the data (``train_h36m.shard_datasets``) with the per-rank
+batch, the gradients are averaged over the data group, only rank 0 writes
+metrics and checkpoints (train.py:228-237), evaluation gathers every data
+rank's predictions, and an int8 deploy model serves rank 0's calibration.
+With ``model_parallel > 1`` every model group of that many ranks splits the
+lifter's Linears (``parallel/tensor.py``): each rank builds the whole model
+from the seed and keeps its shards, and a checkpoint holds the whole lifter
+(gathered before rank 0 writes it), so that it restores at any
+``model_parallel``.
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ from contextaware_poseformer_tpu_torch.models.capf import (
     ContextAwarePoseFormer,
 )
 from contextaware_poseformer_tpu_torch.models.init import init_parameters
-from contextaware_poseformer_tpu_torch.parallel import distributed
+from contextaware_poseformer_tpu_torch.parallel import distributed, tensor
+from contextaware_poseformer_tpu_torch.parallel.mesh import make_mesh
 from contextaware_poseformer_tpu_torch.serve import (
     configure_numerics,
     prepare,
@@ -78,16 +84,19 @@ class Trainer:
     The backbone is frozen and stored in channels-last layout (an int8
     deploy config's int8 convs keep fp32 parameters); fp32 runs at full
     precision (TF32 off) as the JAX reference does. ``train_ds`` and
-    ``val_ds`` are this rank's shards under data parallelism."""
+    ``val_ds`` are this rank's shards under data parallelism.
+    ``model_parallel``: the ranks of a model group (``parallel.make_mesh``;
+    the process group must be joined for more than one)."""
 
     def __init__(self, cfg: Config, train_ds, val_ds, device,
-                 logdir: str | None = None):
+                 logdir: str | None = None, model_parallel: int = 1):
         self.cfg = cfg
         self.train_ds = train_ds
         self.val_ds = val_ds
         self.device = torch.device(device)
         self.task = steps.Task.for_config(cfg)
         self.data_parallel = torch.distributed.is_initialized()
+        self.mesh = make_mesh(model_parallel, self.device, cfg.model.lifter)
         # the last rank's shard holds the remainder rows: every rank takes
         # the fewest full batches of any rank, so that each DDP step is
         # joined by every rank and the epochs end at the same update
@@ -112,6 +121,7 @@ class Trainer:
         to_storage(model.backbone, dtype)
         if self.cfg.model.backbone.frozen:
             model.backbone.requires_grad_(False)
+        tensor.shard_model(model.lifter, self.mesh)
         optimizer = steps.make_optimizer(self.cfg, self.steps_per_epoch,
                                          model)
         ddp = None
@@ -121,9 +131,11 @@ class Trainer:
             # part in every step (drop-path and dropout multiply by a mask).
             # The inputs already sit on the model's one device.
             ddp = torch.nn.parallel.DistributedDataParallel(
-                model, device_ids=None, broadcast_buffers=False)
+                model, device_ids=None, broadcast_buffers=False,
+                process_group=self.mesh.data_group)
         return steps.TrainState(model, optimizer, 0, ddp=ddp,
-                                rank=distributed.rank())
+                                rank=self.mesh.data_rank,
+                                data_group=self.mesh.data_group)
 
     def load_backbone(self, state: steps.TrainState,
                       checkpoint_path: str) -> steps.TrainState:
@@ -155,7 +167,8 @@ class Trainer:
             levels=model_cfg.lifter.levels,
             use_deformable=model_cfg.lifter.use_deformable,
             backbone_kind=model_cfg.backbone.kind)
-        bridge.load_jax_variables(state.model, {"params": full})
+        bridge.load_jax_variables(
+            state.model, bridge.shard_for_rank({"params": full}, self.mesh))
         return state
 
     def _batches(self, host_iter):
@@ -228,11 +241,15 @@ class Trainer:
                     break
         return np.concatenate(preds), np.concatenate(gts)
 
+    def gather(self, local) -> np.ndarray:
+        """``local`` of every data rank, concatenated in rank order (the
+        ranks of a model group hold the same rows)."""
+        return distributed.allgather_hosts(local, self.mesh.data_group)
+
     def predict(self, state: steps.TrainState,
                 max_batches: int | None = None):
-        """``predict_local`` of every rank, gathered in rank order."""
-        return tuple(map(distributed.allgather_hosts,
-                         self.predict_local(state, max_batches)))
+        """``predict_local`` of every data rank, gathered in rank order."""
+        return tuple(map(self.gather, self.predict_local(state, max_batches)))
 
     def evaluate(self, state: steps.TrainState,
                  max_batches: int | None = None):
@@ -240,8 +257,7 @@ class Trainer:
         every rank)."""
         pred, gt = self.predict_local(state, max_batches)
         action_idx = np.asarray(self.val_ds.action_idx[:len(pred)])
-        pred, gt, action_idx = map(distributed.allgather_hosts,
-                                   (pred, gt, action_idx))
+        pred, gt, action_idx = map(self.gather, (pred, gt, action_idx))
         scores = metrics_lib.h36m_evaluate(gt, pred, action_idx)
         return metrics_lib.h36m_summary(scores), scores
 
@@ -260,7 +276,8 @@ class Trainer:
             if self.is_main:
                 self.writer.write({"epoch": epoch, "lr": lr, **train_m,
                                    **summary})
-            if self.ckpt and self.is_main:
-                self.ckpt.save(epoch, state, {"p1_mm": summary["p1_mm"]})
+            if self.ckpt:  # every rank gathers its shards, rank 0 writes
+                self.ckpt.save(epoch, state, {"p1_mm": summary["p1_mm"]},
+                               write=self.is_main)
             best_p1 = min(best_p1, summary["p1_mm"])
         return state, best_p1

@@ -16,7 +16,9 @@ Randomness comes from one ``torch.Generator`` on the device, reseeded from
 ``fold_in(rng, step)``: a resumed run draws what an uninterrupted one would,
 and under data parallelism (``TrainState.ddp``) each rank draws for its own
 rows, as one JAX step draws over the whole global batch; rank 0 draws what a
-single process draws. The draws differ from JAX's.
+single process draws. The rank folded is the data rank: under tensor
+parallelism the ranks of one model group hold the same rows and must draw
+the same drop-path masks. The draws differ from JAX's.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 from contextaware_poseformer_tpu_torch.config import Config
 from contextaware_poseformer_tpu_torch.data import augment
 from contextaware_poseformer_tpu_torch.data.pipeline import RawBatch
-from contextaware_poseformer_tpu_torch.parallel import distributed
+from contextaware_poseformer_tpu_torch.parallel import distributed, tensor
 from contextaware_poseformer_tpu_torch.train import losses
 from contextaware_poseformer_tpu_torch.utils import skeleton
 
@@ -75,10 +77,18 @@ class Optimizer:
 
     The clip is optax's, not ``clip_grad_norm_``'s: gradients scale by
     ``max_norm / norm`` exactly when ``norm >= max_norm``. The learning rate
-    of step ``k`` is ``lr_schedule(k)``, as optax counts updates."""
+    of step ``k`` is ``lr_schedule(k)``, as optax counts updates.
 
-    def __init__(self, params, cfg: Config, steps_per_epoch: int):
+    Under tensor parallelism ``sharded`` holds the parameters that are this
+    rank's shards and ``tp`` their model group: the global norm sums the
+    shards' squares over the group and counts the replicated parameters,
+    the same on every rank, once."""
+
+    def __init__(self, params, cfg: Config, steps_per_epoch: int,
+                 sharded=(), tp=None):
         self.params = list(params)
+        self.sharded = [any(p is q for q in sharded) for p in self.params]
+        self.tp = tp
         self.schedule = lr_schedule(cfg, steps_per_epoch)
         self.max_norm = (cfg.train.grad_clip / cfg.train.lr
                          if cfg.train.grad_clip else None)
@@ -101,14 +111,25 @@ class Optimizer:
                 for g in grads:
                     g.copy_(torch.where(finite, g, 0.0))
             if self.max_norm is not None:
-                norm = torch.linalg.vector_norm(
-                    torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+                norm = self.global_norm(grads)
                 for g in grads:
                     g.copy_(torch.where(norm < self.max_norm, g,
                                         g / norm * self.max_norm))
             for group in self.adamw.param_groups:
                 group["lr"] = self.schedule(step)
             self.adamw.step()
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """The L2 norm of the whole model's gradient (a collective over the
+        model group under tensor parallelism)."""
+        if self.tp is None:
+            return torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        squares = [torch.linalg.vector_norm(g).square() for g in grads]
+        own = torch.stack([q for q, s in zip(squares, self.sharded) if s])
+        shared = [q for q, s in zip(squares, self.sharded) if not s]
+        total = tensor.reduce(own.sum(), self.tp)
+        return (total + torch.stack(shared).sum() if shared else total).sqrt()
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
@@ -122,8 +143,14 @@ class Optimizer:
 
 def make_optimizer(cfg: Config, steps_per_epoch: int, model) -> Optimizer:
     """AdamW over ``model.lifter``'s parameters only; the frozen backbone
-    gets no optimizer state and no weight decay."""
-    return Optimizer(model.lifter.parameters(), cfg, steps_per_epoch)
+    gets no optimizer state and no weight decay. A lifter split by
+    ``parallel.tensor.shard_model`` clips by the whole model's norm."""
+    lifter = model.lifter
+    tp = tensor.model_tp(lifter)
+    params = dict(lifter.named_parameters())
+    sharded = [params[n] for n in tensor.splits(lifter)] if tp else ()
+    return Optimizer(lifter.parameters(), cfg, steps_per_epoch,
+                     sharded=sharded, tp=tp)
 
 
 @dataclasses.dataclass
@@ -131,14 +158,17 @@ class TrainState:
     """The model, its optimizer and the update count (mutated in place by
     ``train_step``). Under data parallelism ``ddp`` is the model's
     ``DistributedDataParallel`` wrapper, through which the training forward
-    runs (it averages the gradients over the ranks), and ``rank`` this
-    process's rank."""
+    runs (it averages the gradients over the data group), ``rank`` this
+    process's rank on the data axis (the ranks of one model group hold the
+    same rows and draw alike) and ``data_group`` the ranks that hold other
+    rows (None: every rank)."""
 
     model: torch.nn.Module
     optimizer: Optimizer
     step: int = 0
     ddp: torch.nn.Module | None = None
     rank: int = 0
+    data_group: object = None
 
 
 def prepare(raw: RawBatch, backbone_cfg, task: Task,
@@ -161,8 +191,8 @@ RANK_STRIDE = 0x9E3779B1
 
 def step_generator(device, seed: int, step: int,
                    rank: int = 0) -> torch.Generator:
-    """The generator of one step, seeded from (seed, step, rank); rank 0's
-    is a single process's."""
+    """The generator of one step, seeded from (seed, step, data rank); data
+    rank 0's is a single process's."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed * 1_000_003 + step + rank * RANK_STRIDE)
     return gen
@@ -203,16 +233,16 @@ def train_step(state: TrainState, raw: RawBatch, cfg: Config, task: Task,
                seed: int) -> dict[str, torch.Tensor]:
     """One optimizer step on a device batch; returns {"loss", "finite"} as
     device scalars. Under data parallelism ``raw`` is this rank's rows, the
-    gradients are averaged over the ranks before the clip, and the loss is
-    the mean over the ranks: the global batch's, so that every rank's NaN
-    guard decides alike."""
+    gradients are averaged over the data group before the clip, and the
+    loss is the mean over it: the global batch's, the same on every rank,
+    so that every rank's NaN guard decides alike."""
     gen = step_generator(raw.images_u8.device, seed, state.step, state.rank)
     batch = augmented_batch(cfg, task, raw, gen)
     state.optimizer.zero_grad()
     model = state.model if state.ddp is None else state.ddp
     loss = loss_and_grads(model, cfg, batch, gen)
     if state.ddp is not None:
-        loss = distributed.mean_over_ranks(loss)
+        loss = distributed.mean_over_ranks(loss, state.data_group)
     # NaN guard (train.py:194): zero the gradients of a non-finite loss
     finite = torch.isfinite(loss)
     state.optimizer.step(state.step, finite)

@@ -16,8 +16,8 @@ best-P1 checkpoints with true resume. One device, given by ``--device``
 
 ``--tiny`` cuts it as ``train_h36m --tiny`` does (CPU smoke run: ``--tiny
 --synthetic --device cpu``). ``--distributed`` trains data-parallel under
-torchrun as ``train_h36m --distributed`` does; ``--model-parallel > 1`` is
-refused (ROADMAP [11b]).
+torchrun as ``train_h36m --distributed`` does, and ``--model-parallel N``
+splits the lifter as there.
 """
 
 from __future__ import annotations
@@ -45,8 +45,7 @@ class Trainer3dhp(Trainer):
         ``--export-mat`` as ``last_pred`` and ``last_seq_idx``."""
         pred, gt = self.predict_local(state, max_batches)
         seq_idx = np.asarray(self.val_ds.seq_idx[:len(pred)])
-        pred, gt, seq_idx = map(distributed.allgather_hosts,
-                                (pred, gt, seq_idx))
+        pred, gt, seq_idx = map(self.gather, (pred, gt, seq_idx))
         # the ground truth is root-centred at joint 14 (steps.prepare)
         pred[:, 14] = 0.0  # root zeroed before error (run_3dhp.py:118)
         p1 = float(np.mean(np.linalg.norm(pred - gt, axis=-1)))
@@ -90,7 +89,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--steps-per-epoch", type=int, default=None)
     p.add_argument("--eval-batches", type=int, default=None)
-    p.add_argument("--model-parallel", type=int, default=1)
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="ranks a model group splits the lifter over "
+                   "(with --distributed)")
     p.add_argument("--distributed", action="store_true",
                    help="data-parallel run under torchrun (NCCL on cuda, "
                    "gloo on cpu)")
@@ -148,13 +149,15 @@ def main(argv=None):
     topo, device = train_h36m.setup(args)
     cfg = make_config(args)
     train_ds, val_ds = train_h36m.shard_datasets(*make_datasets(cfg, args),
-                                                 topo)
+                                                 topo, args.model_parallel)
 
-    trainer = Trainer3dhp(cfg, train_ds, val_ds, device, logdir=args.logdir)
-    print(train_h36m.describe(device, topo))
+    trainer = Trainer3dhp(cfg, train_ds, val_ds, device, logdir=args.logdir,
+                          model_parallel=args.model_parallel)
+    print(train_h36m.describe(device, topo, args.model_parallel))
     state = trainer.init_state(cfg.train.seed)
     print("Trainable parameter count:",
-          sum(p.numel() for p in state.model.lifter.parameters()))
+          sum(p.numel() for p in state.model.lifter.parameters()),
+          *(["(this rank's shard)"] if args.model_parallel > 1 else []))
     if args.backbone_ckpt:
         state = trainer.load_backbone(state, args.backbone_ckpt)
         print(f"Loaded backbone from {args.backbone_ckpt}")

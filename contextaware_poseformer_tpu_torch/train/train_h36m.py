@@ -34,8 +34,14 @@ world size times it); evaluation gathers every rank's predictions::
       contextaware_poseformer_tpu_torch.train.train_h36m --distributed \\
       --preset h36m_cpn --synthetic
 
-(``--device cpu`` takes gloo). ``--model-parallel > 1``, the lifter's
-tensor parallelism, is refused (ROADMAP [11b]).
+(``--device cpu`` takes gloo). ``--model-parallel N`` (with
+``--distributed``) also splits the lifter's Linears over each group of N
+consecutive ranks (``parallel/tensor.py``); the data shards, and the global
+batch, are then world size / N of them::
+
+  torchrun --nproc_per_node 4 -m \
+      contextaware_poseformer_tpu_torch.train.train_h36m --distributed \
+      --model-parallel 2 --preset h36m_cpn --synthetic
 """
 
 from __future__ import annotations
@@ -74,7 +80,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
-    p.add_argument("--model-parallel", type=int, default=1)
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="ranks a model group splits the lifter over "
+                   "(with --distributed)")
     p.add_argument("--synthetic", action="store_true",
                    help="synthetic data smoke mode (no H36M needed)")
     p.add_argument("--tiny", action="store_true",
@@ -87,37 +95,52 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(args) -> None:
-    """Refuse, before any process group is joined, what ``mesh.make_mesh``
-    refuses: ``--model-parallel > 1`` (ROADMAP [11b])."""
+def check_args(args) -> None:
+    """Refuse, before any process group is joined, a ``--model-parallel``
+    below 1, or above 1 without ``--distributed`` (the ``Trainer``'s
+    ``mesh.make_mesh`` refuses what the world or the config cannot split)."""
     try:
-        mesh.make_mesh(args.model_parallel, args.device)
-    except NotImplementedError as e:
+        mesh.check_tensor_parallel(args.model_parallel)
+    except ValueError as e:
         raise SystemExit(str(e)) from None
+    if args.model_parallel > 1 and not args.distributed:
+        raise SystemExit(f"--model-parallel {args.model_parallel} splits "
+                         "the lifter over that many ranks: run it with "
+                         "--distributed under torchrun")
 
 
 def setup(args) -> tuple[dict, torch.device]:
-    """Refuse what is not ported and a CUDA device that is missing; join
-    the process group under ``--distributed``; returns the topology and
-    this rank's device (``cuda:LOCAL_RANK`` under torchrun)."""
-    check_ported(args)
+    """Refuse what cannot run and a CUDA device that is missing; join the
+    process group under ``--distributed``; returns the topology and this
+    rank's device (``cuda:LOCAL_RANK`` under torchrun)."""
+    check_args(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device here")
     topo = (distributed.initialize(args.device) if args.distributed
             else distributed.topology())
+    try:
+        mesh.check_tensor_parallel(args.model_parallel,
+                                   world=topo["process_count"])
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     return topo, distributed.local_device(device)
 
 
-def shard_datasets(train_ds, val_ds, topo):
-    """Per-rank contiguous dataset shards (the reference's per-rank label
-    slicing and DistributedSampler, human36m.py:536-552, train.py:68-71).
-    Both train and val shard: the evaluation gathers its results. The last
-    rank takes the remainder rows; the ``Trainer`` steps every rank through
-    the fewest full batches of any rank."""
-    if topo["process_count"] > 1:
-        train_ds.shard(topo["process_index"], topo["process_count"])
-        val_ds.shard(topo["process_index"], topo["process_count"])
+def shard_datasets(train_ds, val_ds, topo, model_parallel: int = 1):
+    """Per-data-rank contiguous dataset shards (the reference's per-rank
+    label slicing and DistributedSampler, human36m.py:536-552,
+    train.py:68-71): ``process_count // model_parallel`` of them, rank
+    ``process_index // model_parallel`` (``parallel.make_mesh``'s layout:
+    the ranks of a model group hold the same rows). Both train and val
+    shard: the evaluation gathers its results. The last data rank takes
+    the remainder rows; the ``Trainer`` steps every rank through the fewest
+    full batches of any rank."""
+    shards = topo["process_count"] // model_parallel
+    if shards > 1:
+        index = topo["process_index"] // model_parallel
+        train_ds.shard(index, shards)
+        val_ds.shard(index, shards)
     return train_ds, val_ds
 
 
@@ -201,15 +224,18 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     topo, device = setup(args)
     cfg = make_config(args)
-    train_ds, val_ds = shard_datasets(*make_datasets(cfg, args), topo)
+    train_ds, val_ds = shard_datasets(*make_datasets(cfg, args), topo,
+                                      args.model_parallel)
 
     from contextaware_poseformer_tpu_torch.train.loop import Trainer
 
-    trainer = Trainer(cfg, train_ds, val_ds, device, logdir=args.logdir)
-    print(describe(device, topo))
+    trainer = Trainer(cfg, train_ds, val_ds, device, logdir=args.logdir,
+                      model_parallel=args.model_parallel)
+    print(describe(device, topo, args.model_parallel))
     state = trainer.init_state(cfg.train.seed)
     print("Trainable parameter count:",  # train.py:358-359
-          sum(p.numel() for p in state.model.lifter.parameters()))
+          sum(p.numel() for p in state.model.lifter.parameters()),
+          *(["(this rank's shard)"] if args.model_parallel > 1 else []))
     if args.backbone_ckpt:
         state = trainer.load_backbone(state, args.backbone_ckpt)
         print(f"Loaded backbone from {args.backbone_ckpt}")
@@ -243,11 +269,12 @@ def main(argv=None):
     return trainer, state, best_p1
 
 
-def describe(device, topo) -> str:
+def describe(device, topo, tp: int = 1) -> str:
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     return (f"device: {device} ({name}) | rank {topo['process_index']} of "
-            f"{topo['process_count']}")
+            f"{topo['process_count']}" + (f" | model parallel {tp}"
+                                          if tp > 1 else ""))
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 ``get_affine_transform``, ``affine_transform``,
 ``get_affine_transform_batch``, ``affine_transform_batch``,
 ``bbox_center_scale``, ``warp_affine_bilinear``,
-``normalize_screen_coordinates`` and ``image_coordinates`` from
-``contextaware_poseformer_tpu/utils/geometry.py``.
+``normalize_screen_coordinates``, ``image_coordinates``, ``weak_project``
+and ``infer_bbox`` from ``contextaware_poseformer_tpu/utils/geometry.py``.
 
 - ``get_affine_transform``: center/scale*200 with `(w-1)*0.5` centering
   (ContextPose/mvn/utils/img.py:16-48); the cv2.getAffineTransform call is
@@ -11,6 +11,9 @@
   solve over (N, 3, 3) stacked systems, for streaming's per-chunk crops.
 - ``warp_affine_bilinear``: cv2.warpAffine(INTER_LINEAR, zero border) in
   numpy, for hosts without cv2.
+- ``infer_bbox``: root joint +-(1000, 900/1100) mm weak projection
+  (H36M-Toolbox/generate_labels_h36m.py:21-46), for the label builders of
+  ``data/preprocess``.
 """
 
 from __future__ import annotations
@@ -194,3 +197,22 @@ def image_coordinates(x: np.ndarray, w: float, h: float) -> np.ndarray:
     x = np.asarray(x)
     assert x.shape[-1] == 2
     return (x + np.array([1.0, h / w])) * w / 2.0
+
+
+def weak_project(pose3d: np.ndarray, fx, fy, cx, cy) -> np.ndarray:
+    """Pinhole projection without distortion (generate_labels_h36m.py:40-46)."""
+    pose2d = pose3d[..., :2] / pose3d[..., 2:3]
+    return pose2d * np.array([fx, fy]) + np.array([cx, cy])
+
+
+def infer_bbox(pose3d_camspace: np.ndarray, camera: dict, root_idx: int) -> np.ndarray:
+    """Person bbox from the root joint's weak projection: the reference pads
+    the root by (-1000,-900) / (+1000,+1100) mm before projecting
+    (generate_labels_h36m.py:21-38; same constants in
+    ContextPose_mpi/dataset/data_util/data_to_npz_3dhp.py:30-55)."""
+    root = pose3d_camspace[root_idx]
+    tl = root + np.array([-1000.0, -900.0, 0.0])
+    br = root + np.array([1000.0, 1100.0, 0.0])
+    tl2d = weak_project(tl[None], camera["fx"], camera["fy"], camera["cx"], camera["cy"])[0]
+    br2d = weak_project(br[None], camera["fx"], camera["fy"], camera["cx"], camera["cy"])[0]
+    return np.array([tl2d[0], tl2d[1], br2d[0], br2d[1]])

@@ -18,6 +18,9 @@ NUM_JOINTS = 17
 H36M_ROOT = 0
 H36M_JOINTS_LEFT = (4, 5, 6, 11, 12, 13)
 H36M_JOINTS_RIGHT = (1, 2, 3, 14, 15, 16)
+# the 17-joint subset of the 32 raw joints
+# (H36M-Toolbox/generate_labels_h36m.py:57)
+H36M_RAW_JOINT_SUBSET = (0, 1, 2, 3, 6, 7, 8, 12, 16, 14, 15, 17, 18, 19, 25, 26, 27)
 
 # MPI-INF-3DHP (root = joint 14; ContextPose_mpi/run_3dhp.py:66)
 MPI3DHP_ROOT = 14
@@ -33,6 +36,10 @@ H36M_ACTION_NAMES = tuple(
     )
     for trial in (1, 2)
 )
+
+H36M_SUBJECT_NAMES = ("S1", "S5", "S6", "S7", "S8", "S9", "S11")
+H36M_TRAIN_SUBJECTS = (1, 5, 6, 7, 8)
+H36M_TEST_SUBJECTS = (9, 11)
 
 MPI3DHP_TEST_SEQUENCES = ("TS1", "TS2", "TS3", "TS4", "TS5", "TS6")
 # Frame counts per test sequence used for scene-setting aggregation

@@ -1,12 +1,15 @@
 """The port's own copies of the JAX package's framework-neutral modules
 (config, skeleton, geometry, synthetic, H36M and MPI-INF-3DHP data, the
 checkpoint converter, the 3DHP metrics, the COCO keypoint data and its
-decode and OKS AP) give the same results bit for bit,
+decode and OKS AP, the preprocessing of ``data/preprocess``, the
+visualization and the frame-store builder) give the same results bit for
+bit,
 and no module of the port, nor ``chip_smoke.py``, imports the JAX
 package."""
 
 import ast
 import json
+import os
 import pickle
 import sys
 from dataclasses import asdict
@@ -27,6 +30,19 @@ from contextaware_poseformer_tpu.train import coco_eval as jcoco_eval
 from contextaware_poseformer_tpu.train import metrics as jmetrics
 from contextaware_poseformer_tpu.utils import geometry as jgeometry
 from contextaware_poseformer_tpu.utils import skeleton as jskeleton
+from contextaware_poseformer_tpu.utils import visualization as jvisualization
+from contextaware_poseformer_tpu.data.preprocess import acquire as jacquire
+from contextaware_poseformer_tpu.data.preprocess import camera as jcamera
+from contextaware_poseformer_tpu.data.preprocess import frames as jframes
+from contextaware_poseformer_tpu.data.preprocess import (
+    h36m_labels as jh36m_labels,
+)
+from contextaware_poseformer_tpu.data.preprocess import (
+    h36m_metadata as jh36m_metadata,
+)
+from contextaware_poseformer_tpu.data.preprocess import (
+    mpi3dhp_build as jmpi3dhp_build,
+)
 from contextaware_poseformer_tpu_torch import config
 from contextaware_poseformer_tpu_torch.data import (
     coco,
@@ -36,7 +52,19 @@ from contextaware_poseformer_tpu_torch.data import (
 )
 from contextaware_poseformer_tpu_torch.models import convert
 from contextaware_poseformer_tpu_torch.train import coco_eval, metrics
-from contextaware_poseformer_tpu_torch.utils import geometry, skeleton
+from contextaware_poseformer_tpu_torch.data.preprocess import (
+    acquire,
+    camera,
+    frames,
+    h36m_labels,
+    h36m_metadata,
+    mpi3dhp_build,
+)
+from contextaware_poseformer_tpu_torch.utils import (
+    geometry,
+    skeleton,
+    visualization,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 JAX_PACKAGE = "contextaware_poseformer_tpu"
@@ -492,6 +520,338 @@ def test_coco_data_and_eval_equal_the_jax_package(tmp_path, monkeypatch,
     assert perfect["AP"] > 0.99
 
 
+def _synthetic_sequence(module, n=4, seed=0):
+    """One H36M camera sequence for ``module``'s label builder (the
+    fixture of ``tests/test_preprocess.py``)."""
+    rng = np.random.RandomState(seed)
+    cam = {"fx": 1145.0, "fy": 1143.0, "cx": 512.0, "cy": 515.0}
+    pose3d = rng.randn(n, 32, 3) * 200
+    pose3d[..., 2] += 5000.0
+    pose2d = jcamera.project_to_2d_linear(pose3d, np.tile(
+        [cam["fx"], cam["fy"], cam["cx"], cam["cy"], 0, 0, 0, 0, 0], (n, 1)))
+    cpn = pose2d[:, list(module.JOINT_SUBSET)] + rng.randn(n, 17, 2)
+    return module.SequenceData(pose3d_camera_mm=pose3d, pose2d_gt=pose2d,
+                               pose2d_cpn=cpn, camera=cam,
+                               image_wh=(1000, 1002))
+
+
+def test_preprocess_h36m_equals_the_jax_package(tmp_path):
+    """The camera model, the label builder (its databases and pickles) and
+    the metadata parser on ``tests/test_preprocess.py``'s fixtures; the
+    skeleton and geometry pieces they use."""
+    rng = np.random.RandomState(0)
+    q = rng.randn(4)
+    q /= np.linalg.norm(q)
+    t, x = rng.randn(3), rng.randn(10, 17, 3)
+    params = np.tile([1100.0, 1100.0, 500.0, 500.0, 0.1, 0.01, 0.0, 1e-3,
+                      2e-3], (10, 1))
+    for name, args in (("world_to_camera", (x, q, t)),
+                       ("camera_to_world", (x, q, t)),
+                       ("qrot", (np.tile(q, (10, 17, 1)), x)),
+                       ("qinverse", (q,)),
+                       ("project_to_2d", (x + [0, 0, 5.0], params)),
+                       ("project_to_2d_linear", (x + [0, 0, 5.0], params))):
+        np.testing.assert_array_equal(getattr(camera, name)(*args),
+                                      getattr(jcamera, name)(*args), name)
+    for name in ("H36M_RAW_JOINT_SUBSET", "H36M_SUBJECT_NAMES",
+                 "H36M_TRAIN_SUBJECTS", "H36M_TEST_SUBJECTS"):
+        assert getattr(skeleton, name) == getattr(jskeleton, name), name
+    cam4 = {"fx": 1145.0, "fy": 1143.0, "cx": 512.0, "cy": 515.0}
+    np.testing.assert_array_equal(
+        geometry.infer_bbox(x[0] * 100 + [0, 0, 4000.0], cam4, 0),
+        jgeometry.infer_bbox(x[0] * 100 + [0, 0, 4000.0], cam4, 0))
+    np.testing.assert_array_equal(
+        geometry.weak_project(x + [0, 0, 5.0], 1.0, 2.0, 3.0, 4.0),
+        jgeometry.weak_project(x + [0, 0, 5.0], 1.0, 2.0, 3.0, 4.0))
+
+    dbs = []
+    for module, tag in ((h36m_labels, "ours"), (jh36m_labels, "theirs")):
+        seqs = {}
+
+        def source(s, a, sa, c, module=module, seqs=seqs):
+            if a > 3 or sa > 1 or c > 2:
+                return None
+            key = (s, a, sa, c)
+            if key not in seqs:
+                seqs[key] = _synthetic_sequence(module,
+                                                seed=hash(key) % 2**31)
+            return seqs[key]
+
+        out = (str(tmp_path / f"{tag}_train.pkl"),
+               str(tmp_path / f"{tag}_val.pkl"))
+        dbs.append((module.build_labels(source, *out), out))
+    (ours, our_paths), (theirs, their_paths) = dbs
+    for a, b in zip(ours, theirs):
+        assert len(a) == len(b) == len(a) > 0
+        for x_, y_ in zip(a, b):
+            assert x_.keys() == y_.keys()
+            for k in x_:
+                np.testing.assert_array_equal(x_[k], y_[k], err_msg=k)
+    for a, b in zip(our_paths, their_paths):
+        _assert_label_lists_equal(pickle.loads(Path(a).read_bytes()),
+                                  pickle.loads(Path(b).read_bytes()))
+
+    xml = tmp_path / "metadata.xml"
+    xml.write_text(
+        "<root><mapping><mapping><cell>idx</cell><cell>idx2</cell>"
+        "<cell>S1</cell><cell>S5</cell></mapping><mapping><cell>2</cell>"
+        "<cell>1</cell><cell>Directions 1</cell><cell>Directions 1</cell>"
+        "</mapping></mapping><actionnames><actionname act=\"2\">Directions"
+        "</actionname></actionnames></root>")
+    a, b = h36m_metadata.load_metadata(str(xml)), \
+        jh36m_metadata.load_metadata(str(xml))
+    assert asdict(a) == asdict(b)
+    assert a.get_base_filename("S1", "2", "1", a.camera_ids[0]) == \
+        b.get_base_filename("S1", "2", "1", b.camera_ids[0])
+
+
+def _assert_label_lists_equal(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.keys() == y.keys()
+        for k in x:
+            np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+
+
+def test_preprocess_mpi3dhp_equals_the_jax_package(tmp_path, monkeypatch):
+    """The 3DHP npz builders on ``tests/test_mpi3dhp_build.py``'s fake
+    annotation files (train, test), their constants and the crop
+    coordinates."""
+    h5py = pytest.importorskip("h5py")
+    rng = np.random.RandomState(0)
+    for name in ("CAM_SET", "JOINT_SET", "CROP_SIZE", "ROOT_IDX",
+                 "SEQUENCE_INFO", "CAMERA_INTRINSICS"):
+        assert getattr(mpi3dhp_build, name) == \
+            getattr(jmpi3dhp_build, name), name
+    for module in (mpi3dhp_build, jmpi3dhp_build):
+        monkeypatch.setitem(module.SEQUENCE_INFO, "1 1", (5, 25))
+    d = tmp_path / "S1" / "Seq1"
+    d.mkdir(parents=True)
+    annot2 = np.empty((14, 1), dtype=object)
+    annot3 = np.empty((14, 1), dtype=object)
+    for cam in range(14):
+        annot2[cam, 0] = rng.uniform(0, 2048, (8, 28 * 2))
+        a3 = rng.randn(8, 28 * 3) * 100 + 500
+        a3[:, 2::3] = np.abs(a3[:, 2::3]) + 3000
+        annot3[cam, 0] = a3
+    scipy.io.savemat(str(d / "annot.mat"), {
+        "annot2": annot2, "univ_annot3": annot3,
+        "cameras": np.arange(14)[None]})
+    for seq in ("TS1", "TS5"):
+        (tmp_path / seq).mkdir()
+        with h5py.File(str(tmp_path / seq / "annot_data.mat"), "w") as f:
+            f["valid_frame"] = np.array([1, 0, 1, 1, 0, 1]).reshape(6, 1)
+            f["annot2"] = rng.uniform(0, 1900, (6, 1, 17, 2))
+            a3 = rng.randn(6, 1, 17, 3) * 100 + 500
+            a3[..., 2] = np.abs(a3[..., 2]) + 3000
+            f["univ_annot3"] = a3
+    for build in ("build_train_npz", "build_test_npz"):
+        outs = [str(tmp_path / f"{build}_{tag}.npz") for tag in ("a", "b")]
+        trees = [getattr(m, build)(str(tmp_path), o) for m, o in
+                 zip((mpi3dhp_build, jmpi3dhp_build), outs)]
+        _assert_nested_equal(*trees)
+        files = [np.load(o, allow_pickle=True)["data"].item() for o in outs]
+        _assert_nested_equal(*files)
+    pose3d = rng.randn(3, 17, 3) * 100
+    pose3d[..., 2] = np.abs(pose3d[..., 2]) + 3000
+    pose2d = rng.uniform(0, 2048, (3, 17, 2))
+    cam = mpi3dhp_build.CAMERA_INTRINSICS[0]
+    np.testing.assert_array_equal(
+        mpi3dhp_build.crop_coordinates(pose2d, pose3d, cam),
+        jmpi3dhp_build.crop_coordinates(pose2d, pose3d, cam))
+
+
+def _assert_nested_equal(a, b, path=()):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            _assert_nested_equal(a[k], b[k], path + (k,))
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_nested_equal(x, y, path + (i,))
+    else:
+        np.testing.assert_array_equal(a, b, err_msg=str(path))
+
+
+def test_preprocess_frames_and_acquire_equal_the_jax_package(tmp_path):
+    """``crop_frames`` on JPEG frames, and ``acquire`` (copied as code only
+    and never run against a network) with a mock fetcher: the manifest, the
+    checksums, the H36M download, the flat tgz extraction and the 3DHP
+    layout."""
+    import io
+    import tarfile
+    import zipfile
+
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.RandomState(3)
+    paths = []
+    for i in range(2):
+        paths.append(str(tmp_path / f"f{i}.jpg"))
+        cv2.imwrite(paths[-1], rng.randint(0, 256, (120, 160, 3), np.uint8))
+    centers = np.array([[80.0, 60.0], [70.0, 50.0]])
+    scales = np.array([[0.5, 0.6], [0.4, 0.5]])
+    crops = [m.crop_frames(paths, centers, scales, str(tmp_path / tag),
+                           crop_wh=(48, 64))
+             for m, tag in ((frames, "ours"), (jframes, "theirs"))]
+    for a, b in zip(*crops):
+        np.testing.assert_array_equal(cv2.imread(a), cv2.imread(b))
+
+    assert acquire.h36m_manifest() == jacquire.h36m_manifest()
+    assert acquire.H36M_MD5 == jacquire.H36M_MD5
+    assert acquire.MPI3DHP_BASE_URL == jacquire.MPI3DHP_BASE_URL
+
+    calls = [[], []]
+    for m, c, tag in ((acquire, calls[0], "a"), (jacquire, calls[1], "b")):
+        got = m.download_h36m(str(tmp_path / f"h36m_{tag}"), "cookie",
+                              fetcher=fetch_plain(c), checksums={},
+                              verbose=False)
+        assert [os.path.basename(g) for g in got] == \
+            [n for n, _ in m.h36m_manifest()]
+    assert calls[0] == calls[1]
+
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w:gz") as tar:
+        for name, data in (("top/a/x.txt", b"x"), ("top/y.txt", b"yy")):
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tar.addfile(info, io.BytesIO(data))
+    tgz = tmp_path / "t.tgz"
+    tgz.write_bytes(buf.getvalue())
+    trees = []
+    for m, tag in ((acquire, "a"), (jacquire, "b")):
+        m.extract_tgz_flat(str(tgz), str(tmp_path / f"x_{tag}"))
+        root = tmp_path / f"x_{tag}"
+        trees.append(sorted((str(p.relative_to(root)), p.read_bytes())
+                            for p in root.rglob("*") if p.is_file()))
+    assert trees[0] == trees[1] and trees[0]
+
+    zbuf = io.BytesIO()
+    with zipfile.ZipFile(zbuf, "w") as zf:
+        zf.writestr("deep/dir/video_0.avi", b"v")
+    layouts, calls = [], [[], []]
+    for m, c, tag in ((acquire, calls[0], "a"), (jacquire, calls[1], "b")):
+        def fetch(url, dest, headers, c=c):
+            c.append(url)
+            Path(dest).write_bytes(zbuf.getvalue() if dest.endswith(".zip")
+                                   else b"annot")
+        root = tmp_path / f"mpi_{tag}"
+        m.download_mpi3dhp(str(root), subjects=(1,), fetcher=fetch,
+                           verbose=False)
+        layouts.append(sorted(str(p.relative_to(root))
+                              for p in root.rglob("*") if p.is_file()))
+    assert layouts[0] == layouts[1] and layouts[0]
+    assert calls[0] == calls[1]
+
+
+def fetch_plain(calls):
+    """A mock fetcher that records (url, file name, headers) and writes the
+    url as the file's content."""
+    def fetch(url, dest, headers):
+        calls.append((url, os.path.basename(dest), dict(headers)))
+        Path(dest).write_bytes(url.encode())
+    return fetch
+
+
+def test_visualization_equals_the_jax_package(tmp_path):
+    """The 2D painters bit for bit, and the rendered prediction grid and
+    3D pose pixel for pixel, on ``tests/test_visualization.py``'s
+    sample."""
+    from PIL import Image
+
+    rng = np.random.RandomState(0)
+    img = rng.randint(0, 255, (256, 192, 3)).astype(np.uint8)
+    kp = rng.uniform([10, 10], [180, 245], (17, 2)).astype(np.float32)
+    assert visualization.H36M_LIMBS == jvisualization.H36M_LIMBS
+    np.testing.assert_array_equal(visualization.draw_pose_2d(img, kp),
+                                  jvisualization.draw_pose_2d(img, kp))
+    samples = kp[:, None] + rng.uniform(-20, 20, (17, 16, 2))
+    w = np.abs(rng.randn(17, 16))
+    w /= w.sum(-1, keepdims=True)
+    for joint in (None, 3):
+        np.testing.assert_array_equal(
+            visualization.draw_offsets(img, kp, samples, w, joint=joint),
+            jvisualization.draw_offsets(img, kp, samples, w, joint=joint))
+    preds = rng.randn(2, 17, 3) * 0.2
+    gts = rng.randn(2, 17, 3) * 0.2
+    pngs = []
+    for m, tag in ((visualization, "a"), (jvisualization, "b")):
+        grid = m.render_prediction_grid(
+            np.stack([img, img]), np.stack([kp, kp]), preds,
+            str(tmp_path / f"grid_{tag}.png"), gts_3d=gts)
+        pose = m.render_pose_3d(preds[0], str(tmp_path / f"pose_{tag}.png"),
+                                gt_3d=gts[0])
+        pngs.append([np.asarray(Image.open(p)) for p in (grid, pose)])
+    for a, b in zip(*pngs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_build_frame_store_equals_the_jax_package(tmp_path):
+    """``tools/build_frame_store.py`` of both packages on
+    ``tests/test_frame_store.py``'s miniature H36M (full-frame JPEGs and a
+    label pickle) and on a precropped 3DHP test set: the same stores, the
+    port's ``build_store`` as the JAX package's."""
+    cv2 = pytest.importorskip("cv2")
+    from contextaware_poseformer_tpu.data import frame_store as jframe_store
+    from contextaware_poseformer_tpu_torch.data import frame_store
+    from contextaware_poseformer_tpu_torch.tools import (
+        build_frame_store as ours_tool,
+    )
+
+    sys.path.insert(0, str(REPO / "tools"))
+    try:
+        import build_frame_store as theirs_tool
+    finally:
+        sys.path.remove(str(REPO / "tools"))
+
+    rng = np.random.RandomState(11)
+    root = tmp_path / "images"
+    sub = "s_01_act_02_subact_01_ca_01"
+    (root / sub).mkdir(parents=True)
+    labels = []
+    for image_id in range(6):
+        cv2.imwrite(str(root / sub / f"{sub}_{image_id:06d}.jpg"),
+                    rng.randint(0, 256, (160, 160, 3)).astype(np.uint8),
+                    [cv2.IMWRITE_JPEG_QUALITY, 92])
+        labels.append({
+            "subject": 1, "action": 2, "subaction": 1, "camera_id": 0,
+            "image_id": image_id, "video_id": 0,
+            "joints_3d": rng.randn(17, 3).astype(np.float32),
+            "joints_2d_cpn": rng.uniform(-1, 1, (17, 2)).astype(np.float32),
+            "joints_2d_cpn_crop": rng.uniform(0, 60, (17, 2)).astype(
+                np.float32),
+            "center": np.asarray([80.0, 80.0], np.float32),
+            "scale": np.asarray([0.4, 0.4], np.float32)})
+    lp = tmp_path / "labels.pkl"
+    lp.write_bytes(pickle.dumps(labels))
+    data = {"TS1": {"data_3d": rng.randn(5, 17, 3) * 100 + 500,
+                    "data_2d": rng.uniform(0, 2048, (5, 17, 2)),
+                    "data_2d_crop": rng.uniform(0, 192, (5, 17, 2)),
+                    "valid": np.array([1, 0, 1, 1, 1])}}
+    npz = tmp_path / "test.npz"
+    np.savez(npz, data=np.asarray(data, dtype=object))
+    (tmp_path / "imgs" / "TS1").mkdir(parents=True)
+    for i in range(5):
+        cv2.imwrite(str(tmp_path / "imgs" / "TS1" / f"TS1_{i + 1:06d}.jpg"),
+                    rng.randint(0, 256, (256, 192, 3)).astype(np.uint8),
+                    [cv2.IMWRITE_JPEG_QUALITY, 95])
+    for argv in (["h36m", "--labels", str(lp), "--root", str(root),
+                  "--image-shape", "64", "64", "--batch", "4"],
+                 ["3dhp_test", "--npz", str(npz), "--root",
+                  str(tmp_path / "imgs"), "--keep-invalid", "--batch", "2"]):
+        outs = [str(tmp_path / f"{argv[0]}_{tag}.npy") for tag in "ab"]
+        assert ours_tool.main([*argv, "--out", outs[0]]) == 0
+        assert theirs_tool.main([*argv, "--out", outs[1]]) == 0
+        a, b = np.load(outs[0]), np.load(outs[1])
+        assert a.dtype == np.uint8 and len(a) > 0
+        np.testing.assert_array_equal(a, b)
+    ds = h36m.H36MDataset.from_pickle(str(lp), str(root), (64, 64))
+    outs = [str(tmp_path / f"direct_{tag}.npy") for tag in "ab"]
+    frame_store.build_store(ds, outs[0], batch_size=4, log=None)
+    jframe_store.build_store(ds, outs[1], batch_size=4, log=None)
+    np.testing.assert_array_equal(np.load(outs[0]), np.load(outs[1]))
+
+
 def _imported_modules(path: Path) -> list[str]:
     names = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -508,7 +868,12 @@ def test_the_port_imports_nothing_of_the_jax_package():
     assert len(files) > 30
     pkg = REPO / "contextaware_poseformer_tpu_torch"
     assert {pkg / "models/streaming.py", pkg / "utils/profiling.py",
-            pkg / "data/pipeline.py"} <= set(files)
+            pkg / "data/pipeline.py", pkg / "parallel/tensor.py",
+            pkg / "utils/visualization.py",
+            pkg / "data/preprocess/acquire.py"} <= set(files)
+    tools = {f.name for f in files if f.parent == pkg / "tools"}
+    assert {"model_flops.py", "trace_budget.py", "train_bench.py",
+            "demo.py", "build_frame_store.py"} <= tools
     bad = [(str(f.relative_to(REPO)), m) for f in files
            for m in _imported_modules(f)
            if m == JAX_PACKAGE or m.startswith(JAX_PACKAGE + ".")

@@ -23,6 +23,9 @@ from contextaware_poseformer_tpu_torch.parallel import (
     dryrun,
     make_mesh,
 )
+from contextaware_poseformer_tpu_torch.parallel.mesh import (
+    check_tensor_parallel,
+)
 from contextaware_poseformer_tpu_torch.train import steps, train_3dhp
 from contextaware_poseformer_tpu_torch.train.loop import Trainer
 
@@ -189,11 +192,31 @@ def test_uneven_train_shards_take_the_same_steps(cli_ranks):
     np.testing.assert_array_equal(a["uneven_params"], b["uneven_params"])
 
 
-def test_model_parallel_is_refused_naming_11b():
-    """The data axis is the mesh; the lifter's tensor parallelism is not
-    ported (ROADMAP [11b])."""
+def test_make_mesh_refuses_what_it_cannot_split():
+    """One process is a 1 x 1 mesh; ``model_parallel`` is refused where it
+    does not divide the world, the split blocks' heads or hidden widths,
+    and with attention or MLP routed through the fused kernels (K2, K3,
+    K4: serving only, no backward)."""
     mesh = make_mesh(1, "cpu")
     assert (mesh.data, mesh.rank, mesh.device) == (1, 0, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match=r"\[11b\]"):
+    assert (mesh.model, mesh.data_rank, mesh.model_rank) == (1, 0, 0)
+    with pytest.raises(ValueError, match="1 ranks not divisible"):
         make_mesh(2, "cpu")
+    with pytest.raises(ValueError, match="at least 1"):
+        make_mesh(0, "cpu")
+    lifter = cfglib.preset("h36m_cpn").model.lifter
+    check_tensor_parallel(2, lifter, world=4)
+    with pytest.raises(ValueError, match="heads"):
+        check_tensor_parallel(3, lifter, world=6)
+    with pytest.raises(ValueError, match="hidden"):
+        check_tensor_parallel(2, replace(lifter, mlp_ratio=1.5,
+                                         embed_dim_ratio=18, num_heads=2))
+    for knob, route in (("attention", "fused"), ("attention_joint", "grouped"),
+                        ("mlp", "fused")):
+        with pytest.raises(ValueError, match="fused kernels"):
+            check_tensor_parallel(2, replace(lifter, **{knob: route}))
+        check_tensor_parallel(1, replace(lifter, **{knob: route}))
+    deploy = cfglib.preset_or_deploy("h36m_cpn_deploy").model.lifter
+    with pytest.raises(ValueError, match="fused kernels"):
+        check_tensor_parallel(2, deploy)
     assert cfglib.preset("h36m_cpn").mesh.model_parallel == 1

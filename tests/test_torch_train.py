@@ -627,10 +627,11 @@ def test_checkpoint_manager_keeps_latest_and_best(tmp_path):
     (train_3dhp, ["--distributed", "--model-parallel", "2"]),
 ])
 def test_cli_refuses_what_is_not_ported(cli, argv):
-    """The lifter's tensor parallelism, the one part of the CLIs not
-    ported (ROADMAP [11b]); it is refused before any process group is
-    joined."""
-    with pytest.raises(SystemExit, match=r"tensor parallelism.*\[11b\]"):
+    """The lifter's tensor parallelism splits it over the ranks of a model
+    group: ``--model-parallel 2`` is refused without ``--distributed``, and
+    in a world of one rank (``--distributed`` outside torchrun), before
+    any process group is joined."""
+    with pytest.raises(SystemExit, match=r"model.parallel.2"):
         cli.main(["--synthetic", "--device", "cpu", *argv])
     assert not torch.distributed.is_initialized()
 
