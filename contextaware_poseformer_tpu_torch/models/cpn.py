@@ -16,23 +16,25 @@ with both channel counts >= 128 in int8 (K10, ``ops/int8_conv.py``), with
 the input's calibrated amax under ``serve_static_amax``, runs globalNet's
 1x1 up-convs before their x2 upsample (they commute: ``cpn.py:297-342``),
 and with ``cpn_int8_stream`` the int8 residual stream (``cpn.py:66-181,
-227-259``): the stem output quantized before the max-pool, which then runs
-on int8; every ResNet and refineNet bottleneck on int8 tensors with static
-calibrated scales, conv1 and conv2 requantizing their outputs in K10's
-epilogue, conv3 adding the residual (the downsample conv's output, run
-first, or the int8 skip) and requantizing the block output; the laterals on
-the int8 stage outputs. With ``cpn_int8_maps`` (and the native pyramid)
-the backbone returns ``(int8 maps, dequant scales)`` (``cpn.py:347-412``).
-``forward(x, calibrate=True)`` is the JAX package's calibration pass: the
-per-conv serve graph (wide convs dynamic int8, the rest in float) observing
-every scale the stream and the static convs use. ``quantize="c128"`` runs
-the wide convs in dynamic int8 and the rest as the float graph;
-``quantize="static"`` runs every conv but the stem that is 3x3 with both
-channel counts >= 16, or wide, in int8 with a calibrated scale each (K10
-per conv), and calibrates on the float graph. The int8 stream, the int8
-maps, ``serve_static_amax`` and the up-convs before their upsample act only
-under ``"serve"`` (``cpn.py:79,98,191,297``). ``cpn_fold_normalize`` and
-``cpn_int8_topdown`` are refused: they are off in ``deploy`` and not ported.
+227-259``): the stem output quantized and max-pooled in one pass (K10p: the
+pool of the quantized tensor, ``cpn.py:241-244``); every ResNet and
+refineNet bottleneck on int8 tensors with static calibrated scales, conv1
+and conv2 requantizing their outputs in K10's epilogue, conv3 adding the
+residual (the downsample conv's output, run first, or the int8 skip) and
+requantizing the block output; the laterals on the int8 stage outputs; each
+cascade's input quantized by K10q's scale form. With ``cpn_int8_maps`` (and
+the native pyramid) the backbone returns ``(int8 maps, dequant scales)``
+(``cpn.py:347-412``). ``forward(x, calibrate=True)`` is the JAX package's
+calibration pass: the per-conv serve graph (wide convs dynamic int8, the
+rest in float) observing every scale the stream and the static convs use.
+``quantize="c128"`` runs the wide convs in dynamic int8 and the rest as the
+float graph; ``quantize="static"`` runs every conv but the stem that is 3x3
+with both channel counts >= 16, or wide, in int8 with a calibrated scale
+each (K10 per conv), and calibrates on the float graph. The int8 stream,
+the int8 maps, ``serve_static_amax`` and the up-convs before their upsample
+act only under ``"serve"`` (``cpn.py:79,98,191,297``).
+``cpn_fold_normalize`` and ``cpn_int8_topdown`` are refused: they are off
+in ``deploy`` and not ported.
 
 Conv modules are named after the torch parameter prefixes with dots turned
 into underscores (``resnet.layer1.0.conv1`` -> ``resnet_layer1_0_conv1``);
@@ -58,6 +60,7 @@ from contextaware_poseformer_tpu_torch.models.backbone_common import (
 from contextaware_poseformer_tpu_torch.ops.int8_conv import (
     dequant_step,
     quant,
+    quant_max_pool_3x3_s2,
 )
 
 RESNET50_LAYERS = (3, 4, 6, 3)
@@ -99,7 +102,8 @@ class CPN(nn.Module):
         self.stream = self.serve and cfg.cpn_int8_stream
         self.int8_maps = (self.stream and cfg.cpn_int8_maps
                           and cfg.cpn_native_pyramid)
-        # "plain" runs K10's plain version on any device (the card's
+        # "plain" runs the plain versions of K10 and of the stream's
+        # quantizes (K10q's scale form, K10p) on any device (the card's
         # comparison path)
         self.int8_impl = "auto"
 
@@ -215,7 +219,7 @@ class CPN(nn.Module):
         feats = []  # [x1 /4, x2 /8, x3 /16, x4 /32]; int8 pairs (stream)
         if stream:
             amax = self._amax("resnet.in_amax")
-            x = max_pool_3x3_s2(quant(x, amax))
+            x = quant_max_pool_3x3_s2(x, amax, self.int8_impl)  # K10p
             for li, blocks in enumerate(self.cfg.cpn_layers):
                 for b in range(blocks):
                     x, amax = self._bottleneck_i8(
@@ -263,7 +267,7 @@ class CPN(nn.Module):
             yq = ya = None
             if stream and n_blocks:
                 ya = self._amax(f"{pre}.in_amax")
-                yq = quant(y, ya)
+                yq = quant(y, ya, self.int8_impl)
                 for k in range(n_blocks):
                     last = k == n_blocks - 1
                     out, out_a = self._bottleneck_i8(
@@ -278,7 +282,7 @@ class CPN(nn.Module):
                     y = self._bottleneck(y, f"{pre}.{k}", True, calibrate)
             if int8_maps and not n_blocks:
                 ya = self._amax(f"refine_net.feature{i}_amax")
-                yq = quant(y, ya)
+                yq = quant(y, ya, self.int8_impl)
             if not self.cfg.cpn_native_pyramid:
                 y = resize_bilinear_align_corners(y, out_hw)
             if int8_maps:

@@ -63,8 +63,10 @@ SIGNATURES = {
     "capf_int8_conv_probe": (_I, [_P, _I, _I, _P]),
     # (args struct*, device, stream)
     "capf_int8_requant": (_I, [_P, _I, _P]),
-    # (x, amax, out, n, clamp, device, stream)
+    # (x, amax, out, n, form, device, stream)
     "capf_int8_quantize": (_I, [_P, _P, _P, ctypes.c_longlong, _I, _I, _P]),
+    # (x, amax, out, batch, h, w, c, rows, device, stream)
+    "capf_int8_quant_pool": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     # (args struct*, device, stream)
     "capf_layer1_block": (_I, [_P, _I, _P]),
     "capf_layer1_block_floor": (_I, [_P, _I, _P]),

@@ -7,9 +7,12 @@
 // int8 stream fuses into it (contextaware_poseformer_tpu/models/cpn.py:
 // 43-51, 123-181). The JAX package quantizes a float input once
 // (backbone_common.py:192-203) and then convolves the int8 tensor; so does
-// this file: int8_quantize_kernel writes round(x / step) clipped to +-127
-// (the step max(amax, 1e-12) / 127 of a calibrated amax, or max|x| / 127,
-// unclamped, of the dynamic route), and the convolution always reads int8.
+// this file: int8_quantize_kernel (K10q, step form) writes round(x / step)
+// clipped to +-127 (the step max(amax, 1e-12) / 127 of a calibrated amax,
+// or max|x| / 127, unclamped, of the dynamic route), and the convolution
+// always reads int8. K10q's scale form is the CPN stream's own quantize
+// (cpn.py:43-51), and int8_quant_pool_kernel (K10p) its stem's quantize
+// and max-pool in one pass (cpn.py:241-244); see their section below.
 // The convolution: NHWC int8 input, a (Cout, kh*kw*Cin) int8 kernel, 1x1 or
 // 3x3, stride 1 or 2, zero padding (k - 1) / 2; exact int32 accumulation;
 // then the folded affine with the JAX package's rounding points
@@ -63,7 +66,7 @@
 // border test compiled out (Mode::kAccumNoMask, wrong at the edges on
 // purpose), the same ring on bf16 operands (wgmma m64nNk16, fp32 out), the
 // epilogue alone (int8_requant_kernel: the same arithmetic and stores) and the
-// quantize pass (int8_quantize_kernel, on the path).
+// quantize pass (int8_quantize_kernel, on the path: K10q).
 
 #include <type_traits>
 
@@ -145,17 +148,12 @@ __device__ __forceinline__ float input_step(float amax, bool clamp) {
   return __fmul_rn(clamp ? fmaxf(amax, 1e-12f) : amax, capf::kRecip127);
 }
 
-// round(v / step) clipped, as int8. A zero skips the division: the IEEE
-// division's range check sends a zero dividend down its slow path, and the
-// dynamic convs' inputs are ReLU outputs, about half of them zeros.
-__device__ __forceinline__ int8_t quantize(__nv_bfloat16 v, float step) {
-  const float x = __bfloat162float(v);
-  return x == 0.f ? 0 : to_int8_rne(__fdiv_rn(x, step));
-}
-
 // 127 / max(amax, 1e-12), an IEEE division as XLA computes it
+__device__ __forceinline__ float requant_scale(float amax) {
+  return __fdiv_rn(127.f, fmaxf(amax, 1e-12f));
+}
 __device__ __forceinline__ float requant_scale(const float* amax) {
-  return __fdiv_rn(127.f, fmaxf(*amax, 1e-12f));
+  return requant_scale(*amax);
 }
 
 // bf16(max(amax, 1e-12) / 127): the dequant scale of an int8 skip
@@ -603,30 +601,244 @@ __global__ void int8_requant_kernel(const Int8RequantArgs a) {
   store_int8<16>(a.out + i, y, requant_scale(a.out_amax));
 }
 
-// The quantize pass: bf16 x -> int8, 16 values a thread (two 16-byte loads,
-// one 16-byte store), with the calibrated (``clamp``) or dynamic step.
-__global__ void int8_quantize_kernel(const __nv_bfloat16* x,
-                                     const float* amax, int clamp,
-                                     int8_t* out, size_t n) {
-  const size_t i = (static_cast<size_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x) * 16;
-  if (i >= n) return;
-  const float step = input_step(*amax, clamp != 0);
-  const int4* src = reinterpret_cast<const int4*>(x + i);
-  const int4 lo = src[0], hi = src[1];
-  const __nv_bfloat16* v0 = reinterpret_cast<const __nv_bfloat16*>(&lo);
-  const __nv_bfloat16* v1 = reinterpret_cast<const __nv_bfloat16*>(&hi);
-  uint32_t w[4];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    w[j] = pack_int8x4(quantize(v0[4 * j], step), quantize(v0[4 * j + 1], step),
-                       quantize(v0[4 * j + 2], step),
-                       quantize(v0[4 * j + 3], step));
-    w[2 + j] = pack_int8x4(
-        quantize(v1[4 * j], step), quantize(v1[4 * j + 1], step),
-        quantize(v1[4 * j + 2], step), quantize(v1[4 * j + 3], step));
+// ---- K10q: the quantize pass; K10p: the stem's quantize and max-pool ---
+//
+// K10q turns a bf16 tensor into int8, clip(round(v), -127, 127) with round
+// half to even, in one of two forms (QuantForm):
+// - the step form, K10's float inputs (backbone_common.py:192-203): v is
+//   the IEEE quotient x / step, step = max(amax, 1e-12) * fl32(1 / 127) for
+//   a calibrated amax, max|x| * fl32(1 / 127) for the dynamic route;
+// - the scale form, the CPN stream's _quant_i8 (cpn.py:43-51):
+//   v = fp32(x) * (127 / max(amax, 1e-12)), the scale one IEEE division a
+//   tensor (requant_scale).
+// What bounds it: bytes, 2 read and 1 written a value. At 3.35 TB/s an SM
+// must turn over ~7.5 values a clock, so past ~17 thread-instructions a
+// value issue, not HBM, would bound the pass; an IEEE division a value
+// (__fdiv_rn: a MUFU reciprocal, a dozen more instructions and a slow-path
+// branch) is past it. Here the quotient comes from the tensor's reciprocal
+// r = RN(1 / step), computed once, and two FMA corrections, q = x * r, then
+// twice q += (x - q * step) * r: the first brings q within an ulp of
+// x / step, and the second then gives the correctly rounded quotient
+// (Markstein: r within half an ulp of 1 / step and q within an ulp make the
+// remainder exact and the corrected q the IEEE quotient). x is first
+// clamped to +-RN(127 * step), which changes no result (beyond it the
+// quotient rounds to +-127 either way) and keeps every intermediate far
+// from overflow; a step in [2^-64, 2^64] keeps them far from underflow, and
+// a step outside that range (a dynamic route's near-zero max|x|, a
+// non-finite amax) takes the IEEE division instead, a branch uniform over
+// the grid. The round is cvt.rni (half to even; NaN -> 0, as the plain
+// version's int8 cast gives), after a clamp that keeps a NaN. About 10
+// instructions a value in the step form, 6 in the scale form; no zero skip
+// (zeros are no slow path any more).
+// The grid: a few blocks an SM striding over the tensor; a thread has
+// kQuantUnroll groups of 16 values (two 16-byte loads each) in flight before
+// any arithmetic and stores each group's 16 int8 values at once. Measured
+// on the card at the CPN request's shapes: 2 groups a thread and 4 blocks
+// an SM beat 4 or 8 groups, 8 blocks an SM and streaming load/store hints.
+
+enum QuantForm { kStepDynamic = 0, kStepCalibrated = 1, kScale = 2 };
+
+constexpr int kQuantThreads = 256;
+constexpr int kQuantUnroll = 2;       // 16-value groups in flight a thread
+constexpr int kQuantBlocksPerSm = 4;  // the grid's blocks an SM
+
+struct QuantConsts {
+  float mul;   // the scale form's scale, or the step form's RN(1 / step)
+  float step;  // the step form's step
+  float lim;   // the step form's RN(127 * step)
+};
+
+// max(lo, min(v, hi)), keeping a NaN (as torch.clamp does)
+__device__ __forceinline__ float clamp_keep_nan(float v, float lo, float hi) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(v), "f"(lo));
+  asm("min.NaN.f32 %0, %0, %1;" : "+f"(r) : "f"(hi));
+  return r;
+}
+
+// one value x -> its int8 in the low byte of the word. kExact: the step
+// form's reciprocal route (else its IEEE division)
+template <int kForm, bool kExact>
+__device__ __forceinline__ uint32_t quant_value(float x,
+                                                const QuantConsts& k) {
+  if constexpr (kForm == kScale) {
+    return static_cast<uint32_t>(__float2int_rn(
+        clamp_keep_nan(__fmul_rn(x, k.mul), -127.f, 127.f)));
+  } else if constexpr (kExact) {
+    const float xc = clamp_keep_nan(x, -k.lim, k.lim);
+    float q = __fmul_rn(xc, k.mul);
+    q = __fmaf_rn(__fmaf_rn(-q, k.step, xc), k.mul, q);
+    q = __fmaf_rn(__fmaf_rn(-q, k.step, xc), k.mul, q);
+    return static_cast<uint32_t>(__float2int_rn(q));  // |q| <= 127 + 2^-16
+  } else {
+    return static_cast<uint32_t>(__float2int_rn(
+        clamp_keep_nan(__fdiv_rn(x, k.step), -127.f, 127.f)));
   }
-  *reinterpret_cast<uint4*>(out + i) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// 16 bf16 values (two 16-byte words, the first value in the low half of the
+// first word) -> 16 int8 values (one 16-byte word)
+template <int kForm, bool kExact>
+__device__ __forceinline__ uint4 quant16(const uint4& lo, const uint4& hi,
+                                         const QuantConsts& k) {
+  const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t a = w[2 * i], b = w[2 * i + 1];
+    const uint32_t q0 = quant_value<kForm, kExact>(__uint_as_float(a << 16), k);
+    const uint32_t q1 =
+        quant_value<kForm, kExact>(__uint_as_float(a & 0xffff0000u), k);
+    const uint32_t q2 = quant_value<kForm, kExact>(__uint_as_float(b << 16), k);
+    const uint32_t q3 =
+        quant_value<kForm, kExact>(__uint_as_float(b & 0xffff0000u), k);
+    o[i] = __byte_perm(__byte_perm(q0, q1, 0x0040), __byte_perm(q2, q3, 0x0040),
+                       0x5410);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// K10q: x (groups x 16 bf16) -> out (groups x 16 int8) in form kForm. A
+// block takes tiles of kQuantThreads x kQuantUnroll groups, grid-strided
+// (the host sizes the grid so that every block takes as many). The first
+// tile's loads go out beside amax's, before the per-tensor constants, which
+// pick the step form's route by a branch uniform over the grid.
+template <int kForm>
+__global__ void __launch_bounds__(kQuantThreads)
+    int8_quantize_kernel(const uint4* __restrict__ x,
+                         const float* __restrict__ amax,
+                         uint4* __restrict__ out, long long groups) {
+  const long long per_block = 1LL * kQuantThreads * kQuantUnroll;
+  long long g0 = blockIdx.x * per_block + threadIdx.x;
+  const float a = *amax;
+  QuantConsts k{};
+  bool exact = true;  // the step form's reciprocal route
+  bool ready = false;
+  for (; g0 < groups; g0 += gridDim.x * per_block) {
+    uint4 v[kQuantUnroll][2];
+#pragma unroll
+    for (int u = 0; u < kQuantUnroll; ++u) {  // every load before any math
+      const long long g = g0 + u * kQuantThreads;
+      if (g < groups) {
+        v[u][0] = x[2 * g];
+        v[u][1] = x[2 * g + 1];
+      } else {
+        v[u][0] = v[u][1] = make_uint4(0, 0, 0, 0);
+      }
+    }
+    if (!ready) {
+      ready = true;
+      if constexpr (kForm == kScale) {
+        k.mul = requant_scale(a);
+      } else {
+        k.step = input_step(a, kForm == kStepCalibrated);
+        exact = k.step >= 0x1p-64f && k.step <= 0x1p64f;
+        k.mul = __frcp_rn(k.step);
+        k.lim = __fmul_rn(127.f, k.step);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kQuantUnroll; ++u) {
+      const long long g = g0 + u * kQuantThreads;
+      if (g >= groups) continue;
+      out[g] = exact ? quant16<kForm, true>(v[u][0], v[u][1], k)
+                     : quant16<kForm, false>(v[u][0], v[u][1], k);
+    }
+  }
+}
+
+// K10p: the CPN stream's stem, max_pool_3x3_s2(quant(x)) (cpn.py:241-244,
+// the pool backbone_common.py:389-395: 3x3, stride 2, padding 1), in one
+// pass, the scale form. The quantize is monotone, so the pool of the
+// quantized tensor is the quantize of the pooled one: pool in bf16 (a max
+// is exact), then quantize the 4x fewer outputs once each. Padding never
+// wins: every window holds at least 4 real pixels. Bound: bytes, the bf16
+// input read once and the int8 output written once. A block owns ``rows``
+// output rows of one image across all channels and stages the 2 rows + 1
+// input rows they need (clipped to the image) into shared memory by
+// 16-byte cp.async; the row it shares with a neighbouring block (next in
+// the grid, so running beside it) is found in L2. ``rows`` is the plan's
+// (ops/int8_conv.py::quant_pool_rows): at the stem one row a block, 36 KB,
+// measured faster than 2-4 rows (fewer blocks an SM). Then a thread pools
+// 16 channels of one output pixel (bf16x2 max over the window), quantizes them and stores 16
+// bytes. A thread of an odd output column reads the second half of its 32
+// bytes first, so that the 8 threads of a 16-byte shared-memory phase (two
+// pixels of 64 channels) fall on distinct banks.
+constexpr int kPoolThreads = 256;
+constexpr int kSmemLimit = 232448;  // the 227 KB a Hopper block may use
+
+__device__ __forceinline__ uint32_t bf16x2_max(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__global__ void __launch_bounds__(kPoolThreads)
+    int8_quant_pool_kernel(const __nv_bfloat16* __restrict__ x,
+                           const float* __restrict__ amax,
+                           int8_t* __restrict__ out, int h, int w, int c,
+                           int ho, int wo, int rows) {
+  extern __shared__ __align__(16) unsigned char s_rows[];
+  const int strips = (ho + rows - 1) / rows;
+  const int b = blockIdx.x / strips;
+  const int oy0 = (blockIdx.x - b * strips) * rows;
+  const int oy1 = min(oy0 + rows, ho);
+  const int iy0 = max(2 * oy0 - 1, 0);
+  const int iy1 = min(2 * oy1, h);  // past the last input row read
+  const size_t row_elems = static_cast<size_t>(w) * c;
+  const __nv_bfloat16* src = x + (static_cast<size_t>(b) * h + iy0) * row_elems;
+  const int chunks = static_cast<int>((iy1 - iy0) * row_elems / 8);
+  for (int i = threadIdx.x; i < chunks; i += kPoolThreads) {
+    cp_async16(s_rows + 16 * static_cast<size_t>(i),
+               src + 8 * static_cast<size_t>(i), 16);
+  }
+  cp_async_commit();
+  QuantConsts k{};
+  k.mul = requant_scale(amax);
+  cp_async_wait<0>();
+  __syncthreads();
+  const int groups = c / 16;
+  const int tasks = (oy1 - oy0) * wo * groups;
+  for (int t = threadIdx.x; t < tasks; t += kPoolThreads) {
+    const int g = t % groups;
+    const int p = t / groups;
+    const int ox = p % wo;
+    const int oy = oy0 + p / wo;
+    const int first = (ox & 1) * 16;  // the byte offset of the half read first
+    uint32_t m[2][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) m[0][i] = m[1][i] = 0xff80ff80u;  // -inf
+#pragma unroll
+    for (int dy = -1; dy <= 1; ++dy) {
+      const int y = 2 * oy + dy;
+      if (y < 0 || y >= h) continue;
+#pragma unroll
+      for (int dx = -1; dx <= 1; ++dx) {
+        const int xx = 2 * ox + dx;
+        if (xx < 0 || xx >= w) continue;
+        const unsigned char* q =
+            s_rows +
+            ((static_cast<size_t>(y - iy0) * w + xx) * c + 16 * g) * 2;
+        const uint4 a = *reinterpret_cast<const uint4*>(q + first);
+        const uint4 e = *reinterpret_cast<const uint4*>(q + (16 - first));
+        m[0][0] = bf16x2_max(m[0][0], a.x);
+        m[0][1] = bf16x2_max(m[0][1], a.y);
+        m[0][2] = bf16x2_max(m[0][2], a.z);
+        m[0][3] = bf16x2_max(m[0][3], a.w);
+        m[1][0] = bf16x2_max(m[1][0], e.x);
+        m[1][1] = bf16x2_max(m[1][1], e.y);
+        m[1][2] = bf16x2_max(m[1][2], e.z);
+        m[1][3] = bf16x2_max(m[1][3], e.w);
+      }
+    }
+    const uint4 m0 = make_uint4(m[0][0], m[0][1], m[0][2], m[0][3]);
+    const uint4 m1 = make_uint4(m[1][0], m[1][1], m[1][2], m[1][3]);
+    const uint4 lo = first ? m1 : m0;  // selects: no indexed local array
+    const uint4 hi = first ? m0 : m1;
+    *reinterpret_cast<uint4*>(
+        out + ((static_cast<size_t>(b) * ho + oy) * wo + ox) * c + 16 * g) =
+        quant16<kScale, true>(lo, hi, k);
+  }
 }
 
 // ---- host side -------------------------------------------------------------
@@ -727,17 +939,64 @@ extern "C" int capf_int8_requant(const Int8RequantArgs* args, int device,
 }
 
 extern "C" int capf_int8_quantize(const void* x, const float* amax, void* out,
-                                  long long n, int clamp, int device,
+                                  long long n, int form, int device,
                                   cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (n < 16 || n % 16) return cudaErrorInvalidValue;
-  const int threads = 256;
+  if (n < 16 || n % 16 || form < kStepDynamic || form > kScale) {
+    return cudaErrorInvalidValue;
+  }
   const long long groups = n / 16;
-  int8_quantize_kernel<<<static_cast<unsigned>((groups + threads - 1) /
-                                               threads),
-                         threads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), amax, clamp,
-      static_cast<int8_t*>(out), static_cast<size_t>(n));
+  const long long per_block = 1LL * kQuantThreads * kQuantUnroll;
+  const long long tiles = (groups + per_block - 1) / per_block;
+  const long long most =
+      1LL * kQuantBlocksPerSm * capf::sm90::sm_count(device);
+  const long long rounds = (tiles + most - 1) / most;  // tiles a block
+  const long long blocks = (tiles + rounds - 1) / rounds;
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const uint4* src = static_cast<const uint4*>(x);
+  uint4* dst = static_cast<uint4*>(out);
+  if (form == kStepDynamic) {
+    int8_quantize_kernel<kStepDynamic>
+        <<<grid, kQuantThreads, 0, stream>>>(src, amax, dst, groups);
+  } else if (form == kStepCalibrated) {
+    int8_quantize_kernel<kStepCalibrated>
+        <<<grid, kQuantThreads, 0, stream>>>(src, amax, dst, groups);
+  } else {
+    int8_quantize_kernel<kScale>
+        <<<grid, kQuantThreads, 0, stream>>>(src, amax, dst, groups);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ``rows`` (ops/int8_conv.py::quant_pool_rows) output rows a block; the
+// block's shared memory holds min(2 rows + 1, H) input rows
+extern "C" int capf_int8_quant_pool(const void* x, const float* amax,
+                                    void* out, int batch, int h, int w, int c,
+                                    int rows, int device,
+                                    cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (batch < 1 || h < 1 || w < 1 || c < 16 || c % 16 || rows < 1) {
+    return cudaErrorInvalidValue;
+  }
+  const int ho = (h + 1) / 2, wo = (w + 1) / 2;
+  const int staged = 2 * rows + 1 < h ? 2 * rows + 1 : h;
+  const long long smem = 2LL * staged * w * c;
+  const long long strips = (ho + rows - 1) / rows;
+  if (smem > kSmemLimit || 1LL * batch * strips > (1LL << 31) - 1 ||
+      1LL * ho * wo * (c / 16) > (1LL << 31) - 1) {
+    return cudaErrorInvalidValue;
+  }
+  static bool opted = false;  // once (one device)
+  if (!opted) {
+    err = capf::allow_smem(int8_quant_pool_kernel, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    opted = true;
+  }
+  int8_quant_pool_kernel<<<static_cast<unsigned>(batch * strips),
+                           kPoolThreads, static_cast<size_t>(smem), stream>>>(
+      static_cast<const __nv_bfloat16*>(x), amax, static_cast<int8_t*>(out),
+      h, w, c, ho, wo, rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,11 +28,17 @@ downsample conv's output in the conv's dtype, or an int8 skip with its
 calibrated amax, dequantized as ``bf16(xq) * bf16(max(amax, 1e-12) / 127)``
 (``cpn.py:139``). The kernel is ``csrc/int8_conv.cu``. A float input is
 quantized once, as the JAX package does (``backbone_common.py:192-203``), by
-the quantize pass into an int8 scratch tensor (its launches counted in
-``launches_quantize``); the max|x| reduction of the dynamic route comes from
-``torch``, as the JAX package computes it outside any kernel too. The
-convolution then always reads int8: an implicit GEMM on ``wgmma`` whose
-tile ``plan`` picks per shape.
+the quantize pass (K10q, its step form) into an int8 scratch tensor (its
+launches counted in ``launches_quantize``); the max|x| reduction of the
+dynamic route comes from ``torch``, as the JAX package computes it outside
+any kernel too. The convolution then always reads int8: an implicit GEMM on
+``wgmma`` whose tile ``plan`` picks per shape.
+
+The CPN int8 stream's own quantizes run on the same kernels: ``quant``
+(K10q's scale form, ``clip(round(t * (127 / amax)))``, the JAX package's
+``_quant_i8``) and ``quant_max_pool_3x3_s2`` (K10p, the stem's quantize and
+3x3/s2 max-pool in one pass, counted in ``launches_quant_pool``), each a
+dispatcher beside its plain version.
 """
 
 from __future__ import annotations
@@ -48,7 +54,8 @@ import torch.nn.functional as F
 from contextaware_poseformer_tpu_torch.ops import _build
 
 launches = 0  # kernel launches made by int8_conv_kernel
-launches_quantize = 0  # quantize-pass launches made by quantize_kernel
+launches_quantize = 0  # quantize-pass (K10q) launches by quantize_kernel
+launches_quant_pool = 0  # K10p launches made by quant_max_pool_kernel
 
 CIN_MULTIPLE = 16  # input channels: K's 16-byte pieces never straddle taps
 K_TILE = 128  # bytes of K a stage of the kernel's ring holds
@@ -57,6 +64,11 @@ STAGES = 4  # the ring's depth (csrc/int8_conv.cu kStages)
 BLOCK_M = 64  # output pixels a block owns: one consumer warpgroup
 TILE_N = (128, 64)  # the output-channel widths of the tiles it builds
 RECIP_127 = float(np.float32(1) / np.float32(127))  # fl32(1 / 127)
+# K10q's forms (csrc/int8_conv.cu QuantForm): the step form, dynamic or
+# calibrated, and the scale form
+QUANT_FORMS = {("step", False): 0, ("step", True): 1, ("scale", True): 2}
+GROUP = 16  # values a K10q thread quantizes together; K10p's channel group
+POOL_SMEM = 48 * 1024  # the input rows a K10p block stages, at most
 
 
 def f32_const(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -83,13 +95,61 @@ def dequant_step(amax: torch.Tensor, clamp: bool) -> torch.Tensor:
     return a * RECIP_127
 
 
-def quant(t: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+def quant_reference(t: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
     """clip(round(t * (127 / max(amax, 1e-12))), -127, 127) -> int8, in
     fp32: the JAX package's ``_quant_i8`` (``models/cpn.py:43-51``) and
-    ``HRNet._layer1_int8.quant``."""
+    ``HRNet._layer1_int8.quant``. The plain version of K10q's scale form."""
     a = torch.clamp(amax.float(), min=1e-12)
     r = torch.div(f32_const(127.0, a), a)
     return torch.clamp(torch.round(t.float() * r), -127, 127).to(torch.int8)
+
+
+def quant(t: torch.Tensor, amax: torch.Tensor,
+          impl: str = "auto") -> torch.Tensor:
+    """Dispatcher of ``quant_reference``: the plain version for a CPU tensor
+    or ``impl="plain"``, K10q's scale form for any other (which raises
+    unless it is a CUDA bf16 tensor)."""
+    if impl == "plain" or t.device.type == "cpu":
+        return quant_reference(t, amax)
+    if impl != "auto":
+        raise ValueError(f"quant: impl {impl!r} (auto or plain)")
+    return quantize_kernel(t, amax, True, form="scale")
+
+
+def max_pool_3x3_s2_int8(q: torch.Tensor) -> torch.Tensor:
+    """MaxPool2d(kernel=3, stride=2, padding=1) of an int8 NHWC tensor of
+    values in [-127, 127], in int8: the padding is -128, which never wins
+    (as the JAX package's int8 ``reduce_window`` from int8 min,
+    ``backbone_common.py:389-395``), and the 9 taps are strided views."""
+    b, h, w, c = q.shape
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    p = F.pad(q, (0, 0, 1, 2 * wo - w, 1, 2 * ho - h), value=-128)
+    out = None
+    for dy in range(3):
+        for dx in range(3):
+            tap = p[:, dy:dy + 2 * ho:2, dx:dx + 2 * wo:2]
+            out = tap if out is None else torch.maximum(out, tap)
+    return out
+
+
+def quant_max_pool_3x3_s2_reference(x: torch.Tensor,
+                                    amax: torch.Tensor) -> torch.Tensor:
+    """Plain version of K10p: ``max_pool_3x3_s2(quant(x, amax))``, the CPN
+    stream's stem (``models/cpn.py:241-244`` in the JAX package), NHWC
+    (B, H, W, C) -> int8 (B, ceil(H/2), ceil(W/2), C)."""
+    return max_pool_3x3_s2_int8(quant_reference(x, amax))
+
+
+def quant_max_pool_3x3_s2(x: torch.Tensor, amax: torch.Tensor,
+                          impl: str = "auto") -> torch.Tensor:
+    """Dispatcher: the plain version for a CPU tensor or ``impl="plain"``,
+    K10p for any other (which raises unless it is a CUDA bf16 tensor)."""
+    if impl == "plain" or x.device.type == "cpu":
+        return quant_max_pool_3x3_s2_reference(x, amax)
+    if impl != "auto":
+        raise ValueError(f"quant_max_pool_3x3_s2: impl {impl!r} (auto or "
+                         "plain)")
+    return quant_max_pool_kernel(x, amax)
 
 
 def dequant(xq: torch.Tensor, amax: torch.Tensor, dtype) -> torch.Tensor:
@@ -195,7 +255,7 @@ def int8_conv_reference(x, kernel_q, wscale, scale, bias, amax, stride,
                  if residual.dtype == torch.int8 else residual.to(dtype))
     if relu:
         y = torch.relu(y)
-    return y if out_amax is None else quant(y, out_amax)
+    return y if out_amax is None else quant_reference(y, out_amax)
 
 
 class _Args(ctypes.Structure):
@@ -231,26 +291,80 @@ def _scalar(name, t):
     return t.reshape(()).float().contiguous()
 
 
-def quantize_kernel(x, amax, clamp):
-    """The quantize pass on the card: bf16 ``x`` -> int8 with the step of
-    ``amax`` (fp32, one element: calibrated with ``clamp``, max|x|
-    without), into a fresh tensor; same function as ``quantize_reference``
-    (numel a multiple of 16)."""
-    global launches_quantize
-    name = "int8_quantize"
-    if x.dtype != torch.bfloat16 or x.numel() % 16:
-        raise TypeError(f"{name}: bf16 x with a multiple of 16 elements, "
-                        f"got {x.dtype} {tuple(x.shape)}")
-    _build.require_cuda(name, x, amax)
+def _quant_operands(name, x, amax):
+    """The checks K10q and K10p make before they launch, the device's
+    last: bf16 ``x`` starting on a 16-byte boundary and an fp32 one-element
+    ``amax``, on one CUDA device, contiguous."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel takes bf16 x, got "
+                        f"{x.dtype}")
+    if amax.dtype != torch.float32 or amax.numel() != 1:
+        raise TypeError(f"{name}: amax must be an fp32 tensor of one "
+                        f"element, got {amax.dtype} {tuple(amax.shape)}")
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: x must start on a 16-byte boundary")
+    _build.require_cuda(name, x, amax)
+
+
+def quantize_kernel(x, amax, clamp, form="step"):
+    """K10q on the card: bf16 ``x`` -> int8 into a fresh tensor (numel a
+    multiple of 16). ``form="step"``: ``quantize_reference``'s function,
+    with the step of ``amax`` (fp32, one element: calibrated with
+    ``clamp``, max|x| without); ``form="scale"``: ``quant_reference``'s
+    (``amax`` always clamped at 1e-12; ``clamp`` must be True)."""
+    global launches_quantize
+    name = "int8_quantize"
+    mode = QUANT_FORMS.get((form, bool(clamp)))
+    if mode is None:
+        raise ValueError(f"{name}: form {form!r} with clamp={clamp}")
+    if x.numel() % GROUP or not x.numel():
+        raise ValueError(f"{name}: x must hold a non-zero multiple of "
+                         f"{GROUP} values, got {tuple(x.shape)}")
+    _quant_operands(name, x, amax)
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     lib = _build.library()
     err = lib.capf_int8_quantize(x.data_ptr(), amax.data_ptr(),
-                                 out.data_ptr(), x.numel(), int(clamp),
+                                 out.data_ptr(), x.numel(), mode,
                                  *_build.launch_target(x))
     _build.check(lib, err, name)
     launches_quantize += 1
+    return out
+
+
+def quant_pool_rows(h: int, w: int, c: int) -> int:
+    """K10p's plan: the output rows a block owns, the most whose 2 rows + 1
+    input rows fit POOL_SMEM (at least one strip of three rows, which
+    must fit the block's shared memory). At the stem, (128, 96, 64), that
+    is one row, 36 KB: on the card 1 row took 0.0447 ms, 2 rows 0.0459, 3
+    and 4 rows 0.048 (PERF.md)."""
+    ho, row = (h + 1) // 2, w * c * 2
+    rows = max(1, min(ho, (POOL_SMEM // row - 1) // 2))
+    if min(2 * rows + 1, h) * row > _build.SMEM_LIMIT:
+        raise ValueError(f"int8_quant_pool: a row of {w} x {c} bf16 values "
+                         "leaves no room for the three rows a strip needs")
+    return rows
+
+
+def quant_max_pool_kernel(x, amax):
+    """K10p on the card: bf16 NHWC ``x`` (B, H, W, C), C a multiple of 16
+    -> int8 (B, ceil(H/2), ceil(W/2), C), the function of
+    ``quant_max_pool_3x3_s2_reference``."""
+    global launches_quant_pool
+    name = "int8_quant_pool"
+    if x.dim() != 4 or x.shape[-1] % GROUP or not x.numel():
+        raise ValueError(f"{name}: x must be NHWC with C a multiple of "
+                         f"{GROUP}, got {tuple(x.shape)}")
+    _quant_operands(name, x, amax)
+    b, h, w, c = x.shape
+    rows = quant_pool_rows(h, w, c)
+    out = torch.empty((b, (h + 1) // 2, (w + 1) // 2, c), dtype=torch.int8,
+                      device=x.device)
+    lib = _build.library()
+    err = lib.capf_int8_quant_pool(x.data_ptr(), amax.data_ptr(),
+                                   out.data_ptr(), b, h, w, c, rows,
+                                   *_build.launch_target(x))
+    _build.check(lib, err, name)
+    launches_quant_pool += 1
     return out
 
 

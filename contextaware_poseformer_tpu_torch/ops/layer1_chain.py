@@ -38,7 +38,7 @@ from dataclasses import dataclass
 import torch
 
 from contextaware_poseformer_tpu_torch.ops import _build, int8_conv
-from contextaware_poseformer_tpu_torch.ops.int8_conv import quant
+from contextaware_poseformer_tpu_torch.ops.int8_conv import quant_reference
 
 launches = 0  # kernel launches made by layer1_block_kernel (4 a chain)
 launches_floor = 0  # launches of its floor build (a probe's counterpart)
@@ -114,19 +114,19 @@ def layer1_int8_chain(x, in_amax, blocks, conv=int8_conv.int8_conv):
     the calibrated amax scalars ``t1``, ``t2`` and ``out``."""
     dtype = x.dtype
     a = in_amax
-    xq = quant(x, a)
+    xq = quant_reference(x, a)
     for blk in blocks:
         y = conv(xq, *blk["conv1"], a, 1, True, dtype)
-        y = conv(quant(y, blk["t1"]), *blk["conv2"], blk["t1"], 1, True,
-                 dtype)
-        y = conv(quant(y, blk["t2"]), *blk["conv3"], blk["t2"], 1, False,
-                 dtype)
+        y = conv(quant_reference(y, blk["t1"]), *blk["conv2"], blk["t1"], 1,
+                 True, dtype)
+        y = conv(quant_reference(y, blk["t2"]), *blk["conv3"], blk["t2"], 1,
+                 False, dtype)
         if blk["downsample"] is not None:
             res = conv(xq, *blk["downsample"], a, 1, False, dtype)
         else:
             res = int8_conv.dequant(xq, a, dtype)
         a = blk["out"]
-        xq = quant(torch.relu(y + res), a)
+        xq = quant_reference(torch.relu(y + res), a)
     return xq
 
 

@@ -119,7 +119,8 @@ def requant_reference(acc, wscale, scale, bias, amax, out_amax, relu=True):
     step = int8_conv.dequant_step(amax, clamp=True)
     eff = (scale.float() * wscale.float() * step).to(torch.bfloat16)
     y = acc.to(torch.bfloat16) * eff + bias.to(torch.bfloat16)
-    return int8_conv.quant(torch.relu(y) if relu else y, out_amax)
+    return int8_conv.quant_reference(torch.relu(y) if relu else y,
+                                     out_amax)
 
 
 class _RequantArgs(ctypes.Structure):

@@ -45,7 +45,7 @@ import torch
 
 # (bucket, substrings of the kernel name); first match wins
 KERNEL_RULES: list[tuple[str, tuple[str, ...]]] = [
-    ("int8 quantize", ("int8_quantize_kernel",)),
+    ("int8 quantize", ("int8_quantize_kernel", "int8_quant_pool_kernel")),
     ("backbone layer1", ("layer1_block_kernel",)),
     ("sampler backward", ("sample_levels_bwd", "grid_sampler_2d_backward")),
     ("sampler", ("sample_levels", "aggregate_kernel", "grid_sampler")),
@@ -125,6 +125,7 @@ def default_functions() -> list[tuple[object, str, object]]:
            (steps.Optimizer, "step", f"fn:{OPTIMIZER}"),
            (cpn, "max_pool_3x3_s2", "fn:backbone stem"),
            (cpn, "quant", "fn:int8 quantize"),
+           (cpn, "quant_max_pool_3x3_s2", "fn:int8 quantize"),
            (cpn, "resize_bilinear_align_corners",
             "fn:bilinear resize (globalNet, refineNet)"),
            (cpn.CPN, "_bottleneck", _block(2)),

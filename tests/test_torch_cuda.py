@@ -8,7 +8,7 @@ no JAX, so it also runs on a GPU machine that has none:
 Tolerance: error relative to max|plain| of 1e-4 in fp32 (TF32 off) and
 2e-2 in bf16 (the kernels keep some intermediates in fp32 where the plain
 versions round to bf16). The int8 kernels K9 and K10 round at the same
-points as their plain versions and must equal them.
+points as their plain versions and must equal them; so do K10q and K10p.
 """
 
 from dataclasses import replace
@@ -18,6 +18,7 @@ import torch
 
 from contextaware_poseformer_tpu_torch import serve
 from contextaware_poseformer_tpu_torch.data import augment
+from contextaware_poseformer_tpu_torch.models import backbone_common
 from contextaware_poseformer_tpu_torch.ops import (
     deformable,
     fused_mlp,
@@ -511,12 +512,12 @@ def test_k9_blocks_at_ragged_shapes(cuda_device, batch, h):
                 for conv in (int8_conv.int8_conv_reference,
                              int8_conv.int8_conv):
                     y = conv(src, *blk["conv1"], amax, 1, True)
-                    y = conv(int8_conv.quant(y, blk["t1"]), *blk["conv2"],
-                             blk["t1"], 1, True)
-                    y = conv(int8_conv.quant(y, blk["t2"]), *blk["conv3"],
-                             blk["t2"], 1, False)
-                    outs.append(int8_conv.quant(torch.relu(y + res),
-                                                blk["out"]))
+                    y = conv(int8_conv.quant_reference(y, blk["t1"]),
+                             *blk["conv2"], blk["t1"], 1, True)
+                    y = conv(int8_conv.quant_reference(y, blk["t2"]),
+                             *blk["conv3"], blk["t2"], 1, False)
+                    outs.append(int8_conv.quant_reference(
+                        torch.relu(y + res), blk["out"]))
                 ref, chain = outs
             assert out.shape == (batch, h, 48, 256)
             assert torch.equal(out, ref), i
@@ -894,10 +895,13 @@ def test_k7_k8_run_under_autograd(cuda_device):
 @pytest.mark.cuda
 def test_cpn_deploy_request_launch_counts(cuda_device, monkeypatch):
     """One request of the full-width h36m_cpn deploy graph (batch 2, after
-    ``serve.prepare``) launches K10 83 times (every conv but the stem)
+    ``serve.prepare``) launches K10 83 times (every conv but the stem),
+    K10q 7 (the 3 up-convs' bf16 inputs, the step form; the 3 cascades'
+    inputs and the int8 /4 map, the scale form) and K10p once (the stem)
     beside K1-K4's 5/12/4/4, and agrees with the plain versions of every
-    kernel (relative RMS 2e-2)."""
-    counters = [(m, "launches") for m in (*KERNEL_MODULES, int8_conv)]
+    kernel (relative RMS 2e-2), which launch none."""
+    counters = [(m, "launches") for m in (*KERNEL_MODULES, int8_conv)] + [
+        (int8_conv, "launches_quantize"), (int8_conv, "launches_quant_pool")]
     cfg = serve.deploy_config("h36m_cpn")
     plain_cfg = replace(cfg, model=replace(cfg.model, lifter=replace(
         cfg.model.lifter, sampler="gather", attention="einsum",
@@ -916,7 +920,7 @@ def test_cpn_deploy_request_launch_counts(cuda_device, monkeypatch):
     for mod, attr in counters:
         monkeypatch.setattr(mod, attr, 0)
     out = serve.lift(model, frames, kp, kpc)
-    expected = [5, 12, 4, 4, 83]
+    expected = [5, 12, 4, 4, 83, 7, 1]
     assert [getattr(m, a) for m, a in counters] == expected
     ref = serve.lift(plain, frames, kp, kpc)
     assert [getattr(m, a) for m, a in counters] == expected
@@ -1065,12 +1069,23 @@ def test_k10_every_tile_matches_plain_version(cuda_device, monkeypatch,
         assert torch.equal(out, ref), (tile, kind)
 
 
+def _step_plain(x, amax, clamp):
+    """The step form's plain version with its amax given (the dynamic
+    route's stands for max|x|): clip(round(x / step)) in fp32."""
+    step = int8_conv.dequant_step(amax, clamp=clamp)
+    return torch.clamp(torch.round(x.float() / step), -127, 127).to(
+        torch.int8)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("calibrated", [False, True])
-def test_quantize_pass_matches_plain_version(cuda_device, calibrated):
-    """The quantize pass on the card equals its plain version bit for bit,
-    zeros, exact halves of the step and +-amax included (amax 127/16: the
-    step is 1/16 exactly, so (k + 0.5) / 16 lies halfway)."""
+@pytest.mark.parametrize("form", ["step dynamic", "step calibrated",
+                                  "scale"])
+def test_quantize_pass_matches_plain_version(cuda_device, form):
+    """K10q on the card equals its plain version bit for bit, zeros, exact
+    halves of the step and +-amax included (amax 127/16: the step is 1/16
+    and the scale 16 exactly, so (k + 0.5) / 16 lies halfway), in each
+    form: the step form's dynamic and calibrated routes (``quantize_
+    reference``) and the scale form (``quant_reference``)."""
     g = torch.Generator().manual_seed(11)
     amax = torch.tensor(127 / 16)
     x = (torch.randn(4, 8, 6, 64, generator=g) * 3).clamp(-amax, amax).to(
@@ -1082,10 +1097,73 @@ def test_quantize_pass_matches_plain_version(cuda_device, calibrated):
     x = x.to(cuda_device)
     a = amax.to(cuda_device)
     before = int8_conv.launches_quantize
-    got = int8_conv.quantize_kernel(x, a, calibrated)
+    if form == "scale":
+        got = int8_conv.quant(x, a)
+        want = int8_conv.quant_reference(x, a)
+    else:
+        calibrated = form == "step calibrated"
+        got = int8_conv.quantize_kernel(x, a, calibrated)
+        want = int8_conv.quantize_reference(x, a if calibrated else None)
     assert int8_conv.launches_quantize == before + 1
-    want = int8_conv.quantize_reference(x, a if calibrated else None)
     assert got.dtype == torch.int8 and torch.equal(got, want)
+
+
+# K10q's amax values on every bf16 pattern: the 1e-12 clamp (amax 0), tiny
+# (the dynamic route's step below 2^-64 takes the IEEE division), powers
+# of two, random draws, the largest finite bf16
+K10Q_AMAXES = [0.0, 1e-30, 1e-19, 1e-15, 2.0 ** -20, 2.0 ** -3, 1.0, 127 / 16,
+               2.0 ** 7, 2.0 ** 40, 0.0371, 5.7, 190.11514, 3.1e4, 6.02e11,
+               3.3895e38]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["step dynamic", "step calibrated",
+                                  "scale"])
+def test_quantize_pass_on_every_bf16_pattern(cuda_device, form):
+    """K10q equals its plain version bit for bit on all 65,536 bf16
+    patterns (NaN and +-inf included) at each amax of K10Q_AMAXES, and the
+    dynamic route on max|x| of the finite patterns and of a random
+    tensor."""
+    allp = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16).to(cuda_device)
+    for amax in K10Q_AMAXES:
+        a = torch.tensor(amax, dtype=torch.float32, device=cuda_device)
+        if form == "scale":
+            got = int8_conv.quantize_kernel(allp, a, True, form="scale")
+            want = int8_conv.quant_reference(allp, a)
+        else:
+            clamp = form == "step calibrated"
+            got = int8_conv.quantize_kernel(allp, a, clamp)
+            want = _step_plain(allp, a, clamp)
+        assert torch.equal(got, want), (form, amax, int((got != want).sum()))
+    if form == "step dynamic":
+        finite = allp[torch.isfinite(allp.float())]
+        finite = finite[:finite.numel() // 16 * 16]
+        rand = (torch.randn(4096, 16, generator=torch.Generator()
+                            .manual_seed(5)) * 2.5).to(torch.bfloat16)
+        for x in (finite, rand.to(cuda_device)):
+            got = int8_conv.quantize_kernel(x, int8_conv.absmax(x), False)
+            assert torch.equal(got, int8_conv.quantize_reference(x, None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 128, 96, 64), (2, 15, 11, 32),
+                                   (3, 9, 13, 64), (2, 16, 12, 16),
+                                   (1, 1, 1, 16), (2, 7, 1, 48)])
+def test_quant_pool_matches_plain_version(cuda_device, shape):
+    """K10p equals ``max_pool_3x3_s2(quant(x, amax))`` bit for bit at the
+    main path's stem (64, 128, 96, 64) and at ragged H and W, one launch a
+    call."""
+    g = torch.Generator().manual_seed(sum(shape))
+    x = (torch.randn(*shape, generator=g) * 3).to(torch.bfloat16).to(
+        cuda_device)
+    a = torch.tensor(4.1, device=cuda_device)
+    before = int8_conv.launches_quant_pool
+    got = int8_conv.quant_max_pool_3x3_s2(x, a)
+    assert int8_conv.launches_quant_pool == before + 1
+    want = backbone_common.max_pool_3x3_s2(int8_conv.quant_reference(x, a))
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    assert torch.equal(got, int8_conv.quant_max_pool_3x3_s2_reference(x, a))
 
 
 @pytest.mark.cuda

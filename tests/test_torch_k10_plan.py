@@ -132,7 +132,8 @@ def _deploy_k10_calls(name, monkeypatch, mode="serve"):
     """Every K10 call of ``deploy_config(name)``'s backbone (``mode``
     "serve"), or of ``quantize_config(name, mode)``'s ("static", "c128"),
     at batch 64 on its frames: [(M, N, Cin, k, stride, input dtype)], from
-    a forward on the meta device (shapes only; K9 and K10 stubbed)."""
+    a forward on the meta device (shapes only; K9, K10 and the CPN
+    stream's quantizes, K10q and K10p, stubbed)."""
     calls = []
 
     def k10(x, kq, ws, sc, bi, amax, stride, relu, dtype=torch.bfloat16,
@@ -150,8 +151,18 @@ def _deploy_k10_calls(name, monkeypatch, mode="serve"):
         return torch.empty((*x.shape[:3], 256), dtype=torch.int8,
                            device=x.device)
 
+    def k10q(x, amax, clamp, form="step"):
+        return torch.empty(x.shape, dtype=torch.int8, device=x.device)
+
+    def k10p(x, amax):
+        b, h, w, c = x.shape
+        return torch.empty((b, (h + 1) // 2, (w + 1) // 2, c),
+                           dtype=torch.int8, device=x.device)
+
     monkeypatch.setattr(int8_conv, "int8_conv", k10)
     monkeypatch.setattr(layer1_chain, "layer1_chain", k9)
+    monkeypatch.setattr(int8_conv, "quantize_kernel", k10q)
+    monkeypatch.setattr(int8_conv, "quant_max_pool_kernel", k10p)
     cfg = (serve.deploy_config(name) if mode == "serve"
            else serve.quantize_config(name, mode)).model
     kind = {"cpn": CPN, "hrnet": HRNet}[cfg.backbone.kind]

@@ -255,12 +255,14 @@ def test_annotate_emits_module_and_function_ranges_on_a_cpu_profile(
 
 
 def test_annotate_names_the_cpn_functions_on_a_cpu_profile(tmp_path):
-    """A tiny h36m_cpn int8 deploy request under ``annotate``: the stem's
-    pooling, the int8 quantizations and the bilinear resizes, which the
-    CPN's forward calls between its modules, run in function ranges of
-    their own (they would otherwise fall to "backbone other"), each
-    innermost where it runs, and each bottleneck in a range named as its
-    block, which takes its layer's bucket; afterwards the module's
+    """A tiny h36m_cpn int8 deploy request under ``annotate``: the int8
+    quantizations (the stem's quantize and pool, K10p's function, and the
+    four stream quantizes) and the bilinear resizes, which the CPN's
+    forward calls between its modules, run in function ranges of their own
+    (they would otherwise fall to "backbone other"), each innermost where
+    it runs, and each bottleneck in a range named as its block, which takes
+    its layer's bucket; the stream's pool runs in no "backbone stem" range
+    (the float graph's pool keeps that one); afterwards the module's
     functions and methods are back."""
     from contextaware_poseformer_tpu_torch.models import cpn
 
@@ -275,7 +277,7 @@ def test_annotate_names_the_cpn_functions_on_a_cpu_profile(tmp_path):
     frames = torch.randint(0, 256, (2, *hw, 3), dtype=torch.uint8,
                            generator=torch.Generator().manual_seed(1))
     serve.prepare(model, [frames])
-    originals = (cpn.max_pool_3x3_s2, cpn.quant,
+    originals = (cpn.max_pool_3x3_s2, cpn.quant, cpn.quant_max_pool_3x3_s2,
                  cpn.resize_bilinear_align_corners, cpn.CPN._bottleneck_i8)
     with profiling.trace(str(tmp_path)):
         with trace_budget.annotate(model):
@@ -285,8 +287,9 @@ def test_annotate_names_the_cpn_functions_on_a_cpu_profile(tmp_path):
     events = trace_budget.load_trace(str(path))["traceEvents"]
     ranges = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
               if e.get("cat") == "user_annotation"]
-    labels = ("fn:backbone stem", "fn:int8 quantize",
-              "fn:bilinear resize (globalNet, refineNet)")
+    labels = ("fn:int8 quantize", "fn:bilinear resize (globalNet, refineNet)")
+    assert [n for _, _, n in ranges].count("fn:int8 quantize") == 5
+    assert "fn:backbone stem" not in {n for _, _, n in ranges}
     for label in labels:
         inside = [r for r in ranges if r[2] == label]
         assert inside, label
@@ -300,7 +303,8 @@ def test_annotate_names_the_cpn_functions_on_a_cpu_profile(tmp_path):
     assert trace_budget.classify("add_relu", [
         "nn:<model>", "nn:backbone", "nn:backbone.resnet.layer2.0"]) == \
         "backbone layer2"
-    assert (cpn.max_pool_3x3_s2, cpn.quant, cpn.resize_bilinear_align_corners,
+    assert (cpn.max_pool_3x3_s2, cpn.quant, cpn.quant_max_pool_3x3_s2,
+            cpn.resize_bilinear_align_corners,
             cpn.CPN._bottleneck_i8) == originals
 
 
