@@ -12,10 +12,11 @@ Phases, one line of output each (failures raise and exit non-zero):
    kernel's registers, spills and shared memory (``-Xptxas -v``; every
    build of the sampler (K1, K5, K8) and of K7 must be free of spills),
    and, by ``cuobjdump -sass``, the tensor-core and asynchronous-copy
-   instructions of K1's, K2's, K3's, K7's and K9's kernels: K2's and K3's
-   bf16 kernels must hold HGMMA (``wgmma``), K1's bf16/int8 sampler and
-   K7's bf16 body HMMA, K9's builds IGMMA (int8 ``wgmma``) and IMMA
-   (``mma.sync``), each with LDGSTS (``cp.async``) or UTMALDG (TMA);
+   instructions of K1's, K2's, K3's, K7's, K9's and K10's kernels: K2's
+   and K3's bf16 kernels must hold HGMMA (``wgmma``), K1's bf16/int8
+   sampler and K7's bf16 body HMMA, K9's builds IGMMA (int8 ``wgmma``) and
+   IMMA (``mma.sync``), each with LDGSTS (``cp.async``) or UTMALDG (TMA);
+   K10's product builds (bf16 and fp32 epilogues) IGMMA and UTMALDG;
 3. kernels: each of K1-K4 against its plain PyTorch version on the card, at
    the H36M serving path's shapes with batch 64 (K2-K4 also at the 3DHP
    lifters' widths: K2 at D=64/96/320/480, each with the route
@@ -108,6 +109,33 @@ Phases, one line of output each (failures raise and exit non-zero):
    ms and the bound (a bf16 input's quantize pass, K10q, timed apart with
    its plain ms and bound), summed into each graph's K10 and K10q ms a
    request;
+8b. fp32_int8: the int8 graphs with an fp32 backbone (``config.deploy``
+   built in fp32, as the JAX package serves them at ``use_bf16=False``;
+   the lifter stays bf16). K10q's fp32 form on all 2^32 fp32 bit
+   patterns (in chunks of 2^28) at two amax values a step form (one whose
+   step lies in [2^-64, 2^64], one outside it) and two in the scale form,
+   and in the dynamic route on max|x| of the finite patterns; the rest of
+   K10Q_AMAXES on 2^26 random patterns; each bit for bit, its seconds
+   printed. K10p at the stem shape, bf16 and fp32, seeded with NaN, +-inf
+   and +-0, bit for bit. Then ``StreamingLifter(deploy(preset(
+   "h36m_cpn")), StreamingConfig(use_bf16=False))`` (its weights the
+   JAX-format variables of the fp32 model drawn from seed 0), prepared on
+   one seeded batch: 3 ``lift_batch`` requests of 64 frames and one pass of
+   4 cameras x 38 frames, each with K1 5, K2 12, K3 4, K4 4, K10 83, K10q 7
+   and K10p 1 launches a request and no int8 plain version called; its
+   backbone maps and scales bit for bit equal to the same model's with
+   ``int8_impl="plain"``, its poses within 2e-2 relative RMS of that plain
+   graph's; every K10 shape and variant and every stream quantize of that
+   request against its plain version as in the cpn_int8 phase, summed
+   into the fp32 forms' kernel, plain and bound ms a request; host ms,
+   frames/s and where the time goes beside ``StreamingLifter(
+   use_bf16=True)`` on the same weights, and the two graphs' relative
+   RMS. Then one request of ``serve.build_model(deploy(preset(
+   "h36m_hrnet_32")).model, torch.float32, "cuda")`` after
+   ``serve.prepare``: K10 100 (its per-conv layer1's 13, K9 being bf16
+   only), K10q 98 (85 step form, 13 scale form), no K9, no plain version;
+   maps and poses against ``int8_impl="plain"`` as above; beside the bf16
+   deploy graph (K9) of the same weights;
 9. streaming: ``models.streaming.StreamingLifter`` over
    ``deploy_config("h36m_cpn")`` at batch 64 (its weights the JAX-format
    variables of the model drawn from seed 0): ``lift_batch`` refused
@@ -261,8 +289,8 @@ Phases, one line of output each (failures raise and exit non-zero):
    float slice through ``StreamingLifter``) writes a PNG of finite poses;
 18. a JSON line of per-kernel results (K1-K10, K10q and K10p, then the
    probes' counterparts, named ``probe <name>``), then the final JSON status
-   line. ``launches`` are summed over the serving (quantize and streaming
-   included), aggregate, training, parallel (the full-width DDP run and
+   line. ``launches`` are summed over the serving (quantize, fp32_int8
+   and streaming included), aggregate, training, parallel (the full-width DDP run and
    both ranks of the tensor-parallel one) and gate runs, each counted from
    0 (the
    probes': their phase's main run). Each phase's seconds are printed as
@@ -287,6 +315,7 @@ Phases, one line of output each (failures raise and exit non-zero):
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -351,6 +380,25 @@ QUANT_GRAPHS = (("h36m_hrnet_32", "static", REQUESTS),
                 ("h36m_hrnet_32", "c128", 1), ("h36m_cpn", "c128", 1))
 QUANT_SHAPES_ONLY = (("h36m_hrnet_48", "c128"),)
 QUANT_TIMED = 5  # host-clock requests of a quantize graph
+# the fp32_int8 phase: the int8 deploy graphs with an fp32 backbone
+# (``config.deploy(preset)`` built in fp32). K10, K10q and K10p a request:
+# the CPN's as its bf16 graph's; an fp32 HRNet's layer1 is the per-conv
+# chain (K9 is bf16 only): its 13 convs and 13 quantizes (K10q's scale
+# form) beside the 85 wide convs with their 85 step-form quantizes and
+# transition1's 2 convs
+FP32_PER_REQUEST = {"cpn": {"K10": 83, "K10q": 7, "K10p": 1},
+                    "hrnet": {"K10": 100, "K10q": 98}}
+FP32_REQUESTS = 3  # lift_batch requests of BATCH frames
+FP32_TIMED = 5  # host-clock requests of each graph
+# K10q on all 2^32 fp32 bit patterns: (label, form, clamp, amax values):
+# per step form one amax whose step lies in [2^-64, 2^64] (the reciprocal
+# route) and one outside it (the IEEE division), two in the scale form;
+# the rest of K10Q_AMAXES on a random draw of K10Q_FP32_DRAW patterns
+K10Q_FP32_FULL = (("step dynamic", "step", False, (127 / 16, 1e-30)),
+                  ("step calibrated", "step", True, (5.7, 3.3895e38)),
+                  ("scale", "scale", True, (127 / 16, 190.11514)))
+FP32_PATTERN_CHUNK = 2 ** 28
+K10Q_FP32_DRAW = 2 ** 26
 # the streaming phase: 4 cameras x 38 time slots through the h36m_cpn
 # deploy graph at batch 64 (two full chunks, one padded from 24), then one
 # pass of the h36m_hrnet_32 deploy graph; passes timed for latency_stats
@@ -499,6 +547,10 @@ SASS_REQUIRED = (
     ("K3", ("small_attention_tc_kernel",), _WGMMA_ASYNC),
     ("K9", ("layer1_block_kernel",),
      (("IGMMA",), ("IMMA",), ("LDGSTS", "UTMALDG"))),
+    # K10's product builds (Mode 0, int8 operands), bf16 and fp32
+    # epilogues: int8 wgmma, B by TMA
+    ("K10", ("int8_conv_cu", "conv_kernel", "ModeE0ELb0E"),
+     (("IGMMA",), ("UTMALDG",))),
     ("K2", ("fused_mlp", "resident_kernel"), _WGMMA_ASYNC),
     ("K2", ("fused_mlp", "ln_fc1_kernel"), _WGMMA_ASYNC),
     ("K2", ("fused_mlp", "fc2_residual_kernel"), _WGMMA_ASYNC),
@@ -1055,15 +1107,18 @@ def check_int8_kernels(card):
     return results
 
 
-def _k10_signature(x, kq, stride, relu, residual, out_amax, amax):
-    """A K10 call's shape and variant."""
+def _k10_signature(x, kq, stride, relu, residual, out_amax, amax,
+                   dtype=torch.bfloat16):
+    """A K10 call's shape and variant (``dtype``: its epilogue's)."""
+    short = {torch.bfloat16: "bf16", torch.float32: "fp32"}
     if x.dtype == torch.int8:
         route = "int8 in"
     else:
-        route = "bf16 in, " + ("dynamic" if amax is None else "calibrated")
+        route = (f"{short[x.dtype]} in, "
+                 + ("dynamic" if amax is None else "calibrated"))
     res = ("" if residual is None
            else f", {str(residual.dtype).removeprefix('torch.')} residual")
-    out = "int8 out" if out_amax is not None else "bf16 out"
+    out = "int8 out" if out_amax is not None else f"{short[dtype]} out"
     k = math.isqrt(kq.shape[1] // x.shape[-1])
     return (f"{x.shape[1]}x{x.shape[2]} {x.shape[-1]}->{kq.shape[0]} k{k} "
             f"s{stride} ({route}{res}, {'ReLU, ' if relu else ''}{out})")
@@ -1095,7 +1150,8 @@ def _record_k10(model, req, seen, stream=None):
 
     def record(x, kq, ws, sc, bi, amax, stride, relu, dtype=torch.bfloat16,
                residual=None, res_amax=None, out_amax=None):
-        key = _k10_signature(x, kq, stride, relu, residual, out_amax, amax)
+        key = _k10_signature(x, kq, stride, relu, residual, out_amax, amax,
+                             dtype)
         if key in seen:
             seen[key][0] += 1
         else:
@@ -1177,6 +1233,19 @@ def _k1_int8_projection(card):
     return err
 
 
+def _k10q_plain(x, a, form, clamp):
+    """K10q's plain version with its amax given (the dynamic route's
+    stands for max|x|): the scale form's ``quant_reference``, or the step
+    form's clip(round(x / step)) in fp32."""
+    from contextaware_poseformer_tpu_torch.ops import int8_conv
+
+    if form == "scale":
+        return int8_conv.quant_reference(x, a)
+    step = int8_conv.dequant_step(a, clamp=clamp)
+    return torch.clamp(torch.round(x.float() / step), -127, 127).to(
+        torch.int8)
+
+
 def _k10q_every_pattern(card):
     """K10q in each of its forms on all 65,536 bf16 patterns (NaN, +-inf
     and subnormals included) at each amax of K10Q_AMAXES, and the dynamic
@@ -1192,13 +1261,7 @@ def _k10q_every_pattern(card):
         for amax in K10Q_AMAXES:
             a = torch.tensor(amax, dtype=torch.float32, device="cuda")
             got = int8_conv.quantize_kernel(allp, a, clamp, form=form)
-            if form == "scale":
-                want = int8_conv.quant_reference(allp, a)
-            else:
-                step = int8_conv.dequant_step(a, clamp=clamp)
-                want = torch.clamp(torch.round(allp.float() / step), -127,
-                                   127).to(torch.int8)
-            eq, _ = _exact(got, want)
+            eq, _ = _exact(got, _k10q_plain(allp, a, form, clamp))
             if eq != 1.0:
                 raise AssertionError(f"K10q {label} amax {amax}: equal "
                                      f"share {eq} on the bf16 patterns")
@@ -1217,7 +1280,7 @@ def _k10q_every_pattern(card):
           f"({card})", flush=True)
 
 
-def _stream_quant_case(kind, x, a, card):
+def _stream_quant_case(kind, x, a, card, phase="cpn_int8"):
     """One recorded call of the CPN stream's quantizes on the card: K10q's
     scale form ("scale") or K10p ("pool") against its plain version (bit
     for bit), with median kernel and plain ms and the bound (bytes: x read
@@ -1248,7 +1311,8 @@ def _stream_quant_case(kind, x, a, card):
     eq, err = _exact(out, ref)
     ms, plain_ms = _median_ms(fn), _median_ms(plain)
     ops = 3 * x.numel() if kind == "scale" else 11 * out.numel()
-    bound_ms, by = _bound(x.numel() * 2 + out.numel(), ops, torch.float32)
+    bound_ms, by = _bound(x.numel() * x.element_size() + out.numel(), ops,
+                          torch.float32)
     what = ("K10q scale form" if kind == "scale"
             else "K10p quantize + 3x3/s2 max-pool")
     note = ""
@@ -1257,7 +1321,8 @@ def _stream_quant_case(kind, x, a, card):
         note = (f"; the two-pass route (quantize, then pool in bf16) "
                 f"{_median_ms(before):.4f} ms, equal {old_eq:.6f}")
         eq = min(eq, old_eq)
-    print(f"cpn_int8: {what} {tuple(x.shape)} -> {tuple(out.shape)} int8: "
+    print(f"{phase}: {what} {tuple(x.shape)} {x.dtype} -> "
+          f"{tuple(out.shape)} int8: "
           f"equal {eq:.6f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({by}){note} ({card})", flush=True)
     if eq != 1.0:
@@ -1265,33 +1330,31 @@ def _stream_quant_case(kind, x, a, card):
     return err, ms, plain_ms, (bound_ms, by)
 
 
-def check_cpn_int8(results, card):
-    """Phase 7: the CPN int8 deploy graph. K10 at every distinct shape and
-    variant of the stream (recorded from one served request at batch BATCH,
-    on that request's own tensors) against its plain version, bit for bit,
-    with median kernel and plain times and the bound; K10q on every bf16
-    pattern; the stream's own quantizes (K10q's scale form, K10p), recorded
-    from the same request, the same way; K1 projecting int8 maps; then
-    ``serve.deploy_config("h36m_cpn")`` served as the HRNet deploy graphs
-    are. K10's, K10q's and K10p's JSON times become this request's.
-    Returns the served requests' launch counts."""
+def _recorded_request(seen, stream, per_request, what):
+    """Check a recorded request's calls against its counts: K10's calls,
+    K10q's (K10's float inputs and the stream's scale-form quantizes) and
+    K10p's. Returns K10's calls and those with a float input."""
+    calls = sum(n for n, _ in seen.values())
+    if calls != per_request["K10"]:
+        raise AssertionError(f"{what}: recorded {calls} K10 calls a request")
+    step_calls = sum(n for n, args in seen.values()
+                     if args[0].dtype != torch.int8)
+    kinds = [k for k, _, _ in stream]
+    if (kinds.count("pool") != per_request["K10p"]
+            or step_calls + kinds.count("scale") != per_request["K10q"]):
+        raise AssertionError(f"{what}: recorded {step_calls} float K10 "
+                             f"inputs and the stream's quantizes {kinds} a "
+                             "request")
+    return calls, step_calls
+
+
+def _k10_calls_vs_plain(seen, phase, card):
+    """K10 on each recorded shape and variant (``_record_k10``) against its
+    plain version, bit for bit, with median kernel and plain ms and the
+    bound, a float input's quantize pass (K10q's step form) apart. Returns
+    (K10's numbers, K10q's) summed over a request's calls."""
     from contextaware_poseformer_tpu_torch.ops import int8_conv
 
-    seen, stream = {}, []
-    launches = check_serving(
-        "h36m_cpn", REQUESTS, card, int8=True,
-        inspect=lambda m, r: _record_k10(m, r, seen, stream))
-    calls = sum(n for n, _ in seen.values())
-    if calls != INT8_PER_REQUEST["cpn"]["K10"]:
-        raise AssertionError(f"recorded {calls} K10 calls a request")
-    step_calls = sum(n for n, args in seen.values()
-                     if args[0].dtype == torch.bfloat16)
-    kinds = [k for k, _, _ in stream]
-    if (kinds.count("pool") != INT8_PER_REQUEST["cpn"]["K10p"]
-            or step_calls + kinds.count("scale")
-            != INT8_PER_REQUEST["cpn"]["K10q"]):
-        raise AssertionError(f"recorded {step_calls} bf16 K10 inputs and "
-                             f"the stream's quantizes {kinds} a request")
     res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
            "library_ms": None}
     quant = {**res, "bound_by": "bytes"}
@@ -1313,31 +1376,31 @@ def check_cpn_int8(results, card):
                 quant["plain_ms"] += n * q_plain
                 quant["bound_ms"] += n * q_bound
                 quant["bound_by"] = q_by
-            print(f"cpn_int8: K10 {key}: equal {eq:.6f}, max_abs_err "
+            print(f"{phase}: K10 {key}: equal {eq:.6f}, max_abs_err "
                   f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {bound_ms:.4f} ms ({by}), tile "
                   f"64x{int8_conv.plan(m, args[1].shape[0])}, {n} a "
                   f"request{note} ({card})", flush=True)
             if eq != 1.0:
                 raise AssertionError(f"K10 {key}: equal share {eq}")
+            res["max_abs_err"] = max(res["max_abs_err"], err)
             res["ms"] += n * ms
             res["plain_ms"] += n * plain_ms
             res["bound_ms"] += n * bound_ms
             if n * bound_ms > largest:
                 largest, res["bound_by"] = n * bound_ms, by
-    print(f"cpn_int8: K10 over a request's {calls} calls ({len(seen)} "
-          f"shapes and variants): kernel {res['ms']:.4f} ms, plain "
-          f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms; its "
-          f"quantize pass (K10q's step form, {step_calls} calls) "
-          f"{quant['ms']:.4f} ms, plain {quant['plain_ms']:.4f} ms, bound "
-          f"{quant['bound_ms']:.4f} ms ({card})", flush=True)
-    seen.clear()
-    _k10q_every_pattern(card)
+    return res, quant
+
+
+def _stream_quants_vs_plain(stream, quant, phase, card):
+    """The recorded stream quantizes (``_record_k10``) against their plain
+    versions (``_stream_quant_case``): K10q's scale form added into
+    ``quant``; returns K10p's numbers."""
     pool = None
     with torch.inference_mode():
         for kind, x, a in stream:
             err, ms, plain_ms, (bound_ms, by) = _stream_quant_case(
-                kind, x, a, card)
+                kind, x, a, card, phase)
             if kind == "pool":
                 pool = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": by,
@@ -1347,6 +1410,35 @@ def check_cpn_int8(results, card):
             quant["ms"] += ms
             quant["plain_ms"] += plain_ms
             quant["bound_ms"] += bound_ms
+    return pool
+
+
+def check_cpn_int8(results, card):
+    """Phase 7: the CPN int8 deploy graph. K10 at every distinct shape and
+    variant of the stream (recorded from one served request at batch BATCH,
+    on that request's own tensors) against its plain version, bit for bit,
+    with median kernel and plain times and the bound; K10q on every bf16
+    pattern; the stream's own quantizes (K10q's scale form, K10p), recorded
+    from the same request, the same way; K1 projecting int8 maps; then
+    ``serve.deploy_config("h36m_cpn")`` served as the HRNet deploy graphs
+    are. K10's, K10q's and K10p's JSON times become this request's.
+    Returns the served requests' launch counts."""
+    seen, stream = {}, []
+    launches = check_serving(
+        "h36m_cpn", REQUESTS, card, int8=True,
+        inspect=lambda m, r: _record_k10(m, r, seen, stream))
+    calls, step_calls = _recorded_request(seen, stream,
+                                          INT8_PER_REQUEST["cpn"], "cpn_int8")
+    res, quant = _k10_calls_vs_plain(seen, "cpn_int8", card)
+    print(f"cpn_int8: K10 over a request's {calls} calls ({len(seen)} "
+          f"shapes and variants): kernel {res['ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms; its "
+          f"quantize pass (K10q's step form, {step_calls} calls) "
+          f"{quant['ms']:.4f} ms, plain {quant['plain_ms']:.4f} ms, bound "
+          f"{quant['bound_ms']:.4f} ms ({card})", flush=True)
+    seen.clear()
+    _k10q_every_pattern(card)
+    pool = _stream_quants_vs_plain(stream, quant, "cpn_int8", card)
     stream.clear()
     print(f"cpn_int8: a request's quantizes: K10q "
           f"{INT8_PER_REQUEST['cpn']['K10q']} calls (step and scale forms) "
@@ -1375,8 +1467,8 @@ def _k10_out_shape(args):
 
 def _k10_entry_ms(args):
     """K10 on one recorded call: (bit-equal share, max abs error, kernel ms,
-    plain ms, bound (ms, by), the K10q numbers of a bf16 input or None).
-    A bf16 input's quantize pass is timed apart and K10 on its int8
+    plain ms, bound (ms, by), the K10q numbers of a float input or None).
+    A float input's quantize pass is timed apart and K10 on its int8
     output, the same convolution."""
     from contextaware_poseformer_tpu_torch.ops import int8_conv
 
@@ -1389,7 +1481,7 @@ def _k10_entry_ms(args):
     torch.cuda.synchronize()
     eq, err = _exact(out, ref)
     timed, quant = args, None
-    if x.dtype == torch.bfloat16:
+    if x.dtype != torch.int8:
         clamp = amax is not None
         a = amax if clamp else int8_conv.absmax(x)
         xq = int8_conv.quantize_kernel(x, a, clamp)
@@ -1397,7 +1489,8 @@ def _k10_entry_ms(args):
         quant = (qeq,
                  _median_ms(lambda: int8_conv.quantize_kernel(x, a, clamp)),
                  _median_ms(lambda: int8_conv.quantize_reference(x, amax)),
-                 _bound(x.numel() * 3, 3 * x.numel(), torch.float32))
+                 _bound(x.numel() * (x.element_size() + 1), 3 * x.numel(),
+                        torch.float32))
         timed = (xq, *args[1:5], a, *args[6:])
     ms = _median_ms(lambda: int8_conv.int8_conv_kernel(*timed))
     plain_ms = _median_ms(plain)
@@ -1500,6 +1593,343 @@ def check_quantize(card):
               f"{res['q_bound']:.4f} ms (bytes) ({card})", flush=True)
     torch.cuda.empty_cache()
     return _sum_counts(launches)
+
+
+def _k10q_every_fp32_pattern(card):
+    """K10q on fp32 inputs against its plain version bit for bit: all 2^32
+    fp32 bit patterns (NaN, +-inf and subnormals included) in chunks of
+    FP32_PATTERN_CHUNK at the amax values of K10Q_FP32_FULL and in the
+    dynamic route on max|x| of the finite patterns (the largest finite
+    fp32), then K10Q_FP32_DRAW random patterns at the rest of K10Q_AMAXES
+    in each form. Prints the seconds each part took."""
+    from contextaware_poseformer_tpu_torch.ops import int8_conv
+
+    t0 = time.perf_counter()
+    full = [(label, form, clamp, amax)
+            for label, form, clamp, amaxes in K10Q_FP32_FULL
+            for amax in amaxes]
+    full.append(("step dynamic, max|x| of the finite patterns", "step",
+                 False, torch.finfo(torch.float32).max))
+    amaxes = [torch.tensor(c[3], dtype=torch.float32, device="cuda")
+              for c in full]
+    bad = {}
+    for start in range(-2 ** 31, 2 ** 31, FP32_PATTERN_CHUNK):
+        x = (torch.arange(FP32_PATTERN_CHUNK, dtype=torch.int64,
+                          device="cuda") + start).to(torch.int32).view(
+            torch.float32)
+        for (label, form, clamp, amax), a in zip(full, amaxes):
+            got = int8_conv.quantize_kernel(x, a, clamp, form=form)
+            n = int((got != _k10q_plain(x, a, form, clamp)).sum())
+            if n:
+                bad[(label, amax)] = bad.get((label, amax), 0) + n
+        del x
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randint(-2 ** 31, 2 ** 31, (K10Q_FP32_DRAW,), generator=gen,
+                      dtype=torch.int64, device="cuda").to(torch.int32).view(
+        torch.float32)
+    drawn = 0
+    for label, form, clamp, done in K10Q_FP32_FULL:
+        for amax in K10Q_AMAXES:
+            if amax in done:
+                continue
+            a = torch.tensor(amax, dtype=torch.float32, device="cuda")
+            got = int8_conv.quantize_kernel(x, a, clamp, form=form)
+            n = int((got != _k10q_plain(x, a, form, clamp)).sum())
+            drawn += 1
+            if n:
+                bad[(f"{label} (draw)", amax)] = n
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    print(f"fp32_int8: K10q on all 2^32 fp32 bit patterns at "
+          + ", ".join(f"{label} amax {amax:g}" for label, _, _, amax in full)
+          + f" ({len(full)} cases, {full_s:.1f} s), then {drawn} cases of "
+          f"the other amax values of K10Q_AMAXES on {K10Q_FP32_DRAW} random "
+          f"fp32 patterns ({draw_s:.1f} s): values differing from the plain "
+          f"version {bad or 'none'} ({card})", flush=True)
+    if bad:
+        raise AssertionError(f"K10q fp32: differing values {bad}")
+
+
+def _k10p_specials(card):
+    """K10p at the stem shape (BATCH, 128, 96, 64), bf16 and fp32, on a
+    tensor seeded with NaN, +-inf and +-0 (a twentieth of the values each)
+    against its plain version, bit for bit."""
+    from contextaware_poseformer_tpu_torch.ops import int8_conv
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shape = (BATCH, 128, 96, 64)
+    x = torch.randn(*shape, generator=gen, device="cuda") * 3
+    pick = torch.randint(0, 20, shape, generator=gen, device="cuda")
+    for i, v in enumerate((float("nan"), float("inf"), float("-inf"), 0.0,
+                           -0.0)):
+        x = torch.where(pick == i, torch.tensor(v, device="cuda"), x)
+    a = torch.tensor(4.1, device="cuda")
+    eqs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        xd = x.to(dtype)
+        eqs[str(dtype).removeprefix("torch.")], _ = _exact(
+            int8_conv.quant_max_pool_kernel(xd, a),
+            int8_conv.quant_max_pool_3x3_s2_reference(xd, a))
+    print(f"fp32_int8: K10p at {shape} seeded with NaN, +-inf and +-0 (a "
+          f"twentieth of the values each): equal share {eqs} ({card})",
+          flush=True)
+    if any(eq != 1.0 for eq in eqs.values()):
+        raise AssertionError(f"K10p on NaN/inf/0: equal share {eqs}")
+
+
+@contextlib.contextmanager
+def _plain_int8_calls(counts):
+    """While the block runs, count in ``counts`` the calls of the int8
+    kernels' plain versions (K9's, K10's, K10q's two forms and K10p's)."""
+    from contextaware_poseformer_tpu_torch.ops import int8_conv, layer1_chain
+
+    names = [(int8_conv, n) for n in (
+        "int8_conv_reference", "quantize_reference", "quant_reference",
+        "quant_max_pool_3x3_s2_reference")] + [
+        (layer1_chain, "layer1_chain_reference")]
+    saved = [(mod, n, getattr(mod, n)) for mod, n in names]
+    for mod, n, fn in saved:
+        def spy(*args, _fn=fn, _n=n, **kw):
+            counts[_n] = counts.get(_n, 0) + 1
+            return _fn(*args, **kw)
+        setattr(mod, n, spy)
+    try:
+        yield counts
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+def _fp32_vs_plain(label, cfg, model, req, card):
+    """The fp32 graph against its plain graph on ``req``: the same weights
+    and serving state with every kernel's plain version (``int8_impl=
+    "plain"`` and the plain lifter knobs, as ``check_serving`` builds it).
+    The backbone maps (and the CPN's dequant scales) must be equal bit for
+    bit, the poses within SLICE_REL_RMS, and the plain graph must launch no
+    kernel."""
+    from contextaware_poseformer_tpu_torch import serve
+    from contextaware_poseformer_tpu_torch.data import augment
+    from contextaware_poseformer_tpu_torch.models.capf import backbone_maps
+
+    plain_cfg = replace(cfg, model=replace(cfg.model, lifter=replace(
+        cfg.model.lifter, sampler="gather", attention="einsum",
+        attention_joint="einsum", mlp="einsum")))
+    plain = serve.build_model(plain_cfg.model, model.backbone.dtype, "cuda",
+                              generator=torch.Generator().manual_seed(1))
+    plain.load_state_dict(model.state_dict())
+    plain.backbone.int8_impl = "plain"
+    images = augment.serving_images(req[0], cfg.model.backbone,
+                                    dtype=model.backbone.dtype)
+    with torch.inference_mode():
+        maps, scales = backbone_maps(model.backbone(images))
+        out = serve.lift(model, *req)
+        torch.cuda.synchronize()
+        before = _counts()
+        plain_maps, plain_scales = backbone_maps(plain.backbone(images))
+        ref = serve.lift(plain, *req)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in _counts().items() if v
+                    != before[k]}
+    pairs = list(zip(maps, plain_maps)) + list(zip(scales or (),
+                                                   plain_scales or ()))
+    equal = [a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs]
+    rel = _rel_rms(out, ref)
+    shapes = [tuple(m.shape[1:]) for m in maps]
+    print(f"fp32_int8: {label}: backbone maps {shapes} "
+          f"{maps[0].dtype}{' and their scales' if scales else ''} equal "
+          f"bit for bit to the plain graph's (int8_impl='plain', plain "
+          f"lifter): {all(equal)} ({len(pairs)} tensors); poses vs the "
+          f"plain graph rel RMS {rel:.3e} (tol {SLICE_REL_RMS:.0e}); the "
+          f"plain graph's launches {launched or 'none'} ({card})",
+          flush=True)
+    if not all(equal) or not rel <= SLICE_REL_RMS or launched:
+        raise AssertionError(f"fp32 {label}: maps equal {equal}, rel RMS "
+                             f"{rel:.3e}, plain launches {launched}")
+    del plain
+
+
+def _fp32_beside_bf16(label, cfg, graphs, req, card):
+    """Information: host ms a request over FP32_TIMED requests and where
+    the time goes (``_where_time_goes``) for each of ``graphs`` ({name:
+    model}: the fp32 graph and the bf16 deploy graph of the same weights),
+    and the relative RMS between their poses."""
+    from contextaware_poseformer_tpu_torch import serve
+
+    outs = {}
+    for name, model in graphs.items():
+        outs[name] = serve.lift(model, *req)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FP32_TIMED):
+            serve.lift(model, *req)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / FP32_TIMED
+        print(f"fp32_int8: {label} {name}: {host_ms:.3f} ms a request, "
+              f"{BATCH * 1e3 / host_ms:.1f} frames/s (information only; "
+              f"host clock over {FP32_TIMED} requests, batch {BATCH}, "
+              f"{card})", flush=True)
+        _where_time_goes("fp32_int8", f"{label} {name}", cfg, model, req,
+                         host_ms, f"batch {BATCH}, {card}")
+    a, b = outs.values()
+    print(f"fp32_int8: {label}: poses of the " + " and ".join(outs)
+          + f" graphs of the same weights: rel RMS {_rel_rms(a, b):.3e} "
+          f"(information only; {card})", flush=True)
+
+
+def check_fp32_int8(results, card):
+    """Phase 8b: the int8 deploy graphs with an fp32 backbone. K10q's fp32
+    form on every fp32 bit pattern and K10p's on NaN/inf/0; the h36m_cpn
+    deploy graph through ``StreamingLifter(use_bf16=False)`` (3 requests
+    of BATCH frames, then a pass of STREAM_CAMERAS x STREAM_SLOTS frames)
+    and the h36m_hrnet_32 one through ``serve.build_model(...,
+    torch.float32, ...)``, ``serve.prepare`` and ``serve.lift`` (one
+    request): launches at FP32_PER_REQUEST beside the lifter's, no int8
+    plain version run, the backbone maps bit-equal to ``int8_impl=
+    "plain"`` and the poses within SLICE_REL_RMS of that plain graph; each
+    K10 shape and variant and each stream quantize of the fp32 CPN request
+    against its plain version; host ms and device busy beside the bf16
+    deploy graph of the same weights. Returns the counted runs'
+    launches."""
+    import numpy as np
+
+    from contextaware_poseformer_tpu_torch import config, serve
+    from contextaware_poseformer_tpu_torch.models import bridge, streaming
+
+    _k10q_every_fp32_pattern(card)
+    _k10p_specials(card)
+    counted = []
+    image_wh = (1000, 1000)
+    cfg = config.deploy(config.preset("h36m_cpn"))
+    hw = tuple(cfg.model.image_shape)
+    src = serve.build_model(cfg.model, torch.float32, "cuda",
+                            generator=torch.Generator().manual_seed(0))
+    variables = bridge.variables_to_jax(src)
+    del src
+    calib = _stream_inputs(np.random.RandomState(1), BATCH, hw,
+                           STREAM_CAMERAS)
+    lifters = {}
+    for name, use_bf16 in (("fp32", False), ("bf16", True)):
+        t0 = time.perf_counter()
+        sl = streaming.StreamingLifter(
+            cfg.model, variables, streaming.StreamingConfig(
+                batch_size=BATCH, use_bf16=use_bf16), device="cuda")
+        sl.prepare(calib[0], calib[1], image_wh, calib[2], calib[3])
+        torch.cuda.synchronize()
+        lifters[name] = sl
+        print(f"fp32_int8: h36m_cpn StreamingLifter(use_bf16={use_bf16}) "
+              f"built and prepared in {time.perf_counter() - t0:.1f} s "
+              f"(backbone {sl.model.backbone.dtype}, lifter "
+              f"{cfg.model.lifter.compute_dtype})", flush=True)
+    sl = lifters["fp32"]
+    if sl.model.backbone.dtype != torch.float32:
+        raise AssertionError(f"fp32_int8: backbone {sl.model.backbone.dtype}")
+    per_request = {**PER_REQUEST["h36m_cpn"], **FP32_PER_REQUEST["cpn"]}
+    reqs = [_stream_inputs(np.random.RandomState(10 + i), BATCH, hw,
+                           STREAM_CAMERAS) for i in range(FP32_REQUESTS)]
+    n = STREAM_CAMERAS * STREAM_SLOTS
+    chunks = -(-n // BATCH)
+    passed = _stream_inputs(np.random.RandomState(0), n, hw, STREAM_CAMERAS)
+    plain = {}
+    _reset_counts()
+    with _plain_int8_calls(plain):
+        for i, r in enumerate(reqs + [passed]):
+            before = _counts()
+            out = sl.lift_batch(r[0], r[1], image_wh, r[2], r[3])
+            torch.cuda.synchronize()
+            grew = {k: v - before[k] for k, v in _counts().items()}
+            rows = len(r[0])
+            want = _expected(per_request, 1 if i < len(reqs) else chunks)
+            if grew != want or out.shape != (rows, 17, 3) \
+                    or not np.isfinite(out).all():
+                raise AssertionError(f"fp32_int8 h36m_cpn lift_batch {i}: "
+                                     f"launches {grew}, expected {want}; "
+                                     f"poses {out.shape}")
+    counted.append(_counts())
+    print(f"fp32_int8: h36m_cpn fp32 backbone: {len(reqs)} lift_batch "
+          f"requests of {BATCH} frames and one pass of {STREAM_CAMERAS} "
+          f"cameras x {STREAM_SLOTS} slots ({chunks} chunks), finite; "
+          f"launches {counted[-1]} (a request {per_request}); int8 plain "
+          f"versions run {plain or 'none'} ({card})", flush=True)
+    if plain:
+        raise AssertionError(f"fp32_int8: plain versions ran {plain}")
+
+    kp_norm, crop = sl._preprocess(reqs[0][1], image_wh, reqs[0][2],
+                                   reqs[0][3])
+    req = tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                for a in (reqs[0][0], kp_norm, crop))
+    _fp32_vs_plain("h36m_cpn", cfg, sl.model, req, card)
+    seen, stream = {}, []
+    _record_k10(sl.model, req, seen, stream)
+    calls, step_calls = _recorded_request(seen, stream,
+                                          FP32_PER_REQUEST["cpn"],
+                                          "fp32_int8")
+    res, quant = _k10_calls_vs_plain(seen, "fp32_int8", card)
+    k10_ms = dict(res)
+    pool = _stream_quants_vs_plain(stream, quant, "fp32_int8", card)
+    seen.clear()
+    stream.clear()
+    print(f"fp32_int8: the fp32 forms over the fp32 CPN request: K10 "
+          f"{calls} calls kernel {k10_ms['ms']:.4f} ms, plain "
+          f"{k10_ms['plain_ms']:.4f} ms, bound {k10_ms['bound_ms']:.4f} ms;"
+          f" K10q {FP32_PER_REQUEST['cpn']['K10q']} calls ({step_calls} "
+          f"step form) {quant['ms']:.4f} ms, plain {quant['plain_ms']:.4f} "
+          f"ms, bound {quant['bound_ms']:.4f} ms; K10p {pool['ms']:.4f} ms, "
+          f"plain {pool['plain_ms']:.4f} ms, bound {pool['bound_ms']:.4f} ms"
+          f" ({card})", flush=True)
+    for k, r in (("K10", res), ("K10q", quant), ("K10p", pool)):
+        results[k]["max_abs_err"] = max(results[k]["max_abs_err"],
+                                        r["max_abs_err"])
+    _fp32_beside_bf16("h36m_cpn", cfg, {n: l.model for n, l in
+                                        lifters.items()}, req, card)
+    del sl, lifters
+    torch.cuda.empty_cache()
+
+    name = "h36m_hrnet_32"
+    cfg = config.deploy(config.preset(name))
+    t0 = time.perf_counter()
+    model = serve.build_model(cfg.model, torch.float32, "cuda",
+                              generator=torch.Generator().manual_seed(0))
+    variables = bridge.variables_to_jax(model)
+    h, w = cfg.model.image_shape
+    gen = torch.Generator().manual_seed(0)
+    req = (torch.randint(0, 256, (BATCH, h, w, 3), dtype=torch.uint8,
+                         generator=gen).cuda(),
+           (torch.rand(BATCH, 17, 2, generator=gen) * 2 - 1).cuda(),
+           (torch.rand(BATCH, 17, 2, generator=gen) * w).cuda())
+    calib = torch.randint(0, 256, (BATCH, h, w, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(1)).cuda()
+    serve.prepare(model, [calib])
+    bf16 = serve.build_model(serve.deploy_config(name).model, torch.bfloat16,
+                             "cuda", variables=variables)
+    serve.prepare(bf16, [calib])
+    torch.cuda.synchronize()
+    print(f"fp32_int8: {name} fp32 backbone (layer1_impl "
+          f"{cfg.model.backbone.layer1_impl!r}: the per-conv chain) and its "
+          f"bf16 deploy graph (layer1 K9) built and prepared in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    per_request = {**PER_REQUEST[name], **FP32_PER_REQUEST["hrnet"]}
+    _reset_counts()
+    with _plain_int8_calls(plain):
+        out = serve.lift(model, *req)
+        torch.cuda.synchronize()
+    counted.append(_counts())
+    print(f"fp32_int8: {name} fp32 backbone: one request of {BATCH} frames "
+          f"-> {tuple(out.shape)} finite {bool(torch.isfinite(out).all())};"
+          f" launches {counted[-1]} (expected {per_request}); int8 plain "
+          f"versions run {plain or 'none'} ({card})", flush=True)
+    if (counted[-1] != _expected(per_request) or plain
+            or out.shape != (BATCH, 17, 3)
+            or not torch.isfinite(out).all()):
+        raise AssertionError(f"fp32_int8 {name}: launches {counted[-1]}, "
+                             f"plain {plain}")
+    _fp32_vs_plain(name, cfg, model, req, card)
+    _fp32_beside_bf16(name, cfg, {"fp32": model, "bf16": bf16}, req, card)
+    del model, bf16
+    torch.cuda.empty_cache()
+    return _sum_counts(counted)
 
 
 def _sum_counts(counts):
@@ -3701,8 +4131,9 @@ def check_spills(log):
 
 def check_sass(path):
     """Count, with ``cuobjdump -sass``, the SASS instructions of SASS_OPS in
-    each K1, K2, K3 and K9 kernel of the built library, print them, and
-    fail unless each kernel of SASS_REQUIRED holds what it must. Prints
+    each K1, K2, K3, K7, K9 and K10 kernel of the built library, print
+    them, and fail unless each kernel of SASS_REQUIRED holds what it must.
+    Prints
     "not measured" where the toolkit has no cuobjdump."""
     import shutil
     from pathlib import Path
@@ -3798,6 +4229,7 @@ def main() -> None:
                for name, n in HRNET_REQUESTS.items()]
     served.append(clock("cpn_int8", check_cpn_int8, results, card))
     served.append(clock("quantize", check_quantize, card))
+    served.append(clock("fp32_int8", check_fp32_int8, results, card))
     served.append(clock("streaming", check_streaming, card))
     probes = clock("probes", check_probes, card)
     served.append(clock("aggregate", check_aggregate, results, card))

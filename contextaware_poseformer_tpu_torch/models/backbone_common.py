@@ -126,7 +126,10 @@ class ConvBN(nn.Module):
     (``weights_ready``), each call quantizes the weight itself, to the same
     values (the JAX package's ConvBN without a ``qweights`` collection,
     ``backbone_common.py:185-188``). It runs the int8 convolution K10
-    (``ops/int8_conv.py``):
+    (``ops/int8_conv.py``), its epilogue in ``dtype`` (bf16, or fp32 for a
+    backbone built in fp32, as the JAX package's ConvBN runs it in
+    ``self.dtype``; K10 and its quantize pass K10q have both forms on the
+    card):
 
     - with ``x_quant=(xq, amax)``: the caller's int8 tensor and its
       calibrated max|value|;

@@ -185,7 +185,8 @@ class HRNet(nn.Module):
 
     def _layer1_int8(self, x):
         """layer1 at inference: (int8 (B, H, W, 256), its calibrated amax),
-        through K9 ("pallas") or the per-conv K10 chain ("xla")."""
+        through K9 ("pallas") or the per-conv chain ("xla": K10 convs,
+        K10q's scale form for the quantizes)."""
         blocks = []
         for b in range(4):
             pre = f"layer1.{b}"
@@ -206,7 +207,8 @@ class HRNet(nn.Module):
         else:
             xq = layer1_chain.layer1_int8_chain(
                 x, self.layer1_in_amax, blocks,
-                functools.partial(int8_conv.int8_conv, impl=self.int8_impl))
+                functools.partial(int8_conv.int8_conv, impl=self.int8_impl),
+                functools.partial(int8_conv.quant, impl=self.int8_impl))
         return xq, self.layer1_3_out_amax
 
     def _basic_block(self, x, prefix):

@@ -53,7 +53,11 @@ class StreamingLifter:
     unless the caller names another). With ``use_bf16`` the backbone
     computes in bf16 and every 4-D backbone parameter holds a bf16 value,
     as the JAX package casts them (an int8 conv keeps them in an fp32
-    tensor)."""
+    tensor). Without it the backbone computes in fp32, the int8 graphs
+    included: K10, K10q and K10p run their fp32 forms on the card (an
+    HRNet needs ``layer1_impl="xla"``, the per-conv chain, as
+    ``config.deploy`` sets it: K9 is bf16 only). The lifter keeps the
+    configuration's compute dtype."""
 
     def __init__(self, model_cfg: ModelConfig, variables,
                  cfg: StreamingConfig = StreamingConfig(), device="cuda"):

@@ -63,10 +63,14 @@ SIGNATURES = {
     "capf_int8_conv_probe": (_I, [_P, _I, _I, _P]),
     # (args struct*, device, stream)
     "capf_int8_requant": (_I, [_P, _I, _P]),
-    # (x, amax, out, n, form, device, stream)
+    # (x, amax, out, n, form, device, stream); x bf16, or fp32 (_f32)
     "capf_int8_quantize": (_I, [_P, _P, _P, ctypes.c_longlong, _I, _I, _P]),
-    # (x, amax, out, batch, h, w, c, rows, device, stream)
+    "capf_int8_quantize_f32": (_I, [_P, _P, _P, ctypes.c_longlong, _I, _I,
+                                    _P]),
+    # (x, amax, out, batch, h, w, c, rows, device, stream); x bf16, or fp32
     "capf_int8_quant_pool": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "capf_int8_quant_pool_f32": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _P]),
     # (args struct*, device, stream)
     "capf_layer1_block": (_I, [_P, _I, _P]),
     "capf_layer1_block_floor": (_I, [_P, _I, _P]),

@@ -96,19 +96,23 @@ __device__ __forceinline__ int8_t to_int8_rne(float v) {
 }
 
 // The int8 convolutions' folded affine with the JAX package's rounding
-// points: bf16(acc) (through fp32, as XLA converts), a bf16 multiply by the
-// bf16 dequant scale, a bf16 add of the bf16 bias; two roundings, no FMA.
-__device__ __forceinline__ float affine_bf16(int acc, float eff, float bias) {
-  float y = round_to<__nv_bfloat16>(__int2float_rn(acc));
-  y = round_to<__nv_bfloat16>(__fmul_rn(y, eff));
-  return round_to<__nv_bfloat16>(__fadd_rn(y, bias));
+// points in the epilogue's dtype T (bf16 or fp32): T(acc) (through fp32, as
+// XLA converts), a T multiply by the T dequant scale, a T add of the T bias;
+// two roundings, no FMA. round_to<float> is the identity, so the fp32 form
+// is fp32(acc) * eff + bias with each op rounded once, as torch runs them.
+template <typename T>
+__device__ __forceinline__ float affine(int acc, float eff, float bias) {
+  float y = round_to<T>(__int2float_rn(acc));
+  y = round_to<T>(__fmul_rn(y, eff));
+  return round_to<T>(__fadd_rn(y, bias));
 }
 
-// bf16(scale * wscale * step): a conv's dequant scale folded into its BN
-// scale, in fp32 and in that order, then rounded to bf16.
+// T(scale * wscale * step): a conv's dequant scale folded into its BN
+// scale, in fp32 and in that order, then rounded to T.
+template <typename T>
 __device__ __forceinline__ float folded_scale(float scale, float wscale,
                                               float step) {
-  return round_to<__nv_bfloat16>(__fmul_rn(__fmul_rn(scale, wscale), step));
+  return round_to<T>(__fmul_rn(__fmul_rn(scale, wscale), step));
 }
 
 __device__ __forceinline__ uint32_t lds32(const int8_t* p) {

@@ -15,11 +15,16 @@
 // and max-pool in one pass (cpn.py:241-244); see their section below.
 // The convolution: NHWC int8 input, a (Cout, kh*kw*Cin) int8 kernel, 1x1 or
 // 3x3, stride 1 or 2, zero padding (k - 1) / 2; exact int32 accumulation;
-// then the folded affine with the JAX package's rounding points
-// (common.cuh, affine_bf16); an optional residual added in bf16 (the
-// downsample conv's bf16 output, or an int8 skip dequantized as
-// bf16(xq) * bf16(amax / 127)); an optional ReLU; out in bf16, or
-// requantized to int8 with a calibrated amax, clip(round(y * (127 / amax))).
+// then, in the epilogue's dtype E (bf16, or fp32 for a backbone that
+// computes in fp32, as the JAX package's ConvBN runs its epilogue in the
+// backbone's dtype), the folded affine with the JAX package's rounding
+// points (common.cuh, affine<E>); an optional residual added in E (the
+// downsample conv's output, or an int8 skip dequantized as
+// E(xq) * E(amax / 127)); an optional ReLU; out in E, or requantized to int8
+// with a calibrated amax, clip(round(y * (127 / amax))). E is a template
+// parameter of one kernel: everything before the int32 accumulator is the
+// same code in both forms. K10q and K10p take a bf16 or an fp32 input the
+// same way.
 // That requantizing variant, chained, is also the counterpart of the TPU
 // probe experiments/int8_chain_conv.py::kernel (an n-conv int8 3x3 chain).
 //
@@ -53,9 +58,10 @@
 //   that two blocks share an SM and one's loads hide the other's latency
 //   (a 128-row tile on two consumer warpgroups, measured, never won);
 // - the epilogue applies the affine in the accumulator layout, stages the
-//   bf16 tile in the ring, then each thread finishes 8 (or 16) consecutive
-//   channels of one pixel and stores 16 bytes (8 for an int8 output whose
-//   Cout is not a multiple of 16).
+//   tile in the ring (bf16, or fp32: 64 x 136 x 4 bytes, which the ring of
+//   any tile holds), then each thread finishes 8 (or 16) consecutive
+//   channels of one pixel and stores 16 bytes a piece (8 for an int8 output
+//   whose Cout is not a multiple of 16; two pieces for 8 fp32 values).
 // The tile (64 x 64 or 64 x 128) comes from ops/int8_conv.py::plan,
 // which picks it per (M, N) from measured times.
 //
@@ -73,7 +79,7 @@
 #include "common.cuh"
 #include "hopper.cuh"
 
-using capf::affine_bf16;
+using capf::affine;
 using capf::folded_scale;
 using capf::round_to;
 using capf::to_int8_rne;
@@ -87,13 +93,14 @@ struct Int8ConvArgs {  // mirrored by ops/int8_conv.py::_Args
   const float* scale;    // (Cout,) BN scale
   const float* bias;     // (Cout,) BN bias
   const float* amax;     // scalar: the calibrated amax, or max|x|
-  const void* res;       // (B, Ho, Wo, Cout) bf16 or int8, or null
+  const void* res;       // (B, Ho, Wo, Cout) E or int8, or null
   const float* res_amax; // scalar: the int8 residual's calibrated amax
-  const float* out_amax; // scalar: the int8 output's amax; null: bf16 out
-  void* out;             // (B, Ho, Wo, Cout) bf16, int8, or int32/fp32
+  const float* out_amax; // scalar: the int8 output's amax; null: E out
+  void* out;             // (B, Ho, Wo, Cout) E, int8, or int32/fp32
   int batch, h, w, cin, cout, ksize, stride, ho, wo;
   int clamp_amax, res_int8, relu;
   int tile_n;            // the plan: the tile's width, 64 or 128
+  int f32;               // the epilogue's dtype E: 1 fp32, 0 bf16
 };
 
 struct Int8RequantArgs {  // mirrored by probes/int8_chain.py::_RequantArgs
@@ -156,22 +163,41 @@ __device__ __forceinline__ float requant_scale(const float* amax) {
   return requant_scale(*amax);
 }
 
-// bf16(max(amax, 1e-12) / 127): the dequant scale of an int8 skip
+// E(max(amax, 1e-12) / 127): the dequant scale of an int8 skip
+template <typename E>
 __device__ __forceinline__ float dequant_scale(const float* amax) {
-  return round_to<__nv_bfloat16>(
-      __fmul_rn(fmaxf(*amax, 1e-12f), capf::kRecip127));
+  return round_to<E>(__fmul_rn(fmaxf(*amax, 1e-12f), capf::kRecip127));
 }
 
-// one output value after the affine: the residual added in bf16, then the
+// one output value after the affine: the residual added in E, then the
 // ReLU (common to the conv and the requant probe)
+template <typename E>
 __device__ __forceinline__ float finish(float y, float res, bool has_res,
                                         bool relu) {
-  if (has_res) y = round_to<__nv_bfloat16>(__fadd_rn(y, res));
+  if (has_res) y = round_to<E>(__fadd_rn(y, res));
   return relu ? fmaxf(y, 0.f) : y;
 }
 
-// 8 consecutive residual values of one pixel as floats: a bf16 residual as
-// it is, an int8 skip dequantized as bf16(xq) * bf16(amax / 127)
+// 8 consecutive E values (16 bytes of bf16, 32 of fp32) as floats
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* y) {
+  const uint4 f = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    y[e] = __bfloat162float(__ushort_as_bfloat16(
+        static_cast<unsigned short>(w[e / 2] >> (16 * (e % 2)))));
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float* y) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  y[0] = lo.x, y[1] = lo.y, y[2] = lo.z, y[3] = lo.w;
+  y[4] = hi.x, y[5] = hi.y, y[6] = hi.z, y[7] = hi.w;
+}
+
+// 8 consecutive residual values of one pixel as floats: an E residual as
+// it is, an int8 skip dequantized as E(xq) * E(amax / 127)
+template <typename E>
 __device__ __forceinline__ void residual8(const void* p, bool res_int8,
                                           float res_deq, float* r) {
   if (res_int8) {
@@ -180,29 +206,10 @@ __device__ __forceinline__ void residual8(const void* p, bool res_int8,
     for (int e = 0; e < 8; ++e) {
       const uint32_t w = e < 4 ? q.x : q.y;
       const int8_t v = static_cast<int8_t>((w >> (8 * (e % 4))) & 0xff);
-      r[e] = round_to<__nv_bfloat16>(__fmul_rn(static_cast<float>(v),
-                                               res_deq));
+      r[e] = round_to<E>(__fmul_rn(static_cast<float>(v), res_deq));
     }
   } else {
-    const uint4 f = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      r[e] = __bfloat162float(__ushort_as_bfloat16(
-          static_cast<unsigned short>(w[e / 2] >> (16 * (e % 2)))));
-    }
-  }
-}
-
-// 8 consecutive bf16 values (16 bytes) as floats
-__device__ __forceinline__ void load_bf16x8(const __nv_bfloat16* p,
-                                            float* y) {
-  const uint4 f = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    y[e] = __bfloat162float(__ushort_as_bfloat16(
-        static_cast<unsigned short>(w[e / 2] >> (16 * (e % 2)))));
+    load8(static_cast<const E*>(p), r);
   }
 }
 
@@ -235,10 +242,9 @@ __device__ __forceinline__ void store_int8(int8_t* out, const float* y,
   }
 }
 
-// 8 finished values -> bf16, one 16-byte store (exact: every value is a
-// bf16 number already)
-__device__ __forceinline__ void store_bf16x8(__nv_bfloat16* out,
-                                             const float* y) {
+// 8 finished values -> E: one 16-byte store of bf16 (exact: every value is
+// a bf16 number already), two of fp32
+__device__ __forceinline__ void store8(__nv_bfloat16* out, const float* y) {
   uint32_t w[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -246,6 +252,18 @@ __device__ __forceinline__ void store_bf16x8(__nv_bfloat16* out,
     w[i] = *reinterpret_cast<const uint32_t*>(&v);
   }
   *reinterpret_cast<uint4*>(out) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void store8(float* out, const float* y) {
+  *reinterpret_cast<float4*>(out) = make_float4(y[0], y[1], y[2], y[3]);
+  *reinterpret_cast<float4*>(out + 4) = make_float4(y[4], y[5], y[6], y[7]);
+}
+
+// two staged values of one row, E(a) and E(b), at an even column
+__device__ __forceinline__ void stage2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void stage2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
 // ---- the convolution ------------------------------------------------------
@@ -261,40 +279,41 @@ struct Tile {
   static constexpr int kAStage = kBM * kBK;       // bytes
   static constexpr int kBStage = kBN * kBK;
   static constexpr int kStage = kAStage + kBStage;
-  static constexpr int kPitch = kBN + 8;  // a staged row's values (bf16 or
+  static constexpr int kPitch = kBN + 8;  // a staged row's values (E or
                                           // the probes' 32-bit sums)
   static constexpr int kBarriers = (2 * kStages + 1) * sizeof(uint64_t);
-  // the staged tile: the affine's bf16 output (the product), the probes'
-  // 32-bit sums
-  __host__ __device__ static constexpr int staged(bool product) {
-    return kBM * kPitch * (product ? 2 : 4);
+  // the staged tile of ``elem``-byte values: the affine's E output (the
+  // product), the probes' 32-bit sums
+  __host__ __device__ static constexpr int staged(int elem) {
+    return kBM * kPitch * elem;
   }
   // the ring's bytes, ``stages`` deep: at least the staged tile, which
   // reuses it once the products are done
-  __host__ __device__ static constexpr int ring(int stages, bool product) {
-    return stages * kStage > staged(product) ? stages * kStage
-                                             : staged(product);
+  __host__ __device__ static constexpr int ring(int stages, int elem) {
+    return stages * kStage > staged(elem) ? stages * kStage : staged(elem);
   }
   // the block's shared memory: slack to align the ring to the 1024 bytes
   // the swizzle needs, the ring, the prefetched residual tile, the barriers
   // and the epilogue's scales
-  __host__ __device__ static constexpr int smem(int stages, bool product,
+  __host__ __device__ static constexpr int smem(int stages, int elem,
                                                 int res_bytes) {
-    return 1024 + ring(stages, product) + res_bytes + kBarriers +
+    return 1024 + ring(stages, elem) + res_bytes + kBarriers +
            2 * kBN * static_cast<int>(sizeof(float));
   }
-  // smem() at its largest: the full ring and a bf16 residual
-  static constexpr int kSmemMax = 1024 + kStages * kStage + kBM * kBN * 2 +
-                                  kBarriers +
-                                  2 * kBN * static_cast<int>(sizeof(float));
+  // smem() at its largest for an E of ``elem`` bytes: the full ring and an
+  // E residual (ops/int8_conv.py::plan_smem)
+  __host__ __device__ static constexpr int smem_max(int elem) {
+    return smem(kStages, elem, kBM * kBN * elem);
+  }
   static_assert(kStages * kStage >= kBM * kPitch * 4, "the tile fits");
 };
 
 // Grid: one block per (M tile, N tile), N tiles fastest so that the blocks
 // sharing an A tile run together and A crosses HBM once. Threads: one
 // consumer warpgroup (the 64 output rows), then one producer warpgroup.
-// kBf16: the bf16 probe (bf16 operands, fp32 out).
-template <int kBN, Mode kMode, bool kBf16>
+// kBf16: the bf16 probe (bf16 operands, fp32 out). E: the product's
+// epilogue dtype (bf16 or float; the probes' builds take bf16 and use none).
+template <int kBN, Mode kMode, bool kBf16, typename E>
 __global__ void __launch_bounds__(Tile<kBN>::kThreads, Tile<kBN>::kMinBlocks)
     conv_kernel(const __grid_constant__ CUtensorMap wmap,
                 const Int8ConvArgs a) {
@@ -304,6 +323,8 @@ __global__ void __launch_bounds__(Tile<kBN>::kThreads, Tile<kBN>::kMinBlocks)
   constexpr int kConsumers = T::kConsumers;
   constexpr bool kProduct = kMode == Mode::kProduct;
   constexpr int kEs = kBf16 ? 1 : 0;  // log2 of the operands' element bytes
+  // the staged tile's value bytes: E (the product), 32-bit sums (the probes)
+  constexpr int kOut = kProduct ? static_cast<int>(sizeof(E)) : 4;
   static_assert(!kBf16 || kMode == Mode::kAccum, "the bf16 probe");
 
   const int tid = threadIdx.x;
@@ -315,14 +336,14 @@ __global__ void __launch_bounds__(Tile<kBN>::kThreads, Tile<kBN>::kMinBlocks)
   const int ktiles = (kbytes + kBK - 1) / kBK;
   const int stages = ktiles < kStages ? ktiles : kStages;  // the ring's depth
   const bool has_res = kProduct && a.res != nullptr;
-  const int res_elem = a.res_int8 ? 1 : 2;
+  const int res_elem = a.res_int8 ? 1 : static_cast<int>(sizeof(E));
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* s_a = ring;                        // stages x A
   unsigned char* s_b = ring + stages * T::kAStage;  // stages x B
-  unsigned char* s_res = ring + T::ring(stages, kProduct);  // the residual
+  unsigned char* s_res = ring + T::ring(stages, kOut);  // the residual
   uint64_t* full = reinterpret_cast<uint64_t*>(
       s_res + (has_res ? kBM * kBN * res_elem : 0));
   uint64_t* empty = full + kStages;
@@ -435,9 +456,9 @@ __global__ void __launch_bounds__(Tile<kBN>::kThreads, Tile<kBN>::kMinBlocks)
       const float step = input_step(*a.amax, a.clamp_amax != 0);
       for (int i = tid; i < kBN; i += kConsumers) {
         const int n = n0 + i;
-        s_eff[i] = n < a.cout ? folded_scale(a.scale[n], a.wscale[n], step)
-                              : 0.f;
-        s_bias[i] = n < a.cout ? round_to<__nv_bfloat16>(a.bias[n]) : 0.f;
+        s_eff[i] =
+            n < a.cout ? folded_scale<E>(a.scale[n], a.wscale[n], step) : 0.f;
+        s_bias[i] = n < a.cout ? round_to<E>(a.bias[n]) : 0.f;
       }
     }
     Acc acc[kBN / 2];
@@ -466,26 +487,24 @@ __global__ void __launch_bounds__(Tile<kBN>::kThreads, Tile<kBN>::kMinBlocks)
     fence_regs(acc);
 
     // stage the tile through the ring, which no one reads any more: the
-    // affine's bf16 output (the product), the 32-bit sums (the probes)
+    // affine's E output (the product), the 32-bit sums (the probes)
     named_sync(1, kConsumers);
     const int warp = tid / 32;
     const int lane = tid % 32;
     const int row = warp * 16 + lane / 4;
     const int col0 = 2 * (lane % 4);
     if constexpr (kProduct) {
-      __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(ring);
+      E* tile = reinterpret_cast<E*>(ring);
 #pragma unroll
       for (int q = 0; q < kBN / 8; ++q) {
         const int col = 8 * q + col0;
         const float e0 = s_eff[col], e1 = s_eff[col + 1];
         const float b0 = s_bias[col], b1 = s_bias[col + 1];
-        *reinterpret_cast<__nv_bfloat162*>(tile + row * T::kPitch + col) =
-            __floats2bfloat162_rn(affine_bf16(acc[4 * q], e0, b0),
-                                  affine_bf16(acc[4 * q + 1], e1, b1));
-        *reinterpret_cast<__nv_bfloat162*>(tile + (row + 8) * T::kPitch +
-                                           col) =
-            __floats2bfloat162_rn(affine_bf16(acc[4 * q + 2], e0, b0),
-                                  affine_bf16(acc[4 * q + 3], e1, b1));
+        stage2(tile + row * T::kPitch + col, affine<E>(acc[4 * q], e0, b0),
+               affine<E>(acc[4 * q + 1], e1, b1));
+        stage2(tile + (row + 8) * T::kPitch + col,
+               affine<E>(acc[4 * q + 2], e0, b0),
+               affine<E>(acc[4 * q + 3], e1, b1));
       }
     } else {
       int* tile = reinterpret_cast<int*>(ring);
@@ -524,9 +543,9 @@ __global__ void __launch_bounds__(Tile<kBN>::kThreads, Tile<kBN>::kMinBlocks)
             *reinterpret_cast<const int4*>(tile + r * T::kPitch + col);
       }
     } else {
-      const __nv_bfloat16* tile = reinterpret_cast<const __nv_bfloat16*>(ring);
+      const E* tile = reinterpret_cast<const E*>(ring);
       const float res_deq =
-          has_res && a.res_int8 ? dequant_scale(a.res_amax) : 0.f;
+          has_res && a.res_int8 ? dequant_scale<E>(a.res_amax) : 0.f;
       if (has_res) mbar_wait(res_full, 0);
       const bool int8_out = a.out_amax != nullptr;
       const float q_out = int8_out ? requant_scale(a.out_amax) : 0.f;
@@ -535,17 +554,17 @@ __global__ void __launch_bounds__(Tile<kBN>::kThreads, Tile<kBN>::kMinBlocks)
       // residual added, the ReLU
       auto finish8 = [&](int r, int c, float* y) {
         float res[8];
-        load_bf16x8(tile + r * T::kPitch + c, y);
+        load8(tile + r * T::kPitch + c, y);
         if (has_res) {
-          residual8(s_res + (r * kBN + c) * res_elem, a.res_int8 != 0,
-                    res_deq, res);
+          residual8<E>(s_res + (r * kBN + c) * res_elem, a.res_int8 != 0,
+                       res_deq, res);
         }
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          y[e] = finish(y[e], has_res ? res[e] : 0.f, has_res, relu);
+          y[e] = finish<E>(y[e], has_res ? res[e] : 0.f, has_res, relu);
         }
       };
-      // 8 channels a thread (16 bytes of bf16 out), or 16 for an int8 out
+      // 8 channels a thread (16 or 32 bytes of E out), or 16 for an int8 out
       // whose Cout is a multiple of 16
       const int ch = int8_out && a.cout % 16 == 0 ? 16 : 8;
       const int chunks = kBN / ch;
@@ -567,7 +586,7 @@ __global__ void __launch_bounds__(Tile<kBN>::kThreads, Tile<kBN>::kMinBlocks)
           if (int8_out) {
             store_int8<8>(static_cast<int8_t*>(a.out) + off, y, q_out);
           } else {
-            store_bf16x8(static_cast<__nv_bfloat16*>(a.out) + off, y);
+            store8(static_cast<E*>(a.out) + off, y);
           }
         }
       }
@@ -592,9 +611,11 @@ __global__ void int8_requant_kernel(const Int8RequantArgs a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = n + 4 * q + e;
-      y[4 * q + e] = finish(
-          affine_bf16(acc[e], folded_scale(a.scale[c], a.wscale[c], step),
-                      round_to<__nv_bfloat16>(a.bias[c])),
+      const float eff =
+          folded_scale<__nv_bfloat16>(a.scale[c], a.wscale[c], step);
+      y[4 * q + e] = finish<__nv_bfloat16>(
+          affine<__nv_bfloat16>(acc[e], eff,
+                                round_to<__nv_bfloat16>(a.bias[c])),
           0.f, false, a.relu != 0);
     }
   }
@@ -603,38 +624,40 @@ __global__ void int8_requant_kernel(const Int8RequantArgs a) {
 
 // ---- K10q: the quantize pass; K10p: the stem's quantize and max-pool ---
 //
-// K10q turns a bf16 tensor into int8, clip(round(v), -127, 127) with round
-// half to even, in one of two forms (QuantForm):
+// K10q turns a bf16 or an fp32 tensor into int8, clip(round(v), -127, 127)
+// with round half to even, in one of two forms (QuantForm):
 // - the step form, K10's float inputs (backbone_common.py:192-203): v is
 //   the IEEE quotient x / step, step = max(amax, 1e-12) * fl32(1 / 127) for
 //   a calibrated amax, max|x| * fl32(1 / 127) for the dynamic route;
 // - the scale form, the CPN stream's _quant_i8 (cpn.py:43-51):
 //   v = fp32(x) * (127 / max(amax, 1e-12)), the scale one IEEE division a
 //   tensor (requant_scale).
-// What bounds it: bytes, 2 read and 1 written a value. At 3.35 TB/s an SM
-// must turn over ~7.5 values a clock, so past ~17 thread-instructions a
-// value issue, not HBM, would bound the pass; an IEEE division a value
-// (__fdiv_rn: a MUFU reciprocal, a dozen more instructions and a slow-path
-// branch) is past it. Here the quotient comes from the tensor's reciprocal
-// r = RN(1 / step), computed once, and two FMA corrections, q = x * r, then
-// twice q += (x - q * step) * r: the first brings q within an ulp of
-// x / step, and the second then gives the correctly rounded quotient
-// (Markstein: r within half an ulp of 1 / step and q within an ulp make the
-// remainder exact and the corrected q the IEEE quotient). x is first
-// clamped to +-RN(127 * step), which changes no result (beyond it the
-// quotient rounds to +-127 either way) and keeps every intermediate far
-// from overflow; a step in [2^-64, 2^64] keeps them far from underflow, and
-// a step outside that range (a dynamic route's near-zero max|x|, a
-// non-finite amax) takes the IEEE division instead, a branch uniform over
-// the grid. The round is cvt.rni (half to even; NaN -> 0, as the plain
-// version's int8 cast gives), after a clamp that keeps a NaN. About 10
-// instructions a value in the step form, 6 in the scale form; no zero skip
-// (zeros are no slow path any more).
+// What bounds it: bytes, 2 (bf16) or 4 (fp32) read and 1 written a value.
+// At 3.35 TB/s an SM must turn over ~7.5 bf16 values a clock, so past ~17
+// thread-instructions a value issue, not HBM, would bound the pass; an IEEE
+// division a value (__fdiv_rn: a MUFU reciprocal, a dozen more instructions
+// and a slow-path branch) is past it. Here the quotient comes from the
+// tensor's reciprocal r = RN(1 / step), computed once, and two FMA
+// corrections, q = x * r, then twice q += (x - q * step) * r: the first
+// brings q within an ulp of x / step, and the second then gives the
+// correctly rounded quotient (Markstein: r within half an ulp of 1 / step
+// and q within an ulp make the remainder exact and the corrected q the IEEE
+// quotient, whatever the mantissa of x). x is first clamped to
+// +-RN(127 * step), which changes no result (beyond it the quotient rounds
+// to +-127 either way) and keeps every intermediate far from overflow; a
+// step in [2^-64, 2^64] keeps them far from underflow, and a step outside
+// that range (a dynamic route's near-zero max|x|, a non-finite amax) takes
+// the IEEE division instead, a branch uniform over the grid. The round is
+// cvt.rni (half to even; NaN -> 0, as the plain version's int8 cast gives),
+// after a clamp that keeps a NaN. About 10 instructions a value in the step
+// form, 6 in the scale form; no zero skip (zeros are no slow path any more).
 // The grid: a few blocks an SM striding over the tensor; a thread has
-// kQuantUnroll groups of 16 values (two 16-byte loads each) in flight before
-// any arithmetic and stores each group's 16 int8 values at once. Measured
-// on the card at the CPN request's shapes: 2 groups a thread and 4 blocks
-// an SM beat 4 or 8 groups, 8 blocks an SM and streaming load/store hints.
+// kQuantUnroll groups of 16 values (two 16-byte loads each in bf16, four in
+// fp32) in flight before any arithmetic and stores each group's 16 int8
+// values at once. Measured on the card at the CPN request's bf16 shapes: 2
+// groups a thread and 4 blocks an SM beat 4 or 8 groups, 8 blocks an SM and
+// streaming load/store hints. The input's dtype is a template parameter of
+// one kernel (In: __nv_bfloat16 or float).
 
 enum QuantForm { kStepDynamic = 0, kStepCalibrated = 1, kScale = 2 };
 
@@ -676,38 +699,62 @@ __device__ __forceinline__ uint32_t quant_value(float x,
   }
 }
 
-// 16 bf16 values (two 16-byte words, the first value in the low half of the
-// first word) -> 16 int8 values (one 16-byte word)
+// 4 values -> 4 int8 in one word, the first in the low byte
 template <int kForm, bool kExact>
-__device__ __forceinline__ uint4 quant16(const uint4& lo, const uint4& hi,
+__device__ __forceinline__ uint32_t quant4(float v0, float v1, float v2,
+                                           float v3, const QuantConsts& k) {
+  const uint32_t q0 = quant_value<kForm, kExact>(v0, k);
+  const uint32_t q1 = quant_value<kForm, kExact>(v1, k);
+  const uint32_t q2 = quant_value<kForm, kExact>(v2, k);
+  const uint32_t q3 = quant_value<kForm, kExact>(v3, k);
+  return __byte_perm(__byte_perm(q0, q1, 0x0040), __byte_perm(q2, q3, 0x0040),
+                     0x5410);
+}
+
+// a group of 16 values -> 16 int8 values (one 16-byte word): 16 bf16 in two
+// 16-byte words (the first value in the low half of the first word), or 16
+// fp32 in four
+template <int kForm, bool kExact>
+__device__ __forceinline__ uint4 quant16(const uint4 (&v)[2],
                                          const QuantConsts& k) {
-  const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const uint32_t w[8] = {v[0].x, v[0].y, v[0].z, v[0].w,
+                         v[1].x, v[1].y, v[1].z, v[1].w};
   uint32_t o[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const uint32_t a = w[2 * i], b = w[2 * i + 1];
-    const uint32_t q0 = quant_value<kForm, kExact>(__uint_as_float(a << 16), k);
-    const uint32_t q1 =
-        quant_value<kForm, kExact>(__uint_as_float(a & 0xffff0000u), k);
-    const uint32_t q2 = quant_value<kForm, kExact>(__uint_as_float(b << 16), k);
-    const uint32_t q3 =
-        quant_value<kForm, kExact>(__uint_as_float(b & 0xffff0000u), k);
-    o[i] = __byte_perm(__byte_perm(q0, q1, 0x0040), __byte_perm(q2, q3, 0x0040),
-                       0x5410);
+    o[i] = quant4<kForm, kExact>(
+        __uint_as_float(a << 16), __uint_as_float(a & 0xffff0000u),
+        __uint_as_float(b << 16), __uint_as_float(b & 0xffff0000u), k);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+template <int kForm, bool kExact>
+__device__ __forceinline__ uint4 quant16(const uint4 (&v)[4],
+                                         const QuantConsts& k) {
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[i] = quant4<kForm, kExact>(__uint_as_float(v[i].x),
+                                 __uint_as_float(v[i].y),
+                                 __uint_as_float(v[i].z),
+                                 __uint_as_float(v[i].w), k);
   }
   return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
-// K10q: x (groups x 16 bf16) -> out (groups x 16 int8) in form kForm. A
-// block takes tiles of kQuantThreads x kQuantUnroll groups, grid-strided
+// K10q: x (groups x 16 In values) -> out (groups x 16 int8) in form kForm.
+// A block takes tiles of kQuantThreads x kQuantUnroll groups, grid-strided
 // (the host sizes the grid so that every block takes as many). The first
 // tile's loads go out beside amax's, before the per-tensor constants, which
 // pick the step form's route by a branch uniform over the grid.
-template <int kForm>
+template <int kForm, typename In>
 __global__ void __launch_bounds__(kQuantThreads)
     int8_quantize_kernel(const uint4* __restrict__ x,
                          const float* __restrict__ amax,
                          uint4* __restrict__ out, long long groups) {
+  // 16-byte words a group of 16 values takes: 2 (bf16), 4 (fp32)
+  constexpr int kW = static_cast<int>(sizeof(In));
   const long long per_block = 1LL * kQuantThreads * kQuantUnroll;
   long long g0 = blockIdx.x * per_block + threadIdx.x;
   const float a = *amax;
@@ -715,15 +762,13 @@ __global__ void __launch_bounds__(kQuantThreads)
   bool exact = true;  // the step form's reciprocal route
   bool ready = false;
   for (; g0 < groups; g0 += gridDim.x * per_block) {
-    uint4 v[kQuantUnroll][2];
+    uint4 v[kQuantUnroll][kW];
 #pragma unroll
     for (int u = 0; u < kQuantUnroll; ++u) {  // every load before any math
       const long long g = g0 + u * kQuantThreads;
-      if (g < groups) {
-        v[u][0] = x[2 * g];
-        v[u][1] = x[2 * g + 1];
-      } else {
-        v[u][0] = v[u][1] = make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int i = 0; i < kW; ++i) {
+        v[u][i] = g < groups ? x[kW * g + i] : make_uint4(0, 0, 0, 0);
       }
     }
     if (!ready) {
@@ -741,29 +786,37 @@ __global__ void __launch_bounds__(kQuantThreads)
     for (int u = 0; u < kQuantUnroll; ++u) {
       const long long g = g0 + u * kQuantThreads;
       if (g >= groups) continue;
-      out[g] = exact ? quant16<kForm, true>(v[u][0], v[u][1], k)
-                     : quant16<kForm, false>(v[u][0], v[u][1], k);
+      out[g] = exact ? quant16<kForm, true>(v[u], k)
+                     : quant16<kForm, false>(v[u], k);
     }
   }
 }
 
 // K10p: the CPN stream's stem, max_pool_3x3_s2(quant(x)) (cpn.py:241-244,
 // the pool backbone_common.py:389-395: 3x3, stride 2, padding 1), in one
-// pass, the scale form. The quantize is monotone, so the pool of the
-// quantized tensor is the quantize of the pooled one: pool in bf16 (a max
-// is exact), then quantize the 4x fewer outputs once each. Padding never
-// wins: every window holds at least 4 real pixels. Bound: bytes, the bf16
-// input read once and the int8 output written once. A block owns ``rows``
-// output rows of one image across all channels and stages the 2 rows + 1
-// input rows they need (clipped to the image) into shared memory by
-// 16-byte cp.async; the row it shares with a neighbouring block (next in
-// the grid, so running beside it) is found in L2. ``rows`` is the plan's
-// (ops/int8_conv.py::quant_pool_rows): at the stem one row a block, 36 KB,
-// measured faster than 2-4 rows (fewer blocks an SM). Then a thread pools
-// 16 channels of one output pixel (bf16x2 max over the window), quantizes them and stores 16
-// bytes. A thread of an odd output column reads the second half of its 32
-// bytes first, so that the 8 threads of a 16-byte shared-memory phase (two
-// pixels of 64 channels) fall on distinct banks.
+// pass, the scale form, on a bf16 or an fp32 input (In). The quantize is
+// monotone, so the pool of the quantized tensor is the quantize of the
+// pooled one: pool in In (a max is exact), then quantize the 4x fewer
+// outputs once each. A NaN quantizes to 0, as +0 does, so the pool takes a
+// NaN as +0: it keeps the max that ignores NaN beside the one that keeps
+// it, and where the latter is NaN takes the larger of the former and +0
+// (so a window of NaN and negative values pools to 0, as the plain
+// version's pool of the quantized values does). Padding never wins: every
+// window holds at least 4 real pixels. Bound: bytes, the input read once
+// and the int8 output written once. A block owns ``rows`` output rows of
+// one image across all channels and stages the 2 rows + 1 input rows they
+// need (clipped to the image) into shared memory by 16-byte cp.async; the
+// row it shares with a neighbouring block (next in the grid, so running
+// beside it) is found in L2. ``rows`` is the plan's
+// (ops/int8_conv.py::quant_pool_rows): at the stem one row a block, 36 KB in
+// bf16 (measured faster than 2-4 rows: fewer blocks an SM) and 72 KB in
+// fp32. Then a thread pools 16 channels of one output pixel (over 2 or 4
+// 16-byte pieces a tap), quantizes them and stores 16 bytes. A thread
+// starts its pieces at a rotation so that the 8 threads of a 16-byte
+// shared-memory phase fall on distinct banks at 64 channels: in bf16 (two
+// pixels of 4 groups, 32 bytes a group) an odd output column reads its
+// second piece first; in fp32 (64 bytes a group, so two groups share a bank
+// set) thread t starts at piece (t / 2) % 4.
 constexpr int kPoolThreads = 256;
 constexpr int kSmemLimit = 232448;  // the 227 KB a Hopper block may use
 
@@ -772,12 +825,65 @@ __device__ __forceinline__ uint32_t bf16x2_max(uint32_t a, uint32_t b) {
   asm("max.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
   return d;
 }
+__device__ __forceinline__ uint32_t bf16x2_max_nan(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ float f32_max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
 
+// the window's maxima of one 32-bit word of In values: m ignores a NaN, n
+// keeps it
+template <typename In>
+__device__ __forceinline__ void max_word(uint32_t& m, uint32_t& n,
+                                         uint32_t v) {
+  if constexpr (sizeof(In) == 2) {
+    m = bf16x2_max(m, v);
+    n = bf16x2_max_nan(n, v);
+  } else {
+    m = __float_as_uint(fmaxf(__uint_as_float(m), __uint_as_float(v)));
+    n = __float_as_uint(f32_max_nan(__uint_as_float(n), __uint_as_float(v)));
+  }
+}
+
+// the pooled word: m, or max(m, +0) in each value whose n is NaN
+template <typename In>
+__device__ __forceinline__ uint32_t pooled_word(uint32_t m, uint32_t n) {
+  if constexpr (sizeof(In) == 2) {
+    // bit 15 of each half: its magnitude is past 0x7f80 (a NaN)
+    const uint32_t nan = ((n & 0x7fff7fffu) + 0x007f007fu) & 0x80008000u;
+    // -inf in a half without a NaN, +0 in one with
+    const uint32_t floor = 0xff80ff80u & ~((nan >> 15) * 0xffffu);
+    return bf16x2_max(m, floor);
+  } else {
+    const float f = __uint_as_float(m);
+    return __float_as_uint(isnan(__uint_as_float(n)) ? fmaxf(f, 0.f) : f);
+  }
+}
+
+// piece s of the kW pieces (s < kW), by selects: no indexed local array
+template <int kW>
+__device__ __forceinline__ uint4 pick_piece(const uint4 (&m)[kW], int s) {
+  if constexpr (kW == 2) {
+    return s ? m[1] : m[0];
+  } else {
+    return s == 0 ? m[0] : s == 1 ? m[1] : s == 2 ? m[2] : m[3];
+  }
+}
+
+template <typename In>
 __global__ void __launch_bounds__(kPoolThreads)
-    int8_quant_pool_kernel(const __nv_bfloat16* __restrict__ x,
+    int8_quant_pool_kernel(const In* __restrict__ x,
                            const float* __restrict__ amax,
                            int8_t* __restrict__ out, int h, int w, int c,
                            int ho, int wo, int rows) {
+  constexpr int kW = static_cast<int>(sizeof(In));  // pieces of a group
+  constexpr uint32_t kNegInf =
+      sizeof(In) == 2 ? 0xff80ff80u : 0xff800000u;  // -inf in each value
   extern __shared__ __align__(16) unsigned char s_rows[];
   const int strips = (ho + rows - 1) / rows;
   const int b = blockIdx.x / strips;
@@ -786,11 +892,14 @@ __global__ void __launch_bounds__(kPoolThreads)
   const int iy0 = max(2 * oy0 - 1, 0);
   const int iy1 = min(2 * oy1, h);  // past the last input row read
   const size_t row_elems = static_cast<size_t>(w) * c;
-  const __nv_bfloat16* src = x + (static_cast<size_t>(b) * h + iy0) * row_elems;
-  const int chunks = static_cast<int>((iy1 - iy0) * row_elems / 8);
+  const In* src = x + (static_cast<size_t>(b) * h + iy0) * row_elems;
+  const int chunks =
+      static_cast<int>((iy1 - iy0) * row_elems * sizeof(In) / 16);
   for (int i = threadIdx.x; i < chunks; i += kPoolThreads) {
     cp_async16(s_rows + 16 * static_cast<size_t>(i),
-               src + 8 * static_cast<size_t>(i), 16);
+               reinterpret_cast<const unsigned char*>(src) +
+                   16 * static_cast<size_t>(i),
+               16);
   }
   cp_async_commit();
   QuantConsts k{};
@@ -804,10 +913,13 @@ __global__ void __launch_bounds__(kPoolThreads)
     const int p = t / groups;
     const int ox = p % wo;
     const int oy = oy0 + p / wo;
-    const int first = (ox & 1) * 16;  // the byte offset of the half read first
-    uint32_t m[2][4];
+    // the piece read first (see above)
+    const int rot = kW == 2 ? (ox & 1) : ((t >> 1) & 3);
+    uint4 m[kW], n[kW];  // m[j], n[j]: piece (j + rot) % kW
 #pragma unroll
-    for (int i = 0; i < 4; ++i) m[0][i] = m[1][i] = 0xff80ff80u;  // -inf
+    for (int j = 0; j < kW; ++j) {
+      m[j] = n[j] = make_uint4(kNegInf, kNegInf, kNegInf, kNegInf);
+    }
 #pragma unroll
     for (int dy = -1; dy <= 1; ++dy) {
       const int y = 2 * oy + dy;
@@ -818,64 +930,71 @@ __global__ void __launch_bounds__(kPoolThreads)
         if (xx < 0 || xx >= w) continue;
         const unsigned char* q =
             s_rows +
-            ((static_cast<size_t>(y - iy0) * w + xx) * c + 16 * g) * 2;
-        const uint4 a = *reinterpret_cast<const uint4*>(q + first);
-        const uint4 e = *reinterpret_cast<const uint4*>(q + (16 - first));
-        m[0][0] = bf16x2_max(m[0][0], a.x);
-        m[0][1] = bf16x2_max(m[0][1], a.y);
-        m[0][2] = bf16x2_max(m[0][2], a.z);
-        m[0][3] = bf16x2_max(m[0][3], a.w);
-        m[1][0] = bf16x2_max(m[1][0], e.x);
-        m[1][1] = bf16x2_max(m[1][1], e.y);
-        m[1][2] = bf16x2_max(m[1][2], e.z);
-        m[1][3] = bf16x2_max(m[1][3], e.w);
+            ((static_cast<size_t>(y - iy0) * w + xx) * c + 16 * g) *
+                sizeof(In);
+#pragma unroll
+        for (int j = 0; j < kW; ++j) {
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              q + 16 * ((j + rot) & (kW - 1)));
+          max_word<In>(m[j].x, n[j].x, v.x);
+          max_word<In>(m[j].y, n[j].y, v.y);
+          max_word<In>(m[j].z, n[j].z, v.z);
+          max_word<In>(m[j].w, n[j].w, v.w);
+        }
       }
     }
-    const uint4 m0 = make_uint4(m[0][0], m[0][1], m[0][2], m[0][3]);
-    const uint4 m1 = make_uint4(m[1][0], m[1][1], m[1][2], m[1][3]);
-    const uint4 lo = first ? m1 : m0;  // selects: no indexed local array
-    const uint4 hi = first ? m0 : m1;
+    uint4 pooled[kW];  // in channel order
+#pragma unroll
+    for (int i = 0; i < kW; ++i) {
+      const int s = (i - rot) & (kW - 1);
+      const uint4 a = pick_piece<kW>(m, s), e = pick_piece<kW>(n, s);
+      pooled[i] = make_uint4(pooled_word<In>(a.x, e.x),
+                             pooled_word<In>(a.y, e.y),
+                             pooled_word<In>(a.z, e.z),
+                             pooled_word<In>(a.w, e.w));
+    }
     *reinterpret_cast<uint4*>(
         out + ((static_cast<size_t>(b) * ho + oy) * wo + ox) * c + 16 * g) =
-        quant16<kScale, true>(lo, hi, k);
+        quant16<kScale, true>(pooled, k);
   }
 }
 
 // ---- host side -------------------------------------------------------------
 
-template <int kBN, Mode kMode, bool kBf16>
+template <int kBN, Mode kMode, bool kBf16, typename E>
 cudaError_t launch(const Int8ConvArgs& a, cudaStream_t stream) {
   using T = Tile<kBN>;
   constexpr bool kProduct = kMode == Mode::kProduct;
+  constexpr int kOut = kProduct ? static_cast<int>(sizeof(E)) : 4;
   const int es = kBf16 ? 2 : 1;
   const long long kbytes = 1LL * a.ksize * a.ksize * a.cin * es;
   CUtensorMap map;
   cudaError_t err = weight_map(a.wq, kbytes, a.cout, kBN, &map);
   if (err != cudaSuccess) return err;
-  auto kernel = conv_kernel<kBN, kMode, kBf16>;
+  auto kernel = conv_kernel<kBN, kMode, kBf16, E>;
   static bool opted = false;  // once per instantiation (one device)
   if (!opted) {
-    err = capf::allow_smem(kernel, T::kSmemMax);
+    err = capf::allow_smem(kernel, T::smem_max(kOut));
     if (err != cudaSuccess) return err;
     opted = true;
   }
   const int ktiles = static_cast<int>((kbytes + kBK - 1) / kBK);
   const int stages = ktiles < kStages ? ktiles : kStages;
   const int res_bytes = kProduct && a.res != nullptr
-                            ? T::kBM * kBN * (a.res_int8 ? 1 : 2)
+                            ? T::kBM * kBN * (a.res_int8 ? 1 : kOut)
                             : 0;
   const long long m_total = 1LL * a.batch * a.ho * a.wo;
   const long long blocks = ((m_total + T::kBM - 1) / T::kBM) *
                            ((a.cout + kBN - 1) / kBN);
   kernel<<<static_cast<unsigned>(blocks), T::kThreads,
-           T::smem(stages, kProduct, res_bytes), stream>>>(map, a);
+           T::smem(stages, kOut, res_bytes), stream>>>(map, a);
   return cudaGetLastError();
 }
 
-template <Mode kMode, bool kBf16>
+template <Mode kMode, bool kBf16, typename E = __nv_bfloat16>
 cudaError_t dispatch(const Int8ConvArgs& a, cudaStream_t stream) {
-  if (a.tile_n == 128) return launch<128, kMode, kBf16>(a, stream);
-  if (a.tile_n == 64) return launch<64, kMode, kBf16>(a, stream);
+  if (a.tile_n == 128) return launch<128, kMode, kBf16, E>(a, stream);
+  if (a.tile_n == 64) return launch<64, kMode, kBf16, E>(a, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -896,10 +1015,13 @@ extern "C" int capf_int8_conv(const Int8ConvArgs* args, int device,
   if (err != cudaSuccess) return err;
   const Int8ConvArgs& a = *args;
   if (!valid(a, 16) || a.amax == nullptr ||
-      (a.res != nullptr && a.res_int8 && !a.res_amax)) {
+      (a.res != nullptr && a.res_int8 && !a.res_amax) ||
+      (a.f32 != 0 && a.f32 != 1)) {
     return cudaErrorInvalidValue;
   }
-  return static_cast<int>(dispatch<Mode::kProduct, false>(a, stream));
+  return static_cast<int>(
+      a.f32 ? dispatch<Mode::kProduct, false, float>(a, stream)
+            : dispatch<Mode::kProduct, false, __nv_bfloat16>(a, stream));
 }
 
 // The probes' builds of the main loop: mode 1 the int32 accumulation, mode 2
@@ -938,9 +1060,13 @@ extern "C" int capf_int8_requant(const Int8RequantArgs* args, int device,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int capf_int8_quantize(const void* x, const float* amax, void* out,
-                                  long long n, int form, int device,
-                                  cudaStream_t stream) {
+namespace {
+
+// K10q on In values; the entries below take bf16 (capf_int8_quantize) or
+// fp32 (capf_int8_quantize_f32) with the same arguments
+template <typename In>
+int quantize(const void* x, const float* amax, void* out, long long n,
+             int form, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n < 16 || n % 16 || form < kStepDynamic || form > kScale) {
@@ -957,24 +1083,24 @@ extern "C" int capf_int8_quantize(const void* x, const float* amax, void* out,
   const uint4* src = static_cast<const uint4*>(x);
   uint4* dst = static_cast<uint4*>(out);
   if (form == kStepDynamic) {
-    int8_quantize_kernel<kStepDynamic>
+    int8_quantize_kernel<kStepDynamic, In>
         <<<grid, kQuantThreads, 0, stream>>>(src, amax, dst, groups);
   } else if (form == kStepCalibrated) {
-    int8_quantize_kernel<kStepCalibrated>
+    int8_quantize_kernel<kStepCalibrated, In>
         <<<grid, kQuantThreads, 0, stream>>>(src, amax, dst, groups);
   } else {
-    int8_quantize_kernel<kScale>
+    int8_quantize_kernel<kScale, In>
         <<<grid, kQuantThreads, 0, stream>>>(src, amax, dst, groups);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// ``rows`` (ops/int8_conv.py::quant_pool_rows) output rows a block; the
-// block's shared memory holds min(2 rows + 1, H) input rows
-extern "C" int capf_int8_quant_pool(const void* x, const float* amax,
-                                    void* out, int batch, int h, int w, int c,
-                                    int rows, int device,
-                                    cudaStream_t stream) {
+// K10p on In values, ``rows`` (ops/int8_conv.py::quant_pool_rows) output
+// rows a block; the block's shared memory holds min(2 rows + 1, H) input
+// rows
+template <typename In>
+int quant_pool(const void* x, const float* amax, void* out, int batch, int h,
+               int w, int c, int rows, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (batch < 1 || h < 1 || w < 1 || c < 16 || c % 16 || rows < 1) {
@@ -982,21 +1108,52 @@ extern "C" int capf_int8_quant_pool(const void* x, const float* amax,
   }
   const int ho = (h + 1) / 2, wo = (w + 1) / 2;
   const int staged = 2 * rows + 1 < h ? 2 * rows + 1 : h;
-  const long long smem = 2LL * staged * w * c;
+  const long long smem = 1LL * sizeof(In) * staged * w * c;
   const long long strips = (ho + rows - 1) / rows;
   if (smem > kSmemLimit || 1LL * batch * strips > (1LL << 31) - 1 ||
       1LL * ho * wo * (c / 16) > (1LL << 31) - 1) {
     return cudaErrorInvalidValue;
   }
-  static bool opted = false;  // once (one device)
+  static bool opted = false;  // once per instantiation (one device)
   if (!opted) {
-    err = capf::allow_smem(int8_quant_pool_kernel, kSmemLimit);
+    err = capf::allow_smem(int8_quant_pool_kernel<In>, kSmemLimit);
     if (err != cudaSuccess) return err;
     opted = true;
   }
-  int8_quant_pool_kernel<<<static_cast<unsigned>(batch * strips),
-                           kPoolThreads, static_cast<size_t>(smem), stream>>>(
-      static_cast<const __nv_bfloat16*>(x), amax, static_cast<int8_t*>(out),
-      h, w, c, ho, wo, rows);
+  int8_quant_pool_kernel<In>
+      <<<static_cast<unsigned>(batch * strips), kPoolThreads,
+         static_cast<size_t>(smem), stream>>>(
+          static_cast<const In*>(x), amax, static_cast<int8_t*>(out), h, w,
+          c, ho, wo, rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int capf_int8_quantize(const void* x, const float* amax, void* out,
+                                  long long n, int form, int device,
+                                  cudaStream_t stream) {
+  return quantize<__nv_bfloat16>(x, amax, out, n, form, device, stream);
+}
+
+extern "C" int capf_int8_quantize_f32(const void* x, const float* amax,
+                                      void* out, long long n, int form,
+                                      int device, cudaStream_t stream) {
+  return quantize<float>(x, amax, out, n, form, device, stream);
+}
+
+extern "C" int capf_int8_quant_pool(const void* x, const float* amax,
+                                    void* out, int batch, int h, int w, int c,
+                                    int rows, int device,
+                                    cudaStream_t stream) {
+  return quant_pool<__nv_bfloat16>(x, amax, out, batch, h, w, c, rows, device,
+                                   stream);
+}
+
+extern "C" int capf_int8_quant_pool_f32(const void* x, const float* amax,
+                                        void* out, int batch, int h, int w,
+                                        int c, int rows, int device,
+                                        cudaStream_t stream) {
+  return quant_pool<float>(x, amax, out, batch, h, w, c, rows, device,
+                           stream);
 }

@@ -175,7 +175,7 @@ __device__ __forceinline__ int4 quantize16(int4 lo, int4 hi, float scale) {
 
 using bf2 = __nv_bfloat162;
 
-// K10's folded affine (common.cuh's affine_bf16) on two channels at once:
+// K10's folded affine (common.cuh's affine<bf16>) on two channels at once:
 // bf16(acc) from its exact fp32 value, times the bf16 scale, plus the bf16
 // bias, each rounded once to bf16. A product of two bf16 values is exact in
 // fp32, and so is a sum whose terms lie within 16 binades; a sum further
@@ -287,18 +287,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the folded scales and biases, bf16 values (folded_scale rounds)
   auto bf = [](float v) { return __float2bfloat16(v); };
   for (int i = tid; i < kPlanes; i += kThreads) {
-    eff1[i] = bf(folded_scale(a.sc1[i], a.ws1[i], step_in));
+    eff1[i] = bf(folded_scale<__nv_bfloat16>(a.sc1[i], a.ws1[i], step_in));
     b1[i] = bf(a.bi1[i]);
-    eff2[i] = bf(folded_scale(a.sc2[i], a.ws2[i],
+    eff2[i] = bf(folded_scale<__nv_bfloat16>(a.sc2[i], a.ws2[i],
                               __fmul_rn(a_t1, capf::kRecip127)));
     b2[i] = bf(a.bi2[i]);
   }
   for (int i = tid; i < kExp; i += kThreads) {
-    eff3[i] = bf(folded_scale(a.sc3[i], a.ws3[i],
+    eff3[i] = bf(folded_scale<__nv_bfloat16>(a.sc3[i], a.ws3[i],
                               __fmul_rn(a_t2, capf::kRecip127)));
     b3[i] = bf(a.bi3[i]);
     if constexpr (kFirst) {
-      effd[i] = bf(folded_scale(a.scd[i], a.wsd[i], step_in));
+      effd[i] = bf(folded_scale<__nv_bfloat16>(a.scd[i], a.wsd[i], step_in));
       bd[i] = bf(a.bid[i]);
     }
   }

@@ -14,23 +14,27 @@ zero padding (k - 1) // 2:
     float x, amax=None:        step = max|x| / 127            (dynamic)
                                xq = clip(round(x / step), -127, 127)
     acc = conv(xq, kernel_q)                      int32, exact
-    y = bf16(acc) * bf16(scale * wscale * step) + bf16(bias)
-    y = y + residual                              optional, in bf16
+    y = E(acc) * E(scale * wscale * step) + E(bias)
+    y = y + residual                              optional, in E
     y = relu(y)                                   optional
     out = y, or clip(round(y * (127 / max(out_amax, 1e-12))), -127, 127)
 
-with the JAX package's rounding points as it serves them (under ``jit``):
-fp32 for the scales (``/ 127`` as a multiplication by fl32(1/127), while
-``127 / amax`` stays an IEEE division), the division by ``step``, the
-requantization and the round-half-even; the affine as a bf16 multiply and a
-bf16 add, two roundings; the residual add in bf16. A residual is the
-downsample conv's output in the conv's dtype, or an int8 skip with its
-calibrated amax, dequantized as ``bf16(xq) * bf16(max(amax, 1e-12) / 127)``
-(``cpn.py:139``). The kernel is ``csrc/int8_conv.cu``. A float input is
-quantized once, as the JAX package does (``backbone_common.py:192-203``), by
-the quantize pass (K10q, its step form) into an int8 scratch tensor (its
-launches counted in ``launches_quantize``); the max|x| reduction of the
-dynamic route comes from ``torch``, as the JAX package computes it outside
+with E the backbone's compute dtype (``dtype``: bf16, or fp32 where the
+backbone computes in fp32, as the JAX package's ``ConvBN`` runs its
+epilogue in ``self.dtype``) and the JAX package's rounding points as it
+serves them (under ``jit``): fp32 for the scales (``/ 127`` as a
+multiplication by fl32(1/127), while ``127 / amax`` stays an IEEE
+division), the division by ``step``, the requantization and the
+round-half-even; the affine as an E multiply and an E add, two roundings
+(no FMA, also in fp32); the residual add in E. A residual is the
+downsample conv's output in E, or an int8 skip with its calibrated amax,
+dequantized as ``E(xq) * E(max(amax, 1e-12) / 127)`` (``cpn.py:139``).
+The kernel is ``csrc/int8_conv.cu``, one template for both E. A float
+input is quantized once, as the JAX package does
+(``backbone_common.py:192-203``), by the quantize pass (K10q, its step
+form) into an int8 scratch tensor (its launches counted in
+``launches_quantize``); the max|x| reduction of the dynamic route comes
+from ``torch``, as the JAX package computes it outside
 any kernel too. The convolution then always reads int8: an implicit GEMM on
 ``wgmma`` whose tile ``plan`` picks per shape.
 
@@ -38,7 +42,8 @@ The CPN int8 stream's own quantizes run on the same kernels: ``quant``
 (K10q's scale form, ``clip(round(t * (127 / amax)))``, the JAX package's
 ``_quant_i8``) and ``quant_max_pool_3x3_s2`` (K10p, the stem's quantize and
 3x3/s2 max-pool in one pass, counted in ``launches_quant_pool``), each a
-dispatcher beside its plain version.
+dispatcher beside its plain version. K10q and K10p take a bf16 or an fp32
+tensor, as the backbone computes.
 """
 
 from __future__ import annotations
@@ -108,7 +113,7 @@ def quant(t: torch.Tensor, amax: torch.Tensor,
           impl: str = "auto") -> torch.Tensor:
     """Dispatcher of ``quant_reference``: the plain version for a CPU tensor
     or ``impl="plain"``, K10q's scale form for any other (which raises
-    unless it is a CUDA bf16 tensor)."""
+    unless it is a CUDA bf16 or fp32 tensor)."""
     if impl == "plain" or t.device.type == "cpu":
         return quant_reference(t, amax)
     if impl != "auto":
@@ -143,7 +148,8 @@ def quant_max_pool_3x3_s2_reference(x: torch.Tensor,
 def quant_max_pool_3x3_s2(x: torch.Tensor, amax: torch.Tensor,
                           impl: str = "auto") -> torch.Tensor:
     """Dispatcher: the plain version for a CPU tensor or ``impl="plain"``,
-    K10p for any other (which raises unless it is a CUDA bf16 tensor)."""
+    K10p for any other (which raises unless it is a CUDA bf16 or fp32
+    tensor)."""
     if impl == "plain" or x.device.type == "cpu":
         return quant_max_pool_3x3_s2_reference(x, amax)
     if impl != "auto":
@@ -169,12 +175,14 @@ def _kernel_size(kernel_q: torch.Tensor, cin: int) -> int:
 
 def _conv64(x, kernel, stride):
     """conv(x, kernel) in float64, NHWC in and out, ``kernel`` (Cout,
-    kh*kw*Cin) with K ordered (kh, kw, Cin)."""
+    kh*kw*Cin) with K ordered (kh, kw, Cin). The output is laid out NHWC,
+    as the kernel writes it: the float ops downstream (a resize, a cuDNN
+    conv) then take the same route, and round alike, after either."""
     ksize = _kernel_size(kernel, x.shape[-1])
     w = kernel.reshape(kernel.shape[0], ksize, ksize, -1)
     return F.conv2d(x.permute(0, 3, 1, 2).double(),
                     w.permute(0, 3, 1, 2).double(), stride=stride,
-                    padding=(ksize - 1) // 2).permute(0, 2, 3, 1)
+                    padding=(ksize - 1) // 2).permute(0, 2, 3, 1).contiguous()
 
 
 def accumulate_float(x, kernel, stride):
@@ -208,13 +216,16 @@ def quantize_reference(x, amax):
                        127).to(torch.int8)
 
 
-def plan_smem(tile_n: int) -> int:
+def plan_smem(tile_n: int, dtype=torch.bfloat16) -> int:
     """The most shared memory a block of the 64 x ``tile_n`` tile takes
-    (``csrc/int8_conv.cu`` ``Tile::kSmemMax``): the slack that aligns the
-    ring to 1024 bytes, the full ring (which the staged tile reuses), a
-    bf16 residual tile, the barriers and the epilogue's scales."""
+    with an epilogue in ``dtype`` (``csrc/int8_conv.cu``
+    ``Tile::smem_max``): the slack that aligns the ring to 1024 bytes, the
+    full ring (which the staged tile of ``dtype`` values reuses), a
+    residual tile of ``dtype``, the barriers and the epilogue's scales."""
+    elem = torch.empty((), dtype=dtype).element_size()
     return (1024 + STAGES * (BLOCK_M + tile_n) * K_TILE
-            + BLOCK_M * tile_n * 2 + (2 * STAGES + 1) * 8 + 2 * tile_n * 4)
+            + BLOCK_M * tile_n * elem + (2 * STAGES + 1) * 8
+            + 2 * tile_n * 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -263,7 +274,7 @@ class _Args(ctypes.Structure):
         "x", "wq", "wscale", "scale", "bias", "amax", "res", "res_amax",
         "out_amax", "out")] + [(n, ctypes.c_int) for n in (
             "batch", "h", "w", "cin", "cout", "ksize", "stride", "ho", "wo",
-            "clamp_amax", "res_int8", "relu", "tile_n")]
+            "clamp_amax", "res_int8", "relu", "tile_n", "f32")]
 
 
 def out_size(size: int, ksize: int, stride: int) -> int:
@@ -293,10 +304,11 @@ def _scalar(name, t):
 
 def _quant_operands(name, x, amax):
     """The checks K10q and K10p make before they launch, the device's
-    last: bf16 ``x`` starting on a 16-byte boundary and an fp32 one-element
-    ``amax``, on one CUDA device, contiguous."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel takes bf16 x, got "
+    last: a bf16 or fp32 ``x`` (the backbone's compute dtype) starting on a
+    16-byte boundary and an fp32 one-element ``amax``, on one CUDA device,
+    contiguous. Returns the suffix of the C entry for ``x``'s dtype."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: the CUDA kernel takes bf16 or fp32 x, got "
                         f"{x.dtype}")
     if amax.dtype != torch.float32 or amax.numel() != 1:
         raise TypeError(f"{name}: amax must be an fp32 tensor of one "
@@ -304,12 +316,13 @@ def _quant_operands(name, x, amax):
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: x must start on a 16-byte boundary")
     _build.require_cuda(name, x, amax)
+    return "_f32" if x.dtype == torch.float32 else ""
 
 
 def quantize_kernel(x, amax, clamp, form="step"):
-    """K10q on the card: bf16 ``x`` -> int8 into a fresh tensor (numel a
-    multiple of 16). ``form="step"``: ``quantize_reference``'s function,
-    with the step of ``amax`` (fp32, one element: calibrated with
+    """K10q on the card: bf16 or fp32 ``x`` -> int8 into a fresh tensor
+    (numel a multiple of 16). ``form="step"``: ``quantize_reference``'s
+    function, with the step of ``amax`` (fp32, one element: calibrated with
     ``clamp``, max|x| without); ``form="scale"``: ``quant_reference``'s
     (``amax`` always clamped at 1e-12; ``clamp`` must be True)."""
     global launches_quantize
@@ -320,49 +333,50 @@ def quantize_kernel(x, amax, clamp, form="step"):
     if x.numel() % GROUP or not x.numel():
         raise ValueError(f"{name}: x must hold a non-zero multiple of "
                          f"{GROUP} values, got {tuple(x.shape)}")
-    _quant_operands(name, x, amax)
+    entry = "capf_int8_quantize" + _quant_operands(name, x, amax)
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     lib = _build.library()
-    err = lib.capf_int8_quantize(x.data_ptr(), amax.data_ptr(),
-                                 out.data_ptr(), x.numel(), mode,
-                                 *_build.launch_target(x))
+    err = getattr(lib, entry)(x.data_ptr(), amax.data_ptr(), out.data_ptr(),
+                              x.numel(), mode, *_build.launch_target(x))
     _build.check(lib, err, name)
     launches_quantize += 1
     return out
 
 
-def quant_pool_rows(h: int, w: int, c: int) -> int:
-    """K10p's plan: the output rows a block owns, the most whose 2 rows + 1
-    input rows fit POOL_SMEM (at least one strip of three rows, which
-    must fit the block's shared memory). At the stem, (128, 96, 64), that
-    is one row, 36 KB: on the card 1 row took 0.0447 ms, 2 rows 0.0459, 3
-    and 4 rows 0.048 (PERF.md)."""
-    ho, row = (h + 1) // 2, w * c * 2
+def quant_pool_rows(h: int, w: int, c: int, itemsize: int = 2) -> int:
+    """K10p's plan for input values of ``itemsize`` bytes (2 bf16, 4 fp32):
+    the output rows a block owns, the most whose 2 rows + 1 input rows fit
+    POOL_SMEM, or else one row, a strip of three input rows past POOL_SMEM
+    up to the block's opt-in limit (``_build.SMEM_LIMIT``; a wider row is
+    refused). At the bf16 stem, (128, 96, 64), that is one row, 36 KB: on
+    the card 1 row took 0.0447 ms, 2 rows 0.0459, 3 and 4 rows 0.048
+    (PERF.md); at the fp32 stem one row, 72 KB, past POOL_SMEM."""
+    ho, row = (h + 1) // 2, w * c * itemsize
     rows = max(1, min(ho, (POOL_SMEM // row - 1) // 2))
     if min(2 * rows + 1, h) * row > _build.SMEM_LIMIT:
-        raise ValueError(f"int8_quant_pool: a row of {w} x {c} bf16 values "
-                         "leaves no room for the three rows a strip needs")
+        raise ValueError(f"int8_quant_pool: a row of {w} x {c} values of "
+                         f"{itemsize} bytes leaves no room for the three "
+                         "rows a strip needs")
     return rows
 
 
 def quant_max_pool_kernel(x, amax):
-    """K10p on the card: bf16 NHWC ``x`` (B, H, W, C), C a multiple of 16
-    -> int8 (B, ceil(H/2), ceil(W/2), C), the function of
+    """K10p on the card: bf16 or fp32 NHWC ``x`` (B, H, W, C), C a multiple
+    of 16 -> int8 (B, ceil(H/2), ceil(W/2), C), the function of
     ``quant_max_pool_3x3_s2_reference``."""
     global launches_quant_pool
     name = "int8_quant_pool"
     if x.dim() != 4 or x.shape[-1] % GROUP or not x.numel():
         raise ValueError(f"{name}: x must be NHWC with C a multiple of "
                          f"{GROUP}, got {tuple(x.shape)}")
-    _quant_operands(name, x, amax)
+    entry = "capf_int8_quant_pool" + _quant_operands(name, x, amax)
     b, h, w, c = x.shape
-    rows = quant_pool_rows(h, w, c)
+    rows = quant_pool_rows(h, w, c, x.element_size())
     out = torch.empty((b, (h + 1) // 2, (w + 1) // 2, c), dtype=torch.int8,
                       device=x.device)
     lib = _build.library()
-    err = lib.capf_int8_quant_pool(x.data_ptr(), amax.data_ptr(),
-                                   out.data_ptr(), b, h, w, c, rows,
-                                   *_build.launch_target(x))
+    err = getattr(lib, entry)(x.data_ptr(), amax.data_ptr(), out.data_ptr(),
+                              b, h, w, c, rows, *_build.launch_target(x))
     _build.check(lib, err, name)
     launches_quant_pool += 1
     return out
@@ -371,22 +385,23 @@ def quant_max_pool_kernel(x, amax):
 def int8_conv_kernel(x, kernel_q, wscale, scale, bias, amax, stride, relu,
                      dtype=torch.bfloat16, residual=None, res_amax=None,
                      out_amax=None):
-    """The CUDA kernel: same contract as ``int8_conv_reference``, for a
-    bf16 (or, with ``out_amax``, int8) output; ``x`` int8 or bf16 with Cin
-    a multiple of 16, Cout a multiple of 8, fp32 ``wscale``/``scale``/
-    ``bias``, a bf16 or int8 ``residual``. A bf16 ``x`` goes through the
-    quantize pass first. Where K = kh*kw*Cin does not fill whole 128-byte
+    """The CUDA kernel: same contract as ``int8_conv_reference``, with the
+    epilogue in ``dtype`` (bf16 or fp32) and a ``dtype`` (or, with
+    ``out_amax``, int8) output; ``x`` int8 or ``dtype`` with Cin a multiple
+    of 16, Cout a multiple of 8, fp32 ``wscale``/``scale``/``bias``, a
+    ``dtype`` or int8 ``residual``. A float ``x`` goes through the quantize
+    pass first. Where K = kh*kw*Cin does not fill whole 128-byte
     stages (Cin 16 or 48: K 144 or 432), the last stage's tail is zero on
     both sides: A's pieces past K load nothing (``cp.async`` with a source
     size of 0) and the weight map's box past K is the TMA's zero fill, the
     kernel's zero K columns."""
     global launches
     name = "int8_conv"
-    if dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel computes in bf16, not "
-                        f"{dtype}")
-    if x.dim() != 4 or x.dtype not in (torch.int8, torch.bfloat16):
-        raise TypeError(f"{name}: x must be NHWC int8 or bf16, got "
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: the CUDA kernel computes in bf16 or fp32, "
+                        f"not {dtype}")
+    if x.dim() != 4 or x.dtype not in (torch.int8, dtype):
+        raise TypeError(f"{name}: x must be NHWC int8 or {dtype}, got "
                         f"{tuple(x.shape)} {x.dtype}")
     b, h, w, cin = x.shape
     cout = kernel_q.shape[0]
@@ -410,8 +425,8 @@ def int8_conv_kernel(x, kernel_q, wscale, scale, bias, amax, stride, relu,
     fields = {}
     if residual is not None:
         if (residual.shape != (b, ho, wo, cout)
-                or residual.dtype not in (torch.int8, torch.bfloat16)):
-            raise TypeError(f"{name}: residual must be bf16 or int8 "
+                or residual.dtype not in (torch.int8, dtype)):
+            raise TypeError(f"{name}: residual must be {dtype} or int8 "
                             f"{(b, ho, wo, cout)}, got {residual.dtype} "
                             f"{tuple(residual.shape)}")
         keep.append(residual)
@@ -429,14 +444,14 @@ def int8_conv_kernel(x, kernel_q, wscale, scale, bias, amax, stride, relu,
     if any(t.data_ptr() % 16 for t in (x, kernel_q, *keep[5:])):
         raise ValueError(f"{name}: x, kernel_q and residual must start on a "
                          "16-byte boundary (16-byte loads)")
-    if x.dtype == torch.bfloat16:
+    if x.dtype != torch.int8:
         x = quantize_kernel(x, amax, clamp)
     out = torch.empty((b, ho, wo, cout), device=x.device,
-                      dtype=torch.bfloat16 if out_amax is None
-                      else torch.int8)
+                      dtype=dtype if out_amax is None else torch.int8)
     args = conv_args(x, kernel_q, amax, stride, out, wscale=wscale.data_ptr(),
                      scale=scale.data_ptr(), bias=bias.data_ptr(),
-                     clamp_amax=int(clamp), relu=int(relu), **fields)
+                     clamp_amax=int(clamp), relu=int(relu),
+                     f32=int(dtype == torch.float32), **fields)
     lib = _build.library()
     err = lib.capf_int8_conv(ctypes.addressof(args),
                              *_build.launch_target(x))

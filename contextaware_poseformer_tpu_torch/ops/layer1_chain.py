@@ -105,28 +105,31 @@ def plan(batch: int, h: int, w: int, cin: int, sms: int = SMS) -> Plan:
     return Plan(rows, strips, min(strips, sms), lead, DEPTH, smem)
 
 
-def layer1_int8_chain(x, in_amax, blocks, conv=int8_conv.int8_conv):
+def layer1_int8_chain(x, in_amax, blocks, conv=int8_conv.int8_conv,
+                      quant=quant_reference):
     """The per-conv chain (the JAX package's ``layer1_impl="xla"``):
     ``x`` (B, H, W, 64) float -> int8 (B, H, W, 256), each conv through
-    ``conv`` (K10's dispatcher, or its plain version). ``blocks``: four
-    dicts with the (kernel_q, wscale, scale, bias) pieces of ``conv1``,
-    ``conv2``, ``conv3`` and ``downsample`` (block 0 only, else None) and
-    the calibrated amax scalars ``t1``, ``t2`` and ``out``."""
+    ``conv`` (K10's dispatcher, or its plain version) and each quantize
+    through ``quant`` (K10q's dispatcher ``int8_conv.quant``, or its plain
+    version). ``blocks``: four dicts with the (kernel_q, wscale, scale,
+    bias) pieces of ``conv1``, ``conv2``, ``conv3`` and ``downsample``
+    (block 0 only, else None) and the calibrated amax scalars ``t1``,
+    ``t2`` and ``out``."""
     dtype = x.dtype
     a = in_amax
-    xq = quant_reference(x, a)
+    xq = quant(x, a)
     for blk in blocks:
         y = conv(xq, *blk["conv1"], a, 1, True, dtype)
-        y = conv(quant_reference(y, blk["t1"]), *blk["conv2"], blk["t1"], 1,
-                 True, dtype)
-        y = conv(quant_reference(y, blk["t2"]), *blk["conv3"], blk["t2"], 1,
-                 False, dtype)
+        y = conv(quant(y, blk["t1"]), *blk["conv2"], blk["t1"], 1, True,
+                 dtype)
+        y = conv(quant(y, blk["t2"]), *blk["conv3"], blk["t2"], 1, False,
+                 dtype)
         if blk["downsample"] is not None:
             res = conv(xq, *blk["downsample"], a, 1, False, dtype)
         else:
             res = int8_conv.dequant(xq, a, dtype)
         a = blk["out"]
-        xq = quant_reference(torch.relu(y + res), a)
+        xq = quant(torch.relu(y + res), a)
     return xq
 
 

@@ -524,6 +524,57 @@ def test_deploy_graph_runs_every_jax_int8_conv_through_k10(monkeypatch):
     assert bool(torch.isfinite(out).all())
 
 
+def test_fp32_deploy_graph_runs_every_int8_conv_through_k10(monkeypatch):
+    """The tiny deploy graph with an fp32 backbone
+    (``serve.build_model(cfg, torch.float32, "cpu")``, as the JAX package
+    serves it at ``use_bf16=False``): each of its 47 int8 convolutions
+    reaches K10's dispatcher with ``dtype`` float32 and an int8 or fp32
+    input, an fp32 residual where it has one, and the stream's
+    quantizes reach ``quant`` (4 calls) and ``quant_max_pool_3x3_s2`` (1)
+    with fp32 tensors; the poses are finite."""
+    from contextaware_poseformer_tpu_torch.models import cpn as cpn_module
+
+    calls, quants = [], []
+    real = int8_conv.int8_conv
+
+    def k10(x, kq, ws, sc, bi, amax, stride, relu, dtype=torch.bfloat16,
+            impl="auto", residual=None, res_amax=None, out_amax=None):
+        calls.append((x.dtype, dtype,
+                      None if residual is None else residual.dtype))
+        return real(x, kq, ws, sc, bi, amax, stride, relu, dtype, impl,
+                    residual, res_amax, out_amax)
+
+    def spy(name, fn):
+        def run(x, amax, impl="auto"):
+            quants.append((name, x.dtype))
+            return fn(x, amax, impl)
+        return run
+
+    monkeypatch.setattr(int8_conv, "int8_conv", k10)
+    for name in ("quant", "quant_max_pool_3x3_s2"):
+        monkeypatch.setattr(cpn_module, name,
+                            spy(name, getattr(cpn_module, name)))
+    cfg = _small(serve.deploy_config("h36m_cpn"))
+    model = serve.build_model(cfg.model, torch.float32, "cpu",
+                              generator=torch.Generator().manual_seed(0))
+    assert model.backbone.dtype == torch.float32
+    frames = torch.randint(0, 256, (2, *HW, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(1))
+    serve.prepare(model, [frames])
+    calls.clear()
+    quants.clear()
+    out = serve.lift(model, frames, torch.zeros(2, 17, 2),
+                     torch.full((2, 17, 2), 32.0))
+    assert len(calls) == SMALL_INT8_CONVS
+    assert {d for _, d, _ in calls} == {torch.float32}
+    assert {x for x, _, _ in calls} == {torch.int8, torch.float32}
+    # every block of the tiny graph has a downsample: no int8 skip
+    assert {r for _, _, r in calls} == {None, torch.float32}
+    assert sorted(quants) == [("quant", torch.float32)] * 4 + [
+        ("quant_max_pool_3x3_s2", torch.float32)]
+    assert bool(torch.isfinite(out).all())
+
+
 def test_deploy_config_and_its_int8_convs():
     """``deploy_config("h36m_cpn")`` is ``deploy(preset("h36m_cpn"))``
     unchanged: static amax, the int8 stream and int8 maps; every conv but

@@ -329,14 +329,15 @@ K10_SHAPES = [(f"{tag} {name}", *rest)
               for name, *rest in _k10_shapes([d[2] for d in dims])]
 
 
-def _int8_conv_case(g, dev, b, h, w, cin, cout, k, int8_in):
+def _int8_conv_case(g, dev, b, h, w, cin, cout, k, int8_in,
+                    dtype=torch.bfloat16):
     if int8_in:
         x = torch.randint(-127, 128, (b, h, w, cin), generator=g,
                           dtype=torch.int8).to(dev)
         amax = torch.tensor(9.5, device=dev)
     else:  # post-ReLU, as the wide convs see their inputs (half zeros)
         x = torch.relu(torch.randn(b, h, w, cin, generator=g) * 2).to(
-            dev, torch.bfloat16)
+            dev, dtype)
         amax = None
     kq = torch.randint(-127, 128, (cout, k * k * cin), generator=g,
                        dtype=torch.int8).to(dev)
@@ -1010,16 +1011,18 @@ def _k10_variants():
 
 
 def _k10_variant_args(g, dev, b, h, w, cin, cout, k, stride, kind, res,
-                      out8):
+                      out8, dtype=torch.bfloat16):
+    """A K10 call's (positional arguments up to ``stride``, keywords); a
+    float input and a "bf16" residual in ``dtype``, the epilogue's."""
     x, kq, vecs, amax = _int8_conv_case(g, dev, b, h, w, cin, cout, k,
-                                        kind == "int8")
+                                        kind == "int8", dtype)
     if kind == "static":
         amax = torch.tensor(4.5, device=dev)  # some values clip
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     kw = {"out_amax": torch.tensor(20.0, device=dev) if out8 else None}
     if res == "bf16":
         kw["residual"] = (torch.randn(b, ho, wo, cout, generator=g) * 3).to(
-            dev, torch.bfloat16)
+            dev, dtype)
     elif res == "int8":
         kw["residual"] = torch.randint(-127, 128, (b, ho, wo, cout),
                                        generator=g, dtype=torch.int8).to(dev)
@@ -1067,6 +1070,48 @@ def test_k10_every_tile_matches_plain_version(cuda_device, monkeypatch,
             out = int8_conv.int8_conv(*args, True, **kw)
             ref = int8_conv.int8_conv_reference(*args, True, **kw)
         assert torch.equal(out, ref), (tile, kind)
+
+
+# K10 with an fp32 epilogue (a backbone computing in fp32): (name, batch,
+# H, W, Cin, Cout, k, stride); Cin 16, 48 and 64 (K tails zero-filled at
+# 16 and 48), stride 2, ragged M and N
+K10_FP32 = [
+    ("Cin 16, 16x12 16->32 k3", 2, 16, 12, 16, 32, 3, 1),
+    ("Cin 48 s2, 16x12 48->96 k3", 2, 16, 12, 48, 96, 3, 2),
+    ("Cin 48, 8x6 48->48 k1", 3, 8, 6, 48, 48, 1, 1),
+    ("Cin 64, 16x12 64->64 k3", 2, 16, 12, 64, 64, 3, 1),
+    ("8x6 s2 -> 4x3, 64->72 k3", 2, 8, 6, 64, 72, 3, 2),
+    ("Cout 200, 8x6 64->200 k1", 3, 8, 6, 64, 200, 1, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", int8_conv.TILE_N)
+@pytest.mark.parametrize("case", K10_FP32, ids=lambda c: c[0])
+def test_k10_fp32_epilogue_every_variant(cuda_device, monkeypatch, case,
+                                         tile):
+    """K10 with its epilogue in fp32, each tile width forced, in every
+    variant (int8, dynamic or calibrated fp32 input; no, fp32 or int8
+    residual; ReLU or not; fp32 or requantized int8 output): equal to the
+    plain version bit for bit, one K10 launch and one quantize launch for
+    an fp32 input."""
+    monkeypatch.setattr(int8_conv, "plan", lambda m, n: tile)
+    _, b, h, w, cin, cout, k, stride = case
+    g = torch.Generator().manual_seed(b + cin + cout + k + stride + tile)
+    f32 = torch.float32
+    for kind, res, relu, out8 in _k10_variants():
+        args, kw = _k10_variant_args(g, cuda_device, b, h, w, cin, cout, k,
+                                     stride, kind, res, out8, f32)
+        before = (int8_conv.launches, int8_conv.launches_quantize)
+        with torch.inference_mode():
+            out = int8_conv.int8_conv(*args, relu, f32, **kw)
+            ref = int8_conv.int8_conv_reference(*args, relu, f32, **kw)
+        assert (int8_conv.launches, int8_conv.launches_quantize) == (
+            before[0] + 1, before[1] + int(kind != "int8"))
+        assert out.dtype == ref.dtype == (torch.int8 if out8 else f32)
+        assert out.shape == ref.shape
+        assert torch.equal(out, ref), (kind, res, relu, out8, (
+            out.float() - ref.float()).abs().max())
 
 
 def _step_plain(x, amax, clamp):
@@ -1144,6 +1189,139 @@ def test_quantize_pass_on_every_bf16_pattern(cuda_device, form):
         for x in (finite, rand.to(cuda_device)):
             got = int8_conv.quantize_kernel(x, int8_conv.absmax(x), False)
             assert torch.equal(got, int8_conv.quantize_reference(x, None))
+
+
+def _fp32_edges(amax):
+    """fp32 values where the step and scale forms could part from their
+    plain versions: +-0, exact halves of the step 1/16 and their
+    neighbours, +-amax and their neighbours, subnormals, the largest
+    finite value, +-inf and NaN (a multiple of 16 values)."""
+    halves = (torch.arange(-256, 257, dtype=torch.float32) + 0.5) / 16
+    near = torch.cat([torch.nextafter(halves, torch.tensor(-1e30)),
+                      torch.nextafter(halves, torch.tensor(1e30))])
+    a = torch.tensor([amax, -amax], dtype=torch.float32)
+    special = torch.tensor([0.0, -0.0, 1e-45, -1e-45, 1.1754942e-38,
+                            3.4028235e38, -3.4028235e38, float("inf"),
+                            float("-inf"), float("nan")])
+    x = torch.cat([halves, near, a, torch.nextafter(a, torch.zeros(2)),
+                   torch.nextafter(a, a * 2), special])
+    return torch.cat([x, torch.zeros(-x.numel() % 16)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["step dynamic", "step calibrated",
+                                  "scale"])
+def test_quantize_pass_fp32_matches_plain_version(cuda_device, form):
+    """K10q on fp32 inputs equals its plain version bit for bit in each
+    form, at each amax of K10Q_AMAXES: on the edge values of
+    ``_fp32_edges`` and on 2^24 random fp32 bit patterns (NaN, +-inf and
+    subnormals among them); one launch a call."""
+    g = torch.Generator().manual_seed(7)
+    rand = torch.randint(-2 ** 31, 2 ** 31, (2 ** 24,), generator=g,
+                         dtype=torch.int64).to(torch.int32).view(
+        torch.float32).to(cuda_device)
+    for amax in K10Q_AMAXES:
+        a = torch.tensor(amax, dtype=torch.float32, device=cuda_device)
+        for x in (_fp32_edges(127 / 16).to(cuda_device), rand):
+            before = int8_conv.launches_quantize
+            if form == "scale":
+                got = int8_conv.quantize_kernel(x, a, True, form="scale")
+                want = int8_conv.quant_reference(x, a)
+            else:
+                clamp = form == "step calibrated"
+                got = int8_conv.quantize_kernel(x, a, clamp)
+                want = _step_plain(x, a, clamp)
+            assert int8_conv.launches_quantize == before + 1
+            assert torch.equal(got, want), (form, amax,
+                                            int((got != want).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(64, 128, 96, 64), (2, 15, 11, 32),
+                                   (3, 9, 13, 64), (1, 1, 1, 16)])
+def test_quant_pool_with_nan_inf_and_zeros(cuda_device, shape, dtype):
+    """K10p, bf16 and fp32, equals ``max_pool_3x3_s2(quant(x, amax))`` bit
+    for bit on a tensor seeded with NaN (a NaN quantizes to 0, so a window
+    of NaN and negative values pools to 0), +-inf and +-0, a twentieth of
+    the values each and the first five values one each, one launch a
+    call."""
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(*shape, generator=g) * 3
+    pick = torch.randint(0, 20, shape, generator=g)
+    pick.view(-1)[:5] = torch.arange(5)
+    for i, v in enumerate((float("nan"), float("inf"), float("-inf"), 0.0,
+                           -0.0)):
+        x = torch.where(pick == i, torch.tensor(v), x)
+    x = x.to(dtype).to(cuda_device)
+    a = torch.tensor(4.1, device=cuda_device)
+    before = int8_conv.launches_quant_pool
+    got = int8_conv.quant_max_pool_3x3_s2(x, a)
+    assert int8_conv.launches_quant_pool == before + 1
+    want = backbone_common.max_pool_3x3_s2(int8_conv.quant_reference(x, a))
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    assert torch.equal(got, int8_conv.quant_max_pool_3x3_s2_reference(x, a))
+    assert bool(torch.isnan(x).any())
+
+
+# one request of an fp32 deploy graph (``config.deploy`` built in fp32):
+# K10, K10q and K10p a request, K9 none
+FP32_DEPLOY_COUNTS = {"h36m_cpn": (83, 7, 1), "h36m_hrnet_32": (100, 98, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FP32_DEPLOY_COUNTS))
+def test_fp32_deploy_request_matches_plain_version(cuda_device, name,
+                                                   monkeypatch):
+    """One request (batch 2) of ``config.deploy(preset(name))`` with its
+    backbone built in fp32 (``serve.build_model(..., torch.float32,
+    ...)``), after ``serve.prepare``: K10, K10q and K10p at their counts
+    (the CPN 83/7/1; HRNet 100 convs, its per-conv layer1's 13 among them,
+    and 85 + 13 quantizes; K9 none); against the plain graph (the same
+    state with ``int8_impl="plain"`` and the plain lifter knobs, which
+    launches no kernel) the backbone's maps equal bit for bit and the
+    poses within 2e-2 relative RMS."""
+    from contextaware_poseformer_tpu_torch import config
+    from contextaware_poseformer_tpu_torch.models.capf import backbone_maps
+
+    counters = [(int8_conv, "launches"), (int8_conv, "launches_quantize"),
+                (int8_conv, "launches_quant_pool"), (layer1_chain,
+                                                     "launches")]
+    cfg = config.deploy(config.preset(name))
+    gen = torch.Generator().manual_seed(0)
+    model = serve.build_model(cfg.model, torch.float32, cuda_device, gen)
+    h, w = cfg.model.image_shape
+    frames = torch.randint(0, 256, (2, h, w, 3), dtype=torch.uint8,
+                           generator=gen)
+    serve.prepare(model, [frames])
+    plain_lifter = replace(cfg.model.lifter, sampler="gather",
+                           attention="einsum", attention_joint="einsum",
+                           mlp="einsum")
+    plain = serve.build_model(replace(cfg.model, lifter=plain_lifter),
+                              torch.float32, cuda_device, gen)
+    plain.load_state_dict(model.state_dict())
+    plain.backbone.int8_impl = "plain"
+    kp = torch.rand(2, 17, 2, generator=gen) * 2 - 1
+    kpc = torch.rand(2, 17, 2, generator=gen) * w
+    for mod, attr in counters:
+        monkeypatch.setattr(mod, attr, 0)
+    out = serve.lift(model, frames, kp, kpc)
+    assert [getattr(m, a) for m, a in counters] == [
+        *FP32_DEPLOY_COUNTS[name], 0]
+    images = augment.serving_images(frames.to(cuda_device),
+                                    cfg.model.backbone, dtype=torch.float32)
+    with torch.inference_mode():
+        maps, scales = backbone_maps(model.backbone(images))
+        before = [getattr(m, a) for m, a in counters]
+        plain_maps, plain_scales = backbone_maps(plain.backbone(images))
+        ref = serve.lift(plain, frames, kp, kpc)
+        assert [getattr(m, a) for m, a in counters] == before
+    for a, b in zip(list(maps) + list(scales or []),
+                    list(plain_maps) + list(plain_scales or [])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert out.shape == (2, 17, 3) and bool(torch.isfinite(out).all())
+    rel = ((out - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
+    assert rel.item() <= 2e-2
 
 
 @pytest.mark.cuda

@@ -25,7 +25,11 @@ import jax.numpy as jnp
 from contextaware_poseformer_tpu_torch import config, serve
 from contextaware_poseformer_tpu_torch.models.cpn import CPN
 from contextaware_poseformer_tpu_torch.models.hrnet import HRNet
-from contextaware_poseformer_tpu_torch.ops import int8_conv, layer1_chain
+from contextaware_poseformer_tpu_torch.ops import (
+    _build,
+    int8_conv,
+    layer1_chain,
+)
 
 BATCH = 64
 STEP_AMAX = 127 / 16  # its step, amax * fl32(1/127), is 1/16 exactly
@@ -128,12 +132,16 @@ def test_float_input_equals_int8_route_on_the_quantized_tensor(variant):
     assert torch.equal(float_route, int8_route)
 
 
-def _deploy_k10_calls(name, monkeypatch, mode="serve"):
+def _deploy_k10_calls(name, monkeypatch, mode="serve",
+                      dtype=torch.bfloat16):
     """Every K10 call of ``deploy_config(name)``'s backbone (``mode``
     "serve"), or of ``quantize_config(name, mode)``'s ("static", "c128"),
     at batch 64 on its frames: [(M, N, Cin, k, stride, input dtype)], from
     a forward on the meta device (shapes only; K9, K10 and the CPN
-    stream's quantizes, K10q and K10p, stubbed)."""
+    stream's quantizes, K10q and K10p, stubbed). ``dtype`` float32: the
+    backbone in fp32, ``config.deploy(preset(name))`` for "serve" (an fp32
+    HRNet takes the per-conv layer1, K9 being bf16 only), and the calls'
+    epilogue dtype in place of the input's."""
     calls = []
 
     def k10(x, kq, ws, sc, bi, amax, stride, relu, dtype=torch.bfloat16,
@@ -142,9 +150,10 @@ def _deploy_k10_calls(name, monkeypatch, mode="serve"):
         ho = int8_conv.out_size(x.shape[1], k, stride)
         wo = int8_conv.out_size(x.shape[2], k, stride)
         calls.append((x.shape[0] * ho * wo, kq.shape[0], x.shape[-1], k,
-                      stride, x.dtype))
+                      stride, x.dtype if dtype == torch.bfloat16
+                      else (x.dtype, dtype)))
         return torch.empty((x.shape[0], ho, wo, kq.shape[0]),
-                           dtype=torch.bfloat16 if out_amax is None
+                           dtype=dtype if out_amax is None
                            else torch.int8, device=x.device)
 
     def k9(x, in_amax, blocks, impl="auto"):
@@ -163,11 +172,15 @@ def _deploy_k10_calls(name, monkeypatch, mode="serve"):
     monkeypatch.setattr(layer1_chain, "layer1_chain", k9)
     monkeypatch.setattr(int8_conv, "quantize_kernel", k10q)
     monkeypatch.setattr(int8_conv, "quant_max_pool_kernel", k10p)
-    cfg = (serve.deploy_config(name) if mode == "serve"
-           else serve.quantize_config(name, mode)).model
+    if mode != "serve":
+        cfg = serve.quantize_config(name, mode).model
+    elif dtype == torch.float32:
+        cfg = config.deploy(config.preset(name)).model
+    else:
+        cfg = serve.deploy_config(name).model
     kind = {"cpn": CPN, "hrnet": HRNet}[cfg.backbone.kind]
-    backbone = kind(cfg.backbone, dtype=torch.bfloat16, device="meta")
-    images = torch.empty(BATCH, *cfg.image_shape, 3, dtype=torch.bfloat16,
+    backbone = kind(cfg.backbone, dtype=dtype, device="meta")
+    images = torch.empty(BATCH, *cfg.image_shape, 3, dtype=dtype,
                          device="meta")
     with torch.inference_mode():
         backbone(images)
@@ -230,3 +243,40 @@ def test_plan_fills_the_card_at_the_w32_shapes():
         assert -(-m // bm) * -(-n // bn) >= least
     assert int8_conv.plan(64 * 64 * 48, 256) == 64
     assert int8_conv.plan(3072, 192) == 64  # pads N less
+
+
+@pytest.mark.parametrize("bn", int8_conv.TILE_N)
+def test_plan_smem_at_fp32(bn):
+    """The tile's shared memory with an fp32 epilogue: the fp32 staged
+    tile (64 x (BN + 8) x 4 bytes) fits the ring it reuses, and the block
+    with an fp32 residual tile fits 227 KB (``_build.SMEM_LIMIT``); it is
+    the bf16 block's plus a residual tile twice as wide."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    ring = int8_conv.STAGES * (int8_conv.BLOCK_M + bn) * int8_conv.K_TILE
+    assert int8_conv.BLOCK_M * (bn + 8) * 4 <= ring
+    assert int8_conv.plan_smem(bn, f32) <= _build.SMEM_LIMIT
+    assert (int8_conv.plan_smem(bn, f32) - int8_conv.plan_smem(bn, bf16)
+            == int8_conv.BLOCK_M * bn * 2)
+    assert int8_conv.plan_smem(bn) == int8_conv.plan_smem(bn, bf16)
+    assert int8_conv.plan_smem(bn, f32) == {128: 133192, 64: 83528}[bn]
+
+
+# the K10 calls a request of the fp32 deploy graphs: the CPN's 83; an fp32
+# HRNet's 100 (its per-conv layer1's 13, the 85 wide convs, transition1's 2)
+K10_CALLS_FP32 = {"h36m_cpn": 83, "h36m_hrnet_32": 100}
+
+
+@pytest.mark.parametrize("name", sorted(K10_CALLS_FP32))
+def test_plan_covers_every_fp32_deploy_k10_shape(name, monkeypatch):
+    """Every K10 call of the fp32 deploy graphs (``config.deploy`` built in
+    fp32, batch 64) has its epilogue in fp32 and an int8 or fp32 input, a
+    tile width the kernel builds and a block (fp32 residual tile
+    included) within 227 KB."""
+    calls = _deploy_k10_calls(name, monkeypatch, dtype=torch.float32)
+    assert len(calls) == K10_CALLS_FP32[name]
+    for m, n, cin, k, stride, (x_dtype, dtype) in set(calls):
+        bn = int8_conv.plan(m, n)
+        assert dtype == torch.float32 and x_dtype in (torch.int8, dtype)
+        assert bn in int8_conv.TILE_N
+        assert int8_conv.plan_smem(bn, dtype) <= _build.SMEM_LIMIT
+        assert cin % int8_conv.CIN_MULTIPLE == 0 and n % 8 == 0

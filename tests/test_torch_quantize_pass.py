@@ -105,6 +105,31 @@ def test_quant_on_the_cpu_matches_quant_i8(case):
         assert set(ours.reshape(-1)[96:102].tolist()) == {127, -127}
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_stem_plain_version_matches_jax_on_nan_inf_and_zeros(dtype):
+    """K10p's plain version on NaN, +-inf and +-0 (the first five values
+    one each, a twentieth of the rest each) equals the JAX package's stem
+    bit for bit, in bf16 and fp32: a NaN quantizes to 0, as +0 does, so a
+    window of NaN and negative values pools to 0 (the kernel must pool a
+    NaN as +0, not skip it)."""
+    rng = np.random.RandomState(12)
+    x = rng.randn(2, 15, 11, 16).astype(np.float32) * 3
+    pick = rng.randint(0, 20, x.shape)
+    pick.reshape(-1)[:5] = np.arange(5)
+    for i, v in enumerate((np.nan, np.inf, -np.inf, 0.0, -0.0)):
+        x = np.where(pick == i, np.float32(v), x)
+    x[0, :3, :3, 0] = -3.0  # a window of one NaN among negative values
+    x[0, 1, 1, 0] = np.nan
+    amax = np.float32(4.1)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    ours = int8_conv.quant_max_pool_3x3_s2(xt, torch.tensor(amax))
+    xj = jnp.asarray(x).astype(getattr(jnp, dtype))
+    theirs = np.asarray(jax.jit(lambda v, a: jax_max_pool_3x3_s2(
+        _quant_i8(v, jnp.maximum(a, 1e-12))))(xj, jnp.float32(amax)))
+    np.testing.assert_array_equal(ours.numpy(), theirs)
+    assert ours[0, 0, 0, 0].item() == 0  # max(quant(NaN) = 0, -93)
+
+
 @pytest.mark.parametrize("shape", [(2, 16, 12, 16), (2, 15, 11, 32)])
 def test_quant_max_pool_plain_version_matches_jax(shape):
     """K10p's plain version (the port's own int8 pool of the quantized
@@ -160,20 +185,24 @@ def _bf16_buffer(n):
 
 
 @pytest.mark.parametrize("entry", ["K10q step", "K10q scale", "K10p"])
-@pytest.mark.parametrize("fault", ["cpu tensor", "float32", "numel",
-                                   "misaligned"])
+@pytest.mark.parametrize("fault", ["cpu tensor", "float32", "float16",
+                                   "float64", "numel", "misaligned"])
 def test_kernel_entries_raise_and_never_fall_back(entry, fault, monkeypatch):
     """The kernels' wrappers raise, and never fall back to the plain
-    version, for a tensor on the CPU, a float32 input, a size the kernel
-    does not take (K10q: a numel not a multiple of 16; K10p: C not a
-    multiple of 16) and a start off a 16-byte boundary; nothing launches
-    and no launch is counted."""
+    version, for a tensor on the CPU (bf16, or fp32: an fp32 input passes
+    the dtype check and stops at the device check), a float16 or float64
+    input, a size the kernel does not take (K10q: a numel not a multiple
+    of 16; K10p: C not a multiple of 16) and a start off a 16-byte
+    boundary; nothing launches and no launch is counted."""
     monkeypatch.setattr(_build, "library", lambda: pytest.fail("launched"))
     a = torch.tensor(3.0)
     if fault == "cpu tensor":
         x, err, match = _bf16_buffer(64), ValueError, "CUDA"
     elif fault == "float32":
-        x, err, match = torch.zeros(64), TypeError, "bf16"
+        x, err, match = torch.zeros(64), ValueError, "CUDA"
+    elif fault in ("float16", "float64"):
+        x, err, match = (torch.zeros(64, dtype=getattr(torch, fault)),
+                         TypeError, "bf16 or fp32")
     elif fault == "numel":
         x, err, match = _bf16_buffer(24), ValueError, "16"
     else:
@@ -194,6 +223,54 @@ def test_kernel_entries_raise_and_never_fall_back(entry, fault, monkeypatch):
         call()
     assert (int8_conv.launches_quantize,
             int8_conv.launches_quant_pool) == before
+
+
+def _k10_operands(x_dtype, dtype=torch.bfloat16, residual=None):
+    """A small K10 call (NHWC 1x4x4x16, 1x1 conv to 8 channels) on the
+    CPU with ``x`` of ``x_dtype`` and the epilogue in ``dtype``."""
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randint(-127, 128, (1, 4, 4, 16), generator=g,
+                       dtype=torch.int8) if x_dtype == torch.int8
+         else torch.randn(1, 4, 4, 16, generator=g).to(x_dtype))
+    kq = torch.randint(-127, 128, (8, 16), generator=g, dtype=torch.int8)
+    vecs = [torch.rand(8, generator=g) + 0.5 for _ in range(3)]
+    kw = {} if residual is None else {"residual": torch.zeros(
+        1, 4, 4, 8, dtype=residual)}
+    return (x, kq, *vecs, torch.tensor(3.0), 1, True, dtype), kw
+
+
+@pytest.mark.parametrize("fault", [
+    "float16 epilogue", "float64 epilogue", "float16 x", "float64 x",
+    "bf16 x, fp32 epilogue", "fp16 residual", "fp32 x on the cpu",
+    "int8 x, fp32 epilogue on the cpu"])
+def test_k10_entry_raises_and_never_falls_back(fault, monkeypatch):
+    """K10's wrapper refuses an epilogue dtype other than bf16 or fp32, an
+    ``x`` or residual in another float dtype than the epilogue's, and, once
+    an fp32 call passes those checks, a CPU tensor; nothing launches and no
+    launch is counted (K10 or its quantize pass)."""
+    monkeypatch.setattr(_build, "library", lambda: pytest.fail("launched"))
+    f32 = torch.float32
+    x_dtype, dtype, res, err, match = {
+        "float16 epilogue": (torch.float16, torch.float16, None, TypeError,
+                             "bf16 or fp32"),
+        "float64 epilogue": (torch.int8, torch.float64, None, TypeError,
+                             "bf16 or fp32"),
+        "float16 x": (torch.float16, f32, None, TypeError, "x must be"),
+        "float64 x": (torch.float64, f32, None, TypeError, "x must be"),
+        "bf16 x, fp32 epilogue": (torch.bfloat16, f32, None, TypeError,
+                                  "x must be"),
+        "fp16 residual": (f32, f32, torch.float16, TypeError, "residual"),
+        "fp32 x on the cpu": (f32, f32, f32, ValueError, "CUDA"),
+        "int8 x, fp32 epilogue on the cpu": (torch.int8, f32, torch.int8,
+                                             ValueError, "CUDA"),
+    }[fault]
+    args, kw = _k10_operands(x_dtype, dtype, res)
+    if res == torch.int8:
+        kw["res_amax"] = torch.tensor(2.0)
+    before = (int8_conv.launches, int8_conv.launches_quantize)
+    with pytest.raises(err, match=match):
+        int8_conv.int8_conv_kernel(*args, **kw)
+    assert (int8_conv.launches, int8_conv.launches_quantize) == before
 
 
 def test_dispatchers_raise_off_the_cpu_and_the_card():
@@ -229,6 +306,30 @@ def test_quant_pool_plan(shape, rows):
     assert staged <= int8_conv.POOL_SMEM or rows == 1
     with pytest.raises(ValueError, match="three rows"):
         int8_conv.quant_pool_rows(64, 2048, 64)
+
+
+@pytest.mark.parametrize("shape,rows", [
+    ((64, 128, 96, 64), 1),  # the fp32 stem: 3 rows of 24 KB, past 48 KB
+    ((2, 16, 12, 16), 8),    # the whole image in one block, 12 KB
+    ((2, 15, 11, 32), 8),
+    ((1, 64, 256, 64), 1),   # a row of 64 KB: one strip of 3 rows
+])
+def test_quant_pool_plan_fp32(shape, rows):
+    """K10p's plan for an fp32 input (4 bytes a value): at the stem one
+    output row a block, whose three input rows (72 KB) pass ``POOL_SMEM``
+    and fit the block's opt-in limit; the whole of a small image in one
+    block; a row too wide for three refused at fp32 where bf16 fits."""
+    b, h, w, c = shape
+    assert int8_conv.quant_pool_rows(h, w, c, 4) == rows
+    staged = min(2 * rows + 1, h) * w * c * 4
+    assert staged <= _build.SMEM_LIMIT
+    assert staged <= int8_conv.POOL_SMEM or rows == 1
+    if shape[0] == 64:
+        assert staged == 72 * 1024 > int8_conv.POOL_SMEM
+        assert int8_conv.quant_pool_rows(h, w, c) == 1  # bf16: 36 KB
+    int8_conv.quant_pool_rows(64, 384, 64)  # bf16: 3 x 48 KB fit
+    with pytest.raises(ValueError, match="three rows"):
+        int8_conv.quant_pool_rows(64, 384, 64, 4)
 
 
 @pytest.mark.parametrize("impl", ["auto", "plain"])
