@@ -136,6 +136,23 @@ Phases, one line of output each (failures raise and exit non-zero):
    only), K10q 98 (85 step form, 13 scale form), no K9, no plain version;
    maps and poses against ``int8_impl="plain"`` as above; beside the bf16
    deploy graph (K9) of the same weights;
+8c. cpn_knobs: the CPN deploy graph's two serving knobs (random weights
+   from seed 0, batch 64, full width), ``cpn_fold_normalize`` (raw uint8
+   frames into the int8 stem, K10s), ``cpn_int8_topdown`` (the s8 top-down
+   hops, K10u, the up-convs requantizing in K10's epilogue) and both, in
+   bf16, and both with an fp32 backbone, beside the main path, each
+   prepared by ``serve.prepare`` on one seeded batch (``KNOB_GRAPHS``):
+   one request records every K10s and K10u call, each equal to its plain
+   version bit for bit (K10s also on all-0, all-255 and batch-1 frames;
+   on the bf16 fold+topdown request timed: kernel, plain and library ms
+   (K10s: normalize + cuDNN conv + addcmul + ReLU; K10u: interpolate +
+   mul + add) and the bound), and on the top-down graph K10's up-convs
+   (int8 out, no ReLU, no residual) bit for bit; then 2 requests with K10s
+   1 and K10u 3 launches a request beside the deploy graph's, the backbone
+   maps and scales bit-equal to the same graph's with
+   ``int8_impl="plain"`` and the poses within 2e-2 of it; host ms,
+   frames/s, busy, idle, the K10s/K10u share and the top kernels of each
+   graph beside the main path's (information);
 9. streaming: ``models.streaming.StreamingLifter`` over
    ``deploy_config("h36m_cpn")`` at batch 64 (its weights the JAX-format
    variables of the model drawn from seed 0): ``lift_batch`` refused
@@ -258,7 +275,9 @@ Phases, one line of output each (failures raise and exit non-zero):
    of its int8 deploy stack calibrated by ``serve.prepare``): fails when
    the deploy P1 differs from the fp32 P1 by more than 1.0 mm either way,
    or the gate's training launched other than K1 3 and K6 2 a step (3DHP:
-   K1 1). Then, at the gate's own shapes (embed 32, head dim 8, 64x64
+   K1 1); for h36m_cpn also the deploy stack with each serving knob on the
+   same weights (K10s, K10u), each P1 printed with its delta against fp32
+   (within the same 1.0 mm) and against the deploy stack. Then, at the gate's own shapes (embed 32, head dim 8, 64x64
    frames, batch 16): the trained fp32 model's deterministic step through
    the kernels against the plain sampler, as in phase 13; on one
    validation batch of the calibrated deploy model, its backbone maps
@@ -283,11 +302,15 @@ Phases, one line of output each (failures raise and exit non-zero):
    ``tools/trace_budget.annotate`` whose named buckets (not the fallback
    ones) must hold 95% of the device time (traced twice, the second
    kept, each one's total and stem bucket printed; its "int8 quantize" and
-   "backbone stem" buckets printed apart); ``tools/train_bench.bench_batch`` for h36m_cpn at batch
+   "backbone stem" buckets printed apart), and the same request through
+   the deploy graph with both serving knobs, traced the same way (its
+   "backbone stem" (K10s), "globalNet top-down (K10u)" and "globalNet"
+   buckets printed, its named share held to the same 95%); ``tools/train_bench.bench_batch`` for h36m_cpn at batch
    256 (a burst of 3 steps: steps/s, MFU against the fp32 peak) with one
    profiled step whose budget must too; ``tools/demo`` (the h36m_hrnet_32
    float slice through ``StreamingLifter``) writes a PNG of finite poses;
-18. a JSON line of per-kernel results (K1-K10, K10q and K10p, then the
+18. a JSON line of per-kernel results (K1-K10, K10q, K10p, K10s and
+   K10u, then the
    probes' counterparts, named ``probe <name>``), then the final JSON status
    line. ``launches`` are summed over the serving (quantize, fp32_int8
    and streaming included), aggregate, training, parallel (the full-width DDP run and
@@ -297,7 +320,9 @@ Phases, one line of output each (failures raise and exit non-zero):
    it ends and summed by phase before the JSON lines. Errors are the largest over the bf16 cases (int8 maps, sampled to
    bf16, included). Times are bf16 at the CPN serving shapes for K1-K4,
    at HRNet-W32's for K5 and K9, at the CPN int8 request's for K10, K10q
-   and K10p, all per request (the sum over a request's calls), K6's those of
+   and K10p, at the bf16 fold+topdown request's for K10s and K10u (K10u
+   the sum of its 3 hops), all per request (the sum over a request's
+   calls), K6's those of
    the CPN training step's call at batch 256 times its 4 calls a step, K7's
    the sum of its two served blocks' border calls and K8's of its two
    bf16 calls.
@@ -379,6 +404,22 @@ QUANT_GRAPHS = (("h36m_hrnet_32", "static", REQUESTS),
                 ("h36m_hrnet_48", "static", 1), ("h36m_cpn", "static", 1),
                 ("h36m_hrnet_32", "c128", 1), ("h36m_cpn", "c128", 1))
 QUANT_SHAPES_ONLY = (("h36m_hrnet_48", "c128"),)
+# the cpn_knobs phase: the CPN deploy graph with each serving knob and both
+# (bf16), and with both on an fp32 backbone, beside the main path; each
+# knob's launches a request on top of the deploy graph's (the fold's stem
+# K10s; a top-down hop K10u each of globalNet's three)
+KNOB_GRAPHS = (("main path", {}, torch.bfloat16),
+               ("fold", {"cpn_fold_normalize": True}, torch.bfloat16),
+               ("topdown", {"cpn_int8_topdown": True}, torch.bfloat16),
+               ("fold+topdown", {"cpn_fold_normalize": True,
+                                 "cpn_int8_topdown": True}, torch.bfloat16),
+               ("fold+topdown fp32", {"cpn_fold_normalize": True,
+                                      "cpn_int8_topdown": True},
+                torch.float32))
+KNOB_PER_REQUEST = {"cpn_fold_normalize": {"K10s": 1},
+                    "cpn_int8_topdown": {"K10u": 3}}
+KNOB_REQUESTS = 2  # counted requests of each knob graph
+KNOB_TIMED = 5  # host-clock requests of each knob graph
 QUANT_TIMED = 5  # host-clock requests of a quantize graph
 # the fp32_int8 phase: the int8 deploy graphs with an fp32 backbone
 # (``config.deploy(preset)`` built in fp32). K10, K10q and K10p a request:
@@ -478,6 +519,8 @@ REPLACES = {
     "K10": "contextaware_poseformer_tpu/models/backbone_common.py:204",
     "K10q": "contextaware_poseformer_tpu/models/backbone_common.py:201",
     "K10p": "contextaware_poseformer_tpu/models/cpn.py:244",
+    "K10s": "contextaware_poseformer_tpu/models/cpn.py:214",
+    "K10u": "contextaware_poseformer_tpu/models/cpn.py:334",
     # the TPU probes' counterparts (probes phase)
     "chain_conv": "experiments/int8_chain_conv.py:54",
     "micro_matmul3": "experiments/int8_chain_micro.py:20",
@@ -498,6 +541,7 @@ SOURCES = {"K1": "sampler.cu", "K2": "fused_mlp.cu",
            "K7": "aggregate.cu", "K8": "sampler.cu",
            "K9": "layer1_chain.cu", "K10": "int8_conv.cu",
            "K10q": "int8_conv.cu", "K10p": "int8_conv.cu",
+           "K10s": "stem_conv.cu", "K10u": "topdown.cu",
            "chain_conv": "int8_conv.cu", "micro_matmul3": "int8_conv.cu",
            "micro_matmul3_nomask": "int8_conv.cu",
            "micro_requant": "int8_conv.cu", "micro_matmul1": "int8_conv.cu",
@@ -531,7 +575,9 @@ SHARE_KERNELS = {"K1": ("sample_levels_kernel",),
                  "K9": ("layer1_block_kernel",),
                  "K10": ("::conv_kernel<",),
                  "K10q": ("int8_quantize_kernel",),
-                 "K10p": ("int8_quant_pool_kernel",)}
+                 "K10p": ("int8_quant_pool_kernel",),
+                 "K10s": ("stem_conv_kernel",),
+                 "K10u": ("topdown_kernel",)}
 # SASS instructions that show a build runs on Hopper's machinery: the
 # tensor cores (HGMMA / IGMMA: bf16 / int8 wgmma, HMMA / IMMA: mma.sync) and
 # the asynchronous copies (LDGSTS: cp.async, UTMALDG: TMA); per kernel:
@@ -551,6 +597,8 @@ SASS_REQUIRED = (
     # epilogues: int8 wgmma, B by TMA
     ("K10", ("int8_conv_cu", "conv_kernel", "ModeE0ELb0E"),
      (("IGMMA",), ("UTMALDG",))),
+    # K10s, the fold stem: int8 mma.sync, bf16 and fp32 epilogues
+    ("K10s", ("stem_conv_kernel",), (("IMMA",),)),
     ("K2", ("fused_mlp", "resident_kernel"), _WGMMA_ASYNC),
     ("K2", ("fused_mlp", "ln_fc1_kernel"), _WGMMA_ASYNC),
     ("K2", ("fused_mlp", "fc2_residual_kernel"), _WGMMA_ASYNC),
@@ -1455,6 +1503,279 @@ def check_cpn_int8(results, card):
     return launches
 
 
+@contextlib.contextmanager
+def _knob_calls(calls):
+    """While the block runs, append to ``calls`` each K10s and K10u launch
+    as ("K10s" | "K10u", its arguments cloned)."""
+    from contextaware_poseformer_tpu_torch.ops import int8_conv
+
+    saved = [(k, n, getattr(int8_conv, n)) for k, n in (
+        ("K10s", "stem_conv_kernel"), ("K10u", "topdown_kernel"))]
+    for k, n, fn in saved:
+        def spy(*args, _fn=fn, _k=k):
+            calls.append((_k, tuple(a.clone() if isinstance(a, torch.Tensor)
+                                    else a for a in args)))
+            return _fn(*args)
+        setattr(int8_conv, n, spy)
+    try:
+        yield calls
+    finally:
+        for _, n, fn in saved:
+            setattr(int8_conv, n, fn)
+
+
+def _k10s_case(args, conv1, card, timed):
+    """K10s on one recorded call (frames, kernel_q, wscale, scale, bias,
+    bias map, dtype) against its plain version, bit for bit; then on a
+    batch-1 all-0 frame, an all-255 frame and the first frame alone. With
+    ``timed``: median kernel, plain and library ms (the float stem it
+    replaces: ``normalize_images`` + ``conv1``'s cuDNN conv, ``addcmul`` and
+    ReLU) and the bound (the frames read once, the output and the bias map
+    written and read once; 2 x 147 int8 operations an output). Returns
+    (max abs error, numbers or None)."""
+    from contextaware_poseformer_tpu_torch.data import augment
+    from contextaware_poseformer_tpu_torch.ops import int8_conv
+
+    frames, rest = args[0], args[1:]
+    one = frames[:1]
+    cases = {"served": frames, "all-0": torch.zeros_like(one),
+             "all-255": torch.full_like(one, 255), "batch 1": one}
+    worst, shares = 0.0, {}
+    for name, f in cases.items():
+        out = int8_conv.stem_conv_kernel(f, *rest)
+        ref = int8_conv.stem_conv_reference(f, *rest)
+        torch.cuda.synchronize()
+        shares[name], err = _exact(out, ref)
+        worst = max(worst, err)
+    dtype = rest[-1]
+    label = (f"K10s {tuple(frames.shape)} uint8 -> {tuple(out.shape[1:])} "
+             f"{str(dtype).removeprefix('torch.')}")
+    if any(v != 1.0 for v in shares.values()):
+        raise AssertionError(f"{label}: equal shares {shares}")
+    if not timed:
+        print(f"cpn_knobs: {label}: equal bit for bit (served frames, "
+              f"all-0, all-255, batch 1) ({card})", flush=True)
+        return worst, None
+    ms = _median_ms(lambda: int8_conv.stem_conv_kernel(frames, *rest))
+    plain_ms = _median_ms(lambda: int8_conv.stem_conv_reference(frames,
+                                                                *rest))
+    with torch.inference_mode():
+        lib_ms = _median_ms(lambda: conv1(augment.normalize_images(
+            frames, "cpn", dtype)))
+    ref = int8_conv.stem_conv_reference(frames, *rest)
+    elem = ref.element_size()
+    nbytes = frames.numel() + ref.numel() * elem + rest[-2].numel() * elem
+    ops = 2 * ref.numel() * rest[0].shape[1]
+    bound_ms, by = _bound(nbytes, ops, torch.int8)
+    print(f"cpn_knobs: {label}: equal bit for bit (served frames, all-0, "
+          f"all-255, batch 1); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library (normalize + cuDNN conv + addcmul + ReLU) {lib_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({by}: {nbytes} B, {ops} int8 ops) "
+          f"({card})", flush=True)
+    return worst, {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": by,
+                   "library_ms": lib_ms}
+
+
+def _k10u_case(args, card, timed):
+    """K10u on one recorded call (q, ua, lat, dtype) against its plain
+    version, bit for bit; with ``timed`` the median kernel, plain and
+    library ms (``F.interpolate`` of the dequantized map, the multiply and
+    the add) and the bound (q and lat read once, the output written once).
+    Returns (max abs error, (ms, plain ms, library ms, bound ms) or
+    None)."""
+    from contextaware_poseformer_tpu_torch.ops import int8_conv
+
+    q, ua, lat, dtype = args
+    out = int8_conv.topdown_kernel(*args)
+    ref = int8_conv.topdown_reference(*args)
+    torch.cuda.synchronize()
+    eq, err = _exact(out, ref)
+    label = (f"K10u {tuple(q.shape)} int8 -> {tuple(out.shape)} "
+             f"{str(dtype).removeprefix('torch.')}")
+    if eq != 1.0:
+        raise AssertionError(f"{label}: equal share {eq}")
+    if not timed:
+        print(f"cpn_knobs: {label}: equal {eq:.6f} ({card})", flush=True)
+        return err, None
+    step = int8_conv.dequant_step(ua, clamp=True).to(dtype)
+
+    def library():
+        up = F.interpolate((q.to(dtype) * step).permute(0, 3, 1, 2),
+                           scale_factor=2, mode="bilinear",
+                           align_corners=True)
+        return lat + up.permute(0, 2, 3, 1)
+
+    ms = _median_ms(lambda: int8_conv.topdown_kernel(*args))
+    plain_ms = _median_ms(lambda: int8_conv.topdown_reference(*args))
+    lib_ms = _median_ms(library)
+    nbytes = q.numel() + 2 * lat.numel() * lat.element_size()
+    bound_ms, _ = _bound(nbytes, 0, torch.float32)
+    print(f"cpn_knobs: {label}: equal {eq:.6f}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library (interpolate + mul + add) "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: {nbytes} B) "
+          f"({card})", flush=True)
+    return err, (ms, plain_ms, lib_ms, bound_ms)
+
+
+def _knob_graph(label, knobs, dtype, card):
+    """Build ``deploy_config("h36m_cpn")`` with ``knobs`` (random weights
+    from seed 0) with its backbone in ``dtype``, prepared by
+    ``serve.prepare`` on one seeded batch of BATCH frames. Returns (cfg,
+    model, request, per-request launches)."""
+    from contextaware_poseformer_tpu_torch import serve
+
+    cfg = serve.deploy_config("h36m_cpn")
+    cfg = replace(cfg, model=replace(cfg.model, backbone=replace(
+        cfg.model.backbone, **knobs)))
+    per_request = {**PER_REQUEST["h36m_cpn"], **INT8_PER_REQUEST["cpn"]}
+    for knob in knobs:
+        per_request.update(KNOB_PER_REQUEST[knob])
+    t0 = time.perf_counter()
+    model = serve.build_model(cfg.model, dtype, "cuda",
+                              generator=torch.Generator().manual_seed(0))
+    h, w = cfg.model.image_shape
+    calib = torch.randint(0, 256, (BATCH, h, w, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(1))
+    serve.prepare(model, [calib.cuda()])
+    gen = torch.Generator().manual_seed(0)
+    req = (torch.randint(0, 256, (BATCH, h, w, 3), dtype=torch.uint8,
+                         generator=gen).cuda(),
+           (torch.rand(BATCH, 17, 2, generator=gen) * 2 - 1).cuda(),
+           (torch.rand(BATCH, 17, 2, generator=gen) * w).cuda())
+    torch.cuda.synchronize()
+    print(f"cpn_knobs: {label}: built and prepared in "
+          f"{time.perf_counter() - t0:.1f} s (backbone "
+          f"{str(dtype).removeprefix('torch.')}, "
+          f"{', '.join(knobs) or 'no knob'}; launches a request "
+          f"{per_request})", flush=True)
+    return cfg, model, req, per_request
+
+
+def check_cpn_knobs(results, card):
+    """Phase 7c: the CPN deploy graph's two serving knobs,
+    ``cpn_fold_normalize`` (uint8 frames into the int8 stem K10s) and
+    ``cpn_int8_topdown`` (the s8 top-down hops K10u), at batch BATCH and
+    full width (random weights from seed 0, each graph prepared on one
+    seeded batch), beside the main path, in KNOB_GRAPHS. For each graph:
+    one request records its K10s and K10u calls (and, for the top-down,
+    K10's calls) on which each kernel must equal its plain version bit for
+    bit: K10s also on all-0, all-255 and batch-1 frames, K10 in its
+    requantizing variant without ReLU or residual (the up-convs); then
+    KNOB_REQUESTS requests with every count set to 0 before them, each with
+    its per-request launches; the backbone maps and scales bit-equal to the
+    same graph's with ``int8_impl="plain"``, the poses within SLICE_REL_RMS
+    of it; host ms, frames/s, busy, idle and the K10s/K10u share of each
+    graph (information), and each graph's poses against the main path's.
+    K10s's and K10u's JSON numbers are the bf16 fold+topdown request's.
+    Returns the counted requests' launches."""
+    from contextaware_poseformer_tpu_torch import serve
+
+    launches = dict.fromkeys(_counters(), 0)
+    mains, timed = None, {}
+    for label, knobs, dtype in KNOB_GRAPHS:
+        cfg, model, req, per_request = _knob_graph(label, knobs, dtype,
+                                                   card)
+        calls, seen = [], {}
+        with _knob_calls(calls):
+            if "cpn_int8_topdown" in knobs:
+                _record_k10(model, req, seen)
+            else:
+                serve.lift(model, *req)
+                torch.cuda.synchronize()
+        kinds = [k for k, _ in calls]
+        want = {k: per_request.get(k, 0) for k in ("K10s", "K10u")}
+        if {k: kinds.count(k) for k in want} != want:
+            raise AssertionError(f"cpn_knobs {label}: recorded {kinds}, "
+                                 f"expected {want}")
+        last = label == "fold+topdown"
+        stem = hop = None
+        for k, args in calls:
+            if k == "K10s":
+                err, stem = _k10s_case(args, model.backbone.resnet_conv1,
+                                       card, last)
+            else:
+                err, h = _k10u_case(args, card, last)
+                if h is not None:
+                    hop = [a + b for a, b in zip(hop or (0,) * 4, h)]
+            name = "K10s" if k == "K10s" else "K10u"
+            results.setdefault(name, {"max_abs_err": 0.0})
+            results[name]["max_abs_err"] = max(
+                results[name]["max_abs_err"], err)
+        if stem is not None:
+            results["K10s"].update(stem)
+        if hop is not None:
+            results["K10u"].update(
+                ms=hop[0], plain_ms=hop[1], library_ms=hop[2],
+                bound_ms=hop[3], bound_by="bytes")
+            print(f"cpn_knobs: K10u over a request's 3 hops: kernel "
+                  f"{hop[0]:.4f} ms, plain {hop[1]:.4f} ms, library "
+                  f"{hop[2]:.4f} ms, bound {hop[3]:.4f} ms ({card})",
+                  flush=True)
+        upconvs = {key: v for key, v in seen.items()
+                   if "int8 out" in key and "ReLU" not in key
+                   and "residual" not in key}
+        if "cpn_int8_topdown" in knobs and dtype == torch.bfloat16:
+            if sum(n for n, _ in upconvs.values()) != 3:
+                raise AssertionError(f"cpn_knobs {label}: up-convs {upconvs}")
+            with torch.inference_mode():
+                for key, (n, args) in upconvs.items():
+                    eq, err, ms, plain_ms, (bound_ms, by), _ = \
+                        _k10_entry_ms(args)
+                    print(f"cpn_knobs: {label}: K10 {key}: equal {eq:.6f}; "
+                          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                          f"bound {bound_ms:.4f} ms ({by}), {n} a request "
+                          f"({card})", flush=True)
+                    if eq != 1.0:
+                        raise AssertionError(f"K10 {key}: equal share {eq}")
+        seen.clear()
+
+        _reset_counts()
+        for i in range(KNOB_REQUESTS):
+            before = _counts()
+            out = serve.lift(model, *req)
+            torch.cuda.synchronize()
+            grew = {k: v - before[k] for k, v in _counts().items()}
+            if grew != _expected(per_request):
+                raise AssertionError(f"cpn_knobs {label} request {i}: "
+                                     f"launches {grew}, expected "
+                                     f"{per_request}")
+        for k, v in _counts().items():
+            launches[k] += v
+        if out.shape != (BATCH, 17, 3) or not torch.isfinite(out).all():
+            raise AssertionError(f"cpn_knobs {label}: bad output")
+        _fp32_vs_plain(label, cfg, model, req, card, phase="cpn_knobs")
+        if mains is None:
+            mains = out
+        else:
+            print(f"cpn_knobs: {label}: poses vs the main path's (the same "
+                  f"weights, each graph calibrated on the same frames): "
+                  f"rel RMS {_rel_rms(out, mains):.3e} (information only; "
+                  f"{card})", flush=True)
+        serve.lift(model, *req)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(KNOB_TIMED):
+            serve.lift(model, *req)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / KNOB_TIMED
+        timed[label] = host_ms
+        print(f"cpn_knobs: {label}: {host_ms:.3f} ms a request, "
+              f"{BATCH * 1e3 / host_ms:.1f} frames/s (information only; "
+              f"host clock over {KNOB_TIMED} requests, batch {BATCH}, "
+              f"{card})", flush=True)
+        _where_time_goes("cpn_knobs", label, cfg, model, req, host_ms,
+                         f"batch {BATCH}, {card}")
+        del model
+        torch.cuda.empty_cache()
+    print("cpn_knobs: host ms a request: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in timed.items()) + f" ({card})", flush=True)
+    for k in ("K10s", "K10u"):
+        if "ms" not in results.get(k, {}):
+            raise AssertionError(f"cpn_knobs: {k} was not timed")
+    return launches
+
+
 def _k10_out_shape(args):
     """The output shape (B, Ho, Wo, Cout) of a recorded K10 call."""
     from contextaware_poseformer_tpu_torch.ops import int8_conv
@@ -1683,12 +2004,14 @@ def _k10p_specials(card):
 @contextlib.contextmanager
 def _plain_int8_calls(counts):
     """While the block runs, count in ``counts`` the calls of the int8
-    kernels' plain versions (K9's, K10's, K10q's two forms and K10p's)."""
+    kernels' plain versions (K9's, K10's, K10q's two forms, K10p's, K10s's
+    and K10u's)."""
     from contextaware_poseformer_tpu_torch.ops import int8_conv, layer1_chain
 
     names = [(int8_conv, n) for n in (
         "int8_conv_reference", "quantize_reference", "quant_reference",
-        "quant_max_pool_3x3_s2_reference")] + [
+        "quant_max_pool_3x3_s2_reference", "stem_conv_reference",
+        "topdown_reference")] + [
         (layer1_chain, "layer1_chain_reference")]
     saved = [(mod, n, getattr(mod, n)) for mod, n in names]
     for mod, n, fn in saved:
@@ -1703,7 +2026,7 @@ def _plain_int8_calls(counts):
             setattr(mod, n, fn)
 
 
-def _fp32_vs_plain(label, cfg, model, req, card):
+def _fp32_vs_plain(label, cfg, model, req, card, phase="fp32_int8"):
     """The fp32 graph against its plain graph on ``req``: the same weights
     and serving state with every kernel's plain version (``int8_impl=
     "plain"`` and the plain lifter knobs, as ``check_serving`` builds it).
@@ -1738,7 +2061,7 @@ def _fp32_vs_plain(label, cfg, model, req, card):
     equal = [a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs]
     rel = _rel_rms(out, ref)
     shapes = [tuple(m.shape[1:]) for m in maps]
-    print(f"fp32_int8: {label}: backbone maps {shapes} "
+    print(f"{phase}: {label}: backbone maps {shapes} "
           f"{maps[0].dtype}{' and their scales' if scales else ''} equal "
           f"bit for bit to the plain graph's (int8_impl='plain', plain "
           f"lifter): {all(equal)} ({len(pairs)} tensors); poses vs the "
@@ -1746,9 +2069,10 @@ def _fp32_vs_plain(label, cfg, model, req, card):
           f"plain graph's launches {launched or 'none'} ({card})",
           flush=True)
     if not all(equal) or not rel <= SLICE_REL_RMS or launched:
-        raise AssertionError(f"fp32 {label}: maps equal {equal}, rel RMS "
-                             f"{rel:.3e}, plain launches {launched}")
+        raise AssertionError(f"{phase} {label}: maps equal {equal}, rel "
+                             f"RMS {rel:.3e}, plain launches {launched}")
     del plain
+    return out
 
 
 def _fp32_beside_bf16(label, cfg, graphs, req, card):
@@ -2445,7 +2769,9 @@ def _counters():
             "K9": (layer1_chain, "launches"),
             "K10": (int8_conv, "launches"),
             "K10q": (int8_conv, "launches_quantize"),
-            "K10p": (int8_conv, "launches_quant_pool")}
+            "K10p": (int8_conv, "launches_quant_pool"),
+            "K10s": (int8_conv, "launches_stem"),
+            "K10u": (int8_conv, "launches_topdown")}
 
 
 def _counts():
@@ -3676,7 +4002,42 @@ def check_tools(card):
     print("tools: main-path request: " + ", ".join(
         f"{k} {served['buckets'].get(k, 0.0) / 1e3:.3f} ms" for k in
         ("int8 quantize", "backbone stem")) + f" ({card})", flush=True)
-    del model, req, out
+    del model, out
+    torch.cuda.empty_cache()
+
+    # the same request through the deploy graph with both serving knobs
+    # (the fold stem K10s, the top-down hops K10u), traced as above
+    knobs = replace(cfg, model=replace(cfg.model, backbone=replace(
+        cfg.model.backbone, cpn_fold_normalize=True,
+        cpn_int8_topdown=True)))
+    model = serve.build_serving_model(
+        knobs, "cuda", generator=torch.Generator().manual_seed(0))
+    serve.prepare(model, [torch.randint(
+        0, 256, (BATCH, h, w, 3), dtype=torch.uint8,
+        generator=torch.Generator().manual_seed(1)).cuda()])
+    for _ in range(2):
+        serve.lift(model, *req)
+    torch.cuda.synchronize()
+    knob_traced = []
+    for _ in range(2):
+        with tempfile.TemporaryDirectory() as d:
+            with trace_budget.annotate(model), profiling.trace(d):
+                serve.lift(model, *req)
+                torch.cuda.synchronize()
+            (path,) = [os.path.join(d, f) for f in os.listdir(d)]
+            knob_traced.append(trace_budget.budget(
+                trace_budget.load_trace(path)))
+    knob_served = knob_traced[-1]
+    _print_budget("fold+topdown request", knob_served)
+    print("tools: fold+topdown request: " + ", ".join(
+        f"{k} {knob_served['buckets'].get(k, 0.0) / 1e3:.3f} ms" for k in
+        ("backbone stem", "globalNet top-down (K10u)", "globalNet",
+         "int8 quantize"))
+        + f"; named {knob_served['named']:.2%} of its "
+        f"{knob_served['total_us'] / 1e3:.3f} ms (the main path: "
+        f"{served['named']:.2%} of {served['total_us'] / 1e3:.3f} ms) "
+        f"({card})", flush=True)
+    del model, req
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as d:
@@ -3701,6 +4062,7 @@ def check_tools(card):
     print(f"tools: demo: h36m_hrnet_32 float slice through StreamingLifter, "
           f"{len(preds)} synthetic frames, a PNG of finite poses", flush=True)
     for name, b in (("main-path request", served),
+                    ("fold+topdown request", knob_served),
                     ("h36m_cpn training step", r["budget"])):
         if b["named"] < MIN_COVERAGE:
             raise AssertionError(f"tools: {name}: the trace budget's named "
@@ -4057,9 +4419,11 @@ def check_gate(card):
     the delta, within GATE_MAX_DELTA_MM either way; each gate's launches
     counted from 0 (training: K1 and K6 a step as GATE_PRESETS says; the
     evaluations K1 and, on the deploy stack, K2-K4, K9, K10 and K10q);
-    then, on the gate's trained models, the kernels against their plain
-    versions at the gate's shapes (launches not counted). Returns the
-    launches summed over the gates."""
+    for the CPN also the deploy stack with each serving knob
+    (``deploy_numerics.KNOBS``: K10s, K10u), each P1's delta against fp32
+    within the same limit; then, on the gate's trained models, the kernels
+    against their plain versions at the gate's shapes (launches not
+    counted). Returns the launches summed over the gates."""
     from contextaware_poseformer_tpu_torch import deploy_numerics
     from contextaware_poseformer_tpu_torch.data import pipeline
 
@@ -4094,6 +4458,21 @@ def check_gate(card):
               f"{delta:+.4f} mm (limit +-{GATE_MAX_DELTA_MM} mm); launches "
               f"{counts}; {time.perf_counter() - t0:.1f} s ({card})",
               flush=True)
+        knob_kernels = ("K10s", "K10u") if name == "h36m_cpn" else ()
+        if not all(counts[k] for k in knob_kernels):
+            raise AssertionError(f"gate {name}: the knobs' evaluations "
+                                 f"launched {counts}")
+        for short, knob in deploy_numerics.KNOBS.items():
+            if f"tiny_trained_{short}_delta_mm" not in row:
+                continue
+            kd = row[f"tiny_trained_{short}_delta_mm"]
+            print(f"gate: {name}: deploy with {knob}: P1 "
+                  f"{row[f'tiny_trained_deploy_{short}_p1_mm']:.4f} mm, "
+                  f"delta vs fp32 {kd:+.4f} mm (limit "
+                  f"+-{GATE_MAX_DELTA_MM} mm), vs the deploy stack "
+                  f"{kd - delta:+.4f} mm ({card})", flush=True)
+            if not abs(kd) <= GATE_MAX_DELTA_MM:
+                raise AssertionError(f"gate {name} {knob}: {row}")
         missing = [k for k in needed if not counts[k]]
         if missing or counts["K6"] != GATE_STEPS * per_step.get("K6", 0):
             raise AssertionError(f"gate {name}: launches {counts}")
@@ -4230,6 +4609,7 @@ def main() -> None:
     served.append(clock("cpn_int8", check_cpn_int8, results, card))
     served.append(clock("quantize", check_quantize, card))
     served.append(clock("fp32_int8", check_fp32_int8, results, card))
+    served.append(clock("cpn_knobs", check_cpn_knobs, results, card))
     served.append(clock("streaming", check_streaming, card))
     probes = clock("probes", check_probes, card)
     served.append(clock("aggregate", check_aggregate, results, card))

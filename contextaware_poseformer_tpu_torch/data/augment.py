@@ -51,11 +51,13 @@ def normalize_images(images_u8_bgr: torch.Tensor, backbone_kind: str,
 
 def serving_images(images_u8_bgr: torch.Tensor, backbone_cfg,
                    dtype=torch.bfloat16) -> torch.Tensor:
-    """Model-input images for a serving graph. The JAX package's
-    ``cpn_fold_normalize`` (raw frames into an int8 stem) belongs to the
-    int8 stack, which is not ported; such a config is refused."""
-    if backbone_cfg.kind == "cpn" and backbone_cfg.cpn_fold_normalize:
-        raise NotImplementedError("cpn_fold_normalize is not ported")
+    """Model-input images for a serving graph (``augment.py:68-85``): the
+    raw uint8 BGR frames unchanged for a CPN that folds the normalization
+    into its stem (``cpn_fold_normalize`` under ``quantize="serve"``: the
+    int8 stem K10s reads them), else ``normalize_images`` in ``dtype``."""
+    if (backbone_cfg.kind == "cpn" and backbone_cfg.quantize == "serve"
+            and backbone_cfg.cpn_fold_normalize):
+        return images_u8_bgr
     return normalize_images(images_u8_bgr, backbone_cfg.kind, dtype=dtype)
 
 

@@ -22,6 +22,12 @@ stages, so the int8 rule for convs with both channel counts >= 128 engages
 The weights come from the port's own initializers and training, not from
 the JAX gate's, so its deltas are this gate's own and not a replay of the
 JAX package's numbers.
+
+For a CPN the gate also evaluates, on the same trained weights, the deploy
+stack with each of its two serving knobs (``KNOBS``: ``cpn_fold_normalize``,
+``cpn_int8_topdown``), each on top of the deploy graph as the JAX gate
+stacks them (``tools/deploy_numerics.py:321-344``), and prints each P1 with
+its delta against fp32 and against the deploy stack.
 """
 
 from __future__ import annotations
@@ -43,6 +49,9 @@ from contextaware_poseformer_tpu_torch.train import steps, train_h36m
 from contextaware_poseformer_tpu_torch.train.loop import Trainer
 
 BATCH = 16
+# the CPN's serving knobs the gate evaluates beside the deploy stack: the
+# result keys' short name -> the backbone field
+KNOBS = {"fold": "cpn_fold_normalize", "topdown": "cpn_int8_topdown"}
 
 
 def _tiny_cfg(preset_name: str) -> cfglib.Config:
@@ -69,11 +78,26 @@ def _p1_mm(trainer: Trainer, state: steps.TrainState) -> float:
     return float(np.linalg.norm(pred - gt, axis=-1).mean() * 1000)
 
 
+def _deploy_p1(cfg, state, train_ds, val_ds, device, seed):
+    """(trainer, state, P1 in mm) of ``cfg``'s deploy model loaded with the
+    trained fp32 model's weights (``state``)."""
+    deploy = Trainer(cfg, train_ds, val_ds, device)
+    deploy_state = deploy.init_state(seed)
+    loaded = deploy_state.model.load_state_dict(state.model.state_dict(),
+                                                strict=False)
+    params = {n for n, _ in deploy_state.model.named_parameters()}
+    if loaded.unexpected_keys or params & set(loaded.missing_keys):
+        raise AssertionError(f"fp32 -> deploy weights: {loaded}")
+    return deploy, deploy_state, _p1_mm(deploy, deploy_state)
+
+
 def preset_gate(preset_name: str, steps_n: int = 250, device="cuda",
                 seed: int = 0, inspect=None) -> dict:
     """fp32 vs the deploy stack on the trained tiny model of
     ``preset_name``'s class, on ``device``; returns the JAX gate's keys
-    (P1 in mm, rounded to 4 places). ``seed`` draws the initial weights and
+    (P1 in mm, rounded to 4 places) and, for a CPN, each serving knob's
+    (``tiny_trained_deploy_<knob>_p1_mm`` and its delta against fp32,
+    ``tiny_trained_<knob>_delta_mm``). ``seed`` draws the initial weights and
     the training batches. ``inspect(fp32, deploy)``, if given, runs last
     on the two (trainer, state) pairs."""
     device = torch.device(device)
@@ -96,25 +120,32 @@ def preset_gate(preset_name: str, steps_n: int = 250, device="cuda",
           f"final loss {float(m['loss']):.4f}", flush=True)
     p1 = _p1_mm(trainer, state)
 
-    deploy = Trainer(serve.deploy_graph(cfg), train_ds, val_ds, device)
-    deploy_state = deploy.init_state(seed)
-    loaded = deploy_state.model.load_state_dict(state.model.state_dict(),
-                                                strict=False)
-    params = {n for n, _ in deploy_state.model.named_parameters()}
-    if loaded.unexpected_keys or params & set(loaded.missing_keys):
-        raise AssertionError(f"fp32 -> deploy weights: {loaded}")
-    p1d = _p1_mm(deploy, deploy_state)
+    dcfg = serve.deploy_graph(cfg)
+    deploy, deploy_state, p1d = _deploy_p1(dcfg, state, train_ds, val_ds,
+                                           device, seed)
     print(f"[{preset_name}] trained P1: fp32 {p1:.3f} mm | "
           f"full deploy stack {p1d:.3f} mm | delta {p1d - p1:+.3f} mm",
           flush=True)
-    if inspect is not None:
-        inspect((trainer, state), (deploy, deploy_state))
-    return {
+    row = {
         "preset": preset_name,
         "tiny_trained_fp32_p1_mm": round(p1, 4),
         "tiny_trained_deploy_p1_mm": round(p1d, 4),
         "tiny_trained_delta_mm": round(p1d - p1, 4),
     }
+    if cfg.model.backbone.kind == "cpn":
+        for short, knob in KNOBS.items():
+            kcfg = dataclasses.replace(dcfg, model=dataclasses.replace(
+                dcfg.model, backbone=dataclasses.replace(
+                    dcfg.model.backbone, **{knob: True})))
+            p1k = _deploy_p1(kcfg, state, train_ds, val_ds, device, seed)[2]
+            print(f"[{preset_name}] trained P1: deploy {knob} {p1k:.3f} mm "
+                  f"| delta vs fp32 {p1k - p1:+.3f} mm | vs deploy "
+                  f"{p1k - p1d:+.3f} mm", flush=True)
+            row[f"tiny_trained_deploy_{short}_p1_mm"] = round(p1k, 4)
+            row[f"tiny_trained_{short}_delta_mm"] = round(p1k - p1, 4)
+    if inspect is not None:
+        inspect((trainer, state), (deploy, deploy_state))
+    return row
 
 
 def main(argv=None) -> list[dict]:

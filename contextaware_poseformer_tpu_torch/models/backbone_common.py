@@ -10,8 +10,9 @@ the 3x3 convs with both channel counts >= 16 and on the wide convs;
 ``resize_bilinear_align_corners`` (249-280), ``max_pool_3x3_s2``
 (389-412), and the serving state of 283-386 (``calibrate_quantization``,
 ``prepare_int8_weights``, ``check_calibrated``, a parameter fingerprint and
-``check_serving_fresh``). ConvBN's ``raw`` output, which only the refused
-``cpn_fold_normalize`` uses, is not ported.
+``check_serving_fresh``). ConvBN's ``raw`` output (``scale * conv(x)``,
+112-115 and 222-223) gives the CPN's ``cpn_fold_normalize`` stem its bias
+map.
 
 Tensors are NHWC at every function here. Each op runs on the NCHW-shaped
 ``permute`` view of its input, which for an NHWC-contiguous tensor is
@@ -148,6 +149,14 @@ class ConvBN(nn.Module):
     tensor, or an int8 ``(xq, amax)`` pair dequantized in the epilogue),
     ``relu`` overriding the conv's own, and ``out_amax``, which requantizes
     the output to int8 (the CPN int8 stream's fused epilogues).
+
+    ``raw=True`` returns the linear part of the float path, ``scale *
+    conv(x)`` in ``dtype`` with no bias or ReLU (the JAX package's
+    ``raw``): the CPN's fold-normalize stem evaluates its conv on the
+    constant offset image with it (``models/cpn.py``). The conv is summed
+    in float64 from the ``dtype`` operands and rounded to fp32, then to
+    ``dtype`` (XLA sums a bf16 conv in fp32 and rounds once); it runs once
+    per parameter state, so its cost does not matter.
     """
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
@@ -211,11 +220,13 @@ class ConvBN(nn.Module):
 
     def forward(self, x, x_quant=None, impl: str = "auto",
                 calibrate: bool = False, residual=None, out_amax=None,
-                relu=None):
+                relu=None, raw: bool = False):
         """``impl="plain"`` runs K10's plain version on any device (the
         card's comparison path); "auto" takes the kernel on a CUDA tensor
         and the plain version on a CPU one."""
         relu = self.relu if relu is None else relu
+        if raw:
+            return self._raw(x)
         if x_quant is not None:
             xin, amax = x_quant
         elif self.static and not calibrate:
@@ -234,6 +245,13 @@ class ConvBN(nn.Module):
         return int8_conv.int8_conv(xin, *self.packed(), amax, self.stride,
                                    relu, self.dtype, impl, res, res_amax,
                                    out_amax)
+
+    def _raw(self, x):
+        dt = self.dtype
+        y = F.conv2d(_nchw(x.to(dt)).double(), self.weight.to(dt).double(),
+                     stride=self.stride, padding=self.padding)
+        y = _nhwc(y).contiguous().float().to(dt)
+        return y * self.scale.to(dt)
 
     def _float(self, x, residual, out_amax, relu):
         if residual is not None or out_amax is not None:

@@ -30,7 +30,8 @@ Reference torch checkpoints reach the port through ``convert.py`` first
 is the inverse on the parameters and the calibrated scales: the port's
 model as a flax-layout ``params`` tree, the shapes tree
 ``convert.convert_conv_backbone`` takes (a backbone conv keeps its dotted
-flax name as ``flax_name``), and its ``calib`` collection.
+flax name as ``flax_name``), its ``calib`` collection and, asked for, its
+prepared ``qweights`` (the CPN's fold-normalize stem conv among them).
 
 Under tensor parallelism ``shard_for_rank`` cuts a tree (numpy leaves) to
 one rank's shards of the lifter's split Linears (``parallel/tensor.py``)
@@ -113,7 +114,8 @@ def variables_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return sd
 
 
-def variables_to_jax(model: nn.Module) -> dict[str, Any]:
+def variables_to_jax(model: nn.Module,
+                     qweights: bool = False) -> dict[str, Any]:
     """The parameters of ``model`` as flax variables ``{"params": tree}``
     with numpy fp32 leaves, and its calibrated activation scales, if it has
     any, as ``"calib"``: the inverse of ``variables_from_jax`` on those two
@@ -121,9 +123,11 @@ def variables_to_jax(model: nn.Module) -> dict[str, Any]:
     backbone conv takes its flax name (``flax_name``), its 4-D ``weight``
     becomes the HWIO ``kernel`` and its ``amax`` stays ``amax``; a
     backbone's own scales take their flax names (``calib_flax_names``).
-    The int8 weights are not carried (``prepare_serving`` makes them from
-    the parameters)."""
-    tree: dict[str, Any] = {"params": {}, "calib": {}}
+    The int8 weights are carried only with ``qweights=True``: then every
+    int8 conv whose weights were prepared gives its ``kernel_q`` (HWIO
+    int8) and ``wscale`` as ``"qweights"`` (otherwise ``prepare_serving``
+    makes them from the parameters)."""
+    tree: dict[str, Any] = {"params": {}, "calib": {}, "qweights": {}}
 
     def put(coll, path, leaf, arr):
         node = tree[coll]
@@ -144,12 +148,19 @@ def variables_to_jax(model: nn.Module) -> dict[str, Any]:
             if is_calib_name(leaf):
                 put("calib", path, names.get(leaf, leaf),
                     b.detach().to("cpu", torch.float32).numpy())
+        if qweights and getattr(module, "weights_ready", False):
+            o, i, kh, kw = module.weight.shape
+            kq = module.kernel_q.detach().cpu().reshape(o, kh, kw, i)
+            put("qweights", path, "kernel_q", kq.permute(1, 2, 3, 0).numpy())
+            put("qweights", path, "wscale",
+                module.wscale.detach().to("cpu", torch.float32).numpy())
         for name, child in module.named_children():
             walk(child, path + (getattr(child, "flax_name", name),))
 
     walk(model, ())
-    if not tree["calib"]:
-        del tree["calib"]
+    for coll in ("calib", "qweights"):
+        if not tree[coll]:
+            del tree[coll]
     return tree
 
 

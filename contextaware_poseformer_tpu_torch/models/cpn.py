@@ -33,8 +33,26 @@ with both channel counts >= 16, or wide, in int8 with a calibrated scale
 each (K10 per conv), and calibrates on the float graph. The int8 stream,
 the int8 maps, ``serve_static_amax`` and the up-convs before their upsample
 act only under ``"serve"`` (``cpn.py:79,98,191,297``).
-``cpn_fold_normalize`` and ``cpn_int8_topdown`` are refused: they are off
-in ``deploy`` and not ported.
+
+Two more serving knobs, off in ``deploy``, act under ``"serve"``:
+
+- ``cpn_fold_normalize`` (``cpn.py:190-225``): the model takes raw uint8
+  BGR frames (``data/augment.serving_images`` hands them over unchanged)
+  and folds the normalization into the stem: the frame as s8 (``u8 ^
+  0x80``) through an int8 conv1 (its ``kernel_q``/``wscale`` in the flax
+  order, filled by ``prepare_int8_weights``), the 1/255 of the
+  normalization in its dequant step, and the constant offset
+  (128 - mean) / 255 as a bias map, the conv of the offset image under the
+  same zero padding (ConvBN's ``raw`` output, batch 1): K10s
+  (``ops/int8_conv.stem_conv``), ``relu(ys + bias_map)``. A float input
+  still takes the float stem. The map is made once per parameter state
+  (tied to the serving fingerprint, ``_build.cached_operand``).
+- ``cpn_int8_topdown`` (``cpn.py:297-342``, with the int8 stream): each
+  globalNet up-conv requantizes its output in K10's epilogue with the
+  hop's calibrated ``global_net.topdown.{i}_amax`` (observed on the
+  up-conv's output while calibrating), and K10u (``ops/int8_conv.topdown``)
+  upsamples the s8 tensor x2 and adds it, dequantized, to the next
+  lateral in one pass.
 
 Conv modules are named after the torch parameter prefixes with dots turned
 into underscores (``resnet.layer1.0.conv1`` -> ``resnet_layer1_0_conv1``);
@@ -48,6 +66,7 @@ import torch
 from torch import nn
 
 from contextaware_poseformer_tpu_torch.config import BackboneConfig
+from contextaware_poseformer_tpu_torch.data.augment import CPN_PIXEL_MEAN
 from contextaware_poseformer_tpu_torch.models.backbone_common import (
     ConvBN,
     add_conv,
@@ -57,10 +76,13 @@ from contextaware_poseformer_tpu_torch.models.backbone_common import (
     observe,
     resize_bilinear_align_corners,
 )
+from contextaware_poseformer_tpu_torch.ops import _build
 from contextaware_poseformer_tpu_torch.ops.int8_conv import (
     dequant_step,
     quant,
     quant_max_pool_3x3_s2,
+    stem_conv,
+    topdown,
 )
 
 RESNET50_LAYERS = (3, 4, 6, 3)
@@ -71,8 +93,9 @@ _PLANES = (64, 128, 256, 512)
 
 def calib_names(cfg: BackboneConfig) -> tuple[str, ...]:
     """The int8 stream's calibrated scales (``cpn.py:103-181, 229-233,
-    365-370``): the pre-pool stem, each block's t1/t2/out, each cascade's
-    input and, with ``cpn_int8_maps``, the cascade-free /4 level."""
+    309-313, 365-370``): the pre-pool stem, each block's t1/t2/out, each
+    cascade's input, with ``cpn_int8_topdown`` each top-down hop's and,
+    with ``cpn_int8_maps``, the cascade-free /4 level."""
     names = ["resnet.in_amax"]
     blocks = [f"resnet.layer{li + 1}.{b}"
               for li, n in enumerate(cfg.cpn_layers) for b in range(n)]
@@ -80,6 +103,8 @@ def calib_names(cfg: BackboneConfig) -> tuple[str, ...]:
                for k in range(3 - i)]
     names += [f"{p}.{t}_amax" for p in blocks for t in ("t1", "t2", "out")]
     names += [f"refine_net.cascade.{i}.in_amax" for i in range(3)]
+    if cfg.cpn_int8_topdown:
+        names += [f"global_net.topdown.{i}_amax" for i in range(3)]
     if cfg.cpn_int8_maps:
         names.append("refine_net.feature3_amax")
     return tuple(names)
@@ -92,26 +117,26 @@ class CPN(nn.Module):
             raise ValueError(f"CPN with a {cfg.kind!r} backbone config")
         if cfg.quantize not in ("none", "c128", "static", "serve"):
             raise ValueError(f"CPN quantize={cfg.quantize!r}")
-        if cfg.cpn_fold_normalize or cfg.cpn_int8_topdown:
-            raise NotImplementedError(
-                "cpn_fold_normalize and cpn_int8_topdown are not ported: "
-                "they are off in config.deploy (ROADMAP, 'Not to port')")
         self.cfg = cfg
         self.dtype = dtype
         self.serve = cfg.quantize == "serve"
         self.stream = self.serve and cfg.cpn_int8_stream
         self.int8_maps = (self.stream and cfg.cpn_int8_maps
                           and cfg.cpn_native_pyramid)
-        # "plain" runs the plain versions of K10 and of the stream's
-        # quantizes (K10q's scale form, K10p) on any device (the card's
-        # comparison path)
+        # uint8 frames into the int8 stem (K10s); the s8 top-down hops
+        # (K10u), which need the stream's calibration
+        self.fold = self.serve and cfg.cpn_fold_normalize
+        self.int8_topdown = self.stream and cfg.cpn_int8_topdown
+        # "plain" runs the plain versions of K10, of the stream's quantizes
+        # (K10q's scale form, K10p), of K10s and of K10u on any device (the
+        # card's comparison path)
         self.int8_impl = "auto"
 
         def conv(name, cin, cout, ks, stride, relu):
-            # the stem is float in every mode (the JAX package builds it
-            # without a quantize mode); with the stream every other conv
-            # runs in int8
-            route = ({} if name == "resnet.conv1" else
+            # the stem takes no quantize mode (the JAX package builds it
+            # without one): float, or with the fold its int8 weights for
+            # uint8 frames; with the stream every other conv runs in int8
+            route = ({"int8": self.fold} if name == "resnet.conv1" else
                      int8_route(cfg, cin, cout, ks, self.stream))
             add_conv(self, name, ConvBN(
                 cin, cout, ks, stride, relu, dtype, device=device,
@@ -164,6 +189,34 @@ class CPN(nn.Module):
     def _observe(self, name: str, t: torch.Tensor) -> None:
         observe(getattr(self, module_name(name)), t, self.cfg.calib_quantile)
 
+    def _stem_bias_map(self, h: int, w: int) -> torch.Tensor:
+        """The fold stem's bias map (1, ceil(h/2), ceil(w/2), 64) in the
+        backbone's dtype: conv1's ``raw`` output on the constant offset
+        image (128 - mean) / 255 of (1, h, w, 3) (``cpn.py:216-222``), under
+        the conv's zero padding, so its border ring is the offset's own.
+        Made once per parameter state: cached on the serving fingerprint
+        and conv1's parameters (``_build.cached_operand``)."""
+        conv1 = self.resnet_conv1
+
+        def make(_):
+            mean = torch.tensor(CPN_PIXEL_MEAN, dtype=torch.float32)
+            off = (torch.tensor(128.0) - mean) / torch.tensor(255.0)
+            image = off.to(conv1.weight.device).expand(1, h, w, 3)
+            return conv1(image, raw=True)
+
+        tag = ("stem bias map", h, w, self.dtype,
+               conv1.weight._version, conv1.weight.data_ptr(),
+               conv1.scale._version, conv1.scale.data_ptr())
+        return _build.cached_operand(self.serving_fingerprint, tag, make)
+
+    def _fold_stem(self, frames: torch.Tensor) -> torch.Tensor:
+        """uint8 BGR frames -> the stem's output (``cpn.py:205-223``):
+        K10s, ``relu(E(int8 conv1 of the s8 frames) + bias map)``."""
+        kq, ws, scale, bias = self.resnet_conv1.packed()
+        bias_map = self._stem_bias_map(frames.shape[1], frames.shape[2])
+        return stem_conv(frames, kq, ws, scale, bias, bias_map, self.dtype,
+                         self.int8_impl)
+
     def _bottleneck(self, x, prefix, downsample, calibrate=False):
         """A float bottleneck: ResNet's (torchvision-style, stride on
         conv2) or refineNet's (planes 128, expansion 2, downsample always
@@ -201,17 +254,26 @@ class CPN(nn.Module):
         return out, out_a
 
     def forward(self, x: torch.Tensor, calibrate: bool = False):
-        """x: (N, H, W, 3) normalized -> 4 NHWC maps of 256 channels,
-        deepest first; with the int8 maps ``(maps, scales)``: int8 maps and
-        their fp32 dequant scales. ``calibrate=True`` (``quantize="serve"``
-        or ``"static"``): the calibration pass, which updates the scale
+        """x: (N, H, W, 3) normalized, or with ``cpn_fold_normalize`` raw
+        uint8 BGR frames -> 4 NHWC maps of 256 channels, deepest first;
+        with the int8 maps ``(maps, scales)``: int8 maps and their fp32
+        dequant scales. ``calibrate=True`` (``quantize="serve"`` or
+        ``"static"``): the calibration pass, which updates the scale
         buffers in place."""
         if calibrate and self.cfg.quantize not in ("serve", "static"):
             raise ValueError("calibrate=True needs quantize='serve' or "
                              "'static'")
         stream = self.stream and not calibrate
         int8_maps = self.int8_maps and stream
-        x = self._conv("resnet.conv1", x)
+        if x.dtype == torch.uint8:
+            if not self.fold:
+                raise TypeError(
+                    "CPN: uint8 frames need cpn_fold_normalize under "
+                    "quantize='serve'; normalize them first "
+                    "(data.augment.serving_images)")
+            x = self._fold_stem(x)
+        else:
+            x = self._conv("resnet.conv1", x)
         if calibrate and self.stream:
             # the pre-pool stem: the pool commutes with the monotone
             # quantize, so the pooled int8 tensor is quant(pool(x))
@@ -235,20 +297,31 @@ class CPN(nn.Module):
         res_out = feats[::-1]
 
         global_fms = []
-        up = None
+        up = hop = None
         for i in range(4):
             lat_name = f"global_net.laterals.{i}.0"
             lat = (self._conv(lat_name, None, x_quant=res_out[i]) if stream
                    else self._conv(lat_name, res_out[i], calibrate))
-            feature = lat if i == 0 else lat + up
+            if i == 0:
+                feature = lat
+            elif hop is not None:  # K10u: upsample, dequantize, add
+                feature = topdown(*hop, lat, self.dtype, self.int8_impl)
+            else:
+                feature = lat + up
             global_fms.append(feature)
             if i != 3:
                 _, h, w, _ = feature.shape
                 up_name = f"global_net.upsamples.{i}.1"
-                if self.serve:  # the 1x1 conv before the upsample
-                    up = resize_bilinear_align_corners(
-                        self._conv(up_name, feature, calibrate),
-                        (2 * h, 2 * w))
+                hop_amax = f"global_net.topdown.{i}_amax"
+                if self.int8_topdown and stream:
+                    # the up-conv requantizes its output in K10's epilogue
+                    ua = self._amax(hop_amax)
+                    hop = (self._conv(up_name, feature, out_amax=ua), ua)
+                elif self.serve:  # the 1x1 conv before the upsample
+                    pre = self._conv(up_name, feature, calibrate)
+                    if calibrate and self.int8_topdown:
+                        self._observe(hop_amax, pre)
+                    up = resize_bilinear_align_corners(pre, (2 * h, 2 * w))
                 else:
                     up = self._conv(up_name, resize_bilinear_align_corners(
                         feature, (2 * h, 2 * w)), calibrate)

@@ -147,6 +147,47 @@ __device__ __forceinline__ void mma_bf16_16x8x16(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// 8 consecutive E values (16 bytes of bf16, 32 of fp32) as floats
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* y) {
+  const uint4 f = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    y[e] = __bfloat162float(__ushort_as_bfloat16(
+        static_cast<unsigned short>(w[e / 2] >> (16 * (e % 2)))));
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float* y) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  y[0] = lo.x, y[1] = lo.y, y[2] = lo.z, y[3] = lo.w;
+  y[4] = hi.x, y[5] = hi.y, y[6] = hi.z, y[7] = hi.w;
+}
+
+// 8 finished values -> E: one 16-byte store of bf16 (exact: every value is
+// a bf16 number already), two of fp32
+__device__ __forceinline__ void store8(__nv_bfloat16* out, const float* y) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(y[2 * i], y[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+  *reinterpret_cast<uint4*>(out) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void store8(float* out, const float* y) {
+  *reinterpret_cast<float4*>(out) = make_float4(y[0], y[1], y[2], y[3]);
+  *reinterpret_cast<float4*>(out + 4) = make_float4(y[4], y[5], y[6], y[7]);
+}
+
+// two staged values of one row, E(a) and E(b), at an even column
+__device__ __forceinline__ void stage2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void stage2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory when needed.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

@@ -81,7 +81,10 @@
 
 using capf::affine;
 using capf::folded_scale;
+using capf::load8;
 using capf::round_to;
+using capf::stage2;
+using capf::store8;
 using capf::to_int8_rne;
 
 // the entry points' argument block, passed by pointer from ctypes
@@ -178,23 +181,6 @@ __device__ __forceinline__ float finish(float y, float res, bool has_res,
   return relu ? fmaxf(y, 0.f) : y;
 }
 
-// 8 consecutive E values (16 bytes of bf16, 32 of fp32) as floats
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* y) {
-  const uint4 f = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    y[e] = __bfloat162float(__ushort_as_bfloat16(
-        static_cast<unsigned short>(w[e / 2] >> (16 * (e % 2)))));
-  }
-}
-__device__ __forceinline__ void load8(const float* p, float* y) {
-  const float4 lo = *reinterpret_cast<const float4*>(p);
-  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
-  y[0] = lo.x, y[1] = lo.y, y[2] = lo.z, y[3] = lo.w;
-  y[4] = hi.x, y[5] = hi.y, y[6] = hi.z, y[7] = hi.w;
-}
-
 // 8 consecutive residual values of one pixel as floats: an E residual as
 // it is, an int8 skip dequantized as E(xq) * E(amax / 127)
 template <typename E>
@@ -240,30 +226,6 @@ __device__ __forceinline__ void store_int8(int8_t* out, const float* y,
   } else {
     *reinterpret_cast<uint2*>(out) = make_uint2(w[0], w[1]);
   }
-}
-
-// 8 finished values -> E: one 16-byte store of bf16 (exact: every value is
-// a bf16 number already), two of fp32
-__device__ __forceinline__ void store8(__nv_bfloat16* out, const float* y) {
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(y[2 * i], y[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&v);
-  }
-  *reinterpret_cast<uint4*>(out) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-__device__ __forceinline__ void store8(float* out, const float* y) {
-  *reinterpret_cast<float4*>(out) = make_float4(y[0], y[1], y[2], y[3]);
-  *reinterpret_cast<float4*>(out + 4) = make_float4(y[4], y[5], y[6], y[7]);
-}
-
-// two staged values of one row, E(a) and E(b), at an even column
-__device__ __forceinline__ void stage2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void stage2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
 // ---- the convolution ------------------------------------------------------

@@ -61,6 +61,8 @@ from contextaware_poseformer_tpu_torch.ops import _build
 launches = 0  # kernel launches made by int8_conv_kernel
 launches_quantize = 0  # quantize-pass (K10q) launches by quantize_kernel
 launches_quant_pool = 0  # K10p launches made by quant_max_pool_kernel
+launches_stem = 0  # K10s launches made by stem_conv_kernel
+launches_topdown = 0  # K10u launches made by topdown_kernel
 
 CIN_MULTIPLE = 16  # input channels: K's 16-byte pieces never straddle taps
 K_TILE = 128  # bytes of K a stage of the kernel's ring holds
@@ -164,21 +166,24 @@ def dequant(xq: torch.Tensor, amax: torch.Tensor, dtype) -> torch.Tensor:
     return xq.to(dtype) * dequant_step(amax, clamp=True).to(dtype)
 
 
-def _kernel_size(kernel_q: torch.Tensor, cin: int) -> int:
+def _kernel_size(kernel_q: torch.Tensor, cin: int,
+                 sizes=(1, 3)) -> int:
     taps = kernel_q.shape[1] // cin
     k = math.isqrt(taps)
-    if k * k * cin != kernel_q.shape[1] or k not in (1, 3):
+    if k * k * cin != kernel_q.shape[1] or k not in sizes:
         raise ValueError(f"int8_conv: kernel {tuple(kernel_q.shape)} is not "
-                         f"1x1 or 3x3 over {cin} input channels")
+                         f"{' or '.join(f'{n}x{n}' for n in sizes)} over "
+                         f"{cin} input channels")
     return k
 
 
 def _conv64(x, kernel, stride):
     """conv(x, kernel) in float64, NHWC in and out, ``kernel`` (Cout,
-    kh*kw*Cin) with K ordered (kh, kw, Cin). The output is laid out NHWC,
-    as the kernel writes it: the float ops downstream (a resize, a cuDNN
-    conv) then take the same route, and round alike, after either."""
-    ksize = _kernel_size(kernel, x.shape[-1])
+    kh*kw*Cin) with K ordered (kh, kw, Cin): K10's 1x1 or 3x3, or the fold
+    stem's 7x7. The output is laid out NHWC, as the kernel writes it: the
+    float ops downstream (a resize, a cuDNN conv) then take the same route,
+    and round alike, after either."""
+    ksize = _kernel_size(kernel, x.shape[-1], (1, 3, STEM_KSIZE))
     w = kernel.reshape(kernel.shape[0], ksize, ksize, -1)
     return F.conv2d(x.permute(0, 3, 1, 2).double(),
                     w.permute(0, 3, 1, 2).double(), stride=stride,
@@ -193,10 +198,10 @@ def accumulate_float(x, kernel, stride):
 
 def accumulate(xq, kernel_q, stride):
     """The int32 accumulation of the int8 values ``xq`` (NHWC, int8 or
-    float holding integers) with ``kernel_q``, in float64: exact, since
-    every product is below 2**14 and every sum below 2**26 (rounded before
-    the cast, in case the library's algorithm leaves a residue far below
-    0.5)."""
+    float holding integers, -128 included) with ``kernel_q``, in float64:
+    exact, since every product is below 2**14 and every sum below 2**26
+    (rounded before the cast, in case the library's algorithm leaves a
+    residue far below 0.5)."""
     return torch.round(_conv64(xq, kernel_q, stride)).to(torch.int32)
 
 
@@ -474,3 +479,233 @@ def int8_conv(x, kernel_q, wscale, scale, bias, amax, stride, relu,
         raise ValueError(f"int8_conv: impl {impl!r} (auto or plain)")
     return int8_conv_kernel(x, kernel_q, wscale, scale, bias, amax, stride,
                             relu, dtype, residual, res_amax, out_amax)
+
+
+# ---- K10s: the fold-normalize stem; K10u: the s8 top-down hop -------------
+
+STEM_KSIZE = 7  # the stem conv: 7x7, stride 2, zero padding 3, 3 -> 64
+STEM_COUT = 64
+STEM_STEP_BYTES = 32  # a kernel row's k-step: its 21 (kw, c) taps, zero to 32
+STEM_W_MULTIPLE = 32  # K10s's frame width: whole 16-pixel output tiles
+# The step of the s8 frame (u8 - 128, in units of 1/255): the JAX package
+# feeds conv1 the amax fl32(127 / 255) (``cpn.py:223``), a constant that its
+# jit folds with ``max(amax, 1e-12) / 127`` as an IEEE division
+# (``backbone_common.py:192-195``), unlike a traced scale's ``/ 127``
+STEM_STEP = float(np.float32(127.0 / 255.0) / np.float32(127.0))
+
+
+def stem_accumulate(frames_u8: torch.Tensor,
+                    kernel_q: torch.Tensor) -> torch.Tensor:
+    """The int32 accumulation of the fold stem: uint8 BGR frames (B, H, W,
+    3) as s8 RGB (``u8 ^ 0x80``, i.e. u8 - 128, channels reversed) convolved
+    with ``kernel_q`` (64, 7*7*3), K ordered (kh, kw, c) with c in RGB, at
+    stride 2 under zero padding 3 (``accumulate``) -> (B, ceil(H/2),
+    ceil(W/2), 64)."""
+    return accumulate((frames_u8.to(torch.int16) - 128).flip(-1), kernel_q,
+                      2)
+
+
+def stem_conv_reference(frames_u8, kernel_q, wscale, scale, bias, bias_map,
+                        dtype=torch.bfloat16):
+    """Plain version of K10s, the CPN's fold-normalize stem (the JAX
+    package's ``cpn.py:214-223``): ``relu(E(ys + bias_map))`` with ``ys =
+    E(acc) * E(scale * wscale * STEM_STEP) + E(bias)`` (two roundings),
+    ``acc`` from ``stem_accumulate`` and E = ``dtype``; ``bias_map`` (1, Ho,
+    Wo, 64) in E, the conv of the normalization's constant offset
+    (``models/cpn.py``), added to every frame."""
+    acc = stem_accumulate(frames_u8, kernel_q)
+    eff = (scale.float() * wscale.float()
+           * f32_const(STEM_STEP, scale)).to(dtype)
+    ys = acc.to(dtype) * eff + bias.to(dtype)
+    return torch.relu(ys + bias_map.to(dtype))
+
+
+def stem_weight_steps(kernel_q: torch.Tensor) -> torch.Tensor:
+    """K10s's weights: ``kernel_q`` (64, 7*7*3, (kh, kw, c) with c in RGB)
+    as (7, 64, 32) int8, kernel row, channel, then the row's 21 (kw, c)
+    taps with c reversed (the frames' BGR order: the flip folded into the
+    weights), zero to 32 bytes (one mma k-step a kernel row)."""
+    cout = kernel_q.shape[0]
+    k = kernel_q.reshape(cout, STEM_KSIZE, STEM_KSIZE, 3).flip(-1)
+    k = F.pad(k.reshape(cout, STEM_KSIZE, 3 * STEM_KSIZE),
+              (0, STEM_STEP_BYTES - 3 * STEM_KSIZE))
+    return k.permute(1, 0, 2).contiguous()
+
+
+class _StemArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "x", "wk", "wscale", "scale", "bias", "bias_map", "out")] + [
+        ("step", ctypes.c_float)] + [(n, ctypes.c_int) for n in (
+            "batch", "h", "w", "ho", "wo", "f32")]
+
+
+def stem_conv_kernel(frames_u8, kernel_q, wscale, scale, bias, bias_map,
+                     dtype=torch.bfloat16):
+    """K10s on the card: the contract of ``stem_conv_reference``, for
+    uint8 frames (B, H, W, 3) with W a multiple of 32; ``bias_map`` (1, Ho,
+    Wo, 64) or (Ho, Wo, 64) in ``dtype`` (bf16 or fp32). Its weights come
+    from ``kernel_q`` once per parameter state
+    (``stem_weight_steps``, ``_build.cached_operand``)."""
+    global launches_stem
+    name = "stem_conv"
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: the CUDA kernel computes in bf16 or fp32, "
+                        f"not {dtype}")
+    if (frames_u8.dtype != torch.uint8 or frames_u8.dim() != 4
+            or frames_u8.shape[-1] != 3):
+        raise TypeError(f"{name}: frames must be uint8 (B, H, W, 3), got "
+                        f"{frames_u8.dtype} {tuple(frames_u8.shape)}")
+    b, h, w, _ = frames_u8.shape
+    if w % STEM_W_MULTIPLE or not b or not h:
+        raise ValueError(f"{name}: the frame width {w} must be a multiple "
+                         f"of {STEM_W_MULTIPLE}")
+    ho, wo = (h + 1) // 2, w // 2
+    if kernel_q.dtype != torch.int8 or kernel_q.shape != (
+            STEM_COUT, STEM_KSIZE * STEM_KSIZE * 3):
+        raise TypeError(f"{name}: kernel_q must be int8 (64, 147)")
+    vecs = (wscale, scale, bias)
+    if any(v.dtype != torch.float32 or v.shape != (STEM_COUT,)
+           for v in vecs):
+        raise TypeError(f"{name}: wscale, scale and bias must be fp32 (64,)")
+    bias_map = bias_map.reshape(ho, wo, STEM_COUT) if bias_map.numel() == (
+        ho * wo * STEM_COUT) else None
+    if bias_map is None or bias_map.dtype != dtype:
+        raise TypeError(f"{name}: bias_map must be {dtype} ({ho}, {wo}, "
+                        f"{STEM_COUT})")
+    _build.require_cuda(name, frames_u8, kernel_q, *vecs, bias_map)
+    wk = _build.cached_operand(kernel_q, "stem k-steps", stem_weight_steps)
+    if any(t.data_ptr() % 16 for t in (frames_u8, wk, bias_map)):
+        raise ValueError(f"{name}: frames, weights and bias_map must start "
+                         "on a 16-byte boundary (16-byte loads)")
+    out = torch.empty((b, ho, wo, STEM_COUT), dtype=dtype,
+                      device=frames_u8.device)
+    args = _StemArgs(x=frames_u8.data_ptr(), wk=wk.data_ptr(),
+                     wscale=wscale.data_ptr(), scale=scale.data_ptr(),
+                     bias=bias.data_ptr(), bias_map=bias_map.data_ptr(),
+                     out=out.data_ptr(), step=STEM_STEP, batch=b, h=h, w=w,
+                     ho=ho, wo=wo, f32=int(dtype == torch.float32))
+    lib = _build.library()
+    err = lib.capf_stem_conv(ctypes.addressof(args),
+                             *_build.launch_target(frames_u8))
+    _build.check(lib, err, name)
+    launches_stem += 1
+    return out
+
+
+def stem_conv(frames_u8, kernel_q, wscale, scale, bias, bias_map,
+              dtype=torch.bfloat16, impl: str = "auto"):
+    """Dispatcher: the plain version for a CPU tensor or ``impl="plain"``,
+    K10s for any other (which raises unless it is a CUDA tensor)."""
+    if impl == "plain" or frames_u8.device.type == "cpu":
+        return stem_conv_reference(frames_u8, kernel_q, wscale, scale, bias,
+                                   bias_map, dtype)
+    if impl != "auto":
+        raise ValueError(f"stem_conv: impl {impl!r} (auto or plain)")
+    return stem_conv_kernel(frames_u8, kernel_q, wscale, scale, bias,
+                            bias_map, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def interp_table(out_size: int, in_size: int,
+                 dtype=torch.bfloat16) -> tuple[np.ndarray, np.ndarray]:
+    """The two taps (out, 2) int32 and their weights (out, 2) fp32, each an
+    E number (E = ``dtype``), of each output row of a bilinear resize with
+    align_corners from ``in_size`` to ``out_size``: the nonzero entries of
+    the JAX package's ``_linear_interp_matrix`` (``backbone_common.py:
+    249-263``) as its served graph computes them. Its jit folds the source
+    position's constants as ``o * fl32(fl32(in - 1) * fl32(1 / (out - 1)))``
+    (held against the JAX package in ``tests/test_torch_cpn_knobs.py``); a
+    second tap clipped onto the first is folded into it (w0 + w1, w1 = 0),
+    as the matrix sums them before its rounding to E."""
+    f32 = np.float32
+    if in_size == 1:
+        idx = np.zeros((out_size, 2), np.int32)
+        w = np.stack([np.ones(out_size, f32), np.zeros(out_size, f32)], 1)
+    else:
+        src = (np.arange(out_size, dtype=f32)
+               * (f32(in_size - 1) * (f32(1) / f32(out_size - 1)))
+               if out_size > 1 else np.zeros(1, f32))
+        i0 = np.clip(np.floor(src).astype(np.int32), 0, in_size - 1)
+        i1 = np.clip(i0 + 1, 0, in_size - 1)
+        w1 = src - i0.astype(f32)
+        w0 = f32(1) - w1
+        same = i0 == i1
+        w0, w1 = np.where(same, w0 + w1, w0), np.where(same, f32(0), w1)
+        idx, w = np.stack([i0, i1], 1), np.stack([w0, w1], 1).astype(f32)
+    w = torch.from_numpy(w).to(dtype).float().numpy()
+    for a in (idx, w):  # cached: every caller shares them
+        a.flags.writeable = False
+    return idx, w
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_tensors(out_size, in_size, dtype, device):
+    idx, w = interp_table(out_size, in_size, dtype)
+    return (torch.tensor(idx, device=device), torch.tensor(w, device=device))
+
+
+def topdown_reference(q, ua, lat, dtype=torch.bfloat16):
+    """Plain version of K10u, the CPN's s8 top-down hop (the JAX package's
+    ``cpn.py:334-338`` and the lateral add of ``cpn.py:289``): ``q`` (B, h,
+    w, C) int8 with its calibrated amax ``ua``, ``lat`` (B, 2h, 2w, C) ->
+    ``E(lat + E(u * E(max(ua, 1e-12) / 127)))`` with ``u`` the separable
+    align-corners x2 upsample of ``q``, rows first: each pass the sum of
+    its two taps' fp32 products rounded once to E (``interp_table``), as
+    the JAX package's two interpolation matmuls in E compute it."""
+    _, h, w, _ = q.shape
+    dev = q.device
+    ri, rw = _interp_tensors(2 * h, h, dtype, dev)
+    ci, cw = _interp_tensors(2 * w, w, dtype, dev)
+    ri, ci = ri.long(), ci.long()
+    qf = q.float()
+    r = (rw[:, 0].view(1, -1, 1, 1) * qf[:, ri[:, 0]]
+         + rw[:, 1].view(1, -1, 1, 1) * qf[:, ri[:, 1]]).to(dtype).float()
+    u = (cw[:, 0].view(1, 1, -1, 1) * r[:, :, ci[:, 0]]
+         + cw[:, 1].view(1, 1, -1, 1) * r[:, :, ci[:, 1]]).to(dtype)
+    return lat.to(dtype) + u * dequant_step(ua, clamp=True).to(dtype)
+
+
+def topdown_kernel(q, ua, lat, dtype=torch.bfloat16):
+    """K10u on the card: the contract of ``topdown_reference``, for ``q``
+    int8 (B, h, w, C) with C a multiple of 8, ``lat`` (B, 2h, 2w, C) in
+    ``dtype`` (bf16 or fp32), ``ua`` an fp32 tensor of one element."""
+    global launches_topdown
+    name = "topdown"
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: the CUDA kernel computes in bf16 or fp32, "
+                        f"not {dtype}")
+    if q.dtype != torch.int8 or q.dim() != 4 or q.shape[-1] % 8 \
+            or not q.numel():
+        raise TypeError(f"{name}: q must be int8 (B, h, w, C), C a multiple "
+                        f"of 8, got {q.dtype} {tuple(q.shape)}")
+    b, h, w, c = q.shape
+    if lat.dtype != dtype or tuple(lat.shape) != (b, 2 * h, 2 * w, c):
+        raise TypeError(f"{name}: lat must be {dtype} {(b, 2 * h, 2 * w, c)}"
+                        f", got {lat.dtype} {tuple(lat.shape)}")
+    ua = _scalar("ua", ua)
+    _build.require_cuda(name, q, lat, ua)
+    if q.data_ptr() % 8 or lat.data_ptr() % 16:
+        raise ValueError(f"{name}: q must start on an 8-byte and lat on a "
+                         "16-byte boundary")
+    ri, rw = _interp_tensors(2 * h, h, dtype, q.device)
+    ci, cw = _interp_tensors(2 * w, w, dtype, q.device)
+    out = torch.empty_like(lat)
+    lib = _build.library()
+    err = lib.capf_topdown(q.data_ptr(), ua.data_ptr(), lat.data_ptr(),
+                           out.data_ptr(), ri.data_ptr(), rw.data_ptr(),
+                           ci.data_ptr(), cw.data_ptr(), b, h, w, c,
+                           int(dtype == torch.float32),
+                           *_build.launch_target(q))
+    _build.check(lib, err, name)
+    launches_topdown += 1
+    return out
+
+
+def topdown(q, ua, lat, dtype=torch.bfloat16, impl: str = "auto"):
+    """Dispatcher: the plain version for a CPU tensor or ``impl="plain"``,
+    K10u for any other (which raises unless it is a CUDA tensor)."""
+    if impl == "plain" or q.device.type == "cpu":
+        return topdown_reference(q, ua, lat, dtype)
+    if impl != "auto":
+        raise ValueError(f"topdown: impl {impl!r} (auto or plain)")
+    return topdown_kernel(q, ua, lat, dtype)

@@ -20,7 +20,9 @@ optimizer step) run inside ``fn:<name>`` ranges. Each kernel, memcpy and
 memset on the device is joined to its launch on the host through the
 trace's correlation ids, and the launch to the ranges around it on its
 thread. A kernel named for its function (the samplers, K2-K4, the int8
-kernels) takes that function's bucket; any other takes the bucket of its
+kernels; the CPN's fold-normalize stem K10s takes "backbone stem", whatever
+conv computes it, and its s8 top-down hop K10u a bucket of its own) takes
+that function's bucket; any other takes the bucket of its
 innermost range: an ``nn:`` module's by ``RULES``, an ``fn:`` function's
 name (the CPN's pooling, quantization and bilinear resizes, called between
 its modules, have ranges of their own, and each of its bottlenecks, a
@@ -46,6 +48,8 @@ import torch
 # (bucket, substrings of the kernel name); first match wins
 KERNEL_RULES: list[tuple[str, tuple[str, ...]]] = [
     ("int8 quantize", ("int8_quantize_kernel", "int8_quant_pool_kernel")),
+    ("backbone stem", ("stem_conv_kernel",)),
+    ("globalNet top-down (K10u)", ("topdown_kernel",)),
     ("backbone layer1", ("layer1_block_kernel",)),
     ("sampler backward", ("sample_levels_bwd", "grid_sampler_2d_backward")),
     ("sampler", ("sample_levels", "aggregate_kernel", "grid_sampler")),
@@ -128,6 +132,7 @@ def default_functions() -> list[tuple[object, str, object]]:
            (cpn, "quant_max_pool_3x3_s2", "fn:int8 quantize"),
            (cpn, "resize_bilinear_align_corners",
             "fn:bilinear resize (globalNet, refineNet)"),
+           (cpn.CPN, "_fold_stem", "fn:backbone stem"),
            (cpn.CPN, "_bottleneck", _block(2)),
            (cpn.CPN, "_bottleneck_i8", _block(3))]
     out += [(losses.LOSSES, name, "fn:loss") for name in losses.LOSSES]

@@ -228,17 +228,20 @@ def test_slice_config_and_int8_refusal():
         "fused", "grouped", "fused")
     assert lif.sampler_pre_project and lif.sampler == "auto"
     # both int8 deploy graphs are ported (tests/test_torch_int8.py,
-    # tests/test_torch_cpn_int8.py); what stays refused is named
+    # tests/test_torch_cpn_int8.py), and so are the CPN's two serving knobs
+    # (tests/test_torch_cpn_knobs.py): each builds
     cpn = ContextAwarePoseFormer(deploy(preset("h36m_cpn")).model,
                                  device="meta")
     assert cpn.backbone.serve and cpn.backbone.stream
     assert cpn.backbone.int8_maps
-    for knob in ("cpn_fold_normalize", "cpn_int8_topdown"):
+    assert not (cpn.backbone.fold or cpn.backbone.int8_topdown)
+    for knob, flag in (("cpn_fold_normalize", "fold"),
+                       ("cpn_int8_topdown", "int8_topdown")):
         model = deploy(preset("h36m_cpn")).model
         model = replace(model, backbone=replace(model.backbone,
                                                 **{knob: True}))
-        with pytest.raises(NotImplementedError, match=knob):
-            ContextAwarePoseFormer(model, device="meta")
+        built = ContextAwarePoseFormer(model, device="meta")
+        assert getattr(built.backbone, flag), knob
     deployed = ContextAwarePoseFormer(deploy(preset("h36m_hrnet_32")).model,
                                       device="meta")
     assert deployed.backbone.serve

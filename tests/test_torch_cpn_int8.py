@@ -114,17 +114,18 @@ def _random_params(shapes, rng):
 
 def _qweights(params, like):
     """The "qweights" collection of tree structure ``like`` (shapes), each
-    conv quantized eagerly from ``params`` as the JAX ConvBN does it
-    (``backbone_common.py:180-183``)."""
+    conv's ``wscale = max|k| / 127`` and ``round(k / wscale)`` in numpy
+    fp32: the IEEE operations of the JAX ConvBN's eager quantization
+    (``backbone_common.py:180-183``), at a fraction of its dispatch cost."""
     out = {}
     for name, sub in like.items():
         if "kernel_q" not in sub:
             out[name] = _qweights(params[name], sub)
             continue
-        k32 = jnp.asarray(params[name]["kernel"], jnp.float32)
-        ws = jnp.max(jnp.abs(k32), axis=(0, 1, 2)) / 127.0
-        out[name] = {"kernel_q": np.asarray(jnp.round(k32 / ws).astype(
-            jnp.int8)), "wscale": np.asarray(ws)}
+        k32 = np.asarray(params[name]["kernel"], np.float32)
+        ws = np.abs(k32).max(axis=(0, 1, 2)) / np.float32(127.0)
+        out[name] = {"kernel_q": np.round(k32 / ws).astype(np.int8),
+                     "wscale": ws}
     return out
 
 
@@ -594,9 +595,14 @@ def test_deploy_config_and_its_int8_convs():
     assert all(n.startswith(("resnet_layer2", "resnet_layer3",
                              "resnet_layer4", "global_net", "refine_net"))
                for n in static)
-    for bad in ({"cpn_fold_normalize": True}, {"cpn_int8_topdown": True}):
-        with pytest.raises(NotImplementedError):
-            CPN(replace(b, **bad), device="meta")
+    # the two serving knobs build (tests/test_torch_cpn_knobs.py): the
+    # fold makes the stem an int8 conv, the top-down adds its hops' scales
+    fold = CPN(replace(b, cpn_fold_normalize=True), device="meta")
+    assert len(bc.int8_convs(fold)) == FULL_INT8_CONVS + 1
+    assert "resnet_conv1" in dict(bc.int8_convs(fold))
+    hops = CPN(replace(b, cpn_int8_topdown=True), device="meta")
+    assert len(bc.calibration_buffers(hops)) == len(
+        bc.calibration_buffers(model)) + 3
     with pytest.raises(ValueError, match="int4"):
         CPN(replace(b, quantize="int4"), device="meta")
 

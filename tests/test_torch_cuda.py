@@ -1532,3 +1532,129 @@ def test_f6_deformable_block_serves_head_dims_the_projection_refuses(
     assert deformable.launches == before + 1
     err = (out.float() - plain.float()).abs().max().item()
     assert err <= 2e-2 * plain.float().abs().max().item()
+
+
+# ---- the CPN's serving knobs: K10s (the fold stem), K10u (the s8 hop) -------
+
+def _stem_case(g, dev, dtype, batch):
+    """The fold stem's operands at the served width (256x192 frames): a
+    random conv1 (he-scaled 7x7 weights, BN scale and bias), its int8
+    weights and its bias map (``raw`` on the offset image, as the CPN
+    makes it)."""
+    conv = backbone_common.ConvBN(3, 64, 7, 2, True, dtype, device=dev,
+                                  int8=True)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(64, 3, 7, 7, generator=g) * 0.1)
+        conv.scale.copy_(torch.rand(64, generator=g) + 0.5)
+        conv.bias.copy_(torch.randn(64, generator=g) * 0.1)
+    kq, ws, scale, bias = (t.detach() for t in conv.packed())
+    off = (128.0 - torch.tensor(augment.CPN_PIXEL_MEAN)) / 255.0
+    with torch.inference_mode():
+        bias_map = conv(off.to(dev).expand(1, 256, 192, 3), raw=True)
+    frames = torch.randint(0, 256, (batch, 256, 192, 3), dtype=torch.uint8,
+                           generator=g).to(dev)
+    return frames, (kq, ws, scale, bias, bias_map, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch", [1, 64])
+def test_k10s_matches_plain_version(cuda_device, batch, dtype):
+    """K10s, the fold stem on raw uint8 frames: equal to its plain version
+    bit for bit, border rows and columns included, on random frames and on
+    all-0 and all-255 ones (the s8 extremes -128 and 127), one launch a
+    call."""
+    g = torch.Generator().manual_seed(batch)
+    frames, rest = _stem_case(g, cuda_device, dtype, batch)
+    for f in (frames, torch.zeros_like(frames), torch.full_like(frames, 255)):
+        before = int8_conv.launches_stem
+        out = int8_conv.stem_conv(f, *rest)
+        assert int8_conv.launches_stem == before + 1
+        ref = int8_conv.stem_conv_reference(f, *rest)
+        assert out.shape == (batch, 128, 96, 64) and out.dtype == dtype
+        assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hw", [(8, 6), (16, 12), (32, 24)])
+def test_k10u_matches_plain_version(cuda_device, hw, dtype):
+    """K10u, the s8 top-down hop at the three hops of a 256x192 request
+    (batch 64, 256 channels): equal to its plain version bit for bit, one
+    launch a call."""
+    g = torch.Generator().manual_seed(hw[0])
+    h, w = hw
+    q = torch.randint(-127, 128, (64, h, w, 256), dtype=torch.int8,
+                      generator=g).to(cuda_device)
+    lat = torch.randn(64, 2 * h, 2 * w, 256, generator=g).to(cuda_device,
+                                                             dtype)
+    ua = torch.tensor(7.3, device=cuda_device)
+    before = int8_conv.launches_topdown
+    out = int8_conv.topdown(q, ua, lat, dtype)
+    assert int8_conv.launches_topdown == before + 1
+    ref = int8_conv.topdown_reference(q, ua, lat, dtype)
+    assert out.dtype == dtype
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(8, 6), (16, 12), (32, 24)])
+def test_k10_requantizes_without_relu_or_residual(cuda_device, hw):
+    """K10 as the top-down up-convs run it: a bf16 input with its
+    calibrated amax, 1x1 256 -> 256, the output requantized to int8 with
+    no ReLU and no residual: equal to its plain version bit for bit."""
+    g = torch.Generator().manual_seed(hw[1])
+    x, kq, vecs, _ = _int8_conv_case(g, cuda_device, 64, *hw, 256, 256, 1,
+                                     False)
+    amax = torch.tensor(4.5, device=cuda_device)
+    out_amax = torch.tensor(9.0, device=cuda_device)
+    with torch.inference_mode():
+        out = int8_conv.int8_conv(x, kq, *vecs, amax, 1, False,
+                                  out_amax=out_amax)
+        ref = int8_conv.int8_conv_reference(x, kq, *vecs, amax, 1, False,
+                                            out_amax=out_amax)
+    assert out.dtype == ref.dtype == torch.int8
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("knobs", [
+    {"cpn_fold_normalize": True}, {"cpn_int8_topdown": True},
+    {"cpn_fold_normalize": True, "cpn_int8_topdown": True}],
+    ids=["fold", "topdown", "both"])
+def test_knob_request_matches_plain_version(cuda_device, knobs, dtype):
+    """One request (batch 2, 256x192 frames) of the CPN deploy graph with a
+    serving knob, prepared by ``serve.prepare`` on its uint8 frames: K10s
+    once (the fold) and K10u three times (the top-down); against the plain
+    graph (``int8_impl="plain"``), which launches neither, the backbone's
+    int8 maps and scales equal bit for bit."""
+    from contextaware_poseformer_tpu_torch import config
+    from contextaware_poseformer_tpu_torch.models.capf import backbone_maps
+
+    cfg = config.deploy(config.preset("h36m_cpn"))
+    cfg = replace(cfg, model=replace(cfg.model, backbone=replace(
+        cfg.model.backbone, **knobs)))
+    gen = torch.Generator().manual_seed(0)
+    model = serve.build_model(cfg.model, dtype, cuda_device, gen)
+    frames = torch.randint(0, 256, (2, 256, 192, 3), dtype=torch.uint8,
+                           generator=gen)
+    serve.prepare(model, [frames])
+    plain = serve.build_model(cfg.model, dtype, cuda_device, gen)
+    plain.load_state_dict(model.state_dict())
+    plain.backbone.int8_impl = "plain"
+    images = augment.serving_images(frames.to(cuda_device),
+                                    cfg.model.backbone, dtype=dtype)
+    counts = (int8_conv.launches_stem, int8_conv.launches_topdown)
+    with torch.inference_mode():
+        maps, scales = backbone_maps(model.backbone(images))
+        grew = (int8_conv.launches_stem - counts[0],
+                int8_conv.launches_topdown - counts[1])
+        plain_maps, plain_scales = backbone_maps(plain.backbone(images))
+    assert grew == (int("cpn_fold_normalize" in knobs),
+                    3 * int("cpn_int8_topdown" in knobs))
+    assert (int8_conv.launches_stem, int8_conv.launches_topdown) == (
+        counts[0] + grew[0], counts[1] + grew[1])
+    for a, b in zip(list(maps) + list(scales), list(plain_maps)
+                    + list(plain_scales)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
