@@ -144,15 +144,17 @@ Phases, one line of output each (failures raise and exit non-zero):
    prepared by ``serve.prepare`` on one seeded batch (``KNOB_GRAPHS``):
    one request records every K10s and K10u call, each equal to its plain
    version bit for bit (K10s also on all-0, all-255 and batch-1 frames;
-   on the bf16 fold+topdown request timed: kernel, plain and library ms
-   (K10s: normalize + cuDNN conv + addcmul + ReLU; K10u: interpolate +
-   mul + add) and the bound), and on the top-down graph K10's up-convs
-   (int8 out, no ReLU, no residual) bit for bit; then 2 requests with K10s
-   1 and K10u 3 launches a request beside the deploy graph's, the backbone
-   maps and scales bit-equal to the same graph's with
-   ``int8_impl="plain"`` and the poses within 2e-2 of it; host ms,
-   frames/s, busy, idle, the K10s/K10u share and the top kernels of each
-   graph beside the main path's (information);
+   on the bf16 and fp32 fold+topdown requests timed: kernel, plain and
+   library ms (K10s: normalize + cuDNN conv + addcmul + ReLU; K10u:
+   interpolate + mul + add), the bound and the share of it), and on the
+   top-down graph K10's up-convs (int8 out, no ReLU, no residual) bit for
+   bit; then 2 requests with K10s 1 and K10u 3 launches a request beside
+   the deploy graph's, the backbone maps and scales bit-equal to the same
+   graph's with ``int8_impl="plain"`` and the poses within 2e-2 of it;
+   host ms, frames/s, busy, idle, the K10s/K10u share and the top kernels
+   of each graph beside the main path's (information); last, K10s and
+   K10u at their edge shapes (``STEM_EDGES``, ``TOPDOWN_EDGES``), bf16 and
+   fp32, bit for bit, one launch a call;
 9. streaming: ``models.streaming.StreamingLifter`` over
    ``deploy_config("h36m_cpn")`` at batch 64 (its weights the JAX-format
    variables of the model drawn from seed 0): ``lift_batch`` refused
@@ -418,6 +420,7 @@ KNOB_GRAPHS = (("main path", {}, torch.bfloat16),
                 torch.float32))
 KNOB_PER_REQUEST = {"cpn_fold_normalize": {"K10s": 1},
                     "cpn_int8_topdown": {"K10u": 3}}
+KNOB_TIMED_GRAPHS = ("fold+topdown", "fold+topdown fp32")  # K10s, K10u timed
 KNOB_REQUESTS = 2  # counted requests of each knob graph
 KNOB_TIMED = 5  # host-clock requests of each knob graph
 QUANT_TIMED = 5  # host-clock requests of a quantize graph
@@ -597,8 +600,10 @@ SASS_REQUIRED = (
     # epilogues: int8 wgmma, B by TMA
     ("K10", ("int8_conv_cu", "conv_kernel", "ModeE0ELb0E"),
      (("IGMMA",), ("UTMALDG",))),
-    # K10s, the fold stem: int8 mma.sync, bf16 and fp32 epilogues
-    ("K10s", ("stem_conv_kernel",), (("IMMA",),)),
+    # K10s, the fold stem: int8 wgmma (A from registers), its rows by
+    # cp.async; K10u, the s8 hop: its source rows by cp.async
+    ("K10s", ("stem_conv_kernel",), (("IGMMA",), ("LDGSTS",))),
+    ("K10u", ("topdown_kernel",), (("LDGSTS",),)),
     ("K2", ("fused_mlp", "resident_kernel"), _WGMMA_ASYNC),
     ("K2", ("fused_mlp", "ln_fc1_kernel"), _WGMMA_ASYNC),
     ("K2", ("fused_mlp", "fc2_residual_kernel"), _WGMMA_ASYNC),
@@ -611,8 +616,10 @@ SASS_REQUIRED = (
 )
 # kernels whose builds must not spill registers (-Xptxas -v): the
 # sampler's (K1, K5, K8; the gather's batched taps and the tensor-core
-# builds' register cap) and K7's
-NO_SPILLS = ("sample_levels_kernel", "aggregate_kernel")
+# builds' register cap), K7's, and K10s's and K10u's (two blocks an SM and
+# more: the register caps their plans count on)
+NO_SPILLS = ("sample_levels_kernel", "aggregate_kernel", "stem_conv_kernel",
+             "topdown_kernel")
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,  # dense FLOP/s
             torch.int8: 1979e12}  # dense int8 TOP/s
@@ -1528,11 +1535,14 @@ def _k10s_case(args, conv1, card, timed):
     """K10s on one recorded call (frames, kernel_q, wscale, scale, bias,
     bias map, dtype) against its plain version, bit for bit; then on a
     batch-1 all-0 frame, an all-255 frame and the first frame alone. With
-    ``timed``: median kernel, plain and library ms (the float stem it
-    replaces: ``normalize_images`` + ``conv1``'s cuDNN conv, ``addcmul`` and
-    ReLU) and the bound (the frames read once, the output and the bias map
-    written and read once; 2 x 147 int8 operations an output). Returns
-    (max abs error, numbers or None)."""
+    ``timed``: median kernel ms with ``kernel_q`` a tensor with a version
+    counter, as the served CPN holds it (the call recorded under
+    ``torch.inference_mode()`` would make its k-steps every call), plain
+    and library ms (the float stem it replaces: ``normalize_images`` +
+    ``conv1``'s cuDNN conv, ``addcmul`` and ReLU) and the bound (the
+    frames read once, the output and the bias map written and read once;
+    2 x 147 int8 operations an output). Returns (max abs error, numbers
+    or None)."""
     from contextaware_poseformer_tpu_torch.data import augment
     from contextaware_poseformer_tpu_torch.ops import int8_conv
 
@@ -1556,7 +1566,8 @@ def _k10s_case(args, conv1, card, timed):
         print(f"cpn_knobs: {label}: equal bit for bit (served frames, "
               f"all-0, all-255, batch 1) ({card})", flush=True)
         return worst, None
-    ms = _median_ms(lambda: int8_conv.stem_conv_kernel(frames, *rest))
+    served = (rest[0].clone(), *rest[1:])  # a tensor with a version counter
+    ms = _median_ms(lambda: int8_conv.stem_conv_kernel(frames, *served))
     plain_ms = _median_ms(lambda: int8_conv.stem_conv_reference(frames,
                                                                 *rest))
     with torch.inference_mode():
@@ -1570,8 +1581,8 @@ def _k10s_case(args, conv1, card, timed):
     print(f"cpn_knobs: {label}: equal bit for bit (served frames, all-0, "
           f"all-255, batch 1); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"library (normalize + cuDNN conv + addcmul + ReLU) {lib_ms:.4f} "
-          f"ms, bound {bound_ms:.4f} ms ({by}: {nbytes} B, {ops} int8 ops) "
-          f"({card})", flush=True)
+          f"ms, bound {bound_ms:.4f} ms ({by}: {nbytes} B, {ops} int8 ops), "
+          f"{bound_ms / ms:.1%} of the bound ({card})", flush=True)
     return worst, {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": by,
                    "library_ms": lib_ms}
@@ -1613,9 +1624,84 @@ def _k10u_case(args, card, timed):
     bound_ms, _ = _bound(nbytes, 0, torch.float32)
     print(f"cpn_knobs: {label}: equal {eq:.6f}; kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, library (interpolate + mul + add) "
-          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: {nbytes} B) "
-          f"({card})", flush=True)
+          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes: {nbytes} B), "
+          f"{bound_ms / ms:.1%} of the bound ({card})", flush=True)
     return err, (ms, plain_ms, lib_ms, bound_ms)
+
+
+# the edge shapes K10s and K10u are held to beside the served ones: K10s
+# (batch, H, W) at an odd height, the narrowest width and one-row frames;
+# K10u (h, w, C) at a 1x1 source, odd sizes and C not a multiple of 16,
+# each at these batches
+STEM_EDGES = ((3, 37, 64), (2, 16, 32), (2, 1, 64), (1, 1, 32))
+TOPDOWN_EDGES = ((1, 1, 8), (5, 3, 24), (2, 7, 16))
+TOPDOWN_EDGE_BATCHES = (1, 64)
+
+
+def stem_operands(gen, dtype, b, h, w):
+    """K10s's operands on the card for ``b`` random uint8 frames of h x w:
+    a random conv1 (7x7 weights, BN scale and bias), its int8 weights,
+    scales and bias, and its bias map (``raw`` on the offset image, as the
+    CPN makes it). Returns (frames, (kernel_q, wscale, scale, bias,
+    bias_map, dtype))."""
+    from contextaware_poseformer_tpu_torch.data import augment
+    from contextaware_poseformer_tpu_torch.models import backbone_common
+
+    conv = backbone_common.ConvBN(3, 64, 7, 2, True, dtype, device="cuda",
+                                  int8=True)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(64, 3, 7, 7, generator=gen) * 0.1)
+        conv.scale.copy_(torch.rand(64, generator=gen) + 0.5)
+        conv.bias.copy_(torch.randn(64, generator=gen) * 0.1)
+    vecs = tuple(t.detach().clone() for t in conv.packed())
+    off = (128.0 - torch.tensor(augment.CPN_PIXEL_MEAN)) / 255.0
+    with torch.inference_mode():
+        bias_map = conv(off.cuda().expand(1, h, w, 3), raw=True)
+    frames = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
+                           generator=gen).cuda()
+    return frames, (*vecs, bias_map, dtype)
+
+
+def _knob_edge_shapes(card):
+    """K10s and K10u at STEM_EDGES and TOPDOWN_EDGES, bf16 and fp32, equal
+    to their plain versions bit for bit, one launch a call (``stem_operands``
+    with random and all-255 frames; random s8 maps and laterals)."""
+    from contextaware_poseformer_tpu_torch.ops import int8_conv
+
+    gen = torch.Generator().manual_seed(18)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for b, h, w in STEM_EDGES:
+            frames, rest = stem_operands(gen, dtype, b, h, w)
+            for f in (frames, torch.full_like(frames, 255)):
+                before = int8_conv.launches_stem
+                out = int8_conv.stem_conv(f, *rest)
+                ref = int8_conv.stem_conv_reference(f, *rest)
+                eq, _ = _exact(out, ref)
+                if eq != 1.0 or int8_conv.launches_stem != before + 1:
+                    raise AssertionError(f"K10s edge {(b, h, w)} {name}: "
+                                         f"equal share {eq}")
+            print(f"cpn_knobs: K10s edge {(b, h, w)} {name}: equal bit for "
+                  f"bit (random and all-255 frames), one launch a call "
+                  f"({card})", flush=True)
+        for h, w, c in TOPDOWN_EDGES:
+            for b in TOPDOWN_EDGE_BATCHES:
+                q = torch.randint(-127, 128, (b, h, w, c), dtype=torch.int8,
+                                  generator=gen).cuda()
+                lat = torch.randn(b, 2 * h, 2 * w, c, generator=gen).to(
+                    "cuda", dtype)
+                ua = torch.tensor(5.1, device="cuda")
+                before = int8_conv.launches_topdown
+                out = int8_conv.topdown(q, ua, lat, dtype)
+                eq, _ = _exact(out, int8_conv.topdown_reference(q, ua, lat,
+                                                                dtype))
+                if eq != 1.0 or int8_conv.launches_topdown != before + 1:
+                    raise AssertionError(f"K10u edge {(b, h, w, c)} {name}:"
+                                         f" equal share {eq}")
+            print(f"cpn_knobs: K10u edge (h, w, C) {(h, w, c)} at batch "
+                  f"{' and '.join(map(str, TOPDOWN_EDGE_BATCHES))} {name}: "
+                  f"equal bit for bit, one launch a call ({card})",
+                  flush=True)
 
 
 def _knob_graph(label, knobs, dtype, card):
@@ -1666,9 +1752,11 @@ def check_cpn_knobs(results, card):
     its per-request launches; the backbone maps and scales bit-equal to the
     same graph's with ``int8_impl="plain"``, the poses within SLICE_REL_RMS
     of it; host ms, frames/s, busy, idle and the K10s/K10u share of each
-    graph (information), and each graph's poses against the main path's.
-    K10s's and K10u's JSON numbers are the bf16 fold+topdown request's.
-    Returns the counted requests' launches."""
+    graph (information), and each graph's poses against the main path's;
+    K10s and K10u at their edge shapes (``_knob_edge_shapes``). K10s and
+    K10u are timed on the graphs of KNOB_TIMED_GRAPHS; their JSON numbers
+    are the bf16 fold+topdown request's. Returns the counted requests'
+    launches."""
     from contextaware_poseformer_tpu_torch import serve
 
     launches = dict.fromkeys(_counters(), 0)
@@ -1688,29 +1776,32 @@ def check_cpn_knobs(results, card):
         if {k: kinds.count(k) for k in want} != want:
             raise AssertionError(f"cpn_knobs {label}: recorded {kinds}, "
                                  f"expected {want}")
-        last = label == "fold+topdown"
+        timed_here = label in KNOB_TIMED_GRAPHS
         stem = hop = None
         for k, args in calls:
             if k == "K10s":
                 err, stem = _k10s_case(args, model.backbone.resnet_conv1,
-                                       card, last)
+                                       card, timed_here)
             else:
-                err, h = _k10u_case(args, card, last)
+                err, h = _k10u_case(args, card, timed_here)
                 if h is not None:
                     hop = [a + b for a, b in zip(hop or (0,) * 4, h)]
             name = "K10s" if k == "K10s" else "K10u"
             results.setdefault(name, {"max_abs_err": 0.0})
             results[name]["max_abs_err"] = max(
                 results[name]["max_abs_err"], err)
-        if stem is not None:
+        # the JSON line's numbers: the bf16 graph's
+        if stem is not None and dtype == torch.bfloat16:
             results["K10s"].update(stem)
         if hop is not None:
-            results["K10u"].update(
-                ms=hop[0], plain_ms=hop[1], library_ms=hop[2],
-                bound_ms=hop[3], bound_by="bytes")
-            print(f"cpn_knobs: K10u over a request's 3 hops: kernel "
-                  f"{hop[0]:.4f} ms, plain {hop[1]:.4f} ms, library "
-                  f"{hop[2]:.4f} ms, bound {hop[3]:.4f} ms ({card})",
+            if dtype == torch.bfloat16:
+                results["K10u"].update(
+                    ms=hop[0], plain_ms=hop[1], library_ms=hop[2],
+                    bound_ms=hop[3], bound_by="bytes")
+            print(f"cpn_knobs: {label}: K10u over a request's 3 hops: "
+                  f"kernel {hop[0]:.4f} ms, plain {hop[1]:.4f} ms, library "
+                  f"{hop[2]:.4f} ms, bound {hop[3]:.4f} ms, "
+                  f"{hop[3] / hop[0]:.1%} of the bound ({card})",
                   flush=True)
         upconvs = {key: v for key, v in seen.items()
                    if "int8 out" in key and "ReLU" not in key
@@ -1770,6 +1861,7 @@ def check_cpn_knobs(results, card):
         torch.cuda.empty_cache()
     print("cpn_knobs: host ms a request: " + ", ".join(
         f"{k} {v:.3f}" for k, v in timed.items()) + f" ({card})", flush=True)
+    _knob_edge_shapes(card)
     for k in ("K10s", "K10u"):
         if "ms" not in results.get(k, {}):
             raise AssertionError(f"cpn_knobs: {k} was not timed")

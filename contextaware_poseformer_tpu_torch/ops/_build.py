@@ -78,9 +78,8 @@ SIGNATURES = {
     "capf_window_matmul": (_I, [_P, _P, _P, _P, _I, _I, _P]),
     # (args struct*, device, stream)
     "capf_stem_conv": (_I, [_P, _I, _P]),
-    # (q, ua, lat, out, row taps, row weights, col taps, col weights, batch,
-    #  h, w, c, f32, device, stream)
-    "capf_topdown": (_I, [_P] * 8 + [_I] * 6 + [_P]),
+    # (args struct*, device, stream)
+    "capf_topdown": (_I, [_P, _I, _P]),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

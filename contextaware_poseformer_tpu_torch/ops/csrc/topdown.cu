@@ -18,123 +18,338 @@
 // version reads. E is bf16 or fp32 (a template parameter); no FMA, as the
 // plain version computes each product and sum apart.
 //
-// What bounds it on the H100: bytes. The upsampled tensor never reaches
-// HBM: a thread computes 8 channels of one output pixel from the 4 int8
-// taps (8 bytes each; the source rows are small and cached in L1/L2), and
-// reads the lateral and writes the output 16 bytes (bf16) at a time,
-// consecutive threads on consecutive channels. At batch 64 and C 256 the
-// three hops of a request move 16.5 MB of int8, 132.1 MB of lateral and
-// 132.1 MB of output in bf16: 0.0838 ms at 3.35 TB/s.
+// What bounds it on the H100: bytes. At batch 64 and C 256 the three hops
+// of a request move 16.5 MB of int8, 132.1 MB of lateral and 132.1 MB of
+// output in bf16: 0.0838 ms at 3.35 TB/s (fp32: 0.1627). The upsampled
+// tensor never reaches HBM, and the design cuts the instructions an output
+// byte costs (ops/int8_conv.py::topdown_plan):
+// - A block owns a strip of 2 output rows of one image, at full width where
+//   it fits (a tile of the columns where it does not) and a slice of at most
+//   256 channels; its place comes from blockIdx, in 32-bit arithmetic, and
+//   its loops walk rows, columns and channels with no division. At x2 with
+//   align corners the source position moves by (h - 1) / (2h - 1) < 1/2 a
+//   row, so two output rows read at most 3 source rows.
+// - It stages those s8 rows (8-byte cp.async) and its tap tables in shared
+//   memory, then computes the row pass once per (output row, source column,
+//   channel) into shared memory in E (s8 unpacked by prmt into the bits of
+//   1.5 * 2^23 + 128 + v, then one add), so each row-pass value is
+//   computed once and read by the two output columns that tap it.
+// - The column pass takes 8 channels of one output pixel a thread (the
+//   channels on threadIdx.x, the pixels on threadIdx.y): two 16-byte reads
+//   of the row pass, the lateral by 16-byte loads, 4 pixels' loads in
+//   flight a thread, and 16-byte stores. In bf16 the dequantize and the add
+//   are bf16x2 operations, each rounded once, which is the fp32 operation
+//   rounded to bf16 (a product of two bf16 values is exact in fp32, and so
+//   is a sum whose terms lie within 16 binades; a sum further apart moves
+//   the larger term by less than a quarter of its bf16 step).
 #include "common.cuh"
 #include "hopper.cuh"
 
-using capf::load8;
 using capf::round_to;
-using capf::store8;
+using capf::sm90::cp_async8;
+using capf::sm90::cp_async_commit;
+using capf::sm90::cp_async_wait;
+
+extern "C" {
+struct TopdownArgs {  // mirrored by ops/int8_conv.py::_TopdownArgs
+  const void* q;        // (B, h, w, C) int8
+  const float* ua;      // (1,) the hop's calibrated amax
+  const void* lat;      // (B, 2h, 2w, C) E
+  void* out;            // (B, 2h, 2w, C) E
+  const int* row_idx;   // (2h, 2) the row taps
+  const float* row_w;   // (2h, 2) their weights (E values)
+  const int* col_idx;   // (2w, 2) the column taps
+  const float* col_w;   // (2w, 2)
+  int batch, h, w, c;
+  int f32;              // E: 1 fp32, 0 bf16
+  // the plan (ops/int8_conv.py::topdown_plan)
+  int rows;      // output rows of a strip
+  int cols;      // output columns of a tile
+  int chans;     // channels of a slice, a multiple of 8
+  int src_rows;  // staged source rows, at most
+  int src_cols;  // staged source columns, at most
+  int smem;      // dynamic shared memory a block takes
+};
+}  // extern "C"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxChans = 256;      // a slice: 32 groups of 8 channels
+constexpr int kInFlight = 4;        // output pixels' loads a thread issues
+constexpr int kSmemLimit = 232448;  // the 227 KB a Hopper block may use
+constexpr float kMagic = 12583040.f;  // 1.5 * 2^23 + 128: fp32 step 1
 
-// 8 int8 values (8 bytes) as floats
-__device__ __forceinline__ void load8_s8(const int8_t* p, float* y) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
+struct Tap {  // a strip row's or a tile column's taps, from the staged ones
+  int i0, i1;
+  float w0, w1;
+};
+
+__host__ __device__ constexpr int align16(int n) { return (n + 15) / 16 * 16; }
+
+template <typename E>
+__host__ __device__ constexpr int smem_bytes(int rows, int cols, int chans,
+                                             int src_rows, int src_cols) {
+  return align16(src_rows * src_cols * chans) +
+         rows * src_cols * chans * static_cast<int>(sizeof(E)) +
+         static_cast<int>(sizeof(Tap)) * (rows + cols);
+}
+
+// 4 s8 values as floats: v ^ 0x80 = v + 128 in the low bits of
+// 1.5 * 2^23's significand, then one exact subtraction
+__device__ __forceinline__ void s8x4(uint32_t v, float* y) {
+  v ^= 0x80808080u;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const uint32_t w = e < 4 ? v.x : v.y;
-    y[e] = static_cast<float>(static_cast<int8_t>((w >> (8 * (e % 4))) & 0xff));
+  for (int i = 0; i < 4; ++i) {
+    y[i] = __fsub_rn(__int_as_float(__byte_perm(v, 0x4B40u, 0x5460u + i)),
+                     kMagic);
   }
 }
 
-// E(w0 * a + w1 * b): two products and their sum in fp32, rounded once
-template <typename E>
+// w0 * a + w1 * b: two products and their sum in fp32 (Vec8::set rounds
+// it once to E)
 __device__ __forceinline__ float blend(float w0, float a, float w1,
                                        float b) {
-  return round_to<E>(__fadd_rn(__fmul_rn(w0, a), __fmul_rn(w1, b)));
+  return __fadd_rn(__fmul_rn(w0, a), __fmul_rn(w1, b));
 }
 
-// rows (2h,): tap rows i0/i1 (int32) and weights w0/w1 (fp32 holding E
-// values) of each output row; cols (2w,) the same for the columns
+// 8 E values of the row pass or of the lateral: one 16-byte word (bf16) or
+// two (fp32)
 template <typename E>
-__global__ void __launch_bounds__(kThreads)
-    topdown_kernel(const int8_t* __restrict__ q, const float* __restrict__ ua,
-                   const E* __restrict__ lat, E* __restrict__ out,
-                   const int* __restrict__ row_idx,
-                   const float* __restrict__ row_w,
-                   const int* __restrict__ col_idx,
-                   const float* __restrict__ col_w, int batch, int h, int w,
-                   int c) {
-  const int groups = c / 8;
-  const int oh = 2 * h, ow = 2 * w;
-  const long long total = 1LL * batch * oh * ow * groups;
-  const float s = round_to<E>(__fmul_rn(fmaxf(*ua, 1e-12f), capf::kRecip127));
-  for (long long t = blockIdx.x * static_cast<long long>(kThreads) +
-                     threadIdx.x;
-       t < total; t += static_cast<long long>(gridDim.x) * kThreads) {
-    const int g = static_cast<int>(t % groups);
-    long long p = t / groups;
-    const int ox = static_cast<int>(p % ow);
-    p /= ow;
-    const int oy = static_cast<int>(p % oh);
-    const int b = static_cast<int>(p / oh);
-    const int i0 = row_idx[2 * oy], i1 = row_idx[2 * oy + 1];
-    const float wr0 = row_w[2 * oy], wr1 = row_w[2 * oy + 1];
-    const int j0 = col_idx[2 * ox], j1 = col_idx[2 * ox + 1];
-    const float wc0 = col_w[2 * ox], wc1 = col_w[2 * ox + 1];
-    const int8_t* src = q + static_cast<size_t>(b) * h * w * c + 8 * g;
-    float a00[8], a10[8], a01[8], a11[8];  // a<row tap><col tap>
-    load8_s8(src + (static_cast<size_t>(i0) * w + j0) * c, a00);
-    load8_s8(src + (static_cast<size_t>(i1) * w + j0) * c, a10);
-    load8_s8(src + (static_cast<size_t>(i0) * w + j1) * c, a01);
-    load8_s8(src + (static_cast<size_t>(i1) * w + j1) * c, a11);
-    const size_t o = ((static_cast<size_t>(b) * oh + oy) * ow + ox) * c + 8 * g;
-    float y[8];
-    load8(lat + o, y);
+struct Vec8;
+template <>
+struct Vec8<__nv_bfloat16> {
+  uint4 v;
+  __device__ void load(const __nv_bfloat16* p) {
+    v = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ void store(__nv_bfloat16* p) const {
+    *reinterpret_cast<uint4*>(p) = v;
+  }
+  __device__ float at(int e) const {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    return __uint_as_float(e % 2 ? w[e / 2] & 0xffff0000u : w[e / 2] << 16);
+  }
+  __device__ void set(const float* y) {  // 8 floats, each rounded to bf16
+    uint32_t w[4];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float r0 = blend<E>(wr0, a00[e], wr1, a10[e]);
-      const float r1 = blend<E>(wr0, a01[e], wr1, a11[e]);
-      const float u = blend<E>(wc0, r0, wc1, r1);
-      const float up = round_to<E>(__fmul_rn(u, s));
-      y[e] = round_to<E>(__fadd_rn(y[e], up));
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(y[2 * i], y[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&p);
     }
-    store8(out + o, y);
+    v = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+template <>
+struct Vec8<float> {
+  float4 lo, hi;
+  __device__ void load(const float* p) {
+    lo = *reinterpret_cast<const float4*>(p);
+    hi = *reinterpret_cast<const float4*>(p + 4);
+  }
+  __device__ void store(float* p) const {
+    *reinterpret_cast<float4*>(p) = lo;
+    *reinterpret_cast<float4*>(p + 4) = hi;
+  }
+  __device__ float at(int e) const {
+    const float y[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    return y[e];
+  }
+  __device__ void set(const float* y) {
+    lo = make_float4(y[0], y[1], y[2], y[3]);
+    hi = make_float4(y[4], y[5], y[6], y[7]);
+  }
+};
+
+// out = E(lat + E(u * s)) for 8 channels; u holds the column pass, E
+// values; s = E(ua / 127)
+__device__ __forceinline__ Vec8<__nv_bfloat16> finish(
+    const Vec8<__nv_bfloat16>& lat, const Vec8<__nv_bfloat16>& u, float s) {
+  const __nv_bfloat162 s2 = __floats2bfloat162_rn(s, s);
+  const uint32_t l[4] = {lat.v.x, lat.v.y, lat.v.z, lat.v.w};
+  const uint32_t x[4] = {u.v.x, u.v.y, u.v.z, u.v.w};
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 r = __hadd2_rn(
+        *reinterpret_cast<const __nv_bfloat162*>(&l[i]),
+        __hmul2_rn(*reinterpret_cast<const __nv_bfloat162*>(&x[i]), s2));
+    o[i] = *reinterpret_cast<const uint32_t*>(&r);
+  }
+  Vec8<__nv_bfloat16> y;
+  y.v = make_uint4(o[0], o[1], o[2], o[3]);
+  return y;
+}
+__device__ __forceinline__ Vec8<float> finish(const Vec8<float>& lat,
+                                              const Vec8<float>& u, float s) {
+  float y[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    y[e] = __fadd_rn(lat.at(e), __fmul_rn(u.at(e), s));
+  }
+  Vec8<float> v;
+  v.set(y);
+  return v;
+}
+
+template <typename E>
+__global__ void __launch_bounds__(kThreads, sizeof(E) == 2 ? 4 : 3)
+    topdown_kernel(const TopdownArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int oh = 2 * a.h, ow = 2 * a.w;
+  const int strips = (oh + a.rows - 1) / a.rows;
+  const int tiles = (ow + a.cols - 1) / a.cols;
+  const int slices = (a.c + a.chans - 1) / a.chans;
+  int t = static_cast<int>(blockIdx.x);
+  const int slice = t % slices;
+  t /= slices;
+  const int tile = t % tiles;
+  t /= tiles;
+  const int strip = t % strips;
+  const int b = t / strips;
+  const int oy0 = strip * a.rows, ox0 = tile * a.cols, c0 = slice * a.chans;
+  const int nrows = min(a.rows, oh - oy0), ncols_out = min(a.cols, ow - ox0);
+  const int groups = min(a.chans, a.c - c0) / 8;  // 8-channel groups
+  const int lo = a.row_idx[2 * oy0];
+  const int nsrc = a.row_idx[2 * (oy0 + nrows - 1) + 1] - lo + 1;
+  const int jlo = a.col_idx[2 * ox0];
+  const int ncols = a.col_idx[2 * (ox0 + ncols_out - 1) + 1] - jlo + 1;
+  if (nsrc > a.src_rows || ncols > a.src_cols) __trap();  // a wrong plan
+
+  int8_t* s_q = reinterpret_cast<int8_t*>(smem);
+  E* s_r = reinterpret_cast<E*>(smem + align16(a.src_rows * a.src_cols *
+                                               a.chans));
+  Tap* s_rt = reinterpret_cast<Tap*>(s_r + a.rows * a.src_cols * a.chans);
+  Tap* s_ct = s_rt + a.rows;
+  const int tx = threadIdx.x, ty = threadIdx.y, ny = blockDim.y;
+  const int tid = ty * blockDim.x + tx, nthreads = blockDim.x * ny;
+
+  // the strip's source rows: 8 channels a copy
+  const int8_t* q = static_cast<const int8_t*>(a.q) +
+                    (static_cast<size_t>(b) * a.h + lo) * a.w * a.c + c0;
+  if (tx < groups) {
+    for (int sr = 0; sr < nsrc; ++sr) {
+      for (int j = ty; j < ncols; j += ny) {
+        cp_async8(s_q + (sr * a.src_cols + j) * a.chans + 8 * tx,
+                  q + (static_cast<size_t>(sr) * a.w + jlo + j) * a.c +
+                      8 * tx);
+      }
+    }
+  }
+  cp_async_commit();
+  for (int i = tid; i < nrows + ncols_out; i += nthreads) {
+    const bool row = i < nrows;
+    const int o = row ? oy0 + i : ox0 + i - nrows, base = row ? lo : jlo;
+    const int* idx = row ? a.row_idx : a.col_idx;
+    const float* wt = row ? a.row_w : a.col_w;
+    *(row ? s_rt + i : s_ct + i - nrows) = {idx[2 * o] - base,
+                                            idx[2 * o + 1] - base,
+                                            wt[2 * o], wt[2 * o + 1]};
+  }
+  const float s = round_to<E>(__fmul_rn(fmaxf(*a.ua, 1e-12f),
+                                        capf::kRecip127));
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the row pass, once per (output row, source column, channel)
+  if (tx < groups) {
+    for (int y = 0; y < nrows; ++y) {
+      const Tap rt = s_rt[y];
+      for (int j = ty; j < ncols; j += ny) {
+        const uint2 v0 = *reinterpret_cast<const uint2*>(
+            s_q + (rt.i0 * a.src_cols + j) * a.chans + 8 * tx);
+        const uint2 v1 = *reinterpret_cast<const uint2*>(
+            s_q + (rt.i1 * a.src_cols + j) * a.chans + 8 * tx);
+        float f0[8], f1[8], r[8];
+        s8x4(v0.x, f0), s8x4(v0.y, f0 + 4);
+        s8x4(v1.x, f1), s8x4(v1.y, f1 + 4);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) r[e] = blend(rt.w0, f0[e], rt.w1, f1[e]);
+        Vec8<E> rv;
+        rv.set(r);
+        rv.store(s_r + (y * a.src_cols + j) * a.chans + 8 * tx);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the column pass, the dequantize and the lateral add: 8 channels of one
+  // output pixel an item, kInFlight pixels' lateral loads in flight
+  if (tx >= groups) return;
+  const E* lat = static_cast<const E*>(a.lat);
+  E* out = static_cast<E*>(a.out);
+  for (int y = 0; y < nrows; ++y) {
+    const size_t pix0 =
+        (static_cast<size_t>(b) * oh + oy0 + y) * ow + ox0;  // the tile's
+    const E* r_row = s_r + y * a.src_cols * a.chans + 8 * tx;
+    for (int x0 = ty; x0 < ncols_out; x0 += kInFlight * ny) {
+      Vec8<E> l[kInFlight];
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k) {
+        const int x = x0 + k * ny;
+        if (x < ncols_out) l[k].load(lat + (pix0 + x) * a.c + c0 + 8 * tx);
+      }
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k) {
+        const int x = x0 + k * ny;
+        if (x >= ncols_out) break;
+        const Tap ct = s_ct[x];
+        Vec8<E> r0, r1, u;
+        r0.load(r_row + ct.i0 * a.chans);
+        r1.load(r_row + ct.i1 * a.chans);
+        float y8[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          y8[e] = blend(ct.w0, r0.at(e), ct.w1, r1.at(e));
+        }
+        u.set(y8);
+        finish(l[k], u, s).store(out + (pix0 + x) * a.c + c0 + 8 * tx);
+      }
+    }
   }
 }
 
 template <typename E>
-cudaError_t launch(const void* q, const float* ua, const void* lat,
-                   void* out, const int* row_idx, const float* row_w,
-                   const int* col_idx, const float* col_w, int batch, int h,
-                   int w, int c, int device, cudaStream_t stream) {
-  const long long total = 1LL * batch * 4 * h * w * (c / 8);
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  const long long most = 8LL * capf::sm90::sm_count(device);  // grid-strided
-  topdown_kernel<E><<<static_cast<unsigned>(blocks < most ? blocks : most),
-                      kThreads, 0, stream>>>(
-      static_cast<const int8_t*>(q), ua, static_cast<const E*>(lat),
-      static_cast<E*>(out), row_idx, row_w, col_idx, col_w, batch, h, w, c);
+cudaError_t launch(const TopdownArgs& a, cudaStream_t stream) {
+  static bool opted = false;  // once per instantiation (one device)
+  if (!opted) {
+    const cudaError_t err = capf::allow_smem(topdown_kernel<E>, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    opted = true;
+  }
+  const long long grid = 1LL * a.batch * ((2 * a.h + a.rows - 1) / a.rows) *
+                         ((2 * a.w + a.cols - 1) / a.cols) *
+                         ((a.c + a.chans - 1) / a.chans);
+  const int gx = a.chans / 8;
+  topdown_kernel<E><<<static_cast<unsigned>(grid), dim3(gx, kThreads / gx),
+                      a.smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// (q, ua, lat, out, row taps, row weights, col taps, col weights, batch, h,
-// w, c, f32, device, stream)
-extern "C" int capf_topdown(const void* q, const float* ua, const void* lat,
-                            void* out, const int* row_idx, const float* row_w,
-                            const int* col_idx, const float* col_w,
-                            int batch, int h, int w, int c, int f32,
-                            int device, cudaStream_t stream) {
+extern "C" int capf_topdown(const TopdownArgs* args, int device,
+                            cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (batch < 1 || h < 1 || w < 1 || c < 8 || c % 8 || (f32 != 0 && f32 != 1)
-      || 1LL * batch * 4 * h * w * c > (1LL << 40)) {
+  const TopdownArgs& a = *args;
+  // the plan's numbers are the ones this kernel reads its geometry from
+  // (its source spans are checked by each block against the tables)
+  if (a.batch < 1 || a.h < 1 || a.w < 1 || a.c < 8 || a.c % 8 ||
+      (a.f32 != 0 && a.f32 != 1) || a.rows < 1 || a.rows > 2 * a.h ||
+      a.cols < 1 || a.cols > 2 * a.w || a.chans < 8 || a.chans % 8 ||
+      a.chans > kMaxChans || a.chans > a.c || a.src_rows < 1 ||
+      a.src_cols < 1 ||
+      a.smem != (a.f32 ? smem_bytes<float>(a.rows, a.cols, a.chans,
+                                            a.src_rows, a.src_cols)
+                       : smem_bytes<__nv_bfloat16>(a.rows, a.cols, a.chans,
+                                                   a.src_rows, a.src_cols)) ||
+      a.smem > kSmemLimit || 1LL * a.batch * 4 * a.h * a.w * a.c > (1LL << 40) ||
+      1LL * a.batch * ((2 * a.h + a.rows - 1) / a.rows) *
+              ((2 * a.w + a.cols - 1) / a.cols) *
+              ((a.c + a.chans - 1) / a.chans) > (1LL << 31) - 1) {
     return cudaErrorInvalidValue;
   }
-  return static_cast<int>(
-      f32 ? launch<float>(q, ua, lat, out, row_idx, row_w, col_idx, col_w,
-                          batch, h, w, c, device, stream)
-          : launch<__nv_bfloat16>(q, ua, lat, out, row_idx, row_w, col_idx,
-                                  col_w, batch, h, w, c, device, stream));
+  return static_cast<int>(a.f32 ? launch<float>(a, stream)
+                                 : launch<__nv_bfloat16>(a, stream));
 }

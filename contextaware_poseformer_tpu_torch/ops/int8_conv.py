@@ -51,6 +51,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -532,11 +533,90 @@ def stem_weight_steps(kernel_q: torch.Tensor) -> torch.Tensor:
     return k.permute(1, 0, 2).contiguous()
 
 
+# K10s's plan (csrc/stem_conv.cu): a block stages its input rows in a ring
+# of STEM_SLOTS rows, slot (b * 2 Ho + iy) % STEM_SLOTS for row iy of image b
+STEM_SLOTS = 16
+# rows staged ahead of the one computing, by the epilogue's bytes a value
+# (fp32 1: two blocks an SM); the bias-map rows staged are those, the one
+# computing and the one before it (a warp may still read it)
+STEM_AHEAD = {2: 2, 4: 1}
+STEM_MAX_WARPS = 8  # a segment's 16-pixel tiles: one a warp
+STEM_LEAD, STEM_TAIL = 16, 32  # staged bytes before and after the pixels
+STEM_MAP_PITCH = STEM_COUT + 8  # a staged map pixel's values (no conflicts)
+STEM_B_BYTES = 2 * STEM_COUT * 128  # wgmma's B: two 128-byte-swizzled stages
+STEM_ALIGN = 1024  # the slack that aligns the stages
+STEM_BLOCKS_SM = 2  # persistent blocks an SM, at most (registers)
+STEM_FRAG_SLOTS = 8  # bf16: the input rows of A fragments a warp keeps
+SM_SMEM = 228 * 1024  # an H100 SM's shared memory (1 KB more a block)
+SMS = 132  # H100 SXM: the grid's bound when the card is not asked
+
+
+@dataclass(frozen=True)
+class StemPlan:
+    seg: int  # output pixels of a row segment: 16 a warp, at most 128
+    segs: int  # segments of an output row, ceil(Wo / seg)
+    bands: int  # bands of consecutive output rows (of B * Ho) a segment
+    grid: int  # segs * bands persistent blocks
+    pitch: int  # bytes of a staged input row: lead, 6 seg, tail
+    period: int  # an image's rows in the ring's slot numbers: 2 Ho
+    ahead: int  # rows staged ahead of the one computing
+    smem: int  # dynamic shared memory a block takes
+
+    @property
+    def map_slots(self) -> int:
+        return self.ahead + 2
+
+    @property
+    def threads(self) -> int:  # whole warpgroups: a warp a 16-pixel tile
+        return 128 * -(-self.seg // 64)
+
+
+def stem_smem_bytes(seg: int, itemsize: int) -> int:
+    """K10s's dynamic shared memory (``csrc/stem_conv.cu`` ``smem_bytes``):
+    the slack that aligns wgmma's B, B (the weights in two 128-byte-swizzled
+    stages), the folded scales and biases (E), the ring of staged input
+    rows, the staged bias-map rows of E values of ``itemsize`` bytes, each
+    pixel padded by 8 values, and in bf16 each warp's kept A fragments
+    (16 bytes a lane a kernel row)."""
+    return (STEM_ALIGN + STEM_B_BYTES + 2 * STEM_COUT * itemsize
+            + STEM_SLOTS * (STEM_LEAD + 6 * seg + STEM_TAIL)
+            + (STEM_AHEAD[itemsize] + 2) * seg * STEM_MAP_PITCH * itemsize
+            + (seg // 16 * STEM_FRAG_SLOTS * 32 * 16 if itemsize == 2
+               else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def stem_plan(batch: int, h: int, w: int, itemsize: int = 2,
+              sms: int = SMS) -> StemPlan:
+    """K10s's launch for ``batch`` frames of H x W (W a multiple of 32) and
+    an epilogue of ``itemsize``-byte values: an output row in the fewest
+    segments of at most STEM_MAX_WARPS 16-pixel tiles (one at 256x192), and
+    each segment's B * Ho rows cut into as many bands of consecutive rows as
+    fill the card (STEM_BLOCKS_SM blocks an SM, which the kernel's
+    registers allow, or fewer where shared memory runs out). Band k of a
+    segment owns rows [k R / bands, (k + 1) R / bands), R = B * Ho."""
+    ho, wo = (h + 1) // 2, w // 2
+    tiles = wo // 16
+    seg = 16 * -(-tiles // -(-tiles // STEM_MAX_WARPS))
+    segs = -(-wo // seg)
+    smem = stem_smem_bytes(seg, itemsize)
+    per_sm = max(1, min(STEM_BLOCKS_SM, SM_SMEM // (smem + 1024)))
+    bands = max(1, min(batch * ho, per_sm * sms // segs))
+    return StemPlan(seg, segs, bands, segs * bands,
+                    STEM_LEAD + 6 * seg + STEM_TAIL, 2 * ho,
+                    STEM_AHEAD[itemsize], smem)
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 class _StemArgs(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "x", "wk", "wscale", "scale", "bias", "bias_map", "out")] + [
         ("step", ctypes.c_float)] + [(n, ctypes.c_int) for n in (
-            "batch", "h", "w", "ho", "wo", "f32")]
+            "batch", "h", "w", "ho", "wo", "f32", "seg", "segs", "bands",
+            "period", "smem")]
 
 
 def stem_conv_kernel(frames_u8, kernel_q, wscale, scale, bias, bias_map,
@@ -545,7 +625,8 @@ def stem_conv_kernel(frames_u8, kernel_q, wscale, scale, bias, bias_map,
     uint8 frames (B, H, W, 3) with W a multiple of 32; ``bias_map`` (1, Ho,
     Wo, 64) or (Ho, Wo, 64) in ``dtype`` (bf16 or fp32). Its weights come
     from ``kernel_q`` once per parameter state
-    (``stem_weight_steps``, ``_build.cached_operand``)."""
+    (``stem_weight_steps``, ``_build.cached_operand``); its launch from
+    ``stem_plan``."""
     global launches_stem
     name = "stem_conv"
     if dtype not in (torch.bfloat16, torch.float32):
@@ -577,13 +658,16 @@ def stem_conv_kernel(frames_u8, kernel_q, wscale, scale, bias, bias_map,
     if any(t.data_ptr() % 16 for t in (frames_u8, wk, bias_map)):
         raise ValueError(f"{name}: frames, weights and bias_map must start "
                          "on a 16-byte boundary (16-byte loads)")
+    p = stem_plan(b, h, w, bias_map.element_size(), _sms(frames_u8.device))
     out = torch.empty((b, ho, wo, STEM_COUT), dtype=dtype,
                       device=frames_u8.device)
     args = _StemArgs(x=frames_u8.data_ptr(), wk=wk.data_ptr(),
                      wscale=wscale.data_ptr(), scale=scale.data_ptr(),
                      bias=bias.data_ptr(), bias_map=bias_map.data_ptr(),
                      out=out.data_ptr(), step=STEM_STEP, batch=b, h=h, w=w,
-                     ho=ho, wo=wo, f32=int(dtype == torch.float32))
+                     ho=ho, wo=wo, f32=int(dtype == torch.float32),
+                     seg=p.seg, segs=p.segs, bands=p.bands, period=p.period,
+                     smem=p.smem)
     lib = _build.library()
     err = lib.capf_stem_conv(ctypes.addressof(args),
                              *_build.launch_target(frames_u8))
@@ -665,10 +749,102 @@ def topdown_reference(q, ua, lat, dtype=torch.bfloat16):
     return lat.to(dtype) + u * dequant_step(ua, clamp=True).to(dtype)
 
 
+# K10u's plan (csrc/topdown.cu): a block owns a strip of TOPDOWN_ROWS
+# output rows of one image, a tile of its columns and a slice of its
+# channels, in TOPDOWN_THREADS threads (8 channels a thread on x)
+TOPDOWN_ROWS = 2
+TOPDOWN_MAX_CHANNELS = 256
+TOPDOWN_THREADS = 256
+TOPDOWN_SMEM = 96 * 1024  # a block's budget: two or more blocks an SM
+TOPDOWN_TAP_BYTES = 16  # a staged tap: two int32 indices, two weights
+
+
+@dataclass(frozen=True)
+class TopdownPlan:
+    rows: int  # output rows of a strip
+    cols: int  # output columns of a tile (2w where they fit)
+    chans: int  # channels of a slice, a multiple of 8 (C up to 256)
+    strips: int  # ceil(2h / rows)
+    tiles: int  # ceil(2w / cols)
+    slices: int  # ceil(C / chans)
+    src_rows: int  # source rows a strip stages, at most
+    src_cols: int  # source columns a tile stages, at most
+    smem: int  # dynamic shared memory a block takes
+
+    def grid(self, batch: int) -> int:
+        return batch * self.strips * self.tiles * self.slices
+
+    @property
+    def block(self) -> tuple[int, int]:  # (channel groups, pixels)
+        gx = self.chans // 8
+        return gx, TOPDOWN_THREADS // gx
+
+
+def topdown_smem_bytes(rows, cols, chans, src_rows, src_cols,
+                       itemsize) -> int:
+    """K10u's dynamic shared memory (``csrc/topdown.cu`` ``smem_bytes``):
+    the staged s8 source rows (to 16 bytes), the row pass in E
+    (``itemsize`` bytes a value) and the strip's and tile's taps."""
+    return (-(-src_rows * src_cols * chans // 16) * 16
+            + rows * src_cols * chans * itemsize
+            + TOPDOWN_TAP_BYTES * (rows + cols))
+
+
+def _tap_span(idx: np.ndarray, n: int) -> int:
+    """The most source rows (or columns) that ``n`` consecutive outputs of
+    the tap table ``idx`` (out, 2) reach, from the first's first tap to
+    the last's second."""
+    first = idx[0::n, 0]
+    last = idx[np.minimum(np.arange(0, len(idx), n) + n - 1,
+                          len(idx) - 1), 1]
+    return int((last - first).max()) + 1
+
+
+@functools.lru_cache(maxsize=None)
+def topdown_plan(h: int, w: int, c: int, itemsize: int = 2) -> TopdownPlan:
+    """K10u's launch for q (B, h, w, C) and a lateral of ``itemsize``-byte
+    values: strips of TOPDOWN_ROWS output rows; C in the fewest slices of at
+    most TOPDOWN_MAX_CHANNELS; the output row in the fewest column tiles
+    whose staged rows fit TOPDOWN_SMEM (one tile at the served hops). The
+    staged spans are the most any strip or tile reaches in the tap tables
+    (``interp_table``): at x2 with align corners, 2 output rows reach at
+    most 3 source rows, n output columns ceil((n - 1) / 2) + 2."""
+    oh, ow = 2 * h, 2 * w
+    rows = min(TOPDOWN_ROWS, oh)
+    slices = -(-c // TOPDOWN_MAX_CHANNELS)
+    chans = 8 * -(-(c // 8) // slices)
+    ridx, _ = interp_table(oh, h)
+    cidx, _ = interp_table(ow, w)
+    src_rows = _tap_span(ridx, rows)
+    tiles = 1
+    while True:
+        cols = -(-ow // tiles)
+        bound = -(-(cols - 1) // 2) + 2  # the columns a tile reaches, at most
+        if cols == 1 or topdown_smem_bytes(rows, cols, chans, src_rows,
+                                           bound, itemsize) <= TOPDOWN_SMEM:
+            break
+        tiles += 1
+    tiles = -(-ow // cols)
+    src_cols = _tap_span(cidx, cols)
+    smem = topdown_smem_bytes(rows, cols, chans, src_rows, src_cols,
+                              itemsize)
+    return TopdownPlan(rows, cols, chans, -(-oh // rows), tiles, slices,
+                       src_rows, src_cols, smem)
+
+
+class _TopdownArgs(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "q", "ua", "lat", "out", "row_idx", "row_w", "col_idx", "col_w")] + [
+        (n, ctypes.c_int) for n in (
+            "batch", "h", "w", "c", "f32", "rows", "cols", "chans",
+            "src_rows", "src_cols", "smem")]
+
+
 def topdown_kernel(q, ua, lat, dtype=torch.bfloat16):
     """K10u on the card: the contract of ``topdown_reference``, for ``q``
     int8 (B, h, w, C) with C a multiple of 8, ``lat`` (B, 2h, 2w, C) in
-    ``dtype`` (bf16 or fp32), ``ua`` an fp32 tensor of one element."""
+    ``dtype`` (bf16 or fp32), ``ua`` an fp32 tensor of one element; its
+    launch from ``topdown_plan``."""
     global launches_topdown
     name = "topdown"
     if dtype not in (torch.bfloat16, torch.float32):
@@ -689,13 +865,17 @@ def topdown_kernel(q, ua, lat, dtype=torch.bfloat16):
                          "16-byte boundary")
     ri, rw = _interp_tensors(2 * h, h, dtype, q.device)
     ci, cw = _interp_tensors(2 * w, w, dtype, q.device)
+    p = topdown_plan(h, w, c, lat.element_size())
     out = torch.empty_like(lat)
+    args = _TopdownArgs(
+        q=q.data_ptr(), ua=ua.data_ptr(), lat=lat.data_ptr(),
+        out=out.data_ptr(), row_idx=ri.data_ptr(), row_w=rw.data_ptr(),
+        col_idx=ci.data_ptr(), col_w=cw.data_ptr(), batch=b, h=h, w=w, c=c,
+        f32=int(dtype == torch.float32), rows=p.rows, cols=p.cols,
+        chans=p.chans, src_rows=p.src_rows, src_cols=p.src_cols,
+        smem=p.smem)
     lib = _build.library()
-    err = lib.capf_topdown(q.data_ptr(), ua.data_ptr(), lat.data_ptr(),
-                           out.data_ptr(), ri.data_ptr(), rw.data_ptr(),
-                           ci.data_ptr(), cw.data_ptr(), b, h, w, c,
-                           int(dtype == torch.float32),
-                           *_build.launch_target(q))
+    err = lib.capf_topdown(ctypes.addressof(args), *_build.launch_target(q))
     _build.check(lib, err, name)
     launches_topdown += 1
     return out

@@ -1536,10 +1536,10 @@ def test_f6_deformable_block_serves_head_dims_the_projection_refuses(
 
 # ---- the CPN's serving knobs: K10s (the fold stem), K10u (the s8 hop) -------
 
-def _stem_case(g, dev, dtype, batch):
-    """The fold stem's operands at the served width (256x192 frames): a
-    random conv1 (he-scaled 7x7 weights, BN scale and bias), its int8
-    weights and its bias map (``raw`` on the offset image, as the CPN
+def _stem_case(g, dev, dtype, batch, h=256, w=192):
+    """The fold stem's operands, by default at the served width (256x192
+    frames): a random conv1 (he-scaled 7x7 weights, BN scale and bias), its
+    int8 weights and its bias map (``raw`` on the offset image, as the CPN
     makes it)."""
     conv = backbone_common.ConvBN(3, 64, 7, 2, True, dtype, device=dev,
                                   int8=True)
@@ -1550,8 +1550,8 @@ def _stem_case(g, dev, dtype, batch):
     kq, ws, scale, bias = (t.detach() for t in conv.packed())
     off = (128.0 - torch.tensor(augment.CPN_PIXEL_MEAN)) / 255.0
     with torch.inference_mode():
-        bias_map = conv(off.to(dev).expand(1, 256, 192, 3), raw=True)
-    frames = torch.randint(0, 256, (batch, 256, 192, 3), dtype=torch.uint8,
+        bias_map = conv(off.to(dev).expand(1, h, w, 3), raw=True)
+    frames = torch.randint(0, 256, (batch, h, w, 3), dtype=torch.uint8,
                            generator=g).to(dev)
     return frames, (kq, ws, scale, bias, bias_map, dtype)
 
@@ -1594,6 +1594,50 @@ def test_k10u_matches_plain_version(cuda_device, hw, dtype):
     assert int8_conv.launches_topdown == before + 1
     ref = int8_conv.topdown_reference(q, ua, lat, dtype)
     assert out.dtype == dtype
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(3, 37, 64), (2, 16, 32), (2, 1, 64),
+                                   (1, 1, 32)])
+def test_k10s_edge_shapes(cuda_device, shape, dtype):
+    """K10s away from the served width: an odd frame height (the last
+    output row's window runs past the frame), the narrowest frame (W 32:
+    one 16-pixel tile) and one-row frames (H 1: every output row starts an
+    image): equal to its plain version bit for bit, one launch a call."""
+    batch, h, w = shape
+    g = torch.Generator().manual_seed(h * w)
+    frames, rest = _stem_case(g, cuda_device, dtype, batch, h, w)
+    for f in (frames, torch.full_like(frames, 255)):
+        before = int8_conv.launches_stem
+        out = int8_conv.stem_conv(f, *rest)
+        assert int8_conv.launches_stem == before + 1
+        ref = int8_conv.stem_conv_reference(f, *rest)
+        assert out.shape == (batch, (h + 1) // 2, w // 2, 64)
+        assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch", [1, 64])
+@pytest.mark.parametrize("hwc", [(1, 1, 8), (5, 3, 24), (2, 7, 16)])
+def test_k10u_edge_shapes(cuda_device, hwc, batch, dtype):
+    """K10u away from the served hops: a 1x1 source (both taps folded into
+    one), odd sizes and channel counts that are not a multiple of 16
+    (8-byte staging, channel groups that do not fill a warp): equal to its
+    plain version bit for bit, one launch a call."""
+    h, w, c = hwc
+    g = torch.Generator().manual_seed(h * 100 + w * 10 + batch)
+    q = torch.randint(-127, 128, (batch, h, w, c), dtype=torch.int8,
+                      generator=g).to(cuda_device)
+    lat = torch.randn(batch, 2 * h, 2 * w, c, generator=g).to(cuda_device,
+                                                              dtype)
+    ua = torch.tensor(5.1, device=cuda_device)
+    before = int8_conv.launches_topdown
+    out = int8_conv.topdown(q, ua, lat, dtype)
+    assert int8_conv.launches_topdown == before + 1
+    ref = int8_conv.topdown_reference(q, ua, lat, dtype)
     assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
 
 

@@ -1,4 +1,4 @@
-"""Same-call A/B on the card of the port's K3, K9, K5 and K7 against another's.
+"""Same-call A/B on the card of the port's K3, K9, K5, K7, K10s and K10u against another's.
 
     git archive <commit> contextaware_poseformer_tpu_torch/ops \\
         | tar -x -C build/parent
@@ -26,14 +26,27 @@ at the shapes the serving and training paths launch:
   per call, the port W and the scale apart);
 - K7: the first DeformableBlock's call of a served h36m_cpn and
   h36m_hrnet_32 request (batch 64), bf16 and fp32, beside the block's own
-  route (K1 + ``embed_proj`` + einsum) with the new ops.
+  route (K1 + ``embed_proj`` + einsum) with the new ops;
+- K10s (the fold stem) alone at batch 64 on 256x192 frames, bf16 and fp32,
+  in two forms: the served one (``kernel_q`` a tensor with a version
+  counter, so its k-steps are made once per parameter state) and the one
+  recorded under ``torch.inference_mode()`` (no version counter: every
+  call also makes the k-steps, ``stem_weight_steps``);
+- K10u (the s8 top-down hop) at each hop of a request (8x6, 16x12 and
+  32x24 sources, C 256, batch 64) and the three together, bf16 and fp32;
+- with K10s or K10u: the bf16 fold+topdown deploy graph's request
+  (``chip_smoke._knob_graph``) with each commit's K10s and K10u swapped in,
+  its device busy ms and the two kernels' share under torch.profiler.
 
 ``--sweep`` times the new K9 chain at each input-ring depth and at fixed
 strip lengths. ``--breakdown`` builds variants of the new
 ``csrc/layer1_chain.cu`` with one piece cut (conv2's products, the conv1 and
 conv3 epilogues, the input loads, the output stores, all of them; timing
 only, wrong numbers) and times each chain at batch 64: what a piece costs is
-the full build's time less the variant's.
+the full build's time less the variant's. ``--stem-breakdown`` does the
+same for K10s (``csrc/stem_conv.cu``: its products, its A fragments'
+build and reads, its epilogue, its stores, its bias-map and input-row
+loads), bf16 and fp32 at batch 64.
 """
 
 from __future__ import annotations
@@ -57,6 +70,7 @@ from contextaware_poseformer_tpu_torch import serve  # noqa: E402
 from contextaware_poseformer_tpu_torch.ops import (  # noqa: E402
     _build,
     deformable,
+    int8_conv,
     layer1_chain,
     small_attention,
 )
@@ -254,6 +268,103 @@ def _k7(parent, card):
                       flush=True)
 
 
+def _stem_operands(dtype, batch=64, h=256, w=192):
+    """The fold stem's operands at the served width
+    (``chip_smoke.stem_operands``) and its byte bound (the frames and the
+    map read once, the output written once)."""
+    frames, rest = cs.stem_operands(torch.Generator().manual_seed(17),
+                                    dtype, batch, h, w)
+    elem = rest[-2].element_size()
+    nbytes = frames.numel() + (batch + 1) * rest[-2].numel() * elem
+    return frames, rest, cs._bound(nbytes, 0, torch.float32)[0]
+
+
+def _k10s(parent, card):
+    for dtype in (torch.bfloat16, torch.float32):
+        frames, rest, bound = _stem_operands(dtype)
+        with torch.inference_mode():
+            recorded = (rest[0].clone(), *rest[1:])  # no version counter
+        name = str(dtype).removeprefix("torch.")
+        for form, args in (("served form (k-steps once)", rest),
+                           ("recorded form (k-steps every call)",
+                            recorded)):
+            _ab(f"K10s {name} (64, 256, 192) {form}, bound {bound:.4f} ms",
+                lambda: parent.stem_conv_kernel(frames, *args),
+                lambda: int8_conv.stem_conv_kernel(frames, *args), card)
+
+
+HOPS = ((8, 6), (16, 12), (32, 24))  # globalNet's top-down hops' sources
+
+
+def _k10u(parent, card):
+    gen = torch.Generator().manual_seed(18)
+    for dtype in (torch.bfloat16, torch.float32):
+        hops = []
+        for h, w in HOPS:
+            q = torch.randint(-127, 128, (64, h, w, 256), dtype=torch.int8,
+                              generator=gen).cuda()
+            lat = torch.randn(64, 2 * h, 2 * w, 256, generator=gen).to(
+                "cuda", dtype)
+            hops.append((q, torch.tensor(7.3, device="cuda"), lat, dtype))
+        name = str(dtype).removeprefix("torch.")
+        total = 0.0
+        for (h, w), args in zip(HOPS, hops):
+            bound = cs._bound(args[0].numel() + 2 * args[2].numel()
+                              * args[2].element_size(), 0, torch.float32)[0]
+            total += bound
+            _ab(f"K10u {name} hop {h}x{w} -> {2 * h}x{2 * w}, bound "
+                f"{bound:.4f} ms",
+                lambda args=args: parent.topdown_kernel(*args),
+                lambda args=args: int8_conv.topdown_kernel(*args), card)
+        _ab(f"K10u {name} the 3 hops, bound {total:.4f} ms",
+            lambda: [parent.topdown_kernel(*a) for a in hops],
+            lambda: [int8_conv.topdown_kernel(*a) for a in hops], card)
+
+
+def _knob_request(parent, card, requests=5):
+    """The bf16 fold+topdown request with each commit's K10s and K10u, in
+    the order parent, new, new, parent: device busy ms a request and the
+    two kernels' ms under torch.profiler (the rest of the graph is this
+    commit's)."""
+    import tempfile
+
+    from contextaware_poseformer_tpu_torch.utils import profiling
+
+    cfg, model, req, _ = cs._knob_graph(
+        "fold+topdown", {"cpn_fold_normalize": True,
+                         "cpn_int8_topdown": True}, torch.bfloat16, card)
+    new = (int8_conv.stem_conv_kernel, int8_conv.topdown_kernel)
+    sides = {"parent": (parent.stem_conv_kernel, parent.topdown_kernel),
+             "new": new}
+    rows = []
+    for side in ("parent", "new", "new", "parent"):
+        int8_conv.stem_conv_kernel, int8_conv.topdown_kernel = sides[side]
+        for _ in range(2):
+            serve.lift(model, *req)
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d, profiling.trace(d) as prof:
+            for _ in range(requests):
+                serve.lift(model, *req)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+
+        def ms(names=None):
+            return sum(e.self_device_time_total for e in kernels
+                       if names is None or any(n in e.key for n in names)
+                       ) / 1e3 / requests
+
+        rows.append((side, ms(), ms(cs.SHARE_KERNELS["K10s"]),
+                     ms(cs.SHARE_KERNELS["K10u"])))
+    int8_conv.stem_conv_kernel, int8_conv.topdown_kernel = new
+    for side, busy, stem, hop in rows:
+        print(f"ab: the bf16 fold+topdown request ({side} K10s, K10u): "
+              f"device busy {busy:.3f} ms a request, K10s {stem:.4f} ms "
+              f"({stem / busy:.1%}), K10u {hop:.4f} ms ({hop / busy:.1%}) "
+              f"(torch.profiler over {requests} requests, batch "
+              f"{cs.BATCH}; {card})", flush=True)
+
+
 def _sweep(card):
     x, blocks, amax = _k9_inputs(64)
     plan = layer1_chain.plan
@@ -301,10 +412,49 @@ VARIANTS = {"full": (), "no_conv2": ("NO_CONV2",), "no_epi1": ("NO_EPI1",),
             "no_store": ("NO_STORE",), "skeleton": tuple(CUTS)}
 
 
-def _breakdown(card):
-    out = ROOT / "build" / "k9_variants"
+class _VariantBuild:  # the port's _build with a variant's library
+    def __init__(self, lib):
+        self.lib = lib
+
+    def library(self):
+        return self.lib
+
+    def __getattr__(self, key):
+        return getattr(_build, key)
+
+
+def _build_variants(source, text, variants, entries, out):
+    """Build ``source`` (a file of csrc/, its text ``text`` carrying the
+    ``#ifndef`` cuts) once per variant (name -> macros defined), each with
+    one nvcc, all started together, into libraries under ``out``; returns
+    name -> a ``_build`` stand-in whose library is that variant's, its
+    ``entries`` bound."""
     src_dir = out / "src"
     src_dir.mkdir(parents=True, exist_ok=True)
+    (src_dir / source).write_text(text)
+    for name in ("common.cuh", "hopper.cuh", "errors.cu"):
+        shutil.copy(_build.CSRC / name, src_dir / name)
+    procs = {name: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+         *(f"-D{m}" for m in macros), "-I", str(src_dir), "-o",
+         str(out / f"{name}.so"), str(src_dir / source),
+         str(src_dir / "errors.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, macros in variants.items()}
+    builds = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"variant {name} did not build:\n{log[-3000:]}")
+        lib = ctypes.CDLL(str(out / f"{name}.so"))
+        for fn in (*entries, "capf_error_string"):
+            f = getattr(lib, fn)
+            f.restype, f.argtypes = _build.SIGNATURES[fn]
+        builds[name] = _VariantBuild(lib)
+    return builds
+
+
+def _breakdown(card):
     lines = (_build.CSRC / "layer1_chain.cu").read_text().split("\n")
 
     def find(text, start=0):
@@ -318,48 +468,93 @@ def _breakdown(card):
     for macro, a, b in sorted(marks, key=lambda m: -m[1]):
         cut.insert(b, "#endif")
         cut.insert(a, f"#ifndef {macro}")
-    (src_dir / "layer1_chain.cu").write_text("\n".join(cut))
-    for name in ("common.cuh", "hopper.cuh", "errors.cu"):
-        shutil.copy(_build.CSRC / name, src_dir / name)
-    procs = {name: subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-         *(f"-D{m}" for m in macros), "-I", str(src_dir), "-o",
-         str(out / f"{name}.so"), str(src_dir / "layer1_chain.cu"),
-         str(src_dir / "errors.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name, macros in VARIANTS.items()}
-    libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"variant {name} did not build:\n{log[-3000:]}")
-        lib = ctypes.CDLL(str(out / f"{name}.so"))
-        for fn in ("capf_layer1_block", "capf_layer1_block_floor",
-                   "capf_error_string"):
-            f = getattr(lib, fn)
-            f.restype, f.argtypes = _build.SIGNATURES[fn]
-        libs[name] = lib
-
-    class Build:  # the port's _build with a variant's library
-        def __init__(self, lib):
-            self.lib = lib
-
-        def library(self):
-            return self.lib
-
-        def __getattr__(self, key):
-            return getattr(_build, key)
-
+    builds = _build_variants(
+        "layer1_chain.cu", "\n".join(cut), VARIANTS,
+        ("capf_layer1_block", "capf_layer1_block_floor"),
+        ROOT / "build" / "k9_variants")
     x, blocks, amax = _k9_inputs(64)
     with torch.inference_mode():
-        for name, lib in libs.items():
-            layer1_chain._build = Build(lib)
+        for name, build in builds.items():
+            layer1_chain._build = build
             ms = cs._median_ms(
                 lambda: layer1_chain.layer1_chain_kernel(x, amax, blocks),
                 runs=RUNS)
             print(f"breakdown: K9 chain b=64, {name}: {ms:.4f} ms ({card})",
                   flush=True)
     layer1_chain._build = _build
+
+
+# the pieces the K10s breakdown cuts from csrc/stem_conv.cu: (the text
+# cut, what stands in for it so that the rest is not optimised away), or a
+# list of such pairs
+STEM_CUTS = {
+    "NO_PRODUCTS": (
+        "      wgmma_s8_n64_ra(d, af[ky],\n"
+        "                      sw128_desc(smem + (ky / 4) * kStage + "
+        "32 * (ky % 4)));",
+        "      d[ky] += af[ky][0] ^ af[ky][1] ^ af[ky][2] ^ af[ky][3];"),
+    "NO_A_BUILD": [("    if (Ring<E>::kKeepA && t < tiles) {",
+                    "    if (false) {"),
+                   ("      if (t < tiles && iy >= 0 && iy < a.h) {",
+                    "      if (false) {")],
+    "NO_EPILOGUE": (
+        "        m[2 * j] = Epi<E>::finish(d[4 * j], d[4 * j + 1], eff, bias,\n"
+        "                                  m[2 * j]);\n"
+        "        m[2 * j + 1] = Epi<E>::finish(d[4 * j + 2], d[4 * j + 3], "
+        "eff, bias,\n"
+        "                                      m[2 * j + 1]);",
+        "        if (d[4 * j] + d[4 * j + 1] + d[4 * j + 2] + d[4 * j + 3] =="
+        " 123456789) m[2 * j] = eff;"),
+    "NO_STORE": (
+        "        *reinterpret_cast<uint4*>(dst + px * kCout + p * (16 / "
+        "sizeof(E))) =\n"
+        "            *reinterpret_cast<const uint4*>(m_row + (16 * t + px) * "
+        "kPitchE +\n"
+        "                                            p * (16 / sizeof(E)));",
+        "        if (px == 99) dst[0] = m_row[0];"),
+    "NO_MAP_LOAD": (
+        "      cp_async16(dst + px * kPitchE + p * (16 / sizeof(E)),\n"
+        "                 src + px * kCout + p * (16 / sizeof(E)), 16);", ""),
+    "NO_ROW_LOAD": (
+        "        cp_async16(s_ring + slot * pitch + 16 * p,\n"
+        "                   frame + static_cast<size_t>(iy) * row_bytes + "
+        "xb, 16);", ""),
+}
+STEM_VARIANTS = {
+    "full": (), "no_products": ("NO_PRODUCTS",),
+    "no_a_build": ("NO_A_BUILD",), "no_epilogue": ("NO_EPILOGUE",),
+    "no_store": ("NO_STORE",), "no_map_load": ("NO_MAP_LOAD",),
+    "no_row_load": ("NO_ROW_LOAD",),
+    "no_loads": ("NO_MAP_LOAD", "NO_ROW_LOAD"),
+    "compute_only": ("NO_STORE", "NO_MAP_LOAD", "NO_ROW_LOAD"),
+    "skeleton": tuple(STEM_CUTS)}
+
+
+def _stem_breakdown(card):
+    """K10s at batch 64 on 256x192 frames, bf16 and fp32, in builds of
+    csrc/stem_conv.cu with pieces cut (timing only, wrong numbers): what a
+    piece costs is the full build's time less the variant's."""
+    text = (_build.CSRC / "stem_conv.cu").read_text()
+    for macro, cuts in STEM_CUTS.items():
+        for piece, stand_in in cuts if isinstance(cuts, list) else [cuts]:
+            if text.count(piece) != 1:
+                raise RuntimeError(f"stem breakdown: {macro}'s text is not "
+                                   "in csrc/stem_conv.cu once")
+            text = text.replace(piece, f"#ifndef {macro}\n{piece}\n#else\n"
+                                       f"{stand_in}\n#endif")
+    builds = _build_variants("stem_conv.cu", text, STEM_VARIANTS,
+                             ("capf_stem_conv",),
+                             ROOT / "build" / "k10s_variants")
+    for dtype in (torch.bfloat16, torch.float32):
+        frames, rest, bound = _stem_operands(dtype)
+        for name, build in builds.items():
+            int8_conv._build = build
+            ms = cs._median_ms(
+                lambda: int8_conv.stem_conv_kernel(frames, *rest), runs=RUNS)
+            print(f"breakdown: K10s {str(dtype).removeprefix('torch.')} "
+                  f"(64, 256, 192), {name}: {ms:.4f} ms (bound {bound:.4f}"
+                  f" ms; {card})", flush=True)
+    int8_conv._build = _build
 
 
 def main() -> None:
@@ -371,6 +566,7 @@ def main() -> None:
                     help="the kernels to A/B, comma-separated")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--breakdown", action="store_true")
+    ap.add_argument("--stem-breakdown", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: needs an NVIDIA GPU")
@@ -386,17 +582,30 @@ def main() -> None:
             "ops"
         pbuild = _load("parent_build", ops / "_build.py")
         pbuild.library()
+        loaded = {}
+
+        def parent(module):
+            if module not in loaded:
+                loaded[module] = _load(f"parent_{module}",
+                                       ops / f"{module}.py", pbuild)
+            return loaded[module]
+
         for kern, module, run in (("K3", "small_attention", _k3),
                                   ("K9", "layer1_chain", _k9),
                                   ("K5", "deformable", _k5),
-                                  ("K7", "deformable", _k7)):
+                                  ("K7", "deformable", _k7),
+                                  ("K10s", "int8_conv", _k10s),
+                                  ("K10u", "int8_conv", _k10u)):
             if kern in only:
-                run(_load(f"parent_{module}", ops / f"{module}.py", pbuild),
-                    card)
+                run(parent(module), card)
+        if only & {"K10s", "K10u"}:
+            _knob_request(parent("int8_conv"), card)
     if args.sweep:
         _sweep(card)
     if args.breakdown:
         _breakdown(card)
+    if args.stem_breakdown:
+        _stem_breakdown(card)
 
 
 if __name__ == "__main__":
