@@ -10,13 +10,15 @@ Phases, one line of output each (failures raise and exit non-zero):
 2. build: compiles the hand-written kernels (ops/csrc/*.cu) from the
    checkout into build/kernels/ and prints the build seconds, each
    kernel's registers, spills and shared memory (``-Xptxas -v``; every
-   build of the sampler (K1, K5, K8) and of K7 must be free of spills),
-   and, by ``cuobjdump -sass``, the tensor-core and asynchronous-copy
-   instructions of K1's, K2's, K3's, K7's, K9's and K10's kernels: K2's
-   and K3's bf16 kernels must hold HGMMA (``wgmma``), K1's bf16/int8
-   sampler and K7's bf16 body HMMA, K9's builds IGMMA (int8 ``wgmma``) and
-   IMMA (``mma.sync``), each with LDGSTS (``cp.async``) or UTMALDG (TMA);
-   K10's product builds (bf16 and fp32 epilogues) IGMMA and UTMALDG;
+   build of the sampler (K1, K5, K8), of K7, K10s and K10u, and of K2's
+   and K3's fp32 bodies must be free of spills), and, by ``cuobjdump
+   -sass``, the tensor-core, fp32 FMA and asynchronous-copy instructions
+   of K1's, K2's, K3's, K7's, K9's and K10's kernels: K2's and K3's bf16
+   kernels must hold HGMMA (``wgmma``), K1's bf16/int8 sampler and K7's
+   bf16 body HMMA, K9's builds IGMMA (int8 ``wgmma``) and IMMA
+   (``mma.sync``), K2's fp32 kernels and K3's CUDA-core body FFMA, each
+   with LDGSTS (``cp.async``) or UTMALDG (TMA); K10's product builds (bf16
+   and fp32 epilogues) IGMMA and UTMALDG;
 3. kernels: each of K1-K4 against its plain PyTorch version on the card, at
    the H36M serving path's shapes with batch 64 (K2-K4 also at the 3DHP
    lifters' widths: K2 at D=64/96/320/480, each with the route
@@ -42,6 +44,13 @@ Phases, one line of output each (failures raise and exit non-zero):
    torch.profiler the device busy ms a request, its idle share of the
    unprofiled host time, K1's, K2's, K3's and K9's device ms and share of
    it, and the top kernels;
+4b. fp32_lifter: the same slice with ``lifter.compute_dtype="float32"``
+   (the serving knobs in fp32: K1 with the in-sampler projection, K3's
+   CUDA-core body, K4, K2's fp32 routes; the backbone bf16), 3 requests
+   with K1 5, K2 12, K3 4 and K4 4 launches each, the output against the
+   plain routes (``sampler="gather"``, einsum) within a relative RMS of
+   1e-4, and, as in the slice phase, host ms over 5 requests and, under
+   torch.profiler, the device busy ms and K2's and K3's ms and share;
 5. hrnet: the same for the full-width h36m_hrnet_32 slice (bf16 HRNet-W32,
    3 requests), then one request each of h36m_hrnet_48, mpi_3dhp_hrnet_32
    and mpi_3dhp_hrnet_48;
@@ -185,7 +194,8 @@ Phases, one line of output each (failures raise and exit non-zero):
    width, batch 64 (the CPN pyramid's 64x48x256 level with 17 zeros
    points and HRNet-W32's 64x48x32 level with 272 border points, in bf16
    and fp32, then the 64x48x256 level as int8, sampled to bf16), one
-   launch a call; and K7 through ``deformable_aggregate`` on the first
+   launch a call, printed beside the launch floor of the timer (the
+   library's empty kernel, one block); and K7 through ``deformable_aggregate`` on the first
    DeformableBlock of one served request of ``h36m_cpn`` and of
    ``h36m_hrnet_32`` (random weights from seed 0, batch 64; inputs
    captured by a forward hook, the block's own attention weights, points
@@ -358,6 +368,11 @@ BATCH = 64
 REQUESTS = 3
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # error / max|plain|
 SLICE_REL_RMS = 2e-2
+# the fp32_lifter phase: the lifter's kernels in fp32 against its plain
+# routes, relative RMS of the poses (the kernels sum in other orders, and
+# the fused MLP's LN takes E[x^2] - mu^2 where the plain block's
+# F.layer_norm takes two passes)
+FP32_LIFTER_REL_RMS = 1e-4
 _H36M = {"K1": 5, "K2": 12, "K3": 4, "K4": 4}
 _H36M_HRNET = {**_H36M, "K5": 5}
 _MPI_HRNET = {"K1": 1, "K2": 8, "K3": 4, "K4": 4, "K5": 1}
@@ -450,6 +465,7 @@ STREAM_CAMERAS, STREAM_SLOTS = 4, 38
 STREAM_PASSES = 20
 STREAM_EMA = 0.5
 TIMED_REQUESTS = 10  # host-clock frames/s, after the checked requests
+FP32_LIFTER_TIMED = 5  # host-clock requests of the fp32_lifter phase
 PROFILED = 5  # requests under torch.profiler
 TOP_KERNELS = 8
 TRAIN_BATCH = 256  # the h36m_cpn preset's batch
@@ -572,7 +588,8 @@ SLEEP_CYCLES = 4_000_000  # ~2 ms of device clock ahead of a timed window
 # names of their CUDA kernels (those redesigned for Hopper in the port)
 SHARE_KERNELS = {"K1": ("sample_levels_kernel",),
                  "K2": ("ln_mlp_resident_kernel", "ln_fc1_kernel",
-                        "fc2_residual_kernel", "ln_mlp_fp32_kernel"),
+                        "fc2_residual_kernel", "ln_mlp_f32_fused_kernel",
+                        "ln_rows_f32_kernel", "mlp_f32_gemm_kernel"),
                  "K3": ("small_attention_tc_kernel",
                         "small_attention_cores_kernel"),
                  "K9": ("layer1_block_kernel",),
@@ -586,9 +603,10 @@ SHARE_KERNELS = {"K1": ("sample_levels_kernel",),
 # the asynchronous copies (LDGSTS: cp.async, UTMALDG: TMA); per kernel:
 # (function name parts, the instructions it must hold, one of which
 # suffices for each tuple)
-SASS_OPS = ("HGMMA", "HMMA", "IGMMA", "IMMA", "LDGSTS", "UTMALDG")
+SASS_OPS = ("HGMMA", "HMMA", "IGMMA", "IMMA", "LDGSTS", "UTMALDG", "FFMA")
 _WGMMA_ASYNC = (("HGMMA",), ("LDGSTS", "UTMALDG"))
 _MMA_ASYNC = (("HMMA", "HGMMA"), ("LDGSTS", "UTMALDG"))
+_FFMA_ASYNC = (("FFMA",), ("LDGSTS", "UTMALDG"))
 SASS_REQUIRED = (
     # K7's bf16 body (pool first, then mma.sync; W by cp.async)
     ("K7", ("aggregate_cu", "aggregate_kernelI13__nv_bfloat16"), _MMA_ASYNC),
@@ -607,6 +625,11 @@ SASS_REQUIRED = (
     ("K2", ("fused_mlp", "resident_kernel"), _WGMMA_ASYNC),
     ("K2", ("fused_mlp", "ln_fc1_kernel"), _WGMMA_ASYNC),
     ("K2", ("fused_mlp", "fc2_residual_kernel"), _WGMMA_ASYNC),
+    # K2's fp32 routes and K3's CUDA-core body: fp32 FMAs (FFMA) on
+    # operands staged by cp.async (LDGSTS)
+    ("K2", ("fused_mlp", "ln_mlp_f32_fused_kernel"), _FFMA_ASYNC),
+    ("K2", ("fused_mlp", "mlp_f32_gemm_kernel"), _FFMA_ASYNC),
+    ("K3", ("small_attention_cores_kernel",), _FFMA_ASYNC),
     # the sampler's builds with the tensor-core projected body (kTc = true;
     # the gather-only builds hold none by design)
     ("K1", ("sampler_cu", "sample_levels_kernelI13__nv_bfloat16S1_Lb1"),
@@ -616,10 +639,13 @@ SASS_REQUIRED = (
 )
 # kernels whose builds must not spill registers (-Xptxas -v): the
 # sampler's (K1, K5, K8; the gather's batched taps and the tensor-core
-# builds' register cap), K7's, and K10s's and K10u's (two blocks an SM and
-# more: the register caps their plans count on)
+# builds' register cap), K7's, K10s's and K10u's (two blocks an SM and
+# more: the register caps their plans count on), and the fp32 bodies of K2
+# and K3 (their micro-tiles of accumulators)
 NO_SPILLS = ("sample_levels_kernel", "aggregate_kernel", "stem_conv_kernel",
-             "topdown_kernel")
+             "topdown_kernel", "ln_mlp_f32_fused_kernel",
+             "mlp_f32_gemm_kernel", "ln_rows_f32_kernel",
+             "small_attention_cores_kernel")
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,  # dense FLOP/s
             torch.int8: 1979e12}  # dense int8 TOP/s
@@ -887,7 +913,11 @@ def _kernel_cases(dtype, gen):
                  uniform(-1, 1, 2 * d, d) / (2 * d) ** 0.5,
                  uniform(-0.1, 0.1, d))
         rows = x.numel() // d
-        route = fused_mlp.plan(dtype, d, 2 * d).route
+        plan = fused_mlp.plan(dtype, d, 2 * d, rows)
+        route = plan.route if dtype != torch.float32 else (
+            f"fp32 fused, {plan.tiles[0]} rows a block"
+            if len(plan.smem) == 1 else
+            f"fp32 two-phase, tiles {plan.tiles[:5]} {plan.tiles[5:]}")
         cases.append((
             "K2", f"{label} D={d} ({route})", calls,
             lambda x=x, p=p, eps=eps: fused_mlp.ln_mlp_residual_kernel(
@@ -2880,14 +2910,16 @@ def _expected(per_call, calls=1):
 
 
 def check_serving(name, requests_n, card, int8=False, inspect=None,
-                  mode=None, timed=TIMED_REQUESTS):
-    """Phases 4, 5, 6b, 7b and 8b: serve ``requests_n`` requests of the
+                  mode=None, timed=TIMED_REQUESTS, lifter_dtype=None):
+    """Phases 4, 4b, 5, 6b, 7b and 8b: serve ``requests_n`` requests of the
     full-width ``slice_config(name)`` (``deploy_config(name)`` with
     ``int8``, ``quantize_config(name, mode)`` with ``mode``, either after
-    ``serve.prepare`` on one seeded batch) through ``serve.lift``, checking
-    each request's launches and the output, and one request against the
-    plain knobs (and, for an int8 graph, K9's and K10's plain versions); a
-    "c128" graph's first request, served before ``prepare``, must equal
+    ``serve.prepare`` on one seeded batch; with ``lifter_dtype`` the
+    lifter computing in that dtype) through ``serve.lift``, checking each
+    request's launches and the output, and one request against the plain
+    knobs (and, for an int8 graph, K9's and K10's plain versions: relative
+    RMS within SLICE_REL_RMS, an fp32 lifter's within FP32_LIFTER_REL_RMS);
+    a "c128" graph's first request, served before ``prepare``, must equal
     the prepared model's. ``inspect(model, request)`` runs before the
     counted requests. Returns the launch counts of the requests."""
     from contextaware_poseformer_tpu_torch import serve
@@ -2899,6 +2931,13 @@ def check_serving(name, requests_n, card, int8=False, inspect=None,
         cfg = serve.quantize_config(name, mode)
     else:
         cfg = serve.deploy_config(name) if int8 else serve.slice_config(name)
+    tol = SLICE_REL_RMS
+    if lifter_dtype is not None:
+        phase = "fp32_lifter" if lifter_dtype == "float32" else (
+            f"{lifter_dtype}_lifter")
+        cfg = replace(cfg, model=replace(cfg.model, lifter=replace(
+            cfg.model.lifter, compute_dtype=lifter_dtype)))
+        tol = FP32_LIFTER_REL_RMS if lifter_dtype == "float32" else tol
     kind = cfg.model.backbone.kind
     per_request = PER_REQUEST[name]
     if int8:
@@ -2907,6 +2946,8 @@ def check_serving(name, requests_n, card, int8=False, inspect=None,
         per_request = {**per_request, **QUANT_PER_REQUEST[mode][kind]}
     quantized = int8 or mode is not None
     label = name if mode is None else f"{name} {mode}"
+    if lifter_dtype is not None:
+        label = f"{label}, lifter {lifter_dtype}"
     t0 = time.perf_counter()
     model = serve.build_serving_model(
         cfg, "cuda", generator=torch.Generator().manual_seed(0))
@@ -2989,9 +3030,9 @@ def check_serving(name, requests_n, card, int8=False, inspect=None,
     print(f"{phase}: {label}: {requests_n} request(s) of {BATCH} frames -> "
           f"{tuple(outs[0].shape)} finite; launches per request "
           f"{per_request}; kernel vs plain rel RMS {rel:.3e} (tol "
-          f"{SLICE_REL_RMS:.0e})", flush=True)
-    if not rel <= SLICE_REL_RMS:
-        raise AssertionError(f"{label} rel RMS {rel:.3e} > {SLICE_REL_RMS}")
+          f"{tol:.0e})", flush=True)
+    if not rel <= tol:
+        raise AssertionError(f"{label} rel RMS {rel:.3e} > {tol}")
     if quantized:  # the float slice drawn from the same seed: same weights
         floating = serve.build_serving_model(
             serve.slice_config(name), "cuda",
@@ -3194,8 +3235,10 @@ def check_aggregate(results, card):
     against the DeformableBlock's own route on the served h36m_cpn and
     h36m_hrnet_32 blocks; K1 on the packed offsets without a copy; K1 on
     int8 maps. Adds K7's and K8's JSON numbers to ``results`` (and the
-    int8 error to K1's) and returns the path's launch counts."""
-    from contextaware_poseformer_tpu_torch.ops import deformable
+    int8 error to K1's) and returns the path's launch counts. The launch
+    floor of the timer (the library's empty kernel) is printed beside
+    K8's lines."""
+    from contextaware_poseformer_tpu_torch.ops import _build, deformable
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")
     results.update({k: dict.fromkeys(keys, 0.0) for k in ("K7", "K8")})
@@ -3239,6 +3282,12 @@ def check_aggregate(results, card):
             raise AssertionError(f"aggregate path launched {launches}, "
                                  f"expected {want}")
 
+        # the launch floor of this timer: the library's empty kernel
+        floor_ms = _median_ms(lambda: _build.empty_kernel(
+            torch.device("cuda")))
+        print(f"aggregate: the launch floor (an empty kernel of the same "
+              f"library, one block of 32 threads, the same timer): "
+              f"{floor_ms:.4f} ms ({card})", flush=True)
         for (case, dtype, f, pts, mode), out in zip(k8, k8_outs):
             def fn(f=f, pts=pts, mode=mode):
                 return deformable.sample_points(f, pts, mode, impl="fused")
@@ -3262,9 +3311,10 @@ def check_aggregate(results, card):
             print(f"aggregate: K8 {case} {name}"
                   f"{' -> bfloat16' if dtype == torch.int8 else ''}: "
                   f"max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:.0e}); "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                  f"{lib}, bound {bound_ms:.4f} ms ({by}: {work[0]} B, "
-                  f"{work[1]} ops; {card})", flush=True)
+                  f"kernel {ms:.4f} ms ({ms - floor_ms:+.4f} over the "
+                  f"launch floor {floor_ms:.4f}), plain {plain_ms:.4f} ms, "
+                  f"library {lib}, bound {bound_ms:.4f} ms ({by}: "
+                  f"{work[0]} B, {work[1]} ops; {card})", flush=True)
             if not rel <= tol:
                 raise AssertionError(f"K8 {case} {name}: rel error "
                                      f"{rel:.3e} > {tol:.0e}")
@@ -4693,6 +4743,9 @@ def main() -> None:
     clock = _PhaseClock()
     results = clock("kernels", check_kernels)
     served = [clock("slice", check_serving, "h36m_cpn", REQUESTS, card)]
+    served.append(clock("fp32_lifter", check_serving, "h36m_cpn", REQUESTS,
+                        card, timed=FP32_LIFTER_TIMED,
+                        lifter_dtype="float32"))
     served += [clock("hrnet", check_serving, name, n, card)
                for name, n in HRNET_REQUESTS.items()]
     results.update(clock("int8", check_int8_kernels, card))

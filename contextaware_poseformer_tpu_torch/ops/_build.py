@@ -42,6 +42,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
     "capf_error_string": (ctypes.c_char_p, [_I]),
+    # (device, stream): the empty kernel
+    "capf_empty": (_I, [_I, _P]),
     # (args struct*, device, stream)
     "capf_sample_levels": (_I, [_P, _I, _P]),
     # (args struct*, device, stream)
@@ -182,6 +184,15 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.capf_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def empty_kernel(device: torch.device) -> None:
+    """Launch the library's empty kernel on ``device``'s current stream:
+    the launch floor that a timer of these kernels reads."""
+    lib = library()
+    index = device.index if device.index is not None else 0
+    check(lib, lib.capf_empty(
+        index, torch.cuda.current_stream(device).cuda_stream), "empty")
 
 
 def launch_target(t: torch.Tensor) -> tuple[int, int]:

@@ -52,17 +52,46 @@
 //   m64n64k16, then bias + fp32 residual and 16-byte stores.
 //   The grid runs column tiles fastest, so the blocks that share a row
 //   tile run together and read it from L2 while it is hot.
-// - fp32 (route 0, parity runs and training): CUDA cores, 8 rows a block,
-//   one output column a thread with 8 accumulators; any D and H that fit.
-//
+// - fp32 (routes 0 and 3: the lifter served in fp32, parity runs): exact
+//   fp32 FMAs on the CUDA cores (no TF32), register-tiled (f32_tile.cuh):
+//   a thread owns a micro-tile of TM rows x 4 or 8 columns, fed by 16-byte
+//   shared loads (TM + TN of them for 4 * TM * TN FMAs), the operands'
+//   K-slices arriving by cp.async through a ring of 3 slots while the
+//   previous slice is multiplied. The weights are read as the model holds
+//   them, (D, H) and (H, D) row-major: a K-slice of either is contiguous.
+//   At 4*D*H FMAs a row against 67 TFLOP/s, fp32 is bound by operations
+//   (0.053 ms at the joint shape, 1088 x 640). On an H100 80GB HBM3 this
+//   loop, as nvcc schedules it, reaches 52-68% of that rate alone (4 x 4
+//   to 8 x 8 micro-tiles, 8 warps an SM; fewer warps, less), and the
+//   problem is small: the joint call's 1.4 M phase-1 outputs fill 132 SMs
+//   with 8 warps only at 8 x 4 (PERF.md, section 6).
+//   Route 0 (fused, one launch; H = 2D, D a multiple of 16 up to 128, 2D
+//   threads a block: D = 64, 96, 128 and the gate's 32): a block owns
+//   kBM = 8 * TM rows (TM = 4, 5 or 6; ops/fused_mlp.py::plan picks the
+//   one that puts the fewest rows on the busiest SM, 48 at 5440 rows and
+//   40 at 4352: one wave) and keeps them whole: x by cp.async, the LN
+//   (statistics once a row) into a second tile, fc1 at the full width H
+//   with TN = 8, bias + GELU into a hidden tile in shared memory, fc2
+//   with TN = 4 from it, then b2 and the residual from the x tile.
+//   Route 3 (two-phase, three launches; any D and H divisible by 4): the
+//   LN of every row, once, into an fp32 (rows, Dp) workspace (a warp a
+//   row); phase 1 (LN(x) W1 + b1, GELU, into the fp32 (rows, Hp) hidden
+//   workspace: 5.6 MB at the joint shape, which stays in L2) and phase 2
+//   (hidden W2 + b2 + x) are one GEMM kernel whose tile each launch
+//   chooses (ops/fused_mlp.py::gemm_tile, by the busiest SM's cycles: a
+//   micro-tile of 4 or 8 x 4 or 8 and row and column groups of any count,
+//   so that 17-row multiples fill one wave: 136 x 80 tiles, 128 blocks, at
+//   the joint shape), optionally with K in two parts (the last part of a
+//   tile to finish, by a counter, adds both and runs the epilogue:
+//   deterministic, as an fp32 sum of two is).
+
 // Every ring and operand region starts on a 1024-byte boundary, as the
 // swizzle needs. A wait on a TMA barrier traps after ~2^28 polls, so a
 // fault fails the launch instead of hanging the card.
 
 #include "common.cuh"
+#include "f32_tile.cuh"
 #include "hopper.cuh"
-
-using capf::to_float;
 
 extern "C" {
 struct CapfMlpArgs {  // mirrored by ops/fused_mlp.py::_Args
@@ -73,12 +102,20 @@ struct CapfMlpArgs {  // mirrored by ops/fused_mlp.py::_Args
   const float* b1;        // (H,)
   const void* w2;         // fp32 (H, D); bf16 W2^T (D, H)
   const float* b2;        // (D,)
-  void* hidden;           // route 2: the (rows, H) bf16 workspace
+  void* hidden;           // route 2: the (rows, H) bf16 workspace;
+                          // route 3: the fp32 (rows, Hp) one
   void* out;              // (rows, D)
   int rows, d, hdim;
   float eps;
-  int dtype, route;       // route: 0 fp32, 1 weights-resident, 2 two-phase
-  int tile1;              // route 2: phase 1's hidden columns a block
+  int dtype, route;       // route: 0 fp32 fused, 1 weights-resident,
+                          // 2 two-phase, 3 fp32 two-phase
+  int tile1;              // route 2: phase 1's hidden columns a block;
+                          // route 0: rows a block
+  void* normed;           // route 3: the fp32 (rows, Dp) LN workspace
+  int gemm1[5], gemm2[5];  // route 3: each phase's (TM, TN, RG, CG, split)
+  void* partial;          // route 3: (2, rows, max(Hp, D)) fp32 K-halves
+  int* count;             // route 3: a counter a split tile, zeroed by
+                          // launch 1
 };
 }  // extern "C"
 
@@ -86,10 +123,6 @@ namespace {
 
 using namespace capf::sm90;
 using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 256;  // fp32 body
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 8;       // fp32 body: rows per block
 
 constexpr int kWg = 128;             // threads of a warpgroup
 constexpr int kWgs = 2;              // bf16 routes (but phase 2): warpgroups
@@ -106,93 +139,309 @@ __device__ __forceinline__ float gelu_erf(float a) {
   return 0.5f * a * (1.f + erff(a * 0.70710678118654752f));
 }
 
-// LayerNorm statistics of one row, by one warp: (mean, 1/sqrt(var + eps))
-// with the fast variance.
-__device__ __forceinline__ float2 row_stats(const float* xr, int d, int lane,
-                                            float eps) {
+// ---- fp32 (routes 0 and 3) -------------------------------------------------
+
+using capf::f32::copy_block;
+using capf::f32::copy_pieces;
+using capf::f32::fma_slice;
+constexpr int kF32Stages = capf::f32::kStages;
+
+constexpr int kF32MaxThreads = 256;  // route 0: 2D threads a block
+constexpr int kFusedRG = 8;          // route 0: row groups (D / 4 columns)
+constexpr int kFusedBK = 16;         // route 0: K a slice
+constexpr int kGemmBK = 32;          // route 3: K a slice
+
+// ops/fused_mlp.py mirrors these three: route 0's x, LN(x) and hidden
+// tiles and its ring of W1 / W2 slices; route 3's ring of A and B slices
+// (a tile of bm x bn); route 3's padded widths (its workspaces' row
+// pitches: K-slices of 32)
+__host__ __device__ constexpr int f32_fused_smem(int bm, int d, int h) {
+  return 4 * (2 * bm * (d + 4) + bm * (h + 4) + kF32Stages * kFusedBK * h);
+}
+__host__ __device__ constexpr int f32_gemm_smem(int bm, int bn) {
+  return 4 * kF32Stages * (bm * (kGemmBK + 4) + kGemmBK * bn);
+}
+__host__ __device__ constexpr int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+
+// The LayerNorm of one row of d values (d % 4 == 0) by one warp, with the
+// fast variance E[x^2] - mu^2: dst[k] = (x[k] - mu) * rstd * scale[k] +
+// bias[k], four values a lane at a time.
+__device__ __forceinline__ void ln_row(const float* xr, float* dst, int d,
+                                       const float* scale, const float* bias,
+                                       float eps) {
+  const int lane = threadIdx.x % 32;
   float s = 0.f, ss = 0.f;
-  for (int k = lane; k < d; k += 32) {
-    const float v = xr[k];
-    s += v;
-    ss += v * v;
+  for (int k = 4 * lane; k < d; k += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(xr + k);
+    s += (v.x + v.y) + (v.z + v.w);
+    ss += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
   }
   s = capf::warp_sum(s);
   ss = capf::warp_sum(ss);
   const float mu = s / d;
-  return make_float2(mu, rsqrtf(ss / d - mu * mu + eps));
-}
-
-// Load a block's rows into shared memory as fp32 (rows past the end: 0).
-template <typename T>
-__device__ __forceinline__ void load_rows(const T* xb, float* s_x, int n,
-                                          int n_rows, int d) {
-  for (int i = threadIdx.x; i < n * d; i += kThreads) {
-    s_x[i] = i < n_rows * d ? to_float(xb[i]) : 0.f;
+  const float rstd = rsqrtf(ss / d - mu * mu + eps);
+  for (int k = 4 * lane; k < d; k += 128) {
+    const float4 v = *reinterpret_cast<const float4*>(xr + k);
+    const float4 g = *reinterpret_cast<const float4*>(scale + k);
+    const float4 c = *reinterpret_cast<const float4*>(bias + k);
+    *reinterpret_cast<float4*>(dst + k) = make_float4(
+        (v.x - mu) * rstd * g.x + c.x, (v.y - mu) * rstd * g.y + c.y,
+        (v.z - mu) * rstd * g.z + c.z, (v.w - mu) * rstd * g.w + c.w);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    ln_mlp_fp32_kernel(const float* __restrict__ x,
-                       const float* __restrict__ ln_scale,
-                       const float* __restrict__ ln_bias,
-                       const float* __restrict__ w1,
-                       const float* __restrict__ b1,
-                       const float* __restrict__ w2,
-                       const float* __restrict__ b2, float* __restrict__ out,
-                       int rows, int d, int hdim, float eps) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* s_x = reinterpret_cast<float*>(smem_raw);  // (kRows, d) input
-  float* s_h = s_x + kRows * d;                     // (kRows, d) LN(x)
-  float* s_g = s_h + kRows * d;                     // (kRows, hdim) GELU
+// Route 0: a block of 2D threads owns kTileRows = 8 * TM rows. Thread
+// (tr, tc) of 8 x D/4: fc1's rows tr + 8i, columns 4tc + {0..3} and H/2 + 4tc +
+// {0..3}; fc2's rows the same, columns 4tc + {0..3}.
+template <int TM>
+__global__ void __launch_bounds__(kF32MaxThreads)
+    ln_mlp_f32_fused_kernel(const CapfMlpArgs a) {
+  constexpr int kTileRows = kFusedRG * TM;
+  const int d = a.d, h = a.hdim;
+  const capf::f32::Place pl = capf::f32::place(kFusedRG, d / 4);
+  const int tr = pl.tr, tc = pl.tc;
+  extern __shared__ __align__(16) float smem_f[];
+  float* s_x = smem_f;                     // (rows, d + 4): x
+  float* s_a = s_x + kTileRows * (d + 4);  // (rows, d + 4): LN(x)
+  float* s_h = s_a + kTileRows * (d + 4);  // (rows, h + 4): GELU(fc1)
+  float* ring = s_h + kTileRows * (h + 4);  // slots of kFusedBK x h
+  const int m0 = blockIdx.x * kTileRows;
+  const int valid = min(kTileRows, a.rows - m0);
+  const float* w1 = static_cast<const float*>(a.w1);
+  const float* w2 = static_cast<const float*>(a.w2);
+  const int n1 = d / kFusedBK, n2 = h / kFusedBK;
+  // slice s of the block's stream: W1's K-slices, then W2's
+  auto issue = [&](int s) {
+    float* slot = ring + (s % kF32Stages) * kFusedBK * h;
+    if (s < n1) {
+      copy_pieces(slot, w1 + static_cast<size_t>(s) * kFusedBK * h,
+                  kFusedBK * h / 4);
+    } else if (s < n1 + n2) {
+      copy_pieces(slot, w2 + static_cast<size_t>(s - n1) * kFusedBK * d,
+                  kFusedBK * d / 4);
+    }
+    cp_async_commit();
+  };
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.x * kRows;
-  const int n_rows = min(kRows, rows - row0);
-
-  load_rows(x + static_cast<size_t>(row0) * d, s_x, kRows, n_rows, d);
+  copy_block(s_x, d + 4, static_cast<const float*>(a.x), d, m0, 0,
+             capf::f32::walk(kTileRows, d / 4), a.rows, d / 4);
+  for (int s = 0; s < kF32Stages - 1; ++s) issue(s);
+  cp_async_wait<kF32Stages - 2>();  // x (with slice 0)
   __syncthreads();
+  for (int r = threadIdx.x / 32; r < kTileRows; r += blockDim.x / 32) {
+    ln_row(s_x + r * (d + 4), s_a + r * (d + 4), d, a.ln_scale, a.ln_bias,
+           a.eps);
+  }
 
-  for (int r = warp; r < kRows; r += kWarps) {
-    const float* xr = s_x + r * d;
-    const float2 st = row_stats(xr, d, lane, eps);
-    for (int k = lane; k < d; k += 32) {
-      s_h[r * d + k] = (xr[k] - st.x) * st.y * ln_scale[k] + ln_bias[k];
+  float acc[TM][8];
+  capf::f32::zero(acc);
+  for (int s = 0; s < n1; ++s) {
+    cp_async_wait<kF32Stages - 2>();
+    __syncthreads();
+    issue(s + kF32Stages - 1);
+    fma_slice<TM, 8, kFusedBK>(
+        acc, s_a + tr * (d + 4) + s * kFusedBK, kFusedRG * (d + 4),
+        ring + (s % kF32Stages) * kFusedBK * h + tc * 4, h, h / 2);
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c = half * (h / 2) + tc * 4;
+      const float* v = acc[i] + 4 * half;
+      *reinterpret_cast<float4*>(s_h + (tr + kFusedRG * i) * (h + 4) + c) =
+          make_float4(gelu_erf(v[0] + a.b1[c]), gelu_erf(v[1] + a.b1[c + 1]),
+                      gelu_erf(v[2] + a.b1[c + 2]),
+                      gelu_erf(v[3] + a.b1[c + 3]));
     }
   }
-  __syncthreads();
 
-  // fc1 + GELU: one hidden column per thread, all kRows rows at once
-  for (int j = tid; j < hdim; j += kThreads) {
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int k = 0; k < d; ++k) {
-      const float wv = w1[static_cast<size_t>(k) * hdim + j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] += s_h[r * d + k] * wv;
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      s_g[r * hdim + j] = gelu_erf(acc[r] + b1[j]);
-    }
+  float acc2[TM][4];
+  capf::f32::zero(acc2);
+  for (int s = 0; s < n2; ++s) {
+    cp_async_wait<kF32Stages - 2>();
+    __syncthreads();  // (the first: the hidden tile is complete)
+    issue(n1 + s + kF32Stages - 1);
+    fma_slice<TM, 4, kFusedBK>(
+        acc2, s_h + tr * (h + 4) + s * kFusedBK, kFusedRG * (h + 4),
+        ring + ((n1 + s) % kF32Stages) * kFusedBK * h + tc * 4, d, 0);
   }
-  __syncthreads();
+  float* out = static_cast<float*>(a.out) + static_cast<size_t>(m0) * d;
+  const int c = tc * 4;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = tr + kFusedRG * i;
+    if (r >= valid) continue;
+    const float4 xv = *reinterpret_cast<const float4*>(s_x + r * (d + 4) + c);
+    *reinterpret_cast<float4*>(out + static_cast<size_t>(r) * d + c) =
+        make_float4(xv.x + (acc2[i][0] + a.b2[c]),
+                    xv.y + (acc2[i][1] + a.b2[c + 1]),
+                    xv.z + (acc2[i][2] + a.b2[c + 2]),
+                    xv.w + (acc2[i][3] + a.b2[c + 3]));
+  }
+}
 
-  // fc2 + bias + residual: one output column per thread
-  for (int i = tid; i < d; i += kThreads) {
-    float acc[kRows];
+// Route 3, launch 1: the LayerNorm of every row, a warp a row, into the
+// (rows, dp) workspace; its columns [d, dp) are zeros.
+__global__ void __launch_bounds__(256)
+    ln_rows_f32_kernel(const CapfMlpArgs a, int dp, int counters) {
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid < counters) a.count[gid] = 0;
+  const int row = gid / 32;
+  if (row >= a.rows) return;
+  float* dst = static_cast<float*>(a.normed) + static_cast<size_t>(row) * dp;
+  ln_row(static_cast<const float*>(a.x) + static_cast<size_t>(row) * a.d,
+         dst, a.d, a.ln_scale, a.ln_bias, a.eps);
+  for (int k = a.d + 4 * (threadIdx.x % 32); k < dp; k += 128) {
+    *reinterpret_cast<float4*>(dst + k) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// A launch of route 3's GEMM: C = A (rows, k_pad; row pitch lda) x B (kb,
+// n; rows past kb and columns past n read as zeros) in tiles of rg * TM
+// rows x cg * TN columns (rg x cg threads), each tile's K in ``split``
+// parts (grid: column tiles, row tiles, parts). Phase 1 (kResidual false):
+// out = GELU(C + bias) into the hidden workspace (row pitch ldo; its
+// columns past n, up to ldo, are zeros); phase 2: out = x + (C + bias) for
+// the columns below n (x and out of row pitch ldo).
+struct GemmArgs {
+  const float* A;
+  const float* B;
+  const float* bias;
+  const float* x;
+  float* out;
+  float* part;  // split > 1: (split, rows, ldo) partial sums
+  int* count;   // split > 1: a counter a tile, zero at launch
+  int lda, kb, n, ldo, rows, k_pad, rg, cg, split;
+};
+
+// a block's most threads: 8 x 8 micro-tiles take ~165-180 registers a
+// thread; the others up to 170 (65536 / 384), which keeps them unspilled
+__host__ __device__ constexpr int gemm_max_threads(int tm, int tn) {
+  return tm * tn >= 64 ? 256 : 384;
+}
+
+// The epilogue of four columns (col .. col + 3) of a row: v the sums
+template <bool kResidual>
+__device__ __forceinline__ void gemm_epilogue(const GemmArgs& g, int row,
+                                              int col, const float* v) {
+  const size_t off = static_cast<size_t>(row) * g.ldo + col;
+  if constexpr (kResidual) {
+    if (col >= g.n) return;
+    const float4 xv = *reinterpret_cast<const float4*>(g.x + off);
+    *reinterpret_cast<float4*>(g.out + off) = make_float4(
+        xv.x + (v[0] + g.bias[col]), xv.y + (v[1] + g.bias[col + 1]),
+        xv.z + (v[2] + g.bias[col + 2]), xv.w + (v[3] + g.bias[col + 3]));
+  } else {
+    if (col >= g.ldo) return;
+    float y[4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int j = 0; j < hdim; ++j) {
-      const float wv = w2[static_cast<size_t>(j) * d + i];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] += s_g[r * hdim + j] * wv;
+    for (int e = 0; e < 4; ++e) {
+      y[e] = gelu_erf(v[e] + (col + e < g.n ? g.bias[col + e] : 0.f));
     }
-    for (int r = 0; r < n_rows; ++r) {
-      out[static_cast<size_t>(row0 + r) * d + i] =
-          s_x[r * d + i] + (acc[r] + b2[i]);
+    *reinterpret_cast<float4*>(g.out + off) =
+        make_float4(y[0], y[1], y[2], y[3]);
+  }
+}
+
+// With split K, every part stores its sums; the last part of a tile to
+// finish (a counter a tile) adds them, part 0 first, and runs the epilogue.
+template <int TM, int TN, bool kResidual>
+__global__ void __launch_bounds__(gemm_max_threads(TM, TN), 1)
+    mlp_f32_gemm_kernel(const GemmArgs g) {
+  const int rg = g.rg, cg = g.cg;
+  const int bm = rg * TM, bn = cg * TN;
+  const int slot_a = bm * (kGemmBK + 4), slot = slot_a + kGemmBK * bn;
+  extern __shared__ __align__(16) float smem_f[];
+  const capf::f32::Place pl = capf::f32::place(rg, cg);
+  const int tr = pl.tr, tc = pl.tc;
+  const int n0 = blockIdx.x * bn, m0 = blockIdx.y * bm;
+  const int slices = g.k_pad / kGemmBK;
+  const int per = (slices + g.split - 1) / g.split;
+  const int s0 = blockIdx.z * per;
+  const int nk = min(slices, s0 + per) - s0;
+  auto issue = [&](int s) {
+    if (s < nk) {
+      float* ring = smem_f + (s % kF32Stages) * slot;
+      const int k0 = (s0 + s) * kGemmBK;
+      copy_block(ring, kGemmBK + 4, g.A, g.lda, m0, k0,
+                 capf::f32::walk(bm, kGemmBK / 4), g.rows, g.lda / 4);
+      copy_block(ring + slot_a, bn, g.B, g.n, k0, n0,
+                 capf::f32::walk(kGemmBK, bn / 4), g.kb, g.n / 4);
+    }
+    cp_async_commit();
+  };
+
+  float acc[TM][TN];
+  capf::f32::zero(acc);
+  for (int s = 0; s < kF32Stages - 1; ++s) issue(s);
+  for (int s = 0; s < nk; ++s) {
+    cp_async_wait<kF32Stages - 2>();
+    __syncthreads();
+    issue(s + kF32Stages - 1);
+    const float* ring = smem_f + (s % kF32Stages) * slot;
+    fma_slice<TM, TN, kGemmBK>(acc, ring + tr * (kGemmBK + 4),
+                               rg * (kGemmBK + 4), ring + slot_a + tc * 4,
+                               bn, bn / 2);
+  }
+  if (g.split > 1) {
+    const size_t plane = static_cast<size_t>(g.rows) * g.ldo;
+    float* mine = g.part + blockIdx.z * plane;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = m0 + tr + rg * i;
+#pragma unroll
+      for (int half = 0; half < TN / 4; ++half) {
+        const int col = n0 + half * (bn / 2) + tc * 4;
+        if (row < g.rows && col < g.ldo) {
+          const float* v = acc[i] + 4 * half;
+          *reinterpret_cast<float4*>(mine + static_cast<size_t>(row) *
+                                                g.ldo + col) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    __shared__ int last;
+    int* count = g.count + blockIdx.y * gridDim.x + blockIdx.x;
+    if (threadIdx.x == 0) last = atomicAdd(count, 1) == g.split - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = m0 + tr + rg * i;
+#pragma unroll
+      for (int half = 0; half < TN / 4; ++half) {
+        const int col = n0 + half * (bn / 2) + tc * 4;
+        if (row >= g.rows || col >= g.ldo) continue;
+        const size_t off = static_cast<size_t>(row) * g.ldo + col;
+        float4 sum = __ldcg(reinterpret_cast<const float4*>(g.part + off));
+        for (int z = 1; z < g.split; ++z) {
+          const float4 p = __ldcg(
+              reinterpret_cast<const float4*>(g.part + z * plane + off));
+          sum = make_float4(sum.x + p.x, sum.y + p.y, sum.z + p.z,
+                            sum.w + p.w);
+        }
+        acc[i][4 * half] = sum.x;
+        acc[i][4 * half + 1] = sum.y;
+        acc[i][4 * half + 2] = sum.z;
+        acc[i][4 * half + 3] = sum.w;
+      }
+    }
+    if (threadIdx.x == 0) *count = 0;
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = m0 + tr + rg * i;
+    if (row >= g.rows) continue;
+#pragma unroll
+    for (int half = 0; half < TN / 4; ++half) {
+      gemm_epilogue<kResidual>(g, row, n0 + half * (bn / 2) + tc * 4,
+                               acc[i] + 4 * half);
     }
   }
 }
@@ -713,6 +962,124 @@ __global__ void __launch_bounds__(kWg)
 
 // ---- host side ---------------------------------------------------------------
 
+template <int TM>
+cudaError_t launch_f32_fused(const CapfMlpArgs& a, cudaStream_t stream) {
+  constexpr int kTileRows = kFusedRG * TM;
+  const int smem = f32_fused_smem(kTileRows, a.d, a.hdim);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  auto kernel = ln_mlp_f32_fused_kernel<TM>;
+  static int opted = 0;  // the largest opted in so far (one device)
+  if (smem > opted) {
+    const cudaError_t err = capf::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    opted = smem;
+  }
+  kernel<<<(a.rows + kTileRows - 1) / kTileRows, 2 * a.d, smem, stream>>>(
+      a);
+  return cudaGetLastError();
+}
+
+// a phase's tile and grid
+struct GemmTile {
+  int tm, tn, rg, cg, split;
+};
+
+inline dim3 gemm_grid(const GemmTile& t, int rows, int cols) {
+  return dim3((cols + t.cg * t.tn - 1) / (t.cg * t.tn),
+              (rows + t.rg * t.tm - 1) / (t.rg * t.tm), t.split);
+}
+
+template <int TM, int TN, bool kResidual>
+cudaError_t launch_f32_gemm(const GemmTile& t, dim3 grid, const GemmArgs& g,
+                            cudaStream_t stream) {
+  const int threads = t.rg * t.cg;
+  const int smem = f32_gemm_smem(t.rg * TM, t.cg * TN);
+  if (t.rg < 1 || t.cg < 1 || threads > gemm_max_threads(TM, TN) ||
+      t.split < 1 || t.split > 2 || smem > 232448) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = mlp_f32_gemm_kernel<TM, TN, kResidual>;
+  static int opted = 0;  // the largest opted in so far (one device)
+  if (smem > opted) {
+    const cudaError_t err = capf::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    opted = smem;
+  }
+  kernel<<<grid, threads, smem, stream>>>(g);
+  return cudaGetLastError();
+}
+
+// a phase's launch by its (TM, TN): 4 or 8 each
+template <bool kResidual>
+cudaError_t launch_f32_phase(const GemmTile& t, dim3 grid, const GemmArgs& g,
+                             cudaStream_t stream) {
+#define CAPF_F32_PHASE(TM, TN)                                        \
+  if (t.tm == TM && t.tn == TN) {                                     \
+    return launch_f32_gemm<TM, TN, kResidual>(t, grid, g, stream);    \
+  }
+  CAPF_F32_PHASE(4, 4)
+  CAPF_F32_PHASE(4, 8)
+  CAPF_F32_PHASE(8, 4)
+  CAPF_F32_PHASE(8, 8)
+#undef CAPF_F32_PHASE
+  return cudaErrorInvalidValue;
+}
+
+// route 3: the LN (which zeroes the split tiles' counters), then the two
+// phases
+cudaError_t launch_f32_two_phase(const CapfMlpArgs& a, cudaStream_t stream) {
+  const int dp = round_up(a.d, kGemmBK), hp = round_up(a.hdim, kGemmBK);
+  const GemmTile t1{a.gemm1[0], a.gemm1[1], a.gemm1[2], a.gemm1[3],
+                    a.gemm1[4]};
+  const GemmTile t2{a.gemm2[0], a.gemm2[1], a.gemm2[2], a.gemm2[3],
+                    a.gemm2[4]};
+  // phase 1's tiles cover Hp, so that the hidden's padding is written
+  const dim3 grid1 = gemm_grid(t1, a.rows, hp), grid2 = gemm_grid(t2, a.rows,
+                                                                   a.d);
+  const int tiles1 = grid1.x * grid1.y, tiles2 = grid2.x * grid2.y;
+  const bool split = t1.split > 1 || t2.split > 1;
+  if (split && (a.partial == nullptr || a.count == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  const int counters = split ? tiles1 + tiles2 : 0;
+  const int lanes = (a.rows * 32 > counters ? a.rows * 32 : counters);
+  ln_rows_f32_kernel<<<(lanes + 255) / 256, 256, 0, stream>>>(a, dp,
+                                                              counters);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  float* hidden = static_cast<float*>(a.hidden);
+  float* part = static_cast<float*>(a.partial);
+  const GemmArgs g1{static_cast<const float*>(a.normed),
+                    static_cast<const float*>(a.w1), a.b1, nullptr, hidden,
+                    part, a.count, dp, a.d, a.hdim, hp, a.rows, dp, t1.rg,
+                    t1.cg, t1.split};
+  err = launch_f32_phase<false>(t1, grid1, g1, stream);
+  if (err != cudaSuccess) return err;
+  const GemmArgs g2{hidden, static_cast<const float*>(a.w2), a.b2,
+                    static_cast<const float*>(a.x),
+                    static_cast<float*>(a.out), part,
+                    split ? a.count + tiles1 : nullptr, hp, a.hdim, a.d, a.d,
+                    a.rows, hp, t2.rg, t2.cg, t2.split};
+  return launch_f32_phase<true>(t2, grid2, g2, stream);
+}
+
+cudaError_t launch_f32(const CapfMlpArgs& a, cudaStream_t stream) {
+  if (a.d % 4 || a.hdim % 4) return cudaErrorInvalidValue;
+  if (a.route == 0) {
+    if (a.hdim != 2 * a.d || a.d % kFusedBK || 2 * a.d > kF32MaxThreads) {
+      return cudaErrorInvalidValue;
+    }
+    if (a.tile1 == 32) return launch_f32_fused<4>(a, stream);
+    if (a.tile1 == 40) return launch_f32_fused<5>(a, stream);
+    if (a.tile1 == 48) return launch_f32_fused<6>(a, stream);
+    return cudaErrorInvalidValue;
+  }
+  if (a.route != 3 || a.hidden == nullptr || a.normed == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  return launch_f32_two_phase(a, stream);
+}
+
 template <int D, int H>
 cudaError_t launch_resident(const CapfMlpArgs& a, int device,
                             cudaStream_t stream) {
@@ -778,19 +1145,7 @@ extern "C" int capf_ln_mlp_residual(const CapfMlpArgs* args, int device,
   if (a.rows < 1 || a.d < 1 || a.hdim < 1 || a.rows >= (1 << 22)) {
     return cudaErrorInvalidValue;
   }
-  if (a.dtype == capf::kFloat32 && a.route == 0) {
-    const size_t smem =
-        static_cast<size_t>(kRows) * (2 * a.d + a.hdim) * sizeof(float);
-    err = capf::allow_smem(ln_mlp_fp32_kernel, smem);
-    if (err != cudaSuccess) return err;
-    ln_mlp_fp32_kernel<<<(a.rows + kRows - 1) / kRows, kThreads, smem,
-                         stream>>>(
-        static_cast<const float*>(a.x), a.ln_scale, a.ln_bias,
-        static_cast<const float*>(a.w1), a.b1,
-        static_cast<const float*>(a.w2), a.b2, static_cast<float*>(a.out),
-        a.rows, a.d, a.hdim, a.eps);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (a.dtype == capf::kFloat32) return launch_f32(a, stream);
   if (a.dtype != capf::kBFloat16 || a.d % 16 || a.hdim % 16) {
     return cudaErrorInvalidValue;
   }

@@ -35,15 +35,29 @@
 // - the projection by wgmma, each warpgroup half of D's columns, + bias,
 //   staged as bf16 rows and written with 16-byte stores.
 //
-// fp32 (parity runs and the training forward), and bf16 at widths the
-// tensor-core body is not built for: a body on CUDA cores, exact fp32
-// FMAs. A block stages kMaxTok tokens (whole rows) in shared memory,
-// computes their qkv with Wqkv streamed from L2, runs one thread per
-// (token, head) for scores, softmax and AV, then the projection; every
-// weight meets all kMaxTok tokens, read 4 channels at a time. Needs D
-// divisible by 4.
+// fp32 (the lifter served in fp32, parity runs), and bf16 at widths the
+// tensor-core body is not built for (the gate's tiny lifter, D = 32): a body
+// on the CUDA cores, exact fp32 FMAs, 3D threads a block. Its products are
+// register-tiled (f32_tile.cuh): a tile of kCoresBM = 48 tokens (whole rows:
+// 9 rows of 5, so that R = 1088 makes 121 tiles, one wave on 132 SMs);
+// qkv with 8 row groups x 3D/8 column groups, a thread 6 tokens x 8
+// columns; the projection with 12 x D/4, a thread 4 x 4. The weights, fp32
+// (their values cast to the call's dtype, made once per parameter state by
+// ops/small_attention.py), stream through a ring of 3 slots of 16 K-rows
+// by cp.async: Wqkv's slices, then Wproj's, the first of which land during
+// the middle. The middle stays one thread a (token, head), 16-byte reads:
+// fp32 scores, softmax and AV from the fp32 qkv tile, o rounded to the
+// call's dtype.
+// Blocks are persistent (min(tiles, SMs x the blocks an SM holds, at most
+// 2)); the next tile's x is requested once the qkv products have read this
+// one and lands during the middle and the projection. At D = 128 a tile is
+// 3.9 M FMAs against 199 KB of shared memory (one block an SM). Needs D a
+// multiple of 16 from 32 to 128 (two slices a weight or more: the next
+// tile's x lands with the projection's third slice), a head dim that is a
+// multiple of 4, N <= 20.
 
 #include "common.cuh"
+#include "f32_tile.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -53,129 +67,238 @@ using bf16 = __nv_bfloat16;
 
 // ---- CUDA cores ------------------------------------------------------------
 
-constexpr int kThreads = 256;
-constexpr int kMaxTok = 20;  // tokens per block: 4 rows of 5
+using capf::f32::copy_block;
+using capf::f32::copy_pieces;
+using capf::f32::fma_slice;
+using capf::f32::kStages;
 
-// acc[t] += sum over k of src[t][k] * w[k][col] for every staged token t:
-// src (kMaxTok, d) fp32 in shared memory, w (d, ldw) in device memory.
-template <typename T>
-__device__ __forceinline__ void tokens_times_column(const float* src, int d,
-                                                    const T* w, int ldw,
-                                                    int col,
-                                                    float (&acc)[kMaxTok]) {
-  for (int k = 0; k < d; k += 4) {
-    float wv[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      wv[u] = capf::to_float(w[static_cast<size_t>(k + u) * ldw + col]);
+constexpr int kMaxTok = 20;       // tokens a row on the CUDA cores
+constexpr int kCoresBM = 48;      // tokens a tile (whole rows)
+constexpr int kCoresBK = 16;      // K a slice
+constexpr int kCoresMaxD = 128;   // 3D threads a block
+constexpr int kQkvRG = 8, kQkvTM = kCoresBM / kQkvRG;     // 6 x 8 a thread
+constexpr int kProjRG = 12, kProjTM = kCoresBM / kProjRG;  // 4 x 4
+
+// the x, qkv and o tiles and the ring of Wqkv / Wproj slices;
+// ops/small_attention.py::cores_smem_bytes mirrors it
+__host__ __device__ constexpr int cores_smem(int d) {
+  return 4 * (2 * kCoresBM * (d + 4) + kCoresBM * (3 * d + 4) +
+              kStages * kCoresBK * 3 * d);
+}
+
+// ``rows`` rows of d values of x (token row tok0 on) into the fp32 tile
+// (row pitch d + 4), rows from ``valid`` on zero: fp32 by cp.async (the
+// caller's group), bf16 by 8-byte loads converted in registers
+__device__ __forceinline__ void load_x(float* dst, const float* x,
+                                       size_t tok0, int valid, int d,
+                                       int tokens) {
+  copy_block(dst, d + 4, x, d, static_cast<int>(tok0), 0,
+             capf::f32::walk(kCoresBM, d / 4), tokens, d / 4);
+  (void)valid;
+}
+__device__ __forceinline__ void load_x(float* dst, const bf16* x, size_t tok0,
+                                       int valid, int d, int tokens) {
+  (void)tokens;
+  const int pieces = d / 4;
+  for (int p = threadIdx.x; p < kCoresBM * pieces; p += blockDim.x) {
+    const int r = p / pieces;
+    const int c = 4 * (p - r * pieces);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < valid) {
+      const uint2 w = *reinterpret_cast<const uint2*>(x + (tok0 + r) * d + c);
+      const float2 lo = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w.x));
+      const float2 hi = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w.y));
+      v = make_float4(lo.x, lo.y, hi.x, hi.y);
     }
-#pragma unroll
-    for (int t = 0; t < kMaxTok; ++t) {
-      const float4 xv = *reinterpret_cast<const float4*>(src + t * d + k);
-      acc[t] = fmaf(xv.x, wv[0], acc[t]);
-      acc[t] = fmaf(xv.y, wv[1], acc[t]);
-      acc[t] = fmaf(xv.z, wv[2], acc[t]);
-      acc[t] = fmaf(xv.w, wv[3], acc[t]);
-    }
+    *reinterpret_cast<float4*>(dst + r * (d + 4) + c) = v;
   }
 }
 
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(bf16* p, float a, float b, float c,
+                                       float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(3 * kCoresMaxD)
     small_attention_cores_kernel(const T* __restrict__ x,
-                                 const T* __restrict__ wqkv,
-                                 const T* __restrict__ bqkv,
-                                 const T* __restrict__ wproj,
-                                 const T* __restrict__ bproj,
+                                 const float* __restrict__ wqkv,
+                                 const float* __restrict__ bqkv,
+                                 const float* __restrict__ wproj,
+                                 const float* __restrict__ bproj,
                                  T* __restrict__ out, int rows, int n, int d,
                                  int heads) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* s_x = reinterpret_cast<float*>(smem_raw);  // (kMaxTok, d): x, then o
-  float* s_qkv = s_x + kMaxTok * d;                 // (kMaxTok, 3d)
-
-  const int tid = threadIdx.x;
+  extern __shared__ __align__(16) float smem_f[];
   const int d3 = 3 * d;
-  const int rows_per_block = kMaxTok / n;
-  const int row0 = blockIdx.x * rows_per_block;
-  const int n_tok = min(rows_per_block, rows - row0) * n;
-  const size_t tok0 = static_cast<size_t>(row0) * n;
-
-  for (int i = tid; i < kMaxTok * d; i += kThreads) {
-    s_x[i] = i < n_tok * d ? capf::to_float(x[tok0 * d + i]) : 0.f;
-  }
-  __syncthreads();
-
-  // qkv projection: one of the 3d columns per thread, every token at once
-  for (int j = tid; j < d3; j += kThreads) {
-    float acc[kMaxTok];
-#pragma unroll
-    for (int t = 0; t < kMaxTok; ++t) acc[t] = 0.f;
-    tokens_times_column(s_x, d, wqkv, d3, j, acc);
-    const float bj = capf::to_float(bqkv[j]);
-#pragma unroll
-    for (int t = 0; t < kMaxTok; ++t) {
-      if (t < n_tok) s_qkv[t * d3 + j] = acc[t] + bj;
+  float* s_x = smem_f;                        // (48, d + 4): x
+  float* s_qkv = s_x + kCoresBM * (d + 4);    // (48, 3d + 4): qkv + bias
+  float* s_o = s_qkv + kCoresBM * (d3 + 4);   // (48, d + 4): o
+  float* ring = s_o + kCoresBM * (d + 4);     // kStages slots of 16 x 3d
+  const int tid = threadIdx.x;
+  const int rows_per_tile = kCoresBM / n;
+  const int tiles = (rows + rows_per_tile - 1) / rows_per_tile;
+  const int tokens = rows * n;
+  const int nq = d / kCoresBK;  // slices of each weight; 2 nq a tile
+  const int my_tiles = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  // slice s of the block's stream: for each of its tiles, Wqkv's K-slices
+  // (16 x 3d, contiguous), then Wproj's (16 x d)
+  auto issue = [&](int s) {
+    if (s < my_tiles * 2 * nq) {
+      const int k = s % (2 * nq);
+      float* slot = ring + (s % kStages) * kCoresBK * d3;
+      if (k < nq) {
+        copy_pieces(slot, wqkv + static_cast<size_t>(k) * kCoresBK * d3,
+                    kCoresBK * d3 / 4);
+      } else {
+        copy_pieces(slot, wproj + static_cast<size_t>(k - nq) * kCoresBK * d,
+                    kCoresBK * d / 4);
+      }
     }
-  }
-  __syncthreads();
-
-  // scores, softmax and AV: one thread per (token, head); o reuses s_x
+    cp_async_commit();
+  };
+  auto tile_valid = [&](int tile) {
+    return min(rows_per_tile, rows - tile * rows_per_tile) * n;
+  };
   const int hd = d / heads;
   const float scale = 1.f / sqrtf(static_cast<float>(hd));
-  for (int i = tid; i < n_tok * heads; i += kThreads) {
-    const int t = i / heads;
-    const int h = i - t * heads;
-    const int first = (t / n) * n;  // first token of this row
-    const float* q = s_qkv + t * d3 + h * hd;
-    // p[] is indexed only in loops unrolled over kMaxTok (guarded by n), so
-    // it stays in registers instead of local memory
-    float p[kMaxTok];
-    float m = -INFINITY;
+  const capf::f32::Place qp = capf::f32::place(kQkvRG, d3 / 8);
+  const capf::f32::Place pp = capf::f32::place(kProjRG, d / 4);
+  const int qr = qp.tr, qc = qp.tc, pr = pp.tr, pc = pp.tc;
+
+  load_x(s_x, x, static_cast<size_t>(blockIdx.x) * rows_per_tile * n,
+         tile_valid(blockIdx.x), d, tokens);
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  int base = 0;  // the stream's first slice of this tile
+  for (int tile = blockIdx.x; tile < tiles;
+       tile += gridDim.x, base += 2 * nq) {
+    const int valid = tile_valid(tile);
+    const size_t tok0 = static_cast<size_t>(tile) * rows_per_tile * n;
+
+    // qkv = x Wqkv + bqkv
+    float acc[kQkvTM][8];
+    capf::f32::zero(acc);
+    for (int k = 0; k < nq; ++k) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // (the first: x, with this slice or before it)
+      issue(base + k + kStages - 1);
+      fma_slice<kQkvTM, 8, kCoresBK>(
+          acc, s_x + qr * (d + 4) + k * kCoresBK, kQkvRG * (d + 4),
+          ring + ((base + k) % kStages) * kCoresBK * d3 + qc * 4, d3,
+          d3 / 2);
+    }
 #pragma unroll
-    for (int j = 0; j < kMaxTok; ++j) {
-      if (j < n) {
-        const float* kj = s_qkv + (first + j) * d3 + d + h * hd;
-        float s = 0.f;
-        for (int e = 0; e < hd; ++e) s += q[e] * kj[e];
-        p[j] = s * scale;
-        m = fmaxf(m, p[j]);
+    for (int i = 0; i < kQkvTM; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c = half * (d3 / 2) + qc * 4;
+        const float* v = acc[i] + 4 * half;
+        *reinterpret_cast<float4*>(s_qkv + (qr + kQkvRG * i) * (d3 + 4) +
+                                   c) =
+            make_float4(v[0] + bqkv[c], v[1] + bqkv[c + 1],
+                        v[2] + bqkv[c + 2], v[3] + bqkv[c + 3]);
       }
     }
-    float den = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxTok; ++j) {
-      if (j < n) {
-        p[j] = expf(p[j] - m);
-        den += p[j];
-      }
+    __syncthreads();  // qkv complete; every product has read x
+    const int next = tile + gridDim.x;
+    if (next < tiles) {  // lands with the next slice issued
+      load_x(s_x, x, static_cast<size_t>(next) * rows_per_tile * n,
+             tile_valid(next), d, tokens);
     }
-    const float inv = 1.f / den;
-    for (int e = 0; e < hd; ++e) {
-      float o = 0.f;
+
+    // scores, softmax and AV: one thread a (token, head), the tokens
+    // fastest (a quarter warp's 16-byte reads of 8 tokens' rows, pitch =
+    // 4 mod 32 values, hit distinct banks); 4 values of the head at a time
+    for (int i = tid; i < valid * heads; i += blockDim.x) {
+      const int h = i / valid;
+      const int t = i - h * valid;
+      const int first = (t / n) * n;  // first token of this row
+      const float* q = s_qkv + t * (d3 + 4) + h * hd;
+      const float* kv = s_qkv + first * (d3 + 4) + d + h * hd;
+      // p[] is indexed only in loops unrolled over kMaxTok (guarded by n),
+      // so it stays in registers instead of local memory
+      float p[kMaxTok];
+#pragma unroll
+      for (int j = 0; j < kMaxTok; ++j) p[j] = 0.f;
+      for (int e = 0; e < hd; e += 4) {
+        const float4 qv = *reinterpret_cast<const float4*>(q + e);
+#pragma unroll
+        for (int j = 0; j < kMaxTok; ++j) {
+          if (j < n) {
+            const float4 kj =
+                *reinterpret_cast<const float4*>(kv + j * (d3 + 4) + e);
+            p[j] += qv.x * kj.x + qv.y * kj.y + qv.z * kj.z + qv.w * kj.w;
+          }
+        }
+      }
+      float m = -INFINITY;
 #pragma unroll
       for (int j = 0; j < kMaxTok; ++j) {
         if (j < n) {
-          o += (p[j] * inv) * s_qkv[(first + j) * d3 + 2 * d + h * hd + e];
+          p[j] *= scale;
+          m = fmaxf(m, p[j]);
         }
       }
-      s_x[t * d + h * hd + e] = capf::round_to<T>(o);
-    }
-  }
-  __syncthreads();
-
-  // output projection: one of the d columns per thread
-  for (int i = tid; i < d; i += kThreads) {
-    float acc[kMaxTok];
+      float den = 0.f;
 #pragma unroll
-    for (int t = 0; t < kMaxTok; ++t) acc[t] = 0.f;
-    tokens_times_column(s_x, d, wproj, d, i, acc);
-    const float bi = capf::to_float(bproj[i]);
+      for (int j = 0; j < kMaxTok; ++j) {
+        if (j < n) {
+          p[j] = expf(p[j] - m);
+          den += p[j];
+        }
+      }
+      const float inv = 1.f / den;
+      for (int e = 0; e < hd; e += 4) {
+        float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int t = 0; t < kMaxTok; ++t) {
-      if (t < n_tok) {
-        out[(tok0 + t) * d + i] = capf::from_float<T>(acc[t] + bi);
+        for (int j = 0; j < kMaxTok; ++j) {
+          if (j < n) {
+            const float w = p[j] * inv;
+            const float4 vj =
+                *reinterpret_cast<const float4*>(kv + j * (d3 + 4) + d + e);
+            o.x += w * vj.x;
+            o.y += w * vj.y;
+            o.z += w * vj.z;
+            o.w += w * vj.w;
+          }
+        }
+        *reinterpret_cast<float4*>(s_o + t * (d + 4) + h * hd + e) =
+            make_float4(capf::round_to<T>(o.x), capf::round_to<T>(o.y),
+                        capf::round_to<T>(o.z), capf::round_to<T>(o.w));
       }
     }
+
+    // out = o Wproj + bproj (rows past ``valid`` compute, unstored)
+    float acc2[kProjTM][4];
+    capf::f32::zero(acc2);
+    for (int k = 0; k < nq; ++k) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // (the first: o complete)
+      issue(base + nq + k + kStages - 1);
+      fma_slice<kProjTM, 4, kCoresBK>(
+          acc2, s_o + pr * (d + 4) + k * kCoresBK, kProjRG * (d + 4),
+          ring + ((base + nq + k) % kStages) * kCoresBK * d3 + pc * 4, d, 0);
+    }
+    const int c = pc * 4;
+#pragma unroll
+    for (int i = 0; i < kProjTM; ++i) {
+      const int r = pr + kProjRG * i;
+      if (r >= valid) continue;
+      store4(out + (tok0 + r) * d + c, acc2[i][0] + bproj[c],
+             acc2[i][1] + bproj[c + 1], acc2[i][2] + bproj[c + 2],
+             acc2[i][3] + bproj[c + 3]);
+    }
+    // the next tile's first barrier keeps its qkv writes behind this
+    // tile's middle, and the ring's refills behind these products
   }
 }
 
@@ -510,18 +633,26 @@ cudaError_t launch_tc(const void* x, const void* wqkv, const void* bqkv,
 template <typename T>
 cudaError_t launch_cores(const void* x, const void* wqkv, const void* bqkv,
                          const void* wproj, const void* bproj, void* out,
-                         int rows, int n, int d, int heads,
+                         int rows, int n, int d, int heads, int device,
                          cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kMaxTok) * 4 * d * sizeof(float);
-  cudaError_t err = capf::allow_smem(small_attention_cores_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  const int rows_per_block = kMaxTok / n;
-  small_attention_cores_kernel<T>
-      <<<(rows + rows_per_block - 1) / rows_per_block, kThreads, smem,
-         stream>>>(static_cast<const T*>(x), static_cast<const T*>(wqkv),
-                   static_cast<const T*>(bqkv), static_cast<const T*>(wproj),
-                   static_cast<const T*>(bproj), static_cast<T*>(out), rows,
-                   n, d, heads);
+  const int smem = cores_smem(d);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  auto kernel = small_attention_cores_kernel<T>;
+  static int opted = 0;  // the largest opted in so far (one device)
+  if (smem > opted) {
+    const cudaError_t err = capf::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    opted = smem;
+  }
+  const int rows_per_tile = kCoresBM / n;
+  const int tiles = (rows + rows_per_tile - 1) / rows_per_tile;
+  const int per_sm = 232448 / smem < 2 ? 1 : 2;
+  const int slots = per_sm * sm_count(device);
+  kernel<<<tiles < slots ? tiles : slots, 3 * d, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const float*>(wproj),
+      static_cast<const float*>(bproj), static_cast<T*>(out), rows, n, d,
+      heads);
   return cudaGetLastError();
 }
 
@@ -531,7 +662,9 @@ cudaError_t launch_cores(const void* x, const void* wqkv, const void* bqkv,
 // its rows in head-group order (``group`` heads a group), bqkv fp32 in the
 // same order, wproj Wproj^T (D, D) bf16, bproj fp32
 // (ops/small_attention.py::kernel_operands). group 0 (the CUDA cores): the
-// weights as the model holds them, (D, 3D) and (D, D), in the call's dtype.
+// weights as the model holds them, (D, 3D) and (D, D), and the biases, in
+// fp32 holding their values cast to the call's dtype
+// (ops/small_attention.py::cores_operands).
 extern "C" int capf_small_attention(int dtype, const void* x, const void* wqkv,
                                     const void* bqkv, const void* wproj,
                                     const void* bproj, void* out, int rows,
@@ -544,12 +677,15 @@ extern "C" int capf_small_attention(int dtype, const void* x, const void* wqkv,
     return cudaErrorInvalidValue;
   }
   if (group == 0) {
-    if (n > kMaxTok || d % 4 != 0) return cudaErrorInvalidValue;
+    if (n > kMaxTok || d % kCoresBK != 0 || d < 2 * kCoresBK ||
+        d > kCoresMaxD || (d / heads) % 4 != 0) {
+      return cudaErrorInvalidValue;
+    }
     err = dtype == capf::kFloat32
               ? launch_cores<float>(x, wqkv, bqkv, wproj, bproj, out, rows,
-                                    n, d, heads, stream)
+                                    n, d, heads, device, stream)
               : launch_cores<bf16>(x, wqkv, bqkv, wproj, bproj, out, rows, n,
-                                   d, heads, stream);
+                                   d, heads, device, stream);
     return static_cast<int>(err);
   }
   if (dtype != capf::kBFloat16 || n > kMaxN) return cudaErrorInvalidValue;

@@ -13,8 +13,12 @@ the tensor cores (``wgmma``), 64-token tiles of whole rows, qkv a head group
 at a time, the weights resident in shared memory; its operands (Wqkv^T with
 its rows in head-group order, Wproj^T, both bf16, and the fp32 biases of the
 bf16 values) are made once per parameter state (``kernel_operands``). fp32,
-and bf16 at any other width, run exact FMAs on the CUDA cores on the weights
-cast to the call's dtype.
+and bf16 at any other width (D a multiple of 16 from 32 to 128, head dims
+a multiple of 4), run exact FMAs on the CUDA cores, register-tiled over
+48-token tiles of whole rows in persistent blocks, the fp32 weights
+streamed through shared memory in K-slices; they read the weights as fp32
+holding their values cast to the call's dtype (``cores_operands``: the
+parameters themselves in fp32).
 """
 
 from __future__ import annotations
@@ -27,7 +31,11 @@ from contextaware_poseformer_tpu_torch.ops import _build
 
 launches = 0  # kernel launches made by small_attention_kernel
 
-MAX_TOKENS = 20  # tokens per block of the CUDA-core body
+MAX_TOKENS = 20  # tokens a row on the CUDA-core body
+# the CUDA-core body (csrc/small_attention.cu): tokens a tile (whole rows),
+# K a slice of the weights' ring (3 slots), widths it takes (3D threads)
+CORES_TILE, CORES_BK, CORES_STAGES = 48, 16, 3
+CORES_WIDTHS = (32, 128)  # D from, to (a multiple of CORES_BK)
 MAX_TOKENS_TC = 16  # tokens a row on the tensor-core route
 TILE = 64  # tokens of a tensor-core tile (wgmma's M), whole rows
 # (D, head dim) -> heads a group on the tensor-core route: the group's q, k
@@ -52,11 +60,20 @@ def smem_bytes(d: int, hd: int, group: int) -> int:
             + 2 * chunks * TILE * 128 + 2 * TILE * (ng + 4) * 4)
 
 
+def cores_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of the CUDA-core body (``cores_smem`` in
+    csrc/small_attention.cu): the x, qkv and o tiles in fp32 (rows padded
+    by 4 values) and the ring of weight slices."""
+    return 4 * (2 * CORES_TILE * (d + 4) + CORES_TILE * (3 * d + 4)
+                + CORES_STAGES * CORES_BK * 3 * d)
+
+
 def plan(dtype: torch.dtype, n: int, d: int, num_heads: int) -> Plan:
     """The route for a call: bf16 on the tensor cores at the instantiated
     (D, head dim) pairs with N <= 16; fp32, and bf16 at any other shape, on
-    the CUDA cores with N <= 20 and D a multiple of 4; ValueError for what
-    no route takes."""
+    the CUDA cores with N <= 20, D a multiple of 16 from 32 to 128 and a
+    head dim that is a multiple of 4; ValueError for what no route
+    takes."""
     if d % num_heads:
         raise ValueError(f"small_attention: D={d} is not a multiple of "
                          f"heads={num_heads}")
@@ -66,11 +83,14 @@ def plan(dtype: torch.dtype, n: int, d: int, num_heads: int) -> Plan:
     group = TC_SHAPES.get((d, d // num_heads))
     if dtype == torch.bfloat16 and group is not None and n <= MAX_TOKENS_TC:
         return Plan("tensor-core", group, TILE // n)
-    if n > MAX_TOKENS or d % 4:
+    lo, hi = CORES_WIDTHS
+    if (n > MAX_TOKENS or d % CORES_BK or not lo <= d <= hi
+            or (d // num_heads) % 4):
         raise ValueError(f"small_attention: the CUDA cores take N <= "
-                         f"{MAX_TOKENS} and D a multiple of 4, got N={n} "
-                         f"D={d}")
-    return Plan("cuda-core", 0, MAX_TOKENS // n)
+                         f"{MAX_TOKENS}, D a multiple of {CORES_BK} from "
+                         f"{lo} to {hi} and a head dim that is a multiple "
+                         f"of 4, got N={n} D={d} heads={num_heads}")
+    return Plan("cuda-core", 0, CORES_TILE // n)
 
 
 def head_group_order(d: int, num_heads: int, group: int) -> torch.Tensor:
@@ -105,6 +125,21 @@ def kernel_operands(wqkv, bqkv, wproj, bproj, num_heads, group):
         _build.cached_operand(bproj, tag, lambda b: b.to(
             torch.bfloat16).float()),
     )
+
+
+def cores_operands(wqkv, bqkv, wproj, bproj, dtype):
+    """(Wqkv, bqkv, Wproj, bproj) as the CUDA-core body reads them: fp32,
+    contiguous, holding their values cast to ``dtype``: an fp32 parameter
+    itself in an fp32 call, else made once per parameter state
+    (``_build.cached_operand``)."""
+    def make(v):
+        return v.to(dtype).float().contiguous()
+
+    return tuple(
+        t if dtype == torch.float32 and t.dtype == torch.float32
+        and t.is_contiguous()
+        else _build.cached_operand(t, ("k3cores", dtype), make)
+        for t in (wqkv, bqkv, wproj, bproj))
 
 
 def _heads_split(qkv, d, num_heads):
@@ -156,14 +191,13 @@ def _launch(x, wqkv, bqkv, wproj, bproj, num_heads):
                              f"expected {shape} floating point")
     p = plan(x.dtype, n, d, num_heads)
     if p.route == "cuda-core":
-        ops = [t.to(x.dtype).contiguous() for t in (wqkv, bqkv, wproj, bproj)]
+        ops = list(cores_operands(wqkv, bqkv, wproj, bproj, x.dtype))
     else:
         ops = list(kernel_operands(wqkv, bqkv, wproj, bproj, num_heads,
                                    p.group))
     _build.require_cuda(name, x, *ops)
     out = torch.empty_like(x)
-    if p.route == "tensor-core" and any(t.data_ptr() % 16 for t in (
-            x, out, ops[0], ops[2])):
+    if any(t.data_ptr() % 16 for t in (x, out, ops[0], ops[2])):
         raise ValueError(f"{name}: x, out and the weights must start on a "
                          "16-byte boundary (16-byte cp.async)")
     lib = _build.library()

@@ -1702,3 +1702,124 @@ def test_knob_request_matches_plain_version(cuda_device, knobs, dtype):
     for a, b in zip(list(maps) + list(scales), list(plain_maps)
                     + list(plain_scales)):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# the fp32 bodies of K2 and K3: the widths and rows they serve, the ragged
+# rows around a tile, both LN eps values the lifter uses
+K2_FP32_WIDTHS = (64, 96, 128, 320, 480, 640)
+K2_FP32_ROWS = (1, 7, 63, 65, 1088, 4352, 5440)
+
+
+def _k2_fp32_case(dev, d, rows, seed=0):
+    g = torch.Generator().manual_seed(seed)
+
+    def uniform(lo, hi, *shape):
+        return (torch.rand(*shape, generator=g) * (hi - lo) + lo).to(dev)
+
+    x = torch.randn(rows, d, generator=g).to(dev)
+    return x, [uniform(0.5, 1.5, d), uniform(-0.1, 0.1, d),
+               uniform(-1, 1, d, 2 * d) / d ** 0.5, uniform(-0.1, 0.1, 2 * d),
+               uniform(-1, 1, 2 * d, d) / (2 * d) ** 0.5,
+               uniform(-0.1, 0.1, d)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+@pytest.mark.parametrize("rows", K2_FP32_ROWS)
+@pytest.mark.parametrize("d", K2_FP32_WIDTHS)
+def test_k2_fp32_at_every_width_and_ragged_rows(cuda_device, d, rows, eps):
+    """K2's fp32 routes (fused to D = 128, two-phase above, each call's
+    tiles from ``fused_mlp.plan``) against the plain version, within 1e-4
+    of max|plain|, one launch counted a call."""
+    x, p = _k2_fp32_case(cuda_device, d, rows, seed=d + rows)
+    before = fused_mlp.launches
+    with torch.inference_mode():
+        out = fused_mlp.ln_mlp_residual_kernel(x, *p, eps)
+        ref = fused_mlp.ln_mlp_reference(x, *p, eps)
+    assert fused_mlp.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-4 * ref.abs().max().item(), (
+        err, fused_mlp.plan(torch.float32, d, 2 * d, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [37, 1088])
+@pytest.mark.parametrize("n", [1, 2, 5, 7, 13, 17, 20])
+@pytest.mark.parametrize("dtype, d", [
+    (torch.float32, 32), (torch.float32, 64), (torch.float32, 96),
+    (torch.float32, 128), (torch.bfloat16, 32)])
+def test_k3_cuda_cores_at_every_width_and_token_count(cuda_device, dtype, d,
+                                                      n, rows):
+    """K3's CUDA-core body (fp32, and bf16 at D = 32, which the tensor
+    cores are not built for), N from 1 to 20 tokens a row, against its
+    plain version; fp32 parameters made outside inference mode."""
+    assert small_attention.plan(dtype, n, d, 8).route == "cuda-core"
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(d * n + rows)
+    x = torch.randn(rows, n, d, generator=g).to(cuda_device, dtype)
+    w = [(torch.randn(*s, generator=g) * sc).to(cuda_device) for s, sc in (
+        ((d, 3 * d), d ** -0.5), ((3 * d,), 0.1), ((d, d), d ** -0.5),
+        ((d,), 0.1))]
+    before = small_attention.launches
+    with torch.inference_mode():
+        out = small_attention.small_attention_kernel(x, *w, 8)
+        ref = small_attention.attention_reference(x, *w, 8)
+    assert small_attention.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_fp32_bodies_under_autograd_and_after_an_update(cuda_device):
+    """K2's fp32 routes (fused at D = 128, two-phase at D = 640) and K3's
+    CUDA-core body (fp32 at D = 128, and bf16 at D = 32, whose operands are
+    cached fp32 copies) run under autograd with the plain versions' VJP
+    (gradients within 1e-4 of autograd through the plain versions), and
+    follow an in-place update of their parameters."""
+    torch.manual_seed(0)
+    cases = []
+    for d, rows in ((128, 300), (640, 200)):
+        x, p = _k2_fp32_case(cuda_device, d, rows)
+        params = [torch.nn.Parameter(t) for t in p]
+        cases.append((
+            "K2", x, params,
+            lambda x, ps: fused_mlp.ln_mlp_residual_kernel(x, *ps, 1e-6),
+            lambda x, ps: fused_mlp.ln_mlp_reference(x, *ps, 1e-6),
+            1e-4))
+    for dtype, d in ((torch.float32, 128), (torch.bfloat16, 32)):
+        g = torch.Generator().manual_seed(d)
+        x = torch.randn(40, 5, d, generator=g).to(cuda_device, dtype)
+        params = [torch.nn.Parameter((torch.randn(*s, generator=g) * sc).to(
+            cuda_device)) for s, sc in (
+            ((d, 3 * d), d ** -0.5), ((3 * d,), 0.1), ((d, d), d ** -0.5),
+            ((d,), 0.1))]
+        cases.append((
+            "K3", x, params,
+            lambda x, ps: small_attention.small_attention_kernel(x, *ps, 8),
+            lambda x, ps: small_attention.attention_reference(x, *ps, 8),
+            1e-4 if dtype == torch.float32 else 2e-2))
+    for name, x, params, kernel, plain, tol in cases:
+        if x.dtype == torch.float32:
+            xg = x.clone().requires_grad_(True)
+            grads = []
+            for fn in (kernel, plain):
+                out = fn(xg, params)
+                out.backward(torch.ones_like(out))
+                grads.append([t.grad.clone() for t in (xg, *params)])
+                for t in (xg, *params):
+                    t.grad = None
+            for a, b in zip(*grads):
+                err = (a - b).abs().max().item()
+                assert err <= 1e-4 * b.abs().max().item(), (name, err)
+        with torch.inference_mode():
+            first = kernel(x, params)
+        with torch.no_grad():
+            for t in params:
+                t.mul_(1.25)
+        with torch.inference_mode():
+            out, ref = kernel(x, params), plain(x, params)
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= tol * ref.float().abs().max().item(), (name, err)
+        assert not torch.equal(out, first), name

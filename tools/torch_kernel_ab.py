@@ -1,4 +1,5 @@
-"""Same-call A/B on the card of the port's K3, K9, K5, K7, K10s and K10u against another's.
+"""Same-call A/B on the card of the port's K2, K3, K5, K7, K9, K10s and
+K10u against another commit's.
 
     git archive <commit> contextaware_poseformer_tpu_torch/ops \\
         | tar -x -C build/parent
@@ -11,10 +12,15 @@ one process on one card. Each case is timed in the order parent, new, new,
 parent (median device ms of 50 CUDA-event windows, ``chip_smoke._median_ms``)
 at the shapes the serving and training paths launch:
 
+- K2 (``--only K2``): the fp32 body at the seven calls of chip_smoke.py's
+  kernels phase (context D=128 at 4352 rows, res D=128 at 5440, joint
+  D=640 at 1088, the 3DHP lifters' D=64/96 at 5440 and 320/480 at 1088),
+  each with the plain version's time beside it;
 - K3: a bf16 call at R = 1088 rows of 5 tokens (batch 64) for D = 128, 64
   and 96 (the parent with its weights cast to bf16 beforehand, and with the
-  four per-call casts its lifter made), and fp32 at R = 1088 and at the
-  training batch's R = 4352;
+  four per-call casts its lifter made), fp32 at R = 1088 for D = 128, 64
+  and 96 and at the training batch's R = 4352, and bf16 at D = 32 (the
+  CUDA-core body's bf16 width);
 - K9: the four-launch chain, block 0 and block 1 alone, and the floor build,
   at batch 64 and 128 on the 64x48x64 stem output;
 - K5 (the sampler at the HRNet pyramids, batch 64): the W32 and W48 border
@@ -46,7 +52,11 @@ only, wrong numbers) and times each chain at batch 64: what a piece costs is
 the full build's time less the variant's. ``--stem-breakdown`` does the
 same for K10s (``csrc/stem_conv.cu``: its products, its A fragments'
 build and reads, its epilogue, its stores, its bias-map and input-row
-loads), bf16 and fp32 at batch 64.
+loads), bf16 and fp32 at batch 64. ``--fp32-breakdown`` does the same for
+K2's fp32 routes (``csrc/fused_mlp.cu``: the products, the staging of the
+operands' K-slices, the LN, the epilogues; the joint call, two-phase, and
+the res call, fused) and for K3's CUDA-core body (``csrc/small_attention.cu``:
+the products, the weights' staging, the middle), batch 64.
 """
 
 from __future__ import annotations
@@ -70,6 +80,7 @@ from contextaware_poseformer_tpu_torch import serve  # noqa: E402
 from contextaware_poseformer_tpu_torch.ops import (  # noqa: E402
     _build,
     deformable,
+    fused_mlp,
     int8_conv,
     layer1_chain,
     small_attention,
@@ -95,19 +106,66 @@ def _ab(label, parent_fn, new_fn, card):
           f"/ {t[2]:.4f} ms ({card})", flush=True)
 
 
+def _k3_operands(d, rows, dtype, n=5, seed=0):
+    """x (rows, n, d) in ``dtype`` and fp32 parameters made outside
+    inference mode, as the lifter holds them (the routes make their
+    operands once per parameter state)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, n, d, generator=gen).to("cuda", dtype)
+    w = [(torch.randn(*s, generator=gen) * sc).cuda() for s, sc in (
+        ((d, 3 * d), d ** -0.5), ((3 * d,), 0.1), ((d, d), d ** -0.5),
+        ((d,), 0.1))]
+    return x, w
+
+
+def _k2_operands(rows, d, seed=0):
+    """x (rows, d) fp32 and K2's parameters (LN scale and bias, W1, b1, W2,
+    b2; H = 2D) as chip_smoke.py's kernels phase makes them."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def uniform(lo, hi, *shape):
+        return (torch.rand(*shape, generator=gen) * (hi - lo) + lo).cuda()
+
+    x = torch.randn(rows, d, generator=gen).cuda()
+    return x, (uniform(0.5, 1.5, d), uniform(-0.1, 0.1, d),
+               uniform(-1, 1, d, 2 * d) / d ** 0.5,
+               uniform(-0.1, 0.1, 2 * d),
+               uniform(-1, 1, 2 * d, d) / (2 * d) ** 0.5,
+               uniform(-0.1, 0.1, d))
+
+
+# K2's fp32 calls in the kernels phase: (label, rows, D) at batch 64
+K2_FP32_CALLS = (("context", 4352, 128), ("res", 5440, 128),
+                 ("joint", 1088, 640), ("3DHP res", 5440, 64),
+                 ("3DHP res", 5440, 96), ("3DHP joint", 1088, 320),
+                 ("3DHP joint", 1088, 480))
+
+
+def _k2(parent, card):
+    """K2's fp32 body at the seven calls of the kernels phase, against the
+    other commit's, with the plain version's time beside them."""
+    for label, rows, d in K2_FP32_CALLS:
+        x, p = _k2_operands(rows, d)
+        with torch.inference_mode():
+            _ab(f"K2 fp32 {label} D={d} ({rows} rows) a call",
+                lambda: parent.ln_mlp_residual_kernel(x, *p, 1e-6),
+                lambda: fused_mlp.ln_mlp_residual_kernel(x, *p, 1e-6), card)
+            plain = cs._median_ms(
+                lambda: fused_mlp.ln_mlp_reference(x, *p, 1e-6), runs=RUNS)
+        print(f"ab: K2 fp32 {label} D={d}: plain {plain:.4f} ms ({card})",
+              flush=True)
+
+
 def _k3(parent, card):
-    gen = torch.Generator().manual_seed(0)
     for d, rows, dtype in ((128, 1088, torch.bfloat16),
                            (64, 1088, torch.bfloat16),
                            (96, 1088, torch.bfloat16),
                            (128, 1088, torch.float32),
+                           (64, 1088, torch.float32),
+                           (96, 1088, torch.float32),
+                           (32, 1088, torch.bfloat16),
                            (128, 4352, torch.float32)):
-        x = torch.randn(rows, 5, d, generator=gen).to("cuda", dtype)
-        # fp32 parameters made outside inference mode, as the lifter holds
-        # them (the new bf16 route makes its operands once)
-        w = [(torch.randn(*s, generator=gen) * sc).cuda() for s, sc in (
-            ((d, 3 * d), d ** -0.5), ((3 * d,), 0.1), ((d, d), d ** -0.5),
-            ((d,), 0.1))]
+        x, w = _k3_operands(d, rows, dtype)
         wc = [t.to(dtype) for t in w]
         name = str(dtype).removeprefix("torch.")
         with torch.inference_mode():
@@ -432,8 +490,8 @@ def _build_variants(source, text, variants, entries, out):
     src_dir = out / "src"
     src_dir.mkdir(parents=True, exist_ok=True)
     (src_dir / source).write_text(text)
-    for name in ("common.cuh", "hopper.cuh", "errors.cu"):
-        shutil.copy(_build.CSRC / name, src_dir / name)
+    for path in (*_build.CSRC.glob("*.cuh"), _build.CSRC / "errors.cu"):
+        shutil.copy(path, src_dir / path.name)
     procs = {name: subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
          *(f"-D{m}" for m in macros), "-I", str(src_dir), "-o",
@@ -530,18 +588,26 @@ STEM_VARIANTS = {
     "skeleton": tuple(STEM_CUTS)}
 
 
+def _cut_text(source, cuts):
+    """The text of csrc/``source`` with each cut's piece (a macro -> a
+    (piece, stand-in) pair or a list of them; each piece in the file
+    once) kept under ``#ifndef`` the macro, its stand-in under ``#else``."""
+    text = (_build.CSRC / source).read_text()
+    for macro, pairs in cuts.items():
+        for piece, stand_in in pairs if isinstance(pairs, list) else [pairs]:
+            if text.count(piece) != 1:
+                raise RuntimeError(f"breakdown: {macro}'s text is not in "
+                                   f"csrc/{source} once")
+            text = text.replace(piece, f"#ifndef {macro}\n{piece}\n#else\n"
+                                       f"{stand_in}\n#endif")
+    return text
+
+
 def _stem_breakdown(card):
     """K10s at batch 64 on 256x192 frames, bf16 and fp32, in builds of
     csrc/stem_conv.cu with pieces cut (timing only, wrong numbers): what a
     piece costs is the full build's time less the variant's."""
-    text = (_build.CSRC / "stem_conv.cu").read_text()
-    for macro, cuts in STEM_CUTS.items():
-        for piece, stand_in in cuts if isinstance(cuts, list) else [cuts]:
-            if text.count(piece) != 1:
-                raise RuntimeError(f"stem breakdown: {macro}'s text is not "
-                                   "in csrc/stem_conv.cu once")
-            text = text.replace(piece, f"#ifndef {macro}\n{piece}\n#else\n"
-                                       f"{stand_in}\n#endif")
+    text = _cut_text("stem_conv.cu", STEM_CUTS)
     builds = _build_variants("stem_conv.cu", text, STEM_VARIANTS,
                              ("capf_stem_conv",),
                              ROOT / "build" / "k10s_variants")
@@ -557,16 +623,143 @@ def _stem_breakdown(card):
     int8_conv._build = _build
 
 
+# the pieces the fp32 breakdown cuts from csrc/fused_mlp.cu (K2's fp32
+# routes) and csrc/small_attention.cu (K3's CUDA-core body), each with its
+# stand-in (timing only, wrong numbers)
+K2_CUTS = {
+    "NO_PRODUCTS": [
+        ("    fma_slice<TM, 8, kFusedBK>(\n"
+         "        acc, s_a + tr * (d + 4) + s * kFusedBK, "
+         "kFusedRG * (d + 4),\n"
+         "        ring + (s % kF32Stages) * kFusedBK * h + tc * 4, h, h / 2);",
+         "    acc[0][0] += s_a[tr * (d + 4) + s];"),
+        ("    fma_slice<TM, 4, kFusedBK>(\n"
+         "        acc2, s_h + tr * (h + 4) + s * kFusedBK, "
+         "kFusedRG * (h + 4),\n"
+         "        ring + ((n1 + s) % kF32Stages) * kFusedBK * h + tc * 4, d, "
+         "0);",
+         "    acc2[0][0] += s_h[tr * (h + 4) + s];"),
+        ("    fma_slice<TM, TN, kGemmBK>(acc, ring + tr * (kGemmBK + 4),\n"
+         "                               rg * (kGemmBK + 4), ring + slot_a + "
+         "tc * 4,\n                               bn, bn / 2);",
+         "    acc[0][0] += ring[tr];")],
+    "NO_STAGING": [
+        ("      copy_pieces(slot, w1 + static_cast<size_t>(s) * kFusedBK * "
+         "h,\n"
+         "                  kFusedBK * h / 4);", "      (void)slot;"),
+        ("      copy_pieces(slot, w2 + static_cast<size_t>(s - n1) * kFusedBK "
+         "* d,\n                  kFusedBK * d / 4);", "      (void)slot;"),
+        ("      copy_block(ring, kGemmBK + 4, g.A, g.lda, m0, k0,\n"
+         "                 capf::f32::walk(bm, kGemmBK / 4), g.rows, "
+         "g.lda / 4);\n"
+         "      copy_block(ring + slot_a, bn, g.B, g.n, k0, n0,\n"
+         "                 capf::f32::walk(kGemmBK, bn / 4), g.kb, g.n / 4);",
+         "      (void)ring, (void)k0;")],
+    "NO_LN": [
+        ("    ln_row(s_x + r * (d + 4), s_a + r * (d + 4), d, a.ln_scale, "
+         "a.ln_bias,\n           a.eps);", ""),
+        ("  ln_row(static_cast<const float*>(a.x) + static_cast<size_t>(row) "
+         "* a.d,\n         dst, a.d, a.ln_scale, a.ln_bias, a.eps);", "")],
+    # the stand-ins read all four sums, so that no product is dropped
+    "NO_EPILOGUE": [
+        ("      *reinterpret_cast<float4*>(s_h + (tr + kFusedRG * i) * "
+         "(h + 4) "
+         "+ c) =\n"
+         "          make_float4(gelu_erf(v[0] + a.b1[c]), gelu_erf(v[1] + "
+         "a.b1[c + 1]),\n"
+         "                      gelu_erf(v[2] + a.b1[c + 2]),\n"
+         "                      gelu_erf(v[3] + a.b1[c + 3]));",
+         "      if (v[0] + v[1] + v[2] + v[3] == 1234.5f) s_h[c] = v[1];"),
+        ("    *reinterpret_cast<float4*>(out + static_cast<size_t>(r) * d + "
+         "c) "
+         "=\n"
+         "        make_float4(xv.x + (acc2[i][0] + a.b2[c]),\n"
+         "                    xv.y + (acc2[i][1] + a.b2[c + 1]),\n"
+         "                    xv.z + (acc2[i][2] + a.b2[c + 2]),\n"
+         "                    xv.w + (acc2[i][3] + a.b2[c + 3]));",
+         "    if (acc2[i][0] + acc2[i][1] + acc2[i][2] + acc2[i][3] == "
+         "1234.5f)\n      out[c] = xv.x;"),
+        ("      gemm_epilogue<kResidual>(g, row, n0 + half * (bn / 2) + "
+         "tc * 4,"
+         "\n                               acc[i] + 4 * half);",
+         "      const float* v = acc[i] + 4 * half;\n"
+         "      if (v[0] + v[1] + v[2] + v[3] == 1234.5f) "
+         "g.out[row] = v[0];")],
+}
+K3_CUTS = {
+    "NO_PRODUCTS": [
+        ("      fma_slice<kQkvTM, 8, kCoresBK>(\n"
+         "          acc, s_x + qr * (d + 4) + k * kCoresBK, "
+         "kQkvRG * (d + 4),\n"
+         "          ring + ((base + k) % kStages) * kCoresBK * d3 + qc * 4, "
+         "d3,\n          d3 / 2);", "      acc[0][0] += s_x[qr];"),
+        ("      fma_slice<kProjTM, 4, kCoresBK>(\n"
+         "          acc2, s_o + pr * (d + 4) + k * kCoresBK, "
+         "kProjRG * (d + 4),"
+         "\n          ring + ((base + nq + k) % kStages) * kCoresBK * d3 + pc "
+         "* 4, d, 0);", "      acc2[0][0] += s_o[pr];")],
+    "NO_STAGING": [
+        ("        copy_pieces(slot, wqkv + static_cast<size_t>(k) * kCoresBK * "
+         "d3,\n                    kCoresBK * d3 / 4);", "        (void)slot;"),
+        ("        copy_pieces(slot, wproj + static_cast<size_t>(k - nq) * "
+         "kCoresBK * d,\n                    kCoresBK * d / 4);",
+         "        (void)slot;")],
+    "NO_MIDDLE": (
+        "    for (int i = tid; i < valid * heads; i += blockDim.x) {",
+        "    for (int i = tid; i < 0; i += blockDim.x) {"),
+}
+FP32_VARIANTS = {"full": (), "no_products": ("NO_PRODUCTS",),
+                 "no_staging": ("NO_STAGING",)}
+K2_VARIANTS = {**FP32_VARIANTS, "no_ln": ("NO_LN",),
+               "no_epilogue": ("NO_EPILOGUE",), "skeleton": tuple(K2_CUTS)}
+K3_VARIANTS = {**FP32_VARIANTS, "no_middle": ("NO_MIDDLE",),
+               "skeleton": tuple(K3_CUTS)}
+
+
+def _fp32_breakdown(card):
+    """K2's fp32 routes (the joint call, D = 640 at 1088 rows, two-phase;
+    the res call, D = 128 at 5440 rows, fused) and K3's CUDA-core body
+    (D = 128, 1088 rows of 5), batch 64, in builds with pieces cut (timing
+    only, wrong numbers): what a piece costs is the full build's time less
+    the variant's."""
+    out = ROOT / "build" / "fp32_variants"
+    builds = {
+        "K2": _build_variants("fused_mlp.cu", _cut_text("fused_mlp.cu",
+                                                        K2_CUTS),
+                              K2_VARIANTS, ("capf_ln_mlp_residual",),
+                              out / "k2"),
+        "K3": _build_variants("small_attention.cu", _cut_text(
+            "small_attention.cu", K3_CUTS), K3_VARIANTS,
+            ("capf_small_attention",), out / "k3")}
+    cases = [("K2", f"{label} D={d}", fused_mlp, lambda x=x, p=p:
+              fused_mlp.ln_mlp_residual_kernel(x, *p, 1e-6))
+             for label, (x, p), d in (
+                 ("joint", _k2_operands(1088, 640), 640),
+                 ("res", _k2_operands(5440, 128), 128))]
+    x, w = _k3_operands(128, 1088, torch.float32)
+    cases.append(("K3", "D=128 R=1088", small_attention,
+                  lambda: small_attention.small_attention_kernel(x, *w, 8)))
+    with torch.inference_mode():
+        for kern, label, module, fn in cases:
+            for name, build in builds[kern].items():
+                module._build = build
+                ms = cs._median_ms(fn, runs=RUNS)
+                print(f"breakdown: {kern} fp32 {label}, {name}: {ms:.4f} ms "
+                      f"({card})", flush=True)
+            module._build = _build
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path,
                     help="a directory holding the other commit's "
                          "contextaware_poseformer_tpu_torch/ops")
-    ap.add_argument("--only", default="K3,K9,K5,K7",
+    ap.add_argument("--only", default="K2,K3,K9,K5,K7",
                     help="the kernels to A/B, comma-separated")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--breakdown", action="store_true")
     ap.add_argument("--stem-breakdown", action="store_true")
+    ap.add_argument("--fp32-breakdown", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: needs an NVIDIA GPU")
@@ -590,7 +783,8 @@ def main() -> None:
                                        ops / f"{module}.py", pbuild)
             return loaded[module]
 
-        for kern, module, run in (("K3", "small_attention", _k3),
+        for kern, module, run in (("K2", "fused_mlp", _k2),
+                                  ("K3", "small_attention", _k3),
                                   ("K9", "layer1_chain", _k9),
                                   ("K5", "deformable", _k5),
                                   ("K7", "deformable", _k7),
@@ -606,6 +800,8 @@ def main() -> None:
         _breakdown(card)
     if args.stem_breakdown:
         _stem_breakdown(card)
+    if args.fp32_breakdown:
+        _fp32_breakdown(card)
 
 
 if __name__ == "__main__":
