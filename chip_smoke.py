@@ -16,9 +16,10 @@ Phases, one line of output each (failures raise and exit non-zero):
    of K1's, K2's, K3's, K7's, K9's and K10's kernels: K2's and K3's bf16
    kernels must hold HGMMA (``wgmma``), K1's bf16/int8 sampler and K7's
    bf16 body HMMA, K9's builds IGMMA (int8 ``wgmma``) and IMMA
-   (``mma.sync``), K2's fp32 kernels and K3's CUDA-core body FFMA, each
-   with LDGSTS (``cp.async``) or UTMALDG (TMA); K10's product builds (bf16
-   and fp32 epilogues) IGMMA and UTMALDG;
+   (``mma.sync``), K2's fp32 kernels, K3's CUDA-core body and K1's fp32
+   projected build FFMA, each with LDGSTS (``cp.async``) or UTMALDG
+   (TMA); K10's product builds (bf16 and fp32 epilogues) IGMMA and
+   UTMALDG;
 3. kernels: each of K1-K4 against its plain PyTorch version on the card, at
    the H36M serving path's shapes with batch 64 (K2-K4 also at the 3DHP
    lifters' widths: K2 at D=64/96/320/480, each with the route
@@ -31,9 +32,9 @@ Phases, one line of output each (failures raise and exit non-zero):
    call with its plan (``deformable.sampler_plan``: per level the body,
    points a unit and units, the order, the shared memory): max abs
    error, error relative to max|plain|, median kernel and plain device
-   times over 20 CUDA-event-timed runs, and the time of the PyTorch call
-   that computes the same function where there is one (information only;
-   the port never calls it);
+   times over 20 CUDA-event-timed runs, the bound and the kernel's share
+   of it, and the time of the PyTorch call that computes the same function
+   where there is one (information only; the port never calls it);
 4. slice: the full-width h36m_cpn serving slice (bf16 CPN ResNet-50 with the
    native pyramid, lifter embed 128 depth 4, random weights from seed 0)
    serves 3 requests of 64 uint8 frames through ``serve.lift``; the output
@@ -50,7 +51,8 @@ Phases, one line of output each (failures raise and exit non-zero):
    with K1 5, K2 12, K3 4 and K4 4 launches each, the output against the
    plain routes (``sampler="gather"``, einsum) within a relative RMS of
    1e-4, and, as in the slice phase, host ms over 5 requests and, under
-   torch.profiler, the device busy ms and K2's and K3's ms and share;
+   torch.profiler, the device busy ms and K1's (its fp32 projected build),
+   K2's and K3's ms and share;
 5. hrnet: the same for the full-width h36m_hrnet_32 slice (bf16 HRNet-W32,
    3 requests), then one request each of h36m_hrnet_48, mpi_3dhp_hrnet_32
    and mpi_3dhp_hrnet_48;
@@ -188,7 +190,8 @@ Phases, one line of output each (failures raise and exit non-zero):
    the epilogue alone, the quantize pass alone, the bf16 main loop
    against cuDNN's conv); K9 at batch 128; K9 on one block against K10's
    chain of it; K9's floor build; the int8 window shift by an address
-   offset and by a word shift;
+   offset and by a word shift, each beside the launch floor of the same
+   timer (the library's empty kernel);
 11. aggregate: this phase's main path, with every launch count set to 0
    before it and read after it: K8 through ``sample_points`` at full
    width, batch 64 (the CPN pyramid's 64x48x256 level with 17 zeros
@@ -630,12 +633,15 @@ SASS_REQUIRED = (
     ("K2", ("fused_mlp", "ln_mlp_f32_fused_kernel"), _FFMA_ASYNC),
     ("K2", ("fused_mlp", "mlp_f32_gemm_kernel"), _FFMA_ASYNC),
     ("K3", ("small_attention_cores_kernel",), _FFMA_ASYNC),
-    # the sampler's builds with the tensor-core projected body (kTc = true;
-    # the gather-only builds hold none by design)
+    # the sampler's builds with the tensor-core projected body (kProj =
+    # true; the gather-only builds hold none by design)
     ("K1", ("sampler_cu", "sample_levels_kernelI13__nv_bfloat16S1_Lb1"),
      _MMA_ASYNC),
     ("K1", ("sampler_cu", "sample_levels_kernelIa13__nv_bfloat16Lb1"),
      _MMA_ASYNC),
+    # its fp32 projected build: FFMA products on the blends and W's rows,
+    # W by cp.async
+    ("K1", ("sampler_cu", "sample_levels_kernelIffLb1"), _FFMA_ASYNC),
 )
 # kernels whose builds must not spill registers (-Xptxas -v): the
 # sampler's (K1, K5, K8; the gather's batched taps and the tensor-core
@@ -1015,7 +1021,8 @@ def check_kernels():
                       f"rel {rel:.3e} (tol {TOL[dtype]:.0e}); kernel "
                       f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib},"
                       f" bound {bound_ms:.4f} ms ({by}: {work[0]} B, "
-                      f"{_ops_total(work[1])} ops)", flush=True)
+                      f"{_ops_total(work[1])} ops; the kernel at "
+                      f"{bound_ms / ms:.1%} of it)", flush=True)
                 if not rel <= TOL[dtype]:
                     raise AssertionError(
                         f"{kern} {case} {name}: rel error {rel:.3e} > "
@@ -2578,7 +2585,11 @@ def check_probes(card):
     integer; the two timing-only builds, wrong by design, run and are
     timed), with median kernel, plain and library times and the bound.
     Returns {probe: JSON numbers with its launches}."""
-    from contextaware_poseformer_tpu_torch.ops import int8_conv, layer1_chain
+    from contextaware_poseformer_tpu_torch.ops import (
+        _build,
+        int8_conv,
+        layer1_chain,
+    )
     from contextaware_poseformer_tpu_torch.probes import int8_chain, window
 
     gen = torch.Generator().manual_seed(6)
@@ -2847,10 +2858,12 @@ def check_probes(card):
                      f"{r['ms'] / k9_ms:.1%} of it", r, card)
         results["layer1_floor"] = r
 
-        # the window shift, both ways
+        # the window shift, both ways, beside the launch floor of the same
+        # timer (the library's empty kernel)
         refw = window.window_matmul_reference(xf, wv, a4)
         plainw = _median_ms(lambda: window.window_matmul_reference(xf, wv,
                                                                    a4))
+        floor_ms = _median_ms(lambda: _build.empty_kernel(xf.device))
         for name, words in (("window_bitcast", True),
                             ("window_slice", False)):
             eq, err = _exact(outs[name], refw)
@@ -2862,8 +2875,9 @@ def check_probes(card):
                          "the row-shifted int8 window by "
                          + ("a 3-word shift, __byte_perm" if words
                             else "an address offset"),
-                         f"equal {eq:.6f} (xwin @ w + roll(xwin, -12) @ w)",
-                         r, card)
+                         f"equal {eq:.6f} (xwin @ w + roll(xwin, -12) @ w); "
+                         f"{r['ms'] / floor_ms:.2f}x the launch floor "
+                         f"{floor_ms:.4f} ms", r, card)
             if eq != 1.0:
                 raise AssertionError(f"{name}: equal share {eq}")
             results[name] = r

@@ -76,7 +76,7 @@ SIGNATURES = {
     # (args struct*, device, stream)
     "capf_layer1_block": (_I, [_P, _I, _P]),
     "capf_layer1_block_floor": (_I, [_P, _I, _P]),
-    # (xf, wt, amax, out, words, device, stream)
+    # (xf, w, amax, out, words, device, stream)
     "capf_window_matmul": (_I, [_P, _P, _P, _P, _I, _I, _P]),
     # (args struct*, device, stream)
     "capf_stem_conv": (_I, [_P, _I, _P]),

@@ -26,7 +26,7 @@
 //   C = 256), at most kMaxPoints and at most one item's points (the zeros
 //   call's 17);
 // - the tensor-core projection (bf16 and int8 maps): kChunk = 64 points;
-// - the fp32 projection: kTile = 32 points.
+// - the fp32 projection: kF32Points = 64 points.
 // ops/deformable.py::sampler_plan owns the plan: each level's unit, the
 // order in which the levels' units fill the grid and where each level's
 // units end; the host entry below checks them and sizes the shared memory.
@@ -63,12 +63,29 @@
 //   JAX kernel rounds W * scale to bf16 where this body rounds W and
 //   scales the fp32 product. Needs C divisible by 16 and Cout by 8, Cout <=
 //   64; the padded rows make every fragment load conflict-free.
-// - fp32 maps (parity runs and training): a unit of kTile points is blended
-//   in fp32 into shared memory, then multiplied by W (C x Cout, fp32 in
-//   shared memory) plus b on CUDA cores, float4 reads: a thread takes one
-//   point and 4 outputs, and one sample load and 4 weight loads feed 16
-//   FMAs, then the scale and the bias. Needs C and Cout divisible by 4.
-//
+// - fp32 maps (the fp32 lifter's routes): a build of its own (kProj with
+//   T = float: kF32Threads = 64 threads a block, 6 blocks an SM by a cap
+//   of 170 registers) takes units of kF32Points = 32 points through
+//   K-slices of kF32Slice = 32 channels. A two-slot ring in shared memory
+//   holds a slice's blends (points x slice, rows padded to kF32Pitch
+//   floats) and the slice's rows of W (fp32 (C, Cout), by 16-byte
+//   cp.asyncs). While the FMAs of slice s run on one slot, each thread
+//   already has the taps of its four (point, 4-channel) items of slice
+//   s + 1 in flight (16 16-byte loads held in registers) and W's rows of
+//   slice s + 1 on their way; it then blends them into the other slot, and
+//   one barrier a slice closes the step. The product is register-tiled
+//   (f32_tile.cuh, fma_slice: a thread's 4 points x 4 outputs, exact FMAs,
+//   no TF32), then the scale and the bias, and 16-byte stores from the
+//   registers. Outputs past kF32Cols take another pass over the slices.
+//   The footprint does not grow with C (18 KB a block), so every level
+//   takes it and six blocks share an SM, one's gather beside another's
+//   products. Measured on the card against other geometries (PERF.md):
+//   fewer loads in flight a thread (16- or 8-channel slices), larger
+//   micro-tiles (6 or 8 points), 128-thread blocks of 64 points, and taps
+//   staged by cp.async into a 3-slot ring were slower. Needs C and Cout
+//   divisible by 4. The fp32 gather keeps its own build (a gather that
+//   shared a build with a projection measured 20% slower).
+
 // K5: the same kernel also replaces the separable two-stage branch of
 // _sample_body_xy (deformable.py:148-197), which the TPU takes on large
 // maps with few channels (H*W >= 1024, C < 64: HRNet's 64x48 level 0 with
@@ -81,9 +98,11 @@
 // reached through sample_points) is this kernel launched with one level;
 // the TPU's one-stage and two-stage bodies both become this gather.
 //
-// A call with no tensor-core level launches the build without that body
-// (kTc = false), whose smaller register budget keeps the gather's
-// occupancy.
+// A call with no projected level launches the build without a projected
+// body (kProj = false), whose smaller register budget keeps the gather's
+// occupancy; the gather levels of a call that projects run in the
+// projected build (fp32: 64 threads a block, so gather_points cuts the
+// unit to a quarter).
 //
 // int8 maps (the deploy graph's raw quantized samples, K1 and K8): a
 // 16-byte load carries 16 channels (C % 16 == 0), the blend stays fp32 and
@@ -95,6 +114,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "f32_tile.cuh"
 #include "hopper.cuh"
 
 using capf::from_float;
@@ -104,7 +124,6 @@ namespace {
 
 constexpr int kMaxLevels = 8;
 constexpr int kThreads = 256;
-constexpr int kTile = 32;        // points a unit: the fp32 projection
 constexpr int kChunk = 64;       // points a unit: the tensor-core projection
 constexpr int kMaxPoints = 256;  // points a unit: the gather
 constexpr int kMaxCout = 64;     // tensor-core outputs: 4 n-tiles of 8 a warp
@@ -116,6 +135,43 @@ constexpr int kTcBatch = 2;
 // blocks an SM must hold for a build with the tensor-core body: a cap on
 // its registers (80 allocated), so that 3 blocks share an SM
 constexpr int kTcBlocksPerSm = 3;
+// the fp32 projected build: threads a block, points a unit, channels a
+// K-slice, outputs a pass (8 column groups of 4), floats a staged sample
+// row (pitch = 4 mod 32: the 4 rows a warp reads at one k fall in
+// distinct banks), blocks an SM it must hold (a cap of 170 registers)
+constexpr int kF32Threads = 64;
+constexpr int kF32Points = 32;
+constexpr int kF32Slice = 32;
+constexpr int kF32Cols = 32;
+constexpr int kF32Pitch = kF32Slice + 4;
+constexpr int kF32BlocksPerSm = 6;
+// a thread's micro-tile: kF32Rows points (every kF32RowGroups-th) x 4
+// outputs; its gather items a slice: (point, 4-channel group) pairs
+constexpr int kF32RowGroups = kF32Threads / (kF32Cols / 4);
+constexpr int kF32Rows = kF32Points / kF32RowGroups;
+constexpr int kF32Groups = kF32Slice / 4;
+constexpr int kF32Items = kF32Points * kF32Groups / kF32Threads;
+// the fp32 projected body's shared memory after the taps: two slots of
+// (points x pitch) blends and (slice x kF32Cols) rows of W, in floats
+constexpr int kF32SampSlot = kF32Points * kF32Pitch;
+constexpr int kF32WSlot = kF32Slice * kF32Cols;
+constexpr int kF32RingBytes = 2 * (kF32SampSlot + kF32WSlot) * 4;
+static_assert(kF32Items * kF32Threads == kF32Points * kF32Groups &&
+                  kF32Threads % kF32Groups == 0,
+              "whole gather items a thread and slice");
+static_assert(kF32Rows * kF32RowGroups == kF32Points,
+              "one micro-tile a thread at kF32Cols outputs");
+
+// a build's threads a block and the blocks an SM its register cap is set
+// for: the projected builds (kProj) of fp32 and of bf16/int8 maps, and
+// the gather-only builds
+template <typename T, bool kProj>
+constexpr int kBlockThreads =
+    kProj && std::is_same<T, float>::value ? kF32Threads : kThreads;
+template <typename T, bool kProj>
+constexpr int kMinBlocks =
+    !kProj ? 1 : std::is_same<T, float>::value ? kF32BlocksPerSm
+                                               : kTcBlocksPerSm;
 
 }  // namespace
 
@@ -152,12 +208,13 @@ using bf16 = __nv_bfloat16;
 
 // The tap rows (item * H * W + y * W + x) and bilinear weights of the flat
 // points q0 .. q0 + n - 1 of one level into s_rows / s_wts; slots n ..
-// n_slots - 1 get row 0, weight 0.
+// n_slots - 1 get row 0, weight 0. kBlock: the block's threads.
+template <int kBlock>
 __device__ __forceinline__ void stage_taps(const CapfSampleArgs& args,
                                            const CapfSampleLevel& lv, int lvl,
                                            int q0, int n, int n_slots,
                                            int4* s_rows, float4* s_wts) {
-  for (int i = threadIdx.x; i < n_slots; i += kThreads) {
+  for (int i = threadIdx.x; i < n_slots; i += kBlock) {
     int r[4] = {0, 0, 0, 0};
     float wt[4] = {0.f, 0.f, 0.f, 0.f};
     if (i < n) {
@@ -183,19 +240,19 @@ __device__ __forceinline__ void stage_taps(const CapfSampleArgs& args,
 // (4 fp32, 8 bf16 or 16 int8 channels) of one point, consecutive threads
 // on consecutive groups of a point. A thread loads the 4 taps of kBatch
 // items, then blends each in fp32 and hands it to emit(point, channel,
-// values).
-template <typename T, int kBatch, typename Emit>
+// values). kBlock: the block's threads.
+template <typename T, int kBatch, int kBlock, typename Emit>
 __device__ __forceinline__ void blend_items(const T* feat, int c, int n,
                                             const int4* s_rows,
                                             const float4* s_wts, Emit emit) {
   constexpr int kVec = 16 / sizeof(T);
   const int groups = c / kVec;
   const int items = n * groups;
-  for (int i0 = threadIdx.x; i0 < items; i0 += kThreads * kBatch) {
+  for (int i0 = threadIdx.x; i0 < items; i0 += kBlock * kBatch) {
     uint4 raw[kBatch][4];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      const int i = i0 + u * kThreads;
+      const int i = i0 + u * kBlock;
       if (i < items) {
         const int pl = i / groups;
         const int ch = (i - pl * groups) * kVec;
@@ -210,7 +267,7 @@ __device__ __forceinline__ void blend_items(const T* feat, int c, int n,
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      const int i = i0 + u * kThreads;
+      const int i = i0 + u * kBlock;
       if (i < items) {
         const int pl = i / groups;
         const int ch = (i - pl * groups) * kVec;
@@ -276,7 +333,7 @@ __device__ __forceinline__ void project_chunk(const CapfSampleLevel& lv,
 
   // the blend, rounded once to bf16 into the A tile; rows of points past n
   // are never written: their products are never stored
-  blend_items<T, kTcBatch>(
+  blend_items<T, kTcBatch, kThreads>(
       static_cast<const T*>(lv.feat), c, n, s_rows, s_wts,
       [&](int pl, int ch, const float* acc) {
         constexpr int kVec = 16 / sizeof(T);
@@ -353,65 +410,154 @@ __device__ __forceinline__ void project_chunk(const CapfSampleLevel& lv,
   }
 }
 
-// The fp32 projected body: the unit's n <= kTile points blended into fp32
-// samples in shared memory, then one thread per (point, 4 outputs)
-// projects on CUDA cores. ``body``: W (C, Cout) fp32, then the samples.
+// The fp32 blend of one (point, 4-channel) item from its 4 taps, in the
+// tap order 00, 01, 10, 11, as blend_items blends.
+__device__ __forceinline__ float4 blend4(const float4 (&tap)[4], float4 w) {
+  const float wk[4] = {w.x, w.y, w.z, w.w};
+  float acc[4] = {};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float t[4] = {tap[k].x, tap[k].y, tap[k].z, tap[k].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] += wk[k] * t[e];
+  }
+  return make_float4(acc[0], acc[1], acc[2], acc[3]);
+}
+
+// The fp32 projected body (the fp32 projected build, kF32Threads threads):
+// the unit's n <= kF32Points flat points q0 .. q0 + n - 1, sampled,
+// projected by W (C, Cout) fp32, scaled and biased, stored as fp32.
+// ``body``: two slots of blends (kF32Points x kF32Pitch), then two slots of
+// W rows (kF32Slice x the pass's outputs). Slice s blends channels
+// s * kF32Slice .. + kF32Slice - 1 (zeros past C, where W's rows are zero
+// too); thread t gathers channel group t % kF32Groups of the points
+// t / kF32Groups + i * kF32Threads / kF32Groups (i < kF32Items).
 __device__ __forceinline__ void project_fp32(const CapfSampleLevel& lv,
                                              int q0, int n,
                                              unsigned char* body,
                                              const int4* s_rows,
                                              const float4* s_wts) {
+  using capf::sm90::cp_async16;
   const int tid = threadIdx.x;
   const int c = lv.c, cout = lv.cout;
-  float* s_w = reinterpret_cast<float*>(body);  // (C, Cout)
-  float* s_samp = s_w + c * cout;               // (kTile, C)
-  const float4* w4 = static_cast<const float4*>(lv.proj_w);
-  float4* s_w4 = reinterpret_cast<float4*>(s_w);
-  for (int i = tid; i < c * cout / 4; i += kThreads) s_w4[i] = w4[i];
-  blend_items<float, kGatherBatch>(
-      static_cast<const float*>(lv.feat), c, n, s_rows, s_wts,
-      [&](int pl, int ch, const float* acc) {
-        *reinterpret_cast<float4*>(s_samp + pl * c + ch) =
-            make_float4(acc[0], acc[1], acc[2], acc[3]);
-      });
-  __syncthreads();
-
-  float* out = static_cast<float*>(lv.out) + static_cast<size_t>(q0) * cout;
-  const int quads = cout / 4;
+  const float* feat = static_cast<const float*>(lv.feat);
+  const float* w = static_cast<const float*>(lv.proj_w);
+  float* s_samp = reinterpret_cast<float*>(body);
+  float* s_w = s_samp + 2 * kF32SampSlot;
+  const int slices = (c + kF32Slice - 1) / kF32Slice;
+  constexpr int kStride = kF32Threads / kF32Groups;  // points between items
+  const int grp = tid % kF32Groups, pt = tid / kF32Groups;
+  int4 rows[kF32Items];
+  float4 wts[kF32Items];
+#pragma unroll
+  for (int u = 0; u < kF32Items; ++u) {
+    rows[u] = s_rows[pt + u * kStride];
+    wts[u] = s_wts[pt + u * kStride];
+  }
   const float sc = proj_scale(lv);
-  for (int i = tid; i < n * quads; i += kThreads) {
-    const int pl = i / quads;
-    const int d0 = (i - pl * quads) * 4;
-    const float* sp = s_samp + pl * c;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k = 0; k < c; k += 4) {
-      const float4 sv = *reinterpret_cast<const float4*>(sp + k);
-      const float sk[4] = {sv.x, sv.y, sv.z, sv.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float4 wv =
-            *reinterpret_cast<const float4*>(s_w + (k + u) * cout + d0);
-        acc[0] = fmaf(sk[u], wv.x, acc[0]);
-        acc[1] = fmaf(sk[u], wv.y, acc[1]);
-        acc[2] = fmaf(sk[u], wv.z, acc[2]);
-        acc[3] = fmaf(sk[u], wv.w, acc[3]);
+
+  for (int c0 = 0; c0 < cout; c0 += kF32Cols) {
+    // this pass's column groups, and the threads that own a micro-tile
+    const int cg = min(kF32Cols, cout - c0) / 4;
+    const bool owner = tid < kF32RowGroups * cg;
+    const capf::f32::Place at = capf::f32::place(kF32RowGroups, cg);
+    float acc[kF32Rows][4];
+    capf::f32::zero(acc);
+    float4 raw[kF32Items][4];
+    // W rows of slice s (columns c0 .. c0 + 4 cg - 1) into its slot, one
+    // cp.async group; rows past C zero-filled
+    auto stage_rows = [&](int s) {
+      float* dst = s_w + (s & 1) * kF32WSlot;
+      for (int p = tid; p < kF32Slice * cg; p += kF32Threads) {
+        const int r = p / cg, q = p - r * cg;
+        const int k = s * kF32Slice + r;
+        const bool in = k < c;
+        cp_async16(dst + r * 4 * cg + 4 * q,
+                   in ? w + static_cast<size_t>(k) * cout + c0 + 4 * q : w,
+                   in ? 16 : 0);
       }
-    }
-    float* o = out + pl * cout + d0;
+      capf::sm90::cp_async_commit();
+    };
+    // the taps of this thread's items of slice s, in flight together
+    auto load = [&](int s) {
+      const int ch = s * kF32Slice + 4 * grp;
+      if (ch < c) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      o[e] = acc[e] * sc + (lv.proj_b != nullptr ? lv.proj_b[d0 + e] : 0.f);
+        for (int u = 0; u < kF32Items; ++u) {
+          const int r[4] = {rows[u].x, rows[u].y, rows[u].z, rows[u].w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            raw[u][k] = *reinterpret_cast<const float4*>(
+                feat + static_cast<size_t>(r[k]) * c + ch);
+          }
+        }
+      }
+    };
+    auto blend = [&](int s) {
+      float* dst = s_samp + (s & 1) * kF32SampSlot + 4 * grp;
+      const bool in = s * kF32Slice + 4 * grp < c;
+#pragma unroll
+      for (int u = 0; u < kF32Items; ++u) {
+        *reinterpret_cast<float4*>(dst + (pt + u * kStride) * kF32Pitch) =
+            in ? blend4(raw[u], wts[u]) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    };
+
+    stage_rows(0);
+    load(0);
+    blend(0);
+    capf::sm90::cp_async_wait<0>();
+    __syncthreads();
+    for (int s = 0; s < slices; ++s) {
+      const bool next = s + 1 < slices;
+      if (next) {  // slice s + 1 in flight while slice s's FMAs run
+        stage_rows(s + 1);
+        load(s + 1);
+      }
+      if (owner) {
+        capf::f32::fma_slice<kF32Rows, 4, kF32Slice>(
+            acc, s_samp + (s & 1) * kF32SampSlot + at.tr * kF32Pitch,
+            kF32RowGroups * kF32Pitch,
+            s_w + (s & 1) * kF32WSlot + at.tc * 4, 4 * cg, 0);
+      }
+      if (next) blend(s + 1);
+      capf::sm90::cp_async_wait<0>();
+      __syncthreads();
+    }
+
+    if (owner) {  // the scale and the bias, 16-byte stores
+      const int col = c0 + 4 * at.tc;
+      float b[4] = {0.f, 0.f, 0.f, 0.f};
+      if (lv.proj_b != nullptr) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) b[e] = lv.proj_b[col + e];
+      }
+      float* out = static_cast<float*>(lv.out);
+#pragma unroll
+      for (int i = 0; i < kF32Rows; ++i) {
+        const int row = at.tr + kF32RowGroups * i;
+        if (row < n) {
+          *reinterpret_cast<float4*>(
+              out + static_cast<size_t>(q0 + row) * cout + col) =
+              make_float4(acc[i][0] * sc + b[0], acc[i][1] * sc + b[1],
+                          acc[i][2] * sc + b[2], acc[i][3] * sc + b[3]);
+        }
+      }
     }
   }
 }
 
 // T: the maps' type (float, __nv_bfloat16 or int8_t); O: the outputs'
-// (T, or __nv_bfloat16 for int8 maps). kTc: the build with the tensor-core
-// projected body, launched only for calls that have such a level.
-template <typename T, typename O, bool kTc>
-__global__ void __launch_bounds__(kThreads, kTc ? kTcBlocksPerSm : 1)
+// (T, or __nv_bfloat16 for int8 maps). kProj: the build with the projected
+// body (the tensor cores for bf16 and int8 maps, fp32 FMAs for fp32 maps),
+// launched only for calls that have a projected level.
+template <typename T, typename O, bool kProj>
+__global__ void __launch_bounds__(kBlockThreads<T, kProj>,
+                                  kMinBlocks<T, kProj>)
     sample_levels_kernel(const CapfSampleArgs args) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kBlock = kBlockThreads<T, kProj>;
+  constexpr bool kFloat = std::is_same<T, float>::value;
 
   int pos = 0;  // uniform per block: the level whose unit this block takes
   while (blockIdx.x >= static_cast<unsigned>(args.unit_end[pos])) ++pos;
@@ -426,31 +572,33 @@ __global__ void __launch_bounds__(kThreads, kTc ? kTcBlocksPerSm : 1)
   unsigned char* body = smem + kTapBytes * lv.unit_points;
   const bool proj = lv.proj_w != nullptr;
 
-  if constexpr (kTc && !std::is_same<T, float>::value) {
+  if constexpr (kProj && !kFloat) {
     if (proj) {
       const int lda = (lv.c > lv.cout ? lv.c : lv.cout) + kPad;
       // W in flight during the gather
       stage_w(lv, reinterpret_cast<bf16*>(body) + kChunk * lda);
-      stage_taps(args, lv, lvl, q0, n, kChunk, s_rows, s_wts);
+      stage_taps<kBlock>(args, lv, lvl, q0, n, kChunk, s_rows, s_wts);
       __syncthreads();
       project_chunk<T>(lv, q0, n, body, s_rows, s_wts);
       return;
     }
   }
-  stage_taps(args, lv, lvl, q0, n, n, s_rows, s_wts);
-  __syncthreads();
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (kProj && kFloat) {
     if (proj) {
+      stage_taps<kBlock>(args, lv, lvl, q0, n, kF32Points, s_rows, s_wts);
+      __syncthreads();
       project_fp32(lv, q0, n, body, s_rows, s_wts);
       return;
     }
   }
+  stage_taps<kBlock>(args, lv, lvl, q0, n, n, s_rows, s_wts);
+  __syncthreads();
   // the gather: 16-byte stores of the blends
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kStores = kVec * sizeof(O) / 16;
   const int c = lv.c;
   O* out = static_cast<O*>(lv.out) + static_cast<size_t>(q0) * c;
-  blend_items<T, kGatherBatch>(
+  blend_items<T, kGatherBatch, kBlock>(
       static_cast<const T*>(lv.feat), c, n, s_rows, s_wts,
       [&](int pl, int ch, const float* acc) {
         alignas(16) O o[kVec];
@@ -466,13 +614,15 @@ __global__ void __launch_bounds__(kThreads, kTc ? kTcBlocksPerSm : 1)
 }
 
 template <typename T, typename O>
-cudaError_t launch(const CapfSampleArgs& args, size_t smem, bool tc,
+cudaError_t launch(const CapfSampleArgs& args, size_t smem, bool proj,
                    cudaStream_t stream) {
-  auto kernel = tc ? sample_levels_kernel<T, O, true>
-                   : sample_levels_kernel<T, O, false>;
+  auto kernel = proj ? sample_levels_kernel<T, O, true>
+                     : sample_levels_kernel<T, O, false>;
+  const int threads =
+      proj ? kBlockThreads<T, true> : kBlockThreads<T, false>;
   cudaError_t err = capf::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<args.unit_end[args.num_levels - 1], kThreads, smem, stream>>>(
+  kernel<<<args.unit_end[args.num_levels - 1], threads, smem, stream>>>(
       args);
   return cudaGetLastError();
 }
@@ -493,7 +643,7 @@ extern "C" int capf_sample_levels(const CapfSampleArgs* in, int device,
   const int vec = args.dtype == capf::kInt8 ? 16 : fp32 ? 4 : 8;
   const int total = args.batch * args.num_points;
   size_t smem = 0;
-  bool any_tc = false;  // a level takes the tensor-core body
+  bool any_proj = false;  // a level takes a projected body
   for (int l = 0; l < args.num_levels; ++l) {
     const CapfSampleLevel& lv = args.levels[l];
     if (lv.c < vec || lv.c % vec != 0 || lv.h < 1 || lv.w < 1 ||
@@ -507,16 +657,17 @@ extern "C" int capf_sample_levels(const CapfSampleArgs* in, int device,
         return cudaErrorInvalidValue;
       }
     } else if (fp32) {
-      if (lv.cout % 4 != 0 || lv.unit_points != kTile) {
+      if (lv.cout % 4 != 0 || lv.unit_points != kF32Points) {
         return cudaErrorInvalidValue;
       }
-      need += static_cast<size_t>(lv.c) * (lv.cout + kTile) * sizeof(float);
+      any_proj = true;
+      need += kF32RingBytes;
     } else {
       if (lv.c % 16 || lv.cout % 8 || lv.cout > kMaxCout ||
           lv.unit_points != kChunk) {
         return cudaErrorInvalidValue;
       }
-      any_tc = true;
+      any_proj = true;
       const int lda = (lv.c > lv.cout ? lv.c : lv.cout) + kPad;
       need += static_cast<size_t>(kChunk) * lda * sizeof(bf16);
       need += static_cast<size_t>(lv.cout) * (lv.c + kPad) * sizeof(bf16);
@@ -538,11 +689,11 @@ extern "C" int capf_sample_levels(const CapfSampleArgs* in, int device,
   }
   if (smem > 232448 || units > (1LL << 30)) return cudaErrorInvalidValue;
   if (args.dtype == capf::kInt8) {
-    err = launch<int8_t, __nv_bfloat16>(args, smem, any_tc, stream);
+    err = launch<int8_t, __nv_bfloat16>(args, smem, any_proj, stream);
   } else if (args.dtype == capf::kBFloat16) {
-    err = launch<__nv_bfloat16, __nv_bfloat16>(args, smem, any_tc, stream);
+    err = launch<__nv_bfloat16, __nv_bfloat16>(args, smem, any_proj, stream);
   } else {
-    err = launch<float, float>(args, smem, false, stream);
+    err = launch<float, float>(args, smem, any_proj, stream);
   }
   return static_cast<int>(err);
 }

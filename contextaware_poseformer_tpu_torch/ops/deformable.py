@@ -17,9 +17,11 @@ CUDA kernel (``csrc/sampler.cu``) gathers the four taps of each point and
 covers every level of a call in one launch. Its grid is one flat list of
 work units: each level's points, flattened over (item, point), cut into
 units of that level's own size (``sampler_plan``): 64 points for the
-tensor-core projection, 32 for the fp32 projection, and for the gather
-enough 16-byte channel groups that each thread blends 4, at most one
-item's points; the units of the widest levels run first. K5, the
+tensor-core projection, 32 for the fp32 projection (its own build of 64
+threads a block, which walks K-slices of 32 channels through a ring in
+shared memory), and for the gather enough 16-byte channel groups that each
+thread blends 4, at most one item's points; the units of the widest
+levels run first. K5, the
 TPU kernel's separable two-stage body for large maps with few channels
 (``is_k5_level``: HRNet's 64x48 level 0 with C = 32 or 48), exists only to
 fill the TPU's 128 output lanes; the gather reads each point's four taps
@@ -95,18 +97,27 @@ MAX_LEVELS = 8
 # items a gather thread blends, a point's tap rows and weights in bytes
 _TILE, _CHUNK, _MAX_POINTS = 32, 64, 256
 _MAX_COUT, _PAD, _THREADS, _ITEMS, _TAP_BYTES = 64, 8, 256, 4, 32
+# the fp32 projected build (kF32*): threads a block, channels a K-slice,
+# outputs a pass, floats a staged sample row; its ring of two slots of
+# blends and W rows, in bytes (kF32RingBytes)
+_F32_THREADS, _F32_SLICE, _F32_COLS = 64, 32, 32
+_F32_PITCH = _F32_SLICE + 4
+_F32_RING = 2 * (_TILE * _F32_PITCH + _F32_SLICE * _F32_COLS) * 4
 _SAMPLER_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 
 
-def gather_points(dtype: torch.dtype, c: int, points: int) -> int:
+def gather_points(dtype: torch.dtype, c: int, points: int,
+                  threads: int = _THREADS) -> int:
     """Points a gather unit of the sampler takes at C channels, ``points``
     a level and item: enough 16-byte (point, channel group) items that each
-    of the block's 256 threads blends 4 (bf16: 256 points at C = 32, 170 at
-    C = 48, 32 at C = 256), at most 256 points and at most one item's: a
-    17-point call keeps a unit an item (measured on the card against units
-    of 1, 2 and 4 items a thread across items: PERF.md)."""
+    of the block's ``threads`` threads blends 4 (bf16 on 256 threads: 256
+    points at C = 32, 170 at C = 48, 32 at C = 256), at most 256 points and
+    at most one item's: a 17-point call keeps a unit an item (measured on
+    the card against units of 1, 2 and 4 items a thread across items:
+    PERF.md). A call that projects an fp32 level runs its gather levels in
+    the fp32 projected build's 64-thread blocks."""
     groups = c * dtype.itemsize // 16
-    return max(1, min(_MAX_POINTS, _THREADS * _ITEMS // groups, points))
+    return max(1, min(_MAX_POINTS, threads * _ITEMS // groups, points))
 
 
 def _projection_refusal(dtype: torch.dtype, c: int, cout: int) -> str | None:
@@ -125,8 +136,8 @@ def _projection_refusal(dtype: torch.dtype, c: int, cout: int) -> str | None:
 
 
 def _projection_smem(dtype: torch.dtype, c: int, cout: int) -> int:
-    if dtype == torch.float32:
-        return _TAP_BYTES * _TILE + 4 * c * (cout + _TILE)
+    if dtype == torch.float32:  # the ring does not grow with C or Cout
+        return _TAP_BYTES * _TILE + _F32_RING
     return (_TAP_BYTES * _CHUNK + 2 * _CHUNK * (max(c, cout) + _PAD)
             + 2 * cout * (c + _PAD))
 
@@ -137,9 +148,10 @@ def projected_plan(dtype: torch.dtype, c: int, cout: int,
     from C to Cout channels, ``points`` points in all. bf16 and int8 maps
     take the tensor-core body (64 points a unit: their taps, the bf16 A
     tile, which later stages the output, and W^T in bf16): C a multiple of
-    16, Cout of 8, at most 64. fp32
-    maps take the CUDA-core body (32 points; W and the samples in fp32): C
-    and Cout multiples of 4. Raises ValueError for a level neither takes."""
+    16, Cout of 8, at most 64. fp32 maps take the CUDA-core body (32
+    points a unit: their taps, then a two-slot ring of 32-channel slices of
+    the blends and of W's rows, 18 KB whatever C and Cout): C and Cout
+    multiples of 4. Raises ValueError for a level neither takes."""
     refusal = _projection_refusal(dtype, c, cout)
     if refusal:
         raise ValueError(f"sample_points_multi: {refusal}")
@@ -154,14 +166,16 @@ class SamplerPlan:
     takes and the units; the dynamic shared memory every block reserves
     (the largest level's); whether the build with the tensor-core body is
     launched; and the order in which the levels' units fill the grid: most
-    work a unit (points x channels) first, ties in level order. The kernel
-    takes the units, the order and ``unit_end`` from here."""
+    work a unit (points x channels) first, ties in level order; and the
+    launch's threads a block (64 in the fp32 projected build, else 256).
+    The kernel takes the units, the order and ``unit_end`` from here."""
     bodies: tuple[str, ...]
     unit_points: tuple[int, ...]
     units: tuple[int, ...]
     smem: int
     tensor_cores: bool
     order: tuple[int, ...]
+    threads: int = _THREADS
 
     @property
     def blocks(self) -> int:
@@ -189,13 +203,17 @@ def sampler_plan(dtype: torch.dtype, levels, batch: int,
     if not levels or batch < 1 or points < 1:
         raise ValueError("sample_points_multi: an empty call")
     bodies, sizes, units, smem = [], [], [], 0
+    # the build the call launches: a call that projects an fp32 level runs
+    # every level in the fp32 projected build's blocks
+    threads = (_F32_THREADS if dtype == torch.float32
+               and any(cout is not None for _, cout in levels) else _THREADS)
     for c, cout in levels:
         vec = 16 // dtype.itemsize
         if c < vec or c % vec:
             raise ValueError(f"sample_points_multi: {c} channels; the kernel "
                              f"needs a multiple of {vec}")
         if cout is None:
-            body, size = "gather", gather_points(dtype, c, points)
+            body, size = "gather", gather_points(dtype, c, points, threads)
             need = _TAP_BYTES * size
         else:
             body = "fp32" if dtype == torch.float32 else "tc"
@@ -207,7 +225,7 @@ def sampler_plan(dtype: torch.dtype, levels, batch: int,
         smem = max(smem, need)
     order = sorted(range(len(levels)), key=lambda l: -sizes[l] * levels[l][0])
     return SamplerPlan(tuple(bodies), tuple(sizes), tuple(units), smem,
-                       "tc" in bodies, tuple(order))
+                       "tc" in bodies, tuple(order), threads)
 
 
 def kernel_weight(w: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,9 @@ zero at the ends of an image row; clip(round(x * 127 / amax))) and computes
 ``xwin @ w + roll(xwin, -12) @ w`` (int32, exact). ``csrc/probes.cu``
 builds the shifted operand by an address offset (``words=False``) or from
 a 4-rows-to-a-word layout shifted by 3 words and unpacked with
-``__byte_perm`` (``words=True``, the TPU's int32 bitcast roll).
+``__byte_perm`` (``words=True``, the TPU's int32 bitcast roll). Both forms
+share one geometry (blocks of 16 rows x 64 outputs, 96 a call) and read
+``w`` (192, 128) as it is: one launch a call.
 """
 
 from __future__ import annotations
@@ -49,12 +51,15 @@ def window_matmul(xf, w, amax, words=False):
         raise TypeError(f"{name}: xf must be fp32 ({M}, {LANES})")
     if w.shape != (K, N) or w.dtype != torch.int8:
         raise TypeError(f"{name}: w must be int8 ({K}, {N})")
-    wt = w.t().contiguous()
+    xf, w = xf.contiguous(), w.contiguous()
     amax = amax.float().reshape(())
     out = torch.empty((M, N), dtype=torch.int32, device=xf.device)
-    _build.require_cuda(name, xf, wt, amax, out)
+    _build.require_cuda(name, xf, w, amax, out)
+    if xf.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"{name}: xf and w must start on a 16-byte "
+                         "boundary (16-byte loads)")
     lib = _build.library()
-    err = lib.capf_window_matmul(xf.data_ptr(), wt.data_ptr(),
+    err = lib.capf_window_matmul(xf.data_ptr(), w.data_ptr(),
                                  amax.data_ptr(), out.data_ptr(), int(words),
                                  *_build.launch_target(xf))
     _build.check(lib, err, name)

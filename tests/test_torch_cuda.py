@@ -814,7 +814,7 @@ def test_k5_gather_units_of_any_size(cuda_device, monkeypatch, unit):
     """The gather takes any unit of 1..256 points (the sweep's sizes): the
     W32 pyramid's zeros call, bf16, batch 3, 272 points."""
     monkeypatch.setattr(deformable, "gather_points",
-                        lambda dtype, c, points: unit)
+                        lambda dtype, c, points, *_: unit)
     g = torch.Generator().manual_seed(unit)
     feats, pts, *_ = _k5_mixed_case(cuda_device, HRNET_PYRAMIDS["W32"], 272,
                                     3, "zeros", torch.bfloat16, g)
@@ -1823,3 +1823,119 @@ def test_fp32_bodies_under_autograd_and_after_an_update(cuda_device):
         err = (out.float() - ref.float()).abs().max().item()
         assert err <= tol * ref.float().abs().max().item(), (name, err)
         assert not torch.equal(out, first), name
+
+
+# K1's fp32 projected body (its own build): per level (H, W, C, Cout or None:
+# gathered); the CPN and W48 border calls, W32's mixed call (level 0
+# gathered in the projected build's blocks), narrow levels (the gate's C 8
+# and Cout 8, C 4 -> Cout 4, W48's C 48), and outputs past one pass (36, 64)
+K1_FP32_CALLS = {
+    "CPN": tuple((h, w, 256, 32) for h, w in LEVELS),
+    "W48": tuple((*d, 32) for d in HRNET_PYRAMIDS["W48"]),
+    "W32 mixed": tuple((*d, 32 if d[2] > 32 else None)
+                       for d in HRNET_PYRAMIDS["W32"]),
+    "narrow": ((16, 12, 4, 4), (8, 6, 8, 8), (8, 6, 48, 8)),
+    "wide Cout": ((8, 6, 64, 36), (16, 12, 128, 64)),
+}
+
+
+def _k1_fp32_call(dev, levels, points, batch, g, scaled=False):
+    """fp32 maps, border points (batch, L, points, 2) and the levels'
+    projections as parameters; the narrow call leaves its first level's
+    bias out, and ``scaled`` gives every projected level a scale."""
+    maps = [torch.randn(batch, h, w, c, generator=g).to(dev)
+            for h, w, c, _ in levels]
+    pts = (torch.rand(batch, len(levels), points, 2, generator=g) * 3
+           - 1.5).to(dev)
+    projs = [None if o is None else torch.nn.Parameter(
+        ((torch.rand(c, o, generator=g) * 2 - 1) / c ** 0.5).to(dev))
+        for _, _, c, o in levels]
+    biases = [None if o is None or (l == 0 and c == 4) else
+              torch.nn.Parameter((torch.rand(o, generator=g) * 0.2
+                                  - 0.1).to(dev))
+              for l, (_, _, c, o) in enumerate(levels)]
+    scales = [torch.tensor(0.75, device=dev) if scaled and o is not None
+              else None for *_, o in levels]
+    return maps, pts, projs, biases, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("points", [1, 17, 31, 33, 300])
+@pytest.mark.parametrize("call", sorted(K1_FP32_CALLS))
+def test_k1_fp32_projection_at_ragged_shapes(cuda_device, call, points,
+                                             batch):
+    """K1's fp32 projected body against the plain version, level by level,
+    at point counts that are not a multiple of its 64-point unit (1, 17,
+    31, 33, 300), batch 1 and 3: 1e-4 of max|plain| (TF32 off; the kernel
+    sums in another order); one launch a call. The narrow call runs with a
+    scale on every projected level."""
+    g = torch.Generator().manual_seed(points * 7 + batch)
+    maps, pts, projs, biases, scales = _k1_fp32_call(
+        cuda_device, K1_FP32_CALLS[call], points, batch, g,
+        scaled=call == "narrow")
+    before = deformable.launches
+    with torch.inference_mode():
+        outs = deformable.sample_points_multi(maps, pts, "border", True,
+                                              projs, biases, scales)
+        refs = deformable.sample_points_multi_reference(
+            maps, pts, "border", True, projs, biases, scales)
+    assert deformable.launches == before + 1
+    for o, r, (*_, c, cout) in zip(outs, refs, K1_FP32_CALLS[call]):
+        assert o.dtype == torch.float32
+        assert o.shape == r.shape == (batch, points, cout or c)
+        err = (o - r).abs().max().item()
+        assert err <= 1e-4 * r.abs().max().item(), (c, cout, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", ["CPN", "W32 mixed", "wide Cout"])
+def test_k1_fp32_projection_under_autograd(cuda_device, call):
+    """Under autograd the forward is K1's fp32 projected body and the
+    backward the plain version's VJP (the JAX ``_multi_proj_bwd``): the
+    samples within 1e-4 of max|plain|, the gradients of the points, maps,
+    W and b within 1e-4 of autograd through the plain version."""
+    g = torch.Generator().manual_seed(5)
+    maps, pts, projs, biases, _ = _k1_fp32_call(
+        cuda_device, K1_FP32_CALLS[call], 33, 3, g)
+    maps = [f.requires_grad_(True) for f in maps]
+    pts.requires_grad_(True)
+    leaves = [pts, *maps, *(t for t in projs + biases if t is not None)]
+    results = []
+    before = deformable.launches
+    for fn in (deformable.sample_points_multi,
+               deformable.sample_points_multi_reference):
+        outs = fn(maps, pts, "border", True, projs, biases)
+        up = [torch.randn(o.shape, generator=torch.Generator().manual_seed(
+            l)).to(cuda_device) for l, o in enumerate(outs)]
+        torch.autograd.backward(outs, up)
+        results.append(([o.detach() for o in outs],
+                        [t.grad.clone() for t in leaves]))
+        for t in leaves:
+            t.grad = None
+    assert deformable.launches == before + 1
+    (outs, grads), (refs, want) = results
+    for a, b in zip(outs + grads, refs + want):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item(), (call, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amax", [0.5, 4.0, 9.25])
+def test_window_forms_bit_for_bit(cuda_device, amax):
+    """The window-shift probe's two forms (an address offset, a 3-word
+    shift) equal ``window_matmul_reference`` bit for bit, amax 0.5 (most
+    lanes clipped to +-127), 4 (the probe's) and 9.25; one launch each."""
+    from contextaware_poseformer_tpu_torch.probes import window
+
+    g = torch.Generator().manual_seed(int(amax * 4))
+    xf = (torch.randn(window.M, window.LANES, generator=g) * 2).to(
+        cuda_device)
+    wv = torch.randint(-127, 128, (window.K, window.N), generator=g,
+                       dtype=torch.int8).to(cuda_device)
+    a = torch.tensor(amax, device=cuda_device)
+    want = window.window_matmul_reference(xf, wv, a)
+    for form, words in (("offset", False), ("words", True)):
+        before = window.launches[form]
+        assert torch.equal(window.window_matmul(xf, wv, a, words), want)
+        assert window.launches[form] == before + 1

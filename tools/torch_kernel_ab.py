@@ -1,8 +1,9 @@
-"""Same-call A/B on the card of the port's K2, K3, K5, K7, K9, K10s and
-K10u against another commit's.
+"""Same-call A/B on the card of the port's K1 (fp32 projected body), K2,
+K3, K5, K7, K9, K10s, K10u and the window-shift probe against another
+commit's.
 
     git archive <commit> contextaware_poseformer_tpu_torch/ops \\
-        | tar -x -C build/parent
+        contextaware_poseformer_tpu_torch/probes | tar -x -C build/parent
     python3 tools/torch_kernel_ab.py --parent build/parent [--only K5,K7]
 
 Run from the repository root on a machine with an NVIDIA GPU and nvcc. The
@@ -42,7 +43,17 @@ at the shapes the serving and training paths launch:
   32x24 sources, C 256, batch 64) and the three together, bf16 and fp32;
 - with K10s or K10u: the bf16 fold+topdown deploy graph's request
   (``chip_smoke._knob_graph``) with each commit's K10s and K10u swapped in,
-  its device busy ms and the two kernels' share under torch.profiler.
+  its device busy ms and the two kernels' share under torch.profiler;
+- K1f32: K1's fp32 projected body at the CPN border call (4 levels, 256 ->
+  32, 272 points a level and item, batch 64, the kernels phase's points),
+  the W32 border call (level 0 gathered in the same launch) and the W48
+  one, each with its plain version, its library call and its bound
+  (``chip_smoke._sampler_work``, all at the fp32 rate), and, as guards,
+  the fp32 gather's calls: the CPN zeros call, the CPN border call's
+  gather alone (training's K1 call) and W32's level 0 alone;
+- window: the window-shift probe's two forms (``probes/window.py``; the
+  other commit's wrapper transposed w with a copy kernel), beside the
+  launch floor of the same timer (the library's empty kernel).
 
 ``--sweep`` times the new K9 chain at each input-ring depth and at fixed
 strip lengths. ``--breakdown`` builds variants of the new
@@ -57,6 +68,9 @@ K2's fp32 routes (``csrc/fused_mlp.cu``: the products, the staging of the
 operands' K-slices, the LN, the epilogues; the joint call, two-phase, and
 the res call, fused) and for K3's CUDA-core body (``csrc/small_attention.cu``:
 the products, the weights' staging, the middle), batch 64.
+``--k1-breakdown`` does the same for K1's fp32 projected body
+(``csrc/sampler.cu``: gather only (no products), products only (no tap
+loads), no W staging, the skeleton) at the CPN and W32 border calls.
 """
 
 from __future__ import annotations
@@ -749,6 +763,132 @@ def _fp32_breakdown(card):
             module._build = _build
 
 
+def _k1f32_cases():
+    """(label, timed, maps, points, mode, projs, biases) of K1's fp32 calls
+    at batch 64: the projected border calls (``timed``: with the plain
+    version, the library call and the bound) and the fp32 gather's guard
+    calls; projections made outside inference mode, as the fp32 lifter
+    holds them."""
+    gen = torch.Generator().manual_seed(20)
+
+    def uniform(lo, hi, *shape):
+        return (torch.rand(*shape, generator=gen) * (hi - lo) + lo).cuda()
+
+    b, hd, cases = cs.BATCH, cs.HEAD_DIM, []
+    pyramids = {"CPN": tuple((h, w, 256) for h, w in cs.LEVELS),
+                **cs.HRNET_PYRAMIDS}
+    for name, dims in pyramids.items():
+        maps = [torch.randn(b, h, w, c, generator=gen).cuda()
+                for h, w, c in dims]
+        on = [name == "CPN" or deformable.kernel_can_preproject(
+            h, w, c, hd, torch.float32) for h, w, c in dims]
+        projs = [uniform(-1, 1, c, hd) / c ** 0.5 if o else None
+                 for (_, _, c), o in zip(dims, on)]
+        biases = [uniform(-0.1, 0.1, hd) if o else None for o in on]
+        border = uniform(-1.5, 1.5, b, len(dims), 17, 16, 2)
+        cases.append((f"{name} fp32 border+proj P=272", True, maps, border,
+                      "border", projs, biases))
+        if name == "CPN":
+            zeros = uniform(-1.1, 1.1, b, len(dims), 17, 2)
+            cases.append(("guard: CPN fp32 zeros P=17 (gather)", False,
+                          maps, zeros, "zeros", None, None))
+            cases.append(("guard: CPN fp32 border P=272 gather only "
+                          "(training's call)", False, maps, border,
+                          "border", None, None))
+        if name == "W32":
+            cases.append(("guard: W32 fp32 level 0 (64, 48, 32) alone "
+                          "(gather)", False, [maps[0]],
+                          border[:, :1].contiguous(), "border", None, None))
+    return cases
+
+
+def _k1f32(parent, card):
+    for label, timed, maps, pts, mode, projs, biases in _k1f32_cases():
+        with torch.inference_mode():
+            _ab(f"K1 {label}",
+                lambda: parent.sample_points_multi(maps, pts, mode, True,
+                                                   projs, biases),
+                lambda: deformable.sample_points_multi(maps, pts, mode, True,
+                                                       projs, biases),
+                card)
+            if not timed:
+                continue
+            plain = cs._median_ms(lambda: deformable.
+                                  sample_points_multi_reference(
+                                      maps, pts, mode, True, projs, biases),
+                                  runs=RUNS)
+            lib = cs._median_ms(cs._grid_sample_fn(maps, pts, mode, projs,
+                                                   biases), runs=RUNS)
+        work = cs._sampler_work(maps, pts, projs, mode == "border")
+        bound, by = cs._bound(*work, torch.float32)
+        print(f"ab: K1 {label}: plain {plain:.4f} ms, library {lib:.4f} ms,"
+              f" bound {bound:.4f} ms ({by}; {card})", flush=True)
+
+
+def _window(parent, card):
+    from contextaware_poseformer_tpu_torch.probes import window
+
+    gen = torch.Generator().manual_seed(6)
+    xf = (torch.randn(window.M, window.LANES, generator=gen) * 2).cuda()
+    wv = torch.randint(-20, 21, (window.K, window.N), generator=gen,
+                       dtype=torch.int8).cuda()
+    a4 = torch.tensor(4.0, device="cuda")
+    dev = torch.device("cuda")
+    floor = cs._median_ms(lambda: _build.empty_kernel(dev), runs=RUNS)
+    with torch.inference_mode():
+        for form, words in (("words (kernel_bitcast)", True),
+                            ("offset (kernel_slice)", False)):
+            _ab(f"window {form}, launch floor {floor:.4f} ms",
+                lambda: parent.window_matmul(xf, wv, a4, words),
+                lambda: window.window_matmul(xf, wv, a4, words), card)
+
+
+# the pieces the K1 fp32 breakdown cuts from csrc/sampler.cu's fp32
+# projected body, each with its stand-in (timing only, wrong numbers)
+K1_CUTS = {
+    "NO_PRODUCTS": (
+        "        capf::f32::fma_slice<kF32Rows, 4, kF32Slice>(\n"
+        "            acc, s_samp + (s & 1) * kF32SampSlot + at.tr * kF32Pitch,"
+        "\n            kF32RowGroups * kF32Pitch,\n"
+        "            s_w + (s & 1) * kF32WSlot + at.tc * 4, 4 * cg, 0);",
+        "        acc[0][0] += s_samp[(s & 1) * kF32SampSlot + at.tr] + "
+        "s_w[(s & 1) * kF32WSlot + at.tc];"),
+    "NO_GATHER": (
+        "            raw[u][k] = *reinterpret_cast<const float4*>(\n"
+        "                feat + static_cast<size_t>(r[k]) * c + ch);",
+        "            raw[u][k] = make_float4(r[k], ch, 0.f, 1.f);"),
+    "NO_W": (
+        "        cp_async16(dst + r * 4 * cg + 4 * q,\n"
+        "                   in ? w + static_cast<size_t>(k) * cout + c0 + "
+        "4 * q : w,\n                   in ? 16 : 0);",
+        "        (void)dst, (void)in;"),
+}
+K1_VARIANTS = {"full": (), "gather_only": ("NO_PRODUCTS",),
+               "products_only": ("NO_GATHER",), "no_w": ("NO_W",),
+               "skeleton": tuple(K1_CUTS)}
+
+
+def _k1_breakdown(card):
+    """K1's fp32 projected body at the CPN and W32 border calls (batch
+    64), in builds of csrc/sampler.cu with pieces cut (timing only, wrong
+    numbers): what a piece costs is the full build's time less the
+    variant's."""
+    builds = _build_variants("sampler.cu", _cut_text("sampler.cu", K1_CUTS),
+                             K1_VARIANTS, ("capf_sample_levels",),
+                             ROOT / "build" / "k1_variants")
+    cases = [c for c in _k1f32_cases() if c[1] and not c[0].startswith(
+        "W48")]
+    with torch.inference_mode():
+        for label, _, maps, pts, mode, projs, biases in cases:
+            for name, build in builds.items():
+                deformable._build = build
+                ms = cs._median_ms(lambda: deformable.sample_points_multi(
+                    maps, pts, mode, True, projs, biases), runs=RUNS)
+                print(f"breakdown: K1 {label}, {name}: {ms:.4f} ms "
+                      f"({card})", flush=True)
+    deformable._build = _build
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path,
@@ -760,6 +900,7 @@ def main() -> None:
     ap.add_argument("--breakdown", action="store_true")
     ap.add_argument("--stem-breakdown", action="store_true")
     ap.add_argument("--fp32-breakdown", action="store_true")
+    ap.add_argument("--k1-breakdown", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: needs an NVIDIA GPU")
@@ -771,19 +912,21 @@ def main() -> None:
     _build.library()
     only = set(args.only.split(","))
     if args.parent is not None:
-        ops = args.parent.resolve() / "contextaware_poseformer_tpu_torch" / \
-            "ops"
-        pbuild = _load("parent_build", ops / "_build.py")
+        pkg = args.parent.resolve() / "contextaware_poseformer_tpu_torch"
+        pbuild = _load("parent_build", pkg / "ops" / "_build.py")
         pbuild.library()
         loaded = {}
 
         def parent(module):
             if module not in loaded:
+                path = pkg / ("probes" if module == "window" else "ops")
                 loaded[module] = _load(f"parent_{module}",
-                                       ops / f"{module}.py", pbuild)
+                                       path / f"{module}.py", pbuild)
             return loaded[module]
 
-        for kern, module, run in (("K2", "fused_mlp", _k2),
+        for kern, module, run in (("K1f32", "deformable", _k1f32),
+                                  ("window", "window", _window),
+                                  ("K2", "fused_mlp", _k2),
                                   ("K3", "small_attention", _k3),
                                   ("K9", "layer1_chain", _k9),
                                   ("K5", "deformable", _k5),
@@ -802,6 +945,8 @@ def main() -> None:
         _stem_breakdown(card)
     if args.fp32_breakdown:
         _fp32_breakdown(card)
+    if args.k1_breakdown:
+        _k1_breakdown(card)
 
 
 if __name__ == "__main__":
