@@ -23,6 +23,8 @@ from typing import Callable, Iterator, NamedTuple, Protocol
 import numpy as np
 import torch
 
+from contextaware_poseformer_tpu_torch.utils.profiling import span
+
 
 class RawBatch(NamedTuple):
     """Raw images + labels with fixed shapes (numpy on the host, tensors
@@ -180,18 +182,20 @@ def device_prefetch(host_iter: Iterator[tuple[RawBatch, int]],
     thread.start()
     try:
         while True:
-            item = q.get()
+            with span("capf.data.wait"):
+                item = q.get()
+                if item is not _DONE:
+                    batch, valid, event = item
+                    if event is not None:
+                        stream = torch.cuda.current_stream()
+                        stream.wait_event(event)
+                        for t in batch:
+                            if isinstance(t, torch.Tensor) and t.is_cuda:
+                                t.record_stream(stream)
             if item is _DONE:
                 if err:
                     raise err[0]
                 return
-            batch, valid, event = item
-            if event is not None:
-                stream = torch.cuda.current_stream()
-                stream.wait_event(event)
-                for t in batch:
-                    if isinstance(t, torch.Tensor) and t.is_cuda:
-                        t.record_stream(stream)
             yield batch, valid
     finally:
         stop.set()

@@ -55,6 +55,7 @@ from contextaware_poseformer_tpu_torch.models.capf import (
     prepare_serving,
 )
 from contextaware_poseformer_tpu_torch.models.init import init_parameters
+from contextaware_poseformer_tpu_torch.utils.profiling import span
 
 
 CALIB_CHUNK = 16  # frames a calibration pass takes (bench.py's chunks)
@@ -165,8 +166,8 @@ def lift(model: ContextAwarePoseFormer, frames_u8: torch.Tensor,
     fp32 root-relative joints. Inputs move to the model's device."""
     dev = model.lifter.head.kernel.device
     with torch.inference_mode():
-        images = augment.serving_images(
-            frames_u8.to(dev, non_blocking=True), model.cfg.backbone,
-            dtype=model.backbone.dtype,
-        )
+        frames = frames_u8.to(dev, non_blocking=True)
+        with span("capf.serve.normalize"):
+            images = augment.serving_images(
+                frames, model.cfg.backbone, dtype=model.backbone.dtype)
         return model(images, kp2d.to(dev), kp2d_crop.to(dev))

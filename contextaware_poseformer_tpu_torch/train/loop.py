@@ -56,6 +56,7 @@ from contextaware_poseformer_tpu_torch.train import steps
 from contextaware_poseformer_tpu_torch.train.checkpoint import (
     CheckpointManager,
 )
+from contextaware_poseformer_tpu_torch.utils.profiling import span
 
 
 class MetricWriter:
@@ -192,8 +193,9 @@ class Trainer:
         t0 = time.time()
         with self._batches(host_iter) as batches:
             for batch, _valid in itertools.islice(batches, limit):
-                m = steps.train_step(state, batch, self.cfg, self.task,
-                                     self.cfg.train.seed + 1)
+                with span("capf.train.step"):
+                    m = steps.train_step(state, batch, self.cfg, self.task,
+                                         self.cfg.train.seed + 1)
                 losses.append(m["loss"])
                 n += 1
         step_losses = [float(v) for v in losses]

@@ -35,6 +35,7 @@ from contextaware_poseformer_tpu_torch.data.pipeline import RawBatch
 from contextaware_poseformer_tpu_torch.parallel import distributed, tensor
 from contextaware_poseformer_tpu_torch.train import losses
 from contextaware_poseformer_tpu_torch.utils import skeleton
+from contextaware_poseformer_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,7 +246,8 @@ def train_step(state: TrainState, raw: RawBatch, cfg: Config, task: Task,
         loss = distributed.mean_over_ranks(loss, state.data_group)
     # NaN guard (train.py:194): zero the gradients of a non-finite loss
     finite = torch.isfinite(loss)
-    state.optimizer.step(state.step, finite)
+    with span("capf.train.optimizer"):
+        state.optimizer.step(state.step, finite)
     state.step += 1
     return {"loss": loss, "finite": finite}
 

@@ -9,7 +9,25 @@ Port of ``contextaware_poseformer_tpu/utils/profiling.py`` on
   ``step()`` call a step, with the JAX package's window semantics;
 - ``sustained_timer``: distinct inputs every iteration, each burst ended by
   a host fetch of one output element (which waits for the stream), the
-  best burst's seconds an iteration.
+  best burst's seconds an iteration;
+- ``span(name)``: a named range (``torch.profiler.record_function``) while
+  a profiler records, else a shared no-op context.
+
+The program's spans, each on the thread that calls it, and what reads
+each (the benchmark's per-layer metrics, ``portbench/metrics/<metric>.py``):
+
+- ``capf.serve.normalize``: the ``augment.serving_images`` call inside
+  ``serve.lift``; ``normalize_ms.serve``, the device time launched inside;
+- ``capf.train.step``: each ``steps.train_step`` call of
+  ``Trainer.train_epoch``; it bounds the steady window of
+  ``step_idle.train`` (the device's idle share after the first step);
+- ``capf.train.optimizer``: ``state.optimizer.step`` inside
+  ``train_step`` (the NaN guard, the clip and AdamW);
+  ``optimizer_launches.train``, the device operations launched inside,
+  and ``optimizer_idle_ms.train``, the device's idle time inside;
+- ``capf.data.wait``: ``device_prefetch``'s consumer taking a batch (the
+  queue's get and the stream hand-over), between steps;
+  ``data_idle_ms.train``, the device's idle time inside.
 """
 
 from __future__ import annotations
@@ -20,6 +38,18 @@ import time
 from typing import Callable
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler
+    records, else a shared no-op context: entering ``record_function``
+    costs some 10-15 us even with no profiler, the check under 1 us."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 def _start() -> torch.profiler.profile:
