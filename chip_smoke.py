@@ -34,7 +34,11 @@ Phases, one line of output each (failures raise and exit non-zero):
    error, error relative to max|plain|, median kernel and plain device
    times over 20 CUDA-event-timed runs, the bound and the kernel's share
    of it, and the time of the PyTorch call that computes the same function
-   where there is one (information only; the port never calls it);
+   where there is one (information only; the port never calls it); then
+   the float convs' epilogue (``ops/conv_epilogue.py``: BN affine, residual
+   and ReLU in one pass) against its plain chain bit for bit at HRNet-W32's
+   branch 0 and the CPN stem (batch 512, bf16) and the fp32 CPN's layer1
+   tail (batch 256), with its time, the chain's and its byte bound;
 4. slice: the full-width h36m_cpn serving slice (bf16 CPN ResNet-50 with the
    native pyramid, lifter embed 128 depth 4, random weights from seed 0)
    serves 3 requests of 64 uint8 frames through ``serve.lift``; the output
@@ -1039,6 +1043,81 @@ def check_kernels():
     return results
 
 
+# the float convs' epilogue at the served shapes: (case, batch, H, W, C,
+# dtype, residual, relu, calls a request); the calls of one HRNet-W32
+# deploy request of 512 frames at branch 0 (its 32 BasicBlock tails and
+# their 32 conv1s) make the JSON line's times; the CPN stem (HRNet's conv1
+# too) and the fp32 CPN's layer1 tail (training) are printed
+EPILOGUE_CASES = (
+    ("W32 branch 0 tail", 512, 64, 48, 32, torch.bfloat16, True, True, 32),
+    ("W32 branch 0 conv1", 512, 64, 48, 32, torch.bfloat16, False, True,
+     32),
+    ("CPN stem", 512, 128, 96, 64, torch.bfloat16, False, True, 0),
+    ("fp32 CPN layer1 tail", 256, 64, 48, 256, torch.float32, True, True,
+     0),
+)
+
+
+def check_conv_epilogue():
+    """Phase 3 (cont.): the float convs' epilogue (``ops/conv_epilogue.py``)
+    against its plain version bit for bit at EPILOGUE_CASES, with median
+    kernel and plain device times and the byte bound (y and the residual
+    read, out written once). The plain version is the chain the kernel
+    replaces (``addcmul``, add, ``relu``), so its time is also the
+    library's. Returns the JSON numbers of the W32 branch-0 calls."""
+    from contextaware_poseformer_tpu_torch.ops import conv_epilogue
+
+    res = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms"), 0.0)
+    res.update(max_abs_err=0.0, bound_by="bytes")
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    with torch.inference_mode():
+        for case, b, h, w, c, dt, has_res, relu, calls in EPILOGUE_CASES:
+            def randn(*shape):
+                return torch.randn(*shape, generator=gen,
+                                   device="cuda").to(dt)
+
+            y, r = randn(b, h, w, c), (randn(b, h, w, c) if has_res
+                                       else None)
+            scale, bias = randn(c).abs() + 0.5, randn(c) * 0.1
+            out = torch.empty_like(y)
+
+            def fn():
+                return conv_epilogue.conv_epilogue_kernel(y, scale, bias, r,
+                                                          relu, out)
+
+            def plain():
+                return conv_epilogue.conv_epilogue_reference(y, scale, bias,
+                                                             r, relu)
+
+            ref = plain()
+            got = fn()
+            torch.cuda.synchronize()
+            equal = torch.equal(got.view(bits[dt]), ref.view(bits[dt]))
+            del ref
+            ms, plain_ms = _median_ms(fn), _median_ms(plain)
+            nbytes = (3 if has_res else 2) * y.numel() * y.element_size()
+            bound_ms = nbytes / PEAK_BYTES * 1e3
+            p = conv_epilogue.plan(b * h * w, c, y.element_size())
+            print(f"kernels: conv_epilogue {case} ({b}, {h}, {w}, {c}) "
+                  f"{str(dt).removeprefix('torch.')}, residual {has_res}, "
+                  f"relu {relu}: equal {equal}; kernel {ms:.4f} ms, plain "
+                  f"(= library: addcmul, add, relu) {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms (bytes: {nbytes} B; the kernel at "
+                  f"{bound_ms / ms:.1%} of it, {nbytes / ms / 1e9:.3f} "
+                  f"TB/s); plan {p}", flush=True)
+            if not equal:
+                raise AssertionError(f"conv_epilogue {case} {dt}: kernel "
+                                     "differs from the plain chain")
+            res["ms"] += calls * ms
+            res["plain_ms"] += calls * plain_ms
+            res["library_ms"] += calls * plain_ms
+            res["bound_ms"] += calls * bound_ms
+            del y, r, out, got
+    torch.cuda.empty_cache()
+    return res
+
+
 def _int8_conv_case(gen, b, h, w, cin, cout, k, int8_in):
     """Random K10 operands: x (int8 with its amax, or bf16), kernel_q and
     the fp32 wscale/scale/bias."""
@@ -1456,6 +1535,9 @@ def _k10_calls_vs_plain(seen, phase, card):
             eq, err, ms, plain_ms, (bound_ms, by), q = _k10_entry_ms(args)
             out_shape = _k10_out_shape(args)
             m = out_shape[0] * out_shape[1] * out_shape[2]
+            kq, dt, r = args[1], args[8], args[9]
+            tile = int8_conv.plan(m, kq.shape[0], kq.shape[1], dt,
+                                  None if r is None else r.dtype)
             note = ""
             if q is not None:
                 qeq, q_ms, q_plain, (q_bound, q_by) = q
@@ -1471,7 +1553,7 @@ def _k10_calls_vs_plain(seen, phase, card):
             print(f"{phase}: K10 {key}: equal {eq:.6f}, max_abs_err "
                   f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {bound_ms:.4f} ms ({by}), tile "
-                  f"64x{int8_conv.plan(m, args[1].shape[0])}, {n} a "
+                  f"64x{tile}, {n} a "
                   f"request{note} ({card})", flush=True)
             if eq != 1.0:
                 raise AssertionError(f"K10 {key}: equal share {eq}")
@@ -4736,7 +4818,7 @@ def main() -> None:
           f"{torch.cuda.device_count()} device(s)", flush=True)
     print(smi, flush=True)
 
-    from contextaware_poseformer_tpu_torch.ops import _build
+    from contextaware_poseformer_tpu_torch.ops import _build, conv_epilogue
 
     # fp32 at full precision: TF32 off for cuDNN convolutions (PyTorch's
     # default is on) and for cuBLAS matmuls (default off)
@@ -4756,6 +4838,7 @@ def main() -> None:
 
     clock = _PhaseClock()
     results = clock("kernels", check_kernels)
+    epilogue = clock("kernels", check_conv_epilogue)
     served = [clock("slice", check_serving, "h36m_cpn", REQUESTS, card)]
     served.append(clock("fp32_lifter", check_serving, "h36m_cpn", REQUESTS,
                         card, timed=FP32_LIFTER_TIMED,
@@ -4788,6 +4871,12 @@ def main() -> None:
         {"name": f"probe {k}", "route": "cuda", "source": CSRC + SOURCES[k],
          "replaces": REPLACES[k], **v}
         for k, v in probes.items()
+    ] + [
+        {"name": "conv_epilogue", "route": "cuda",
+         "source": CSRC + "conv_epilogue.cu",
+         "replaces": "none (XLA fuses the float convs' affine, residual "
+                     "add and ReLU)",
+         "launches": conv_epilogue.launches, **epilogue},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

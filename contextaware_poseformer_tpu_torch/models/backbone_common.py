@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from contextaware_poseformer_tpu_torch.models import init
-from contextaware_poseformer_tpu_torch.ops import int8_conv
+from contextaware_poseformer_tpu_torch.ops import conv_epilogue, int8_conv
 from contextaware_poseformer_tpu_torch.ops.int8_conv import f32_const
 
 WIDE = 128  # both channel counts at least this: the dynamic int8 route
@@ -145,10 +145,16 @@ class ConvBN(nn.Module):
     - any other float call takes the float path (the layer1 convs of the
       HRNet deploy graph while calibrating).
 
-    An int8 route also takes a ``residual`` added before the ReLU (a float
-    tensor, or an int8 ``(xq, amax)`` pair dequantized in the epilogue),
-    ``relu`` overriding the conv's own, and ``out_amax``, which requantizes
-    the output to int8 (the CPN int8 stream's fused epilogues).
+    Every route takes a ``residual`` added before the ReLU and ``relu``
+    overriding the conv's own (a block tail ``relu(conv(...) + residual)``
+    as one call): a float tensor, or on an int8 route also an int8
+    ``(xq, amax)`` pair dequantized in the epilogue. An int8 route also
+    takes ``out_amax``, which requantizes the output to int8 (the CPN int8
+    stream's fused epilogues). The float path ends in one pass of
+    ``ops/conv_epilogue.py`` (the affine, the residual, the ReLU; in place
+    on the convolution's output), or in its plain chain of ``addcmul``, add
+    and ``relu`` off the card, under ``impl="plain"`` and where autograd
+    records (an unfrozen backbone); both give the same bits.
 
     ``raw=True`` returns the linear part of the float path, ``scale *
     conv(x)`` in ``dtype`` with no bias or ReLU (the JAX package's
@@ -221,9 +227,10 @@ class ConvBN(nn.Module):
     def forward(self, x, x_quant=None, impl: str = "auto",
                 calibrate: bool = False, residual=None, out_amax=None,
                 relu=None, raw: bool = False):
-        """``impl="plain"`` runs K10's plain version on any device (the
-        card's comparison path); "auto" takes the kernel on a CUDA tensor
-        and the plain version on a CPU one."""
+        """``impl="plain"`` runs the plain versions of K10 and of the float
+        epilogue on any device (the card's comparison path); "auto" takes
+        the kernels on a CUDA tensor and the plain versions on a CPU
+        one."""
         relu = self.relu if relu is None else relu
         if raw:
             return self._raw(x)
@@ -233,13 +240,13 @@ class ConvBN(nn.Module):
             xin, amax = x, self.amax
         elif self.static and self.float_calibration:
             observe(self.amax, x, self.quantile)
-            return self._float(x, residual, out_amax, relu)
+            return self._float(x, residual, out_amax, relu, impl)
         elif self.dynamic:
             if self.static:
                 observe(self.amax, x, self.quantile)
             xin, amax = x, None
         else:
-            return self._float(x, residual, out_amax, relu)
+            return self._float(x, residual, out_amax, relu, impl)
         res, res_amax = (residual if isinstance(residual, tuple)
                          else (residual, None))
         return int8_conv.int8_conv(xin, *self.packed(), amax, self.stride,
@@ -253,15 +260,17 @@ class ConvBN(nn.Module):
         y = _nhwc(y).contiguous().float().to(dt)
         return y * self.scale.to(dt)
 
-    def _float(self, x, residual, out_amax, relu):
-        if residual is not None or out_amax is not None:
-            raise ValueError("ConvBN: a residual or an int8 output needs an "
-                             "int8 route")
+    def _float(self, x, residual, out_amax, relu, impl):
+        if out_amax is not None or isinstance(residual, tuple):
+            raise ValueError("ConvBN: an int8 output or an int8 residual "
+                             "needs an int8 route")
         dt = self.dtype
         y = _nhwc(F.conv2d(_nchw(x.to(dt)), self.weight.to(dt),
                            stride=self.stride, padding=self.padding))
-        y = torch.addcmul(self.bias.to(dt), y, self.scale.to(dt))
-        return torch.relu(y) if relu else y
+        # a channels-last convolution's output: dense NHWC, and fresh, so
+        # the epilogue's kernel may write into it
+        return conv_epilogue.conv_epilogue(
+            y, self.scale.to(dt), self.bias.to(dt), residual, relu, impl)
 
 
 def _loaded_weights_ready(conv: ConvBN, incompatible_keys) -> None:

@@ -229,10 +229,11 @@ class CPN(nn.Module):
         y = self._conv(f"{prefix}.conv2", y, calibrate)
         if observing:
             self._observe(f"{prefix}.t2_amax", y)
-        y = self._conv(f"{prefix}.conv3", y, calibrate)
         residual = (self._conv(f"{prefix}.downsample.0", x, calibrate)
                     if downsample else x)
-        out = torch.relu(y + residual)
+        # conv3 adds the residual and takes the ReLU in its epilogue
+        out = self._conv(f"{prefix}.conv3", y, calibrate, residual=residual,
+                         relu=True)
         if observing:
             self._observe(f"{prefix}.out_amax", out)
         return out

@@ -177,9 +177,8 @@ class HRNet(nn.Module):
             observe(f"layer1.{b}.t1_amax", y)
             y = self._conv(f"layer1.{b}.conv2", y)
             observe(f"layer1.{b}.t2_amax", y)
-            y = self._conv(f"layer1.{b}.conv3", y)
             res = self._conv("layer1.0.downsample.0", x) if b == 0 else x
-            x = torch.relu(y + res)
+            x = self._conv(f"layer1.{b}.conv3", y, residual=res, relu=True)
             observe(f"layer1.{b}.out_amax", x)
         return x
 
@@ -212,23 +211,26 @@ class HRNet(nn.Module):
         return xq, self.layer1_3_out_amax
 
     def _basic_block(self, x, prefix):
-        # BasicBlock (pose_hrnet.py:66-95); stage branches never downsample
+        # BasicBlock (pose_hrnet.py:66-95); stage branches never downsample.
+        # The tail relu(conv2(y) + x) is conv2's own epilogue: the float
+        # epilogue pass, or K10's on a wide int8 conv
         y = self._conv(f"{prefix}.conv1", x)
-        y = self._conv(f"{prefix}.conv2", y)
-        return torch.relu(y + x)
+        return self._conv(f"{prefix}.conv2", y, residual=x, relu=True)
 
     def _bottleneck(self, x, prefix, downsample):
-        # Bottleneck, expansion 4 (pose_hrnet.py:98-136)
+        # Bottleneck, expansion 4 (pose_hrnet.py:98-136); conv3 adds the
+        # residual and takes the ReLU in its epilogue
         y = self._conv(f"{prefix}.conv1", x)
         y = self._conv(f"{prefix}.conv2", y)
-        y = self._conv(f"{prefix}.conv3", y)
         residual = self._conv(f"{prefix}.downsample.0", x) if downsample else x
-        return torch.relu(y + residual)
+        return self._conv(f"{prefix}.conv3", y, residual=residual, relu=True)
 
     def _fuse(self, outs, prefix, num_out):
         """out_i = relu(sum_j path_ij(x_j)) (pose_hrnet.py:225-303), summed in
         the JAX package's order: j ascending, so j < i chains first, then the
-        identity term, then the upsampled j > i terms."""
+        identity term, then the upsampled j > i terms. A chain's last conv
+        adds the running sum in its epilogue (``y + acc``, the bits of
+        ``acc + y``)."""
         fused = []
         for i in range(num_out):
             acc = None
@@ -237,10 +239,15 @@ class HRNet(nn.Module):
                     y = self._conv(f"{prefix}.fuse_layers.{i}.{j}.0", outs[j])
                     acc = add_upsampled_nearest(acc, y, 2 ** (j - i))
                     continue
+                if j == i:
+                    acc = outs[j] if acc is None else acc + outs[j]
+                    continue
                 y = outs[j]
                 for k in range(i - j):
-                    y = self._conv(f"{prefix}.fuse_layers.{i}.{j}.{k}.0", y)
-                acc = y if acc is None else acc + y
+                    tail = k == i - j - 1
+                    y = self._conv(f"{prefix}.fuse_layers.{i}.{j}.{k}.0", y,
+                                   residual=acc if tail else None)
+                acc = y
             fused.append(torch.relu(acc))
         return fused
 

@@ -82,6 +82,10 @@ SIGNATURES = {
     "capf_stem_conv": (_I, [_P, _I, _P]),
     # (args struct*, device, stream)
     "capf_topdown": (_I, [_P, _I, _P]),
+    # (y, scale, bias, residual, out, pixels, c, dtype, relu, width,
+    #  stride, blocks, device, stream)
+    "capf_conv_epilogue": (_I, [_P, _P, _P, _P, _P, ctypes.c_longlong, _I,
+                                _I, _I, _I, ctypes.c_longlong, _I, _I, _P]),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -197,8 +201,11 @@ def empty_kernel(device: torch.device) -> None:
 
 def launch_target(t: torch.Tensor) -> tuple[int, int]:
     """(device index, handle of that device's current stream) for a launch
-    on the tensor's device."""
-    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
+    on the tensor's device. The raw handle, as PyTorch's compiled code
+    reads it: ``torch.cuda.current_stream`` builds a ``Stream`` object on
+    every call, some microseconds a launch of host time."""
+    index = t.get_device()
+    return index, torch._C._cuda_getCurrentRawStream(index)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -77,6 +77,8 @@ RECIP_127 = float(np.float32(1) / np.float32(127))  # fl32(1 / 127)
 QUANT_FORMS = {("step", False): 0, ("step", True): 1, ("scale", True): 2}
 GROUP = 16  # values a K10q thread quantizes together; K10p's channel group
 POOL_SMEM = 48 * 1024  # the input rows a K10p block stages, at most
+SM_SMEM = 228 * 1024  # an H100 SM's shared memory
+BLOCK_RESERVED = 1024  # of it, what the system keeps for each resident block
 
 
 def f32_const(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -222,31 +224,55 @@ def quantize_reference(x, amax):
                        127).to(torch.int8)
 
 
-def plan_smem(tile_n: int, dtype=torch.bfloat16) -> int:
-    """The most shared memory a block of the 64 x ``tile_n`` tile takes
-    with an epilogue in ``dtype`` (``csrc/int8_conv.cu``
-    ``Tile::smem_max``): the slack that aligns the ring to 1024 bytes, the
-    full ring (which the staged tile of ``dtype`` values reuses), a
-    residual tile of ``dtype``, the barriers and the epilogue's scales."""
+def block_smem(tile_n: int, k_bytes: int, dtype=torch.bfloat16,
+               res_dtype=None) -> int:
+    """A block's shared memory as the kernel sizes it at launch
+    (``csrc/int8_conv.cu`` ``Tile::smem``) for K of ``k_bytes`` bytes, an
+    epilogue in ``dtype`` and a residual of ``res_dtype`` (None: no
+    residual): the slack that aligns the ring to 1024 bytes, the ring
+    (``min(ceil(K / 128), STAGES)`` stages, at least the staged tile of
+    ``dtype`` values that reuses it), the residual tile, the barriers and
+    the epilogue's scales."""
     elem = torch.empty((), dtype=dtype).element_size()
-    return (1024 + STAGES * (BLOCK_M + tile_n) * K_TILE
-            + BLOCK_M * tile_n * elem + (2 * STAGES + 1) * 8
+    res = 0 if res_dtype is None else torch.empty(
+        (), dtype=res_dtype).element_size()
+    stages = min(-(-k_bytes // K_TILE), STAGES)
+    ring = max(stages * (BLOCK_M + tile_n) * K_TILE,
+               BLOCK_M * (tile_n + 8) * elem)
+    return (1024 + ring + BLOCK_M * tile_n * res + (2 * STAGES + 1) * 8
             + 2 * tile_n * 4)
 
 
+def plan_smem(tile_n: int, dtype=torch.bfloat16) -> int:
+    """The most shared memory a block of the 64 x ``tile_n`` tile takes
+    with an epilogue in ``dtype`` (``csrc/int8_conv.cu``
+    ``Tile::smem_max``): the full ring and a residual tile of ``dtype``."""
+    return block_smem(tile_n, STAGES * K_TILE, dtype, dtype)
+
+
 @functools.lru_cache(maxsize=None)
-def plan(m: int, n: int) -> int:
+def plan(m: int, n: int, k_bytes: int = STAGES * K_TILE,
+         dtype=torch.bfloat16, res_dtype=None) -> int:
     """The width (BN) of the kernel's 64-row tile for an (M, N) output,
     from K10's times on the card at every shape of the CPN and W32 deploy
     graphs, each width forced in turn (PERF.md, PR 7; 128-row tiles on two
     consumer warpgroups never won and are not built): 128 channels, unless
     N fits 64 (less padding), M is past 2**17 (the 64x48 maps at batch 64:
-    bytes decide, and the smaller tile keeps more blocks in flight) or
-    64-wide tiles pad N less. K takes whole 128-byte stages whatever the
-    tile; split-K is not built (the smallest deploy shape, 3,072 x 128,
-    still gives 48 blocks)."""
+    bytes decide, and the smaller tile keeps more blocks in flight),
+    64-wide tiles pad N less, or the block's shared memory
+    (``block_smem``: K of ``k_bytes``, a residual of ``res_dtype``) would
+    keep a second 128-wide block off the SM. That happens with a bf16 or
+    fp32 residual tile on a full ring: the block then runs alone and its
+    epilogue hides nothing (on an H100 at batch 512 the 64-wide tile ran
+    14% faster at HRNet-W32's branch-2 tails, 28% at the CPN's layer4.0
+    conv3; PERF.md section 6). K
+    takes whole 128-byte stages whatever the tile; split-K is not built
+    (the smallest deploy shape, 3,072 x 128, still gives 48 blocks)."""
     pad = {bn: -(-n // bn) * bn - n for bn in TILE_N}
-    return 64 if n <= 64 or m >= 2 ** 17 or pad[64] < pad[128] else 128
+    if n <= 64 or m >= 2 ** 17 or pad[64] < pad[128]:
+        return 64
+    two = 2 * (block_smem(128, k_bytes, dtype, res_dtype) + BLOCK_RESERVED)
+    return 64 if two > SM_SMEM else 128
 
 
 def int8_conv_reference(x, kernel_q, wscale, scale, bias, amax, stride,
@@ -288,18 +314,23 @@ def out_size(size: int, ksize: int, stride: int) -> int:
     return (size + 2 * pad - ksize) // stride + 1
 
 
-def conv_args(x, kernel_q, amax, stride, out, **fields) -> _Args:
+def conv_args(x, kernel_q, amax, stride, out, dtype=torch.bfloat16,
+              res_dtype=None, **fields) -> _Args:
     """The kernel's argument block for ``x`` (B, H, W, Cin) and ``out``
-    (B, Ho, Wo, Cout); ``fields`` fill the rest (pointers as ints)."""
+    (B, Ho, Wo, Cout), an epilogue in ``dtype`` and a residual of
+    ``res_dtype`` (for the tile's plan); ``fields`` fill the rest
+    (pointers as ints)."""
     b, h, w, cin = x.shape
     ksize = _kernel_size(kernel_q, cin)
+    k_bytes = ksize * ksize * cin * x.element_size()
     return _Args(x=x.data_ptr(), wq=kernel_q.data_ptr(),
                  amax=None if amax is None else amax.data_ptr(),
                  out=out.data_ptr(), batch=b, h=h, w=w, cin=cin,
                  cout=kernel_q.shape[0], ksize=ksize, stride=stride,
                  ho=out.shape[1], wo=out.shape[2],
                  tile_n=plan(b * out.shape[1] * out.shape[2],
-                             kernel_q.shape[0]), **fields)
+                             kernel_q.shape[0], k_bytes, dtype, res_dtype),
+                 **fields)
 
 
 def _scalar(name, t):
@@ -454,7 +485,9 @@ def int8_conv_kernel(x, kernel_q, wscale, scale, bias, amax, stride, relu,
         x = quantize_kernel(x, amax, clamp)
     out = torch.empty((b, ho, wo, cout), device=x.device,
                       dtype=dtype if out_amax is None else torch.int8)
-    args = conv_args(x, kernel_q, amax, stride, out, wscale=wscale.data_ptr(),
+    args = conv_args(x, kernel_q, amax, stride, out, dtype,
+                     None if residual is None else residual.dtype,
+                     wscale=wscale.data_ptr(),
                      scale=scale.data_ptr(), bias=bias.data_ptr(),
                      clamp_amax=int(clamp), relu=int(relu),
                      f32=int(dtype == torch.float32), **fields)

@@ -1060,7 +1060,7 @@ def test_k10_every_tile_matches_plain_version(cuda_device, monkeypatch,
     """Each tile width the kernel builds, forced on one shape with ragged
     M and N (3x8x6 pixels, Cout 200) and a K of 4.5 stages: equal to the
     plain version, bf16 and int8 outputs, with a residual."""
-    monkeypatch.setattr(int8_conv, "plan", lambda m, n: tile)
+    monkeypatch.setattr(int8_conv, "plan", lambda m, n, *plan_inputs: tile)
     g = torch.Generator().manual_seed(tile)
     for kind, res, out8 in (("dynamic", "bf16", False),
                             ("int8", "int8", True)):
@@ -1095,7 +1095,7 @@ def test_k10_fp32_epilogue_every_variant(cuda_device, monkeypatch, case,
     residual; ReLU or not; fp32 or requantized int8 output): equal to the
     plain version bit for bit, one K10 launch and one quantize launch for
     an fp32 input."""
-    monkeypatch.setattr(int8_conv, "plan", lambda m, n: tile)
+    monkeypatch.setattr(int8_conv, "plan", lambda m, n, *plan_inputs: tile)
     _, b, h, w, cin, cout, k, stride = case
     g = torch.Generator().manual_seed(b + cin + cout + k + stride + tile)
     f32 = torch.float32

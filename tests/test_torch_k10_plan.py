@@ -261,6 +261,38 @@ def test_plan_smem_at_fp32(bn):
     assert int8_conv.plan_smem(bn, f32) == {128: 133192, 64: 83528}[bn]
 
 
+@pytest.mark.parametrize("m,n,k_bytes,dtype,res_dtype,tile", [
+    # HRNet-W32's int8 block tails at batch 512: 3x3 convs on a full ring
+    (98304, 128, 1152, torch.bfloat16, None, 128),
+    (98304, 128, 1152, torch.bfloat16, torch.bfloat16, 64),
+    (24576, 256, 2304, torch.bfloat16, torch.bfloat16, 64),
+    (98304, 128, 1152, torch.float32, torch.float32, 64),
+    # the CPN stream's conv3s: an int8 skip's tile leaves room for two
+    # blocks; a downsample's bf16 tile does on layer3.0's 2-stage ring
+    # (K 256), not on layer4.0's full one (K 512)
+    (98304, 1024, 256, torch.bfloat16, torch.int8, 128),
+    (98304, 1024, 256, torch.bfloat16, torch.bfloat16, 128),
+    (24576, 2048, 512, torch.bfloat16, torch.bfloat16, 64),
+], ids=["w32-no-residual", "w32-branch2-tail", "w32-branch3-tail",
+        "w32-fp32-tail", "cpn-int8-skip", "cpn-layer3-ds", "cpn-layer4-ds"])
+def test_plan_keeps_two_blocks_an_sm(m, n, k_bytes, dtype, res_dtype, tile):
+    """A 128-wide tile only where two of its blocks fit an SM's shared
+    memory with their residual tiles (each block also holding the 1 KB the
+    system reserves); else 64, whose blocks always fit at least twice.
+    ``block_smem`` at a full ring with a residual of the epilogue's dtype
+    is ``plan_smem``."""
+    assert int8_conv.plan(m, n, k_bytes, dtype, res_dtype) == tile
+    per_block = int8_conv.block_smem(tile, k_bytes, dtype,
+                                     res_dtype) + int8_conv.BLOCK_RESERVED
+    assert 2 * per_block <= int8_conv.SM_SMEM
+    wide = int8_conv.block_smem(128, k_bytes, dtype, res_dtype)
+    assert (2 * (wide + int8_conv.BLOCK_RESERVED) <= int8_conv.SM_SMEM) == (
+        tile == 128)
+    full = int8_conv.STAGES * int8_conv.K_TILE
+    assert int8_conv.block_smem(tile, full, dtype, dtype) == (
+        int8_conv.plan_smem(tile, dtype))
+
+
 # the K10 calls a request of the fp32 deploy graphs: the CPN's 83; an fp32
 # HRNet's 100 (its per-conv layer1's 13, the 85 wide convs, transition1's 2)
 K10_CALLS_FP32 = {"h36m_cpn": 83, "h36m_hrnet_32": 100}
