@@ -43,7 +43,9 @@ Phases, one line of output each (failures raise and exit non-zero):
    native pyramid, lifter embed 128 depth 4, random weights from seed 0)
    serves 3 requests of 64 uint8 frames through ``serve.lift``; the output
    must be finite (64, 17, 3), every kernel's launch count must grow by its
-   per-request count, and the same request through the plain versions must
+   per-request count (the float convs' epilogue: one launch a float conv,
+   84 in the CPN), and the same request through the plain versions
+   (``int8_impl="plain"`` for the backbone's) must launch nothing and
    agree to a relative RMS of 2e-2. Information only: host ms a request and
    frames/s over 10 requests, stage times by CUDA events, and under
    torch.profiler the device busy ms a request, its idle share of the
@@ -328,8 +330,8 @@ Phases, one line of output each (failures raise and exit non-zero):
    256 (a burst of 3 steps: steps/s, MFU against the fp32 peak) with one
    profiled step whose budget must too; ``tools/demo`` (the h36m_hrnet_32
    float slice through ``StreamingLifter``) writes a PNG of finite poses;
-18. a JSON line of per-kernel results (K1-K10, K10q, K10p, K10s and
-   K10u, then the
+18. a JSON line of per-kernel results (K1-K10, K10q, K10p, K10s, K10u and
+   the float convs' epilogue ``conv_epilogue``, then the
    probes' counterparts, named ``probe <name>``), then the final JSON status
    line. ``launches`` are summed over the serving (quantize, fp32_int8
    and streaming included), aggregate, training, parallel (the full-width DDP run and
@@ -400,9 +402,18 @@ HRNET_REQUESTS = {"h36m_hrnet_32": REQUESTS, "h36m_hrnet_48": 1,
 # form): HRNet's 85 wide convs (transition1 reads K9's int8), CPN's 3
 # up-convs; and the CPN stream's own quantizes (its scale form): the three
 # refineNet cascades' inputs and the int8 /4 map. K10p is the stream's
-# stem, its quantize and max-pool in one launch
-INT8_PER_REQUEST = {"hrnet": {"K9": 4, "K10": 87, "K10q": 85},
-                    "cpn": {"K10": 83, "K10q": 7, "K10p": 1}}
+# stem, its quantize and max-pool in one launch. conv_epilogue, the float
+# convs' epilogue, launches once for each float conv: 192 in HRNet's deploy
+# graph (the stem, every conv of branches 0 and 1, the fuse layers' convs
+# that stay float), the CPN's stem alone; a float backbone
+# (FLOAT_EPILOGUES: the serving slices and training's frozen backbones)
+# once for each of its convs (tests/test_torch_conv_epilogue.py)
+INT8_PER_REQUEST = {"hrnet": {"K9": 4, "K10": 87, "K10q": 85,
+                              "conv_epilogue": 192},
+                    "cpn": {"K10": 83, "K10q": 7, "K10p": 1,
+                            "conv_epilogue": 1}}
+FLOAT_EPILOGUES = {"cpn": {"conv_epilogue": 84},
+                   "hrnet": {"conv_epilogue": 292}}
 # K10q's amax values on every bf16 pattern (cpn_int8 phase): the 1e-12
 # clamp (amax 0), tiny (the dynamic route's step below 2^-64 takes the IEEE
 # division), powers of two, random draws, the largest finite bf16
@@ -415,12 +426,13 @@ K10Q_FORMS = (("step dynamic", "step", False),
 # quantize pass K10q once for each int8 conv, every input bf16; "static"
 # every 3x3 conv with both channel counts >= 16 and every wide conv (HRNet
 # 256, CPN 76), "c128" the wide convs (HRNet 85, CPN 73): the JAX graphs'
-# counts (tests/test_torch_k10_plan.py). K9 runs in neither
+# counts (tests/test_torch_k10_plan.py). K9 runs in neither; the float
+# epilogue once for each other conv
 QUANT_PER_REQUEST = {
-    "static": {"hrnet": {"K10": 256, "K10q": 256},
-               "cpn": {"K10": 76, "K10q": 76}},
-    "c128": {"hrnet": {"K10": 85, "K10q": 85},
-             "cpn": {"K10": 73, "K10q": 73}},
+    "static": {"hrnet": {"K10": 256, "K10q": 256, "conv_epilogue": 36},
+               "cpn": {"K10": 76, "K10q": 76, "conv_epilogue": 8}},
+    "c128": {"hrnet": {"K10": 85, "K10q": 85, "conv_epilogue": 207},
+             "cpn": {"K10": 73, "K10q": 73, "conv_epilogue": 11}},
 }
 # (preset, mode, requests served) of the quantize phase; each graph's K10
 # shapes are checked, and those of QUANT_SHAPES_ONLY
@@ -431,7 +443,8 @@ QUANT_SHAPES_ONLY = (("h36m_hrnet_48", "c128"),)
 # the cpn_knobs phase: the CPN deploy graph with each serving knob and both
 # (bf16), and with both on an fp32 backbone, beside the main path; each
 # knob's launches a request on top of the deploy graph's (the fold's stem
-# K10s; a top-down hop K10u each of globalNet's three)
+# K10s, in place of the float stem's epilogue; a top-down hop K10u each of
+# globalNet's three)
 KNOB_GRAPHS = (("main path", {}, torch.bfloat16),
                ("fold", {"cpn_fold_normalize": True}, torch.bfloat16),
                ("topdown", {"cpn_int8_topdown": True}, torch.bfloat16),
@@ -440,7 +453,7 @@ KNOB_GRAPHS = (("main path", {}, torch.bfloat16),
                ("fold+topdown fp32", {"cpn_fold_normalize": True,
                                       "cpn_int8_topdown": True},
                 torch.float32))
-KNOB_PER_REQUEST = {"cpn_fold_normalize": {"K10s": 1},
+KNOB_PER_REQUEST = {"cpn_fold_normalize": {"K10s": 1, "conv_epilogue": 0},
                     "cpn_int8_topdown": {"K10u": 3}}
 KNOB_TIMED_GRAPHS = ("fold+topdown", "fold+topdown fp32")  # K10s, K10u timed
 KNOB_REQUESTS = 2  # counted requests of each knob graph
@@ -451,9 +464,10 @@ QUANT_TIMED = 5  # host-clock requests of a quantize graph
 # the CPN's as its bf16 graph's; an fp32 HRNet's layer1 is the per-conv
 # chain (K9 is bf16 only): its 13 convs and 13 quantizes (K10q's scale
 # form) beside the 85 wide convs with their 85 step-form quantizes and
-# transition1's 2 convs
-FP32_PER_REQUEST = {"cpn": {"K10": 83, "K10q": 7, "K10p": 1},
-                    "hrnet": {"K10": 100, "K10q": 98}}
+# transition1's 2 convs; the float epilogue as the bf16 graphs'
+FP32_PER_REQUEST = {"cpn": {"K10": 83, "K10q": 7, "K10p": 1,
+                            "conv_epilogue": 1},
+                    "hrnet": {"K10": 100, "K10q": 98, "conv_epilogue": 192}}
 FP32_REQUESTS = 3  # lift_batch requests of BATCH frames
 FP32_TIMED = 5  # host-clock requests of each graph
 # K10q on all 2^32 fp32 bit patterns: (label, form, clamp, amax values):
@@ -481,21 +495,26 @@ K6_CALLS_A_STEP = 4  # one a deformable block
 # the training runs: (preset, its batch, steps, launches a step, launches
 # of the flip-test eval batch, the deterministic kernels-vs-plain step).
 # The 17 reference points need no K6; each sampler call on HRNet samples
-# its 64x48x32 level (K5)
+# its 64x48x32 level (K5); the frozen float backbone's epilogues, once a
+# forward (the flip test's is one forward of 2B)
+_CPN_FLOAT = FLOAT_EPILOGUES["cpn"]
+_HRNET_FLOAT = FLOAT_EPILOGUES["hrnet"]
 TRAIN_RUNS = (
-    ("h36m_cpn", TRAIN_BATCH, 3, {"K1": 5, "K6": K6_CALLS_A_STEP},
-     {"K1": 5}, True),
+    ("h36m_cpn", TRAIN_BATCH, 3,
+     {"K1": 5, "K6": K6_CALLS_A_STEP, **_CPN_FLOAT},
+     {"K1": 5, **_CPN_FLOAT}, True),
     ("h36m_hrnet_32", HRNET_TRAIN_BATCH, 4,
-     {"K1": 5, "K5": 5, "K6": K6_CALLS_A_STEP}, {"K1": 5, "K5": 5}, True),
-    ("mpi_3dhp_hrnet_32", 160, 4, {"K1": 1, "K5": 1}, {"K1": 1, "K5": 1},
-     True),
+     {"K1": 5, "K5": 5, "K6": K6_CALLS_A_STEP, **_HRNET_FLOAT},
+     {"K1": 5, "K5": 5, **_HRNET_FLOAT}, True),
+    ("mpi_3dhp_hrnet_32", 160, 4, {"K1": 1, "K5": 1, **_HRNET_FLOAT},
+     {"K1": 1, "K5": 1, **_HRNET_FLOAT}, True),
 )
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_REL_L2 = 1e-4
 # the parallel phase: h36m_cpn under DDP (world size 1) against the plain
 # Trainer, then the tiny dry run's ranks against one process
 PARALLEL_STEPS = 3
-PARALLEL_PER_STEP = {"K1": 5, "K6": K6_CALLS_A_STEP}
+PARALLEL_PER_STEP = {"K1": 5, "K6": K6_CALLS_A_STEP, **_CPN_FLOAT}
 PARALLEL_LOSS_RTOL = 1e-6
 PARALLEL_REL_L2 = 1e-5
 PARALLEL_DRYRUN_STEPS = 2
@@ -518,16 +537,20 @@ COCO_TIMED = 5
 COCO_EVAL_IMAGES = 6
 # the deploy-numerics gate: one preset of each tiny class, with its
 # launches a training step (the tiny lifter has depth 2: the reference
-# points' call and one a deformable block) and the kernels one validation
+# points' call and one a deformable block; the tiny backbone's float
+# epilogues: the CPN's one block a stage, HRNet at width 32) and the
+# kernels one validation
 # batch of its deploy model must launch; fail beyond this P1 delta (deploy
 # minus fp32), either way
 _GATE_LIFTER = ("K1", "K2", "K3", "K4")
 GATE_PRESETS = {
-    "h36m_cpn": ({"K1": 3, "K6": 2},
-                 (*_GATE_LIFTER, "K10", "K10q", "K10p")),
-    "h36m_hrnet_32": ({"K1": 3, "K6": 2},
-                      (*_GATE_LIFTER, "K9", "K10", "K10q")),
-    "mpi_3dhp_hrnet_32": ({"K1": 1}, (*_GATE_LIFTER, "K9", "K10", "K10q")),
+    "h36m_cpn": ({"K1": 3, "K6": 2, "conv_epilogue": 48},
+                 (*_GATE_LIFTER, "K10", "K10q", "K10p", "conv_epilogue")),
+    "h36m_hrnet_32": ({"K1": 3, "K6": 2, "conv_epilogue": 67},
+                      (*_GATE_LIFTER, "K9", "K10", "K10q", "conv_epilogue")),
+    "mpi_3dhp_hrnet_32": ({"K1": 1, "conv_epilogue": 67},
+                          (*_GATE_LIFTER, "K9", "K10", "K10q",
+                           "conv_epilogue")),
 }
 GATE_STEPS = 250
 GATE_MAX_DELTA_MM = 1.0
@@ -547,6 +570,8 @@ REPLACES = {
     "K10p": "contextaware_poseformer_tpu/models/cpn.py:244",
     "K10s": "contextaware_poseformer_tpu/models/cpn.py:214",
     "K10u": "contextaware_poseformer_tpu/models/cpn.py:334",
+    "conv_epilogue": "none (XLA fuses the float convs' affine, residual "
+                     "add and ReLU)",
     # the TPU probes' counterparts (probes phase)
     "chain_conv": "experiments/int8_chain_conv.py:54",
     "micro_matmul3": "experiments/int8_chain_micro.py:20",
@@ -568,6 +593,7 @@ SOURCES = {"K1": "sampler.cu", "K2": "fused_mlp.cu",
            "K9": "layer1_chain.cu", "K10": "int8_conv.cu",
            "K10q": "int8_conv.cu", "K10p": "int8_conv.cu",
            "K10s": "stem_conv.cu", "K10u": "topdown.cu",
+           "conv_epilogue": "conv_epilogue.cu",
            "chain_conv": "int8_conv.cu", "micro_matmul3": "int8_conv.cu",
            "micro_matmul3_nomask": "int8_conv.cu",
            "micro_requant": "int8_conv.cu", "micro_matmul1": "int8_conv.cu",
@@ -2973,8 +2999,8 @@ def check_probes(card):
 def _counters():
     """{kernel: (module, name of its launch counter)}"""
     from contextaware_poseformer_tpu_torch.ops import (
-        deformable, fused_mlp, int8_conv, joint_attention, layer1_chain,
-        small_attention,
+        conv_epilogue, deformable, fused_mlp, int8_conv, joint_attention,
+        layer1_chain, small_attention,
     )
 
     return {"K1": (deformable, "launches"), "K2": (fused_mlp, "launches"),
@@ -2989,7 +3015,8 @@ def _counters():
             "K10q": (int8_conv, "launches_quantize"),
             "K10p": (int8_conv, "launches_quant_pool"),
             "K10s": (int8_conv, "launches_stem"),
-            "K10u": (int8_conv, "launches_topdown")}
+            "K10u": (int8_conv, "launches_topdown"),
+            "conv_epilogue": (conv_epilogue, "launches")}
 
 
 def _counts():
@@ -3036,11 +3063,13 @@ def check_serving(name, requests_n, card, int8=False, inspect=None,
         tol = FP32_LIFTER_REL_RMS if lifter_dtype == "float32" else tol
     kind = cfg.model.backbone.kind
     per_request = PER_REQUEST[name]
+    quantized = int8 or mode is not None
+    if not quantized:
+        per_request = {**per_request, **FLOAT_EPILOGUES[kind]}
     if int8:
         per_request = {**per_request, **INT8_PER_REQUEST[kind]}
     if mode is not None:
         per_request = {**per_request, **QUANT_PER_REQUEST[mode][kind]}
-    quantized = int8 or mode is not None
     label = name if mode is None else f"{name} {mode}"
     if lifter_dtype is not None:
         label = f"{label}, lifter {lifter_dtype}"
@@ -3114,8 +3143,7 @@ def check_serving(name, requests_n, card, int8=False, inspect=None,
     plain = serve.build_serving_model(
         plain_cfg, "cuda", generator=torch.Generator().manual_seed(1))
     plain.load_state_dict(model.state_dict())
-    if quantized:
-        plain.backbone.int8_impl = "plain"
+    plain.backbone.int8_impl = "plain"  # K9, K10 and the float epilogue
     before = _counts()
     ref = serve.lift(plain, *requests[0])
     torch.cuda.synchronize()
@@ -3685,6 +3713,7 @@ def _kernels_vs_plain_step(tag, cfg, model, raw, task, per_step):
     plain.load_state_dict(model.state_dict())
     plain.backbone.to(memory_format=torch.channels_last)
     plain.backbone.requires_grad_(False)
+    plain.backbone.int8_impl = "plain"  # the float epilogue's chain
     batch = steps.prepare(raw, cfg.model.backbone, task)
     results = []
     for m in (model, plain):
@@ -4818,7 +4847,7 @@ def main() -> None:
           f"{torch.cuda.device_count()} device(s)", flush=True)
     print(smi, flush=True)
 
-    from contextaware_poseformer_tpu_torch.ops import _build, conv_epilogue
+    from contextaware_poseformer_tpu_torch.ops import _build
 
     # fp32 at full precision: TF32 off for cuDNN convolutions (PyTorch's
     # default is on) and for cuBLAS matmuls (default off)
@@ -4838,7 +4867,7 @@ def main() -> None:
 
     clock = _PhaseClock()
     results = clock("kernels", check_kernels)
-    epilogue = clock("kernels", check_conv_epilogue)
+    results["conv_epilogue"] = clock("kernels", check_conv_epilogue)
     served = [clock("slice", check_serving, "h36m_cpn", REQUESTS, card)]
     served.append(clock("fp32_lifter", check_serving, "h36m_cpn", REQUESTS,
                         card, timed=FP32_LIFTER_TIMED,
@@ -4871,12 +4900,6 @@ def main() -> None:
         {"name": f"probe {k}", "route": "cuda", "source": CSRC + SOURCES[k],
          "replaces": REPLACES[k], **v}
         for k, v in probes.items()
-    ] + [
-        {"name": "conv_epilogue", "route": "cuda",
-         "source": CSRC + "conv_epilogue.cu",
-         "replaces": "none (XLA fuses the float convs' affine, residual "
-                     "add and ReLU)",
-         "launches": conv_epilogue.launches, **epilogue},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -152,9 +152,10 @@ class ConvBN(nn.Module):
     takes ``out_amax``, which requantizes the output to int8 (the CPN int8
     stream's fused epilogues). The float path ends in one pass of
     ``ops/conv_epilogue.py`` (the affine, the residual, the ReLU; in place
-    on the convolution's output), or in its plain chain of ``addcmul``, add
-    and ``relu`` off the card, under ``impl="plain"`` and where autograd
-    records (an unfrozen backbone); both give the same bits.
+    on the convolution's output, or into a fresh tensor where autograd
+    records, as for an unfrozen backbone, with the chain's VJP as its
+    backward), or in its plain chain of ``addcmul``, add and ``relu`` off
+    the card and under ``impl="plain"``; both give the same bits.
 
     ``raw=True`` returns the linear part of the float path, ``scale *
     conv(x)`` in ``dtype`` with no bias or ReLU (the JAX package's

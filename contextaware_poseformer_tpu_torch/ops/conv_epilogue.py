@@ -17,10 +17,12 @@ replaces no TPU kernel: the JAX package leaves this chain to XLA, which
 fuses it into the convolution's output.
 
 The dispatcher takes the plain version for a tensor off the card (the CPU,
-the meta device), under ``impl="plain"``, and where autograd records a
-graph through any operand (an unfrozen backbone in training), and the
-kernel for any other, which writes into ``y`` itself: ``ConvBN`` hands it
-the convolution's fresh output.
+the meta device) and under ``impl="plain"``, and the kernel for any other.
+The kernel writes into ``y`` itself (``ConvBN`` hands it the convolution's
+fresh output), except where autograd records a graph through an operand
+(an unfrozen backbone in training): there it writes a fresh tensor, and
+the backward is the plain version's VJP (``_build.PlainVjp``, which keeps
+``y``).
 """
 
 from __future__ import annotations
@@ -130,13 +132,17 @@ def conv_epilogue_kernel(y, scale, bias, residual=None, relu=False,
 
 def conv_epilogue(y, scale, bias, residual=None, relu=False,
                   impl: str = "auto"):
-    """Dispatcher: the plain version off the card, under ``impl="plain"``
-    or where autograd records through an operand; else the kernel, which
-    writes into ``y``: the caller hands over a fresh tensor (ConvBN, its
-    convolution's output)."""
-    if (impl == "plain" or not y.is_cuda
-            or _build.needs_grad(y, scale, bias, residual)):
+    """Dispatcher: the plain version off the card or under
+    ``impl="plain"``; else the kernel, which writes into ``y``: the caller
+    hands over a fresh tensor (ConvBN, its convolution's output). Where
+    autograd records through an operand the kernel writes a fresh tensor
+    and the backward is the plain version's VJP."""
+    if impl == "plain" or not y.is_cuda:
         return conv_epilogue_reference(y, scale, bias, residual, relu)
     if impl != "auto":
         raise ValueError(f"conv_epilogue: impl {impl!r} (auto or plain)")
+    if _build.needs_grad(y, scale, bias, residual):
+        return _build.PlainVjp.apply(conv_epilogue_kernel,
+                                     conv_epilogue_reference, y, scale, bias,
+                                     residual, relu)
     return conv_epilogue_kernel(y, scale, bias, residual, relu, y)

@@ -224,8 +224,8 @@ def quantize_reference(x, amax):
                        127).to(torch.int8)
 
 
-def block_smem(tile_n: int, k_bytes: int, dtype=torch.bfloat16,
-               res_dtype=None) -> int:
+def block_smem(tile_n: int, k_bytes: int, dtype: torch.dtype,
+               res_dtype: torch.dtype | None) -> int:
     """A block's shared memory as the kernel sizes it at launch
     (``csrc/int8_conv.cu`` ``Tile::smem``) for K of ``k_bytes`` bytes, an
     epilogue in ``dtype`` and a residual of ``res_dtype`` (None: no
@@ -243,16 +243,9 @@ def block_smem(tile_n: int, k_bytes: int, dtype=torch.bfloat16,
             + 2 * tile_n * 4)
 
 
-def plan_smem(tile_n: int, dtype=torch.bfloat16) -> int:
-    """The most shared memory a block of the 64 x ``tile_n`` tile takes
-    with an epilogue in ``dtype`` (``csrc/int8_conv.cu``
-    ``Tile::smem_max``): the full ring and a residual tile of ``dtype``."""
-    return block_smem(tile_n, STAGES * K_TILE, dtype, dtype)
-
-
 @functools.lru_cache(maxsize=None)
-def plan(m: int, n: int, k_bytes: int = STAGES * K_TILE,
-         dtype=torch.bfloat16, res_dtype=None) -> int:
+def plan(m: int, n: int, k_bytes: int, dtype: torch.dtype,
+         res_dtype: torch.dtype | None) -> int:
     """The width (BN) of the kernel's 64-row tile for an (M, N) output,
     from K10's times on the card at every shape of the CPN and W32 deploy
     graphs, each width forced in turn (PERF.md, PR 7; 128-row tiles on two

@@ -4,20 +4,25 @@ ReLU in one pass, bit for bit the chain of ``addcmul``, add and ``relu``
 it replaces, and the block tails that hand it their residual.
 
 The CPU tests hold the plain version, the wrapper's refusals, the launch
-plan and the graphs' calls; the tests marked ``cuda`` hold the kernel
-against the plain version on the card and skip without one. This file
-imports no JAX, so it also runs on a GPU machine that has none:
+plan, the graphs' calls and the card's smoke run's count of them; the
+tests marked ``cuda`` hold the kernel against the plain version on the
+card and skip without one. This file imports no JAX, so it also runs on
+a GPU machine that has none:
 
     python -m pytest --noconftest tests/test_torch_conv_epilogue.py -q
 """
 
+import importlib.util
 from collections import Counter
+from dataclasses import replace
+from pathlib import Path
 
 import pytest
 import torch
 
-from contextaware_poseformer_tpu_torch import config, serve
+from contextaware_poseformer_tpu_torch import config, deploy_numerics, serve
 from contextaware_poseformer_tpu_torch.models import backbone_common
+from contextaware_poseformer_tpu_torch.models import cpn as cpn_module
 from contextaware_poseformer_tpu_torch.models.cpn import CPN
 from contextaware_poseformer_tpu_torch.models.hrnet import HRNet
 from contextaware_poseformer_tpu_torch.ops import (
@@ -237,32 +242,129 @@ GRAPH_TAILS = {
 }
 
 
+def _forward_on_meta(cfg, dtype, monkeypatch, frames=False):
+    """One forward of ``cfg``'s backbone on the meta device (uint8 frames
+    with ``frames``), every int8 kernel stubbed: its float epilogues by
+    (residual, relu), each on the kernel's route ("auto"), and K10's calls
+    by (residual, relu)."""
+    tails_k10 = _stub_int8_kernels(monkeypatch)
+    monkeypatch.setattr(cpn_module, "topdown",
+                        lambda q, ua, lat, dt, impl="auto": torch.empty(
+                            lat.shape, dtype=dt, device=lat.device))
+    monkeypatch.setattr(
+        cpn_module, "stem_conv",
+        lambda f, kq, ws, sc, bi, bias_map, dt, impl="auto": torch.empty(
+            (f.shape[0], (f.shape[1] + 1) // 2, (f.shape[2] + 1) // 2,
+             kq.shape[0]), dtype=dt, device=f.device))
+    calls = Counter()
+
+    def counted(y, scale, bias, residual=None, relu=False, impl="auto"):
+        assert impl == "auto"
+        calls[(residual is not None, bool(relu))] += 1
+        return torch.empty_like(y)
+
+    monkeypatch.setattr(conv_epilogue, "conv_epilogue", counted)
+    net = {"cpn": CPN, "hrnet": HRNet}[cfg.backbone.kind]
+    backbone = net(cfg.backbone, dtype=dtype, device="meta")
+    images = torch.empty(2, *cfg.image_shape, 3, device="meta",
+                         dtype=torch.uint8 if frames else dtype)
+    with torch.inference_mode():
+        backbone(images)
+    return calls, tails_k10
+
+
 @pytest.mark.parametrize("graph", sorted(GRAPH_TAILS))
 def test_graph_float_epilogues(graph, monkeypatch):
     """Every float conv of the three cells' backbones ends in one epilogue
     call (one launch on the card), the block tails with their residual and
     ReLU in it; shapes only, on the meta device."""
-    tails_k10 = _stub_int8_kernels(monkeypatch)
-    calls = Counter()
-
-    def plain(y, scale, bias, residual=None, relu=False):
-        calls[(residual is not None, bool(relu))] += 1
-        return torch.empty_like(y)
-
-    monkeypatch.setattr(conv_epilogue, "conv_epilogue_reference", plain)
     name, kind = graph.split()
     if kind == "deploy":
         cfg, dtype = serve.deploy_config(name).model, torch.bfloat16
     else:
         cfg, dtype = config.preset(name).model, torch.float32
-    net = {"cpn": CPN, "hrnet": HRNet}[cfg.backbone.kind]
-    backbone = net(cfg.backbone, dtype=dtype, device="meta")
-    images = torch.empty(2, *cfg.image_shape, 3, dtype=dtype, device="meta")
-    with torch.inference_mode():
-        backbone(images)
+    calls, tails_k10 = _forward_on_meta(cfg, dtype, monkeypatch)
     floats, k10s = GRAPH_TAILS[graph]
     assert dict(calls) == floats
     assert {k: v for k, v in tails_k10.items() if k[0]} == k10s
+
+
+def _chip_smoke():
+    """The card's smoke run (``chip_smoke.py`` at the repo's root) as a
+    module, for its launch tables."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _smoke_graphs(cs):
+    """(graph, model config, backbone dtype, uint8 frames, the smoke run's
+    epilogue launches a forward): a graph of each of its phases."""
+    def knobbed(**knobs):
+        cfg = serve.deploy_config("h36m_cpn").model
+        return replace(cfg, backbone=replace(cfg.backbone, **knobs))
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    quant = cs.QUANT_PER_REQUEST
+    return {
+        "h36m_cpn slice": (serve.slice_config("h36m_cpn").model, bf16,
+                           False, cs.FLOAT_EPILOGUES["cpn"]),
+        "h36m_hrnet_32 slice": (serve.slice_config("h36m_hrnet_32").model,
+                                bf16, False, cs.FLOAT_EPILOGUES["hrnet"]),
+        "h36m_cpn deploy": (serve.deploy_config("h36m_cpn").model, bf16,
+                            False, cs.INT8_PER_REQUEST["cpn"]),
+        "h36m_hrnet_48 deploy": (serve.deploy_config("h36m_hrnet_48").model,
+                                 bf16, False, cs.INT8_PER_REQUEST["hrnet"]),
+        "h36m_cpn static": (serve.quantize_config("h36m_cpn", "static").model,
+                            bf16, False, quant["static"]["cpn"]),
+        "h36m_hrnet_32 static": (
+            serve.quantize_config("h36m_hrnet_32", "static").model, bf16,
+            False, quant["static"]["hrnet"]),
+        "h36m_cpn c128": (serve.quantize_config("h36m_cpn", "c128").model,
+                          bf16, False, quant["c128"]["cpn"]),
+        "h36m_hrnet_32 c128": (
+            serve.quantize_config("h36m_hrnet_32", "c128").model, bf16,
+            False, quant["c128"]["hrnet"]),
+        "h36m_hrnet_32 fp32 deploy": (
+            config.deploy(config.preset("h36m_hrnet_32")).model, f32, False,
+            cs.FP32_PER_REQUEST["hrnet"]),
+        "h36m_cpn fold+topdown": (
+            knobbed(cpn_fold_normalize=True, cpn_int8_topdown=True), bf16,
+            True, {**cs.INT8_PER_REQUEST["cpn"],
+                   **cs.KNOB_PER_REQUEST["cpn_fold_normalize"]}),
+        "mpi_3dhp_hrnet_32 train": (
+            config.preset("mpi_3dhp_hrnet_32").model, f32, False,
+            cs.TRAIN_RUNS[2][3]),
+        "h36m_cpn tiny gate": (
+            deploy_numerics._tiny_cfg("h36m_cpn").model, f32, False,
+            cs.GATE_PRESETS["h36m_cpn"][0]),
+        "h36m_hrnet_32 tiny gate": (
+            deploy_numerics._tiny_cfg("h36m_hrnet_32").model, f32, False,
+            cs.GATE_PRESETS["h36m_hrnet_32"][0]),
+    }
+
+
+SMOKE_GRAPHS = ["h36m_cpn slice", "h36m_hrnet_32 slice", "h36m_cpn deploy",
+                "h36m_hrnet_48 deploy", "h36m_cpn static",
+                "h36m_hrnet_32 static", "h36m_cpn c128", "h36m_hrnet_32 c128",
+                "h36m_hrnet_32 fp32 deploy", "h36m_cpn fold+topdown",
+                "mpi_3dhp_hrnet_32 train", "h36m_cpn tiny gate",
+                "h36m_hrnet_32 tiny gate"]
+
+
+@pytest.mark.parametrize("graph", SMOKE_GRAPHS)
+def test_chip_smoke_counts_the_epilogues(graph, monkeypatch):
+    """The card's smoke run holds every phase to the float epilogue's
+    launches a forward from its tables: each equals the graph's float convs
+    on the meta device (K9, K10, K10q, K10p, K10s and K10u stubbed), the
+    folded stem's (uint8 frames into K10s) none."""
+    cs = _chip_smoke()
+    assert set(_smoke_graphs(cs)) == set(SMOKE_GRAPHS)
+    cfg, dtype, frames, table = _smoke_graphs(cs)[graph]
+    calls, _ = _forward_on_meta(cfg, dtype, monkeypatch, frames)
+    assert sum(calls.values()) == table["conv_epilogue"]
 
 
 # ---- the card ---------------------------------------------------------------
@@ -318,6 +420,39 @@ def test_kernel_equals_the_chain(cuda_device, case, dtype, monkeypatch):
             assert _same_bits(got, want), (res, relu)
             del got, yy, want
     assert conv_epilogue.launches == 2 * len(TAILS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FLOATS)
+@pytest.mark.parametrize("res,relu", TAILS)
+def test_kernel_under_autograd_gives_the_chains_gradients(
+        cuda_device, dtype, res, relu, monkeypatch):
+    """Where autograd records through an operand (an unfrozen backbone)
+    the dispatcher still launches the kernel, into a fresh tensor (y left
+    as it was, since the backward reads it), and its backward is the
+    chain's: the output and the gradients of y, scale, bias and the
+    residual equal the chain's under autograd bit for bit."""
+    ops = [torch.nan_to_num(t, 0.0, 0.0, 0.0) for t in
+           _operands((4, 16, 12, 24), dtype, cuda_device, seed=3)]
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    grad = torch.randn(ops[0].shape, generator=g, device=cuda_device
+                       ).to(dtype)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in ops[:3 + res]]
+        out = fn(*leaves[:3], leaves[3] if res else None, relu)
+        out.backward(grad)
+        return out.detach(), leaves[0].detach(), [t.grad for t in leaves]
+
+    monkeypatch.setattr(conv_epilogue, "launches", 0)
+    got, y_after, got_grads = run(conv_epilogue.conv_epilogue)
+    assert conv_epilogue.launches == 1
+    want, _, want_grads = run(conv_epilogue.conv_epilogue_reference)
+    assert _same_bits(got, want)
+    assert _same_bits(y_after, ops[0])
+    assert len(got_grads) == 3 + res
+    for a, b in zip(got_grads, want_grads):
+        assert _same_bits(a, b)
 
 
 @pytest.mark.cuda

@@ -33,6 +33,7 @@ from contextaware_poseformer_tpu_torch.ops import (
 
 BATCH = 64
 STEP_AMAX = 127 / 16  # its step, amax * fl32(1/127), is 1/16 exactly
+FULL_RING = int8_conv.STAGES * int8_conv.K_TILE  # K bytes of the whole ring
 
 
 @jax.jit
@@ -136,7 +137,8 @@ def _deploy_k10_calls(name, monkeypatch, mode="serve",
                       dtype=torch.bfloat16):
     """Every K10 call of ``deploy_config(name)``'s backbone (``mode``
     "serve"), or of ``quantize_config(name, mode)``'s ("static", "c128"),
-    at batch 64 on its frames: [(M, N, Cin, k, stride, input dtype)], from
+    at batch 64 on its frames: [(M, N, Cin, k, stride, input dtype,
+    residual dtype or None)], from
     a forward on the meta device (shapes only; K9, K10 and the CPN
     stream's quantizes, K10q and K10p, stubbed). ``dtype`` float32: the
     backbone in fp32, ``config.deploy(preset(name))`` for "serve" (an fp32
@@ -151,7 +153,8 @@ def _deploy_k10_calls(name, monkeypatch, mode="serve",
         wo = int8_conv.out_size(x.shape[2], k, stride)
         calls.append((x.shape[0] * ho * wo, kq.shape[0], x.shape[-1], k,
                       stride, x.dtype if dtype == torch.bfloat16
-                      else (x.dtype, dtype)))
+                      else (x.dtype, dtype),
+                      None if residual is None else residual.dtype))
         return torch.empty((x.shape[0], ho, wo, kq.shape[0]),
                            dtype=dtype if out_amax is None
                            else torch.int8, device=x.device)
@@ -219,10 +222,13 @@ def test_plan_covers_every_deploy_k10_shape(name, mode, monkeypatch):
     assert len(calls) == K10_CALLS[mode][name]
     if mode == "static" and name.endswith("_48"):
         assert {(c[2], c[4]) for c in calls} >= {(48, 1), (48, 2)}
-    for m, n, cin, k, stride, dtype in set(calls):
-        bm, bn = int8_conv.BLOCK_M, int8_conv.plan(m, n)
+    bf16 = torch.bfloat16
+    for m, n, cin, k, stride, dtype, res in set(calls):
+        bm = int8_conv.BLOCK_M
+        bn = int8_conv.plan(m, n, k * k * cin, bf16, res)
         assert bn in int8_conv.TILE_N
-        assert int8_conv.plan_smem(bn) <= 227 * 1024
+        assert res in (None, bf16, torch.int8)
+        assert int8_conv.block_smem(bn, FULL_RING, bf16, bf16) <= 227 * 1024
         assert -(-m // bm) * bm >= m and -(-n // bn) * bn >= n
         assert cin % int8_conv.CIN_MULTIPLE == 0
         assert cin % int8_conv.K_PIECE == 0  # a piece stays in one tap
@@ -238,27 +244,34 @@ def test_plan_fills_the_card_at_the_w32_shapes():
     would give 48 blocks of 128x128 and 16x12x128 (M 12,288, N 128) 96 for
     132 SMs; the planner's 64-row tiles give twice as many, and the 64x48
     maps of the CPN stream (M 196,608) take 64x64 tiles."""
+    bf16 = torch.bfloat16
     for (m, n), least in (((3072, 256), 96), ((12288, 128), 192)):
-        bm, bn = int8_conv.BLOCK_M, int8_conv.plan(m, n)
+        bm = int8_conv.BLOCK_M
+        bn = int8_conv.plan(m, n, 9 * n // 2, bf16, None)  # 3x3, Cin N/2
         assert -(-m // bm) * -(-n // bn) >= least
-    assert int8_conv.plan(64 * 64 * 48, 256) == 64
-    assert int8_conv.plan(3072, 192) == 64  # pads N less
+    assert int8_conv.plan(64 * 64 * 48, 256, 2304, bf16, None) == 64
+    # pads N less
+    assert int8_conv.plan(3072, 192, 1728, bf16, None) == 64
 
 
 @pytest.mark.parametrize("bn", int8_conv.TILE_N)
 def test_plan_smem_at_fp32(bn):
-    """The tile's shared memory with an fp32 epilogue: the fp32 staged
-    tile (64 x (BN + 8) x 4 bytes) fits the ring it reuses, and the block
-    with an fp32 residual tile fits 227 KB (``_build.SMEM_LIMIT``); it is
-    the bf16 block's plus a residual tile twice as wide."""
+    """The tile's shared memory on a full ring with an fp32 epilogue: the
+    fp32 staged tile (64 x (BN + 8) x 4 bytes) fits the ring it reuses,
+    and the block with an fp32 residual tile fits 227 KB
+    (``_build.SMEM_LIMIT``); it is the bf16 block's plus a residual tile
+    twice as wide, and the block without a residual's plus one tile."""
     f32, bf16 = torch.float32, torch.bfloat16
     ring = int8_conv.STAGES * (int8_conv.BLOCK_M + bn) * int8_conv.K_TILE
     assert int8_conv.BLOCK_M * (bn + 8) * 4 <= ring
-    assert int8_conv.plan_smem(bn, f32) <= _build.SMEM_LIMIT
-    assert (int8_conv.plan_smem(bn, f32) - int8_conv.plan_smem(bn, bf16)
-            == int8_conv.BLOCK_M * bn * 2)
-    assert int8_conv.plan_smem(bn) == int8_conv.plan_smem(bn, bf16)
-    assert int8_conv.plan_smem(bn, f32) == {128: 133192, 64: 83528}[bn]
+
+    def smem(dtype, res):
+        return int8_conv.block_smem(bn, FULL_RING, dtype, res)
+
+    assert smem(f32, f32) <= _build.SMEM_LIMIT
+    assert smem(f32, f32) - smem(bf16, bf16) == int8_conv.BLOCK_M * bn * 2
+    assert smem(f32, f32) - smem(f32, None) == int8_conv.BLOCK_M * bn * 4
+    assert smem(f32, f32) == {128: 133192, 64: 83528}[bn]
 
 
 @pytest.mark.parametrize("m,n,k_bytes,dtype,res_dtype,tile", [
@@ -278,9 +291,7 @@ def test_plan_smem_at_fp32(bn):
 def test_plan_keeps_two_blocks_an_sm(m, n, k_bytes, dtype, res_dtype, tile):
     """A 128-wide tile only where two of its blocks fit an SM's shared
     memory with their residual tiles (each block also holding the 1 KB the
-    system reserves); else 64, whose blocks always fit at least twice.
-    ``block_smem`` at a full ring with a residual of the epilogue's dtype
-    is ``plan_smem``."""
+    system reserves); else 64, whose blocks always fit at least twice."""
     assert int8_conv.plan(m, n, k_bytes, dtype, res_dtype) == tile
     per_block = int8_conv.block_smem(tile, k_bytes, dtype,
                                      res_dtype) + int8_conv.BLOCK_RESERVED
@@ -288,9 +299,6 @@ def test_plan_keeps_two_blocks_an_sm(m, n, k_bytes, dtype, res_dtype, tile):
     wide = int8_conv.block_smem(128, k_bytes, dtype, res_dtype)
     assert (2 * (wide + int8_conv.BLOCK_RESERVED) <= int8_conv.SM_SMEM) == (
         tile == 128)
-    full = int8_conv.STAGES * int8_conv.K_TILE
-    assert int8_conv.block_smem(tile, full, dtype, dtype) == (
-        int8_conv.plan_smem(tile, dtype))
 
 
 # the K10 calls a request of the fp32 deploy graphs: the CPN's 83; an fp32
@@ -306,9 +314,11 @@ def test_plan_covers_every_fp32_deploy_k10_shape(name, monkeypatch):
     included) within 227 KB."""
     calls = _deploy_k10_calls(name, monkeypatch, dtype=torch.float32)
     assert len(calls) == K10_CALLS_FP32[name]
-    for m, n, cin, k, stride, (x_dtype, dtype) in set(calls):
-        bn = int8_conv.plan(m, n)
+    for m, n, cin, k, stride, (x_dtype, dtype), res in set(calls):
+        bn = int8_conv.plan(m, n, k * k * cin, dtype, res)
         assert dtype == torch.float32 and x_dtype in (torch.int8, dtype)
+        assert res in (None, dtype, torch.int8)
         assert bn in int8_conv.TILE_N
-        assert int8_conv.plan_smem(bn, dtype) <= _build.SMEM_LIMIT
+        assert (int8_conv.block_smem(bn, FULL_RING, dtype, dtype)
+                <= _build.SMEM_LIMIT)
         assert cin % int8_conv.CIN_MULTIPLE == 0 and n % 8 == 0
